@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of the workload that a prepared claim runs.
+
+The serving path of the JAX package (``k8s_dra_driver_gpu_tpu``) written
+for an NVIDIA H100: Llama-3 with a KV cache (``models/``), the attention
+dispatcher and a hand-written Hopper flash-attention forward kernel
+(``ops/``, ``csrc/``). The JAX package stays the reference; this package
+imports nothing of it and nothing of JAX.
+
+Entry points run on the card unless the caller asks for the CPU
+(``ops.resolve_device``). On CPU tensors every kernel wrapper computes
+its plain PyTorch version; on CUDA tensors it launches the kernel or
+raises.
+"""

@@ -1,0 +1,197 @@
+"""Llama-3 in PyTorch: the inference parts of the JAX reference model.
+
+Parameters are a plain nested dict of tensors with the reference's
+layer-stacked ``[L, ...]`` leaves, so one set of weights (``convert.py``)
+drives both packages. The layer ``scan`` is a Python loop over the
+stacked leaves; every matmul runs in ``cfg.dtype``, with the weights cast
+at use as the reference does.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+from ..ops import resolve_device
+from ..ops.attention import attention
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128_256
+    d_model: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    d_ff: int = 14_336
+    rope_theta: float = 500_000.0
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+    # "auto": the flash kernel on long CUDA shapes, einsum elsewhere.
+    attn_impl: str = "auto"
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    @staticmethod
+    def llama3_8b() -> "LlamaConfig":
+        return LlamaConfig()
+
+    @staticmethod
+    def flagship() -> "LlamaConfig":
+        """The reference's flagship shape: head_dim 128, 2:1 GQA, SwiGLU
+        ratio 3, 12 layers, d_model 2048."""
+        return LlamaConfig(
+            vocab_size=32_768,
+            d_model=2048,
+            n_layers=12,
+            n_heads=16,
+            n_kv_heads=8,
+            d_ff=6144,
+        )
+
+    @staticmethod
+    def tiny() -> "LlamaConfig":
+        """Test config: same structure, toy sizes."""
+        return LlamaConfig(
+            vocab_size=256,
+            d_model=64,
+            n_layers=2,
+            n_heads=4,
+            n_kv_heads=2,
+            d_ff=128,
+        )
+
+
+def init(cfg: LlamaConfig, generator: torch.Generator,
+         device: torch.device | str | None = None,
+         dtype: torch.dtype = torch.float32) -> dict:
+    """Random parameters: N(0, 1) / sqrt(fan_in) matrices and unit norm
+    scales, drawn in fp32 on ``device`` (the card unless "cpu" is asked
+    for; the generator must live there) and cast to ``dtype`` leaf by
+    leaf, so the peak is one fp32 leaf above the result. The draws
+    differ from JAX's ``init`` for the same seed."""
+    device = resolve_device(device)
+    d, h, kv, hd, f = (
+        cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
+    )
+    L = cfg.n_layers
+
+    def dense(*shape):
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        x = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return x.div_(fan_in ** 0.5).to(dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, device=device, dtype=dtype)
+
+    return {
+        "embed": dense(cfg.vocab_size, d),
+        "layers": {
+            "attn_norm": ones(L, d),
+            "wq": dense(L, d, h * hd),
+            "wk": dense(L, d, kv * hd),
+            "wv": dense(L, d, kv * hd),
+            "wo": dense(L, h * hd, d),
+            "mlp_norm": ones(L, d),
+            "w_gate": dense(L, d, f),
+            "w_up": dense(L, d, f),
+            "w_down": dense(L, f, d),
+        },
+        "final_norm": ones(d),
+        "lm_head": dense(d, cfg.vocab_size),
+    }
+
+
+def layer_params(params: dict, i: int) -> dict:
+    """Layer ``i``'s slice of the stacked ``[L, ...]`` leaves (views)."""
+    return {name: leaf[i] for name, leaf in params["layers"].items()}
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    # Normalize in fp32, cast to the compute dtype, then scale in it.
+    xf = x.float()
+    rms = torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
+    return (xf * rms).to(x.dtype) * scale.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """Rotary embeddings over the last dim of [..., S, H, hd]:
+    split-half rotation with fp32 angles."""
+    hd = x.shape[-1]
+    freqs = theta ** (-torch.arange(0, hd // 2, dtype=torch.float32,
+                                    device=x.device) / (hd // 2))
+    angles = positions[..., :, None].float() * freqs  # [.., S, hd/2]
+    cos = torch.cos(angles)[..., :, None, :]  # broadcast over heads
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def attention_block(cfg: LlamaConfig, x: torch.Tensor, p: dict,
+                    positions: torch.Tensor, attn_fn=None) -> torch.Tensor:
+    """rms-norm -> q/k/v -> rope -> attention -> wo residual.
+
+    ``attn_fn(q, k, v)`` overrides the attention core (the seam a
+    sequence-parallel caller swaps ring or Ulysses attention into).
+    """
+    dt = cfg.dtype
+    B, S, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    a = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    q = (a @ p["wq"].to(dt)).reshape(B, S, h, hd)
+    k = (a @ p["wk"].to(dt)).reshape(B, S, kv, hd)
+    v = (a @ p["wv"].to(dt)).reshape(B, S, kv, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    if attn_fn is not None:
+        attn = attn_fn(q, k, v)
+    else:
+        attn = attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    return x + attn.reshape(B, S, h * hd) @ p["wo"].to(dt)
+
+
+def _mlp(cfg: LlamaConfig, x: torch.Tensor, p: dict) -> torch.Tensor:
+    """SwiGLU on the rms-normed input; returns the residual update."""
+    dt = cfg.dtype
+    m = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+    gate = F.silu(m @ p["w_gate"].to(dt))
+    up = m @ p["w_up"].to(dt)
+    return (gate * up) @ p["w_down"].to(dt)
+
+
+def _layer(cfg: LlamaConfig, x: torch.Tensor, p: dict,
+           positions: torch.Tensor, attn_fn=None) -> torch.Tensor:
+    """One transformer block: [B, S, D] -> [B, S, D]."""
+    x = attention_block(cfg, x, p, positions, attn_fn)
+    return x + _mlp(cfg, x, p)
+
+
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
+                   attn_fn=None, positions: torch.Tensor | None = None
+                   ) -> torch.Tensor:
+    """Token ids [B, S] -> final-normed hidden states [B, S, D].
+
+    ``positions`` overrides the rope positions ([1, S] or [B, S]).
+    """
+    x = params["embed"].to(cfg.dtype)[tokens]
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    for i in range(cfg.n_layers):
+        x = _layer(cfg, x, layer_params(params, i), positions, attn_fn)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
+            attn_fn=None, positions: torch.Tensor | None = None
+            ) -> torch.Tensor:
+    """Token ids [B, S] -> logits [B, S, V] (fp32 logits)."""
+    x = forward_hidden(params, tokens, cfg, attn_fn, positions)
+    return (x @ params["lm_head"].to(cfg.dtype)).float()

@@ -1,0 +1,74 @@
+"""Attention ops, GQA-aware, causal.
+
+``dot_product_attention`` is the plain formulation (the whole score
+matrix at once); ``flash_attention`` is the hand-written Hopper kernel
+behind the same signature. ``attention`` picks between them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .flash_attention import HEAD_DIMS, flash_attention
+
+# Sequence length at which "auto" switches from the plain einsum path to
+# the flash kernel. This is the JAX reference's threshold, carried over
+# unchanged; it has not yet been measured on this card.
+FLASH_MIN_SEQ = 1024
+
+
+def attention(
+    q: torch.Tensor,  # [B, S, H, hd]
+    k: torch.Tensor,  # [B, S, K, hd]
+    v: torch.Tensor,  # [B, S, K, hd]
+    causal: bool = True,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Dispatch: the flash kernel on long CUDA shapes, einsum elsewhere.
+
+    impl: "auto" | "flash" | "einsum". "flash" on CPU tensors computes
+    the kernel's plain version.
+    """
+    if impl == "auto":
+        # The kernel takes the head dims in HEAD_DIMS; small-head models
+        # (tests, toy configs) and short sequences take einsum.
+        impl = (
+            "flash"
+            if q.is_cuda and q.shape[-1] in HEAD_DIMS
+            and q.shape[1] >= FLASH_MIN_SEQ
+            else "einsum"
+        )
+    if impl == "flash":
+        return flash_attention(q, k, v, causal=causal)
+    if impl != "einsum":
+        # A typo ("Flash", "pallas") must not silently take the einsum
+        # path: at long S that materializes the O(S^2) scores the flash
+        # kernel exists to avoid.
+        raise ValueError(f"unknown attention impl {impl!r}: "
+                         "want auto | flash | einsum")
+    return dot_product_attention(q, k, v, causal=causal)
+
+
+def dot_product_attention(
+    q: torch.Tensor,  # [B, S, H, hd]
+    k: torch.Tensor,  # [B, S, K, hd]
+    v: torch.Tensor,  # [B, S, K, hd]
+    causal: bool = True,
+) -> torch.Tensor:
+    """GQA attention: q-heads H grouped over kv-heads K (H % K == 0).
+
+    Scores are computed in the input dtype, the softmax runs in fp32, and
+    both matmuls stay in the input dtype.
+    """
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, S, K, H // K, hd)
+    # sqrt(hd) rounded to the input dtype, as the scores are divided in it.
+    sqrt_hd = torch.tensor(float(hd)).sqrt().to(q.dtype).item()
+    scores = (torch.einsum("bqkgh,bskh->bkgqs", qg, k) / sqrt_hd).float()
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, float("-inf"))
+    weights = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", weights, v)
+    return out.reshape(B, S, H, hd)
