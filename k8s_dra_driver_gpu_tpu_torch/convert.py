@@ -15,7 +15,14 @@ import torch
 def params_from_jax(tree) -> dict:
     """Nested dict of arrays (numpy, or anything ``np.asarray`` reads)
     -> the same nested dict of CPU tensors, same dtypes. Copies the
-    data; the source is never aliased."""
+    data; the source is never aliased.
+
+    numpy has no bfloat16 of its own: JAX hands bf16 leaves over as
+    ml_dtypes' ``bfloat16``, which ``torch.from_numpy`` refuses, so those
+    are carried bit for bit through ``uint16``."""
     if isinstance(tree, dict):
         return {name: params_from_jax(leaf) for name, leaf in tree.items()}
-    return torch.from_numpy(np.array(tree, copy=True))
+    array = np.array(tree, copy=True)
+    if array.dtype.name == "bfloat16":
+        return torch.from_numpy(array.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(array)

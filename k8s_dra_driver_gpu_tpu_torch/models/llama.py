@@ -1,10 +1,12 @@
-"""Llama-3 in PyTorch: the inference parts of the JAX reference model.
+"""Llama-3 in PyTorch: the JAX reference model, for inference and
+training.
 
 Parameters are a plain nested dict of tensors with the reference's
 layer-stacked ``[L, ...]`` leaves, so one set of weights (``convert.py``)
 drives both packages. The layer ``scan`` is a Python loop over the
-stacked leaves; every matmul runs in ``cfg.dtype``, with the weights cast
-at use as the reference does.
+stacked leaves, each layer wrapped in the ``cfg.remat`` checkpointing
+policy; every matmul runs in ``cfg.dtype``, with the weights cast at use
+as the reference does.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from ..ops import resolve_device
 from ..ops.attention import attention
@@ -31,6 +35,13 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     # "auto": the flash kernel on long CUDA shapes, einsum elsewhere.
     attn_impl: str = "auto"
+    # Training loss over loss_chunk-position chunks without the [B, S, V]
+    # logits (ops/xent.py); 0 = dense loss. Must divide the train S.
+    loss_chunk: int = 0
+    # Checkpointing of each layer in training (apply_remat): "full"
+    # recomputes the layer in the backward, "dots" keeps the matmul
+    # outputs and recomputes the rest, "none" keeps every activation.
+    remat: str = "full"
 
     @property
     def head_dim(self) -> int:
@@ -51,6 +62,7 @@ class LlamaConfig:
             n_heads=16,
             n_kv_heads=8,
             d_ff=6144,
+            loss_chunk=128,
         )
 
     @staticmethod
@@ -174,18 +186,64 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, p: dict,
     return x + _mlp(cfg, x, p)
 
 
+_MATMULS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default})
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of "dots": keep matmul outputs."""
+    del ctx, args, kwargs
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_save_matmuls)
+
+
+def apply_remat(body, remat: str):
+    """Wrap a layer body per the ``cfg.remat`` policy (see LlamaConfig).
+
+    "full" and "dots" checkpoint the body (non-reentrant
+    ``torch.utils.checkpoint``); they take effect only where autograd
+    records, so inference runs the body as is.
+    """
+    if remat == "none":
+        return body
+    if remat == "full":
+        context_fn = None
+    elif remat == "dots":
+        context_fn = _dots_contexts
+    else:
+        raise ValueError(f"unknown remat policy {remat!r}")
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return body(*args)
+        if context_fn is None:
+            return checkpoint(body, *args, use_reentrant=False)
+        return checkpoint(body, *args, use_reentrant=False,
+                          context_fn=context_fn)
+
+    return wrapped
+
+
 def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
                    attn_fn=None, positions: torch.Tensor | None = None
                    ) -> torch.Tensor:
     """Token ids [B, S] -> final-normed hidden states [B, S, D].
 
-    ``positions`` overrides the rope positions ([1, S] or [B, S]).
+    The lm_head projection is split out so the training loss can run it
+    chunked (``ops/xent.chunked_cross_entropy``); ``forward`` composes
+    the two. ``positions`` overrides the rope positions ([1, S] or
+    [B, S]).
     """
     x = params["embed"].to(cfg.dtype)[tokens]
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    body = apply_remat(
+        lambda h, p: _layer(cfg, h, p, positions, attn_fn), cfg.remat)
     for i in range(cfg.n_layers):
-        x = _layer(cfg, x, layer_params(params, i), positions, attn_fn)
+        x = body(x, layer_params(params, i))
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

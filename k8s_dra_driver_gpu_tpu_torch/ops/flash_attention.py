@@ -1,5 +1,5 @@
-"""Flash-attention forward: a hand-written Hopper kernel and its plain
-PyTorch version.
+"""Flash attention, forward and backward: hand-written Hopper kernels and
+their plain PyTorch versions.
 
 ``flash_attention`` computes what the TPU kernel ``_flash_kernel``
 (k8s_dra_driver_gpu_tpu/ops/flash_attention.py:40-101) computes, in the
@@ -7,22 +7,28 @@ same ``[B, S, H, hd]`` / ``[B, S, K, hd]`` layout: causal or non-causal
 GQA attention with an online softmax, scores in fp32 scaled after the
 product, masked scores at -1e30, p cast to the input type before the P.V
 product, the normaliser clamped at 1e-30, and optionally the logsumexp
-``lse = m + log l`` (``[B, H, S]`` fp32) that a backward would need.
+``lse = m + log l`` (``[B, H, S]`` fp32) that the backward needs.
 
-On a CUDA tensor the wrapper launches ``csrc/flash_fwd.cu`` (built for
-sm_90a at first use) or raises; there is no fallback. On a CPU tensor it
-computes ``flash_attention_reference``, the same function written as
-plain tensor code, which the CPU tests hold against the JAX kernel in
-interpret mode and which the card's smoke run holds the kernel against.
+It is differentiable: a ``torch.autograd.Function`` runs the with-lse
+forward when an input needs a gradient (the forward-only kernel
+otherwise, as ``_flash_attention_vjp`` does at :243-266), saves q, k, v,
+out and lse, and its backward is ``flash_attention_bwd``: the dQ and
+dK/dV kernels that replace ``_flash_dq_kernel`` (:104) and
+``_flash_dkv_kernel`` (:157), rebuilding the probabilities from lse.
 
-Bound on an H100 SXM at the serving shape (B=4, S=2048, H=32, K=8,
-hd=128, causal, bf16): ~137 GFLOP at 989 TFLOP/s = 0.14 ms against
-~168 MB of Q/K/V/O at 3.35 TB/s = 0.05 ms, so compute-bound. The kernel's
-design (mma.sync tiles for bf16, scalar FMA for fp32, no load/compute
-overlap yet) is described at the top of the CUDA source.
+On a CUDA tensor each wrapper launches its kernel from ``csrc/``
+(``flash_fwd.cu``, ``flash_bwd.cu``; built for sm_90a at first use) or
+raises; there is no fallback. On a CPU tensor it computes the plain
+version (``flash_attention_reference``, ``flash_attention_bwd_reference``),
+the same function written as whole-matrix tensor code, which the CPU
+tests hold against the JAX kernels in interpret mode and which the
+card's smoke run holds the kernels against.
 
-Training's backward kernels (``_flash_dq_kernel``, ``_flash_dkv_kernel``)
-are not ported yet.
+Bound on an H100 SXM at the training shape (B=4, S=4096, H=16, K=8,
+hd=128, causal, bf16): forward 4*hd FLOP per unmasked pair, 0.28 ms at
+989 TFLOP/s; dQ 6*hd, 0.42 ms; dK/dV 8*hd, 0.56 ms; each moves ~0.2-0.3
+GB (under 0.1 ms at 3.35 TB/s), so all three are compute-bound. The
+kernels' designs are described at the top of their CUDA sources.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from . import _build
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "fp32"}
 _MAX_Q_TILES = 65_535  # the grid's y extent; tiles are 32 rows or more
 
 
@@ -56,6 +63,14 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
                          f"({k.shape[2]})")
 
 
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _causal_keep(S: int, device: torch.device) -> torch.Tensor:
+    return torch.ones(S, S, dtype=torch.bool, device=device).tril()
+
+
 def flash_attention_reference(
     q: torch.Tensor,  # [B, S, H, hd]
     k: torch.Tensor,  # [B, S, K, hd]
@@ -63,16 +78,15 @@ def flash_attention_reference(
     causal: bool = True,
     with_lse: bool = False,
 ):
-    """The kernel's function as plain tensor code: the whole score
-    matrix at once instead of an online softmax over tiles."""
+    """The forward kernel's function as plain tensor code: the whole
+    score matrix at once instead of an online softmax over tiles."""
     _check_shapes(q, k, v)
     B, S, H, hd = q.shape
     K = k.shape[2]
     qg = q.float().reshape(B, S, K, H // K, hd)
     s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * _scale(hd)
     if causal:
-        keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~keep, NEG_INF)
+        s = s.masked_fill(~_causal_keep(S, q.device), NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -84,26 +98,89 @@ def flash_attention_reference(
     return out, (m + torch.log(l_safe)).reshape(B, H, S)
 
 
-def _kernel() -> ctypes.CDLL:
+def _row_dot(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """D = rowsum(dO * O) in fp32, [B, S, H, hd] -> [B, H, S]."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor,    # [B, S, H, hd]
+    k: torch.Tensor,    # [B, S, K, hd]
+    v: torch.Tensor,    # [B, S, K, hd]
+    out: torch.Tensor,  # [B, S, H, hd], the forward's output
+    lse: torch.Tensor,  # [B, H, S] fp32, the forward's logsumexp
+    do: torch.Tensor,   # [B, S, H, hd], the output's gradient
+    causal: bool = True,
+):
+    """The backward kernels' function as plain tensor code, the whole
+    score matrix at once, with their casts: p = exp(s - lse) from fp32
+    scores, dS = p * (dO.V^T - D) in fp32, rounded to the input type
+    before the dS.K and dS^T.Q products, p rounded to dO's type before
+    P^T.dO. Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    _check_shapes(q, k, v)
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    scale = _scale(hd)
+    qg = q.float().reshape(B, S, K, G, hd)
+    dog = do.float().reshape(B, S, K, G, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * scale
+    if causal:
+        s = s.masked_fill(~_causal_keep(S, q.device), NEG_INF)
+    p = torch.exp(s - lse.float().reshape(B, K, G, S, 1))
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dog, v.float())
+    ds = p * (dp - _row_dot(do, out).reshape(B, K, G, S, 1))
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds.to(k.dtype).float(),
+                      k.float()) * scale
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds.to(q.dtype).float(),
+                      qg) * scale
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p.to(do.dtype).float(), dog)
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _bind(lib: ctypes.CDLL, name: str, argtypes: list) -> None:
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+
+
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_N_BWD_STRIDES = 21
+
+
+def _fwd_kernel() -> ctypes.CDLL:
     lib = _build.load("flash_fwd").lib
-    if lib.flash_fwd.argtypes is None:
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # Every pointer and the stream as c_void_p: a bare Python int
-        # would be passed as a 32-bit C int and cut the address.
-        lib.flash_fwd.argtypes = (
-            [ptr] * 5 + [i32] * 6 + [i64] * 12 + [i32, ctypes.c_float, ptr])
-        lib.flash_fwd.restype = ctypes.c_int
-        lib.flash_error_string.argtypes = [ctypes.c_int]
-        lib.flash_error_string.restype = ctypes.c_char_p
+    # Every pointer and the stream as c_void_p: a bare Python int would
+    # be passed as a 32-bit C int and cut the address.
+    _bind(lib, "flash_fwd",
+          [_PTR] * 5 + [_I32] * 6 + [_I64] * 12 + [_I32, ctypes.c_float, _PTR])
+    lib.flash_error_string.argtypes = [ctypes.c_int]
+    lib.flash_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    tensors = (q, k, v)
+def _bwd_kernel() -> ctypes.CDLL:
+    lib = _build.load("flash_bwd").lib
+    tail = [_I32] * 6 + [ctypes.POINTER(_I64), _I32, ctypes.c_float, _PTR]
+    _bind(lib, "flash_bwd_dq", [_PTR] * 7 + tail)
+    _bind(lib, "flash_bwd_dkv", [_PTR] * 8 + tail)
+    lib.flash_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                *rest: torch.Tensor, dtypes=tuple(_DTYPE_NAMES)):
+    """Raise on anything the kernels do not take. ``rest`` are further
+    [B, S, heads, hd] operands (the backward's out and dO)."""
+    tensors = (q, k, v, *rest)
     if any(t.device != q.device for t in tensors):
         raise ValueError("q, k, v must lie on one device")
-    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in tensors):
-        raise ValueError(f"flash kernel takes bf16 or fp32 q/k/v of one "
+    if q.dtype not in dtypes or any(t.dtype != q.dtype for t in tensors):
+        names = " or ".join(_DTYPE_NAMES[d] for d in dtypes)
+        raise ValueError(f"flash kernel takes {names} q/k/v of one "
                          f"dtype; got {[str(t.dtype) for t in tensors]}")
     hd = q.shape[-1]
     if hd not in HEAD_DIMS:
@@ -113,37 +190,25 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     if -(-q.shape[1] // 32) > _MAX_Q_TILES:
         raise ValueError(f"sequence length {q.shape[1]} too long for one launch")
     if q.dtype == torch.bfloat16:
-        # The bf16 kernel stages rows with 16-byte loads.
+        # The bf16 kernels stage rows with 16-byte loads.
         for t in tensors:
             if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
                 raise ValueError("bf16 flash kernel needs 16-byte aligned "
                                  "rows (pointer and strides)")
 
 
-def flash_attention(
-    q: torch.Tensor,  # [B, S, H, hd]
-    k: torch.Tensor,  # [B, S, K, hd]
-    v: torch.Tensor,  # [B, S, K, hd]
-    causal: bool = True,
-    with_lse: bool = False,
-):
-    """Returns ``out`` [B, S, H, hd] in q's dtype, or ``(out, lse)`` with
-    ``lse`` [B, H, S] fp32 when ``with_lse``.
-
-    CUDA tensors launch the kernel (bf16 or fp32, head dim 64 or 128) and
-    raise on anything it does not take; CPU tensors take the plain
-    version. ``flash_attention.launches`` counts kernel launches.
-    """
+def _flash_forward(q, k, v, causal: bool, with_lse: bool):
+    """One forward: the kernel on CUDA tensors, the plain version on CPU
+    tensors. Not differentiable by itself."""
     _check_shapes(q, k, v)
-    if q.device.type == "cpu" and k.device.type == "cpu" \
-            and v.device.type == "cpu":
+    if _on_cpu(q, k, v):
         return flash_attention_reference(q, k, v, causal, with_lse)
     _check_cuda(q, k, v)
     B, S, H, hd = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    lib = _kernel()
+    lib = _fwd_kernel()
     with torch.cuda.device(q.device):
         err = lib.flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -156,7 +221,138 @@ def flash_attention(
         raise RuntimeError("flash_fwd launch failed: "
                            + lib.flash_error_string(err).decode())
     flash_attention.launches += 1
+    flash_attention.lse_launches += with_lse
     return out if lse is None else (out, lse)
 
 
+def flash_attention_bwd(
+    q: torch.Tensor,    # [B, S, H, hd]
+    k: torch.Tensor,    # [B, S, K, hd]
+    v: torch.Tensor,    # [B, S, K, hd]
+    out: torch.Tensor,  # [B, S, H, hd]
+    lse: torch.Tensor,  # [B, H, S] fp32
+    do: torch.Tensor,   # [B, S, H, hd]
+    causal: bool = True,
+):
+    """(dq, dk, dv) of flash attention from the forward's out and lse.
+
+    CUDA tensors launch the dQ kernel and the dK/dV kernel (bf16, head
+    dim 64 or 128) and raise on anything they do not take; CPU tensors
+    take ``flash_attention_bwd_reference``. D = rowsum(dO * O) is one
+    plain fp32 reduction, as the JAX package leaves it outside Pallas.
+    ``flash_attention_bwd.dq_launches`` and ``.dkv_launches`` count the
+    kernel launches.
+    """
+    _check_shapes(q, k, v)
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dO {tuple(do.shape)} "
+                         f"must match q {tuple(q.shape)}")
+    if _on_cpu(q, k, v, out, lse, do):
+        return flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
+    launch_dq, launch_dkv, grads = _bwd_launchers(q, k, v, out, lse, do,
+                                                  causal)
+    launch_dq()
+    launch_dkv()
+    return grads
+
+
+def _bwd_launchers(q, k, v, out, lse, do, causal: bool):
+    """The backward's two kernel launches on CUDA tensors, apart:
+    ``(launch_dq, launch_dkv, (dq, dk, dv))``. Each launcher fills its
+    outputs when called; ``flash_attention_bwd`` calls both once, and
+    the smoke run times each alone."""
+    do = do.contiguous()
+    _check_cuda(q, k, v, out, do, dtypes=(torch.bfloat16,))
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
+            or lse.device != q.device:
+        raise ValueError(f"lse must be [B, H, S] fp32 on {q.device}; got "
+                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    lse = lse.contiguous()
+    dsum = _row_dot(do, out)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    strides = (_I64 * _N_BWD_STRIDES)(
+        *(st for t in (q, k, v, do, dq, dk, dv) for st in t.stride()[:3]))
+    lib = _bwd_kernel()
+    operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), dsum.data_ptr())
+    tail = (_DTYPE_CODES[q.dtype], B, S, H, K, hd, strides, int(causal),
+            _scale(hd))
+
+    def launch(name: str, *outputs: torch.Tensor) -> None:
+        with torch.cuda.device(q.device):
+            err = getattr(lib, name)(
+                *operands, *(t.data_ptr() for t in outputs), *tail,
+                torch.cuda.current_stream(q.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: "
+                               + lib.flash_bwd_error_string(err).decode())
+
+    def launch_dq() -> None:
+        launch("flash_bwd_dq", dq)
+        flash_attention_bwd.dq_launches += 1
+
+    def launch_dkv() -> None:
+        launch("flash_bwd_dkv", dk, dv)
+        flash_attention_bwd.dkv_launches += 1
+
+    return launch_dq, launch_dkv, (dq, dk, dv)
+
+
+flash_attention_bwd.dq_launches = 0
+flash_attention_bwd.dkv_launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with the flash backward as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, needs_grad: bool):
+        ctx.causal = causal
+        if not needs_grad:
+            return _flash_forward(q, k, v, causal, with_lse=False)
+        if not _on_cpu(q, k, v) and q.dtype != torch.bfloat16:
+            # Refuse before the forward launches, not after it.
+            raise ValueError(f"flash backward kernels take bf16 q/k/v; got "
+                             f"{q.dtype} on {q.device}")
+        out, lse = _flash_forward(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, S, H, hd]
+    k: torch.Tensor,  # [B, S, K, hd]
+    v: torch.Tensor,  # [B, S, K, hd]
+    causal: bool = True,
+    with_lse: bool = False,
+):
+    """Returns ``out`` [B, S, H, hd] in q's dtype, differentiable in q,
+    k and v; or, with ``with_lse``, ``(out, lse)`` with ``lse`` [B, H, S]
+    fp32 and no gradient.
+
+    CUDA tensors launch the kernels (forward: bf16 or fp32, head dim 64
+    or 128; backward: bf16) and raise on anything they do not take; CPU
+    tensors take the plain versions through the same autograd wiring.
+    ``flash_attention.launches`` counts forward launches, of which
+    ``flash_attention.lse_launches`` wrote lse.
+    """
+    if with_lse:
+        with torch.no_grad():  # as on the card, where the kernel records none
+            return _flash_forward(q, k, v, causal, with_lse=True)
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    return _FlashAttention.apply(q, k, v, causal, needs_grad)
+
+
 flash_attention.launches = 0
+flash_attention.lse_launches = 0

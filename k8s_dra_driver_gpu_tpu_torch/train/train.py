@@ -1,0 +1,148 @@
+"""Single-device Llama training step.
+
+The port of ``k8s_dra_driver_gpu_tpu/train/train.py``'s ``TrainState``,
+``make_optimizer``, ``loss_fn`` and ``train_step``. The parameters are
+the model's nested dict of fp32 master tensors; the optimizer is
+``optax.chain(clip_by_global_norm(1.0), adamw(...))`` written out with
+optax's arithmetic (stock ``torch.optim.AdamW`` differs: it decays the
+weights before the Adam step, and keeps no bf16 first moment). Unlike
+the JAX step, which returns new arrays, the update runs in place on the
+parameter and moment tensors: a flagship state is ~10 GB, and a second
+copy of it buys nothing in eager PyTorch.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from ..models import llama
+from ..ops.xent import chunked_cross_entropy
+
+
+class TrainState(NamedTuple):
+    params: dict
+    opt_state: dict
+    step: int
+
+
+def tree_leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a nested dict, depth first in insertion order."""
+    if isinstance(tree, dict):
+        return [leaf for value in tree.values() for leaf in tree_leaves(value)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    """A nested dict of the same keys with ``fn`` applied to each tensor."""
+    if isinstance(tree, dict):
+        return {name: tree_map(fn, value) for name, value in tree.items()}
+    return fn(tree)
+
+
+# optax.chain(clip_by_global_norm(1.0), adamw(lr, b1=0.9, b2=0.95,
+# weight_decay=0.1)) with optax's eps=1e-8, eps_root=0.
+MAX_NORM, B1, B2, EPS, WEIGHT_DECAY = 1.0, 0.9, 0.95, 1e-8, 0.1
+
+
+@dataclass(frozen=True)
+class AdamW:
+    """Global-norm clipping then AdamW, with optax's arithmetic.
+
+    Per leaf, with g the (clipped) gradient and t the step count:
+    mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu,
+    u = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps),
+    p += -lr (u + weight_decay p) on every leaf. A bf16 ``mu_dtype``
+    stores the first moment rounded after the step, which uses it in
+    fp32, as ``optax.scale_by_adam`` does under ``jit``; there b1 meets
+    the bf16 moment as a weakly typed scalar and is rounded to bf16
+    (0.8984375), so it is here too.
+    """
+
+    lr: float = 3e-4
+    mu_dtype: torch.dtype | None = None
+
+    def init(self, params: dict) -> dict:
+        return {
+            "count": 0,
+            "mu": tree_map(lambda p: torch.zeros_like(
+                p, dtype=self.mu_dtype or p.dtype), params),
+            "nu": tree_map(torch.zeros_like, params),
+        }
+
+    @torch.no_grad()
+    def update(self, grads: list[torch.Tensor], opt_state: dict,
+               params: dict) -> dict:
+        """Apply one step in place to ``params`` and the moments of
+        ``opt_state``; ``grads`` are in ``tree_leaves(params)`` order
+        and are overwritten. Returns the new optimizer state."""
+        leaves = tree_leaves(params)
+        if len(grads) != len(leaves):
+            raise ValueError(f"{len(grads)} gradients for {len(leaves)} "
+                             "parameters")
+        norm = torch.stack([g.float().square().sum() for g in grads]).sum()
+        norm = norm.sqrt()
+        # Clip as optax does, g / norm * max_norm, and only when
+        # norm >= max_norm; chosen on the device, with no host sync.
+        keep = norm < MAX_NORM
+        div = torch.where(keep, 1.0, norm)
+        mul = torch.where(keep, 1.0, MAX_NORM)
+        count = opt_state["count"] + 1
+        # 1 - decay^count in fp32, as optax computes it.
+        bc1, bc2 = ((1 - torch.tensor(decay, dtype=torch.float32) ** count)
+                    .item() for decay in (B1, B2))
+        mus, nus = tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"])
+        for p, g, mu, nu in zip(leaves, grads, mus, nus):
+            g.div_(div).mul_(mul)
+            b1 = torch.tensor(B1, dtype=mu.dtype).item()
+            m = g.mul(1 - B1).add_(mu.float().mul_(b1))
+            nu.mul_(B2).add_(g.square_().mul_(1 - B2))
+            u = m.div(bc1)
+            u.div_(nu.div(bc2).sqrt_().add_(EPS))
+            u.add_(p.mul(WEIGHT_DECAY)).mul_(-self.lr)
+            p.add_(u)
+            mu.copy_(m)
+        return {"count": count, "mu": opt_state["mu"],
+                "nu": opt_state["nu"]}
+
+
+def make_optimizer(lr: float = 3e-4,
+                   mu_dtype: torch.dtype | None = None) -> AdamW:
+    """AdamW with global-norm clipping at 1.0 (b1 .9, b2 .95, eps 1e-8,
+    weight decay .1 on every leaf). ``mu_dtype=torch.bfloat16`` stores
+    the first moment in bf16, freeing 2 bytes a parameter."""
+    return AdamW(lr=lr, mu_dtype=mu_dtype)
+
+
+def loss_fn(params: dict, tokens: torch.Tensor,
+            cfg: llama.LlamaConfig) -> torch.Tensor:
+    """Next-token cross-entropy over [B, S] token ids.
+
+    ``cfg.loss_chunk > 0`` takes the chunked loss (ops/xent.py): the
+    [B, S, V] logits never materialize.
+    """
+    targets = tokens[:, 1:].long()
+    if cfg.loss_chunk:
+        hidden = llama.forward_hidden(params, tokens[:, :-1], cfg)
+        return chunked_cross_entropy(
+            hidden, params["lm_head"], targets, chunk=cfg.loss_chunk)
+    logits = llama.forward(params, tokens[:, :-1], cfg)
+    return F.cross_entropy(logits.flatten(0, 1), targets.flatten())
+
+
+def train_step(state: TrainState, tokens: torch.Tensor, *,
+               cfg: llama.LlamaConfig, optimizer: AdamW
+               ) -> tuple[TrainState, torch.Tensor]:
+    """One optimizer step on ``tokens`` [B, S + 1]. The parameters and
+    moments are updated in place; returns the state and the loss
+    (detached, not synchronised)."""
+    leaves = tree_leaves(state.params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    loss = loss_fn(state.params, tokens, cfg)
+    grads = list(torch.autograd.grad(loss, leaves))
+    opt_state = optimizer.update(grads, state.opt_state, state.params)
+    return TrainState(state.params, opt_state, state.step + 1), loss.detach()

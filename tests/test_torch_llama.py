@@ -38,7 +38,7 @@ def test_configs_match_reference():
             getattr(pt_llama.LlamaConfig, name)()
         for field in ("vocab_size", "d_model", "n_layers", "n_heads",
                       "n_kv_heads", "d_ff", "rope_theta", "norm_eps",
-                      "head_dim"):
+                      "head_dim", "loss_chunk", "remat"):
             assert getattr(got, field) == getattr(want, field), (name, field)
     assert pt_llama.LlamaConfig.llama3_8b().dtype == torch.bfloat16
 
@@ -49,6 +49,20 @@ def test_params_from_jax_keeps_tree(params):
     assert tp["layers"].keys() == jp["layers"].keys()
     assert tp["layers"]["wq"].shape == (2, 64, 64)
     np.testing.assert_array_equal(tp["embed"].numpy(), np.asarray(jp["embed"]))
+
+
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32, jnp.int32])
+def test_params_from_jax_carries_dtype_bit_for_bit(dtype):
+    # bf16 leaves arrive from JAX as ml_dtypes' bfloat16, which numpy and
+    # torch.from_numpy do not know.
+    x = jnp.asarray(np.random.default_rng(4).standard_normal((3, 5)) * 100,
+                    dtype)
+    got = params_from_jax({"m": {"x": x}})["m"]["x"]
+    assert got.dtype == {jnp.bfloat16: torch.bfloat16,
+                         jnp.float32: torch.float32,
+                         jnp.int32: torch.int32}[dtype]
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(x.astype(jnp.float32)))
 
 
 def test_init_shapes_and_scale():
