@@ -8,14 +8,19 @@ and prints no result line):
 
 1. device: the card's name and power limit; TF32 off for fp32 matmuls.
 2. build: compile every kernel from ``csrc/`` (one nvcc per source, all
-   started together), with ptxas's register and spill lines.
+   started together), with ptxas's register and spill lines and its
+   performance warnings; fails if the bf16 forward kernel spills or
+   ptxas serialises its wgmma or ignores its setmaxnreg.
 3. kernels: hold each kernel against its plain PyTorch version on the
    card at the shapes of the main paths and at edge shapes; time the
    kernel, the plain version and one PyTorch library call computing the
    same function (timed only, never used by the port), beside the
    kernel's bound. The forward at the serving shape (forward-only) and
-   at the training shape (with lse); the dQ and dK/dV backward kernels
-   at the training shape.
+   at the training shape (with lse), each with its share of the bound
+   and its factor over the library call; its edge cases (under one q
+   tile, exactly one, ragged, non-causal, head dim 64, GQA groups 1 and
+   4, sliced-heads and transposed-view layouts); the dQ and dK/dV
+   backward kernels at the training shape.
 4. serving: Llama-3-8B at full width and depth with random weights from
    the seed, bf16: ``generate`` for B=4 prompts of 2048 tokens and 32
    greedy new tokens. Counts the kernel launches of that run, checks the
@@ -214,6 +219,20 @@ def phase_device() -> None:
 KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
 
 
+def ptxas_spills(build_log: str) -> dict:
+    """Spill stores + loads in bytes of each entry function, by mangled
+    name, from ``ptxas -v`` output."""
+    spills, entry = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line and entry is not None:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            spills[entry] = nums[1] + nums[2]  # stack, stores, loads
+    return spills
+
+
 def phase_build() -> None:
     from k8s_dra_driver_gpu_tpu_torch.ops import _build
 
@@ -224,31 +243,63 @@ def phase_build() -> None:
         log(f"build: {name}.cu in {lib.build_seconds:.1f} s -> "
             f"{lib.path.name}")
         for line in lib.log.splitlines():
-            if "Compiling entry" in line or "registers" in line \
-                    or "spill" in line:
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill", "Performance Loss")):
                 log(f"  ptxas: {line.strip()}")
+        if name != "flash_fwd" or not lib.log:
+            continue
+        # The redesigned forward: no spill, and no wgmma serialised or
+        # setmaxnreg ignored (ptxas's C7508-C7515 performance warnings).
+        bad = [e for e, n in ptxas_spills(lib.log).items()
+               if "flash_fwd_bf16" in e and n]
+        bad += [line for line in lib.log.splitlines()
+                if "Performance Loss" in line and "flash_fwd_bf16" in line]
+        if bad:
+            raise AssertionError(f"bf16 forward kernel: {bad}")
     log(f"build: all kernels in {time.perf_counter() - t0:.1f} s")
+
+
+def attention_inputs(gen, label, B, S, H, K, hd, dtype):
+    """q [B,S,H,hd], k and v [B,S,K,hd] on the card. "sliced heads" cuts
+    them from one packed [B,S,H+2K,hd] tensor (a fused QKV projection);
+    "transposed view" reads them from head-major [B,n,S,hd] tensors."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+
+    if label == "sliced heads":
+        packed = randn(B, S, H + 2 * K, hd)
+        return packed[:, :, :H], packed[:, :, H:H + K], packed[:, :, H + K:]
+    if label == "transposed view":
+        return tuple(randn(B, n, S, hd).transpose(1, 2) for n in (H, K, K))
+    return tuple(randn(B, S, n, hd) for n in (H, K, K))
 
 
 def phase_kernels(gen: torch.Generator) -> dict:
     from k8s_dra_driver_gpu_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference)
 
+    bf16 = torch.bfloat16
     # (label, B, S, H, K, hd, dtype, causal, with_lse)
     cases = [
-        ("serving", 4, 2048, 32, 8, 128, torch.bfloat16, True, False),
-        ("ragged S", 2, 1000, 32, 8, 128, torch.bfloat16, True, False),
-        ("non-causal", 2, 1000, 32, 8, 128, torch.bfloat16, False, False),
-        ("gqa group 1", 2, 1000, 8, 8, 64, torch.bfloat16, True, False),
-        ("with lse", 2, 1000, 16, 4, 128, torch.bfloat16, True, True),
+        ("serving", 4, 2048, 32, 8, 128, bf16, True, False),
+        ("under one q tile", 1, 100, 32, 8, 128, bf16, True, False),
+        ("one q tile", 1, 128, 32, 8, 128, bf16, True, False),
+        ("ragged S", 2, 1000, 32, 8, 128, bf16, True, False),
+        ("non-causal", 2, 1000, 32, 8, 128, bf16, False, False),
+        ("gqa group 1", 2, 1000, 8, 8, 64, bf16, True, False),
+        ("hd 64 under one q tile", 1, 100, 8, 2, 64, bf16, True, False),
+        ("gqa group 4", 2, 1000, 16, 4, 128, bf16, True, False),
+        ("training shape", 1, 4096, 16, 8, 128, bf16, True, False),
+        ("with lse", 2, 1000, 16, 4, 128, bf16, True, True),
+        ("sliced heads", 2, 1000, 32, 8, 128, bf16, True, False),
+        ("transposed view", 2, 1000, 32, 8, 128, bf16, True, True),
         ("fp32", 1, 1000, 8, 2, 128, torch.float32, True, True),
         ("fp32 non-causal", 1, 520, 8, 8, 64, torch.float32, False, False),
     ]
     record = None
     for label, B, S, H, K, hd, dtype, causal, with_lse in cases:
-        q, k, v = (torch.randn((B, S, n, hd), generator=gen, device="cuda",
-                               dtype=torch.float32).to(dtype)
-                   for n in (H, K, K))
+        q, k, v = attention_inputs(gen, label, B, S, H, K, hd, dtype)
         got = flash_attention(q, k, v, causal=causal, with_lse=with_lse)
         want = flash_attention_reference(q, k, v, causal=causal,
                                          with_lse=with_lse)
@@ -285,6 +336,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
             line += (f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
                      f"sdpa_ms={library_ms:.4f} bound_ms={bound:.4f} "
                      f"({bound_by}) roofline_share={bound / ms:.3f} "
+                     f"factor_over_library={ms / library_ms:.2f} "
                      f"with_lse_ms={lse_ms:.4f} "
                      f"with_lse_bound_ms={lse_bound:.4f}")
             record = {
@@ -433,7 +485,9 @@ def phase_training_kernels(gen: torch.Generator) -> tuple[dict, dict, dict]:
     log(f"kernel with-lse forward at training shape B={B} S={S} H={H} K={K} "
         f"hd={hd}: ms={fwd['ms']:.4f} plain_ms={fwd['plain_ms']:.4f} "
         f"library_ms={fwd['library_ms']:.4f} (aten flash, K/V expanded, "
-        f"returns lse) bound_ms={fwd['bound_ms']:.4f} ({fwd['bound_by']})")
+        f"returns lse) bound_ms={fwd['bound_ms']:.4f} ({fwd['bound_by']}) "
+        f"roofline_share={fwd['bound_ms'] / fwd['ms']:.3f} "
+        f"factor_over_library={fwd['ms'] / fwd['library_ms']:.2f}")
 
     out, lse = flash_attention(q, k, v, with_lse=True)
     launch_dq, launch_dkv, _ = _bwd_launchers(q, k, v, out, lse, do, True)

@@ -5,8 +5,9 @@ shared library with a plain C interface and loaded with ``ctypes``. The
 build runs at a kernel's first launch, never at import, so the package
 imports (and its CPU paths run) where there is no CUDA toolkit. The
 library goes under ``k8s_dra_driver_gpu_tpu_torch/build/`` (listed in
-``.gitignore``), named by a hash of its source and flags, so an edited
-source is rebuilt and an unchanged one is reused within a checkout.
+``.gitignore``), named by a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused within a checkout.
 """
 
 from __future__ import annotations
@@ -61,15 +62,23 @@ def nvcc_command(nvcc: str, source: Path, output: Path) -> list[str]:
     return [nvcc, *NVCC_FLAGS, "-o", str(output), str(source)]
 
 
+def source_digest(name: str) -> str:
+    """Hash of ``csrc/<name>.cu``, every ``csrc/*.cuh`` header (any of
+    them may be included) and the compiler flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return digest.hexdigest()[:16]
+
+
 def load(name: str) -> Library:
     """Compile ``csrc/<name>.cu`` if this checkout has no build of its
     current source, then load it. Raises with nvcc's output on failure."""
     if name in _loaded:
         return _loaded[name]
     source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    output = BUILD_DIR / f"{name}-{digest}.so"
+    output = BUILD_DIR / f"{name}-{source_digest(name)}.so"
     seconds, log = 0.0, ""
     if not output.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

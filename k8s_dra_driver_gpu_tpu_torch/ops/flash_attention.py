@@ -24,6 +24,11 @@ the same function written as whole-matrix tensor code, which the CPU
 tests hold against the JAX kernels in interpret mode and which the
 card's smoke run holds the kernels against.
 
+The forward's launch geometry (grid, threads, shared memory and the TMA
+tensor maps of q, k and v) is computed here by ``fwd_plan``, where the
+CPU tests reach it, and handed to the C entry, which checks it against
+the kernel's tiling before it launches.
+
 Bound on an H100 SXM at the training shape (B=4, S=4096, H=16, K=8,
 hd=128, causal, bf16): forward 4*hd FLOP per unmasked pair, 0.28 ms at
 989 TFLOP/s; dQ 6*hd, 0.42 ms; dK/dV 8*hd, 0.56 ms; each moves ~0.2-0.3
@@ -34,6 +39,7 @@ kernels' designs are described at the top of their CUDA sources.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -44,6 +50,19 @@ HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "fp32"}
 _MAX_Q_TILES = 65_535  # the grid's y extent; tiles are 32 rows or more
+
+# The forward kernels' tiling (csrc/flash_fwd.cu checks the launch
+# geometry against it). bf16: 128 q rows a block in two consumer
+# warpgroups and a producer warpgroup; 128-key K/V tiles in a two-stage
+# ring, loaded by TMA in boxes 64 columns (128 bytes) wide with the
+# 128-byte swizzle. fp32: 32x32 tiles, one warpgroup.
+FWD_BF16_BLOCK_M, FWD_BF16_BLOCK_N, FWD_BF16_STAGES = 128, 128, 2
+FWD_BF16_THREADS = 384
+FWD_F32_BLOCK_M, FWD_F32_BLOCK_N, FWD_F32_THREADS = 32, 32, 128
+TMA_BOX_COLS, TMA_SWIZZLE_BYTES = 64, 128
+MAX_SMEM_BYTES = 232_448  # what one block may use on an H100
+_TMA_MAX_STRIDE = 1 << 40  # TMA byte strides are multiples of 16 below it
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def _scale(hd: int) -> float:
@@ -139,6 +158,82 @@ def flash_attention_bwd_reference(
             dv.to(v.dtype))
 
 
+@dataclasses.dataclass(frozen=True)
+class TensorMap:
+    """A TMA tensor map over one ``[B, S, heads, hd]`` operand, innermost
+    dimension first, as ``cuTensorMapEncodeTiled`` takes it."""
+
+    dims: tuple[int, int, int, int]     # (hd, heads, S, B)
+    strides: tuple[int, int, int]       # bytes, of dims 1..3
+    box: tuple[int, int, int, int]      # elements: (64, 1, rows, 1)
+    swizzle: int                        # bytes
+
+    def values(self) -> tuple[int, ...]:
+        return (*self.dims, *self.strides, *self.box, self.swizzle)
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """Launch geometry of one forward call: grid (x walks (b, h), y the
+    q tiles), threads a block, dynamic shared-memory bytes, and the bf16
+    kernel's tensor maps for q, k and v (none for fp32)."""
+
+    grid: tuple[int, int]
+    threads: int
+    smem: int
+    maps: tuple[TensorMap, ...]
+
+    def packed(self):
+        """The int64 array the C entry ``flash_fwd`` reads."""
+        values = (*self.grid, self.threads, self.smem,
+                  *(x for m in self.maps for x in m.values()))
+        return (_I64 * len(values))(*values)
+
+
+def fwd_smem_bytes(dtype: torch.dtype, hd: int) -> int:
+    """Dynamic shared memory of one forward block."""
+    if dtype == torch.bfloat16:
+        # 1024 bytes of slack align the tiles to the 1024-byte swizzle
+        # atom; Q, then the K and V ring; 8 bytes per mbarrier (Q, and a
+        # full and an empty barrier for each K and V slot).
+        tiles = (FWD_BF16_BLOCK_M * hd
+                 + 2 * FWD_BF16_STAGES * FWD_BF16_BLOCK_N * hd)
+        return 1024 + 2 * tiles + 8 * (1 + 4 * FWD_BF16_STAGES)
+    bm, bn = FWD_F32_BLOCK_M, FWD_F32_BLOCK_N
+    return 4 * (2 * bm * (hd + 1) + bn * hd + bm * (bn + 1))
+
+
+def _tensor_map(t: torch.Tensor, rows: int) -> TensorMap:
+    """The map of a [B, S, heads, hd] tensor read in boxes of ``rows``
+    sequence positions by 64 columns. A dimension of size 1 is never
+    stepped, so it gets the stride a packed tensor would have."""
+    B, S, n, hd = t.shape
+    elem = t.element_size()
+    packed = (hd * elem, n * hd * elem, S * n * hd * elem)
+    sizes = (n, S, B)
+    own = tuple(st * elem for st in (t.stride(2), t.stride(1), t.stride(0)))
+    strides = tuple(o if size > 1 else pk
+                    for o, pk, size in zip(own, packed, sizes))
+    return TensorMap(dims=(hd, n, S, B), strides=strides,
+                     box=(TMA_BOX_COLS, 1, rows, 1),
+                     swizzle=TMA_SWIZZLE_BYTES)
+
+
+def fwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> FwdPlan:
+    """The forward kernel's launch geometry for these operands (shapes,
+    strides and dtype only; nothing is read)."""
+    B, S, H, hd = q.shape
+    if q.dtype == torch.bfloat16:
+        bm = FWD_BF16_BLOCK_M
+        maps = (_tensor_map(q, bm), _tensor_map(k, FWD_BF16_BLOCK_N),
+                _tensor_map(v, FWD_BF16_BLOCK_N))
+        threads = FWD_BF16_THREADS
+    else:
+        bm, maps, threads = FWD_F32_BLOCK_M, (), FWD_F32_THREADS
+    return FwdPlan(grid=(B * H, -(-S // bm)), threads=threads,
+                   smem=fwd_smem_bytes(q.dtype, hd), maps=maps)
+
+
 def _bind(lib: ctypes.CDLL, name: str, argtypes: list) -> None:
     fn = getattr(lib, name)
     if fn.argtypes is None:
@@ -146,7 +241,6 @@ def _bind(lib: ctypes.CDLL, name: str, argtypes: list) -> None:
         fn.restype = ctypes.c_int
 
 
-_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _N_BWD_STRIDES = 21
 
 
@@ -155,7 +249,8 @@ def _fwd_kernel() -> ctypes.CDLL:
     # Every pointer and the stream as c_void_p: a bare Python int would
     # be passed as a 32-bit C int and cut the address.
     _bind(lib, "flash_fwd",
-          [_PTR] * 5 + [_I32] * 6 + [_I64] * 12 + [_I32, ctypes.c_float, _PTR])
+          [_PTR] * 5 + [_I32] * 6 + [_I64] * 12
+          + [ctypes.POINTER(_I64), _I32, ctypes.c_float, _PTR])
     lib.flash_error_string.argtypes = [ctypes.c_int]
     lib.flash_error_string.restype = ctypes.c_char_p
     return lib
@@ -190,9 +285,15 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if -(-q.shape[1] // 32) > _MAX_Q_TILES:
         raise ValueError(f"sequence length {q.shape[1]} too long for one launch")
     if q.dtype == torch.bfloat16:
-        # The bf16 kernels stage rows with 16-byte loads.
+        # The forward reads through TMA tensor maps and the backward with
+        # 16-byte loads: both need 16-byte aligned bases and byte strides
+        # (TMA's also below 2^40). A dimension of size 1 is never stepped.
         for t in tensors:
-            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+            strides = [st for st, size in zip(t.stride()[:3], t.shape[:3])
+                       if size > 1]
+            if t.data_ptr() % 16 or any(
+                    st % 8 or not 0 < 2 * st < _TMA_MAX_STRIDE
+                    for st in strides):
                 raise ValueError("bf16 flash kernel needs 16-byte aligned "
                                  "rows (pointer and strides)")
 
@@ -208,6 +309,7 @@ def _flash_forward(q, k, v, causal: bool, with_lse: bool):
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    geometry = fwd_plan(q, k, v).packed()
     lib = _fwd_kernel()
     with torch.cuda.device(q.device):
         err = lib.flash_fwd(
@@ -215,7 +317,7 @@ def _flash_forward(q, k, v, causal: bool, with_lse: bool):
             None if lse is None else lse.data_ptr(),
             _DTYPE_CODES[q.dtype], B, S, H, k.shape[2], hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], int(causal), _scale(hd),
+            *out.stride()[:3], geometry, int(causal), _scale(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError("flash_fwd launch failed: "
