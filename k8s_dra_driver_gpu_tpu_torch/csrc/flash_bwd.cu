@@ -1,6 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a): dQ and dK/dV of causal /
 // non-causal GQA attention, rebuilt from the forward's logsumexp, read
-// straight from the [B, S, H, hd] / [B, S, K, hd] layout through strides.
+// straight from the [B, S, H, hd] / [B, S, K, hd] layout through TMA
+// tensor maps.
 //
 // Replaces the TPU kernels
 //   * `_flash_dq_kernel` (k8s_dra_driver_gpu_tpu/ops/flash_attention.py:104,
@@ -16,13 +17,17 @@
 //   dQ = scale * sum_k bf16(ds) . k, written in q's dtype
 //   dV = sum_q bf16(p)^T . dO,  dK = scale * sum_q bf16(ds)^T . q,
 //        written in k/v's dtype.
+// exp is 2^x on the SFU (ex2.approx) with log2(e) folded into the scale and
+// into lse: p = 2^(s_raw * scale * log2 e - lse * log2 e), one fma. The
+// change is an fp32 rounding of the exponent and the SFU's ~2 ulp.
 // GQA by index: q-head h reads kv-head h / (H / K). The TPU version writes
 // per-q-head fp32 dK/dV partials [B*H, S_pad, hd] and sums each group
 // outside the kernel; here one block owns a kv-head's key tile and loops
 // over the group's q-heads, so the group sum stays in fp32 registers and
-// never makes an fp32 round trip through device memory.
-// Ragged S is masked in-kernel: rows past S are staged as zeros and give
-// p = 0; only rows < S are written. No padding copies.
+// never makes an fp32 round trip through device memory. No atomics: each
+// output element is written by one thread, so runs are deterministic.
+// Ragged S is masked in-kernel: TMA lands rows past S as zeros, masked
+// pairs give p = 0, and only rows < S are written. No padding copies.
 //
 // Bound on an H100 SXM at the training shape (B=4, S=4096, H=16, K=8,
 // hd=128, causal, bf16), over the S(S+1)/2 unmasked pairs of every (b, h):
@@ -31,61 +36,94 @@
 //          3.35 TB/s = 0.08 ms;
 //   dK/dV: 4 products (K.Q^T, V.dO^T, P^T.dO, dS^T.Q) = 8*hd FLOP a pair,
 //          0.55 TFLOP = 0.56 ms; ~0.27 GB = 0.08 ms.
-// Both compute-bound: the tensor cores decide.
+// Both compute-bound: the tensor cores decide, and only wgmma reaches
+// their full rate.
 //
-// Design: the simple form that is right first (no wgmma, TMA or cp.async
-// pipelining; loads and math do not overlap).
-//   * dQ: one block of 4 warps per (b*h, 64-row q tile), each warp owning
-//     16 q rows. Q and dO are staged once in shared memory; the tile's lse
-//     and D sit in registers. The block walks 64-key K/V tiles up to the
-//     diagonal (all of S when non-causal). Q.K^T and dO.V^T run as
-//     mma.sync m16n8k16 (bf16 in, fp32 accumulate); the accumulator
-//     fragment of dS is re-packed in registers as the A fragment of dS.K,
-//     so P and dS never touch shared memory. dQ accumulates in fp32
-//     registers. Grid y runs the heaviest causal tiles first.
-//   * dK/dV: one block of 4 warps per (b*kv-head, 64-key tile), each warp
-//     owning 16 keys. The K/V tile stays in shared memory; dK and dV
-//     accumulate in fp32 registers. The block loops over the GQA group's
-//     q-heads and, for each, over 32-row q tiles from the diagonal on,
-//     computing the transposed products K.Q^T and V.dO^T so that keys are
-//     the fragment rows; P^T and dS^T are re-packed in registers as the A
-//     fragments of P^T.dO and dS^T.Q.
-//   * Shared-memory rows are padded by 16 bytes so fragment reads hit
-//     distinct banks; both kernels use dynamic shared memory above the
-//     48 KB static limit (68 KB and 52.5 KB at hd=128).
+// Design:
+//   * Both kernels: one block of three warpgroups. Warpgroups 0 and 1 are
+//     consumers that own 64 rows of the block's 128-row tile each;
+//     warpgroup 2 is the producer. The roles split in one if/else at the
+//     top, so setmaxnreg moves registers from the producer (24) to the
+//     consumers (240). All loads are TMA boxes of 64 rows by 64 bf16
+//     (128 bytes, the 128-byte swizzle) through 4-D tensor maps over
+//     (hd, heads, S, B) built by the wrapper; a 128-row tile is two boxes,
+//     a 128-wide head two panels.
+//   * Every product is wgmma. Products whose depth is hd read both
+//     operands K-major from shared memory (m64n64k16): S = Q.K^T and
+//     dP = dO.V^T in dQ, S^T = K.Q^T and dP^T = V.dO^T in dK/dV. Products
+//     whose depth is keys or q rows take P or dS from registers (the
+//     accumulator fragment re-packed as bf16 pairs) and read the other
+//     operand MN-major from the same swizzled tile through the transpose
+//     flag (m64n{hd}k16): dQ += dS.K; dV += P^T.dO and dK += dS^T.Q.
+//     Nothing is transposed in memory, and P and dS never touch shared
+//     memory.
+//   * The softmax runs on the accumulator in registers with one fma and
+//     one ex2 an element; only the causal diagonal tiles and the ragged
+//     last tile evaluate the mask.
+//   * dK/dV: a block owns (b, kv-head, 128-key tile). The producer loads
+//     the K and V tiles once, then, for each q-head of the GQA group,
+//     streams 64-row Q and dO tiles (from the diagonal tile on when
+//     causal) through a three-stage ring with a full and an empty mbarrier
+//     a slot. One producer warp also stages each tile's lse (times log2 e)
+//     and D, [B, H, S] fp32, into the slot with plain loads (zeros past S):
+//     a TMA map over them would need S * 4 bytes to be a multiple of 16.
+//     Its 32 arrivals, one of them the TMA's expect_tx, complete the
+//     slot's full barrier. Keys are the accumulator rows of S^T, so dK and
+//     dV build up in registers with no transpose. The two consumer
+//     warpgroups take turns to issue their products (a ping-pong over two
+//     named barriers), so one's softmax runs while the other's products
+//     hold the tensor cores. Grid y walks key tiles from the first, the
+//     heaviest under the causal mask.
+//   * dQ: a block owns (b, q-head, 128-row q tile). The producer loads Q
+//     and dO once, then K and V tiles of 64 keys (up to the diagonal when
+//     causal) into a three-stage ring, with a full and an empty barrier
+//     for each K and each V slot. Each consumer thread reads lse and D of
+//     its two rows once into registers. Inside a warpgroup, dQ += dS.K of
+//     one tile runs beside S and dP of the next, whose softmax runs beside
+//     them (no ping-pong: it made this kernel slower). Grid y walks q
+//     tiles from the last, the heaviest.
+//   * Shared memory at hd=128: dK/dV 2 x 32 KB (K, V) + 3 x (16 + 16 KB)
+//     (Q, dO) + 1.5 KB (lse, D) = 161.5 KB; dQ 2 x 32 KB (Q, dO) + 3 x
+//     (16 + 16 KB) (K, V) = 160 KB.
 //   * bf16 only. fp32 inputs are refused by the wrapper.
+//
+// The launch geometry (grids, threads, shared-memory bytes, tensor maps)
+// is computed by the Python wrapper (ops/flash_attention.py, bwd_plan);
+// the C entries check it against the kernels' tiling before launching.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;
-constexpr int kDqBM = 64;   // q rows of a dQ block (16 per warp)
-constexpr int kDqBN = 64;   // keys of a K/V tile in the dQ loop
-constexpr int kDkvBN = 64;  // keys of a dK/dV block (16 per warp)
-constexpr int kDkvBM = 32;  // q rows of a tile in the dK/dV loop
-constexpr int kStrides = 21;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kThreads = 384;    // two consumer warpgroups and a producer
+constexpr int kConsumers = 256;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kPanel = 64;       // bf16 columns of one 128-byte swizzled box
+constexpr uint32_t kRowBytes = 128;
+constexpr int kBoxRows = 64;     // rows of every TMA box
+constexpr int kStages = 3;       // ring depth of both kernels
+constexpr int kDqBM = 128;       // q rows of a dQ block
+constexpr int kDqBN = 64;        // keys of a K/V tile in the dQ loop
+constexpr int kDkvBN = 128;      // keys of a dK/dV block
+constexpr int kDkvBM = 64;       // q rows of a Q/dO tile in the dK/dV loop
 
 struct Params {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* dout;
   const float* lse;   // [B, H, S] fp32
   const float* dsum;  // [B, H, S] fp32: rowsum(dO * O)
   bf16* dq;
   bf16* dk;
   bf16* dv;
   int B, S, H, KH;
-  // Element strides of dims (b, s, head) of q, k, v, dout, dq, dk, dv.
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  long long do_sb, do_ss, do_sh;
+  // Element strides of dims (b, s, head) of dq, dk, dv.
   long long dq_sb, dq_ss, dq_sh;
   long long dk_sb, dk_ss, dk_sh;
   long long dv_sb, dv_ss, dv_sh;
@@ -93,202 +131,78 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ uint32_t ld32(const bf16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
+template <int HD>
+constexpr size_t dq_smem_bytes() {
+  // 1024 bytes of slack align the tiles to the swizzle atom; Q and dO,
+  // then the K and V ring; barriers: Q/dO, K/V full, K/V empty.
+  return 1024 + 2 * (2 * kDqBM * HD + 2 * kStages * kDqBN * HD) +
+         8 * (1 + 4 * kStages);
 }
-
-__device__ __forceinline__ uint32_t pack(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  return pack(__floats2bfloat162_rn(lo, hi));
-}
-
-// D += A (16x16, row) * B (16x8, col); bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment of rows [r, r + 16) and columns [c, c + 16) of a
-// row-major shared-memory tile with row stride LD (lane: g = lane / 4,
-// t = lane % 4).
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
-                                       int r, int c, int g, int t) {
-  const bf16* p = tile + (r + g) * LD + c + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * LD);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * LD + 8);
-}
-
-// The B fragment (16 deep x 8 wide) whose column n is row (r + n) of the
-// tile, read along the row from column c: B = tile[r:r+8, c:c+16]^T.
-template <int LD>
-__device__ __forceinline__ void load_b_rows(uint32_t& b0, uint32_t& b1,
-                                            const bf16* tile, int r, int c,
-                                            int g, int t) {
-  const bf16* p = tile + (r + g) * LD + c + 2 * t;
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
-
-// The B fragment (16 deep x 8 wide) taken as it lies in the tile: rows
-// [r, r + 16) are the depth, columns [c, c + 8) the width.
-template <int LD>
-__device__ __forceinline__ void load_b_cols(uint32_t& b0, uint32_t& b1,
-                                            const bf16* tile, int r, int c,
-                                            int g, int t) {
-  const bf16* p = tile + (r + 2 * t) * LD + c + g;
-  b0 = pack(__halves2bfloat162(p[0], p[LD]));
-  b1 = pack(__halves2bfloat162(p[8 * LD], p[9 * LD]));
-}
-
-// Stage rows [s0, s0 + ROWS) of one head into shared memory (row stride
-// LD elements) with 16-byte loads; rows at or past S become zeros.
-template <int ROWS, int HD, int LD>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* src,
-                                      long long row_stride, int s0, int S) {
-  constexpr int kChunks = HD / 8;
-#pragma unroll 4
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
-    const int row = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    const int s = s0 + row;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S) {
-      val = *reinterpret_cast<const uint4*>(src + s * row_stride + col);
-    }
-    *reinterpret_cast<uint4*>(dst + row * LD + col) = val;
-  }
-}
-
-__device__ __forceinline__ bool pair_valid(const Params& p, int kpos,
-                                           int qpos) {
-  return kpos < p.S && qpos < p.S && (!p.causal || kpos <= qpos);
-}
-
-// ------------------------------------------------------------------ dQ
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16(Params p) {
-  constexpr int BM = kDqBM, BN = kDqBN;
-  constexpr int LD = HD + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + BM * LD;
-  bf16* Ks = dOs + BM * LD;
-  bf16* Vs = Ks + BN * LD;
+constexpr size_t dkv_smem_bytes() {
+  // Slack; K and V, then the Q and dO ring and each slot's lse and D;
+  // barriers: K/V, slot full, slot empty.
+  return 1024 + 2 * (2 * kDkvBN * HD + 2 * kStages * kDkvBM * HD) +
+         4 * 2 * kStages * kDkvBM + 8 * (1 + 2 * kStages);
+}
 
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
-  const int bh = blockIdx.x;
-  const int b = bh / p.H, h = bh % p.H;
-  const int kh = h / (p.H / p.KH);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  stage<BM, HD, LD>(Qs, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.S);
-  stage<BM, HD, LD>(dOs, p.dout + b * p.do_sb + h * p.do_sh, p.do_ss, q0,
-                    p.S);
-  const bf16* k = p.k + b * p.k_sb + kh * p.k_sh;
-  const bf16* v = p.v + b * p.v_sb + kh * p.v_sh;
-
-  // This thread's rows: warp * 16 + g and + 8 of the tile.
-  const int qr = warp * 16;
-  const int qpos[2] = {q0 + qr + g, q0 + qr + g + 8};
-  float lse[2], dsum[2];
+// P^T or dS^T of one 16-wide slice of the accumulator's columns as the
+// register-A operand: the C fragments of columns 16kk..16kk+15 in bf16.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
+                                       const float (&x)[32]) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const long long i = static_cast<long long>(bh) * p.S + qpos[r];
-    lse[r] = qpos[r] < p.S ? p.lse[i] : 0.f;
-    dsum[r] = qpos[r] < p.S ? p.dsum[i] : 0.f;
-  }
-
-  float dq[HD / 8][4];
+  for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-  for (int nd = 0; nd < HD / 8; ++nd) {
-    dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
-  }
-
-  const int q_end = min(q0 + BM, p.S);
-  const int n_kt = p.causal ? (q_end + BN - 1) / BN : (p.S + BN - 1) / BN;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    stage<BN, HD, LD>(Ks, k, p.k_ss, k0, p.S);
-    stage<BN, HD, LD>(Vs, v, p.v_ss, k0, p.S);
-    __syncthreads();
-
-    // s = Q . K^T and dp = dO . V^T for 16 rows x 64 keys.
-    float s[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a<LD>(qa, Qs, qr, kk * 16, g, t);
-      load_a<LD>(da, dOs, qr, kk * 16, g, t);
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        uint32_t b0, b1;
-        load_b_rows<LD>(b0, b1, Ks, j * 8, kk * 16, g, t);
-        mma_bf16(s[j], qa, b0, b1);
-        load_b_rows<LD>(b0, b1, Vs, j * 8, kk * 16, g, t);
-        mma_bf16(dp[j], da, b0, b1);
-      }
-    }
-
-    // ds = p * (dp - D), kept in s.
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int kpos = k0 + j * 8 + 2 * t + (e & 1);
-        const float pv = pair_valid(p, kpos, qpos[r])
-                             ? expf(s[j][e] * p.scale - lse[r])
-                             : 0.f;
-        s[j][e] = pv * (dp[j][e] - dsum[r]);
-      }
-    }
-
-    // dq += bf16(ds) . K: two adjacent n-tiles of ds are the A fragment
-    // of one 16-key slice.
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t sa[4] = {
-          pack2(s[2 * kk][0], s[2 * kk][1]),
-          pack2(s[2 * kk][2], s[2 * kk][3]),
-          pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack2(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
-#pragma unroll
-      for (int nd = 0; nd < HD / 8; ++nd) {
-        uint32_t b0, b1;
-        load_b_cols<LD>(b0, b1, Ks, kk * 16, nd * 8, g, t);
-        mma_bf16(dq[nd], sa, b0, b1);
-      }
+    for (int i = 0; i < 4; ++i) {
+      a[kk][i] = hopper::pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
     }
   }
+}
 
+// Both kernels multiply the 64 rows of a 128-row tile that a consumer
+// warpgroup owns (A) with a 64-row tile of the ring (B), or registers
+// with such a tile. Tiles are rows of 128-byte swizzled panels, 64
+// columns each; a panel of an R-row tile is R * 128 bytes.
+static_assert(kDqBM == 128 && kDkvBN == 128 && kDqBN == 64 && kDkvBM == 64,
+              "the product helpers below assume 128- and 64-row tiles");
+
+// D (64 x 64) = A (64 rows x hd) . B (64 rows x hd)^T in hd/16 steps,
+// both K-major; `a` is the warpgroup's first row of a 128-row tile, `b`
+// a 64-row tile. Async, committed as one group.
+template <int HD>
+__device__ __forceinline__ void wgmma_rows_nt(float (&d)[32], uint32_t a,
+                                              uint32_t b) {
+  using namespace hopper;
+  wgmma_fence();
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (qpos[r] >= p.S) continue;
-    bf16* out = p.dq + b * p.dq_sb + qpos[r] * p.dq_ss + h * p.dq_sh + 2 * t;
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;  // bytes into the 128-byte row
+    const uint64_t da =
+        desc_b128(a + (kk / 4) * 128 * kRowBytes + col, 16, 1024);
+    const uint64_t db =
+        desc_b128(b + (kk / 4) * 64 * kRowBytes + col, 16, 1024);
+    wgmma_ss_n64(d, da, db, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// D (64 x hd) += A (64 x 64, registers, 16 columns a step) . B, a 64-row
+// tile read MN-major (its rows are the depth, its 128-byte rows N). Async,
+// not committed.
+template <int HD>
+__device__ __forceinline__ void wgmma_regs_tile(float (&d)[HD / 2],
+                                                const uint32_t (&a)[4][4],
+                                                uint32_t b) {
+  using namespace hopper;
 #pragma unroll
-    for (int nd = 0; nd < HD / 8; ++nd) {
-      *reinterpret_cast<__nv_bfloat162*>(out + nd * 8) =
-          __floats2bfloat162_rn(dq[nd][2 * r] * p.scale,
-                                dq[nd][2 * r + 1] * p.scale);
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db =
+        desc_b128(b + kk * 16 * kRowBytes, 64 * kRowBytes, 1024);
+    if constexpr (HD == 128) {
+      wgmma_rs_n128(d, a[kk], db);
+    } else {
+      wgmma_rs_n64(d, a[kk], db);
     }
   }
 }
@@ -296,213 +210,475 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16(Params p) {
 // --------------------------------------------------------------- dK/dV
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16(Params p) {
-  constexpr int BN = kDkvBN, BM = kDkvBM;
-  constexpr int LD = HD + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + BN * LD;
-  bf16* Qs = Vs + BN * LD;
-  bf16* dOs = Qs + BM * LD;
-  float* lse_s = reinterpret_cast<float*>(dOs + BM * LD);
-  float* dsum_s = lse_s + BM;
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const Params p) {
+  using namespace hopper;
+  constexpr int kPanels = HD / kPanel;
+  constexpr uint32_t kKVBytes = kDkvBN * HD * 2;  // the K or the V tile
+  constexpr uint32_t kQBytes = kDkvBM * HD * 2;   // one Q or dO tile
+  constexpr int kRowFloats = 2 * kDkvBM;          // a slot's lse and D
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sk = (raw + 1023u) & ~1023u;
+  const uint32_t sv = sk + kKVBytes;
+  const uint32_t sq = sv + kKVBytes;              // slot s: + s * kQBytes
+  const uint32_t sdo = sq + kStages * kQBytes;
+  const uint32_t srows = sdo + kStages * kQBytes;
+  const uint32_t bars = srows + 4 * kStages * kRowFloats;
+  float* rows = reinterpret_cast<float*>(smem_raw + (srows - raw));
+  const uint32_t kv_full = bars;
+  auto full = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + kStages + s); };
 
-  const int k0 = blockIdx.y * BN;
+  const int k0 = blockIdx.y * kDkvBN;
   const int bk = blockIdx.x;
   const int b = bk / p.KH, kh = bk % p.KH;
   const int group = p.H / p.KH;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  // Causal: q tiles wholly above the diagonal see none of these keys.
+  const int first_qt = p.causal ? k0 / kDkvBM : 0;
+  const int n_qt = (p.S + kDkvBM - 1) / kDkvBM - first_qt;  // a q-head
+  const int n_it = group * n_qt;
+  const int wg = threadIdx.x / 128;
 
-  stage<BN, HD, LD>(Ks, p.k + b * p.k_sb + kh * p.k_sh, p.k_ss, k0, p.S);
-  stage<BN, HD, LD>(Vs, p.v + b * p.v_sb + kh * p.v_sh, p.v_ss, k0, p.S);
-
-  // This thread's keys: rows warp * 16 + g and + 8 of the tile.
-  const int kr = warp * 16;
-  const int kpos[2] = {k0 + kr + g, k0 + kr + g + 8};
-
-  float dk[HD / 8][4], dv[HD / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < HD / 8; ++nd) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[nd][e] = dv[nd][e] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 32);  // the producer warp's lanes
+      mbar_init(empty(s), kConsumers);
+    }
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  const int n_qt = (p.S + BM - 1) / BM;
-  // Causal: q tiles wholly above the diagonal see none of this key tile.
-  const int first_qt = p.causal ? k0 / BM : 0;
-  for (int hq = kh * group; hq < (kh + 1) * group; ++hq) {
-    const bf16* q = p.q + b * p.q_sb + hq * p.q_sh;
-    const bf16* dout = p.dout + b * p.do_sb + hq * p.do_sh;
-    const long long row0 = (static_cast<long long>(b) * p.H + hq) * p.S;
-    for (int qt = first_qt; qt < n_qt; ++qt) {
-      const int q0 = qt * BM;
-      __syncthreads();  // every warp is done with the previous q tile
-      stage<BM, HD, LD>(Qs, q, p.q_ss, q0, p.S);
-      stage<BM, HD, LD>(dOs, dout, p.do_ss, q0, p.S);
-      if (threadIdx.x < BM) {
-        const int s = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = s < p.S ? p.lse[row0 + s] : 0.f;
-        dsum_s[threadIdx.x] = s < p.S ? p.dsum[row0 + s] : 0.f;
-      }
-      __syncthreads();
-
-      // s^T = K . Q^T and dp^T = V . dO^T for 16 keys x 32 q rows.
-      float s[BM / 8][4], dp[BM / 8][4];
-#pragma unroll
-      for (int j = 0; j < BM / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t ka[4], va[4];
-        load_a<LD>(ka, Ks, kr, kk * 16, g, t);
-        load_a<LD>(va, Vs, kr, kk * 16, g, t);
-#pragma unroll
-        for (int j = 0; j < BM / 8; ++j) {
-          uint32_t b0, b1;
-          load_b_rows<LD>(b0, b1, Qs, j * 8, kk * 16, g, t);
-          mma_bf16(s[j], ka, b0, b1);
-          load_b_rows<LD>(b0, b1, dOs, j * 8, kk * 16, g, t);
-          mma_bf16(dp[j], va, b0, b1);
+  if (wg == 2) {
+    // ---- producer: warp 0 stages lse and D, its lane 0 issues the TMA.
+    setmaxnreg_dec<kProducerRegs>();
+    const int lane = threadIdx.x - 2 * 128;
+    if (lane < 32) {
+      if (lane == 0) {
+        // Boxes wholly past S are not loaded: their rows are keys whose
+        // dK/dV rows are never written, and nothing else reads them.
+        const int n_box = min(kDkvBN, p.S - k0 + kBoxRows - 1) / kBoxRows;
+        mbar_expect_tx(kv_full, 2 * kPanels * n_box * kBoxRows * kRowBytes);
+        for (int c = 0; c < kPanels; ++c) {
+          for (int r = 0; r < n_box * kBoxRows; r += kBoxRows) {
+            const uint32_t off = (c * kDkvBN + r) * kRowBytes;
+            tma_load_4d(sk + off, &tm_k, kv_full, c * kPanel, kh, k0 + r, b);
+            tma_load_4d(sv + off, &tm_v, kv_full, c * kPanel, kh, k0 + r, b);
+          }
         }
       }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kStages;
+        const int hq = kh * group + it / n_qt;
+        const int q0 = (first_qt + it % n_qt) * kDkvBM;
+        // The n-th fill of a slot waits for the (n-1)-th release.
+        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        const long long row0 = (static_cast<long long>(b) * p.H + hq) * p.S;
+        float* slot = rows + s * kRowFloats;
+        for (int r = lane; r < kDkvBM; r += 32) {
+          const bool in = q0 + r < p.S;
+          slot[r] = in ? p.lse[row0 + q0 + r] * kLog2e : 0.f;
+          slot[kDkvBM + r] = in ? p.dsum[row0 + q0 + r] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(full(s), 2 * kQBytes);
+          for (int c = 0; c < kPanels; ++c) {
+            const uint32_t off = s * kQBytes + c * kDkvBM * kRowBytes;
+            tma_load_4d(sq + off, &tm_q, full(s), c * kPanel, hq, q0, b);
+            tma_load_4d(sdo + off, &tm_do, full(s), c * kPanel, hq, q0, b);
+          }
+        } else {
+          mbar_arrive(full(s));
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns keys k0 + 64 wg .. + 63.
+    setmaxnreg_inc<kConsumerRegs>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int key0 = k0 + 64 * wg;
+    const int kpos[2] = {key0 + 16 * warp + g, key0 + 16 * warp + g + 8};
+    const uint32_t sk_wg = sk + 64 * wg * kRowBytes;
+    const uint32_t sv_wg = sv + 64 * wg * kRowBytes;
+    const float scale_log2 = p.scale * kLog2e;
+    // Ping-pong: the two warpgroups take turns to issue their products
+    // (named barrier 1 + wg is this warpgroup's turn), so that one's
+    // softmax runs while the other's wgmma holds the tensor cores.
+    const int my_turn = 1 + wg, other_turn = 2 - wg;
 
-      // p^T in s (fp32), ds^T = p^T * (dp^T - D) in dp.
+    float dk[HD / 2], dv[HD / 2];
 #pragma unroll
-      for (int j = 0; j < BM / 8; ++j) {
+    for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+    float st[32];        // S^T, then P^T: 64 keys x 64 q rows
+    float dpt[32];       // dP^T, then dS^T
+    uint32_t pa[4][4];   // bf16(P^T): dV's register A
+    uint32_t sa[4][4];   // bf16(dS^T): dK's register A
+
+    if (wg == 1) named_arrive(other_turn, kConsumers);  // warpgroup 0 first
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % kStages;
+      const int q0 = (first_qt + it % n_qt) * kDkvBM;
+      const float* slot = rows + s * kRowFloats;
+      mbar_wait(full(s), (it / kStages) & 1);
+      named_sync(my_turn, kConsumers);
+      wgmma_rows_nt<HD>(st, sk_wg, sq + s * kQBytes);     // S^T = K.Q^T
+      wgmma_rows_nt<HD>(dpt, sv_wg, sdo + s * kQBytes);   // dP^T = V.dO^T
+      named_arrive(other_turn, kConsumers);
+      // P^T runs on the SFU while V.dO^T holds the tensor cores.
+      wgmma_wait<1>();
+      fence_operands(st);
+      const bool masked = q0 + kDkvBM > p.S || (p.causal && q0 < key0 + 63);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 lse2 =
+            *reinterpret_cast<const float2*>(slot + 8 * j + 2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int col = j * 8 + 2 * t + (e & 1);
-          const float pv = pair_valid(p, kpos[e >> 1], q0 + col)
-                               ? expf(s[j][e] * p.scale - lse_s[col])
-                               : 0.f;
-          s[j][e] = pv;
-          dp[j][e] = pv * (dp[j][e] - dsum_s[col]);
+          float x = ex2(fmaf(st[4 * j + e], scale_log2,
+                             -((e & 1) ? lse2.y : lse2.x)));
+          if (masked) {
+            const int qpos = q0 + 8 * j + 2 * t + (e & 1);
+            if (qpos >= p.S || (p.causal && kpos[e >> 1] > qpos)) x = 0.f;
+          }
+          st[4 * j + e] = x;
         }
       }
-
-      // dv += bf16(p^T) . dO and dk += bf16(ds^T) . Q over 16-row slices
-      // of the q tile.
+      wgmma_wait<0>();
+      fence_operands(dpt);
 #pragma unroll
-      for (int kk = 0; kk < BM / 16; ++kk) {
-        const uint32_t pa[4] = {
-            pack2(s[2 * kk][0], s[2 * kk][1]),
-            pack2(s[2 * kk][2], s[2 * kk][3]),
-            pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-            pack2(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-        };
-        const uint32_t sa[4] = {
-            pack2(dp[2 * kk][0], dp[2 * kk][1]),
-            pack2(dp[2 * kk][2], dp[2 * kk][3]),
-            pack2(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-            pack2(dp[2 * kk + 1][2], dp[2 * kk + 1][3]),
-        };
+      for (int j = 0; j < 8; ++j) {
+        const float2 d = *reinterpret_cast<const float2*>(
+            slot + kDkvBM + 8 * j + 2 * t);
 #pragma unroll
-        for (int nd = 0; nd < HD / 8; ++nd) {
-          uint32_t b0, b1;
-          load_b_cols<LD>(b0, b1, dOs, kk * 16, nd * 8, g, t);
-          mma_bf16(dv[nd], pa, b0, b1);
-          load_b_cols<LD>(b0, b1, Qs, kk * 16, nd * 8, g, t);
-          mma_bf16(dk[nd], sa, b0, b1);
+        for (int e = 0; e < 4; ++e) {
+          dpt[4 * j + e] =
+              st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? d.y : d.x));
         }
+      }
+      pack_a(pa, st);
+      pack_a(sa, dpt);
+      named_sync(my_turn, kConsumers);
+      wgmma_fence();
+      wgmma_regs_tile<HD>(dv, pa, sdo + s * kQBytes);   // dV += P^T.dO
+      wgmma_regs_tile<HD>(dk, sa, sq + s * kQBytes);    // dK += dS^T.Q
+      wgmma_commit();
+      // Every sync on a turn meets one arrival: warpgroup 1 arrived once
+      // before its first turn, so it skips the arrival after its last.
+      if (wg == 0 || it + 1 < n_it) named_arrive(other_turn, kConsumers);
+      wgmma_wait<0>();
+      fence_operands(dv);
+      fence_operands(dk);
+      mbar_arrive(empty(s));
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (kpos[r] >= p.S) continue;
+      bf16* dk_out =
+          p.dk + b * p.dk_sb + kpos[r] * p.dk_ss + kh * p.dk_sh + 2 * t;
+      bf16* dv_out =
+          p.dv + b * p.dv_sb + kpos[r] * p.dv_ss + kh * p.dv_sh + 2 * t;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dk_out + 8 * j) =
+            __floats2bfloat162_rn(dk[4 * j + 2 * r] * p.scale,
+                                  dk[4 * j + 2 * r + 1] * p.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv_out + 8 * j) =
+            __floats2bfloat162_rn(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
       }
     }
   }
+}
+
+// ------------------------------------------------------------------ dQ
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const Params p) {
+  using namespace hopper;
+  constexpr int kPanels = HD / kPanel;
+  constexpr uint32_t kQBytes = kDqBM * HD * 2;   // the Q or the dO tile
+  constexpr uint32_t kKVBytes = kDqBN * HD * 2;  // one K or V tile
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sdo = sq + kQBytes;
+  const uint32_t sk = sdo + kQBytes;              // slot s: + s * kKVBytes
+  const uint32_t sv = sk + kStages * kKVBytes;
+  const uint32_t bars = sv + kStages * kKVBytes;  // 8 bytes each
+  const uint32_t q_full = bars;
+  auto k_full = [&](int s) { return bars + 8u * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8u * (1 + kStages + s); };
+  auto k_empty = [&](int s) { return bars + 8u * (1 + 2 * kStages + s); };
+  auto v_empty = [&](int s) { return bars + 8u * (1 + 3 * kStages + s); };
+
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqBM;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H, h = bh % p.H;
+  const int kh = h / (p.H / p.KH);
+  const int q_end = min(q0 + kDqBM, p.S);
+  const int n_kt = ((p.causal ? q_end : p.S) + kDqBN - 1) / kDqBN;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), kConsumers);
+      mbar_init(v_empty(s), kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread issues every load.
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 2 * 128) {
+      // Boxes wholly past S are not loaded: their rows are q rows whose
+      // dQ rows are never written, and nothing else reads them.
+      const int n_box = min(kDqBM, p.S - q0 + kBoxRows - 1) / kBoxRows;
+      mbar_expect_tx(q_full, 2 * kPanels * n_box * kBoxRows * kRowBytes);
+      for (int c = 0; c < kPanels; ++c) {
+        for (int r = 0; r < n_box * kBoxRows; r += kBoxRows) {
+          const uint32_t off = (c * kDqBM + r) * kRowBytes;
+          tma_load_4d(sq + off, &tm_q, q_full, c * kPanel, h, q0 + r, b);
+          tma_load_4d(sdo + off, &tm_do, q_full, c * kPanel, h, q0 + r, b);
+        }
+      }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kStages;
+        // The n-th fill of a slot waits for the (n-1)-th release.
+        const uint32_t parity = ((kt / kStages) & 1) ^ 1;
+        const uint32_t off = s * kKVBytes;
+        mbar_wait(k_empty(s), parity);
+        mbar_expect_tx(k_full(s), kKVBytes);
+        for (int c = 0; c < kPanels; ++c) {
+          tma_load_4d(sk + off + c * kDqBN * kRowBytes, &tm_k, k_full(s),
+                      c * kPanel, kh, kt * kDqBN, b);
+        }
+        mbar_wait(v_empty(s), parity);
+        mbar_expect_tx(v_full(s), kKVBytes);
+        for (int c = 0; c < kPanels; ++c) {
+          tma_load_4d(sv + off + c * kDqBN * kRowBytes, &tm_v, v_full(s),
+                      c * kPanel, kh, kt * kDqBN, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63.
+    setmaxnreg_inc<kConsumerRegs>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = q0 + 64 * wg;
+    const int qpos[2] = {row0 + 16 * warp + g, row0 + 16 * warp + g + 8};
+    const uint32_t sq_wg = sq + 64 * wg * kRowBytes;
+    const uint32_t sdo_wg = sdo + 64 * wg * kRowBytes;
+    const float scale_log2 = p.scale * kLog2e;
+    float lse2[2], dsum[2];  // lse in base-2 units; D
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const long long i = static_cast<long long>(bh) * p.S + qpos[r];
+      lse2[r] = qpos[r] < p.S ? p.lse[i] * kLog2e : 0.f;
+      dsum[r] = qpos[r] < p.S ? p.dsum[i] : 0.f;
+    }
+
+    float dq[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+    float sc[32];        // S, then P, then dS: 64 q rows x 64 keys
+    float dp[32];        // dP
+    uint32_t da[4][4];   // bf16(dS): dQ's register A
+
+    // S = Q.K_kt^T and dP = dO.V_kt^T, each once its tile has landed.
+    auto issue_s = [&](int kt) {
+      const int s = kt % kStages;
+      mbar_wait(k_full(s), (kt / kStages) & 1);
+      wgmma_rows_nt<HD>(sc, sq_wg, sk + s * kKVBytes);
+    };
+    auto issue_dp = [&](int kt) {
+      const int s = kt % kStages;
+      mbar_wait(v_full(s), (kt / kStages) & 1);
+      wgmma_rows_nt<HD>(dp, sdo_wg, sv + s * kKVBytes);
+    };
+    // dQ += dS . K_kt.
+    auto issue_dq = [&](int kt) {
+      wgmma_fence();
+      wgmma_regs_tile<HD>(dq, da, sk + (kt % kStages) * kKVBytes);
+      wgmma_commit();
+    };
+    // P = 2^(s * scale * log2 e - lse * log2 e) in sc; masked pairs 0.
+    auto softmax = [&](int kt) {
+      const int k0 = kt * kDqBN;
+      const bool masked =
+          k0 + kDqBN > p.S || (p.causal && k0 + kDqBN - 1 > row0);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        float x = ex2(fmaf(sc[i], scale_log2, -lse2[r]));
+        if (masked) {
+          const int kpos = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+          if (kpos >= p.S || (p.causal && kpos > qpos[r])) x = 0.f;
+        }
+        sc[i] = x;
+      }
+    };
+    // dS = P * (dP - D) in sc.
+    auto grad_s = [&]() {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] *= dp[i] - dsum[(i >> 1) & 1];
+    };
+
+    mbar_wait(q_full, 0);
+    issue_s(0);
+    issue_dp(0);
+    wgmma_wait<1>();
+    fence_operands(sc);
+    softmax(0);
+    wgmma_wait<0>();
+    fence_operands(dp);
+    mbar_arrive(v_empty(0));
+    grad_s();
+    pack_a(da, sc);
+    for (int kt = 1; kt < n_kt; ++kt) {
+      // S and dP of this tile run beside dQ of the last one, and this
+      // tile's softmax beside dP and that dQ.
+      issue_s(kt);
+      issue_dp(kt);
+      issue_dq(kt - 1);
+      wgmma_wait<2>();
+      fence_operands(sc);
+      softmax(kt);
+      wgmma_wait<1>();
+      fence_operands(dp);
+      mbar_arrive(v_empty(kt % kStages));
+      grad_s();
+      wgmma_wait<0>();
+      fence_operands(dq);
+      mbar_arrive(k_empty((kt - 1) % kStages));
+      pack_a(da, sc);
+    }
+    issue_dq(n_kt - 1);
+    wgmma_wait<0>();
+    fence_operands(dq);
+    mbar_arrive(k_empty((n_kt - 1) % kStages));
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (kpos[r] >= p.S) continue;
-    bf16* dk_out =
-        p.dk + b * p.dk_sb + kpos[r] * p.dk_ss + kh * p.dk_sh + 2 * t;
-    bf16* dv_out =
-        p.dv + b * p.dv_sb + kpos[r] * p.dv_ss + kh * p.dv_sh + 2 * t;
+    for (int r = 0; r < 2; ++r) {
+      if (qpos[r] >= p.S) continue;
+      bf16* out = p.dq + b * p.dq_sb + qpos[r] * p.dq_ss + h * p.dq_sh + 2 * t;
 #pragma unroll
-    for (int nd = 0; nd < HD / 8; ++nd) {
-      *reinterpret_cast<__nv_bfloat162*>(dk_out + nd * 8) =
-          __floats2bfloat162_rn(dk[nd][2 * r] * p.scale,
-                                dk[nd][2 * r + 1] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv_out + nd * 8) =
-          __floats2bfloat162_rn(dv[nd][2 * r], dv[nd][2 * r + 1]);
+      for (int j = 0; j < HD / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+            __floats2bfloat162_rn(dq[4 * j + 2 * r] * p.scale,
+                                  dq[4 * j + 2 * r + 1] * p.scale);
+      }
     }
   }
 }
 
-template <int HD>
-size_t dq_smem() {
-  return (2 * kDqBM + 2 * kDqBN) * (HD + 8) * sizeof(bf16);
-}
+// ---------------------------------------------------------------- host
 
-template <int HD>
-size_t dkv_smem() {
-  return (2 * kDkvBN + 2 * kDkvBM) * (HD + 8) * sizeof(bf16) +
-         2 * kDkvBM * sizeof(float);
-}
+// The wrapper's launch plan: dQ grid x, y; dK/dV grid x, y; threads; dQ
+// and dK/dV shared-memory bytes; then four tensor maps of 12 values each,
+// for q, k, v, dO: dims[4] (hd, heads, S, B), byte strides[3], box[4],
+// swizzle bytes.
+constexpr int kGeomHead = 7;
+constexpr int kMapLen = 12;
+constexpr long long kMaxSmem = 232448;
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const Params& p,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
+using Kernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap,
+                        Params);
+
+// Checks the plan's maps against the kernels' tiling (a box that never
+// lands would leave a wait that never completes), encodes them, and
+// launches `kernel` on the grid (gx, gy) with `smem` bytes.
+int launch(Kernel kernel, const Params& p, const void* const* operands,
+           int hd, const long long* g, long long gx, long long gy,
+           size_t smem_needed, long long smem, cudaStream_t stream) {
+  const int heads[4] = {p.H, p.KH, p.KH, p.H};  // q, k, v, dO
+  if (g[4] != kThreads || smem < static_cast<long long>(smem_needed) ||
+      smem > kMaxSmem || gx < 1 || gy < 1) {
+    return cudaErrorInvalidValue;
+  }
+  CUtensorMap maps[4];
+  for (int i = 0; i < 4; ++i) {
+    const long long* m = g + kGeomHead + i * kMapLen;
+    if (!hopper::bf16_map_ok(m, hd, heads[i], p.S, p.B, kBoxRows)) {
+      return cudaErrorInvalidValue;
+    }
+    const int err = hopper::encode_bf16_map(&maps[i], operands[i], m);
+    if (err != 0) return err;
+  }
+  const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
+  kernel<<<grid, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], maps[3],
+                                           p);
   return cudaGetLastError();
 }
 
-Params make_params(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* dsum,
-                   void* dq, void* dk, void* dv, int B, int S, int H, int KH,
+Params make_params(const void* lse, const void* dsum, void* dq, void* dk,
+                   void* dv, int B, int S, int H, int KH,
                    const long long* st, int causal, float scale) {
-  Params p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.dout = static_cast<const bf16*>(dout);
-  p.lse = static_cast<const float*>(lse);
-  p.dsum = static_cast<const float*>(dsum);
-  p.dq = static_cast<bf16*>(dq);
-  p.dk = static_cast<bf16*>(dk);
-  p.dv = static_cast<bf16*>(dv);
-  p.B = B;
-  p.S = S;
-  p.H = H;
-  p.KH = KH;
-  long long* fields[kStrides] = {
-      &p.q_sb,  &p.q_ss,  &p.q_sh,  &p.k_sb,  &p.k_ss,  &p.k_sh,  &p.v_sb,
-      &p.v_ss,  &p.v_sh,  &p.do_sb, &p.do_ss, &p.do_sh, &p.dq_sb, &p.dq_ss,
-      &p.dq_sh, &p.dk_sb, &p.dk_ss, &p.dk_sh, &p.dv_sb, &p.dv_ss, &p.dv_sh};
-  for (int i = 0; i < kStrides; ++i) *fields[i] = st[i];
-  p.causal = causal;
-  p.scale = scale;
-  return p;
+  return Params{static_cast<const float*>(lse),
+                static_cast<const float*>(dsum),
+                static_cast<bf16*>(dq),
+                static_cast<bf16*>(dk),
+                static_cast<bf16*>(dv),
+                B, S, H, KH,
+                st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+                causal, scale};
 }
 
 }  // namespace
 
-// Plain C entries, bound with ctypes. `strides` holds 21 element strides:
-// dims (b, s, head) of q, k, v, dout, dq, dk, dv in that order; the last
-// dim of every tensor is contiguous. lse and dsum are [B, H, S] fp32,
-// contiguous. dtype: 1 = bf16 (the only one taken). Each returns the
-// cudaError_t of its launch (0 on success).
+// Plain C entries, bound with ctypes. q, k, v, dout are read through the
+// plan's tensor maps; lse and dsum are [B, H, S] fp32, contiguous.
+// `out_strides` holds 9 element strides: dims (b, s, head) of dq, dk, dv;
+// the last dim of every output is contiguous. `geometry` is the wrapper's
+// launch plan (see above). dtype: 1 = bf16 (the only one taken). Each
+// returns 0 on success, else a cudaError_t or hopper::kTensorMapError +
+// CUresult.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* dsum, void* dq, int dtype, int B,
                             int S, int H, int KH, int hd,
-                            const long long* strides, int causal, float scale,
-                            void* stream) {
-  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Params p = make_params(q, k, v, dout, lse, dsum, dq, nullptr,
-                               nullptr, B, S, H, KH, strides, causal, scale);
+                            const long long* out_strides,
+                            const long long* geometry, int causal,
+                            float scale, void* stream) {
+  const long long* g = geometry;
+  // x walks (b, h); y walks 128-row q tiles, the last first.
+  if (dtype != 1 || g[0] != static_cast<long long>(B) * H ||
+      g[1] != (S + kDqBM - 1) / kDqBM) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Params p = make_params(lse, dsum, dq, nullptr, nullptr, B, S, H, KH,
+                               out_strides, causal, scale);
+  const void* operands[4] = {q, k, v, dout};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // x walks (b, h); y walks q tiles, last (heaviest causal) tile first.
-  const dim3 grid(B * H, (S + kDqBM - 1) / kDqBM);
   if (hd == 128) {
-    return launch(flash_bwd_dq_bf16<128>, grid, dq_smem<128>(), p, st);
+    return launch(flash_bwd_dq_bf16<128>, p, operands, hd, g, g[0], g[1],
+                  dq_smem_bytes<128>(), g[5], st);
   }
   if (hd == 64) {
-    return launch(flash_bwd_dq_bf16<64>, grid, dq_smem<64>(), p, st);
+    return launch(flash_bwd_dq_bf16<64>, p, operands, hd, g, g[0], g[1],
+                  dq_smem_bytes<64>(), g[5], st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -511,23 +687,30 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* dsum, void* dk, void* dv, int dtype,
                              int B, int S, int H, int KH, int hd,
-                             const long long* strides, int causal,
+                             const long long* out_strides,
+                             const long long* geometry, int causal,
                              float scale, void* stream) {
-  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Params p = make_params(q, k, v, dout, lse, dsum, nullptr, dk, dv, B,
-                               S, H, KH, strides, causal, scale);
+  const long long* g = geometry;
+  // x walks (b, kv-head); y walks 128-key tiles, the first first.
+  if (dtype != 1 || g[2] != static_cast<long long>(B) * KH ||
+      g[3] != (S + kDkvBN - 1) / kDkvBN) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Params p = make_params(lse, dsum, nullptr, dk, dv, B, S, H, KH,
+                               out_strides, causal, scale);
+  const void* operands[4] = {q, k, v, dout};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // x walks (b, kv-head); y walks key tiles, first (heaviest causal) first.
-  const dim3 grid(B * KH, (S + kDkvBN - 1) / kDkvBN);
   if (hd == 128) {
-    return launch(flash_bwd_dkv_bf16<128>, grid, dkv_smem<128>(), p, st);
+    return launch(flash_bwd_dkv_bf16<128>, p, operands, hd, g, g[2], g[3],
+                  dkv_smem_bytes<128>(), g[6], st);
   }
   if (hd == 64) {
-    return launch(flash_bwd_dkv_bf16<64>, grid, dkv_smem<64>(), p, st);
+    return launch(flash_bwd_dkv_bf16<64>, p, operands, hd, g, g[2], g[3],
+                  dkv_smem_bytes<64>(), g[6], st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* flash_bwd_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return hopper::error_string(err);
 }

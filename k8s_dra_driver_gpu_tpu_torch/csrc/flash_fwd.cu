@@ -71,7 +71,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <stdio.h>
 
 #include "hopper.cuh"
 
@@ -128,19 +127,6 @@ constexpr size_t bf16_smem_bytes() {
   // 1024 bytes of slack to align the tiles to the swizzle atom.
   return 1024 + sizeof(__nv_bfloat16) * (kBM * HD + 2 * kStages * kBN * HD) +
          8 * kBarriers;
-}
-
-// 2^x on the SFU (flushes results below 2^-126 to 0: p that small is 0
-// after the bf16 rounding anyway).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 template <int HD>
@@ -308,10 +294,10 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
     auto pack_p = [&]() {
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk) {
-        pa[kk][0] = pack(sc[8 * kk + 0], sc[8 * kk + 1]);
-        pa[kk][1] = pack(sc[8 * kk + 2], sc[8 * kk + 3]);
-        pa[kk][2] = pack(sc[8 * kk + 4], sc[8 * kk + 5]);
-        pa[kk][3] = pack(sc[8 * kk + 6], sc[8 * kk + 7]);
+        pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
       }
     };
 
@@ -492,11 +478,6 @@ bool grid_ok(const Params& p, const long long* g, int block_m, int threads,
          g[3] >= static_cast<long long>(smem) && g[3] <= 232448;
 }
 
-bool map_ok(const long long* m, int hd, int heads, const Params& p, int rows) {
-  return m[0] == hd && m[1] == heads && m[2] == p.S && m[3] == p.B &&
-         m[7] == kPanel && m[8] == 1 && m[9] == rows && m[10] == 1;
-}
-
 template <int HD>
 int launch_bf16(const Params& p, const long long* g, cudaStream_t stream) {
   const long long* mq = g + kGeomHead;
@@ -505,8 +486,9 @@ int launch_bf16(const Params& p, const long long* g, cudaStream_t stream) {
   // The kernel's barrier byte counts follow from its tiling: a geometry
   // that disagrees would leave a wait that never completes.
   if (!grid_ok(p, g, kBM, kBf16Threads, bf16_smem_bytes<HD>()) ||
-      !map_ok(mq, HD, p.H, p, kBM) || !map_ok(mk, HD, p.KH, p, kBN) ||
-      !map_ok(mv, HD, p.KH, p, kBN)) {
+      !hopper::bf16_map_ok(mq, HD, p.H, p.S, p.B, kBM) ||
+      !hopper::bf16_map_ok(mk, HD, p.KH, p.S, p.B, kBN) ||
+      !hopper::bf16_map_ok(mv, HD, p.KH, p.S, p.B, kBN)) {
     return cudaErrorInvalidValue;
   }
   CUtensorMap tq, tk, tv;
@@ -563,12 +545,5 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
 }
 
 extern "C" const char* flash_error_string(int err) {
-  if (err < hopper::kTensorMapError) {
-    return cudaGetErrorString(static_cast<cudaError_t>(err));
-  }
-  static thread_local char message[96];
-  snprintf(message, sizeof(message),
-           "cuTensorMapEncodeTiled failed (CUresult %d)",
-           err - hopper::kTensorMapError);
-  return message;
+  return hopper::error_string(err);
 }

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's CUDA kernels:
 // mbarriers, TMA tensor-map loads, wgmma descriptors and instructions,
-// and register rebalancing between warpgroups. Raw PTX, so a source that
-// includes this header builds in seconds with nvcc alone (no CUTLASS).
+// register rebalancing between warpgroups, the softmax's 2^x and bf16
+// packing, and on the host the tensor maps' encoding and checks and the
+// C entries' error messages. Raw PTX, so a source that includes this
+// header builds in seconds with nvcc alone (no CUTLASS).
 //
 // Shared-memory tiles that wgmma reads are TMA boxes 64 bf16 (128 bytes)
 // wide, stored with the 128-byte swizzle: 8 rows of 128 bytes form one
@@ -12,8 +14,10 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace hopper {
 
@@ -99,6 +103,23 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// ------------------------------------------------------------- softmax
+
+// 2^x on the SFU (flushes results below 2^-126 to 0: p that small is 0
+// after the bf16 rounding anyway).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two fp32 values rounded to a bf16 pair, lo in the low half: one 32-bit
+// register of a wgmma register-A fragment.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // ------------------------------------------------- register rebalancing
 
 // Only honoured when each role is one branch of a single if/else at the
@@ -178,6 +199,26 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 64, fp32) {=, +=} A (64 x 16, smem) . B (64 x 16, smem), both
+// K-major; scale_d = 0 overwrites D. The backward's S = Q.K^T over a
+// 64-key tile and its transposed products K.Q^T, V.dO^T over a 64-row
+// q tile.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -272,6 +313,28 @@ inline int encode_bf16_map(CUtensorMap* map, const void* base,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(res);
+}
+
+// Whether the wrapper's map of a [B, S, heads, hd] operand is the one the
+// kernel's barrier byte counts assume: the operand's own dims, and boxes
+// 64 columns wide, one head and one batch deep, `rows` long.
+inline bool bf16_map_ok(const long long* m, int hd, int heads, int S, int B,
+                        int rows) {
+  return m[0] == hd && m[1] == heads && m[2] == S && m[3] == B &&
+         m[7] == 64 && m[8] == 1 && m[9] == rows && m[10] == 1;
+}
+
+// The message of a C entry's error code: a cudaError_t, or
+// kTensorMapError + CUresult.
+inline const char* error_string(int err) {
+  if (err < kTensorMapError) {
+    return cudaGetErrorString(static_cast<cudaError_t>(err));
+  }
+  static thread_local char message[96];
+  snprintf(message, sizeof(message),
+           "cuTensorMapEncodeTiled failed (CUresult %d)",
+           err - kTensorMapError);
+  return message;
 }
 
 }  // namespace hopper

@@ -24,10 +24,11 @@ the same function written as whole-matrix tensor code, which the CPU
 tests hold against the JAX kernels in interpret mode and which the
 card's smoke run holds the kernels against.
 
-The forward's launch geometry (grid, threads, shared memory and the TMA
-tensor maps of q, k and v) is computed here by ``fwd_plan``, where the
-CPU tests reach it, and handed to the C entry, which checks it against
-the kernel's tiling before it launches.
+The launch geometry of the bf16 kernels (grids, threads, shared memory
+and the TMA tensor maps of their operands) is computed here, by
+``fwd_plan`` and ``bwd_plan``, where the CPU tests reach it, and handed to
+the C entries, which check it against the kernels' tiling before they
+launch.
 
 Bound on an H100 SXM at the training shape (B=4, S=4096, H=16, K=8,
 hd=128, causal, bf16): forward 4*hd FLOP per unmasked pair, 0.28 ms at
@@ -59,6 +60,14 @@ _MAX_Q_TILES = 65_535  # the grid's y extent; tiles are 32 rows or more
 FWD_BF16_BLOCK_M, FWD_BF16_BLOCK_N, FWD_BF16_STAGES = 128, 128, 2
 FWD_BF16_THREADS = 384
 FWD_F32_BLOCK_M, FWD_F32_BLOCK_N, FWD_F32_THREADS = 32, 32, 128
+# The backward kernels' tiling (csrc/flash_bwd.cu checks it), bf16 only:
+# two consumer warpgroups and a producer warpgroup a block. dQ: 128 q rows
+# a block, K/V tiles of 64 keys in a three-stage ring. dK/dV: 128 keys a
+# block, Q/dO tiles of 64 rows in a three-stage ring. Every TMA box is 64
+# rows by 64 columns.
+BWD_DQ_BLOCK_M, BWD_DQ_BLOCK_N = 128, 64
+BWD_DKV_BLOCK_N, BWD_DKV_BLOCK_M = 128, 64
+BWD_STAGES, BWD_THREADS, BWD_BOX_ROWS = 3, 384, 64
 TMA_BOX_COLS, TMA_SWIZZLE_BYTES = 64, 128
 MAX_SMEM_BYTES = 232_448  # what one block may use on an H100
 _TMA_MAX_STRIDE = 1 << 40  # TMA byte strides are multiples of 16 below it
@@ -234,14 +243,62 @@ def fwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> FwdPlan:
                    smem=fwd_smem_bytes(q.dtype, hd), maps=maps)
 
 
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """Launch geometry of one backward call: the dQ grid (x walks (b, h),
+    y the 128-row q tiles, the last first), the dK/dV grid (x walks (b,
+    kv-head), y the 128-key tiles, the first first), threads a block,
+    each kernel's dynamic shared-memory bytes, and the tensor maps of q,
+    k, v and dO that both kernels read."""
+
+    dq_grid: tuple[int, int]
+    dkv_grid: tuple[int, int]
+    threads: int
+    dq_smem: int
+    dkv_smem: int
+    maps: tuple[TensorMap, ...]
+
+    def packed(self):
+        """The int64 array the C entries ``flash_bwd_dq`` and
+        ``flash_bwd_dkv`` read."""
+        values = (*self.dq_grid, *self.dkv_grid, self.threads, self.dq_smem,
+                  self.dkv_smem, *(x for m in self.maps for x in m.values()))
+        return (_I64 * len(values))(*values)
+
+
+def bwd_smem_bytes(hd: int) -> tuple[int, int]:
+    """Dynamic shared memory of one (dQ, dK/dV) block. Both: 1024 bytes of
+    slack to align the tiles to the swizzle atom. dQ: Q and dO, a ring of
+    K and V tiles, barriers for Q/dO and a full and an empty one for each
+    K and V slot. dK/dV: K and V, a ring of Q and dO tiles with each
+    slot's lse and D (fp32), barriers for K/V and a full and an empty one
+    a slot."""
+    st = BWD_STAGES
+    dq = (1024 + 2 * hd * (2 * BWD_DQ_BLOCK_M + 2 * st * BWD_DQ_BLOCK_N)
+          + 8 * (1 + 4 * st))
+    dkv = (1024 + 2 * hd * (2 * BWD_DKV_BLOCK_N + 2 * st * BWD_DKV_BLOCK_M)
+           + 4 * 2 * st * BWD_DKV_BLOCK_M + 8 * (1 + 2 * st))
+    return dq, dkv
+
+
+def bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             do: torch.Tensor) -> BwdPlan:
+    """The backward kernels' launch geometry for these operands (shapes,
+    strides and dtype only; nothing is read)."""
+    B, S, H, hd = q.shape
+    dq_smem, dkv_smem = bwd_smem_bytes(hd)
+    return BwdPlan(
+        dq_grid=(B * H, -(-S // BWD_DQ_BLOCK_M)),
+        dkv_grid=(B * k.shape[2], -(-S // BWD_DKV_BLOCK_N)),
+        threads=BWD_THREADS, dq_smem=dq_smem, dkv_smem=dkv_smem,
+        maps=tuple(_tensor_map(t, BWD_BOX_ROWS) for t in (q, k, v, do)))
+
+
 def _bind(lib: ctypes.CDLL, name: str, argtypes: list) -> None:
     fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-
-
-_N_BWD_STRIDES = 21
 
 
 def _fwd_kernel() -> ctypes.CDLL:
@@ -258,7 +315,8 @@ def _fwd_kernel() -> ctypes.CDLL:
 
 def _bwd_kernel() -> ctypes.CDLL:
     lib = _build.load("flash_bwd").lib
-    tail = [_I32] * 6 + [ctypes.POINTER(_I64), _I32, ctypes.c_float, _PTR]
+    tail = ([_I32] * 6 + [ctypes.POINTER(_I64)] * 2
+            + [_I32, ctypes.c_float, _PTR])
     _bind(lib, "flash_bwd_dq", [_PTR] * 7 + tail)
     _bind(lib, "flash_bwd_dkv", [_PTR] * 8 + tail)
     lib.flash_bwd_error_string.argtypes = [ctypes.c_int]
@@ -285,9 +343,9 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if -(-q.shape[1] // 32) > _MAX_Q_TILES:
         raise ValueError(f"sequence length {q.shape[1]} too long for one launch")
     if q.dtype == torch.bfloat16:
-        # The forward reads through TMA tensor maps and the backward with
-        # 16-byte loads: both need 16-byte aligned bases and byte strides
-        # (TMA's also below 2^40). A dimension of size 1 is never stepped.
+        # The kernels read through TMA tensor maps: 16-byte aligned bases
+        # and byte strides below 2^40. A dimension of size 1 is never
+        # stepped.
         for t in tensors:
             strides = [st for st, size in zip(t.stride()[:3], t.shape[:3])
                        if size > 1]
@@ -376,13 +434,14 @@ def _bwd_launchers(q, k, v, out, lse, do, causal: bool):
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    strides = (_I64 * _N_BWD_STRIDES)(
-        *(st for t in (q, k, v, do, dq, dk, dv) for st in t.stride()[:3]))
+    out_strides = (_I64 * 9)(
+        *(st for t in (dq, dk, dv) for st in t.stride()[:3]))
+    geometry = bwd_plan(q, k, v, do).packed()
     lib = _bwd_kernel()
     operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), dsum.data_ptr())
-    tail = (_DTYPE_CODES[q.dtype], B, S, H, K, hd, strides, int(causal),
-            _scale(hd))
+    tail = (_DTYPE_CODES[q.dtype], B, S, H, K, hd, out_strides, geometry,
+            int(causal), _scale(hd))
 
     def launch(name: str, *outputs: torch.Tensor) -> None:
         with torch.cuda.device(q.device):
