@@ -22,7 +22,12 @@ and prints no result line):
    4, sliced-heads and transposed-view layouts); the dQ and dK/dV
    backward kernels at the training shape and at edge shapes (under one
    tile, exactly one, ragged, non-causal, head dim 64, GQA groups 1 and
-   4, sliced-heads and transposed-view layouts).
+   4, sliced-heads and transposed-view layouts). The fp32 entries of all
+   three at the backward's edge shapes, elementwise within
+   ``TOLERANCES[torch.float32]``, timed at the training shape against
+   SDPA's memory-efficient backend, and one fp32 gradient of a 2-layer
+   flagship-width model through ``attention(impl="auto")`` against the
+   einsum path, with its launch counts.
 4. serving: Llama-3-8B at full width and depth with random weights from
    the seed, bf16: ``generate`` for B=4 prompts of 2048 tokens and 32
    greedy new tokens. Counts the kernel launches of that run, checks the
@@ -31,10 +36,20 @@ and prints no result line):
 5. training: the 738M flagship (``LlamaConfig.flagship()``) at full
    width and depth, fp32 master weights from the seed, bf16 compute,
    bf16 Adam first moment, B=4, S=4096. Holds ``loss_fn``'s gradients
-   through the flash kernels against the einsum attention path, counts
-   the kernel launches of one ``train_step``, checks that the loss falls
-   over six steps on one batch, times the steps (median ms, tok/s, MFU,
-   peak memory) and traces one.
+   through the flash kernels against the einsum path, counts the kernel
+   launches of one ``train_step``, checks that the loss falls over six
+   steps on one batch, times the steps (median ms, tok/s, MFU, peak
+   memory) and traces one.
+6. gang: a gang of one over NCCL, joined by the launcher's
+   ``initialize_distributed`` from the ComputeDomain env, and a mesh over
+   it. ``make_sharded_train`` (DTensor parameters and moments) on phase
+   5's flagship, parameters and batch: step 1's loss against
+   ``train_step``'s, steps 2-3, launch counts, step median, MFU, peak
+   memory and a trace; ``make_scanned_sharded_train`` with K=3 against
+   three single steps; ``make_sharded_generate`` on phase 4's Llama-3-8B
+   weights (drawn again from the seed): tokens and prefill logits
+   against ``generate``'s, launch count, prefill and decode times;
+   ``bench_allreduce`` over the mesh.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record.
@@ -161,9 +176,10 @@ def attention_bound_ms(B, S, H, K, hd, dtype, causal, with_lse=False):
                                        else "bytes")
 
 
-def attention_bwd_bound_ms(B, S, H, K, hd, causal, kernel):
-    """Least time for one backward kernel call in bf16: its products over
-    the unmasked pairs at the bf16 peak (dQ: Q.K^T, dO.V^T, dS.K, 6*hd
+def attention_bwd_bound_ms(B, S, H, K, hd, causal, kernel,
+                           dtype=torch.bfloat16):
+    """Least time for one backward kernel call: its products over the
+    unmasked pairs at the dtype's peak (dQ: Q.K^T, dO.V^T, dS.K, 6*hd
     FLOP a pair; dK/dV: K.Q^T, V.dO^T, P^T.dO, dS^T.Q, 8*hd), against
     reading q, k, v, dO, lse and D once and writing its outputs once.
     Returns (ms, "operations" | "bytes")."""
@@ -171,8 +187,9 @@ def attention_bwd_bound_ms(B, S, H, K, hd, causal, kernel):
     per_pair = {"dq": 6, "dkv": 8}[kernel] * hd
     flops = per_pair * B * H * pairs
     written = B * S * hd * (H if kernel == "dq" else 2 * K)
-    nbytes = 2 * (B * S * hd * (2 * H + 2 * K) + written) + 8 * B * H * S
-    t_ops = flops / PEAK_FLOPS[torch.bfloat16]
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = elem * (B * S * hd * (2 * H + 2 * K) + written) + 8 * B * H * S
+    t_ops = flops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -457,28 +474,6 @@ def phase_training_kernels(gen: torch.Generator) -> tuple[dict, dict, dict]:
         log(f"kernel backward {label}: B={B} S={S} H={H} K={K} hd={hd} bf16 "
             f"causal={causal}: {'; '.join(errs)} (tol rel L2 {BWD_REL_TOL})")
         del q, k, v, do, out, lse, got, want
-    q, k, v, do = inputs(1, 64, 4, 2, 128, dtype=torch.float32)
-    try:
-        flash_attention_bwd(q, k, v, q, torch.zeros(1, 4, 64, device="cuda"),
-                            do)
-    except ValueError as err:
-        log(f"kernel backward fp32: refused as intended ({err})")
-    else:
-        raise AssertionError("fp32 backward on the card did not raise")
-    launched = flash_attention.launches
-    try:
-        flash_attention(q.requires_grad_(), k, v)
-    except ValueError as err:
-        log(f"kernel fp32 forward needing a gradient: refused before any "
-            f"launch ({err})")
-    else:
-        raise AssertionError("fp32 flash attention needing a gradient on "
-                             "the card did not raise")
-    if flash_attention.launches != launched:
-        raise AssertionError("fp32 forward launched before it was refused")
-    del q, k, v, do
-    torch.cuda.empty_cache()
-
     # Timing at the training shape.
     B, S, H, K, hd = TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128
     q, k, v, do = inputs(B, S, H, K, hd)
@@ -532,7 +527,202 @@ def phase_training_kernels(gen: torch.Generator) -> tuple[dict, dict, dict]:
     return fwd, records[0], records[1]
 
 
-def phase_serving(seed: int) -> int:
+FP32_GRAD_REL_TOL = 1e-3
+FP32_CHECK_LAYERS, FP32_CHECK_SEQ = 2, 1024
+
+
+def within(got: torch.Tensor, want: torch.Tensor, dtype) -> tuple[bool, float]:
+    """Elementwise ``|got - want| <= atol + rtol * |want|`` at the
+    dtype's ``TOLERANCES``, all finite; and the max abs error."""
+    atol, rtol = TOLERANCES[dtype]
+    diff = (got.float() - want.float()).abs()
+    ok = bool(torch.isfinite(got).all()) and (
+        diff - atol - rtol * want.float().abs()).max().item() <= 0
+    return ok, diff.max().item()
+
+
+def sdpa_efficient_ms(q, k, v, do) -> tuple[float, float]:
+    """Device ms of SDPA's forward with lse and of its backward on the
+    memory-efficient backend (which takes fp32), causal, K/V expanded to
+    every q-head outside the timer."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    group = q.shape[2] // k.shape[2]
+    leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (
+        q, k.repeat_interleave(group, 2), v.repeat_interleave(group, 2))]
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        fwd_ms = time_ms(
+            lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+                *(t.detach() for t in leaves), None, True, is_causal=True),
+            10)
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    grad_out = do.transpose(1, 2)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(
+        out, leaves, grad_out, retain_graph=True), 5)
+    return fwd_ms, bwd_ms
+
+
+def phase_fp32_kernels(gen: torch.Generator) -> list:
+    """The fp32 entries of the three kernels: the with-lse forward and the
+    dQ and dK/dV kernels held against their plain versions elementwise at
+    ``TOLERANCES[torch.float32]`` at the backward's edge shapes, timed at
+    the training shape, then one gradient of a 2-layer flagship-width fp32
+    model through ``attention(impl="auto")`` held against the einsum path.
+    Returns the three fp32 kernel records."""
+    from k8s_dra_driver_gpu_tpu_torch.models import llama
+    from k8s_dra_driver_gpu_tpu_torch.ops.flash_attention import (
+        _bwd_launchers, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_reference, flash_attention_reference)
+    from k8s_dra_driver_gpu_tpu_torch.train.train import loss_fn, tree_leaves
+
+    f32 = torch.float32
+
+    def inputs(B, S, H, K, hd, label=""):
+        q, k, v = attention_inputs(gen, label, B, S, H, K, hd, f32)
+        do = torch.randn((B, S, H, hd), generator=gen, device="cuda")
+        return q, k, v, do
+
+    # (label, B, S, H, K, hd, causal): the bf16 backward's edge cases.
+    cases = [
+        ("training", 1, TRAIN_SEQ, 16, 8, 128, True),
+        ("under one tile", 1, 100, 16, 8, 128, True),
+        ("one tile", 1, 128, 16, 8, 128, True),
+        ("ragged S", 2, 1000, 16, 8, 128, True),
+        ("non-causal", 2, 1000, 16, 8, 128, False),
+        ("gqa group 1", 2, 1000, 8, 8, 64, True),
+        ("hd 64 under one tile", 1, 100, 8, 2, 64, True),
+        ("gqa group 4", 1, 1000, 16, 4, 128, True),
+        ("sliced heads", 2, 1000, 16, 8, 128, True),
+        ("transposed view", 2, 1000, 16, 8, 128, True),
+    ]
+    max_err = {"forward": 0.0, "dq": 0.0, "dkv": 0.0}
+    for label, B, S, H, K, hd, causal in cases:
+        q, k, v, do = inputs(B, S, H, K, hd, label)
+        out, lse = flash_attention(q, k, v, causal=causal, with_lse=True)
+        want_out, want_lse = flash_attention_reference(q, k, v, causal, True)
+        ok, out_err = within(out, want_out, f32)
+        lse_err = (lse - want_lse).abs().max().item()
+        got = flash_attention_bwd(q, k, v, out, lse, do, causal)
+        want = flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+        errs = [f"out max_abs_err={out_err:.3g}", f"lse {lse_err:.3g}"]
+        ok = ok and lse_err <= LSE_TOLERANCE
+        max_err["forward"] = max(max_err["forward"], out_err)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            good, err = within(a, b, f32)
+            ok = ok and good
+            kernel = "dq" if name == "dq" else "dkv"
+            max_err[kernel] = max(max_err[kernel], err)
+            errs.append(f"{name} max_abs_err={err:.3g}")
+        log(f"kernel fp32 {label}: B={B} S={S} H={H} K={K} hd={hd} "
+            f"causal={causal}: {', '.join(errs)} (atol, rtol "
+            f"{TOLERANCES[f32]})")
+        if not ok:
+            raise AssertionError(f"fp32 kernels {label} disagree with their "
+                                 "plain versions")
+        del q, k, v, do, out, lse, got, want, want_out, want_lse
+    torch.cuda.empty_cache()
+
+    # Timing at the training shape.
+    B, S, H, K, hd = TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128
+    q, k, v, do = inputs(B, S, H, K, hd)
+    fwd_ms = time_ms(lambda: flash_attention(q, k, v, with_lse=True), 5)
+    fwd_plain_ms = time_ms(lambda: flash_attention_reference(
+        q, k, v, True, True), 2, warmup=1)
+    out, lse = flash_attention(q, k, v, with_lse=True)
+    launch_dq, launch_dkv, _ = _bwd_launchers(q, k, v, out, lse, do, True)
+    dq_ms = time_ms(launch_dq, 5)
+    dkv_ms = time_ms(launch_dkv, 5)
+    bwd_plain_ms = time_ms(lambda: flash_attention_bwd_reference(
+        q, k, v, out, lse, do, True), 2, warmup=1)
+    lib_fwd_ms, lib_bwd_ms = sdpa_efficient_ms(q, k, v, do)
+    log(f"kernel fp32 at training shape B={B} S={S} H={H} K={K} hd={hd}: "
+        f"forward with lse ms={fwd_ms:.4f} (plain {fwd_plain_ms:.4f}, SDPA "
+        f"efficient forward with lse {lib_fwd_ms:.4f}); dq_ms={dq_ms:.4f} "
+        f"dkv_ms={dkv_ms:.4f} (plain backward {bwd_plain_ms:.4f}, SDPA "
+        f"efficient backward {lib_bwd_ms:.4f}, K/V expanded)")
+    records = []
+    for name, kernel, ms, plain_ms, library_ms, line, source in (
+            ("flash_attention_fp32", "forward", fwd_ms, fwd_plain_ms,
+             lib_fwd_ms, 40, "flash_fwd"),
+            ("flash_attention_bwd_dq_fp32", "dq", dq_ms, bwd_plain_ms,
+             lib_bwd_ms, 104, "flash_bwd"),
+            ("flash_attention_bwd_dkv_fp32", "dkv", dkv_ms, bwd_plain_ms,
+             lib_bwd_ms, 157, "flash_bwd")):
+        if kernel == "forward":
+            bound, bound_by = attention_bound_ms(B, S, H, K, hd, f32, True,
+                                                 with_lse=True)
+        else:
+            bound, bound_by = attention_bwd_bound_ms(B, S, H, K, hd, True,
+                                                     kernel, f32)
+        log(f"kernel {name}: ms={ms:.4f} bound_ms={bound:.4f} ({bound_by}) "
+            f"roofline_share={bound / ms:.3f} "
+            f"factor_over_library={ms / library_ms:.2f}")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"k8s_dra_driver_gpu_tpu_torch/csrc/{source}.cu",
+            "replaces": f"k8s_dra_driver_gpu_tpu/ops/flash_attention.py:{line}",
+            "launches": None, "max_abs_err": max_err[kernel], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": library_ms,
+        })
+    del q, k, v, do, out, lse
+    torch.cuda.empty_cache()
+
+    # A 2-layer fp32 model at flagship width: its gradient through
+    # attention(impl="auto"), which must take the fp32 kernels, against
+    # the einsum path.
+    cfg = dataclasses.replace(llama.LlamaConfig.flagship(),
+                              n_layers=FP32_CHECK_LAYERS, dtype=f32)
+    params = llama.init(cfg, gen, "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (1, FP32_CHECK_SEQ + 1),
+                           generator=gen, device="cuda")
+
+    def grads(attn_impl):
+        leaves = tree_leaves(params)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        loss = loss_fn(params, tokens,
+                       dataclasses.replace(cfg, attn_impl=attn_impl))
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    flash_attention.launches = flash_attention.lse_launches = 0
+    flash_attention_bwd.dq_launches = flash_attention_bwd.dkv_launches = 0
+    loss_auto, g_auto = grads("auto")
+    counts = {"forward_lse": flash_attention.lse_launches,
+              "forward_only": (flash_attention.launches
+                               - flash_attention.lse_launches),
+              "dq": flash_attention_bwd.dq_launches,
+              "dkv": flash_attention_bwd.dkv_launches}
+    loss_einsum, g_einsum = grads("einsum")
+    errs = [rel_l2(a, b) for a, b in zip(g_auto, g_einsum)]
+    want_counts = {"forward_lse": 2 * cfg.n_layers, "forward_only": 0,
+                   "dq": cfg.n_layers, "dkv": cfg.n_layers}
+    loss_rel = abs((loss_auto - loss_einsum) / loss_einsum).item()
+    log(f"fp32 gradient check ({cfg.n_layers} layers at flagship width, "
+        f"B=1 S={FP32_CHECK_SEQ}): attention auto launched {counts} (want "
+        f"{want_counts}); loss auto {loss_auto.item():.6f} einsum "
+        f"{loss_einsum.item():.6f}; grads max rel L2 over leaves "
+        f"{max(errs):.3g} (tol {FP32_GRAD_REL_TOL})")
+    if counts != want_counts:
+        raise AssertionError(f"fp32 auto attention launched {counts}")
+    if not (all(torch.isfinite(g).all() for g in g_auto)
+            and max(errs) <= FP32_GRAD_REL_TOL
+            and loss_rel <= FP32_GRAD_REL_TOL):
+        raise AssertionError("fp32 gradients through the kernels disagree "
+                             "with the einsum path")
+    for record, key in zip(records, ("forward_lse", "dq", "dkv")):
+        record["launches"] = counts[key]
+    del params, g_auto, g_einsum
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_serving(seed: int) -> dict:
+    """Llama-3-8B serving; returns the launch count of one ``generate``
+    and what the gang phase compares with: the prompt, ``generate``'s
+    tokens, the timed prefill's logits, prefill ms and decode ms a
+    step."""
     from k8s_dra_driver_gpu_tpu_torch.models import decode, llama
     from k8s_dra_driver_gpu_tpu_torch.ops import resolve_device
     from k8s_dra_driver_gpu_tpu_torch.ops.flash_attention import (
@@ -591,6 +781,7 @@ def phase_serving(seed: int) -> int:
             lambda: decode.decode_step(params, cache, token, cfg))
         step_s.append(s)
     step_s.sort()
+    decode_ms = step_s[n_steps // 2] * 1e3
     log(f"serving: prefill {pre_s * 1e3:.1f} ms = "
         f"{SERVE_BATCH * SERVE_PROMPT / pre_s:.0f} tok/s; decode median "
         f"{step_s[n_steps // 2] * 1e3:.2f} ms/step (B={SERVE_BATCH}, "
@@ -630,12 +821,15 @@ def phase_serving(seed: int) -> int:
     same = (q_tokens == tokens[:, :8]).float().mean().item()
     log(f"serving: int8 KV generate 8 tokens ok, agreement with fp cache "
         f"{same:.2f}")
-    return launches
+    return {"launches": launches, "prompt": prompt, "tokens": tokens,
+            "logits": logits, "prefill_ms": pre_s * 1e3,
+            "decode_ms": decode_ms}
 
 
-def phase_training(seed: int) -> dict:
+def phase_training(seed: int) -> tuple[dict, dict]:
     """Flagship training at full width and depth; returns the kernel
-    launch counts of one ``train_step``."""
+    launch counts of one ``train_step`` and its step median ms, MFU and
+    peak GiB."""
     from k8s_dra_driver_gpu_tpu_torch.models import llama
     from k8s_dra_driver_gpu_tpu_torch.ops import resolve_device
     from k8s_dra_driver_gpu_tpu_torch.ops.flash_attention import (
@@ -744,7 +938,240 @@ def phase_training(seed: int) -> dict:
             for kind, us in sorted(shares.items(), key=lambda kv: -kv[1])))
     del state
     torch.cuda.empty_cache()
+    return counts, {"step_ms": step * 1e3, "mfu": mfu, "peak_gib": peak_gib}
+
+
+GANG_STEPS = 3          # sharded steps held against train_step
+GANG_TIMED_STEPS = 4    # further sharded steps timed
+# Step 1 of the sharded step against train_step on the same parameters
+# and batch: the same kernels on the same local tensors, so only
+# DTensor's own reductions may differ (loss, relative).
+GANG_STEP1_REL_TOL = 1e-5
+SHARDED_LOGITS_REL_TOL = 1e-3
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_gang(seed: int, serving: dict, training: dict) -> dict:
+    """The sharded paths as a gang of one over NCCL: the launcher's
+    ``initialize_distributed`` from the ComputeDomain env, a mesh over the
+    one rank, then (i) ``make_sharded_train`` on the flagship at full
+    width and depth against ``train_step``, (ii) the scanned step against
+    single steps, (iii) ``make_sharded_generate`` on Llama-3-8B against
+    ``generate`` (phase 4's seed, prompt, tokens, logits), (iv)
+    ``bench_allreduce`` over the mesh. Returns the kernel launches of one
+    sharded step and one sharded generate."""
+    import torch.distributed as dist
+
+    from k8s_dra_driver_gpu_tpu_torch.ops.collectives import bench_allreduce
+    from k8s_dra_driver_gpu_tpu_torch.parallel.mesh import build_mesh
+    from k8s_dra_driver_gpu_tpu_torch.train.main import initialize_distributed
+
+    env = {"TPU_COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}",
+           "TPU_PROCESS_ID": "0", "TPU_NUM_PROCESSES": "1"}
+    if not initialize_distributed(env, device="cuda"):
+        raise AssertionError("initialize_distributed joined no gang")
+    try:
+        mesh = build_mesh()
+        log(f"gang: {dist.get_backend()} world {dist.get_world_size()} via "
+            f"{env['TPU_COORDINATOR_ADDRESS']}, mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+        counts = {"train": _gang_train(seed, mesh, training),
+                  "generate": _gang_generate(seed, mesh, serving)}
+        stats = bench_allreduce(mesh, "dp")
+        log(f"gang: bench_allreduce over dp: participants "
+            f"{stats['participants']}, {stats['bytes']} bytes x "
+            f"{stats['iters']} in {stats['seconds'] * 1e3:.2f} ms, "
+            f"{stats['gbps']} GB/s (2*S*(n-1)/n algorithm bytes: 0 at n=1)")
+        if stats["participants"] != 1 or stats["gbps"] != 0.0:
+            raise AssertionError(f"bench_allreduce at world 1: {stats}")
+    finally:
+        dist.destroy_process_group()
     return counts
+
+
+def _gang_train(seed: int, mesh, training: dict) -> dict:
+    """(i) and (ii) of ``phase_gang``; returns the launch counts of one
+    sharded step."""
+    from k8s_dra_driver_gpu_tpu_torch.models import llama
+    from k8s_dra_driver_gpu_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd)
+    from k8s_dra_driver_gpu_tpu_torch.train.train import (
+        TrainState, make_optimizer, make_scanned_sharded_train,
+        make_sharded_train, train_step, tree_leaves)
+
+    cfg = llama.LlamaConfig.flagship()
+    optimizer = make_optimizer(mu_dtype=torch.bfloat16)
+    # Phase 5's parameters and batch: the same seed and draws.
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = llama.init(cfg, gen, "cuda", dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    init_fn, step_fn, layout, _ = make_sharded_train(mesh, cfg, optimizer)
+    sharded = init_fn(params)  # placed copies
+    plain = TrainState(params, optimizer.init(params), 0)
+    want = []
+    for _ in range(GANG_STEPS):
+        plain, loss = train_step(plain, tokens, cfg=cfg, optimizer=optimizer)
+        want.append(loss.item())
+    del plain, params
+    torch.cuda.empty_cache()
+
+    # The main path, counted: one sharded step.
+    batch = layout(tokens)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention.lse_launches = 0
+    flash_attention_bwd.dq_launches = flash_attention_bwd.dkv_launches = 0
+    t0 = time.perf_counter()
+    sharded, loss = step_fn(sharded, batch)
+    got = [loss.item()]
+    first_s = time.perf_counter() - t0
+    counts = {"forward_lse": flash_attention.lse_launches,
+              "forward_only": (flash_attention.launches
+                               - flash_attention.lse_launches),
+              "dq": flash_attention_bwd.dq_launches,
+              "dkv": flash_attention_bwd.dkv_launches}
+    wanted = {"forward_lse": 2 * cfg.n_layers, "forward_only": 0,
+              "dq": cfg.n_layers, "dkv": cfg.n_layers}
+    log(f"gang: one sharded step launched {counts} (want {wanted}; "
+        f"{first_s * 1e3:.1f} ms, first call); placements of wq "
+        f"{sharded.params['layers']['wq'].placements}")
+    if counts != wanted:
+        raise AssertionError(f"sharded step kernel launches {counts}")
+    step_s = []
+    for i in range(GANG_STEPS - 1 + GANG_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded, loss = step_fn(sharded, batch)
+        value = loss.item()
+        step_s.append(time.perf_counter() - t0)
+        if i < GANG_STEPS - 1:
+            got.append(value)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    log(f"gang: sharded losses {' '.join(f'{x:.6f}' for x in got)} against "
+        f"train_step's {' '.join(f'{x:.6f}' for x in want)}: rel "
+        f"{' '.join(f'{x:.3g}' for x in rel)} (tol step 1 "
+        f"{GANG_STEP1_REL_TOL}, steps 2-{GANG_STEPS} {LOSS_REL_TOL})")
+    if not (rel[0] <= GANG_STEP1_REL_TOL and max(rel) <= LOSS_REL_TOL):
+        raise AssertionError("sharded step disagrees with train_step")
+    step = statistics.median(step_s)
+    mfu = 6 * n_params * TRAIN_BATCH * TRAIN_SEQ / step / PEAK_FLOPS[
+        torch.bfloat16]
+    log(f"gang: sharded step median {step * 1e3:.1f} ms over {len(step_s)} "
+        f"(min {min(step_s) * 1e3:.1f}, max {max(step_s) * 1e3:.1f}), MFU "
+        f"{mfu:.3f}, peak {peak_gib:.1f} GiB; plain train_step (phase 5) "
+        f"{training['step_ms']:.1f} ms, MFU {training['mfu']:.3f}, peak "
+        f"{training['peak_gib']:.1f} GiB; DTensor host overhead "
+        f"{step * 1e3 - training['step_ms']:.1f} ms a step")
+
+    def traced_step():
+        nonlocal sharded
+        sharded, loss = step_fn(sharded, batch)
+        loss.item()
+
+    profile(traced_step, "sharded train step", top=6)
+    del sharded, batch
+    torch.cuda.empty_cache()
+
+    # K = 3 steps in one call against the single sharded steps above.
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = llama.init(cfg, gen, "cuda", dtype=torch.float32)
+    _, scan_fn, scan_layout, _ = make_scanned_sharded_train(mesh, cfg,
+                                                            optimizer)
+    state = init_fn(params)
+    del params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, losses = scan_fn(state, scan_layout(
+        tokens[None].expand(GANG_STEPS, -1, -1)))
+    scanned = losses.tolist()
+    scan_s = time.perf_counter() - t0
+    rel = [abs(a - b) / abs(b) for a, b in zip(scanned, got)]
+    log(f"gang: scanned K={GANG_STEPS} losses "
+        f"{' '.join(f'{x:.6f}' for x in scanned)} in {scan_s * 1e3:.1f} ms "
+        f"(first call); rel to single sharded steps "
+        f"{' '.join(f'{x:.3g}' for x in rel)} (tol {LOSS_REL_TOL})")
+    if state.step != GANG_STEPS or max(rel) > LOSS_REL_TOL:
+        raise AssertionError("scanned steps disagree with single steps")
+    del state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _gang_generate(seed: int, mesh, serving: dict) -> int:
+    """(iii) of ``phase_gang``; returns the flash launches of one sharded
+    generate."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from k8s_dra_driver_gpu_tpu_torch.models import decode, llama
+    from k8s_dra_driver_gpu_tpu_torch.ops.flash_attention import (
+        flash_attention)
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    generate_fn, prompt_layout, place = decode.make_sharded_generate(
+        mesh, cfg, SERVE_NEW, SERVE_MAX_LEN)
+    # Phase 4's weights: the same seed and draws.
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = place(llama.init(cfg, gen, "cuda", dtype=cfg.dtype))
+    torch.cuda.empty_cache()
+    prompt = prompt_layout(serving["prompt"])
+
+    # The main path, counted: one sharded generate.
+    torch.cuda.synchronize()
+    flash_attention.launches = flash_attention.lse_launches = 0
+    t0 = time.perf_counter()
+    tokens = generate_fn(params, prompt)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    same = torch.equal(tokens.full_tensor(), serving["tokens"])
+    log(f"gang: sharded generate B={SERVE_BATCH} S={SERVE_PROMPT} "
+        f"new={SERVE_NEW} in {gen_s:.3f} s (first call), flash launches "
+        f"{launches} ({flash_attention.lse_launches} with lse), tokens "
+        f"placed {tokens.placements}, all equal to generate's: {same}")
+    if launches != cfg.n_layers or flash_attention.lse_launches or not same:
+        raise AssertionError("sharded generate disagrees with generate")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    with implicit_replication():
+        (logits, cache), pre_s = timed(
+            lambda: decode.prefill(params, prompt, cfg, SERVE_MAX_LEN))
+        rel = rel_l2(logits.full_tensor(), serving["logits"])
+        token = tokens[:, 0]
+        step_s = []
+        for _ in range(16):
+            (_, cache), s = timed(
+                lambda: decode.decode_step(params, cache, token, cfg))
+            step_s.append(s)
+        step_s.sort()
+        decode_ms = step_s[len(step_s) // 2] * 1e3
+        profile(lambda: [decode.decode_step(params, cache, token, cfg)
+                         for _ in range(4)], "4 sharded decode steps")
+    log(f"gang: sharded prefill logits rel L2 to generate's {rel:.3g} (tol "
+        f"{SHARDED_LOGITS_REL_TOL}); prefill {pre_s * 1e3:.1f} ms (plain "
+        f"{serving['prefill_ms']:.1f}); decode median {decode_ms:.2f} ms/step "
+        f"(plain {serving['decode_ms']:.2f}), DTensor host overhead "
+        f"{decode_ms - serving['decode_ms']:.2f} ms a decode step")
+    if not rel <= SHARDED_LOGITS_REL_TOL:
+        raise AssertionError(f"sharded prefill logits rel err {rel}")
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main(argv=None) -> int:
@@ -760,21 +1187,33 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     forward = phase_kernels(gen)
     with_lse, dq, dkv = phase_training_kernels(gen)
-    serving_launches = phase_serving(args.seed)
+    fp32_records = phase_fp32_kernels(gen)
+    serving = phase_serving(args.seed)
+    serving_launches = serving["launches"]
     torch.cuda.empty_cache()
-    training = phase_training(args.seed)
-    forward["launches"] = serving_launches + training["forward_lse"]
+    training, train_numbers = phase_training(args.seed)
+    gang = phase_gang(args.seed, serving, train_numbers)
+    del serving
+    torch.cuda.empty_cache()
     forward["launches_by_path"] = {
         "serving_generate": serving_launches,
-        "training_step": training["forward_lse"]}
+        "training_step": training["forward_lse"],
+        "sharded_generate": gang["generate"],
+        "sharded_training_step": gang["train"]["forward_lse"]}
+    forward["launches"] = sum(forward["launches_by_path"].values())
     forward.update({f"with_lse_{key}": value
                     for key, value in with_lse.items()})
-    dq["launches"] = training["dq"]
-    dkv["launches"] = training["dkv"]
+    for record, kernel in ((dq, "dq"), (dkv, "dkv")):
+        record["launches_by_path"] = {
+            "training_step": training[kernel],
+            "sharded_training_step": gang["train"][kernel]}
+        record["launches"] = sum(record["launches_by_path"].values())
     log(f"kernels: flash_attention launches={forward['launches']} "
-        f"{forward['launches_by_path']}, dq {dq['launches']}, dk/dv "
-        f"{dkv['launches']} (total {time.perf_counter() - t_start:.1f} s)")
-    print(json.dumps({"kernels": [forward, dq, dkv]}))
+        f"{forward['launches_by_path']}, dq {dq['launches_by_path']}, dk/dv "
+        f"{dkv['launches_by_path']}, fp32 "
+        f"{[r['launches'] for r in fp32_records]} (total "
+        f"{time.perf_counter() - t_start:.1f} s)")
+    print(json.dumps({"kernels": [forward, dq, dkv, *fp32_records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,12 @@
 """PyTorch/CUDA port of the workload that a prepared claim runs.
 
-The serving and single-device training paths of the JAX package
+The serving and training paths of the JAX package
 (``k8s_dra_driver_gpu_tpu``) written for an NVIDIA H100: Llama-3 with a
-KV cache (``models/``), its training step and launcher (``train/``), the
-attention dispatcher, the chunked loss and hand-written Hopper
-flash-attention kernels, forward and backward (``ops/``, ``csrc/``). The
+KV cache (``models/``), its training step and gang launcher
+(``train/``), both also sharded over a ``torch.distributed`` device mesh
+(``parallel/``), the attention dispatcher, the chunked loss, an
+all-reduce benchmark and hand-written Hopper flash-attention kernels,
+forward and backward (``ops/``, ``csrc/``). The
 JAX package stays the reference; this package imports nothing of it and
 nothing of JAX.
 

@@ -5,9 +5,10 @@
 //
 // Replaces the TPU kernels
 //   * `_flash_dq_kernel` (k8s_dra_driver_gpu_tpu/ops/flash_attention.py:104,
-//     pallas_call at :512) with `flash_bwd_dq_bf16`, and
+//     pallas_call at :512) with `flash_bwd_dq_bf16` and `flash_bwd_dq_f32`,
+//     and
 //   * `_flash_dkv_kernel` (:157, pallas_call at :536) with
-//     `flash_bwd_dkv_bf16`.
+//     `flash_bwd_dkv_bf16` and `flash_bwd_dkv_f32`.
 // Same arithmetic and the same casts:
 //   s  = (q . k) in fp32, * scale; masked entries give p = 0 (the TPU kernel
 //        masks s to -1e30, whose exp(s - lse) is 0);
@@ -85,7 +86,16 @@
 //   * Shared memory at hd=128: dK/dV 2 x 32 KB (K, V) + 3 x (16 + 16 KB)
 //     (Q, dO) + 1.5 KB (lse, D) = 161.5 KB; dQ 2 x 32 KB (Q, dO) + 3 x
 //     (16 + 16 KB) (K, V) = 160 KB.
-//   * bf16 only. fp32 inputs are refused by the wrapper.
+//
+// fp32 (`flash_bwd_dq_f32`, `flash_bwd_dkv_f32`): there is no exact fp32
+// tensor-core path (TF32 rounds the inputs), so these are the simple form
+// of the fp32 forward: scalar FMAs on 32 x 32 tiles staged in shared
+// memory by all 128 threads of one warpgroup, four threads a row. Same
+// arithmetic as above with expf, no rounding between steps. dQ: a block
+// owns (b, q-head, 32-row q tile) and walks 32-key tiles; dK/dV: a block
+// owns (b, kv-head, 32-key tile) and walks the group's q-heads and their
+// 32-row tiles from the diagonal on. Bound at the training shape in fp32:
+// 6*hd (dQ) and 8*hd (dK/dV) FLOP a pair at 67 TFLOP/s (FMA).
 //
 // The launch geometry (grids, threads, shared-memory bytes, tensor maps)
 // is computed by the Python wrapper (ops/flash_attention.py, bwd_plan);
@@ -590,6 +600,228 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+
+// ---------------------------------------------------------------- fp32
+
+constexpr int kF32Threads = 128;  // one warpgroup, four threads a row
+constexpr int kF32Block = 32;     // rows and keys of every fp32 tile
+
+struct F32Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;
+  const float* lse;   // [B, H, S]
+  const float* dsum;  // [B, H, S]
+  float* dq;
+  float* dk;
+  float* dv;
+  int B, S, H, KH;
+  // Element strides of dims (b, s, head): inputs q, k, v, dO, then
+  // outputs dq, dk, dv.
+  long long in[4][3];
+  long long out[3][3];
+  int causal;
+  float scale;
+};
+
+template <int HD>
+constexpr size_t f32_dq_smem_bytes() {
+  // Q, dO, K, V tiles (rows padded to HD + 1) and dS.
+  return sizeof(float) * (4 * kF32Block * (HD + 1) +
+                          kF32Block * (kF32Block + 1));
+}
+
+template <int HD>
+constexpr size_t f32_dkv_smem_bytes() {
+  // K, V, Q, dO tiles, P^T and dS^T, and the Q tile's lse and D.
+  return sizeof(float) * (4 * kF32Block * (HD + 1) +
+                          2 * kF32Block * (kF32Block + 1) + 2 * kF32Block);
+}
+
+// Copies rows [s0, s0 + kF32Block) of one head of a [B, S, heads, hd]
+// operand into a [kF32Block][HD + 1] tile, zeros past S.
+template <int HD>
+__device__ __forceinline__ void f32_load_tile(float* tile, const float* src,
+                                              long long stride_s, int s0,
+                                              int S) {
+  for (int e = threadIdx.x; e < kF32Block * HD; e += kF32Threads) {
+    const int row = e / HD, col = e % HD, s = s0 + row;
+    tile[row * (HD + 1) + col] = s < S ? src[s * stride_s + col] : 0.f;
+  }
+}
+
+// Thread (r, sub) owns q row r of the block: it scores keys sub + 4i of
+// each tile and accumulates dQ columns sub + 4c.
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32(F32Params p) {
+  constexpr int BM = kF32Block, BN = kF32Block, QS = HD + 1, PS = BN + 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // [BM][QS]
+  float* Os = Qs + BM * QS;                          // dO, [BM][QS]
+  float* Ks = Os + BM * QS;                          // [BN][QS]
+  float* Vs = Ks + BN * QS;                          // [BN][QS]
+  float* Ss = Vs + BN * QS;                          // dS, [BM][PS]
+
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest first
+  const int bh = blockIdx.x;
+  const int b = bh / p.H, h = bh % p.H;
+  const int kh = h / (p.H / p.KH);
+  const int r = threadIdx.x >> 2, sub = threadIdx.x & 3;
+  const float* k = p.k + b * p.in[1][0] + kh * p.in[1][2];
+  const float* v = p.v + b * p.in[2][0] + kh * p.in[2][2];
+
+  f32_load_tile<HD>(Qs, p.q + b * p.in[0][0] + h * p.in[0][2], p.in[0][1],
+                    q0, p.S);
+  f32_load_tile<HD>(Os, p.dout + b * p.in[3][0] + h * p.in[3][2],
+                    p.in[3][1], q0, p.S);
+  const int qpos = q0 + r;
+  const bool row_in = qpos < p.S;
+  const long long stat = static_cast<long long>(bh) * p.S + qpos;
+  const float lse = row_in ? p.lse[stat] : 0.f;
+  const float dsum = row_in ? p.dsum[stat] : 0.f;
+
+  float acc[HD / 4];
+#pragma unroll
+  for (int c = 0; c < HD / 4; ++c) acc[c] = 0.f;
+
+  const int q_end = min(q0 + BM, p.S);
+  const int n_kt = p.causal ? (q_end + BN - 1) / BN : (p.S + BN - 1) / BN;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BN;
+    __syncthreads();  // the last tile's K, V and dS are read
+    f32_load_tile<HD>(Ks, k, p.in[1][1], k0, p.S);
+    f32_load_tile<HD>(Vs, v, p.in[2][1], k0, p.S);
+    __syncthreads();
+
+    float sc[BN / 4], dp[BN / 4];
+#pragma unroll
+    for (int i = 0; i < BN / 4; ++i) sc[i] = dp[i] = 0.f;
+    for (int d = 0; d < HD; ++d) {
+      const float qd = Qs[r * QS + d], od = Os[r * QS + d];
+#pragma unroll
+      for (int i = 0; i < BN / 4; ++i) {
+        sc[i] += qd * Ks[(sub + 4 * i) * QS + d];
+        dp[i] += od * Vs[(sub + 4 * i) * QS + d];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 4; ++i) {
+      const int kpos = k0 + sub + 4 * i;
+      const bool valid =
+          row_in && kpos < p.S && (!p.causal || kpos <= qpos);
+      const float pr = valid ? expf(sc[i] * p.scale - lse) : 0.f;
+      Ss[r * PS + sub + 4 * i] = pr * (dp[i] - dsum);
+    }
+    __syncwarp();  // the row's four threads read each other's dS
+    for (int j = 0; j < BN; ++j) {
+      const float ds = Ss[r * PS + j];
+#pragma unroll
+      for (int c = 0; c < HD / 4; ++c) acc[c] += ds * Ks[j * QS + sub + 4 * c];
+    }
+  }
+
+  if (row_in) {
+    float* out = p.dq + b * p.out[0][0] + qpos * p.out[0][1] + h * p.out[0][2];
+#pragma unroll
+    for (int c = 0; c < HD / 4; ++c) out[sub + 4 * c] = acc[c] * p.scale;
+  }
+}
+
+// Thread (r, sub) owns key r of the block: it scores q rows sub + 4j of
+// each tile and accumulates dK and dV columns sub + 4c over every q-head
+// of the kv-head's group.
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads) flash_bwd_dkv_f32(F32Params p) {
+  constexpr int BM = kF32Block, BN = kF32Block, QS = HD + 1, PS = BM + 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);  // [BN][QS]
+  float* Vs = Ks + BN * QS;                          // [BN][QS]
+  float* Qs = Vs + BN * QS;                          // [BM][QS]
+  float* Os = Qs + BM * QS;                          // dO, [BM][QS]
+  float* Ps = Os + BM * QS;                          // P^T, [BN][PS]
+  float* Ss = Ps + BN * PS;                          // dS^T, [BN][PS]
+  float* Ls = Ss + BN * PS;                          // lse, [BM]
+  float* Ds = Ls + BM;                               // D, [BM]
+
+  const int k0 = blockIdx.y * BN;  // the first key tiles are the heaviest
+  const int b = blockIdx.x / p.KH, kh = blockIdx.x % p.KH;
+  const int group = p.H / p.KH;
+  const int r = threadIdx.x >> 2, sub = threadIdx.x & 3;
+  const int kpos = k0 + r;
+  const bool key_in = kpos < p.S;
+
+  f32_load_tile<HD>(Ks, p.k + b * p.in[1][0] + kh * p.in[1][2], p.in[1][1],
+                    k0, p.S);
+  f32_load_tile<HD>(Vs, p.v + b * p.in[2][0] + kh * p.in[2][2], p.in[2][1],
+                    k0, p.S);
+
+  float dk[HD / 4], dv[HD / 4];
+#pragma unroll
+  for (int c = 0; c < HD / 4; ++c) dk[c] = dv[c] = 0.f;
+
+  const int n_qt = (p.S + BM - 1) / BM;
+  const int first_qt = p.causal ? k0 / BM : 0;
+  for (int g = 0; g < group; ++g) {
+    const int h = kh * group + g;
+    const long long bh = static_cast<long long>(b) * p.H + h;
+    const float* q = p.q + b * p.in[0][0] + h * p.in[0][2];
+    const float* dout = p.dout + b * p.in[3][0] + h * p.in[3][2];
+    for (int qt = first_qt; qt < n_qt; ++qt) {
+      const int q0 = qt * BM;
+      __syncthreads();  // the last tile's Q, dO, P^T, dS^T, lse, D are read
+      f32_load_tile<HD>(Qs, q, p.in[0][1], q0, p.S);
+      f32_load_tile<HD>(Os, dout, p.in[3][1], q0, p.S);
+      if (threadIdx.x < BM) {
+        const int s = q0 + threadIdx.x;
+        Ls[threadIdx.x] = s < p.S ? p.lse[bh * p.S + s] : 0.f;
+        Ds[threadIdx.x] = s < p.S ? p.dsum[bh * p.S + s] : 0.f;
+      }
+      __syncthreads();
+
+      float sc[BM / 4], dp[BM / 4];
+#pragma unroll
+      for (int j = 0; j < BM / 4; ++j) sc[j] = dp[j] = 0.f;
+      for (int d = 0; d < HD; ++d) {
+        const float kd = Ks[r * QS + d], vd = Vs[r * QS + d];
+#pragma unroll
+        for (int j = 0; j < BM / 4; ++j) {
+          sc[j] += kd * Qs[(sub + 4 * j) * QS + d];
+          dp[j] += vd * Os[(sub + 4 * j) * QS + d];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < BM / 4; ++j) {
+        const int row = sub + 4 * j, qpos = q0 + row;
+        const bool valid =
+            key_in && qpos < p.S && (!p.causal || kpos <= qpos);
+        const float pr = valid ? expf(sc[j] * p.scale - Ls[row]) : 0.f;
+        Ps[r * PS + row] = pr;
+        Ss[r * PS + row] = pr * (dp[j] - Ds[row]);
+      }
+      __syncwarp();  // the key's four threads read each other's P and dS
+      for (int i = 0; i < BM; ++i) {
+        const float pr = Ps[r * PS + i], ds = Ss[r * PS + i];
+#pragma unroll
+        for (int c = 0; c < HD / 4; ++c) {
+          dv[c] += pr * Os[i * QS + sub + 4 * c];
+          dk[c] += ds * Qs[i * QS + sub + 4 * c];
+        }
+      }
+    }
+  }
+
+  if (key_in) {
+    float* ok = p.dk + b * p.out[1][0] + kpos * p.out[1][1] + kh * p.out[1][2];
+    float* ov = p.dv + b * p.out[2][0] + kpos * p.out[2][1] + kh * p.out[2][2];
+#pragma unroll
+    for (int c = 0; c < HD / 4; ++c) {
+      ok[sub + 4 * c] = dk[c] * p.scale;
+      ov[sub + 4 * c] = dv[c];
+    }
+  }
+}
+
 // ---------------------------------------------------------------- host
 
 // The wrapper's launch plan: dQ grid x, y; dK/dV grid x, y; threads; dQ
@@ -646,15 +878,66 @@ Params make_params(const void* lse, const void* dsum, void* dq, void* dk,
                 causal, scale};
 }
 
+// The fp32 plan: the same head (grids, threads, shared memory), then 12
+// element strides, dims (b, s, head) of q, k, v, dO, where the bf16 plan
+// has its tensor maps.
+using F32Kernel = void (*)(F32Params);
+
+int launch_f32(F32Kernel kernel, F32Params p, const long long* g,
+               long long gx, long long gy, size_t smem_needed,
+               long long smem, cudaStream_t stream) {
+  if (g[4] != kF32Threads || smem < static_cast<long long>(smem_needed) ||
+      smem > kMaxSmem || gx < 1 || gy < 1) {
+    return cudaErrorInvalidValue;
+  }
+  for (int i = 0; i < 4; ++i) {
+    for (int j = 0; j < 3; ++j) p.in[i][j] = g[kGeomHead + 3 * i + j];
+  }
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
+  kernel<<<grid, kF32Threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+F32Params make_f32_params(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* dsum, void* dq, void* dk, void* dv,
+                          int B, int S, int H, int KH, const long long* st,
+                          int causal, float scale) {
+  F32Params p{};
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.dout = static_cast<const float*>(dout);
+  p.lse = static_cast<const float*>(lse);
+  p.dsum = static_cast<const float*>(dsum);
+  p.dq = static_cast<float*>(dq);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
+  p.B = B;
+  p.S = S;
+  p.H = H;
+  p.KH = KH;
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j) p.out[i][j] = st[3 * i + j];
+  }
+  p.causal = causal;
+  p.scale = scale;
+  return p;
+}
+
 }  // namespace
 
-// Plain C entries, bound with ctypes. q, k, v, dout are read through the
-// plan's tensor maps; lse and dsum are [B, H, S] fp32, contiguous.
-// `out_strides` holds 9 element strides: dims (b, s, head) of dq, dk, dv;
-// the last dim of every output is contiguous. `geometry` is the wrapper's
-// launch plan (see above). dtype: 1 = bf16 (the only one taken). Each
-// returns 0 on success, else a cudaError_t or hopper::kTensorMapError +
-// CUresult.
+// Plain C entries, bound with ctypes. bf16 q, k, v, dout are read through
+// the plan's tensor maps, fp32 ones through the plan's strides; lse and
+// dsum are [B, H, S] fp32, contiguous. `out_strides` holds 9 element
+// strides: dims (b, s, head) of dq, dk, dv; the last dim of every operand
+// is contiguous. `geometry` is the wrapper's launch plan (see above).
+// dtype: 0 = fp32, 1 = bf16. Each returns 0 on success, else a
+// cudaError_t or hopper::kTensorMapError + CUresult.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* dsum, void* dq, int dtype, int B,
@@ -663,6 +946,26 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const long long* geometry, int causal,
                             float scale, void* stream) {
   const long long* g = geometry;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    // x walks (b, h); y walks 32-row q tiles, the last first.
+    if (g[0] != static_cast<long long>(B) * H ||
+        g[1] != (S + kF32Block - 1) / kF32Block) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const F32Params p =
+        make_f32_params(q, k, v, dout, lse, dsum, dq, nullptr, nullptr, B, S,
+                        H, KH, out_strides, causal, scale);
+    if (hd == 128) {
+      return launch_f32(flash_bwd_dq_f32<128>, p, g, g[0], g[1],
+                        f32_dq_smem_bytes<128>(), g[5], st);
+    }
+    if (hd == 64) {
+      return launch_f32(flash_bwd_dq_f32<64>, p, g, g[0], g[1],
+                        f32_dq_smem_bytes<64>(), g[5], st);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   // x walks (b, h); y walks 128-row q tiles, the last first.
   if (dtype != 1 || g[0] != static_cast<long long>(B) * H ||
       g[1] != (S + kDqBM - 1) / kDqBM) {
@@ -671,7 +974,6 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   const Params p = make_params(lse, dsum, dq, nullptr, nullptr, B, S, H, KH,
                                out_strides, causal, scale);
   const void* operands[4] = {q, k, v, dout};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 128) {
     return launch(flash_bwd_dq_bf16<128>, p, operands, hd, g, g[0], g[1],
                   dq_smem_bytes<128>(), g[5], st);
@@ -691,6 +993,26 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const long long* geometry, int causal,
                              float scale, void* stream) {
   const long long* g = geometry;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    // x walks (b, kv-head); y walks 32-key tiles, the first first.
+    if (g[2] != static_cast<long long>(B) * KH ||
+        g[3] != (S + kF32Block - 1) / kF32Block) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const F32Params p =
+        make_f32_params(q, k, v, dout, lse, dsum, nullptr, dk, dv, B, S, H,
+                        KH, out_strides, causal, scale);
+    if (hd == 128) {
+      return launch_f32(flash_bwd_dkv_f32<128>, p, g, g[2], g[3],
+                        f32_dkv_smem_bytes<128>(), g[6], st);
+    }
+    if (hd == 64) {
+      return launch_f32(flash_bwd_dkv_f32<64>, p, g, g[2], g[3],
+                        f32_dkv_smem_bytes<64>(), g[6], st);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   // x walks (b, kv-head); y walks 128-key tiles, the first first.
   if (dtype != 1 || g[2] != static_cast<long long>(B) * KH ||
       g[3] != (S + kDkvBN - 1) / kDkvBN) {
@@ -699,7 +1021,6 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   const Params p = make_params(lse, dsum, nullptr, dk, dv, B, S, H, KH,
                                out_strides, causal, scale);
   const void* operands[4] = {q, k, v, dout};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 128) {
     return launch(flash_bwd_dkv_bf16<128>, p, operands, hd, g, g[2], g[3],
                   dkv_smem_bytes<128>(), g[6], st);

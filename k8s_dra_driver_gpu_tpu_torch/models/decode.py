@@ -12,15 +12,26 @@
   kernel on long CUDA shapes); cached decode attention is plain tensor
   code, as it is plain einsum in the reference.
 - Sampling: greedy, or temperature through a ``torch.Generator``.
+- ``make_sharded_generate`` runs the same code on DTensors over a mesh:
+  parameters placed by ``llama.param_specs``, the prompt by
+  ``llama.batch_spec``, the cache batch-sharded over dp and fsdp and
+  kv-head-sharded over tp.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
+import torch.distributed.tensor as dtensor
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..ops.attention import attention
+from ..parallel.mesh import (DATA_AXIS, FSDP_AXIS, TENSOR_AXIS, axis_size,
+                             compute_mesh, distribute_tree, placements)
+from . import llama
 from .llama import LlamaConfig, _mlp, layer_params, rms_norm, rope
 
 
@@ -35,25 +46,28 @@ class KVCache:
 
     @classmethod
     def empty(cls, cfg: LlamaConfig, batch: int, max_len: int,
-              device: torch.device | str, quantized: bool = False
-              ) -> "KVCache":
+              device: torch.device | str, quantized: bool = False,
+              mesh=None) -> "KVCache":
+        """A zero cache on ``device``; with a ``mesh``, DTensors on it
+        laid out by ``cache_placements``."""
         shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+
+        def zeros(shape, dtype):
+            if mesh is None:
+                return torch.zeros(shape, dtype=dtype, device=device)
+            return dtensor.zeros(shape, dtype=dtype, device_mesh=mesh,
+                                 placements=cache_placements(mesh))
+
         if quantized:
             sshape = shape[:-1] + (1,)
             return cls(
-                k=torch.zeros(shape, dtype=torch.int8, device=device),
-                v=torch.zeros(shape, dtype=torch.int8, device=device),
+                k=zeros(shape, torch.int8), v=zeros(shape, torch.int8),
                 length=0,
-                k_scale=torch.zeros(sshape, dtype=torch.bfloat16,
-                                    device=device),
-                v_scale=torch.zeros(sshape, dtype=torch.bfloat16,
-                                    device=device),
+                k_scale=zeros(sshape, torch.bfloat16),
+                v_scale=zeros(sshape, torch.bfloat16),
             )
-        return cls(
-            k=torch.zeros(shape, dtype=cfg.dtype, device=device),
-            v=torch.zeros(shape, dtype=cfg.dtype, device=device),
-            length=0,
-        )
+        return cls(k=zeros(shape, cfg.dtype), v=zeros(shape, cfg.dtype),
+                   length=0)
 
     @property
     def max_len(self) -> int:
@@ -62,6 +76,16 @@ class KVCache:
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
+
+
+# One layer's k/v, [B, positions, K, ...]: batch over dp then fsdp, kv
+# heads over tp (whole heads a shard).
+_KV_SPEC = ((DATA_AXIS, FSDP_AXIS), None, TENSOR_AXIS)
+
+
+def cache_placements(mesh) -> tuple:
+    """Placements of a [L, B, max_len, K, ...] cache leaf on ``mesh``."""
+    return placements((None,) + _KV_SPEC, mesh)
 
 
 def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -122,6 +146,16 @@ def _write_kv(cache: KVCache, layer: int, pos: int, k, v):
     if end > cache.max_len:
         raise ValueError(f"KV write to positions [{pos}, {end}) exceeds "
                          f"max_len ({cache.max_len})")
+    if isinstance(cache.k, DTensor):
+        # Lay k/v out as the cache's layer slice and write each rank's
+        # shard into its local cache.
+        mesh = cache.k.device_mesh
+        k, v = (t.redistribute(mesh, placements(_KV_SPEC, mesh)).to_local()
+                for t in (k, v))
+        cache = dataclasses.replace(cache, **{
+            name: getattr(cache, name).to_local()
+            for name in ("k", "v", "k_scale", "v_scale")
+            if getattr(cache, name) is not None})
     if cache.quantized:
         k, ks = _quantize_kv(k)
         v, vs = _quantize_kv(v)
@@ -142,7 +176,8 @@ def prefill(
     Prompt attention uses the unquantized k/v, as in the reference; an
     int8 cache only changes what later decode steps read."""
     B, S = tokens.shape
-    cache = KVCache.empty(cfg, B, max_len, tokens.device, quantized)
+    cache = KVCache.empty(cfg, B, max_len, tokens.device, quantized,
+                          mesh=getattr(tokens, "device_mesh", None))
     x = params["embed"].to(cfg.dtype)[tokens]
     positions = torch.arange(S, device=tokens.device)[None]
     for i in range(cfg.n_layers):
@@ -228,10 +263,62 @@ def generate(
     _check_budget(prompt.shape[1], max_new_tokens, max_len)
     logits, cache = prefill(params, prompt, cfg, max_len,
                             quantized=kv_quant)
-    tokens = torch.empty((prompt.shape[0], max_new_tokens),
-                         dtype=torch.int32, device=prompt.device)
+    tokens = []
     for step in range(max_new_tokens):
-        tokens[:, step] = _sample(logits, temperature, generator)
+        tokens.append(_sample(logits, temperature, generator).int())
         if step + 1 < max_new_tokens:
-            logits, cache = decode_step(params, cache, tokens[:, step], cfg)
-    return tokens
+            logits, cache = decode_step(params, cache, tokens[-1], cfg)
+    return torch.stack(tokens, dim=1)
+
+
+def make_sharded_generate(
+    mesh,
+    cfg: LlamaConfig,
+    max_new_tokens: int,
+    max_len: int,
+    temperature: float = 0.0,
+    kv_quant: bool = False,
+):
+    """Serving over a (dp, fsdp, sp, tp) mesh: ``generate`` on DTensors.
+
+    Returns ``(generate_fn(params, prompt, generator=None) -> [B, new],
+    prompt_layout, place_params)``. ``place_params`` places the
+    parameters (the same on every rank) by the training placements
+    (``llama.param_specs``: fsdp over the long matmul dim, tp over
+    heads/ff); ``prompt_layout`` places the global prompt (the same on
+    every rank) batch-sharded over dp and fsdp. The KV cache is
+    batch-sharded over dp and fsdp and kv-head-sharded over tp, and
+    DTensor inserts the tp reductions after wo and w_down. The tokens
+    come back batch-sharded like the prompt. Requires cfg.n_kv_heads % tp
+    == 0 (each tp shard owns whole kv heads) and a prompt batch that
+    divides by dp * fsdp."""
+    tp = axis_size(mesh, TENSOR_AXIS)
+    if cfg.n_kv_heads % tp:
+        raise ValueError(
+            f"n_kv_heads={cfg.n_kv_heads} not divisible by tp={tp}")
+    cfg = llama.pin_auto_attn_for_pjit(cfg, mesh)
+    cmesh = compute_mesh(mesh)
+    specs = llama.param_specs(cfg, cmesh)
+    prompt_placements = llama.batch_spec(cmesh)
+    shards = axis_size(mesh, DATA_AXIS) * axis_size(mesh, FSDP_AXIS)
+
+    def place_params(params: dict) -> dict:
+        return distribute_tree(params, specs, cmesh)
+
+    def prompt_layout(prompt: torch.Tensor) -> DTensor:
+        return dtensor.distribute_tensor(prompt, cmesh, prompt_placements,
+                                         src_data_rank=None)
+
+    def generate_fn(params: dict, prompt: DTensor,
+                    generator: torch.Generator | None = None) -> DTensor:
+        _check_budget(prompt.shape[1], max_new_tokens, max_len)
+        if prompt.shape[0] % shards:
+            raise ValueError(
+                f"prompt batch {prompt.shape[0]} not divisible by "
+                f"dp * fsdp = {shards}")
+        with implicit_replication():
+            tokens = generate(params, prompt, cfg, max_new_tokens, max_len,
+                              temperature, generator, kv_quant)
+        return tokens.redistribute(cmesh, prompt_placements)
+
+    return generate_fn, prompt_layout, place_params

@@ -11,15 +11,18 @@ as the reference does.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from ..ops import resolve_device
 from ..ops.attention import attention
+from ..parallel.mesh import DATA_AXIS, FSDP_AXIS, TENSOR_AXIS, placements
 
 
 @dataclass(frozen=True)
@@ -76,6 +79,62 @@ class LlamaConfig:
             n_kv_heads=2,
             d_ff=128,
         )
+
+
+def pin_auto_attn_for_pjit(cfg: LlamaConfig, mesh) -> LlamaConfig:
+    """attn_impl "auto" -> "einsum" over a mesh of more than one device.
+
+    The reference's rule, kept under its name: a Pallas call inside a jit
+    with sharded operands does not partition, so over a multi-device mesh
+    "auto" would gather whole arrays on every device at exactly the long
+    sequences where it picks the kernel; sharded long context belongs to
+    the sequence-parallel trainers. A one-device mesh keeps "auto" (there
+    the kernel runs on the local tensors) and an explicit "flash" is the
+    caller's choice."""
+    if cfg.attn_impl == "auto" and mesh.size() > 1:
+        return dataclasses.replace(cfg, attn_impl="einsum")
+    return cfg
+
+
+# Per-leaf specs, the reference's PartitionSpecs: one mesh axis (or None)
+# per tensor dim; layer-stacked leaves lead with None for the layer dim.
+# fsdp shards the long matmul dim, tp the head/ff dim.
+_PARAM_SPECS = {
+    "embed": (TENSOR_AXIS, FSDP_AXIS),
+    "layers": {
+        "attn_norm": (None, None),
+        "wq": (None, FSDP_AXIS, TENSOR_AXIS),
+        "wk": (None, FSDP_AXIS, TENSOR_AXIS),
+        "wv": (None, FSDP_AXIS, TENSOR_AXIS),
+        "wo": (None, TENSOR_AXIS, FSDP_AXIS),
+        "mlp_norm": (None, None),
+        "w_gate": (None, FSDP_AXIS, TENSOR_AXIS),
+        "w_up": (None, FSDP_AXIS, TENSOR_AXIS),
+        "w_down": (None, TENSOR_AXIS, FSDP_AXIS),
+    },
+    "final_norm": (None,),
+    "lm_head": (FSDP_AXIS, TENSOR_AXIS),
+}
+
+
+def param_specs(cfg: LlamaConfig, mesh) -> dict:
+    """DTensor placements of every parameter leaf on ``mesh``:
+    ``Shard(dim)`` on the fsdp and tp mesh dims for the dim the reference
+    shards over them, ``Replicate()`` on every other mesh dim."""
+    del cfg
+
+    def walk(spec):
+        if isinstance(spec, dict):
+            return {name: walk(value) for name, value in spec.items()}
+        return placements(spec, mesh)
+
+    return walk(_PARAM_SPECS)
+
+
+def batch_spec(mesh) -> tuple:
+    """Placements of a [B, ...] batch on ``mesh``: dim 0 sharded over dp
+    then fsdp, replicated over the other mesh dims."""
+    return placements(((DATA_AXIS, FSDP_AXIS),), mesh)
 
 
 def init(cfg: LlamaConfig, generator: torch.Generator,
@@ -227,6 +286,21 @@ def apply_remat(body, remat: str):
     return wrapped
 
 
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. On DTensors the gather runs on a replicated table
+    and replicated ids, and the rows are then laid out like the ids: the
+    sharding rule of the gather's backward (``index_put``) with sharded
+    ids fails on torch 2.11, and that of ``embedding`` with a sharded
+    table on later versions."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    mesh = table.device_mesh
+    replicated = [Replicate()] * mesh.ndim
+    rows = table.redistribute(mesh, replicated)[
+        tokens.redistribute(mesh, replicated)]
+    return rows.redistribute(mesh, tokens.placements)
+
+
 def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
                    attn_fn=None, positions: torch.Tensor | None = None
                    ) -> torch.Tensor:
@@ -237,7 +311,7 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
     the two. ``positions`` overrides the rope positions ([1, S] or
     [B, S]).
     """
-    x = params["embed"].to(cfg.dtype)[tokens]
+    x = embed_tokens(params["embed"].to(cfg.dtype), tokens)
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
     body = apply_remat(

@@ -7,8 +7,13 @@ behind the same signature. ``attention`` picks between them.
 
 from __future__ import annotations
 
-import torch
+import functools
 
+import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
+
+from ..parallel.mesh import DATA_AXIS, FSDP_AXIS, TENSOR_AXIS, placements
 from .flash_attention import HEAD_DIMS, flash_attention
 
 # Sequence length at which "auto" switches from the plain einsum path to
@@ -39,6 +44,8 @@ def attention(
             else "einsum"
         )
     if impl == "flash":
+        if isinstance(q, DTensor):
+            return _local_flash_attention(q, k, v, causal)
         return flash_attention(q, k, v, causal=causal)
     if impl != "einsum":
         # A typo ("Flash", "pallas") must not silently take the einsum
@@ -47,6 +54,20 @@ def attention(
         raise ValueError(f"unknown attention impl {impl!r}: "
                          "want auto | flash | einsum")
     return dot_product_attention(q, k, v, causal=causal)
+
+
+def _local_flash_attention(q: DTensor, k: DTensor, v: DTensor,
+                           causal: bool) -> DTensor:
+    """The flash kernels on each rank's local q, k, v: batch sharded over
+    dp and fsdp, heads over tp (whole kv heads a shard, so each rank's
+    GQA groups are complete and the result is exact)."""
+    # A list: local_map reads a tuple as one placement list per output.
+    layout = list(placements(((DATA_AXIS, FSDP_AXIS), None, TENSOR_AXIS),
+                             q.device_mesh))
+    fn = local_map(functools.partial(flash_attention, causal=causal),
+                   out_placements=layout, in_placements=(layout,) * 3,
+                   device_mesh=q.device_mesh, redistribute_inputs=True)
+    return fn(q, k, v)
 
 
 def dot_product_attention(

@@ -15,6 +15,10 @@ otherwise, as ``_flash_attention_vjp`` does at :243-266), saves q, k, v,
 out and lse, and its backward is ``flash_attention_bwd``: the dQ and
 dK/dV kernels that replace ``_flash_dq_kernel`` (:104) and
 ``_flash_dkv_kernel`` (:157), rebuilding the probabilities from lse.
+``bwd_impl="chunked"`` takes ``chunked_attention_bwd`` instead, the
+reference's einsum recompute over q chunks (``_chunked_attention_bwd``,
+:281), which keeps only q, k and v and is plain tensor code on any
+device, as the reference writes it outside Pallas.
 
 On a CUDA tensor each wrapper launches its kernel from ``csrc/``
 (``flash_fwd.cu``, ``flash_bwd.cu``; built for sm_90a at first use) or
@@ -48,8 +52,7 @@ from . import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "fp32"}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # the C entries' dtype
 _MAX_Q_TILES = 65_535  # the grid's y extent; tiles are 32 rows or more
 
 # The forward kernels' tiling (csrc/flash_fwd.cu checks the launch
@@ -60,16 +63,20 @@ _MAX_Q_TILES = 65_535  # the grid's y extent; tiles are 32 rows or more
 FWD_BF16_BLOCK_M, FWD_BF16_BLOCK_N, FWD_BF16_STAGES = 128, 128, 2
 FWD_BF16_THREADS = 384
 FWD_F32_BLOCK_M, FWD_F32_BLOCK_N, FWD_F32_THREADS = 32, 32, 128
-# The backward kernels' tiling (csrc/flash_bwd.cu checks it), bf16 only:
-# two consumer warpgroups and a producer warpgroup a block. dQ: 128 q rows
-# a block, K/V tiles of 64 keys in a three-stage ring. dK/dV: 128 keys a
+# The backward kernels' tiling (csrc/flash_bwd.cu checks it). bf16: two
+# consumer warpgroups and a producer warpgroup a block. dQ: 128 q rows a
+# block, K/V tiles of 64 keys in a three-stage ring. dK/dV: 128 keys a
 # block, Q/dO tiles of 64 rows in a three-stage ring. Every TMA box is 64
-# rows by 64 columns.
+# rows by 64 columns. fp32: 32x32 tiles, one warpgroup, both kernels.
 BWD_DQ_BLOCK_M, BWD_DQ_BLOCK_N = 128, 64
 BWD_DKV_BLOCK_N, BWD_DKV_BLOCK_M = 128, 64
 BWD_STAGES, BWD_THREADS, BWD_BOX_ROWS = 3, 384, 64
+BWD_F32_BLOCK, BWD_F32_THREADS = 32, 128
 TMA_BOX_COLS, TMA_SWIZZLE_BYTES = 64, 128
 MAX_SMEM_BYTES = 232_448  # what one block may use on an H100
+# q rows a chunk of ``chunked_attention_bwd``: the reference's default
+# ``block_q``.
+CHUNK_BLOCK_Q = 512
 _TMA_MAX_STRIDE = 1 << 40  # TMA byte strides are multiples of 16 below it
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -246,10 +253,11 @@ def fwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> FwdPlan:
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
     """Launch geometry of one backward call: the dQ grid (x walks (b, h),
-    y the 128-row q tiles, the last first), the dK/dV grid (x walks (b,
-    kv-head), y the 128-key tiles, the first first), threads a block,
-    each kernel's dynamic shared-memory bytes, and the tensor maps of q,
-    k, v and dO that both kernels read."""
+    y the q tiles, the last first), the dK/dV grid (x walks (b, kv-head),
+    y the key tiles, the first first), threads a block, each kernel's
+    dynamic shared-memory bytes, and what the kernels read q, k, v and dO
+    through: bf16, their tensor maps; fp32, their element strides of dims
+    (b, s, head), 12 values."""
 
     dq_grid: tuple[int, int]
     dkv_grid: tuple[int, int]
@@ -257,22 +265,31 @@ class BwdPlan:
     dq_smem: int
     dkv_smem: int
     maps: tuple[TensorMap, ...]
+    strides: tuple[int, ...] = ()
 
     def packed(self):
         """The int64 array the C entries ``flash_bwd_dq`` and
         ``flash_bwd_dkv`` read."""
         values = (*self.dq_grid, *self.dkv_grid, self.threads, self.dq_smem,
-                  self.dkv_smem, *(x for m in self.maps for x in m.values()))
+                  self.dkv_smem, *(x for m in self.maps for x in m.values()),
+                  *self.strides)
         return (_I64 * len(values))(*values)
 
 
-def bwd_smem_bytes(hd: int) -> tuple[int, int]:
-    """Dynamic shared memory of one (dQ, dK/dV) block. Both: 1024 bytes of
-    slack to align the tiles to the swizzle atom. dQ: Q and dO, a ring of
-    K and V tiles, barriers for Q/dO and a full and an empty one for each
-    K and V slot. dK/dV: K and V, a ring of Q and dO tiles with each
-    slot's lse and D (fp32), barriers for K/V and a full and an empty one
-    a slot."""
+def bwd_smem_bytes(hd: int, dtype: torch.dtype = torch.bfloat16
+                   ) -> tuple[int, int]:
+    """Dynamic shared memory of one (dQ, dK/dV) block. bf16, both: 1024
+    bytes of slack to align the tiles to the swizzle atom. dQ: Q and dO, a
+    ring of K and V tiles, barriers for Q/dO and a full and an empty one
+    for each K and V slot. dK/dV: K and V, a ring of Q and dO tiles with
+    each slot's lse and D (fp32), barriers for K/V and a full and an
+    empty one a slot. fp32: four 32-row tiles padded to hd + 1 columns;
+    dQ adds dS, dK/dV adds P^T and dS^T and the q tile's lse and D."""
+    if dtype == torch.float32:
+        bm = BWD_F32_BLOCK
+        tiles = 4 * bm * (hd + 1)
+        return 4 * (tiles + bm * (bm + 1)), 4 * (
+            tiles + 2 * bm * (bm + 1) + 2 * bm)
     st = BWD_STAGES
     dq = (1024 + 2 * hd * (2 * BWD_DQ_BLOCK_M + 2 * st * BWD_DQ_BLOCK_N)
           + 8 * (1 + 4 * st))
@@ -286,7 +303,14 @@ def bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The backward kernels' launch geometry for these operands (shapes,
     strides and dtype only; nothing is read)."""
     B, S, H, hd = q.shape
-    dq_smem, dkv_smem = bwd_smem_bytes(hd)
+    dq_smem, dkv_smem = bwd_smem_bytes(hd, q.dtype)
+    if q.dtype == torch.float32:
+        bm = BWD_F32_BLOCK
+        return BwdPlan(
+            dq_grid=(B * H, -(-S // bm)),
+            dkv_grid=(B * k.shape[2], -(-S // bm)), threads=BWD_F32_THREADS,
+            dq_smem=dq_smem, dkv_smem=dkv_smem, maps=(),
+            strides=tuple(st for t in (q, k, v, do) for st in t.stride()[:3]))
     return BwdPlan(
         dq_grid=(B * H, -(-S // BWD_DQ_BLOCK_M)),
         dkv_grid=(B * k.shape[2], -(-S // BWD_DKV_BLOCK_N)),
@@ -325,15 +349,16 @@ def _bwd_kernel() -> ctypes.CDLL:
 
 
 def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                *rest: torch.Tensor, dtypes=tuple(_DTYPE_NAMES)):
-    """Raise on anything the kernels do not take. ``rest`` are further
-    [B, S, heads, hd] operands (the backward's out and dO)."""
+                *rest: torch.Tensor):
+    """Raise on anything the kernels (forward and backward) do not take.
+    ``rest`` are further [B, S, heads, hd] operands (the backward's out
+    and dO)."""
     tensors = (q, k, v, *rest)
     if any(t.device != q.device for t in tensors):
         raise ValueError("q, k, v must lie on one device")
-    if q.dtype not in dtypes or any(t.dtype != q.dtype for t in tensors):
-        names = " or ".join(_DTYPE_NAMES[d] for d in dtypes)
-        raise ValueError(f"flash kernel takes {names} q/k/v of one "
+    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype
+                                          for t in tensors):
+        raise ValueError(f"flash kernels take bf16 or fp32 q/k/v of one "
                          f"dtype; got {[str(t.dtype) for t in tensors]}")
     hd = q.shape[-1]
     if hd not in HEAD_DIMS:
@@ -396,8 +421,8 @@ def flash_attention_bwd(
 ):
     """(dq, dk, dv) of flash attention from the forward's out and lse.
 
-    CUDA tensors launch the dQ kernel and the dK/dV kernel (bf16, head
-    dim 64 or 128) and raise on anything they do not take; CPU tensors
+    CUDA tensors launch the dQ kernel and the dK/dV kernel (bf16 or fp32,
+    head dim 64 or 128) and raise on anything they do not take; CPU tensors
     take ``flash_attention_bwd_reference``. D = rowsum(dO * O) is one
     plain fp32 reduction, as the JAX package leaves it outside Pallas.
     ``flash_attention_bwd.dq_launches`` and ``.dkv_launches`` count the
@@ -422,7 +447,7 @@ def _bwd_launchers(q, k, v, out, lse, do, causal: bool):
     outputs when called; ``flash_attention_bwd`` calls both once, and
     the smoke run times each alone."""
     do = do.contiguous()
-    _check_cuda(q, k, v, out, do, dtypes=(torch.bfloat16,))
+    _check_cuda(q, k, v, out, do)
     B, S, H, hd = q.shape
     K = k.shape[2]
     if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
@@ -467,27 +492,77 @@ flash_attention_bwd.dq_launches = 0
 flash_attention_bwd.dkv_launches = 0
 
 
+def chunked_attention_bwd(
+    q: torch.Tensor,  # [B, S, H, hd]
+    k: torch.Tensor,  # [B, S, K, hd]
+    v: torch.Tensor,  # [B, S, K, hd]
+    do: torch.Tensor,  # [B, S, H, hd]
+    causal: bool = True,
+    block_q: int = CHUNK_BLOCK_Q,
+):
+    """(dq, dk, dv) by einsum recompute, ``block_q`` q rows at a time:
+    the reference's ``_chunked_attention_bwd`` (:281). Each chunk
+    rebuilds its softmax from q and k (no out, no lse), so the transient
+    is [B, H, block_q, S] instead of the whole score matrix. fp32 inside,
+    masked scores at -1e30, ``dS = P * (dP - rowsum(dP * P))``; returns
+    the gradients in the dtypes of q, k, v. Plain tensor code on any
+    device."""
+    _check_shapes(q, k, v)
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    scale = _scale(hd)
+    C = min(block_q, S)
+    kf, vf = k.float(), v.float()
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    dq_chunks = []
+    k_pos = torch.arange(S, device=q.device)
+    for q0 in range(0, S, C):
+        qg = q[:, q0:q0 + C].float().reshape(B, -1, K, G, hd)
+        gg = do[:, q0:q0 + C].float().reshape(B, -1, K, G, hd)
+        s = torch.einsum("bqkgh,bskh->bkgqs", qg, kf) * scale
+        if causal:
+            q_pos = torch.arange(q0, q0 + qg.shape[1], device=q.device)
+            s = s.masked_fill(q_pos[:, None] < k_pos[None, :], NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        dv += torch.einsum("bkgqs,bqkgh->bskh", p, gg)
+        dp = torch.einsum("bqkgh,bskh->bkgqs", gg, vf)
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+        dq_chunks.append(
+            torch.einsum("bkgqs,bskh->bqkgh", ds, kf).flatten(2, 3) * scale)
+        dk += torch.einsum("bkgqs,bqkgh->bskh", ds, qg) * scale
+    dq = torch.cat(dq_chunks, dim=1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 class _FlashAttention(torch.autograd.Function):
     """Flash attention with the flash backward as its gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, needs_grad: bool):
-        ctx.causal = causal
+    def forward(ctx, q, k, v, causal: bool, needs_grad: bool,
+                bwd_impl: str):
+        ctx.causal, ctx.bwd_impl = causal, bwd_impl
         if not needs_grad:
             return _flash_forward(q, k, v, causal, with_lse=False)
-        if not _on_cpu(q, k, v) and q.dtype != torch.bfloat16:
-            # Refuse before the forward launches, not after it.
-            raise ValueError(f"flash backward kernels take bf16 q/k/v; got "
-                             f"{q.dtype} on {q.device}")
         out, lse = _flash_forward(q, k, v, causal, with_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
+        if bwd_impl == "chunked":
+            # The chunked backward recomputes from q, k and v alone.
+            ctx.save_for_backward(q, k, v)
+        else:
+            ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal)
-        return dq, dk, dv, None, None
+        if ctx.bwd_impl == "chunked":
+            dq, dk, dv = chunked_attention_bwd(*ctx.saved_tensors, do,
+                                               ctx.causal)
+        else:
+            q, k, v, out, lse = ctx.saved_tensors
+            dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
+                                             ctx.causal)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -496,23 +571,28 @@ def flash_attention(
     v: torch.Tensor,  # [B, S, K, hd]
     causal: bool = True,
     with_lse: bool = False,
+    bwd_impl: str = "flash",
 ):
     """Returns ``out`` [B, S, H, hd] in q's dtype, differentiable in q,
     k and v; or, with ``with_lse``, ``(out, lse)`` with ``lse`` [B, H, S]
     fp32 and no gradient.
 
-    CUDA tensors launch the kernels (forward: bf16 or fp32, head dim 64
-    or 128; backward: bf16) and raise on anything they do not take; CPU
-    tensors take the plain versions through the same autograd wiring.
+    CUDA tensors launch the kernels (bf16 or fp32, head dim 64 or 128)
+    and raise on anything they do not take; CPU tensors take the plain
+    versions through the same autograd wiring. ``bwd_impl`` is "flash"
+    (the backward kernels) or "chunked" (``chunked_attention_bwd``).
     ``flash_attention.launches`` counts forward launches, of which
     ``flash_attention.lse_launches`` wrote lse.
     """
+    if bwd_impl not in ("flash", "chunked"):
+        raise ValueError(f"unknown bwd_impl {bwd_impl!r}: want flash | "
+                         "chunked")
     if with_lse:
         with torch.no_grad():  # as on the card, where the kernel records none
             return _flash_forward(q, k, v, causal, with_lse=True)
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
-    return _FlashAttention.apply(q, k, v, causal, needs_grad)
+    return _FlashAttention.apply(q, k, v, causal, needs_grad, bwd_impl)
 
 
 flash_attention.launches = 0

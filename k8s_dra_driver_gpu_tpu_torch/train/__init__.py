@@ -1,2 +1,2 @@
-"""Training of the port's Llama: the single-device train step
-(``train.py``) and its command-line launcher (``main.py``)."""
+"""Training of the port's Llama: the train step, single-device, sharded
+and K steps a call (``train.py``), and its gang launcher (``main.py``)."""

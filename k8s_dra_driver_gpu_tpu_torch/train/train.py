@@ -1,7 +1,9 @@
-"""Single-device Llama training step.
+"""Llama training step, on one device or sharded over a mesh.
 
-The port of ``k8s_dra_driver_gpu_tpu/train/train.py``'s ``TrainState``,
-``make_optimizer``, ``loss_fn`` and ``train_step``. The parameters are
+The port of ``k8s_dra_driver_gpu_tpu/train/train.py``: ``TrainState``,
+``make_optimizer``, ``loss_fn``, ``train_step``, ``scanned_train_step``
+(K steps a call), ``make_sharded_train`` and
+``make_scanned_sharded_train``. The parameters are
 the model's nested dict of fp32 master tensors; the optimizer is
 ``optax.chain(clip_by_global_norm(1.0), adamw(...))`` written out with
 optax's arithmetic (stock ``torch.optim.AdamW`` differs: it decays the
@@ -9,18 +11,32 @@ weights before the Adam step, and keeps no bf16 first moment). Unlike
 the JAX step, which returns new arrays, the update runs in place on the
 parameter and moment tensors: a flagship state is ~10 GB, and a second
 copy of it buys nothing in eager PyTorch.
+
+Sharded training places every leaf as a DTensor by
+``llama.param_specs`` and the batch by ``llama.batch_spec``; the same
+``train_step`` then runs on DTensors, whose sharding propagation plays
+the part of XLA's and inserts the collectives. Its gradients come back
+with placements of DTensor's choosing (often ``Partial``) and are
+redistributed to their parameter's before the optimizer, so the Adam
+moments stay sharded like their parameter.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..models import llama
 from ..ops.xent import chunked_cross_entropy
+from ..parallel.mesh import (DATA_AXIS, FSDP_AXIS, axis_size, compute_mesh,
+                             distribute_tree, placements)
 
 
 class TrainState(NamedTuple):
@@ -138,11 +154,116 @@ def train_step(state: TrainState, tokens: torch.Tensor, *,
                ) -> tuple[TrainState, torch.Tensor]:
     """One optimizer step on ``tokens`` [B, S + 1]. The parameters and
     moments are updated in place; returns the state and the loss
-    (detached, not synchronised)."""
+    (detached, not synchronised; a plain tensor on sharded parameters
+    too)."""
     leaves = tree_leaves(state.params)
     for leaf in leaves:
         leaf.requires_grad_(True)
-    loss = loss_fn(state.params, tokens, cfg)
-    grads = list(torch.autograd.grad(loss, leaves))
-    opt_state = optimizer.update(grads, state.opt_state, state.params)
+    sharded = isinstance(leaves[0], DTensor)
+    # On DTensor parameters, plain tensors made inside the model
+    # (positions, masks, rope tables) count as replicated, which they
+    # are: every rank builds the same ones.
+    with implicit_replication() if sharded else contextlib.nullcontext():
+        loss = loss_fn(state.params, tokens, cfg)
+        grads = list(torch.autograd.grad(loss, leaves))
+        if sharded:
+            grads = [g.redistribute(p.device_mesh, p.placements)
+                     for g, p in zip(grads, leaves)]
+            loss = loss.full_tensor()
+        opt_state = optimizer.update(grads, state.opt_state, state.params)
     return TrainState(state.params, opt_state, state.step + 1), loss.detach()
+
+
+def scanned_train_step(state: TrainState, tokens_kbs: torch.Tensor, *,
+                       cfg: llama.LlamaConfig, optimizer: AdamW
+                       ) -> tuple[TrainState, torch.Tensor]:
+    """K optimizer steps in one call: ``tokens_kbs`` is [K, B, S + 1];
+    returns the state and the K losses stacked. Nothing waits for the
+    device between steps (the reference runs them under one
+    ``lax.scan``)."""
+    losses = []
+    for k in range(tokens_kbs.shape[0]):
+        state, loss = train_step(state, tokens_kbs[k], cfg=cfg,
+                                 optimizer=optimizer)
+        losses.append(loss)
+    return state, torch.stack(losses)
+
+
+def _batch_layout(mesh, batch_placements, batch_dim: int):
+    """Each process's local rows -> the global batch as a DTensor: the
+    rows of every rank of the default group, concatenated in rank order
+    along ``batch_dim`` (as ``make_array_from_process_local_data`` takes
+    each process's rows), then placed by ``batch_placements``."""
+    shards = axis_size(mesh, DATA_AXIS) * axis_size(mesh, FSDP_AXIS)
+    device = torch.device(mesh.device_type, torch.cuda.current_device()
+                          if mesh.device_type == "cuda" else None)
+
+    def layout(local) -> DTensor:
+        local = torch.as_tensor(local).to(device)
+        gathered = [torch.empty_like(local)
+                    for _ in range(dist.get_world_size())]
+        dist.all_gather(gathered, local.contiguous())
+        rows = torch.cat(gathered, dim=batch_dim)
+        if rows.shape[batch_dim] % shards:
+            raise ValueError(
+                f"global batch {rows.shape[batch_dim]} not divisible by "
+                f"dp * fsdp = {shards}")
+        return distribute_tensor(rows, mesh, batch_placements,
+                                 src_data_rank=None)
+
+    return layout
+
+
+def make_sharded_train(mesh, cfg: llama.LlamaConfig,
+                       optimizer: AdamW | None = None):
+    """Returns ``(init_fn, step_fn, batch_layout, place_params)`` over
+    ``mesh`` (a ``parallel.mesh`` DeviceMesh).
+
+    ``place_params(params)``: the parameters (the same on every rank) as
+    DTensors placed by ``llama.param_specs``. ``init_fn(params)``: a
+    TrainState of placed parameters and Adam moments of the same
+    placements. ``batch_layout(local_rows)``: each process's [b, S + 1]
+    rows -> the global [b * processes, S + 1] batch, sharded over dp and
+    fsdp. ``step_fn(state, tokens) -> (state, loss)``: ``train_step`` on
+    the placed state. Over a mesh of more than one device "auto"
+    attention becomes einsum (``llama.pin_auto_attn_for_pjit``); on one
+    device the flash kernels run on the local tensors."""
+    optimizer = optimizer or make_optimizer()
+    cfg = llama.pin_auto_attn_for_pjit(cfg, mesh)
+    cmesh = compute_mesh(mesh)
+    specs = llama.param_specs(cfg, cmesh)
+
+    def place_params(params: dict) -> dict:
+        return distribute_tree(params, specs, cmesh)
+
+    def init_fn(params: dict) -> TrainState:
+        params = place_params(params)
+        return TrainState(params, optimizer.init(params), 0)
+
+    def step_fn(state: TrainState, tokens: DTensor):
+        return train_step(state, tokens, cfg=cfg, optimizer=optimizer)
+
+    return (init_fn, step_fn,
+            _batch_layout(cmesh, llama.batch_spec(cmesh), batch_dim=0),
+            place_params)
+
+
+def make_scanned_sharded_train(mesh, cfg: llama.LlamaConfig,
+                               optimizer: AdamW | None = None):
+    """``make_sharded_train`` with K steps a call (``scanned_train_step``):
+    ``step_fn(state, tokens[K, B, S + 1]) -> (state, losses[K])``. The
+    batch layout takes each process's [K, b, S + 1] rows; the leading K
+    dim is not sharded and each step's batch shards as in the unscanned
+    path."""
+    optimizer = optimizer or make_optimizer()
+    cfg = llama.pin_auto_attn_for_pjit(cfg, mesh)
+    init_fn, _, _, place_params = make_sharded_train(mesh, cfg, optimizer)
+    cmesh = compute_mesh(mesh)
+    batch = placements((None, (DATA_AXIS, FSDP_AXIS)), cmesh)
+
+    def step_fn(state: TrainState, tokens_kbs: DTensor):
+        return scanned_train_step(state, tokens_kbs, cfg=cfg,
+                                  optimizer=optimizer)
+
+    return (init_fn, step_fn, _batch_layout(cmesh, batch, batch_dim=1),
+            place_params)

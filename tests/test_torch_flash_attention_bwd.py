@@ -163,21 +163,80 @@ def test_cpu_backward_launches_nothing():
 
 def test_backward_input_checks():
     q, k, v, w = (torch.from_numpy(a) for a in _inputs(1, 16, 4, 2, 128))
-    # The backward kernels take bf16 only.
-    pt_flash._check_cuda(*(t.bfloat16() for t in (q, k, v)),
-                         dtypes=(torch.bfloat16,))
-    with pytest.raises(ValueError, match="takes bf16 q/k/v"):
-        pt_flash._check_cuda(q, k, v, w, dtypes=(torch.bfloat16,))
+    # The backward kernels take bf16 and fp32 (with out and dO as further
+    # operands); anything else is refused before a launch.
+    pt_flash._check_cuda(q, k, v, w, w)
+    pt_flash._check_cuda(*(t.bfloat16() for t in (q, k, v, w, w)))
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="bf16 or fp32"):
+            pt_flash._check_cuda(*(t.to(dtype) for t in (q, k, v, w, w)))
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        pt_flash._check_cuda(q, k, v, w.bfloat16(), w)
+    q32, k32, v32 = (t[..., :32].contiguous() for t in (q, k, v))
+    with pytest.raises(ValueError, match="head dims"):
+        pt_flash._check_cuda(q32, k32, v32, q32, q32)
     lse = torch.zeros(1, 4, 16)
     with pytest.raises(ValueError, match="must match q"):
         pt_flash.flash_attention_bwd(q, k, v, w[:, :8], lse, w)
 
 
 def test_fp32_needing_grad_off_cpu_refused_before_launch():
-    # Off the CPU the backward kernels take bf16 only, so an fp32 forward
-    # that needs a gradient is refused before the forward kernel runs.
+    # Off the CPU an fp32 forward that needs a gradient passes the
+    # kernels' checks (the backward has fp32 entries), and the fp32
+    # backward plan reads q, k, v and dO through their strides. A dtype
+    # the kernels do not take is refused before the forward launches.
     q, k, v = (torch.empty(1, 16, n, 128, device="meta") for n in (4, 2, 2))
+    pt_flash._check_cuda(q, k, v, q, q)
+    plan = pt_flash.bwd_plan(q, k, v, q)
+    assert plan.maps == () and len(plan.strides) == 12
+    assert plan.threads == pt_flash.BWD_F32_THREADS
+    assert plan.dq_grid == (4, 1) and plan.dkv_grid == (2, 1)
+    assert (plan.dq_smem, plan.dkv_smem) == pt_flash.bwd_smem_bytes(
+        128, torch.float32)
+    assert len(plan.packed()) == 7 + 12
     launches = pt_flash.flash_attention.launches
-    with pytest.raises(ValueError, match="backward kernels take bf16"):
-        pt_flash.flash_attention(q.requires_grad_(), k, v)
+    half = [t.half() for t in (q, k, v)]
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        pt_flash.flash_attention(half[0].requires_grad_(), *half[1:])
     assert pt_flash.flash_attention.launches == launches
+
+
+CHUNKED_CASES = [
+    # (B, S, H, K, hd, causal, block_q)
+    (2, 40, 4, 2, 16, True, 16),    # ragged S: the last chunk is short
+    (2, 40, 4, 2, 16, False, 16),
+    (1, 48, 8, 2, 16, True, 16),    # group 4
+    (1, 48, 4, 4, 32, False, 512),  # group 1, one chunk
+]
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,causal,block_q", CHUNKED_CASES)
+def test_chunked_bwd_matches_jax_chunked(B, S, H, K, hd, causal, block_q):
+    q, k, v, w = _inputs(B, S, H, K, hd, seed=4)
+
+    def loss(q, k, v):
+        out = jax_flash.flash_attention(
+            q, k, v, causal=causal, block_q=block_q, block_k=16,
+            interpret=True, bwd_impl="chunked")
+        return jnp.sum(out * w)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = pt_flash.flash_attention(*leaves, causal=causal,
+                                   bwd_impl="chunked")
+    (out * torch.from_numpy(w)).sum().backward()
+    direct = pt_flash.chunked_attention_bwd(
+        *(torch.from_numpy(a) for a in (q, k, v, w)), causal,
+        block_q=block_q)
+    for name, leaf, d, ref in zip("qkv", leaves, direct, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref),
+                                   atol=TOL, rtol=TOL, err_msg=f"d{name}")
+        np.testing.assert_allclose(d.numpy(), np.asarray(ref), atol=TOL,
+                                   rtol=TOL, err_msg=f"direct d{name}")
+
+
+def test_unknown_bwd_impl_refused():
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(1, 16, 4, 2, 16))
+    with pytest.raises(ValueError, match="unknown bwd_impl"):
+        pt_flash.flash_attention(q, k, v, bwd_impl="pallas")

@@ -1,0 +1,177 @@
+"""The port's gang launcher: its copy of ``validate_gang_env`` against the
+reference's, and ``python -m k8s_dra_driver_gpu_tpu_torch.train.main``
+as a 2-process gloo gang (``--tp 2``, with and without
+``--steps-per-call 2``) against the port's single-process ``train_step``
+on the concatenated shard batches; plus the env failures."""
+
+import math
+import os
+import re
+import socket
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from k8s_dra_driver_gpu_tpu.train import main as jax_main
+from k8s_dra_driver_gpu_tpu_torch.models import llama as pt_llama
+from k8s_dra_driver_gpu_tpu_torch.train import main as pt_main
+from k8s_dra_driver_gpu_tpu_torch.train import train as pt_train
+
+REPO = str(Path(__file__).resolve().parents[1])
+STEPS, BATCH, SEQ, WORLD = 3, 2, 16, 2
+GANG_VARS = ("TPU_COORDINATOR_ADDRESS", "TPU_PROCESS_ID", "TPU_NUM_PROCESSES",
+             "TPU_WORKER_HOSTNAMES", "TPU_INIT_TIMEOUT_S", "STEPS_PER_CALL")
+
+ENVS = [
+    {},
+    {"TPU_COORDINATOR_ADDRESS": "10.0.0.1:8476", "TPU_PROCESS_ID": "1",
+     "TPU_NUM_PROCESSES": "2", "TPU_WORKER_HOSTNAMES": "10.0.0.1,10.0.0.2"},
+    {"TPU_COORDINATOR_ADDRESS": "[fd00::1]:8476", "TPU_PROCESS_ID": "0",
+     "TPU_NUM_PROCESSES": "2"},
+    {"TPU_COORDINATOR_ADDRESS": "10.0.0.1:8476"},
+    {"TPU_COORDINATOR_ADDRESS": "10.0.0.1:8476", "TPU_PROCESS_ID": "0"},
+    {"TPU_COORDINATOR_ADDRESS": "10.0.0.1:8476", "TPU_PROCESS_ID": "0",
+     "TPU_NUM_PROCESSES": "3", "TPU_WORKER_HOSTNAMES": "a,b"},
+    {"TPU_COORDINATOR_ADDRESS": "10.0.0.1:8476", "TPU_PROCESS_ID": "2",
+     "TPU_NUM_PROCESSES": "2"},
+    {"TPU_COORDINATOR_ADDRESS": "10.0.0.1:8476", "TPU_PROCESS_ID": "zero",
+     "TPU_NUM_PROCESSES": "2"},
+    {"TPU_COORDINATOR_ADDRESS": "no-port-here", "TPU_PROCESS_ID": "0",
+     "TPU_NUM_PROCESSES": "2"},
+]
+
+
+def _outcome(fn, env):
+    try:
+        return "ok", fn(env=env)
+    except ValueError as err:
+        return type(err).__name__, str(err)
+
+
+@pytest.mark.parametrize("env", ENVS)
+def test_validate_gang_env_matches_reference(env):
+    got = _outcome(pt_main.validate_gang_env, env)
+    assert got == _outcome(jax_main.validate_gang_env, env)
+    if got[0] != "ok":
+        assert got[0] == "GangEnvError"
+        assert issubclass(pt_main.GangEnvError, ValueError)
+
+
+def _env(**extra):
+    env = {k: v for k, v in os.environ.items() if k not in GANG_VARS}
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1", **extra)
+    return env
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _launch(*extra):
+    """Starts one 2-process gang of the launcher; returns its processes."""
+    port = _free_port()
+    args = [sys.executable, "-m", "k8s_dra_driver_gpu_tpu_torch.train.main",
+            "--device", "cpu", "--model", "tiny", "--steps", str(STEPS),
+            "--tp", "2", "--batch-size", str(BATCH), "--seq-len", str(SEQ),
+            *extra]
+    return [subprocess.Popen(
+        args, env=_env(TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       TPU_PROCESS_ID=str(rank),
+                       TPU_NUM_PROCESSES=str(WORLD),
+                       TPU_INIT_TIMEOUT_S="60"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(WORLD)]
+
+
+@pytest.fixture(scope="module")
+def gangs():
+    """Both gangs at once; returns {steps per call: [rank logs]}."""
+    running = {k: _launch("--steps-per-call", str(k)) for k in (1, 2)}
+    logs = {}
+    try:
+        for k, procs in running.items():
+            logs[k] = [proc.communicate(timeout=240)[0] for proc in procs]
+            for proc, log in zip(procs, logs[k]):
+                assert proc.returncode == 0, log[-3000:]
+    finally:
+        for procs in running.values():
+            for proc in procs:
+                proc.kill()
+    return logs
+
+
+@pytest.fixture(scope="module")
+def single_process_loss():
+    """The last of ``STEPS`` losses of the single-process ``train_step``
+    on the same init and the concatenated shard batches."""
+    cfg = pt_llama.LlamaConfig.tiny()
+    opt = pt_train.make_optimizer()
+    params = pt_llama.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    state = pt_train.TrainState(params, opt.init(params), 0)
+    for step in range(STEPS):
+        batch = np.concatenate([
+            pt_main.synthetic_batch(step, BATCH, SEQ, cfg.vocab_size, shard)
+            for shard in range(WORLD)])
+        state, loss = pt_train.train_step(state, torch.from_numpy(batch),
+                                          cfg=cfg, optimizer=opt)
+    return loss.item()
+
+
+@pytest.mark.parametrize("steps_per_call", [1, 2])
+def test_gang_logs_the_single_process_loss(gangs, single_process_loss,
+                                           steps_per_call):
+    for log in gangs[steps_per_call]:
+        assert "joined gang: process" in log and "'tp': 2" in log, log
+        lines = re.findall(r"step (\d+) loss (\S+) \((\d+) tok/s\)", log)
+        assert lines[-1][0] == str(STEPS), log
+        loss = float(lines[-1][1])
+        assert math.isfinite(loss)
+        # The tiny config computes in bf16, and tp=2 splits the depth of
+        # wo and w_down: their partial products are rounded to bf16
+        # before the sum across ranks, a few bf16 ulps (2^-8) of the
+        # loss apart from one device's.
+        assert abs(loss - single_process_loss) <= 2e-3 * single_process_loss, (
+            loss, single_process_loss)
+
+
+def test_steps_per_call_logs_the_same_loss(gangs):
+    # K steps a call run the same steps on the same batches in order.
+    def last(log):
+        return re.findall(r"step (\d+) loss (\S+) ", log)[-1]
+
+    assert [last(log) for log in gangs[1]] == [last(log) for log in gangs[2]]
+
+
+def test_unreachable_coordinator_fails_within_timeout():
+    # Process 1 connects to a port nothing listens on; the rendezvous
+    # must give up after TPU_INIT_TIMEOUT_S, not hang for 300 s.
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "k8s_dra_driver_gpu_tpu_torch.train.main",
+         "--device", "cpu", "--steps", "1"],
+        env=_env(TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}",
+                 TPU_PROCESS_ID="1", TPU_NUM_PROCESSES="2",
+                 TPU_INIT_TIMEOUT_S="5"),
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert time.monotonic() - t0 < 120
+    out = (proc.stdout + proc.stderr).lower()
+    assert "timed out" in out or "timeout" in out, out[-2000:]
+
+
+def test_partial_env_fails_fast():
+    proc = subprocess.run(
+        [sys.executable, "-m", "k8s_dra_driver_gpu_tpu_torch.train.main",
+         "--device", "cpu", "--steps", "1"],
+        env=_env(TPU_COORDINATOR_ADDRESS="127.0.0.1:8476"),
+        capture_output=True, text=True, timeout=60)
+    assert proc.returncode != 0
+    assert "GangEnvError" in proc.stderr
+    assert "TPU_PROCESS_ID, TPU_NUM_PROCESSES missing" in proc.stderr

@@ -1,0 +1,120 @@
+"""The port's sharded serving against its single-device ``generate`` and
+the JAX reference's: one 4-rank gloo gang (``tests/torch_gang.py``,
+worker ``sharded_generate``) runs ``make_sharded_generate`` on the tiny
+config in fp32 over the meshes (dp=2, tp=2) and (fsdp=2, tp=2), with the
+fp and the int8 KV cache, and tries tp=4 over 2 kv heads."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from k8s_dra_driver_gpu_tpu.models import decode as jax_decode
+from k8s_dra_driver_gpu_tpu.models import llama as jax_llama
+from k8s_dra_driver_gpu_tpu_torch.convert import params_from_jax
+from k8s_dra_driver_gpu_tpu_torch.models import decode as pt_decode
+from k8s_dra_driver_gpu_tpu_torch.models import llama as pt_llama
+from tests import torch_gang
+
+WORLD, BATCH, PROMPT, NEW, MAX_LEN = 4, 4, 8, 6, 16
+MESHES = ("dp2_tp2", "fsdp2_tp2")
+JAX_CFG = dataclasses.replace(jax_llama.LlamaConfig.tiny(), dtype=jnp.float32)
+PT_CFG = dataclasses.replace(pt_llama.LlamaConfig.tiny(), dtype=torch.float32)
+
+
+@pytest.fixture(scope="module")
+def gang(tmp_path_factory):
+    """Runs the gang once; returns (per-rank results, the port's
+    single-device tokens and the reference's, by cache kind)."""
+    out = tmp_path_factory.mktemp("sharded_generate")
+    params = jax_llama.init(jax.random.PRNGKey(0), JAX_CFG)
+    flat = {}
+
+    def walk(tree, prefix=""):
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                walk(value, f"{prefix}{name}/")
+            else:
+                flat[prefix + name] = np.asarray(value)
+
+    walk(params)
+    np.savez(out / "params.npz", **flat)
+    prompt = np.random.RandomState(3).randint(
+        0, JAX_CFG.vocab_size, (BATCH, PROMPT)).astype(np.int64)
+    np.savez(out / "prompt.npz", prompt=prompt, new=NEW, max_len=MAX_LEN)
+    torch_gang.run_gang("sharded_generate", WORLD, out)
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
+             for r in range(WORLD)]
+    single, reference = {}, {}
+    for kind, quant in (("fp", False), ("int8", True)):
+        single[kind] = pt_decode.generate(
+            params_from_jax(params), torch.from_numpy(prompt), PT_CFG, NEW,
+            MAX_LEN, kv_quant=quant)
+        reference[kind] = np.asarray(jax_decode.generate(
+            params, jnp.asarray(prompt.astype(np.int32)), JAX_CFG, NEW,
+            MAX_LEN, kv_quant=quant))
+    return ranks, single, reference
+
+
+@pytest.mark.parametrize("kind", ["fp", "int8"])
+@pytest.mark.parametrize("mesh", MESHES)
+def test_greedy_tokens_match_single_device_and_jax(gang, mesh, kind):
+    ranks, single, reference = gang
+    np.testing.assert_array_equal(single[kind].numpy(), reference[kind])
+    for rank in ranks:
+        got = rank[f"{mesh}/{kind}/tokens"]
+        assert got.shape == (BATCH, NEW) and got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), single[kind].numpy())
+
+
+@pytest.mark.parametrize("kind", ["fp", "int8"])
+@pytest.mark.parametrize("mesh", MESHES)
+def test_output_is_batch_sharded(gang, mesh, kind):
+    # Sharded over the mesh's dp or fsdp dim (the first), replicated over
+    # tp: each rank holds half the rows.
+    ranks, _, _ = gang
+    for rank in ranks:
+        assert rank[f"{mesh}/{kind}/placements"] == ["S(0)", "R"]
+        assert rank[f"{mesh}/{kind}/local_shape"] == (BATCH // 2, NEW)
+
+
+def test_tp_over_kv_heads_refused_before_work(gang):
+    ranks, _, _ = gang
+    for rank in ranks:
+        assert rank["tp4/error"] == "n_kv_heads=2 not divisible by tp=4"
+
+
+def test_gang_of_one_matches_generate():
+    # One in-process rank, "flash" attention (its plain version through
+    # local_map on the CPU) and the int8 cache: the sharded generate and
+    # its prefill logits equal the plain ones bit for bit.
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from k8s_dra_driver_gpu_tpu_torch.parallel import mesh as pt_mesh
+
+    cfg = dataclasses.replace(PT_CFG, attn_impl="flash")
+    params = pt_llama.init(cfg, torch.Generator().manual_seed(2), "cpu")
+    prompt = torch.from_numpy(np.random.RandomState(4).randint(
+        0, cfg.vocab_size, (2, PROMPT)))
+    want = pt_decode.generate(params, prompt, cfg, NEW, MAX_LEN,
+                              kv_quant=True)
+    want_logits = pt_decode.prefill(params, prompt, cfg, MAX_LEN)[0]
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = pt_mesh.build_mesh()
+        generate_fn, layout, place = pt_decode.make_sharded_generate(
+            mesh, cfg, NEW, MAX_LEN, kv_quant=True)
+        placed, sharded_prompt = place(params), layout(prompt)
+        got = generate_fn(placed, sharded_prompt)
+        with implicit_replication():
+            logits = pt_decode.prefill(placed, sharded_prompt, cfg,
+                                       MAX_LEN)[0].full_tensor()
+        assert torch.equal(got.full_tensor(), want)
+        assert torch.equal(logits, want_logits)
+    finally:
+        dist.destroy_process_group()

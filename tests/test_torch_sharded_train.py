@@ -1,0 +1,234 @@
+"""The port's sharded training against the JAX reference: one 4-rank gloo
+gang (``tests/torch_gang.py``, worker ``sharded_train``) trains the tiny
+config in fp32 for 3 steps on the meshes (dp=2, fsdp=2) and (fsdp=2,
+tp=2), then 3 steps in one scanned call; JAX's single-device
+``train_step`` on the same parameters and global batches is the
+reference."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from k8s_dra_driver_gpu_tpu.models import llama as jax_llama
+from k8s_dra_driver_gpu_tpu.train import train as jax_train
+from k8s_dra_driver_gpu_tpu_torch.models import llama as pt_llama
+from tests import torch_gang
+
+WORLD, STEPS, BATCH, SEQ = 4, 3, 8, 16
+MESHES = {"dp2_fsdp2": {"dp": 2, "fsdp": 2}, "fsdp2_tp2": {"fsdp": 2, "tp": 2}}
+# fp32 on both sides; the sharded step sums its matmuls and gradients in
+# another order than one device does.
+TOL = 1e-4
+JAX_CFG = dataclasses.replace(jax_llama.LlamaConfig.tiny(), dtype=jnp.float32)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            out.update(_flat(value, f"{prefix}{name}/"))
+        else:
+            out[prefix + name] = np.asarray(value)
+    return out
+
+
+@pytest.fixture(scope="module")
+def gang(tmp_path_factory):
+    """Runs the gang once; returns (per-rank results, JAX losses, JAX
+    final params by "/" name)."""
+    out = tmp_path_factory.mktemp("sharded_train")
+    params = jax_llama.init(jax.random.PRNGKey(0), JAX_CFG)
+    np.savez(out / "params.npz", **_flat(params))
+    tokens = np.random.RandomState(7).randint(
+        0, JAX_CFG.vocab_size, (STEPS, BATCH, SEQ + 1)).astype(np.int32)
+    np.savez(out / "tokens.npz", tokens=tokens)
+    torch_gang.run_gang("sharded_train", WORLD, out)
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
+             for r in range(WORLD)]
+
+    opt = jax_train.make_optimizer()
+    state = jax_train.TrainState(params, opt.init(params),
+                                 jnp.zeros((), jnp.int32))
+    step = jax.jit(lambda st, t: jax_train.train_step(
+        st, t, cfg=JAX_CFG, optimizer=opt))
+    losses = []
+    for i in range(STEPS):
+        state, loss = step(state, jnp.asarray(tokens[i]))
+        losses.append(float(loss))
+    return ranks, losses, _flat(state.params)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_losses_match_jax_train_step(gang, mesh):
+    ranks, want, _ = gang
+    for rank in ranks:
+        np.testing.assert_allclose(rank[f"{mesh}/losses"], want, rtol=TOL,
+                                   atol=TOL)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_final_params_match_jax_train_step(gang, mesh):
+    ranks, _, want = gang
+    for name, ref in want.items():
+        got = ranks[0][f"{mesh}/param/{name}"].numpy()
+        np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL,
+                                   err_msg=name)
+
+
+def _shards(name, mesh):
+    """How many ways each dim of a leaf is split on ``mesh``, from the
+    reference's specs."""
+    spec = pt_llama._PARAM_SPECS
+    for part in name.split("/"):
+        spec = spec[part]
+    return [MESHES[mesh].get(axis, 1) if axis else 1 for axis in spec]
+
+
+@pytest.mark.parametrize("what", ["local", "local_mu", "local_nu"])
+@pytest.mark.parametrize("mesh", MESHES)
+def test_params_and_moments_are_sharded(gang, mesh, what):
+    ranks, _, want = gang
+    for name, ref in want.items():
+        local = [ref.shape[d] // n for d, n in enumerate(_shards(name, mesh))]
+        for rank in ranks:
+            assert rank[f"{mesh}/{what}/{name}"] == tuple(local), name
+    # Something is split on every mesh: the embedding over fsdp.
+    assert ranks[0][f"{mesh}/{what}/embed"] != want["embed"].shape
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_replicas_are_equal_across_ranks(gang, mesh):
+    # Ranks that hold the same shard of a leaf hold the same bits: every
+    # rank for a replicated leaf, the dp replicas for an fsdp shard.
+    ranks, _, want = gang
+    sizes = MESHES[mesh]
+    for name in want:
+        shards = _shards(name, mesh)
+        groups = {}
+        for r, rank in enumerate(ranks):
+            coord = {"dp": r // 2 if "dp" in sizes else 0,
+                     "fsdp": (r // 2 if "dp" not in sizes else r % 2)
+                     if "fsdp" in sizes else 0,
+                     "tp": r % 2 if "tp" in sizes else 0}
+            spec = pt_llama._PARAM_SPECS
+            for part in name.split("/"):
+                spec = spec[part]
+            key = tuple(coord[a] if a and sizes.get(a, 1) > 1 else 0
+                        for a in spec)
+            groups.setdefault(key, []).append(
+                rank[f"{mesh}/local_param/{name}"])
+        assert len(groups) == int(np.prod(shards)), name
+        for members in groups.values():
+            for other in members[1:]:
+                assert torch.equal(members[0], other), name
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_state_step_counts_steps(gang, mesh):
+    ranks, _, _ = gang
+    assert all(rank[f"{mesh}/step"] == STEPS for rank in ranks)
+
+
+def test_scanned_steps_equal_single_steps(gang):
+    ranks, want, _ = gang
+    for rank in ranks:
+        assert rank["scanned/step"] == STEPS
+        np.testing.assert_allclose(rank["scanned/losses"],
+                                   rank["fsdp2_tp2/losses"], rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(rank["scanned/losses"], want, rtol=TOL,
+                                   atol=TOL)
+
+
+class _Mesh:
+    def __init__(self, n):
+        self.n = n
+
+    def size(self):
+        return self.n
+
+
+@pytest.mark.parametrize("impl,size,want", [
+    ("auto", 1, "auto"), ("auto", 4, "einsum"), ("flash", 4, "flash"),
+    ("flash", 1, "flash"), ("einsum", 1, "einsum")])
+def test_pin_auto_attn_for_pjit(impl, size, want):
+    cfg = dataclasses.replace(pt_llama.LlamaConfig.tiny(), attn_impl=impl)
+    assert pt_llama.pin_auto_attn_for_pjit(cfg, _Mesh(size)).attn_impl == want
+    # The reference's rule, on the same cases.
+    jcfg = dataclasses.replace(jax_llama.LlamaConfig.tiny(), attn_impl=impl)
+    assert jax_llama.pin_auto_attn_for_pjit(
+        jcfg, type("M", (), {"size": size})()).attn_impl == want
+
+
+def test_gang_pins_einsum_on_four_ranks(gang):
+    ranks, _, _ = gang
+    assert all(rank[f"{m}/pinned_einsum"] for rank in ranks for m in MESHES)
+
+
+@pytest.mark.parametrize("axis", ["fsdp", "tp"])
+def test_bench_allreduce_over_mesh_axis(gang, axis):
+    ranks, _, _ = gang
+    for rank in ranks:
+        assert rank[f"allreduce/{axis}/participants"] == 2
+        assert rank[f"allreduce/{axis}/gbps"] > 0
+
+
+@pytest.fixture()
+def gang_of_one():
+    """A one-rank gloo group in this process, as the launcher makes
+    without a gang env; the mesh over it."""
+    import torch.distributed as dist
+
+    from k8s_dra_driver_gpu_tpu_torch.parallel import mesh as pt_mesh
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield pt_mesh.build_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_gang_of_one_runs_flash_through_local_map(gang_of_one):
+    # One rank: "flash" stays (pin_auto_attn_for_pjit), the kernel wrapper
+    # sees the local tensors through local_map (its plain version on the
+    # CPU), and the sharded and scanned steps give train_step's losses
+    # bit for bit.
+    from k8s_dra_driver_gpu_tpu_torch.ops import flash_attention as pt_flash
+    from k8s_dra_driver_gpu_tpu_torch.train import train as pt_train
+
+    cfg = dataclasses.replace(pt_llama.LlamaConfig.tiny(), dtype=torch.float32,
+                              attn_impl="flash", loss_chunk=8)
+    opt = pt_train.make_optimizer(mu_dtype=torch.bfloat16)
+    tokens = torch.from_numpy(np.random.RandomState(5).randint(
+        0, cfg.vocab_size, (2, 17)).astype(np.int32))
+
+    def params():
+        return pt_llama.init(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    init_fn, step_fn, layout, _ = pt_train.make_sharded_train(
+        gang_of_one, cfg, opt)
+    _, scan_fn, scan_layout, _ = pt_train.make_scanned_sharded_train(
+        gang_of_one, cfg, opt)
+    plain = pt_train.TrainState(params(), None, 0)
+    plain = plain._replace(opt_state=opt.init(plain.params))
+    sharded, scanned = init_fn(params()), init_fn(params())
+    batch = layout(tokens)
+    want, got = [], []
+    for _ in range(STEPS):
+        plain, loss = pt_train.train_step(plain, tokens, cfg=cfg,
+                                          optimizer=opt)
+        want.append(loss.item())
+        sharded, loss = step_fn(sharded, batch)
+        got.append(loss.item())
+    scanned, losses = scan_fn(scanned, scan_layout(
+        tokens[None].expand(STEPS, -1, -1)))
+    assert got == want and losses.tolist() == want
+    assert sharded.params["layers"]["wq"].placements == (
+        torch.distributed.tensor.Replicate(),)
+    # The CPU path launches no kernel.
+    assert pt_flash.flash_attention.launches == 0

@@ -1,0 +1,225 @@
+"""Rank workers of the port's multi-process CPU tests.
+
+    python tests/torch_gang.py WORKER RANK WORLD STORE OUT
+
+runs ``WORKER`` (a function of this module) as rank ``RANK`` of a gloo
+gang of ``WORLD`` processes that meet in the ``FileStore`` at ``STORE``;
+inputs and results are files in the directory ``OUT``. This module
+imports neither JAX nor the JAX package: the tests compute the reference
+side in their own process and hand it over as ``.npz`` files.
+
+``run_gang`` starts the ranks and waits for them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def run_gang(worker: str, world: int, out: Path, timeout: float = 240.0):
+    """Run ``worker`` as a gang of ``world`` processes; raise with the
+    ranks' output if any fails."""
+    store = out / "store"
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, worker, str(rank), str(world), str(store),
+         str(out)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for rank in range(world)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=timeout)[0])
+    finally:
+        for proc in procs:
+            proc.kill()
+    bad = [(rank, proc.returncode, log) for rank, (proc, log)
+           in enumerate(zip(procs, logs)) if proc.returncode]
+    if bad:
+        raise RuntimeError("gang ranks failed:\n" + "\n".join(
+            f"--- rank {rank} exit {rc}\n{log[-4000:]}"
+            for rank, rc, log in bad))
+
+
+def _tiny(**changes):
+    import torch
+
+    from k8s_dra_driver_gpu_tpu_torch.models import llama
+
+    return dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.float32,
+                               **changes)
+
+
+def _load_params(out: Path) -> dict:
+    """The reference's initial parameters, flattened with "/" keys."""
+    import numpy as np
+
+    from k8s_dra_driver_gpu_tpu_torch.convert import params_from_jax
+
+    tree: dict = {}
+    with np.load(out / "params.npz") as f:
+        for key in f.files:
+            node = tree
+            *path, leaf = key.split("/")
+            for name in path:
+                node = node.setdefault(name, {})
+            node[leaf] = f[key]
+    return params_from_jax(tree)
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    flat = {}
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            flat.update(_flat(value, f"{prefix}{name}/"))
+        else:
+            flat[prefix + name] = value
+    return flat
+
+
+def sharded_train(rank: int, world: int, out: Path) -> None:
+    """3 sharded steps on each of the meshes (dp=2, fsdp=2) and (fsdp=2,
+    tp=2), then 3 steps as one scanned call, on the tokens of
+    ``tokens.npz`` (the same global batch on every rank)."""
+    import numpy as np
+    import torch
+
+    from k8s_dra_driver_gpu_tpu_torch.models import llama
+    from k8s_dra_driver_gpu_tpu_torch.ops import collectives
+    from k8s_dra_driver_gpu_tpu_torch.parallel import mesh as pmesh
+    from k8s_dra_driver_gpu_tpu_torch.train import train
+
+    cfg = _tiny()
+    tokens = np.load(out / "tokens.npz")["tokens"]  # [steps, B, S + 1]
+    steps, batch = tokens.shape[:2]
+    results = {}
+    for label, plan in (("dp2_fsdp2", pmesh.MeshPlan(dp=2, fsdp=2)),
+                        ("fsdp2_tp2", pmesh.MeshPlan(fsdp=2, tp=2))):
+        mesh = pmesh.build_mesh(plan)
+        pinned = llama.pin_auto_attn_for_pjit(cfg, mesh)
+        results[f"{label}/pinned_einsum"] = pinned.attn_impl == "einsum"
+        init_fn, step_fn, layout, _ = train.make_sharded_train(mesh, cfg)
+        state = init_fn(_load_params(out))
+        local = batch // world
+        losses = []
+        for step in range(steps):
+            mine = tokens[step, rank * local:(rank + 1) * local]
+            state, loss = step_fn(state, layout(mine))
+            losses.append(loss.item())
+        results[f"{label}/losses"] = losses
+        results[f"{label}/step"] = state.step
+        for name, leaf in _flat(state.params).items():
+            results[f"{label}/param/{name}"] = leaf.full_tensor().detach()
+            results[f"{label}/local/{name}"] = tuple(leaf.to_local().shape)
+            results[f"{label}/local_param/{name}"] = leaf.to_local().detach()
+        for moment in ("mu", "nu"):
+            for name, leaf in _flat(state.opt_state[moment]).items():
+                results[f"{label}/local_{moment}/{name}"] = tuple(
+                    leaf.to_local().shape)
+        if label == "fsdp2_tp2":
+            _, scan_fn, scan_layout, _ = train.make_scanned_sharded_train(
+                mesh, cfg)
+            state = init_fn(_load_params(out))
+            state, scanned = scan_fn(state, scan_layout(
+                tokens[:, rank * local:(rank + 1) * local]))
+            results["scanned/losses"] = scanned.tolist()
+            results["scanned/step"] = state.step
+            for axis in ("fsdp", "tp"):
+                stats = collectives.bench_allreduce(mesh, axis, nbytes=1 << 16,
+                                                    iters=2)
+                results[f"allreduce/{axis}/participants"] = stats[
+                    "participants"]
+                results[f"allreduce/{axis}/gbps"] = stats["gbps"]
+        del state
+    torch.save(results, out / f"rank{rank}.pt")
+
+
+def sharded_generate(rank: int, world: int, out: Path) -> None:
+    """Greedy tokens of ``make_sharded_generate`` on the meshes (dp=2,
+    tp=2) and (fsdp=2, tp=2), with the fp and the int8 cache, for the
+    prompt of ``prompt.npz``; and the refusal of tp=4 over 2 kv heads."""
+    import numpy as np
+    import torch
+
+    from k8s_dra_driver_gpu_tpu_torch.models import decode
+    from k8s_dra_driver_gpu_tpu_torch.parallel import mesh as pmesh
+
+    cfg = _tiny()
+    with np.load(out / "prompt.npz") as f:
+        prompt = torch.from_numpy(f["prompt"])
+        new, max_len = int(f["new"]), int(f["max_len"])
+    results = {}
+    for label, plan in (("dp2_tp2", pmesh.MeshPlan(dp=2, tp=2)),
+                        ("fsdp2_tp2", pmesh.MeshPlan(fsdp=2, tp=2))):
+        mesh = pmesh.build_mesh(plan)
+        for quant in (False, True):
+            generate_fn, layout, place = decode.make_sharded_generate(
+                mesh, cfg, new, max_len, kv_quant=quant)
+            tokens = generate_fn(place(_load_params(out)), layout(prompt))
+            key = f"{label}/{'int8' if quant else 'fp'}"
+            results[f"{key}/tokens"] = tokens.full_tensor()
+            results[f"{key}/placements"] = [str(p) for p in tokens.placements]
+            results[f"{key}/local_shape"] = tuple(tokens.to_local().shape)
+    mesh = pmesh.build_mesh(pmesh.MeshPlan(tp=4))
+    try:
+        decode.make_sharded_generate(mesh, cfg, new, max_len)
+    except ValueError as err:
+        results["tp4/error"] = str(err)
+    torch.save(results, out / f"rank{rank}.pt")
+
+
+def meshes(rank: int, world: int, out: Path) -> None:
+    """Names, shapes and rank grids of the mesh builders on 4 ranks."""
+    import torch
+
+    from k8s_dra_driver_gpu_tpu_torch.parallel import mesh as pmesh
+
+    built = {
+        "default": pmesh.build_mesh(),
+        "dp2_tp2": pmesh.build_mesh(pmesh.MeshPlan(dp=2, tp=2)),
+        "multislice2": pmesh.build_multislice_mesh(2),
+        "pipeline2": pmesh.build_pipeline_mesh(2),
+        "topology_2x2": pmesh.mesh_from_topology("2x2"),
+        "topology_2x2_tp2": pmesh.mesh_from_topology("2x2", tp=2),
+    }
+    results = {}
+    for label, mesh in built.items():
+        results[label] = {
+            "names": tuple(mesh.mesh_dim_names), "shape": tuple(mesh.shape),
+            "ranks": mesh.mesh.tolist(),
+            "compute_names": tuple(
+                pmesh.compute_mesh(mesh).mesh_dim_names)}
+    try:
+        pmesh.build_mesh(pmesh.MeshPlan(dp=3))
+    except ValueError as err:
+        results["mismatch_error"] = str(err)
+    torch.save(results, out / f"rank{rank}.pt")
+
+
+WORKERS = {"meshes": meshes, "sharded_train": sharded_train,
+           "sharded_generate": sharded_generate}
+
+
+def main(argv: list[str]) -> int:
+    worker, rank, world, store, out = argv
+    rank, world = int(rank), int(world)
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        WORKERS[worker](rank, world, Path(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
