@@ -9,8 +9,9 @@ and prints no result line):
 1. device: the card's name and power limit; TF32 off for fp32 matmuls.
 2. build: compile every kernel from ``csrc/`` (one nvcc per source, all
    started together), with ptxas's register and spill lines and its
-   performance warnings; fails if a bf16 Hopper kernel (the forward, dQ,
-   dK/dV) spills or ptxas serialises its wgmma or ignores its setmaxnreg.
+   performance warnings; fails if a Hopper kernel (the bf16 forward,
+   dQ, dK/dV; the fp32 forward and dK/dV) spills or ptxas warns of lost
+   performance (a serialised wgmma, an ignored setmaxnreg).
 3. kernels: hold each kernel against its plain PyTorch version on the
    card at the shapes of the main paths and at edge shapes; time the
    kernel, the plain version and one PyTorch library call computing the
@@ -25,7 +26,9 @@ and prints no result line):
    4, sliced-heads and transposed-view layouts). The fp32 entries of all
    three at the backward's edge shapes, elementwise within
    ``TOLERANCES[torch.float32]``, timed at the training shape against
-   SDPA's memory-efficient backend, and one fp32 gradient of a 2-layer
+   SDPA's memory-efficient backend, each with its share of the bound of
+   its route (3xTF32 on the tensor cores for the forward and dK/dV, FMA
+   for dQ) and the FMA bound beside, and one fp32 gradient of a 2-layer
    flagship-width model through ``attention(impl="auto")`` against the
    einsum path, with its launch counts.
 4. serving: Llama-3-8B at full width and depth with random weights from
@@ -70,8 +73,14 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 import torch.nn.functional as F
 
-# H100 SXM published dense peaks (NVIDIA data sheet) at the 700 W limit.
+# H100 SXM published dense peaks (NVIDIA data sheet) at the 700 W limit:
+# bf16 and TF32 on the tensor cores, fp32 FMA outside them.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32_FLOPS = 495e12
+# The fp32 forward and dK/dV kernels run each product as three TF32
+# products (3xTF32): their least time is three times the work at the TF32
+# rate (the route's bound); the same work at the FMA rate is logged beside.
+TF32X3_PRODUCTS = 3
 PEAK_BYTES_PER_S = 3.35e12
 
 # Kernel vs plain tolerances (max |kernel - plain| <= atol + rtol * |plain|).
@@ -161,35 +170,40 @@ def profile(fn, label: str, top: int = 4) -> list:
     return kernels
 
 
-def attention_bound_ms(B, S, H, K, hd, dtype, causal, with_lse=False):
+def attention_bound_ms(B, S, H, K, hd, dtype, causal, with_lse=False,
+                       tf32x3=False):
     """Least time for one call: QK^T and PV over the unmasked pairs at
-    the dtype's peak, against reading Q/K/V once and writing O (and lse)
-    once at the memory rate. Returns (ms, "operations" | "bytes")."""
+    the dtype's peak (``tf32x3``: three TF32 products each at the TF32
+    peak), against reading Q/K/V once and writing O (and lse) once at the
+    memory rate. Returns (ms, "operations" | "bytes")."""
     pairs = S * (S + 1) // 2 if causal else S * S
     flops = 4 * B * H * hd * pairs
     elem = torch.tensor([], dtype=dtype).element_size()
     nbytes = elem * B * S * hd * (2 * H + 2 * K) + (4 * B * H * S
                                                     if with_lse else 0)
-    t_ops = flops / PEAK_FLOPS[dtype]
+    t_ops = (TF32X3_PRODUCTS * flops / PEAK_TF32_FLOPS if tf32x3
+             else flops / PEAK_FLOPS[dtype])
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
 def attention_bwd_bound_ms(B, S, H, K, hd, causal, kernel,
-                           dtype=torch.bfloat16):
+                           dtype=torch.bfloat16, tf32x3=False):
     """Least time for one backward kernel call: its products over the
     unmasked pairs at the dtype's peak (dQ: Q.K^T, dO.V^T, dS.K, 6*hd
-    FLOP a pair; dK/dV: K.Q^T, V.dO^T, P^T.dO, dS^T.Q, 8*hd), against
-    reading q, k, v, dO, lse and D once and writing its outputs once.
-    Returns (ms, "operations" | "bytes")."""
+    FLOP a pair; dK/dV: K.Q^T, V.dO^T, P^T.dO, dS^T.Q, 8*hd; ``tf32x3``:
+    three TF32 products each at the TF32 peak), against reading q, k, v,
+    dO, lse and D once and writing its outputs once. Returns (ms,
+    "operations" | "bytes")."""
     pairs = S * (S + 1) // 2 if causal else S * S
     per_pair = {"dq": 6, "dkv": 8}[kernel] * hd
     flops = per_pair * B * H * pairs
     written = B * S * hd * (H if kernel == "dq" else 2 * K)
     elem = torch.tensor([], dtype=dtype).element_size()
     nbytes = elem * (B * S * hd * (2 * H + 2 * K) + written) + 8 * B * H * S
-    t_ops = flops / PEAK_FLOPS[dtype]
+    t_ops = (TF32X3_PRODUCTS * flops / PEAK_TF32_FLOPS if tf32x3
+             else flops / PEAK_FLOPS[dtype])
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -236,9 +250,11 @@ def phase_device() -> None:
 
 
 KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
-# The Hopper kernels (TMA, wgmma, setmaxnreg) whose ptxas report must show
-# no spill and no performance warning.
-HOPPER_KERNELS = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
+# The Hopper kernels whose ptxas report must show no spill and no
+# performance warning: the bf16 ones (TMA, wgmma, setmaxnreg) and the
+# fp32 forward and dK/dV (3xTF32 mma.sync, cp.async).
+HOPPER_KERNELS = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
+                  "flash_fwd_f32", "flash_bwd_dkv_f32")
 
 
 def ptxas_spills(build_log: str) -> dict:
@@ -528,6 +544,9 @@ def phase_training_kernels(gen: torch.Generator) -> tuple[dict, dict, dict]:
 
 
 FP32_GRAD_REL_TOL = 1e-3
+# The fp32 kernels that run their products in 3xTF32 on the tensor cores
+# (the fp32 dQ kernel is scalar FMA).
+TF32X3_KERNELS = ("forward", "dkv")
 FP32_CHECK_LAYERS, FP32_CHECK_SEQ = 2, 1024
 
 
@@ -649,14 +668,21 @@ def phase_fp32_kernels(gen: torch.Generator) -> list:
              lib_bwd_ms, 104, "flash_bwd"),
             ("flash_attention_bwd_dkv_fp32", "dkv", dkv_ms, bwd_plain_ms,
              lib_bwd_ms, 157, "flash_bwd")):
+        # The route's bound: 3xTF32 for the forward and dK/dV, FMA for dQ;
+        # the FMA bound of the same work beside it.
+        tf32x3 = kernel in TF32X3_KERNELS
         if kernel == "forward":
             bound, bound_by = attention_bound_ms(B, S, H, K, hd, f32, True,
-                                                 with_lse=True)
+                                                 True, tf32x3)
+            fma_bound, _ = attention_bound_ms(B, S, H, K, hd, f32, True, True)
         else:
             bound, bound_by = attention_bwd_bound_ms(B, S, H, K, hd, True,
-                                                     kernel, f32)
-        log(f"kernel {name}: ms={ms:.4f} bound_ms={bound:.4f} ({bound_by}) "
-            f"roofline_share={bound / ms:.3f} "
+                                                     kernel, f32, tf32x3)
+            fma_bound, _ = attention_bwd_bound_ms(B, S, H, K, hd, True,
+                                                  kernel, f32)
+        log(f"kernel {name}: ms={ms:.4f} bound_ms={bound:.4f} ({bound_by}, "
+            f"{'3xTF32 at 495' if tf32x3 else 'FMA at 67'} TFLOP/s) "
+            f"roofline_share={bound / ms:.3f} fma_bound_ms={fma_bound:.4f} "
             f"factor_over_library={ms / library_ms:.2f}")
         records.append({
             "name": name, "route": "cuda",

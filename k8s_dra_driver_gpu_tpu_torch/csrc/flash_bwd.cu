@@ -87,15 +87,17 @@
 //     (Q, dO) + 1.5 KB (lse, D) = 161.5 KB; dQ 2 x 32 KB (Q, dO) + 3 x
 //     (16 + 16 KB) (K, V) = 160 KB.
 //
-// fp32 (`flash_bwd_dq_f32`, `flash_bwd_dkv_f32`): there is no exact fp32
-// tensor-core path (TF32 rounds the inputs), so these are the simple form
-// of the fp32 forward: scalar FMAs on 32 x 32 tiles staged in shared
-// memory by all 128 threads of one warpgroup, four threads a row. Same
-// arithmetic as above with expf, no rounding between steps. dQ: a block
-// owns (b, q-head, 32-row q tile) and walks 32-key tiles; dK/dV: a block
-// owns (b, kv-head, 32-key tile) and walks the group's q-heads and their
-// 32-row tiles from the diagonal on. Bound at the training shape in fp32:
-// 6*hd (dQ) and 8*hd (dK/dV) FLOP a pair at 67 TFLOP/s (FMA).
+// fp32 (`flash_bwd_dq_f32`, `flash_bwd_dkv_f32`): the same arithmetic as
+// above with expf and no rounding between steps. `flash_bwd_dq_f32` is the
+// simple form: scalar FMAs on 32 x 32 tiles staged in shared memory by
+// all 128 threads of one warpgroup, four threads a row; a block owns (b,
+// q-head, 32-row q tile) and walks 32-key tiles (bound at the training
+// shape: 6*hd FLOP a pair at the 67 TFLOP/s of fp32 FMA, 6.16 ms).
+// `flash_bwd_dkv_f32` (it replaces such a form, ~20% of its FMA bound)
+// runs its four products on the tensor cores in 3xTF32 (hopper.cuh), with
+// cp.async tiles; its design is described above the kernel. Bound: 3 TF32
+// products of 8*hd FLOP a pair at 495 TFLOP/s, 3.33 ms (8.21 ms at the
+// FMA rate).
 //
 // The launch geometry (grids, threads, shared-memory bytes, tensor maps)
 // is computed by the Python wrapper (ops/flash_attention.py, bwd_plan);
@@ -632,13 +634,6 @@ constexpr size_t f32_dq_smem_bytes() {
                           kF32Block * (kF32Block + 1));
 }
 
-template <int HD>
-constexpr size_t f32_dkv_smem_bytes() {
-  // K, V, Q, dO tiles, P^T and dS^T, and the Q tile's lse and D.
-  return sizeof(float) * (4 * kF32Block * (HD + 1) +
-                          2 * kF32Block * (kF32Block + 1) + 2 * kF32Block);
-}
-
 // Copies rows [s0, s0 + kF32Block) of one head of a [B, S, heads, hd]
 // operand into a [kF32Block][HD + 1] tile, zeros past S.
 template <int HD>
@@ -728,107 +723,248 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32(F32Params p) {
   }
 }
 
-// Thread (r, sub) owns key r of the block: it scores q rows sub + 4j of
-// each tile and accumulates dK and dV columns sub + 4c over every q-head
-// of the kv-head's group.
+// dK/dV in fp32 on the tensor cores (3xTF32 mma.sync m16n8k8, hopper.cuh).
+// A block of four warps owns (b, kv-head, 32-key tile) and walks the
+// group's q-heads and their 32-row Q/dO tiles (from the diagonal tile on
+// when causal). K and V stay in shared memory; Q, dO and the tile's lse
+// and D come in by cp.async into two buffers, the next tile's while this
+// one is computed; two blocks an SM.
+// Warps pair up on 16 keys: in each pair one warp computes S^T = K.Q^T
+// and P^T, the other dP^T = V.dO^T; they swap those tiles through shared
+// memory (lane to lane: both hold them in the same fragment layout), form
+// dS^T = P^T * (dP^T - D), and each owns half of hd for both dK += dS^T.Q
+// and dV += P^T.dO. So no product is computed twice and a thread keeps
+// HD / 2 columns of dK and of dV (at hd = 128, four full-width
+// accumulators left no registers: the kernel spilled). Keys are the
+// accumulator rows, so dK and dV build up in registers with no transpose,
+// and the group sum stays there (deterministic, no atomics).
+// In dK and dV the depth (q rows) of k-step j is permuted so that the A
+// fragment's (t, t + 4) are rows 8j + 2t and 8j + 2t + 1, where S^T's
+// accumulator holds them: P^T and dS^T feed the products as they lie, and
+// the B fragments read those two rows of Q and dO. Shared tiles have rows
+// of HD + 4 floats: the A fragments of K and V (row g, column t), the B
+// fragments of S^T and dP^T (row g, column t) and those of dK and dV (row
+// 2t, column g) each fall on 32 distinct banks.
+constexpr int kDkvF32Threads = 128;
+constexpr int kDkvF32BN = 32;  // keys a block: two pairs of warps
+constexpr int kDkvF32BM = 32;  // q rows a Q/dO tile
+
 template <int HD>
-__global__ void __launch_bounds__(kF32Threads) flash_bwd_dkv_f32(F32Params p) {
-  constexpr int BM = kF32Block, BN = kF32Block, QS = HD + 1, PS = BM + 1;
+constexpr size_t f32_dkv_smem_bytes() {
+  // K and V, two buffers of Q and dO (rows of HD + 4 floats) and of the Q
+  // tile's lse and D, each pair's two swapped tiles.
+  return sizeof(float) * ((2 * kDkvF32BN + 4 * kDkvF32BM) * (HD + 4) +
+                          4 * kDkvF32BM + 2 * 2 * kDkvF32BM * 16);
+}
+
+// acc (16 keys x N) += X^T (16 keys x BM q rows: accumulator fragments of
+// S^T or dP^T, as they lie) . Y (BM rows x N, shared, rows of RS floats;
+// `y_t` at row 2t, column g of the lane), 3xTF32. The products of two
+// k-steps (16 q rows) are summed from zero on the tensor cores, an n-tile
+// at a time, and each sum is added to acc in fp32: one accumulator chain
+// over every q row (3 * 8192 / 8 products at the training shape) drifted
+// to ~1e-4 of dV, past the fp32 tolerance, where fp32 adds of the same
+// products stay near 1e-6 (PERF.md).
+template <int N, int BM, int RS>
+__device__ __forceinline__ void accumulate_tile(float (&acc)[N / 8][4],
+                                                const float (&x)[BM / 8][4],
+                                                const float* y_t) {
+  using namespace hopper;
+  constexpr int kSteps = 2;
+  static_assert(BM / 8 % kSteps == 0, "k-steps come in pairs");
+#pragma unroll
+  for (int j0 = 0; j0 < BM / 8; j0 += kSteps) {
+    FragA a[kSteps];
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      const float(&xj)[4] = x[j0 + j];
+      a[j] = split_a(xj[0], xj[2], xj[1], xj[3]);
+    }
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kSteps; ++j) {
+        const float* y_j = y_t + 8 * (j0 + j) * RS + 8 * n;
+        mma_3xtf32(part, a[j], y_j[0], y_j[RS]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kDkvF32Threads, 2)
+    flash_bwd_dkv_f32(const F32Params p) {
+  using namespace hopper;
+  constexpr int RS = HD + 4, BN = kDkvF32BN, BM = kDkvF32BM;
+  constexpr int T = kDkvF32Threads, HALF = HD / 2;
+  constexpr int kSwap = BM / 8 * 4 * 32;  // floats of one swapped tile
+  constexpr int kBuf = 2 * BM * RS + 2 * BM;  // Q, dO, lse, D of a tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Ks = reinterpret_cast<float*>(smem_raw);  // [BN][QS]
-  float* Vs = Ks + BN * QS;                          // [BN][QS]
-  float* Qs = Vs + BN * QS;                          // [BM][QS]
-  float* Os = Qs + BM * QS;                          // dO, [BM][QS]
-  float* Ps = Os + BM * QS;                          // P^T, [BN][PS]
-  float* Ss = Ps + BN * PS;                          // dS^T, [BN][PS]
-  float* Ls = Ss + BN * PS;                          // lse, [BM]
-  float* Ds = Ls + BM;                               // D, [BM]
+  float* sK = reinterpret_cast<float*>(smem_raw);  // [BN][RS]
+  float* sV = sK + BN * RS;                        // [BN][RS]
+  float* sX = sV + BN * RS;                        // [pair][role][kSwap]
+  // Buffer i: Q [BM][RS], dO [BM][RS], lse [BM], D [BM].
+  float* buf0 = sX + 4 * kSwap;
 
   const int k0 = blockIdx.y * BN;  // the first key tiles are the heaviest
   const int b = blockIdx.x / p.KH, kh = blockIdx.x % p.KH;
   const int group = p.H / p.KH;
-  const int r = threadIdx.x >> 2, sub = threadIdx.x & 3;
-  const int kpos = k0 + r;
-  const bool key_in = kpos < p.S;
-
-  f32_load_tile<HD>(Ks, p.k + b * p.in[1][0] + kh * p.in[1][2], p.in[1][1],
-                    k0, p.S);
-  f32_load_tile<HD>(Vs, p.v + b * p.in[2][0] + kh * p.in[2][2], p.in[2][1],
-                    k0, p.S);
-
-  float dk[HD / 4], dv[HD / 4];
-#pragma unroll
-  for (int c = 0; c < HD / 4; ++c) dk[c] = dv[c] = 0.f;
-
-  const int n_qt = (p.S + BM - 1) / BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // Warps `pair` and `pair` + 2 share keys k0 + 16 pair .. + 15; `role` 0
+  // computes S^T and P^T, role 1 dP^T; each keeps columns
+  // HALF * role .. + HALF - 1 of dK and dV.
+  const int pair = warp % 2, role = warp / 2;
+  const int key0 = k0 + 16 * pair;
+  const int kpos[2] = {key0 + g, key0 + g + 8};
+  // Causal: q tiles wholly above the diagonal see none of these keys.
   const int first_qt = p.causal ? k0 / BM : 0;
-  for (int g = 0; g < group; ++g) {
-    const int h = kh * group + g;
-    const long long bh = static_cast<long long>(b) * p.H + h;
-    const float* q = p.q + b * p.in[0][0] + h * p.in[0][2];
-    const float* dout = p.dout + b * p.in[3][0] + h * p.in[3][2];
-    for (int qt = first_qt; qt < n_qt; ++qt) {
-      const int q0 = qt * BM;
-      __syncthreads();  // the last tile's Q, dO, P^T, dS^T, lse, D are read
-      f32_load_tile<HD>(Qs, q, p.in[0][1], q0, p.S);
-      f32_load_tile<HD>(Os, dout, p.in[3][1], q0, p.S);
-      if (threadIdx.x < BM) {
-        const int s = q0 + threadIdx.x;
-        Ls[threadIdx.x] = s < p.S ? p.lse[bh * p.S + s] : 0.f;
-        Ds[threadIdx.x] = s < p.S ? p.dsum[bh * p.S + s] : 0.f;
-      }
-      __syncthreads();
+  const int n_qt = (p.S + BM - 1) / BM - first_qt;  // a q-head
+  const int n_it = group * n_qt;
 
-      float sc[BM / 4], dp[BM / 4];
+  // Q rows, dO rows, lse and D of item `it` (q-head it / n_qt, its
+  // (it % n_qt)-th tile) into buffer it % 2, as one commit group.
+  auto load_tile = [&](int it) {
+    const int hq = kh * group + it / n_qt;
+    const int q0 = (first_qt + it % n_qt) * BM;
+    float* buf = buf0 + (it % 2) * kBuf;
+    cp_async_rows<HD, BM, RS, T>(smem_u32(buf),
+                                 p.q + b * p.in[0][0] + hq * p.in[0][2],
+                                 p.in[0][1], q0, p.S);
+    cp_async_rows<HD, BM, RS, T>(smem_u32(buf + BM * RS),
+                                 p.dout + b * p.in[3][0] + hq * p.in[3][2],
+                                 p.in[3][1], q0, p.S);
+    if (threadIdx.x < 2 * BM) {  // lse then D
+      const int r = threadIdx.x % BM;
+      const bool in = q0 + r < p.S;
+      const float* src = threadIdx.x < BM ? p.lse : p.dsum;
+      const long long i = (static_cast<long long>(b) * p.H + hq) * p.S + q0 + r;
+      cp_async4(smem_u32(buf + 2 * BM * RS + threadIdx.x), src + (in ? i : 0),
+                in ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+
+  cp_async_rows<HD, BN, RS, T>(smem_u32(sK),
+                               p.k + b * p.in[1][0] + kh * p.in[1][2],
+                               p.in[1][1], k0, p.S);
+  cp_async_rows<HD, BN, RS, T>(smem_u32(sV),
+                               p.v + b * p.in[2][0] + kh * p.in[2][2],
+                               p.in[2][1], k0, p.S);
+  load_tile(0);  // one group with K and V
+
+  float dk[HALF / 8][4], dv[HALF / 8][4];
 #pragma unroll
-      for (int j = 0; j < BM / 4; ++j) sc[j] = dp[j] = 0.f;
-      for (int d = 0; d < HD; ++d) {
-        const float kd = Ks[r * QS + d], vd = Vs[r * QS + d];
+  for (int n = 0; n < HALF / 8; ++n) {
 #pragma unroll
-        for (int j = 0; j < BM / 4; ++j) {
-          sc[j] += kd * Qs[(sub + 4 * j) * QS + d];
-          dp[j] += vd * Os[(sub + 4 * j) * QS + d];
-        }
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  }
+  // This warp's product: S^T = K.Q^T (role 0) or dP^T = V.dO^T (role 1),
+  // its B from the buffer's Q or dO.
+  const float* a_g = (role == 0 ? sK : sV) + (16 * pair + g) * RS + t;
+  float* x_mine = sX + (2 * pair + role) * kSwap + lane;
+  const float* x_other = sX + (2 * pair + 1 - role) * kSwap + lane;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int q0 = (first_qt + it % n_qt) * BM;
+    // This tile has landed, and every warp is done with the last one: its
+    // buffer takes the next tile, which lands while this one is computed.
+    cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < n_it) load_tile(it + 1);
+    const float* sQ = buf0 + (it % 2) * kBuf;
+    const float* sO = sQ + BM * RS;
+    const float* sL = sO + BM * RS;
+    const float* sD = sL + BM;
+    const float* b_g = (role == 0 ? sQ : sO) + g * RS + t;
+    const float* q_t = sQ + 2 * t * RS + g + HALF * role;  // B of dK
+    const float* o_t = sO + 2 * t * RS + g + HALF * role;  // B of dV
+    // x: S^T then P^T (role 0), or dP^T (role 1). The depth loop indexes
+    // only shared memory by kk and is unrolled by 2, not 16, so that the
+    // loads and splits the compiler hoists stay within the registers.
+    float x[BM / 8][4];
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+    }
+#pragma unroll 2
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      const int c = 8 * kk;
+      const FragA a = split_a(a_g[c], a_g[8 * RS + c], a_g[c + 4],
+                              a_g[8 * RS + c + 4]);
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j) {
+        mma_3xtf32(x[j], a, b_g[8 * j * RS + c], b_g[8 * j * RS + c + 4]);
       }
+    }
+    if (role == 0) {
+      // P^T = exp(S^T * scale - lse), masked pairs 0 (only the diagonal
+      // and ragged tiles evaluate the mask).
+      const bool masked = q0 + BM > p.S || (p.causal && q0 < key0 + 15);
 #pragma unroll
-      for (int j = 0; j < BM / 4; ++j) {
-        const int row = sub + 4 * j, qpos = q0 + row;
-        const bool valid =
-            key_in && qpos < p.S && (!p.causal || kpos <= qpos);
-        const float pr = valid ? expf(sc[j] * p.scale - Ls[row]) : 0.f;
-        Ps[r * PS + row] = pr;
-        Ss[r * PS + row] = pr * (dp[j] - Ds[row]);
-      }
-      __syncwarp();  // the key's four threads read each other's P and dS
-      for (int i = 0; i < BM; ++i) {
-        const float pr = Ps[r * PS + i], ds = Ss[r * PS + i];
+      for (int j = 0; j < BM / 8; ++j) {
 #pragma unroll
-        for (int c = 0; c < HD / 4; ++c) {
-          dv[c] += pr * Os[i * QS + sub + 4 * c];
-          dk[c] += ds * Qs[i * QS + sub + 4 * c];
+        for (int e = 0; e < 4; ++e) {
+          const int r = 8 * j + 2 * t + (e & 1), qpos = q0 + r;
+          float y = expf(x[j][e] * p.scale - sL[r]);
+          if (masked && (qpos >= p.S || (p.causal && kpos[e >> 1] > qpos))) {
+            y = 0.f;
+          }
+          x[j][e] = y;
         }
       }
     }
+    // Swap with the pair's other warp: both then hold P^T and dP^T.
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x_mine[(4 * j + e) * 32] = x[j][e];
+    }
+    named_sync(1 + pair, 64);
+    float pt[BM / 8][4], dst[BM / 8][4];  // P^T; dS^T = P^T * (dP^T - D)
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float other = x_other[(4 * j + e) * 32];
+        pt[j][e] = role == 0 ? x[j][e] : other;
+        const float dp = role == 0 ? other : x[j][e];
+        dst[j][e] = pt[j][e] * (dp - sD[8 * j + 2 * t + (e & 1)]);
+      }
+    }
+    accumulate_tile<HALF, BM, RS>(dk, dst, q_t);  // dK += dS^T . Q
+    accumulate_tile<HALF, BM, RS>(dv, pt, o_t);   // dV += P^T . dO
   }
 
-  if (key_in) {
-    float* ok = p.dk + b * p.out[1][0] + kpos * p.out[1][1] + kh * p.out[1][2];
-    float* ov = p.dv + b * p.out[2][0] + kpos * p.out[2][1] + kh * p.out[2][2];
 #pragma unroll
-    for (int c = 0; c < HD / 4; ++c) {
-      ok[sub + 4 * c] = dk[c] * p.scale;
-      ov[sub + 4 * c] = dv[c];
+  for (int r = 0; r < 2; ++r) {
+    if (kpos[r] >= p.S) continue;
+    const int col = HALF * role + 2 * t;
+    float* ok = p.dk + b * p.out[1][0] + kpos[r] * p.out[1][1] +
+                kh * p.out[1][2] + col;
+    float* ov = p.dv + b * p.out[2][0] + kpos[r] * p.out[2][1] +
+                kh * p.out[2][2] + col;
+#pragma unroll
+    for (int n = 0; n < HALF / 8; ++n) {
+      *reinterpret_cast<float2*>(ok + 8 * n) =
+          make_float2(dk[n][2 * r] * p.scale, dk[n][2 * r + 1] * p.scale);
+      *reinterpret_cast<float2*>(ov + 8 * n) =
+          make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
     }
   }
 }
 
 // ---------------------------------------------------------------- host
 
-// The wrapper's launch plan: dQ grid x, y; dK/dV grid x, y; threads; dQ
-// and dK/dV shared-memory bytes; then four tensor maps of 12 values each,
-// for q, k, v, dO: dims[4] (hd, heads, S, B), byte strides[3], box[4],
-// swizzle bytes.
-constexpr int kGeomHead = 7;
+// The wrapper's launch plan: dQ grid x, y; dK/dV grid x, y; dQ and dK/dV
+// threads a block; dQ and dK/dV shared-memory bytes; then four tensor
+// maps of 12 values each, for q, k, v, dO: dims[4] (hd, heads, S, B), byte
+// strides[3], box[4], swizzle bytes.
+constexpr int kGeomHead = 8;
 constexpr int kMapLen = 12;
 constexpr long long kMaxSmem = 232448;
 
@@ -837,12 +973,14 @@ using Kernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap,
 
 // Checks the plan's maps against the kernels' tiling (a box that never
 // lands would leave a wait that never completes), encodes them, and
-// launches `kernel` on the grid (gx, gy) with `smem` bytes.
+// launches `kernel` on the grid (gx, gy) with the plan's `threads` and
+// `smem` bytes.
 int launch(Kernel kernel, const Params& p, const void* const* operands,
            int hd, const long long* g, long long gx, long long gy,
-           size_t smem_needed, long long smem, cudaStream_t stream) {
+           long long threads, size_t smem_needed, long long smem,
+           cudaStream_t stream) {
   const int heads[4] = {p.H, p.KH, p.KH, p.H};  // q, k, v, dO
-  if (g[4] != kThreads || smem < static_cast<long long>(smem_needed) ||
+  if (threads != kThreads || smem < static_cast<long long>(smem_needed) ||
       smem > kMaxSmem || gx < 1 || gy < 1) {
     return cudaErrorInvalidValue;
   }
@@ -880,13 +1018,15 @@ Params make_params(const void* lse, const void* dsum, void* dq, void* dk,
 
 // The fp32 plan: the same head (grids, threads, shared memory), then 12
 // element strides, dims (b, s, head) of q, k, v, dO, where the bf16 plan
-// has its tensor maps.
+// has its tensor maps. `want_threads` is the kernel's block size.
 using F32Kernel = void (*)(F32Params);
 
 int launch_f32(F32Kernel kernel, F32Params p, const long long* g,
-               long long gx, long long gy, size_t smem_needed,
-               long long smem, cudaStream_t stream) {
-  if (g[4] != kF32Threads || smem < static_cast<long long>(smem_needed) ||
+               long long gx, long long gy, long long threads,
+               int want_threads, size_t smem_needed, long long smem,
+               cudaStream_t stream) {
+  if (threads != want_threads ||
+      smem < static_cast<long long>(smem_needed) ||
       smem > kMaxSmem || gx < 1 || gy < 1) {
     return cudaErrorInvalidValue;
   }
@@ -897,8 +1037,13 @@ int launch_f32(F32Kernel kernel, F32Params p, const long long* g,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
+  // All of the SM's unified cache as shared memory: two blocks an SM.
+  const cudaError_t carve = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (carve != cudaSuccess) return carve;
   const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
-  kernel<<<grid, kF32Threads, smem, stream>>>(p);
+  kernel<<<grid, want_threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -957,12 +1102,12 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
         make_f32_params(q, k, v, dout, lse, dsum, dq, nullptr, nullptr, B, S,
                         H, KH, out_strides, causal, scale);
     if (hd == 128) {
-      return launch_f32(flash_bwd_dq_f32<128>, p, g, g[0], g[1],
-                        f32_dq_smem_bytes<128>(), g[5], st);
+      return launch_f32(flash_bwd_dq_f32<128>, p, g, g[0], g[1], g[4],
+                        kF32Threads, f32_dq_smem_bytes<128>(), g[6], st);
     }
     if (hd == 64) {
-      return launch_f32(flash_bwd_dq_f32<64>, p, g, g[0], g[1],
-                        f32_dq_smem_bytes<64>(), g[5], st);
+      return launch_f32(flash_bwd_dq_f32<64>, p, g, g[0], g[1], g[4],
+                        kF32Threads, f32_dq_smem_bytes<64>(), g[6], st);
     }
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -976,11 +1121,11 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   const void* operands[4] = {q, k, v, dout};
   if (hd == 128) {
     return launch(flash_bwd_dq_bf16<128>, p, operands, hd, g, g[0], g[1],
-                  dq_smem_bytes<128>(), g[5], st);
+                  g[4], dq_smem_bytes<128>(), g[6], st);
   }
   if (hd == 64) {
     return launch(flash_bwd_dq_bf16<64>, p, operands, hd, g, g[0], g[1],
-                  dq_smem_bytes<64>(), g[5], st);
+                  g[4], dq_smem_bytes<64>(), g[6], st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -997,19 +1142,20 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 0) {
     // x walks (b, kv-head); y walks 32-key tiles, the first first.
     if (g[2] != static_cast<long long>(B) * KH ||
-        g[3] != (S + kF32Block - 1) / kF32Block) {
+        g[3] != (S + kDkvF32BN - 1) / kDkvF32BN) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const F32Params p =
         make_f32_params(q, k, v, dout, lse, dsum, nullptr, dk, dv, B, S, H,
                         KH, out_strides, causal, scale);
     if (hd == 128) {
-      return launch_f32(flash_bwd_dkv_f32<128>, p, g, g[2], g[3],
-                        f32_dkv_smem_bytes<128>(), g[6], st);
+      return launch_f32(flash_bwd_dkv_f32<128>, p, g, g[2], g[3], g[5],
+                        kDkvF32Threads, f32_dkv_smem_bytes<128>(), g[7],
+                        st);
     }
     if (hd == 64) {
-      return launch_f32(flash_bwd_dkv_f32<64>, p, g, g[2], g[3],
-                        f32_dkv_smem_bytes<64>(), g[6], st);
+      return launch_f32(flash_bwd_dkv_f32<64>, p, g, g[2], g[3], g[5],
+                        kDkvF32Threads, f32_dkv_smem_bytes<64>(), g[7], st);
     }
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1023,11 +1169,11 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   const void* operands[4] = {q, k, v, dout};
   if (hd == 128) {
     return launch(flash_bwd_dkv_bf16<128>, p, operands, hd, g, g[2], g[3],
-                  dkv_smem_bytes<128>(), g[6], st);
+                  g[5], dkv_smem_bytes<128>(), g[7], st);
   }
   if (hd == 64) {
     return launch(flash_bwd_dkv_bf16<64>, p, operands, hd, g, g[2], g[3],
-                  dkv_smem_bytes<64>(), g[6], st);
+                  g[5], dkv_smem_bytes<64>(), g[7], st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

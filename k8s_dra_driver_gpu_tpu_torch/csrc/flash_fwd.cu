@@ -60,8 +60,22 @@
 //   * Epilogue: O / l written from registers with the qpos < S guard.
 //   * Grid x walks (b, h) and y walks q tiles from the last: the heaviest
 //     causal tiles of every head start first and do not trail the grid.
-// The fp32 kernel (no exact fp32 tensor-core path) is the simple form:
-// scalar FMAs on 32x32 tiles staged by all threads.
+// The fp32 kernel (`flash_fwd_f32`; it replaces a first version of scalar
+// FMAs on 32x32 tiles staged by all threads, ~20% of the fp32 FMA bound)
+// keeps the same arithmetic in fp32 (expf; p not rounded) and runs its
+// products on the tensor cores in 3xTF32: each operand x = hi + lo, both
+// tf32, and a.b ~ hi.hi + hi.lo + lo.hi, accurate to ~2^-21 of each
+// product where plain TF32 would miss the fp32 tolerance. Bound at the
+// training shape (B=4, S=4096, H=16, K=8, hd=128, causal): 3 TF32
+// products of 4*hd FLOP a pair, 0.83 TFLOP at 495 TFLOP/s = 1.67 ms (the
+// same work at the 67 TFLOP/s of fp32 FMA: 4.10 ms). Design: four warps a
+// block own 64 q rows (16 a warp); 64-key K and V tiles come in by
+// cp.async, V while S = Q.K^T runs and the next K while the softmax and
+// P.V run, two blocks an SM; products are mma.sync m16n8k8 .tf32 (wgmma
+// takes tf32 only K-major from shared memory, which P.V's V is not), the
+// hi/lo split is made as a fragment is read (two integer ops and a
+// subtraction a value), and fragments are laid out so that S's
+// accumulator is P.V's A operand as it lies (see the kernel).
 //
 // The launch geometry (grid, threads, shared-memory bytes, tensor maps)
 // is computed by the Python wrapper (ops/flash_attention.py, fwd_plan);
@@ -360,109 +374,180 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
 
 // ---------------------------------------------------------------- fp32
 
-constexpr int kThreads = 128;
-constexpr int kFmaBM = 32;
-constexpr int kFmaBN = 32;
+constexpr int kThreads = 128;  // four warps, 16 q rows each
+constexpr int kF32BM = 64;     // q rows a block
+constexpr int kF32BN = 64;     // keys a K/V tile
 
-// Four threads per q row: thread (r, sub) scores keys sub + 4i and owns
-// output columns sub + 4c.
+// Shared-memory row strides in floats. Q and K are read as float4 at
+// (row g, column 4t) by the eight lanes of a quarter-warp (g in {0, 1},
+// t in 0..3): a stride = 16 (mod 32) puts them on eight distinct bank
+// quads. V is read as single floats at (row 2t or 2t + 1, column g) by a
+// whole warp: a stride = 4 (mod 32) puts the 32 lanes on 32 banks.
 template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_fwd_f32(Params p) {
-  constexpr int BM = kFmaBM, BN = kFmaBN;
-  constexpr int QS = HD + 1;  // odd row strides: conflict-free column walks
-  constexpr int PS = BN + 1;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);  // [BM][QS]
-  float* Ks = Qs + BM * QS;                          // [BN][QS]
-  float* Vs = Ks + BN * QS;                          // [BN][HD]
-  float* Ps = Vs + BN * HD;                          // [BM][PS]
-
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
-  const int bh = blockIdx.x;
-  const int b = bh / p.H, h = bh % p.H;
-  const int kh = h / (p.H / p.KH);
-  const int r = threadIdx.x >> 2, sub = threadIdx.x & 3;
-
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + kh * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + kh * p.v_sh;
-
-  for (int e = threadIdx.x; e < BM * HD; e += kThreads) {
-    const int row = e / HD, col = e % HD, s = q0 + row;
-    Qs[row * QS + col] = s < p.S ? q[s * p.q_ss + col] : 0.f;
-  }
-
-  float o[HD / 4];
-#pragma unroll
-  for (int c = 0; c < HD / 4; ++c) o[c] = 0.f;
-  float m = kNegInf, l = 0.f;
-  const int qpos = q0 + r;
-
-  const int q_end = min(q0 + BM, p.S);
-  const int n_kt = p.causal ? (q_end + BN - 1) / BN : (p.S + BN - 1) / BN;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();
-    for (int e = threadIdx.x; e < BN * HD; e += kThreads) {
-      const int row = e / HD, col = e % HD, s = k0 + row;
-      const bool in = s < p.S;
-      Ks[row * QS + col] = in ? k[s * p.k_ss + col] : 0.f;
-      Vs[row * HD + col] = in ? v[s * p.v_ss + col] : 0.f;
-    }
-    __syncthreads();
-
-    float sc[BN / 4];
-#pragma unroll
-    for (int i = 0; i < BN / 4; ++i) sc[i] = 0.f;
-    for (int d = 0; d < HD; ++d) {
-      const float qd = Qs[r * QS + d];
-#pragma unroll
-      for (int i = 0; i < BN / 4; ++i) sc[i] += qd * Ks[(sub + 4 * i) * QS + d];
-    }
-    float mt = kNegInf;
-#pragma unroll
-    for (int i = 0; i < BN / 4; ++i) {
-      const float x = sc[i] * p.scale;
-      sc[i] = key_valid(p, k0 + sub + 4 * i, qpos) ? x : kNegInf;
-      mt = fmaxf(mt, sc[i]);
-    }
-    const float m_new = fmaxf(m, quad_max(mt));
-    const float alpha = expf(m - m_new);
-    float ls = 0.f;
-#pragma unroll
-    for (int i = 0; i < BN / 4; ++i) {
-      const float pi = expf(sc[i] - m_new);
-      ls += pi;
-      Ps[r * PS + sub + 4 * i] = pi;
-    }
-    l = l * alpha + quad_sum(ls);
-    m = m_new;
-    __syncwarp();  // the row's four threads read each other's P
-#pragma unroll
-    for (int c = 0; c < HD / 4; ++c) o[c] *= alpha;
-    for (int j = 0; j < BN; ++j) {
-      const float pj = Ps[r * PS + j];
-#pragma unroll
-      for (int c = 0; c < HD / 4; ++c) o[c] += pj * Vs[j * HD + sub + 4 * c];
-    }
-  }
-
-  if (qpos < p.S) {
-    const float l_safe = fmaxf(l, 1e-30f);
-    float* out = static_cast<float*>(p.o) + b * p.o_sb + qpos * p.o_ss +
-                 h * p.o_sh;
-#pragma unroll
-    for (int c = 0; c < HD / 4; ++c) out[sub + 4 * c] = o[c] / l_safe;
-    if (p.lse != nullptr && sub == 0) {
-      p.lse[static_cast<long long>(bh) * p.S + qpos] = m + logf(l_safe);
-    }
-  }
+__host__ __device__ constexpr int f32_qk_stride() {
+  return HD + 16;
+}
+template <int HD>
+__host__ __device__ constexpr int f32_v_stride() {
+  return HD + 4;
 }
 
 template <int HD>
-size_t f32_smem() {
-  return (2 * kFmaBM * (HD + 1) + kFmaBN * HD + kFmaBM * (kFmaBN + 1)) *
-         sizeof(float);
+constexpr size_t f32_smem_bytes() {
+  return sizeof(float) * ((kF32BM + kF32BN) * f32_qk_stride<HD>() +
+                          kF32BN * f32_v_stride<HD>());
+}
+
+// Warp w owns q rows q0 + 16w .. + 15; lane (g, t) holds the rows g and
+// g + 8 of its warp's fragments. Every product is 3xTF32 mma.sync
+// m16n8k8 (hopper.cuh). Two permutations make the fragments fit without
+// shuffles: in S = Q.K^T the depth index of k-step pair kp is permuted so
+// that lane t reads columns 16kp + 4t .. + 3 of Q and K as one float4 (the
+// first k-step takes the first two as its t and t + 4, the second the
+// last two: a sum over d in another order); in O += P.V the depth (keys)
+// of k-step j is permuted so that the A fragment's (t, t + 4) are keys
+// 8j + 2t, 8j + 2t + 1, which is where S's accumulator already holds
+// them: P feeds the product as it lies, and V's B fragment reads those
+// two key rows.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2) flash_fwd_f32(const Params p) {
+  using namespace hopper;
+  constexpr int QS = f32_qk_stride<HD>(), VS = f32_v_stride<HD>();
+  constexpr int BN = kF32BN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);  // [kF32BM][QS]
+  float* sK = sQ + kF32BM * QS;                    // [BN][QS]
+  float* sV = sK + BN * QS;                        // [BN][VS]
+
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32BM;  // heaviest first
+  const int bh = blockIdx.x;
+  const int b = bh / p.H, h = bh % p.H;
+  const int kh = h / (p.H / p.KH);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = q0 + 16 * warp;
+  const int qpos[2] = {row0 + g, row0 + g + 8};
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + kh * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + kh * p.v_sh;
+  const int q_end = min(q0 + kF32BM, p.S);
+  const int n_kt = ((p.causal ? q_end : p.S) + BN - 1) / BN;
+
+  cp_async_rows<HD, kF32BM, QS, kThreads>(smem_u32(sQ), q, p.q_ss, q0, p.S);
+  cp_async_rows<HD, BN, QS, kThreads>(smem_u32(sK), k, p.k_ss, 0, p.S);
+  cp_async_commit();
+
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+  const float* q_g = sQ + (16 * warp + g) * QS + 4 * t;
+  const float* k_g = sK + g * QS + 4 * t;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BN;
+    // V of this tile lands while S is computed.
+    cp_async_rows<HD, BN, VS, kThreads>(smem_u32(sV), v, p.v_ss, k0, p.S);
+    cp_async_commit();
+    cp_async_wait<1>();  // Q and this K tile
+    __syncthreads();
+
+    float s[BN / 8][4];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kp = 0; kp < HD / 16; ++kp) {
+      const float4 qa = *reinterpret_cast<const float4*>(q_g + 16 * kp);
+      const float4 qb = *reinterpret_cast<const float4*>(q_g + 8 * QS + 16 * kp);
+      const FragA a0 = split_a(qa.x, qb.x, qa.y, qb.y);
+      const FragA a1 = split_a(qa.z, qb.z, qa.w, qb.w);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float4 kb =
+            *reinterpret_cast<const float4*>(k_g + 8 * j * QS + 16 * kp);
+        mma_3xtf32(s[j], a0, kb.x, kb.y);
+        mma_3xtf32(s[j], a1, kb.z, kb.w);
+      }
+    }
+    __syncthreads();  // every warp has read this K tile
+    // The next K tile lands while the softmax and P.V run.
+    if (kt + 1 < n_kt) {
+      cp_async_rows<HD, BN, QS, kThreads>(smem_u32(sK), k, p.k_ss, k0 + BN,
+                                          p.S);
+    }
+    cp_async_commit();
+
+    // Scale, mask (only the diagonal and ragged tiles need it), and fold
+    // the tile into the running max and sum; s becomes p.
+    const bool masked = k0 + BN > p.S || (p.causal && k0 + BN - 1 > row0);
+    float mt[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * p.scale;
+        if (masked && !key_valid(p, k0 + 8 * j + 2 * t + (e & 1),
+                                 qpos[e >> 1])) {
+          x = kNegInf;
+        }
+        s[j][e] = x;
+        mt[e >> 1] = fmaxf(mt[e >> 1], x);
+      }
+    }
+    float alpha[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mt[r]));
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m[e >> 1]);
+        ls[e >> 1] += s[j][e];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+    }
+
+    cp_async_wait<1>();  // this V tile
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const FragA a = split_a(s[j][0], s[j][2], s[j][1], s[j][3]);
+      const float* v_t = sV + (8 * j + 2 * t) * VS + g;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        mma_3xtf32(o[n], a, v_t[8 * n], v_t[VS + 8 * n]);
+      }
+    }
+    __syncthreads();  // every warp has read this V tile
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l_safe = fmaxf(quad_sum(l[r]), 1e-30f);
+    if (qpos[r] >= p.S) continue;
+    float* out = static_cast<float*>(p.o) + b * p.o_sb + qpos[r] * p.o_ss +
+                 h * p.o_sh + 2 * t;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2(o[n][2 * r] / l_safe, o[n][2 * r + 1] / l_safe);
+    }
+    if (p.lse != nullptr && t == 0) {
+      p.lse[static_cast<long long>(bh) * p.S + qpos[r]] = m[r] + logf(l_safe);
+    }
+  }
 }
 
 // The wrapper's launch geometry: grid x, grid y, threads, shared-memory
@@ -506,13 +591,18 @@ int launch_bf16(const Params& p, const long long* g, cudaStream_t stream) {
 
 template <int HD>
 int launch_f32(const Params& p, const long long* g, cudaStream_t stream) {
-  if (!grid_ok(p, g, kFmaBM, kThreads, f32_smem<HD>())) {
+  if (!grid_ok(p, g, kF32BM, kThreads, f32_smem_bytes<HD>())) {
     return cudaErrorInvalidValue;
   }
   const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(g[3]));
   if (attr != cudaSuccess) return attr;
+  // All of the SM's unified cache as shared memory: two blocks an SM.
+  const cudaError_t carve = cudaFuncSetAttribute(
+      flash_fwd_f32<HD>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (carve != cudaSuccess) return carve;
   flash_fwd_f32<HD><<<dim3(g[0], g[1]), g[2], g[3], stream>>>(p);
   return cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's CUDA kernels:
 // mbarriers, TMA tensor-map loads, wgmma descriptors and instructions,
 // register rebalancing between warpgroups, the softmax's 2^x and bf16
-// packing, and on the host the tensor maps' encoding and checks and the
+// packing; for the fp32 kernels cp.async row copies and 3xTF32 mma.sync
+// products; and on the host the tensor maps' encoding and checks and the
 // C entries' error messages. Raw PTX, so a source that includes this
 // header builds in seconds with nvcc alone (no CUTLASS).
 //
@@ -262,6 +263,108 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ------------------------------------------------------ cp.async (fp32)
+
+// 16 bytes from global to shared memory, asynchronously; `bytes` = 0
+// lands zeros and reads nothing (rows past S).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// 4 bytes, the same way (lse and D rows: S * 4 need not be 16-aligned).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [s0, s0 + ROWS) of one head of a [B, S, heads, HD] fp32 operand
+// (`src` at that head, `stride_s` elements between positions) into a
+// [ROWS][STRIDE] shared tile at `tile`, 16 bytes a copy spread over
+// THREADS threads; rows past S land as zeros. Not committed.
+template <int HD, int ROWS, int STRIDE, int THREADS>
+__device__ __forceinline__ void cp_async_rows(uint32_t tile, const float* src,
+                                              long long stride_s, int s0,
+                                              int S) {
+  constexpr int kChunks = HD / 4;  // 16-byte copies a row
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += THREADS) {
+    const int row = c / kChunks, col = 4 * (c % kChunks), s = s0 + row;
+    const bool in = s < S;
+    cp_async16(tile + 4u * (row * STRIDE + col),
+               src + (in ? s * stride_s + col : 0), in ? 16 : 0);
+  }
+}
+
+// --------------------------------------------------------- 3xTF32 (fp32)
+
+// fp32 products on the tensor cores: x = hi + lo with hi = tf32(x) and
+// lo = tf32(x - hi), both rounded to nearest with ties away from zero (as
+// cvt.rna.tf32.f32; on the bits of a finite fp32 value that is "add half
+// a tf32 ulp to the magnitude, clear the 13 low bits"). x - hi is exact
+// in fp32, and a.b ~ hi_a.hi_b + hi_a.lo_b + lo_a.hi_b keeps ~21 bits of
+// each product (the dropped lo_a.lo_b is ~2^-22 of it); plain TF32 keeps
+// ~11.
+struct Tf32 {
+  uint32_t hi, lo;
+};
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ Tf32 tf32_split(float x) {
+  const uint32_t hi = tf32_rna(x);
+  return {hi, tf32_rna(x - __uint_as_float(hi))};
+}
+
+// D (16 x 8, fp32) += A (16 x 8, tf32) . B (8 x 8, tf32), one warp.
+// Fragments (g = lane / 4, t = lane % 4): A a0 (g, t), a1 (g + 8, t),
+// a2 (g, t + 4), a3 (g + 8, t + 4); B b0 (k t, n g), b1 (k t + 4, n g);
+// D d0 (g, 2t), d1 (g, 2t + 1), d2 (g + 8, 2t), d3 (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The A fragment of one 16 x 8 step, split, from its four fp32 values in
+// fragment order.
+struct FragA {
+  Tf32 x[4];
+};
+
+__device__ __forceinline__ FragA split_a(float a0, float a1, float a2,
+                                         float a3) {
+  return {{tf32_split(a0), tf32_split(a1), tf32_split(a2), tf32_split(a3)}};
+}
+
+// D += A . B in 3xTF32: the two small cross terms first, then hi.hi.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const FragA& a,
+                                           float b0, float b1) {
+  const Tf32 x = tf32_split(b0), y = tf32_split(b1);
+  mma_tf32(d, a.x[0].hi, a.x[1].hi, a.x[2].hi, a.x[3].hi, x.lo, y.lo);
+  mma_tf32(d, a.x[0].lo, a.x[1].lo, a.x[2].lo, a.x[3].lo, x.hi, y.hi);
+  mma_tf32(d, a.x[0].hi, a.x[1].hi, a.x[2].hi, a.x[3].hi, x.hi, y.hi);
 }
 
 // ------------------------------------------------------ host: tensor maps

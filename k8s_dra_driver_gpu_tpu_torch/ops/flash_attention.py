@@ -28,11 +28,17 @@ the same function written as whole-matrix tensor code, which the CPU
 tests hold against the JAX kernels in interpret mode and which the
 card's smoke run holds the kernels against.
 
-The launch geometry of the bf16 kernels (grids, threads, shared memory
-and the TMA tensor maps of their operands) is computed here, by
-``fwd_plan`` and ``bwd_plan``, where the CPU tests reach it, and handed to
-the C entries, which check it against the kernels' tiling before they
-launch.
+The launch geometry of the kernels (grids, threads, shared memory, and
+the TMA tensor maps of bf16 operands or the element strides of fp32 ones)
+is computed here, by ``fwd_plan`` and ``bwd_plan``, where the CPU tests
+reach it, and handed to the C entries, which check it against the
+kernels' tiling before they launch.
+
+fp32 operands take the same arithmetic in fp32. The forward and the
+dK/dV kernel run their products on the tensor cores in 3xTF32 (each
+operand split into two TF32 values, three products; ~fp32 accuracy where
+plain TF32 would miss the fp32 tolerance), with operands copied by
+cp.async; the dQ kernel is scalar FMA.
 
 Bound on an H100 SXM at the training shape (B=4, S=4096, H=16, K=8,
 hd=128, causal, bf16): forward 4*hd FLOP per unmasked pair, 0.28 ms at
@@ -59,19 +65,23 @@ _MAX_Q_TILES = 65_535  # the grid's y extent; tiles are 32 rows or more
 # geometry against it). bf16: 128 q rows a block in two consumer
 # warpgroups and a producer warpgroup; 128-key K/V tiles in a two-stage
 # ring, loaded by TMA in boxes 64 columns (128 bytes) wide with the
-# 128-byte swizzle. fp32: 32x32 tiles, one warpgroup.
+# 128-byte swizzle. fp32: 64 q rows a block of four warps, 64-key K/V
+# tiles; shared rows padded to hd + 16 floats (Q, K) and hd + 4 (V).
 FWD_BF16_BLOCK_M, FWD_BF16_BLOCK_N, FWD_BF16_STAGES = 128, 128, 2
 FWD_BF16_THREADS = 384
-FWD_F32_BLOCK_M, FWD_F32_BLOCK_N, FWD_F32_THREADS = 32, 32, 128
+FWD_F32_BLOCK_M, FWD_F32_BLOCK_N, FWD_F32_THREADS = 64, 64, 128
 # The backward kernels' tiling (csrc/flash_bwd.cu checks it). bf16: two
 # consumer warpgroups and a producer warpgroup a block. dQ: 128 q rows a
 # block, K/V tiles of 64 keys in a three-stage ring. dK/dV: 128 keys a
 # block, Q/dO tiles of 64 rows in a three-stage ring. Every TMA box is 64
-# rows by 64 columns. fp32: 32x32 tiles, one warpgroup, both kernels.
+# rows by 64 columns. fp32 dQ: 32x32 tiles, one warpgroup. fp32 dK/dV: 32
+# keys a block of four warps (two pairs), Q/dO tiles of 32 rows; shared
+# rows padded to hd + 4 floats.
 BWD_DQ_BLOCK_M, BWD_DQ_BLOCK_N = 128, 64
 BWD_DKV_BLOCK_N, BWD_DKV_BLOCK_M = 128, 64
 BWD_STAGES, BWD_THREADS, BWD_BOX_ROWS = 3, 384, 64
 BWD_F32_BLOCK, BWD_F32_THREADS = 32, 128
+BWD_DKV_F32_BLOCK_N, BWD_DKV_F32_BLOCK_M, BWD_DKV_F32_THREADS = 32, 32, 128
 TMA_BOX_COLS, TMA_SWIZZLE_BYTES = 64, 128
 MAX_SMEM_BYTES = 232_448  # what one block may use on an H100
 # q rows a chunk of ``chunked_attention_bwd``: the reference's default
@@ -215,8 +225,10 @@ def fwd_smem_bytes(dtype: torch.dtype, hd: int) -> int:
         tiles = (FWD_BF16_BLOCK_M * hd
                  + 2 * FWD_BF16_STAGES * FWD_BF16_BLOCK_N * hd)
         return 1024 + 2 * tiles + 8 * (1 + 4 * FWD_BF16_STAGES)
+    # Q and a K tile with rows of hd + 16 floats, a V tile with rows of
+    # hd + 4 (csrc/flash_fwd.cu: conflict-free fragment reads).
     bm, bn = FWD_F32_BLOCK_M, FWD_F32_BLOCK_N
-    return 4 * (2 * bm * (hd + 1) + bn * hd + bm * (bn + 1))
+    return 4 * ((bm + bn) * (hd + 16) + bn * (hd + 4))
 
 
 def _tensor_map(t: torch.Tensor, rows: int) -> TensorMap:
@@ -254,14 +266,15 @@ def fwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> FwdPlan:
 class BwdPlan:
     """Launch geometry of one backward call: the dQ grid (x walks (b, h),
     y the q tiles, the last first), the dK/dV grid (x walks (b, kv-head),
-    y the key tiles, the first first), threads a block, each kernel's
+    y the key tiles, the first first), each kernel's threads a block and
     dynamic shared-memory bytes, and what the kernels read q, k, v and dO
     through: bf16, their tensor maps; fp32, their element strides of dims
     (b, s, head), 12 values."""
 
     dq_grid: tuple[int, int]
     dkv_grid: tuple[int, int]
-    threads: int
+    dq_threads: int
+    dkv_threads: int
     dq_smem: int
     dkv_smem: int
     maps: tuple[TensorMap, ...]
@@ -270,9 +283,9 @@ class BwdPlan:
     def packed(self):
         """The int64 array the C entries ``flash_bwd_dq`` and
         ``flash_bwd_dkv`` read."""
-        values = (*self.dq_grid, *self.dkv_grid, self.threads, self.dq_smem,
-                  self.dkv_smem, *(x for m in self.maps for x in m.values()),
-                  *self.strides)
+        values = (*self.dq_grid, *self.dkv_grid, self.dq_threads,
+                  self.dkv_threads, self.dq_smem, self.dkv_smem,
+                  *(x for m in self.maps for x in m.values()), *self.strides)
         return (_I64 * len(values))(*values)
 
 
@@ -283,13 +296,16 @@ def bwd_smem_bytes(hd: int, dtype: torch.dtype = torch.bfloat16
     ring of K and V tiles, barriers for Q/dO and a full and an empty one
     for each K and V slot. dK/dV: K and V, a ring of Q and dO tiles with
     each slot's lse and D (fp32), barriers for K/V and a full and an
-    empty one a slot. fp32: four 32-row tiles padded to hd + 1 columns;
-    dQ adds dS, dK/dV adds P^T and dS^T and the q tile's lse and D."""
+    empty one a slot. fp32 dQ: four 32-row tiles padded to hd + 1 columns
+    and dS. fp32 dK/dV: the K and V tile and two buffers of a Q and a dO
+    tile (rows of hd + 4 floats) with the Q tile's lse and D, and the
+    tiles its warp pairs swap (S^T and dP^T, 16 keys by the tile's rows,
+    two a pair)."""
     if dtype == torch.float32:
         bm = BWD_F32_BLOCK
-        tiles = 4 * bm * (hd + 1)
-        return 4 * (tiles + bm * (bm + 1)), 4 * (
-            tiles + 2 * bm * (bm + 1) + 2 * bm)
+        dq = 4 * (4 * bm * (hd + 1) + bm * (bm + 1))
+        n, m = BWD_DKV_F32_BLOCK_N, BWD_DKV_F32_BLOCK_M
+        return dq, 4 * ((2 * n + 4 * m) * (hd + 4) + 4 * m + 2 * 2 * 16 * m)
     st = BWD_STAGES
     dq = (1024 + 2 * hd * (2 * BWD_DQ_BLOCK_M + 2 * st * BWD_DQ_BLOCK_N)
           + 8 * (1 + 4 * st))
@@ -305,16 +321,17 @@ def bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, S, H, hd = q.shape
     dq_smem, dkv_smem = bwd_smem_bytes(hd, q.dtype)
     if q.dtype == torch.float32:
-        bm = BWD_F32_BLOCK
         return BwdPlan(
-            dq_grid=(B * H, -(-S // bm)),
-            dkv_grid=(B * k.shape[2], -(-S // bm)), threads=BWD_F32_THREADS,
+            dq_grid=(B * H, -(-S // BWD_F32_BLOCK)),
+            dkv_grid=(B * k.shape[2], -(-S // BWD_DKV_F32_BLOCK_N)),
+            dq_threads=BWD_F32_THREADS, dkv_threads=BWD_DKV_F32_THREADS,
             dq_smem=dq_smem, dkv_smem=dkv_smem, maps=(),
             strides=tuple(st for t in (q, k, v, do) for st in t.stride()[:3]))
     return BwdPlan(
         dq_grid=(B * H, -(-S // BWD_DQ_BLOCK_M)),
         dkv_grid=(B * k.shape[2], -(-S // BWD_DKV_BLOCK_N)),
-        threads=BWD_THREADS, dq_smem=dq_smem, dkv_smem=dkv_smem,
+        dq_threads=BWD_THREADS, dkv_threads=BWD_THREADS,
+        dq_smem=dq_smem, dkv_smem=dkv_smem,
         maps=tuple(_tensor_map(t, BWD_BOX_ROWS) for t in (q, k, v, do)))
 
 
@@ -367,18 +384,20 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash kernel needs a contiguous head dim")
     if -(-q.shape[1] // 32) > _MAX_Q_TILES:
         raise ValueError(f"sequence length {q.shape[1]} too long for one launch")
-    if q.dtype == torch.bfloat16:
-        # The kernels read through TMA tensor maps: 16-byte aligned bases
-        # and byte strides below 2^40. A dimension of size 1 is never
-        # stepped.
-        for t in tensors:
-            strides = [st for st, size in zip(t.stride()[:3], t.shape[:3])
-                       if size > 1]
-            if t.data_ptr() % 16 or any(
-                    st % 8 or not 0 < 2 * st < _TMA_MAX_STRIDE
-                    for st in strides):
-                raise ValueError("bf16 flash kernel needs 16-byte aligned "
-                                 "rows (pointer and strides)")
+    # bf16 operands are read through TMA tensor maps: 16-byte aligned
+    # bases and byte strides below 2^40. fp32 operands are copied 16 bytes
+    # at a time (cp.async): 16-byte aligned bases and rows. A dimension of
+    # size 1 is never stepped.
+    for t in tensors:
+        elem = t.element_size()
+        strides = [st for st, size in zip(t.stride()[:3], t.shape[:3])
+                   if size > 1]
+        if t.data_ptr() % 16 or any(
+                elem * st % 16 or not 0 < elem * st < _TMA_MAX_STRIDE
+                for st in strides):
+            raise ValueError(f"{'bf16' if elem == 2 else 'fp32'} flash "
+                             "kernel needs 16-byte aligned rows (pointer "
+                             "and strides)")
 
 
 def _flash_forward(q, k, v, causal: bool, with_lse: bool):

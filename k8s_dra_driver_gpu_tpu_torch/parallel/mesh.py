@@ -183,14 +183,24 @@ def placements(spec: Sequence, mesh: DeviceMesh) -> tuple:
     """DTensor placements on ``mesh`` of a reference-style spec: entry
     ``d`` names the mesh axis (or a tuple of axes, outer first) that
     tensor dim ``d`` is sharded over, or is None. Mesh dims the spec
-    does not name are ``Replicate()``."""
+    does not name are ``Replicate()``; axes the mesh lacks (``compute_mesh``
+    drops those of size 1) shard nothing. DTensor lays a dim sharded over
+    several mesh dims out in the mesh's dim order, so a tuple in another
+    order raises rather than be silently reordered."""
+    names = list(mesh.mesh_dim_names)
     by_axis = {}
     for dim, axes in enumerate(spec):
-        for axis in (axes if isinstance(axes, tuple) else (axes,)):
-            if axis is not None:
-                by_axis[axis] = Shard(dim)
-    return tuple(by_axis.get(name, Replicate())
-                 for name in mesh.mesh_dim_names)
+        present = [axis for axis in (axes if isinstance(axes, tuple)
+                                     else (axes,)) if axis in names]
+        if present != sorted(present, key=names.index):
+            raise ValueError(
+                f"tensor dim {dim} sharded over {tuple(present)}, outer "
+                f"first: the mesh orders these axes "
+                f"{tuple(sorted(present, key=names.index))}, and DTensor "
+                "shards in the mesh's order")
+        for axis in present:
+            by_axis[axis] = Shard(dim)
+    return tuple(by_axis.get(name, Replicate()) for name in names)
 
 
 def distribute_tree(tree: dict, specs: dict, mesh: DeviceMesh) -> dict:

@@ -3,27 +3,39 @@ driver injects.
 
     python -m k8s_dra_driver_gpu_tpu_torch.train.main --model flagship \\
         --seq-len 4096 --batch-size 4 [--steps 10] [--tp N] \\
-        [--steps-per-call K] [--device cuda]
+        [--steps-per-call K] [--device cuda] [--local-devices N]
 
-The port of ``k8s_dra_driver_gpu_tpu/train/main.py::run``, dense path. A
-pod whose claim carries a ComputeDomain channel gets
+The port of ``k8s_dra_driver_gpu_tpu/train/main.py::run``, dense path. It
+is started once per node, as the reference's process is: a pod whose
+claim carries a ComputeDomain channel gets
 
   TPU_COORDINATOR_ADDRESS / TPU_PROCESS_ID / TPU_NUM_PROCESSES
-      -> ``torch.distributed.init_process_group`` over TCP at the
-         coordinator, one process per card (NCCL; gloo with
-         ``--device cpu``); absent = a gang of one;
+      -> one process per node (the plugin counts nodes); absent = a gang
+         of this node alone;
   TPU_INIT_TIMEOUT_S -> the rendezvous timeout (default 300 s).
+
+The reference's process drives every local chip; here the launcher
+starts one worker per local card (``--local-devices N`` with ``--device
+cpu``), re-running itself with a private local-rank variable. With L
+local ranks, worker l of node p is global rank p * L + l of a world of
+TPU_NUM_PROCESSES * L, on card l, in one ``torch.distributed`` gang over
+TCP at the coordinator (NCCL; gloo with ``--device cpu``), whose store
+global rank 0 hosts. A worker that fails makes the launcher stop its
+other workers and exit non-zero.
 
 Every run, a gang of one included, builds a (dp, fsdp, sp, tp) mesh over
 the gang (``parallel.mesh.plan_for``, ``--tp`` honoured) and trains
 through ``train.make_sharded_train`` (``make_scanned_sharded_train`` with
 ``--steps-per-call`` > 1): fp32 master weights from a seeded init, the
-model's compute dtype, and JAX's synthetic next-token batches, each
-process drawing its own shard from ``np.random.RandomState(step * 65521
-+ process_id)``, so the global batch is ``--batch-size`` times the
-process count. Logs "step N loss X (T tok/s)" every 10 steps and at the
-last, throughput (global tokens) counted from the end of the first
-(warm-up) call. Runs on the card unless ``--device cpu``.
+model's compute dtype, and JAX's synthetic next-token batches: each node
+draws its ``--batch-size`` rows from ``np.random.RandomState(step * 65521
++ process_id)`` and local rank l takes rows [l b / L, (l + 1) b / L), the
+order in which ``make_array_from_process_local_data`` lays a process's
+rows over its devices, so the global batch is ``--batch-size`` times the
+node count in the reference's row order. Global rank 0 logs "step N loss
+X (T tok/s)" every 10 steps and at the last, throughput (global tokens)
+counted from the end of the first (warm-up) call. Runs on the card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -32,12 +44,18 @@ import argparse
 import datetime
 import logging
 import os
+import socket
+import subprocess
+import sys
 import time
 
 import numpy as np
 import torch
 
 logger = logging.getLogger("k8s_dra_driver_gpu_tpu_torch.train")
+
+# Set by the launcher on the workers it starts: the worker's local rank.
+LOCAL_RANK_VAR = "TORCH_TRAIN_LOCAL_RANK"
 
 
 class GangEnvError(ValueError):
@@ -102,16 +120,19 @@ def validate_gang_env(env=os.environ) -> dict | None:
     }
 
 
-def initialize_distributed(env=os.environ, device: str = "cuda") -> bool:
+def initialize_distributed(env=os.environ, device: str = "cuda",
+                           local_rank: int = 0, local_ranks: int = 1) -> bool:
     """``torch.distributed`` from the ComputeDomain channel env, if present.
 
     Returns True when a gang was joined: the default process group over
     TCP at ``TPU_COORDINATOR_ADDRESS`` (an IPv6 literal keeps its
-    brackets), rank ``TPU_PROCESS_ID`` of ``TPU_NUM_PROCESSES``, NCCL on
-    the cards (each process on card ``process_id % cards``) or gloo for
-    ``device="cpu"``. ``TPU_INIT_TIMEOUT_S`` bounds the rendezvous
-    (default 300 s), so an unreachable coordinator is a clear error,
-    not an indefinite hang.
+    brackets; global rank 0 hosts the store there), in which this
+    process, local rank ``local_rank`` of the node's ``local_ranks``, is
+    rank ``TPU_PROCESS_ID * local_ranks + local_rank`` of
+    ``TPU_NUM_PROCESSES * local_ranks``: NCCL on card ``local_rank``, or
+    gloo for ``device="cpu"``. ``TPU_INIT_TIMEOUT_S`` bounds the
+    rendezvous (default 300 s), so an unreachable coordinator is a clear
+    error, not an indefinite hang.
     """
     import torch.distributed as dist
 
@@ -120,14 +141,18 @@ def initialize_distributed(env=os.environ, device: str = "cuda") -> bool:
         return False
     backend = "gloo" if torch.device(device).type == "cpu" else "nccl"
     if backend == "nccl":
-        torch.cuda.set_device(gang["process_id"] % torch.cuda.device_count())
+        torch.cuda.set_device(local_rank)
+    rank = gang["process_id"] * local_ranks + local_rank
+    world = gang["num_processes"] * local_ranks
     timeout = int(env.get("TPU_INIT_TIMEOUT_S", "300"))
     dist.init_process_group(
         backend, init_method="tcp://" + gang["coordinator"],
-        rank=gang["process_id"], world_size=gang["num_processes"],
+        rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=timeout))
-    logger.info("joined gang: process %s/%s via %s (%s)", gang["process_id"],
-                gang["num_processes"], gang["coordinator"], backend)
+    logger.info("joined gang: process %s/%s, local rank %s/%s, rank %s/%s "
+                "via %s (%s)", gang["process_id"], gang["num_processes"],
+                local_rank, local_ranks, rank, world, gang["coordinator"],
+                backend)
     return True
 
 
@@ -149,8 +174,8 @@ def _parser() -> argparse.ArgumentParser:
                         "parameter (the flagship default)")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--batch-size", type=int, default=8,
-                   help="rows per process; the global batch is this "
-                        "times TPU_NUM_PROCESSES")
+                   help="rows per node, split over its local ranks; the "
+                        "global batch is this times TPU_NUM_PROCESSES")
     p.add_argument("--seq-len", type=int, default=128)
     p.add_argument("--tp", type=int, default=None,
                    help="tensor-parallel size (default: planned)")
@@ -160,10 +185,14 @@ def _parser() -> argparse.ArgumentParser:
                         "train.scanned_train_step) [STEPS_PER_CALL]")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: the card)")
+    p.add_argument("--local-devices", type=int, default=None,
+                   help="local ranks of this node with --device cpu "
+                        "(default 1); on the card, one per visible card")
     return p
 
 
 def run(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     p = _parser()
     args = p.parse_args(argv)
     if args.model == "flagship" and args.seq_len % 128:
@@ -173,26 +202,83 @@ def run(argv: list[str] | None = None) -> int:
         p.error("--steps must be >= 1")
     if args.steps_per_call < 1:
         p.error("--steps-per-call must be >= 1")
+    if args.local_devices is not None and args.local_devices < 1:
+        p.error("--local-devices must be >= 1")
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
 
-    import torch.distributed as dist
-
     from ..ops import resolve_device
 
     device = resolve_device(args.device)
-    if not initialize_distributed(device=str(device)):
+    if device.type == "cpu":
+        local_ranks = args.local_devices or 1
+    elif args.local_devices is not None:
+        p.error("--local-devices is for --device cpu: on the card the "
+                "launcher runs a rank per visible card")
+    else:
+        local_ranks = torch.cuda.device_count()
+    if args.batch_size % local_ranks:
+        p.error(f"--batch-size {args.batch_size} rows a node do not split "
+                f"over its {local_ranks} local ranks")
+    validate_gang_env()  # a broken contract fails here, before any worker
+    if local_ranks > 1 and LOCAL_RANK_VAR not in os.environ:
+        return _run_local_ranks(argv, local_ranks)
+    local_rank = int(os.environ.get(LOCAL_RANK_VAR, "0"))
+
+    import torch.distributed as dist
+
+    if not initialize_distributed(device=str(device), local_rank=local_rank,
+                                  local_ranks=local_ranks):
         # A gang of one: the same sharded path over a one-rank group.
         dist.init_process_group("gloo" if device.type == "cpu" else "nccl",
                                 store=dist.HashStore(), rank=0, world_size=1)
     try:
-        return _train(args, device)
+        return _train(args, device, local_rank, local_ranks)
     finally:
         dist.destroy_process_group()
 
 
-def _train(args, device: torch.device) -> int:
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _run_local_ranks(argv: list[str], local_ranks: int) -> int:
+    """Start this launcher once per local rank, each with
+    ``LOCAL_RANK_VAR`` set, and wait for them. Without a gang env the node
+    is a gang alone, meeting at a free local port. When a worker fails the
+    others are stopped (a collective would wait for it forever) and its
+    exit code is returned."""
+    env = dict(os.environ)
+    if validate_gang_env(env) is None:
+        env.update(TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}",
+                   TPU_PROCESS_ID="0", TPU_NUM_PROCESSES="1")
+    workers = [subprocess.Popen(
+        [sys.executable, "-m", "k8s_dra_driver_gpu_tpu_torch.train.main",
+         *argv], env={**env, LOCAL_RANK_VAR: str(rank)})
+        for rank in range(local_ranks)]
+    try:
+        while True:
+            codes = [w.poll() for w in workers]
+            failed = [c for c in codes if c not in (None, 0)]
+            if failed:
+                logger.error("a local rank exited with %s; stopping the "
+                             "others", failed[0])
+                return failed[0]
+            if all(c == 0 for c in codes):
+                return 0
+            time.sleep(0.1)
+    finally:
+        for w in workers:
+            if w.poll() is None:
+                w.kill()
+                w.wait()
+
+
+def _train(args, device: torch.device, local_rank: int,
+           local_ranks: int) -> int:
     import torch.distributed as dist
 
     from ..models import llama
@@ -200,10 +286,12 @@ def _train(args, device: torch.device) -> int:
     from .train import (make_optimizer, make_scanned_sharded_train,
                         make_sharded_train)
 
-    num_shards, shard_id = dist.get_world_size(), dist.get_rank()
+    world, rank = dist.get_world_size(), dist.get_rank()
+    node = rank // local_ranks  # TPU_PROCESS_ID
+    rows = args.batch_size // local_ranks
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
-    mesh = build_mesh(plan_for(num_shards, tp=args.tp))
+    mesh = build_mesh(plan_for(world, tp=args.tp))
     cfg = {"tiny": llama.LlamaConfig.tiny,
            "flagship": llama.LlamaConfig.flagship,
            "llama3-8b": llama.LlamaConfig.llama3_8b}[args.model]()
@@ -218,19 +306,20 @@ def _train(args, device: torch.device) -> int:
     gen = torch.Generator(device=device).manual_seed(0)
     state = init_fn(llama.init(cfg, gen, device, dtype=torch.float32))
     logger.info("device %s, mesh %s, model %s, mu %s, batch %d x %d per "
-                "process, %d processes", device,
+                "node over %d local rank(s), %d rank(s)", device,
                 dict(zip(mesh.mesh_dim_names, mesh.shape)), args.model, mu,
-                args.batch_size, args.seq_len, num_shards)
+                args.batch_size, args.seq_len, local_ranks, world)
 
     def local_batch(step: int) -> np.ndarray:
-        return synthetic_batch(step, args.batch_size, args.seq_len,
-                               cfg.vocab_size, shard_id)
+        batch = synthetic_batch(step, args.batch_size, args.seq_len,
+                                cfg.vocab_size, node)
+        return batch[local_rank * rows:(local_rank + 1) * rows]
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    tokens_per_step = args.batch_size * num_shards * args.seq_len
+    tokens_per_step = args.batch_size * (world // local_ranks) * args.seq_len
     t0, first_timed, step = time.perf_counter(), None, 0
     k = args.steps_per_call
     while step < args.steps:
@@ -248,7 +337,7 @@ def _train(args, device: torch.device) -> int:
         if first_timed is None:
             sync()  # the first call warms caches and builds kernels
             t0, first_timed = time.perf_counter(), step
-        if prev // 10 != step // 10 or step == args.steps:
+        if rank == 0 and (prev // 10 != step // 10 or step == args.steps):
             value = loss.item()
             dt = time.perf_counter() - t0
             done = step - first_timed

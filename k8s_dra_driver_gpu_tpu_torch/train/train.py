@@ -13,7 +13,9 @@ parameter and moment tensors: a flagship state is ~10 GB, and a second
 copy of it buys nothing in eager PyTorch.
 
 Sharded training places every leaf as a DTensor by
-``llama.param_specs`` and the batch by ``llama.batch_spec``; the same
+``llama.param_specs`` and the batch by ``llama.batch_spec`` (or over the
+mesh axes ``batch_axes`` names, as the reference's builders take them:
+multislice passes ("dcn", "dp", "fsdp")); the same
 ``train_step`` then runs on DTensors, whose sharding propagation plays
 the part of XLA's and inserts the collectives. Its gradients come back
 with placements of DTensor's choosing (often ``Partial``) and are
@@ -24,6 +26,7 @@ moments stay sharded like their parameter.
 from __future__ import annotations
 
 import contextlib
+import math
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -37,6 +40,10 @@ from ..models import llama
 from ..ops.xent import chunked_cross_entropy
 from ..parallel.mesh import (DATA_AXIS, FSDP_AXIS, axis_size, compute_mesh,
                              distribute_tree, placements)
+
+# The mesh axes the batch dim shards over unless ``batch_axes`` says
+# otherwise (``llama.batch_spec``).
+DEFAULT_BATCH_AXES = (DATA_AXIS, FSDP_AXIS)
 
 
 class TrainState(NamedTuple):
@@ -189,12 +196,17 @@ def scanned_train_step(state: TrainState, tokens_kbs: torch.Tensor, *,
     return state, torch.stack(losses)
 
 
-def _batch_layout(mesh, batch_placements, batch_dim: int):
+def _batch_layout(mesh, batch_axes: tuple[str, ...], batch_dim: int):
     """Each process's local rows -> the global batch as a DTensor: the
     rows of every rank of the default group, concatenated in rank order
     along ``batch_dim`` (as ``make_array_from_process_local_data`` takes
-    each process's rows), then placed by ``batch_placements``."""
-    shards = axis_size(mesh, DATA_AXIS) * axis_size(mesh, FSDP_AXIS)
+    each process's rows), then sharded along ``batch_dim`` over the mesh
+    axes ``batch_axes``, in that order (axes the mesh dropped for being
+    of size 1 shard nothing), and replicated over the others."""
+    spec = [None] * (batch_dim + 1)
+    spec[batch_dim] = tuple(batch_axes)
+    batch_placements = placements(spec, mesh)
+    shards = math.prod(axis_size(mesh, axis) for axis in batch_axes)
     device = torch.device(mesh.device_type, torch.cuda.current_device()
                           if mesh.device_type == "cuda" else None)
 
@@ -207,7 +219,7 @@ def _batch_layout(mesh, batch_placements, batch_dim: int):
         if rows.shape[batch_dim] % shards:
             raise ValueError(
                 f"global batch {rows.shape[batch_dim]} not divisible by "
-                f"dp * fsdp = {shards}")
+                f"{' * '.join(batch_axes)} = {shards}")
         return distribute_tensor(rows, mesh, batch_placements,
                                  src_data_rank=None)
 
@@ -215,20 +227,33 @@ def _batch_layout(mesh, batch_placements, batch_dim: int):
 
 
 def make_sharded_train(mesh, cfg: llama.LlamaConfig,
-                       optimizer: AdamW | None = None):
+                       optimizer: AdamW | None = None,
+                       batch_axes: tuple[str, ...] | None = None):
     """Returns ``(init_fn, step_fn, batch_layout, place_params)`` over
     ``mesh`` (a ``parallel.mesh`` DeviceMesh).
+
+    ``batch_axes`` overrides the mesh axes the batch dim shards over, in
+    order (None: dp then fsdp): a multislice mesh passes ("dcn", "dp",
+    "fsdp"), so only gradient data parallelism crosses the slices. An
+    order that is not the mesh's raises (DTensor lays a dim sharded over
+    several mesh dims out in mesh order).
 
     ``place_params(params)``: the parameters (the same on every rank) as
     DTensors placed by ``llama.param_specs``. ``init_fn(params)``: a
     TrainState of placed parameters and Adam moments of the same
     placements. ``batch_layout(local_rows)``: each process's [b, S + 1]
-    rows -> the global [b * processes, S + 1] batch, sharded over dp and
-    fsdp. ``step_fn(state, tokens) -> (state, loss)``: ``train_step`` on
+    rows -> the global [b * processes, S + 1] batch, sharded over the
+    batch axes. ``step_fn(state, tokens) -> (state, loss)``: ``train_step`` on
     the placed state. Over a mesh of more than one device "auto"
     attention becomes einsum (``llama.pin_auto_attn_for_pjit``); on one
     device the flash kernels run on the local tensors."""
     optimizer = optimizer or make_optimizer()
+    missing = [axis for axis in batch_axes or ()
+               if axis not in mesh.mesh_dim_names]
+    if missing:
+        raise ValueError(f"batch_axes {tuple(batch_axes)}: mesh has no axis "
+                         f"{', '.join(missing)} (axes "
+                         f"{tuple(mesh.mesh_dim_names)})")
     cfg = llama.pin_auto_attn_for_pjit(cfg, mesh)
     cmesh = compute_mesh(mesh)
     specs = llama.param_specs(cfg, cmesh)
@@ -244,26 +269,30 @@ def make_sharded_train(mesh, cfg: llama.LlamaConfig,
         return train_step(state, tokens, cfg=cfg, optimizer=optimizer)
 
     return (init_fn, step_fn,
-            _batch_layout(cmesh, llama.batch_spec(cmesh), batch_dim=0),
+            _batch_layout(cmesh, batch_axes or DEFAULT_BATCH_AXES,
+                          batch_dim=0),
             place_params)
 
 
 def make_scanned_sharded_train(mesh, cfg: llama.LlamaConfig,
-                               optimizer: AdamW | None = None):
+                               optimizer: AdamW | None = None,
+                               batch_axes: tuple[str, ...] | None = None):
     """``make_sharded_train`` with K steps a call (``scanned_train_step``):
     ``step_fn(state, tokens[K, B, S + 1]) -> (state, losses[K])``. The
     batch layout takes each process's [K, b, S + 1] rows; the leading K
     dim is not sharded and each step's batch shards as in the unscanned
-    path."""
+    path (over ``batch_axes``)."""
     optimizer = optimizer or make_optimizer()
     cfg = llama.pin_auto_attn_for_pjit(cfg, mesh)
-    init_fn, _, _, place_params = make_sharded_train(mesh, cfg, optimizer)
+    init_fn, _, _, place_params = make_sharded_train(mesh, cfg, optimizer,
+                                                     batch_axes)
     cmesh = compute_mesh(mesh)
-    batch = placements((None, (DATA_AXIS, FSDP_AXIS)), cmesh)
 
     def step_fn(state: TrainState, tokens_kbs: DTensor):
         return scanned_train_step(state, tokens_kbs, cfg=cfg,
                                   optimizer=optimizer)
 
-    return (init_fn, step_fn, _batch_layout(cmesh, batch, batch_dim=1),
+    return (init_fn, step_fn,
+            _batch_layout(cmesh, batch_axes or DEFAULT_BATCH_AXES,
+                          batch_dim=1),
             place_params)

@@ -12,11 +12,11 @@ from k8s_dra_driver_gpu_tpu_torch.ops import flash_attention as pt_flash
 BF16 = torch.bfloat16
 
 
-def _operands(layout, B, S, H, K, hd):
+def _operands(layout, B, S, H, K, hd, dtype=BF16):
     """q, k, v and dO in one of the layouts a caller may hand the kernels
     (dO beside q: contiguous unless q is a head-major view)."""
     def empty(*shape):
-        return torch.empty(shape, dtype=BF16, device="meta")
+        return torch.empty(shape, dtype=dtype, device="meta")
 
     if layout == "contiguous":
         return tuple(empty(B, S, n, hd) for n in (H, K, K, H))
@@ -53,7 +53,7 @@ def test_bwd_plan(layout, hd, group, S):
     # kv-head, 128 keys).
     assert plan.dq_grid == (B * H, -(-S // 128))
     assert plan.dkv_grid == (B * K, -(-S // 128))
-    assert plan.threads == 384
+    assert plan.dq_threads == plan.dkv_threads == 384
     assert (plan.dq_smem, plan.dkv_smem) == pt_flash.bwd_smem_bytes(hd)
     assert len(plan.maps) == 4
     for i, (t, m) in enumerate(zip(operands, plan.maps)):
@@ -65,10 +65,10 @@ def test_bwd_plan(layout, hd, group, S):
         # a 128-wide head two panels.
         assert m.box == (64, 1, 64, 1) and m.swizzle == 128
     packed = list(plan.packed())
-    assert packed[:7] == [*plan.dq_grid, *plan.dkv_grid, 384, plan.dq_smem,
-                          plan.dkv_smem]
-    assert len(packed) == 7 + 4 * 12
-    assert packed[7 + 3 * 12:] == [*plan.maps[3].dims, *plan.maps[3].strides,
+    assert packed[:8] == [*plan.dq_grid, *plan.dkv_grid, 384, 384,
+                          plan.dq_smem, plan.dkv_smem]
+    assert len(packed) == 8 + 4 * 12
+    assert packed[8 + 3 * 12:] == [*plan.maps[3].dims, *plan.maps[3].strides,
                                    *plan.maps[3].box, 128]
 
 
@@ -133,3 +133,56 @@ def test_shared_memory_fits_a_block(hd):
     if hd == 128:
         assert dq - 1024 - 104 == 160 * 1024
         assert dkv - 1024 - 56 == 161.5 * 1024
+
+
+F32 = torch.float32
+
+
+@pytest.mark.parametrize("S", [100, 128, 1000])  # under, exactly, ragged
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("layout",
+                         ["contiguous", "sliced heads", "transposed view"])
+def test_fp32_bwd_plan(layout, hd, group, S):
+    # fp32: dQ keeps its simple kernel (a block of 128 threads per (b,
+    # q-head, 32 q rows)); dK/dV is the 3xTF32 kernel, a block of four
+    # warps per (b, kv-head, 32 keys). Both read q, k, v, dO through their
+    # element strides.
+    B, K = 2, 4
+    H = K * group
+    operands = _operands(layout, B, S, H, K, hd, dtype=F32)
+    plan = pt_flash.bwd_plan(*operands)
+    assert plan.dq_grid == (B * H, -(-S // 32))
+    assert plan.dkv_grid == (B * K, -(-S // 32))
+    assert plan.dq_threads == plan.dkv_threads == 128
+    assert (plan.dq_smem, plan.dkv_smem) == pt_flash.bwd_smem_bytes(hd, F32)
+    assert plan.maps == ()
+    assert plan.strides == tuple(st for t in operands for st in t.stride()[:3])
+    packed = list(plan.packed())
+    assert packed == [*plan.dq_grid, *plan.dkv_grid, 128, 128, plan.dq_smem,
+                      plan.dkv_smem, *plan.strides]
+    assert len(packed) == 8 + 12
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_fp32_shared_memory_fits_two_blocks(hd):
+    dq, dkv = pt_flash.bwd_smem_bytes(hd, F32)
+    # dQ: Q, dO, K, V tiles of 32 rows padded to hd + 1 floats, and dS.
+    assert dq == 4 * (4 * 32 * (hd + 1) + 32 * 33)
+    # dK/dV: K and V of 32 keys, two buffers of Q and dO of 32 rows (rows
+    # of hd + 4 floats) and of the Q tile's lse and D; the two warp pairs'
+    # swapped tiles (16 keys x 32 rows, two a pair). Two blocks an SM
+    # (228 KB, 1 KB reserved a block).
+    assert dkv == 4 * ((2 * 32 + 4 * 32) * (hd + 4) + 4 * 32 + 4 * 16 * 32)
+    assert 2 * (dkv + 1024) <= 228 * 1024 and dq <= pt_flash.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("S", [128, 1024, 4096])
+def test_fp32_dkv_grid_runs_the_heaviest_causal_tiles_first(S):
+    q = torch.empty(4, S, 16, 128, dtype=F32, device="meta")
+    k = torch.empty(4, S, 8, 128, dtype=F32, device="meta")
+    plan = pt_flash.bwd_plan(q, k, k, q)
+    pairs = _causal_pairs_by_block(S, 32, "dkv")
+    assert len(pairs) == plan.dkv_grid[1]
+    assert sum(pairs) == S * (S + 1) // 2
+    assert pairs == sorted(pairs, reverse=True)

@@ -93,7 +93,7 @@ def test_shared_memory_fits_a_block(dtype, hd):
 def test_fp32_plan_has_no_tensor_maps():
     q, k, v = _operands("contiguous", 2, 1000, 8, 2, 64, dtype=torch.float32)
     plan = pt_flash.fwd_plan(q, k, v)
-    assert plan.grid == (16, 32) and plan.threads == 128 and plan.maps == ()
+    assert plan.grid == (16, 16) and plan.threads == 128 and plan.maps == ()
     assert len(plan.packed()) == 4
 
 
@@ -145,3 +145,62 @@ def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
     assert second != first
     (tmp_path / "other.cuh").write_text("// new\n")
     assert _build.source_digest("kern") not in (first, second)
+
+
+F32 = torch.float32
+
+
+@pytest.mark.parametrize("S", [100, 128, 1000])  # under, exactly, ragged
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("layout",
+                         ["contiguous", "sliced heads", "transposed view"])
+def test_fp32_plan(layout, hd, group, S):
+    # The 3xTF32 forward: a block of four warps per (b, h, 64 q rows); it
+    # reads q, k, v through their element strides (no tensor maps).
+    B, K = 2, 4
+    H = K * group
+    q, k, v = _operands(layout, B, S, H, K, hd, dtype=F32)
+    plan = pt_flash.fwd_plan(q, k, v)
+    assert plan.grid == (B * H, -(-S // 64))
+    assert plan.threads == 128 and plan.maps == ()
+    # Q and a 64-key K tile in rows of hd + 16 floats, a V tile in rows of
+    # hd + 4; two blocks fit an SM (228 KB, 1 KB reserved a block).
+    assert plan.smem == 4 * (128 * (hd + 16) + 64 * (hd + 4))
+    assert 2 * (plan.smem + 1024) <= 228 * 1024
+    assert list(plan.packed()) == [*plan.grid, 128, plan.smem]
+
+
+def _aligned(shape, strides, dtype, offset=0):
+    """A strided view whose storage starts on a 16-byte boundary, then
+    ``offset`` elements in."""
+    storage = torch.empty(16 + offset + sum((n - 1) * st for n, st in
+                                            zip(shape, strides)) + 1,
+                          dtype=dtype)
+    size = storage.element_size()
+    base = 0
+    while (storage.data_ptr() + size * base) % 16:
+        base += 1
+    return storage.as_strided(shape, strides, base + offset)
+
+
+@pytest.mark.parametrize("layout",
+                         ["contiguous", "sliced heads", "transposed view"])
+def test_check_cuda_takes_fp32_layouts(layout):
+    q, k, v = _operands(layout, 2, 40, 4, 2, 64, dtype=F32, device="cpu")
+    pt_flash._check_cuda(q, k, v)
+
+
+def test_check_cuda_refuses_what_cp_async_cannot_take():
+    # fp32 rows are copied 16 bytes at a time: aligned bases and strides.
+    shape, strides = (1, 16, 2, 64), (2048, 128, 64, 1)
+    ok = _aligned(shape, strides, F32)
+    pt_flash._check_cuda(ok, ok, ok)
+    with pytest.raises(ValueError, match="fp32 flash kernel needs 16-byte"):
+        pt_flash._check_cuda(_aligned(shape, strides, F32, offset=1), ok, ok)
+    odd = _aligned(shape, (2048, 130, 64, 1), F32)  # 520-byte rows
+    with pytest.raises(ValueError, match="fp32 flash kernel needs 16-byte"):
+        pt_flash._check_cuda(ok, odd, ok)
+    # A size-1 dim's stride is never used.
+    b1 = _aligned(shape, (3, 128, 64, 1), F32)
+    pt_flash._check_cuda(b1, b1, b1)

@@ -2,7 +2,10 @@
 reference's, and ``python -m k8s_dra_driver_gpu_tpu_torch.train.main``
 as a 2-process gloo gang (``--tp 2``, with and without
 ``--steps-per-call 2``) against the port's single-process ``train_step``
-on the concatenated shard batches; plus the env failures."""
+on the concatenated shard batches; 2 nodes of 2 local ranks each
+(``--local-devices 2``) against that gang; one node of 2 local ranks
+with ``--tp 2`` against ``train_step`` on the node's batch; plus the env
+and parser failures."""
 
 import math
 import os
@@ -74,26 +77,36 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _launch(*extra):
-    """Starts one 2-process gang of the launcher; returns its processes."""
-    port = _free_port()
-    args = [sys.executable, "-m", "k8s_dra_driver_gpu_tpu_torch.train.main",
+def _args(*extra):
+    return [sys.executable, "-m", "k8s_dra_driver_gpu_tpu_torch.train.main",
             "--device", "cpu", "--model", "tiny", "--steps", str(STEPS),
             "--tp", "2", "--batch-size", str(BATCH), "--seq-len", str(SEQ),
             *extra]
+
+
+def _launch(*extra):
+    """Starts one 2-node gang of the launcher (one process a node);
+    returns its processes, node 0's first."""
+    port = _free_port()
     return [subprocess.Popen(
-        args, env=_env(TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
-                       TPU_PROCESS_ID=str(rank),
-                       TPU_NUM_PROCESSES=str(WORLD),
-                       TPU_INIT_TIMEOUT_S="60"),
+        _args(*extra), env=_env(TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                                TPU_PROCESS_ID=str(rank),
+                                TPU_NUM_PROCESSES=str(WORLD),
+                                TPU_INIT_TIMEOUT_S="60"),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for rank in range(WORLD)]
 
 
 @pytest.fixture(scope="module")
 def gangs():
-    """Both gangs at once; returns {steps per call: [rank logs]}."""
+    """Every gang at once; returns {gang: [node logs]}: 1 and 2 (steps
+    per call) are 2 nodes of one rank, "2x2" 2 nodes of 2 local ranks,
+    "1x2" one node (no gang env) of 2 local ranks."""
     running = {k: _launch("--steps-per-call", str(k)) for k in (1, 2)}
+    running["2x2"] = _launch("--local-devices", "2")
+    running["1x2"] = [subprocess.Popen(
+        _args("--local-devices", "2"), env=_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)]
     logs = {}
     try:
         for k, procs in running.items():
@@ -107,10 +120,9 @@ def gangs():
     return logs
 
 
-@pytest.fixture(scope="module")
-def single_process_loss():
+def _single_process_loss(nodes: int) -> float:
     """The last of ``STEPS`` losses of the single-process ``train_step``
-    on the same init and the concatenated shard batches."""
+    on the same init and the concatenated batches of ``nodes`` nodes."""
     cfg = pt_llama.LlamaConfig.tiny()
     opt = pt_train.make_optimizer()
     params = pt_llama.init(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -118,35 +130,85 @@ def single_process_loss():
     for step in range(STEPS):
         batch = np.concatenate([
             pt_main.synthetic_batch(step, BATCH, SEQ, cfg.vocab_size, shard)
-            for shard in range(WORLD)])
+            for shard in range(nodes)])
         state, loss = pt_train.train_step(state, torch.from_numpy(batch),
                                           cfg=cfg, optimizer=opt)
     return loss.item()
 
 
+@pytest.fixture(scope="module")
+def single_process_loss():
+    return _single_process_loss(WORLD)
+
+
+def _steps(log):
+    return re.findall(r"step (\d+) loss (\S+) \((\d+) tok/s\)", log)
+
+
+def _assert_near(loss, want):
+    # The tiny config computes in bf16, and tp=2 splits the depth of wo
+    # and w_down: their partial products are rounded to bf16 before the
+    # sum across ranks, a few bf16 ulps (2^-8) of the loss apart from one
+    # device's.
+    assert math.isfinite(loss)
+    assert abs(loss - want) <= 2e-3 * want, (loss, want)
+
+
 @pytest.mark.parametrize("steps_per_call", [1, 2])
 def test_gang_logs_the_single_process_loss(gangs, single_process_loss,
                                            steps_per_call):
-    for log in gangs[steps_per_call]:
+    for node, log in enumerate(gangs[steps_per_call]):
         assert "joined gang: process" in log and "'tp': 2" in log, log
-        lines = re.findall(r"step (\d+) loss (\S+) \((\d+) tok/s\)", log)
+        if node:  # only global rank 0 logs the steps
+            assert not _steps(log), log
+            continue
+        lines = _steps(log)
         assert lines[-1][0] == str(STEPS), log
-        loss = float(lines[-1][1])
-        assert math.isfinite(loss)
-        # The tiny config computes in bf16, and tp=2 splits the depth of
-        # wo and w_down: their partial products are rounded to bf16
-        # before the sum across ranks, a few bf16 ulps (2^-8) of the
-        # loss apart from one device's.
-        assert abs(loss - single_process_loss) <= 2e-3 * single_process_loss, (
-            loss, single_process_loss)
+        _assert_near(float(lines[-1][1]), single_process_loss)
 
 
 def test_steps_per_call_logs_the_same_loss(gangs):
     # K steps a call run the same steps on the same batches in order.
-    def last(log):
-        return re.findall(r"step (\d+) loss (\S+) ", log)[-1]
+    assert _steps(gangs[1][0])[-1][:2] == _steps(gangs[2][0])[-1][:2]
 
-    assert [last(log) for log in gangs[1]] == [last(log) for log in gangs[2]]
+
+def test_nodes_of_local_ranks_log_the_two_process_losses(gangs):
+    # 2 nodes x 2 local ranks: world 4, each node's rows split over its
+    # ranks; the global batch is the 2-process gang's, so are the losses.
+    logs = gangs["2x2"]
+    for node, log in enumerate(logs):
+        for local in (0, 1):
+            rank = 2 * node + local
+            assert (f"process {node}/2, local rank {local}/2, rank "
+                    f"{rank}/4") in log, log
+    assert "'dp': 2" in logs[0] and "'tp': 2" in logs[0], logs[0]
+    assert not _steps(logs[1]), logs[1]
+    got, want = _steps(logs[0])[-1], _steps(gangs[1][0])[-1]
+    assert got[0] == want[0] == str(STEPS)
+    _assert_near(float(got[1]), float(want[1]))
+    # Throughput counts the global batch: 2 nodes' rows.
+    assert "batch 2 x 16 per node over 2 local rank(s), 4 rank(s)" in logs[0]
+
+
+def test_one_node_of_local_ranks_with_tp_logs_its_batch_loss(gangs):
+    # No gang env: the node alone, its 2 local ranks on one tp=2 mesh,
+    # training on the node's rows: train_step's losses on that batch.
+    (log,) = gangs["1x2"]
+    assert "local rank 1/2, rank 1/2" in log and "'tp': 2" in log, log
+    lines = _steps(log)
+    assert len(lines) == 1 and lines[0][0] == str(STEPS), log
+    _assert_near(float(lines[0][1]), _single_process_loss(1))
+
+
+@pytest.mark.parametrize("batch,local", [(3, 2), (2, 4), (6, 4)])
+def test_batch_indivisible_by_local_ranks_is_a_parser_error(batch, local):
+    proc = subprocess.run(
+        [sys.executable, "-m", "k8s_dra_driver_gpu_tpu_torch.train.main",
+         "--device", "cpu", "--batch-size", str(batch), "--local-devices",
+         str(local)], env=_env(), capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 2, proc.stderr
+    assert (f"--batch-size {batch} rows a node do not split over its {local} "
+            "local ranks") in proc.stderr
 
 
 def test_unreachable_coordinator_fails_within_timeout():

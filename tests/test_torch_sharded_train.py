@@ -1,7 +1,8 @@
 """The port's sharded training against the JAX reference: one 4-rank gloo
 gang (``tests/torch_gang.py``, worker ``sharded_train``) trains the tiny
 config in fp32 for 3 steps on the meshes (dp=2, fsdp=2) and (fsdp=2,
-tp=2), then 3 steps in one scanned call; JAX's single-device
+tp=2), then 3 steps in one scanned call, and on a multislice mesh of two
+(fsdp=2) slices with ``batch_axes=("dcn", "dp", "fsdp")``; JAX's single-device
 ``train_step`` on the same parameters and global batches is the
 reference."""
 
@@ -142,6 +143,38 @@ def test_scanned_steps_equal_single_steps(gang):
                                    atol=1e-6)
         np.testing.assert_allclose(rank["scanned/losses"], want, rtol=TOL,
                                    atol=TOL)
+
+
+@pytest.mark.parametrize("kind", ["losses", "scanned_losses"])
+def test_multislice_batch_axes_match_jax_train_step(gang, kind):
+    # Two slices of (fsdp=2), the batch over ("dcn", "dp", "fsdp") as the
+    # reference's multislice training passes it: the single steps and
+    # the scanned call give JAX's single-device losses (fp32, TOL).
+    ranks, want, _ = gang
+    for rank in ranks:
+        np.testing.assert_allclose(rank[f"multislice/{kind}"], want,
+                                   rtol=TOL, atol=TOL)
+
+
+def test_multislice_batch_is_split_four_ways(gang):
+    # Each rank holds B / 4 rows: sharded over dcn and fsdp (dp is 1 and
+    # dropped), not replicated over the slices.
+    ranks, _, _ = gang
+    for rank in ranks:
+        assert rank["multislice/local_batch"] == (BATCH // WORLD, SEQ + 1)
+        assert rank["multislice/scanned_local_batch"] == (
+            STEPS, BATCH // WORLD, SEQ + 1)
+        assert rank["multislice/batch_shard_dims"] == [0, 0]
+
+
+@pytest.mark.parametrize("label,words", [
+    ("order", ("('fsdp', 'dcn')", "('dcn', 'fsdp')")),
+    ("missing", ("no axis ep",))])
+def test_multislice_batch_axes_refusals(gang, label, words):
+    ranks, _, _ = gang
+    for rank in ranks:
+        for word in words:
+            assert word in rank[f"multislice/{label}_error"]
 
 
 class _Mesh:

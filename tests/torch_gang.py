@@ -85,7 +85,8 @@ def _flat(tree: dict, prefix: str = "") -> dict:
 def sharded_train(rank: int, world: int, out: Path) -> None:
     """3 sharded steps on each of the meshes (dp=2, fsdp=2) and (fsdp=2,
     tp=2), then 3 steps as one scanned call, on the tokens of
-    ``tokens.npz`` (the same global batch on every rank)."""
+    ``tokens.npz`` (the same global batch on every rank); then the
+    multislice layout (``_multislice_train``)."""
     import numpy as np
     import torch
 
@@ -136,7 +137,47 @@ def sharded_train(rank: int, world: int, out: Path) -> None:
                     "participants"]
                 results[f"allreduce/{axis}/gbps"] = stats["gbps"]
         del state
+    _multislice_train(rank, world, tokens, cfg, out, results)
     torch.save(results, out / f"rank{rank}.pt")
+
+
+def _multislice_train(rank, world, tokens, cfg, out, results) -> None:
+    """The reference's multislice layout: 2 slices of (fsdp=2), the batch
+    sharded over ("dcn", "dp", "fsdp"); 3 single steps, then 3 steps in
+    one scanned call; and the refusals of an axis order DTensor cannot
+    lay out and of an axis the mesh lacks."""
+    from k8s_dra_driver_gpu_tpu_torch.parallel import mesh as pmesh
+    from k8s_dra_driver_gpu_tpu_torch.train import train
+
+    mesh = pmesh.build_multislice_mesh(2, pmesh.MeshPlan(fsdp=2))
+    axes = ("dcn", "dp", "fsdp")
+    local = tokens.shape[1] // world
+    mine = tokens[:, rank * local:(rank + 1) * local]
+    init_fn, step_fn, layout, _ = train.make_sharded_train(
+        mesh, cfg, batch_axes=axes)
+    state = init_fn(_load_params(out))
+    losses = []
+    for step in range(tokens.shape[0]):
+        batch = layout(mine[step])
+        results["multislice/local_batch"] = tuple(batch.to_local().shape)
+        results["multislice/batch_shard_dims"] = [
+            p.dim if p.is_shard() else None for p in batch.placements]
+        state, loss = step_fn(state, batch)
+        losses.append(loss.item())
+    results["multislice/losses"] = losses
+    _, scan_fn, scan_layout, _ = train.make_scanned_sharded_train(
+        mesh, cfg, batch_axes=axes)
+    state = init_fn(_load_params(out))
+    batch = scan_layout(mine)
+    results["multislice/scanned_local_batch"] = tuple(batch.to_local().shape)
+    state, scanned = scan_fn(state, batch)
+    results["multislice/scanned_losses"] = scanned.tolist()
+    del state
+    for label, bad in (("order", ("fsdp", "dcn")), ("missing", ("ep",))):
+        try:
+            train.make_sharded_train(mesh, cfg, batch_axes=bad)
+        except ValueError as err:
+            results[f"multislice/{label}_error"] = str(err)
 
 
 def sharded_generate(rank: int, world: int, out: Path) -> None:
