@@ -9,9 +9,9 @@ and prints no result line):
 1. device: the card's name and power limit; TF32 off for fp32 matmuls.
 2. build: compile every kernel from ``csrc/`` (one nvcc per source, all
    started together), with ptxas's register and spill lines and its
-   performance warnings; fails if a Hopper kernel (the bf16 forward,
-   dQ, dK/dV; the fp32 forward and dK/dV) spills or ptxas warns of lost
-   performance (a serialised wgmma, an ignored setmaxnreg).
+   performance warnings; fails if a Hopper kernel (the bf16 and the fp32
+   forward, dQ and dK/dV) spills or ptxas warns of lost performance (a
+   serialised wgmma, an ignored setmaxnreg).
 3. kernels: hold each kernel against its plain PyTorch version on the
    card at the shapes of the main paths and at edge shapes; time the
    kernel, the plain version and one PyTorch library call computing the
@@ -27,8 +27,8 @@ and prints no result line):
    three at the backward's edge shapes, elementwise within
    ``TOLERANCES[torch.float32]``, timed at the training shape against
    SDPA's memory-efficient backend, each with its share of the bound of
-   its route (3xTF32 on the tensor cores for the forward and dK/dV, FMA
-   for dQ) and the FMA bound beside, and one fp32 gradient of a 2-layer
+   its route (3xTF32 on the tensor cores) and the FMA bound beside, and
+   one fp32 gradient of a 2-layer
    flagship-width model through ``attention(impl="auto")`` against the
    einsum path, with its launch counts.
 4. serving: Llama-3-8B at full width and depth with random weights from
@@ -77,9 +77,9 @@ import torch.nn.functional as F
 # bf16 and TF32 on the tensor cores, fp32 FMA outside them.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_TF32_FLOPS = 495e12
-# The fp32 forward and dK/dV kernels run each product as three TF32
-# products (3xTF32): their least time is three times the work at the TF32
-# rate (the route's bound); the same work at the FMA rate is logged beside.
+# The fp32 kernels run each product as three TF32 products (3xTF32):
+# their least time is three times the work at the TF32 rate (the route's
+# bound); the same work at the FMA rate is logged beside.
 TF32X3_PRODUCTS = 3
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -252,9 +252,9 @@ def phase_device() -> None:
 KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
 # The Hopper kernels whose ptxas report must show no spill and no
 # performance warning: the bf16 ones (TMA, wgmma, setmaxnreg) and the
-# fp32 forward and dK/dV (3xTF32 mma.sync, cp.async).
+# fp32 ones (3xTF32 mma.sync, cp.async).
 HOPPER_KERNELS = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
-                  "flash_fwd_f32", "flash_bwd_dkv_f32")
+                  "flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
 
 
 def ptxas_spills(build_log: str) -> dict:
@@ -544,9 +544,9 @@ def phase_training_kernels(gen: torch.Generator) -> tuple[dict, dict, dict]:
 
 
 FP32_GRAD_REL_TOL = 1e-3
-# The fp32 kernels that run their products in 3xTF32 on the tensor cores
-# (the fp32 dQ kernel is scalar FMA).
-TF32X3_KERNELS = ("forward", "dkv")
+# The fp32 kernels that run their products in 3xTF32 on the tensor cores:
+# all three.
+TF32X3_KERNELS = ("forward", "dq", "dkv")
 FP32_CHECK_LAYERS, FP32_CHECK_SEQ = 2, 1024
 
 
@@ -668,8 +668,7 @@ def phase_fp32_kernels(gen: torch.Generator) -> list:
              lib_bwd_ms, 104, "flash_bwd"),
             ("flash_attention_bwd_dkv_fp32", "dkv", dkv_ms, bwd_plain_ms,
              lib_bwd_ms, 157, "flash_bwd")):
-        # The route's bound: 3xTF32 for the forward and dK/dV, FMA for dQ;
-        # the FMA bound of the same work beside it.
+        # The route's bound, 3xTF32; the FMA bound of the same work beside.
         tf32x3 = kernel in TF32X3_KERNELS
         if kernel == "forward":
             bound, bound_by = attention_bound_ms(B, S, H, K, hd, f32, True,

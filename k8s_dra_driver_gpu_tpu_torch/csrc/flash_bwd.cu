@@ -88,16 +88,14 @@
 //     (16 + 16 KB) (K, V) = 160 KB.
 //
 // fp32 (`flash_bwd_dq_f32`, `flash_bwd_dkv_f32`): the same arithmetic as
-// above with expf and no rounding between steps. `flash_bwd_dq_f32` is the
-// simple form: scalar FMAs on 32 x 32 tiles staged in shared memory by
-// all 128 threads of one warpgroup, four threads a row; a block owns (b,
-// q-head, 32-row q tile) and walks 32-key tiles (bound at the training
-// shape: 6*hd FLOP a pair at the 67 TFLOP/s of fp32 FMA, 6.16 ms).
-// `flash_bwd_dkv_f32` (it replaces such a form, ~20% of its FMA bound)
-// runs its four products on the tensor cores in 3xTF32 (hopper.cuh), with
-// cp.async tiles; its design is described above the kernel. Bound: 3 TF32
-// products of 8*hd FLOP a pair at 495 TFLOP/s, 3.33 ms (8.21 ms at the
-// FMA rate).
+// above with expf and no rounding between steps, every product on the
+// tensor cores in 3xTF32 (hopper.cuh: each operand split into two TF32
+// values, three mma.sync m16n8k8), with cp.async tiles and two blocks an
+// SM. Each kernel's design is described above it. Both replace scalar-FMA
+// forms that ran at ~20% of their FMA bound. Bounds at the training shape:
+// 3 TF32 products of 6*hd (dQ) and 8*hd (dK/dV) FLOP a pair at 495
+// TFLOP/s, 2.50 ms and 3.33 ms (6.16 ms and 8.21 ms at the 67 TFLOP/s of
+// fp32 FMA).
 //
 // The launch geometry (grids, threads, shared-memory bytes, tensor maps)
 // is computed by the Python wrapper (ops/flash_attention.py, bwd_plan);
@@ -605,9 +603,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---------------------------------------------------------------- fp32
 
-constexpr int kF32Threads = 128;  // one warpgroup, four threads a row
-constexpr int kF32Block = 32;     // rows and keys of every fp32 tile
-
 struct F32Params {
   const float* q;
   const float* k;
@@ -627,99 +622,217 @@ struct F32Params {
   float scale;
 };
 
-template <int HD>
-constexpr size_t f32_dq_smem_bytes() {
-  // Q, dO, K, V tiles (rows padded to HD + 1) and dS.
-  return sizeof(float) * (4 * kF32Block * (HD + 1) +
-                          kF32Block * (kF32Block + 1));
-}
-
-// Copies rows [s0, s0 + kF32Block) of one head of a [B, S, heads, hd]
-// operand into a [kF32Block][HD + 1] tile, zeros past S.
-template <int HD>
-__device__ __forceinline__ void f32_load_tile(float* tile, const float* src,
-                                              long long stride_s, int s0,
-                                              int S) {
-  for (int e = threadIdx.x; e < kF32Block * HD; e += kF32Threads) {
-    const int row = e / HD, col = e % HD, s = s0 + row;
-    tile[row * (HD + 1) + col] = s < S ? src[s * stride_s + col] : 0.f;
+// acc (16 rows x N) += X (16 rows x D: accumulator fragments of an
+// earlier product, as they lie; the rows are those of its accumulator) . Y
+// (D rows x N, shared, rows of RS floats; `y_t` at row 2t, column g of the
+// lane), 3xTF32. The A columns t and t + 4 of k-step i are Y's rows
+// 8i + 2t and 8i + 2t + 1, where the accumulator holds them. The
+// products of two k-steps (16 depth rows) are summed from zero on the
+// tensor cores, an n-tile at a time, and each sum is added to acc in fp32:
+// one accumulator chain over every q row (3 * 8192 / 8 products at the
+// training shape) drifted to ~1e-4 of dV, past the fp32 tolerance, where
+// fp32 adds of the same products stay near 1e-6 (PERF.md).
+template <int N, int D, int RS>
+__device__ __forceinline__ void accumulate_tile(float (&acc)[N / 8][4],
+                                                const float (&x)[D / 8][4],
+                                                const float* y_t) {
+  using namespace hopper;
+  constexpr int kSteps = 2;
+  static_assert(D / 8 % kSteps == 0, "k-steps come in pairs");
+#pragma unroll
+  for (int j0 = 0; j0 < D / 8; j0 += kSteps) {
+    FragA a[kSteps];
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      const float(&xj)[4] = x[j0 + j];
+      a[j] = split_a(xj[0], xj[2], xj[1], xj[3]);
+    }
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kSteps; ++j) {
+        const float* y_j = y_t + 8 * (j0 + j) * RS + 8 * n;
+        mma_3xtf32(part, a[j], y_j[0], y_j[RS]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+    }
   }
 }
 
-// Thread (r, sub) owns q row r of the block: it scores keys sub + 4i of
-// each tile and accumulates dQ columns sub + 4c.
+// dQ in fp32 on the tensor cores, laid out as flash_fwd_f32: a block of
+// four warps owns (b, q-head, 64-row q tile), a warp 16 q rows, and walks
+// 32-key K/V tiles (up to the diagonal when causal); grid y walks the q
+// tiles from the last, the heaviest. Q and dO come in once by cp.async,
+// lse and D of the lane's rows g and g + 8 once into registers. A key
+// tile: dP = dO.V^T, S = Q.K^T, P = exp(S * scale - lse) (masked pairs 0;
+// only the diagonal and ragged tiles evaluate the mask; a warp skips the
+// tiles wholly above its rows), dS = P * (dP - D), dQ += dS.K through
+// accumulate_tile, dS as it lies (k-step j's (t, t + 4) are keys 8j + 2t
+// and 8j + 2t + 1, where S's accumulator holds them). dP comes first, so
+// the next V tile lands while S and dS.K run and the next K tile while
+// the next dP runs. `scale` is applied once, at the store.
+// K is read two ways: as S's B operand at (row g, column t) and as dS.K's
+// at (rows 2t and 2t + 1, column g). Rows of HD + 4 floats put both reads
+// on 32 distinct banks, as single floats, and Q, which shares K's depth
+// order in S, is read the same way. dO and V serve only dP: the forward's
+// float4 reads at (row g, column 4t), the depth permuted, rows of HD + 16
+// floats. 103.5 KB at hd = 128: two blocks an SM.
+constexpr int kDqF32Threads = 128;  // four warps, 16 q rows each
+constexpr int kDqF32BM = 64;        // q rows a block
+constexpr int kDqF32BN = 32;        // keys a K/V tile
+
 template <int HD>
-__global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32(F32Params p) {
-  constexpr int BM = kF32Block, BN = kF32Block, QS = HD + 1, PS = BN + 1;
+constexpr size_t f32_dq_smem_bytes() {
+  // Q and a K tile with rows of HD + 4 floats, dO and a V tile with rows
+  // of HD + 16.
+  return sizeof(float) * (kDqF32BM + kDqF32BN) * ((HD + 4) + (HD + 16));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kDqF32Threads, 2)
+    flash_bwd_dq_f32(const F32Params p) {
+  using namespace hopper;
+  constexpr int QS = HD + 4, OS = HD + 16, BM = kDqF32BM, BN = kDqF32BN;
+  constexpr int T = kDqF32Threads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);  // [BM][QS]
-  float* Os = Qs + BM * QS;                          // dO, [BM][QS]
-  float* Ks = Os + BM * QS;                          // [BN][QS]
-  float* Vs = Ks + BN * QS;                          // [BN][QS]
-  float* Ss = Vs + BN * QS;                          // dS, [BM][PS]
+  float* sQ = reinterpret_cast<float*>(smem_raw);  // [BM][QS]
+  float* sK = sQ + BM * QS;                        // [BN][QS]
+  float* sO = sK + BN * QS;                        // dO, [BM][OS]
+  float* sV = sO + BM * OS;                        // [BN][OS]
 
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest first
   const int bh = blockIdx.x;
   const int b = bh / p.H, h = bh % p.H;
   const int kh = h / (p.H / p.KH);
-  const int r = threadIdx.x >> 2, sub = threadIdx.x & 3;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = q0 + 16 * warp;
+  const int qpos[2] = {row0 + g, row0 + g + 8};
   const float* k = p.k + b * p.in[1][0] + kh * p.in[1][2];
   const float* v = p.v + b * p.in[2][0] + kh * p.in[2][2];
-
-  f32_load_tile<HD>(Qs, p.q + b * p.in[0][0] + h * p.in[0][2], p.in[0][1],
-                    q0, p.S);
-  f32_load_tile<HD>(Os, p.dout + b * p.in[3][0] + h * p.in[3][2],
-                    p.in[3][1], q0, p.S);
-  const int qpos = q0 + r;
-  const bool row_in = qpos < p.S;
-  const long long stat = static_cast<long long>(bh) * p.S + qpos;
-  const float lse = row_in ? p.lse[stat] : 0.f;
-  const float dsum = row_in ? p.dsum[stat] : 0.f;
-
-  float acc[HD / 4];
-#pragma unroll
-  for (int c = 0; c < HD / 4; ++c) acc[c] = 0.f;
-
   const int q_end = min(q0 + BM, p.S);
-  const int n_kt = p.causal ? (q_end + BN - 1) / BN : (p.S + BN - 1) / BN;
+  const int n_kt = ((p.causal ? q_end : p.S) + BN - 1) / BN;
+
+  cp_async_rows<HD, BM, QS, T>(smem_u32(sQ),
+                               p.q + b * p.in[0][0] + h * p.in[0][2],
+                               p.in[0][1], q0, p.S);
+  cp_async_rows<HD, BM, OS, T>(smem_u32(sO),
+                               p.dout + b * p.in[3][0] + h * p.in[3][2],
+                               p.in[3][1], q0, p.S);
+  cp_async_rows<HD, BN, OS, T>(smem_u32(sV), v, p.in[2][1], 0, p.S);
+  cp_async_commit();
+  cp_async_rows<HD, BN, QS, T>(smem_u32(sK), k, p.in[1][1], 0, p.S);
+  cp_async_commit();
+
+  float lse[2], dsum[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = qpos[r] < p.S;
+    const long long i = static_cast<long long>(bh) * p.S + qpos[r];
+    lse[r] = in ? p.lse[i] : 0.f;
+    dsum[r] = in ? p.dsum[i] : 0.f;
+  }
+  float dq[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  }
+  const float* q_g = sQ + (16 * warp + g) * QS + t;     // A of S
+  const float* k_g = sK + g * QS + t;                   // B of S
+  const float* k_t = sK + 2 * t * QS + g;               // B of dS.K
+  const float* o_g = sO + (16 * warp + g) * OS + 4 * t;  // A of dP
+  const float* v_g = sV + g * OS + 4 * t;               // B of dP
+
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BN;
-    __syncthreads();  // the last tile's K, V and dS are read
-    f32_load_tile<HD>(Ks, k, p.in[1][1], k0, p.S);
-    f32_load_tile<HD>(Vs, v, p.in[2][1], k0, p.S);
+    // Causal: a tile wholly above the warp's rows gives dS = 0.
+    const bool live = !p.causal || k0 <= row0 + 15;
+    cp_async_wait<1>();  // this V tile (first: and Q and dO)
     __syncthreads();
-
-    float sc[BN / 4], dp[BN / 4];
+    float dp[BN / 8][4];
 #pragma unroll
-    for (int i = 0; i < BN / 4; ++i) sc[i] = dp[i] = 0.f;
-    for (int d = 0; d < HD; ++d) {
-      const float qd = Qs[r * QS + d], od = Os[r * QS + d];
+    for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
-      for (int i = 0; i < BN / 4; ++i) {
-        sc[i] += qd * Ks[(sub + 4 * i) * QS + d];
-        dp[i] += od * Vs[(sub + 4 * i) * QS + d];
+      for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+    }
+    if (live) {
+#pragma unroll
+      for (int kp = 0; kp < HD / 16; ++kp) {
+        const float4 oa = *reinterpret_cast<const float4*>(o_g + 16 * kp);
+        const float4 ob =
+            *reinterpret_cast<const float4*>(o_g + 8 * OS + 16 * kp);
+        const FragA a0 = split_a(oa.x, ob.x, oa.y, ob.y);
+        const FragA a1 = split_a(oa.z, ob.z, oa.w, ob.w);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const float4 vb =
+              *reinterpret_cast<const float4*>(v_g + 8 * j * OS + 16 * kp);
+          mma_3xtf32(dp[j], a0, vb.x, vb.y);
+          mma_3xtf32(dp[j], a1, vb.z, vb.w);
+        }
       }
     }
-#pragma unroll
-    for (int i = 0; i < BN / 4; ++i) {
-      const int kpos = k0 + sub + 4 * i;
-      const bool valid =
-          row_in && kpos < p.S && (!p.causal || kpos <= qpos);
-      const float pr = valid ? expf(sc[i] * p.scale - lse) : 0.f;
-      Ss[r * PS + sub + 4 * i] = pr * (dp[i] - dsum);
+    __syncthreads();  // every warp has read this V tile
+    if (kt + 1 < n_kt) {
+      cp_async_rows<HD, BN, OS, T>(smem_u32(sV), v, p.in[2][1], k0 + BN, p.S);
     }
-    __syncwarp();  // the row's four threads read each other's dS
-    for (int j = 0; j < BN; ++j) {
-      const float ds = Ss[r * PS + j];
+    cp_async_commit();
+    cp_async_wait<1>();  // this K tile
+    __syncthreads();
+    if (live) {
+      float s[BN / 8][4];
 #pragma unroll
-      for (int c = 0; c < HD / 4; ++c) acc[c] += ds * Ks[j * QS + sub + 4 * c];
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < HD / 8; ++kk) {
+        const int c = 8 * kk;
+        const FragA a = split_a(q_g[c], q_g[8 * QS + c], q_g[c + 4],
+                                q_g[8 * QS + c + 4]);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          mma_3xtf32(s[j], a, k_g[8 * j * QS + c], k_g[8 * j * QS + c + 4]);
+        }
+      }
+      // s becomes dS = P * (dP - D).
+      const bool masked = k0 + BN > p.S || (p.causal && k0 + BN - 1 > row0);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1), r = e >> 1;
+          float pr = expf(s[j][e] * p.scale - lse[r]);
+          if (masked && (key >= p.S || (p.causal && key > qpos[r]))) {
+            pr = 0.f;
+          }
+          s[j][e] = pr * (dp[j][e] - dsum[r]);
+        }
+      }
+      accumulate_tile<HD, BN, QS>(dq, s, k_t);
     }
+    __syncthreads();  // every warp has read this K tile
+    if (kt + 1 < n_kt) {
+      cp_async_rows<HD, BN, QS, T>(smem_u32(sK), k, p.in[1][1], k0 + BN, p.S);
+    }
+    cp_async_commit();
   }
+  cp_async_wait<0>();
 
-  if (row_in) {
-    float* out = p.dq + b * p.out[0][0] + qpos * p.out[0][1] + h * p.out[0][2];
 #pragma unroll
-    for (int c = 0; c < HD / 4; ++c) out[sub + 4 * c] = acc[c] * p.scale;
+  for (int r = 0; r < 2; ++r) {
+    if (qpos[r] >= p.S) continue;
+    float* out = p.dq + b * p.out[0][0] + qpos[r] * p.out[0][1] +
+                 h * p.out[0][2] + 2 * t;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2(dq[n][2 * r] * p.scale, dq[n][2 * r + 1] * p.scale);
+    }
   }
 }
 
@@ -755,43 +868,6 @@ constexpr size_t f32_dkv_smem_bytes() {
   // tile's lse and D, each pair's two swapped tiles.
   return sizeof(float) * ((2 * kDkvF32BN + 4 * kDkvF32BM) * (HD + 4) +
                           4 * kDkvF32BM + 2 * 2 * kDkvF32BM * 16);
-}
-
-// acc (16 keys x N) += X^T (16 keys x BM q rows: accumulator fragments of
-// S^T or dP^T, as they lie) . Y (BM rows x N, shared, rows of RS floats;
-// `y_t` at row 2t, column g of the lane), 3xTF32. The products of two
-// k-steps (16 q rows) are summed from zero on the tensor cores, an n-tile
-// at a time, and each sum is added to acc in fp32: one accumulator chain
-// over every q row (3 * 8192 / 8 products at the training shape) drifted
-// to ~1e-4 of dV, past the fp32 tolerance, where fp32 adds of the same
-// products stay near 1e-6 (PERF.md).
-template <int N, int BM, int RS>
-__device__ __forceinline__ void accumulate_tile(float (&acc)[N / 8][4],
-                                                const float (&x)[BM / 8][4],
-                                                const float* y_t) {
-  using namespace hopper;
-  constexpr int kSteps = 2;
-  static_assert(BM / 8 % kSteps == 0, "k-steps come in pairs");
-#pragma unroll
-  for (int j0 = 0; j0 < BM / 8; j0 += kSteps) {
-    FragA a[kSteps];
-#pragma unroll
-    for (int j = 0; j < kSteps; ++j) {
-      const float(&xj)[4] = x[j0 + j];
-      a[j] = split_a(xj[0], xj[2], xj[1], xj[3]);
-    }
-#pragma unroll
-    for (int n = 0; n < N / 8; ++n) {
-      float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < kSteps; ++j) {
-        const float* y_j = y_t + 8 * (j0 + j) * RS + 8 * n;
-        mma_3xtf32(part, a[j], y_j[0], y_j[RS]);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
-    }
-  }
 }
 
 template <int HD>
@@ -1093,9 +1169,9 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   const long long* g = geometry;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    // x walks (b, h); y walks 32-row q tiles, the last first.
+    // x walks (b, h); y walks 64-row q tiles, the last first.
     if (g[0] != static_cast<long long>(B) * H ||
-        g[1] != (S + kF32Block - 1) / kF32Block) {
+        g[1] != (S + kDqF32BM - 1) / kDqF32BM) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const F32Params p =
@@ -1103,11 +1179,11 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                         H, KH, out_strides, causal, scale);
     if (hd == 128) {
       return launch_f32(flash_bwd_dq_f32<128>, p, g, g[0], g[1], g[4],
-                        kF32Threads, f32_dq_smem_bytes<128>(), g[6], st);
+                        kDqF32Threads, f32_dq_smem_bytes<128>(), g[6], st);
     }
     if (hd == 64) {
       return launch_f32(flash_bwd_dq_f32<64>, p, g, g[0], g[1], g[4],
-                        kF32Threads, f32_dq_smem_bytes<64>(), g[6], st);
+                        kDqF32Threads, f32_dq_smem_bytes<64>(), g[6], st);
     }
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -15,7 +15,8 @@
 - ``make_sharded_generate`` runs the same code on DTensors over a mesh:
   parameters placed by ``llama.param_specs``, the prompt by
   ``llama.batch_spec``, the cache batch-sharded over dp and fsdp and
-  kv-head-sharded over tp.
+  kv-head-sharded over tp; prefill and decode look tokens up through
+  ``llama.embed_tokens``, vocab-parallel over tp.
 """
 
 from __future__ import annotations
@@ -178,7 +179,7 @@ def prefill(
     B, S = tokens.shape
     cache = KVCache.empty(cfg, B, max_len, tokens.device, quantized,
                           mesh=getattr(tokens, "device_mesh", None))
-    x = params["embed"].to(cfg.dtype)[tokens]
+    x = llama.embed_tokens(params["embed"].to(cfg.dtype), tokens)
     positions = torch.arange(S, device=tokens.device)[None]
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
@@ -202,7 +203,8 @@ def decode_step(
     k/v into ``cache`` in place, advances its length and returns it."""
     B = token.shape[0]
     pos = cache.length
-    x = params["embed"].to(cfg.dtype)[token][:, None, :]  # [B, 1, D]
+    x = llama.embed_tokens(params["embed"].to(cfg.dtype),
+                           token[:, None])  # [B, 1, D]
     positions = torch.full((B, 1), pos, dtype=torch.int32,
                            device=token.device)
     for i in range(cfg.n_layers):
@@ -287,8 +289,10 @@ def make_sharded_generate(
     (``llama.param_specs``: fsdp over the long matmul dim, tp over
     heads/ff); ``prompt_layout`` places the global prompt (the same on
     every rank) batch-sharded over dp and fsdp. The KV cache is
-    batch-sharded over dp and fsdp and kv-head-sharded over tp, and
-    DTensor inserts the tp reductions after wo and w_down. The tokens
+    batch-sharded over dp and fsdp and kv-head-sharded over tp; each
+    rank looks tokens up in its own vocab shard of the table
+    (``llama.embed_tokens``), and DTensor inserts the tp reductions after
+    wo and w_down. The tokens
     come back batch-sharded like the prompt. Requires cfg.n_kv_heads % tp
     == 0 (each tp shard owns whole kv heads) and a prompt batch that
     divides by dp * fsdp."""

@@ -12,17 +12,20 @@ as the reference does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from ..ops import resolve_device
 from ..ops.attention import attention
-from ..parallel.mesh import DATA_AXIS, FSDP_AXIS, TENSOR_AXIS, placements
+from ..parallel.mesh import (DATA_AXIS, FSDP_AXIS, TENSOR_AXIS, axis_size,
+                             placements)
 
 
 @dataclass(frozen=True)
@@ -286,19 +289,59 @@ def apply_remat(body, remat: str):
     return wrapped
 
 
+def vocab_shard_lookup(table: torch.Tensor, ids: torch.Tensor,
+                       vocab_start: int) -> torch.Tensor:
+    """Rows of ``ids`` from one shard of an embedding table, the shard
+    holding vocab rows ``vocab_start`` .. ``+ table.shape[0] - 1``: ids
+    outside it give zero rows, so summing the shards' rows gives
+    ``full_table[ids]``, and each shard's gradient is its own rows'."""
+    local = ids - vocab_start
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    return rows.masked_fill(~inside[..., None], 0)
+
+
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``table[tokens]``. On DTensors the gather runs on a replicated table
-    and replicated ids, and the rows are then laid out like the ids: the
-    sharding rule of the gather's backward (``index_put``) with sharded
-    ids fails on torch 2.11, and that of ``embedding`` with a sharded
-    table on later versions."""
+    """``table[tokens]``; vocab-parallel on a DTensor table.
+
+    As the reference communicates for its ``P(tp, fsdp)`` table: the
+    fsdp-sharded D columns are gathered, as every fsdp weight is before
+    use, and the vocab rows stay sharded over tp. Each rank looks up the
+    ids in its own vocab shard (``vocab_shard_lookup`` through
+    ``local_map``); the rows are partial sums over tp, and one all-reduce
+    over tp lays them out like the ids. No rank holds the whole vocab, and
+    the backward is local too: each rank gets its own shard's gradient
+    (partial over the mesh dims the ids are split over). Without a tp
+    axis (``compute_mesh`` drops size-1 dims) no all-reduce is issued. A
+    vocab that does not divide by tp is refused."""
     if not isinstance(table, DTensor):
         return table[tokens]
     mesh = table.device_mesh
-    replicated = [Replicate()] * mesh.ndim
-    rows = table.redistribute(mesh, replicated)[
-        tokens.redistribute(mesh, replicated)]
-    return rows.redistribute(mesh, tokens.placements)
+    names = list(mesh.mesh_dim_names)
+    tp = names.index(TENSOR_AXIS) if TENSOR_AXIS in names else None
+    shards = axis_size(mesh, TENSOR_AXIS)
+    if table.shape[0] % shards:
+        raise ValueError(f"vocab {table.shape[0]} not divisible by "
+                         f"tp={shards}: the vocab-parallel lookup needs "
+                         "equal shards")
+    vocab_start = (0 if tp is None else mesh.get_local_rank(TENSOR_AXIS)
+                   * (table.shape[0] // shards))
+    # Ids and rows split like the tokens on every dim but tp, where the
+    # ids are whole and the rows partial; the table's gradient is partial
+    # over the dims that split the ids.
+    ids_in = [Replicate() if d == tp or not p.is_shard() else p
+              for d, p in enumerate(tokens.placements)]
+    rows_out = [Partial() if d == tp else p for d, p in enumerate(ids_in)]
+    table_in = placements((TENSOR_AXIS, None), mesh)
+    table_grad = [p if d == tp else (Partial() if ids_in[d].is_shard()
+                                     else Replicate())
+                  for d, p in enumerate(table_in)]
+    lookup = local_map(
+        functools.partial(vocab_shard_lookup, vocab_start=vocab_start),
+        out_placements=rows_out, in_placements=(table_in, ids_in),
+        in_grad_placements=(table_grad, ids_in), device_mesh=mesh,
+        redistribute_inputs=True)
+    return lookup(table, tokens).redistribute(mesh, tokens.placements)
 
 
 def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,

@@ -34,11 +34,10 @@ is computed here, by ``fwd_plan`` and ``bwd_plan``, where the CPU tests
 reach it, and handed to the C entries, which check it against the
 kernels' tiling before they launch.
 
-fp32 operands take the same arithmetic in fp32. The forward and the
-dK/dV kernel run their products on the tensor cores in 3xTF32 (each
-operand split into two TF32 values, three products; ~fp32 accuracy where
-plain TF32 would miss the fp32 tolerance), with operands copied by
-cp.async; the dQ kernel is scalar FMA.
+fp32 operands take the same arithmetic in fp32. The three kernels run
+their products on the tensor cores in 3xTF32 (each operand split into two
+TF32 values, three products; ~fp32 accuracy where plain TF32 would miss
+the fp32 tolerance), with operands copied by cp.async.
 
 Bound on an H100 SXM at the training shape (B=4, S=4096, H=16, K=8,
 hd=128, causal, bf16): forward 4*hd FLOP per unmasked pair, 0.28 ms at
@@ -74,13 +73,14 @@ FWD_F32_BLOCK_M, FWD_F32_BLOCK_N, FWD_F32_THREADS = 64, 64, 128
 # consumer warpgroups and a producer warpgroup a block. dQ: 128 q rows a
 # block, K/V tiles of 64 keys in a three-stage ring. dK/dV: 128 keys a
 # block, Q/dO tiles of 64 rows in a three-stage ring. Every TMA box is 64
-# rows by 64 columns. fp32 dQ: 32x32 tiles, one warpgroup. fp32 dK/dV: 32
-# keys a block of four warps (two pairs), Q/dO tiles of 32 rows; shared
-# rows padded to hd + 4 floats.
+# rows by 64 columns. fp32 dQ: 64 q rows a block of four warps, 32-key
+# K/V tiles; shared rows of Q and K padded to hd + 4 floats, of dO and V
+# to hd + 16. fp32 dK/dV: 32 keys a block of four warps (two pairs), Q/dO
+# tiles of 32 rows; shared rows padded to hd + 4 floats.
 BWD_DQ_BLOCK_M, BWD_DQ_BLOCK_N = 128, 64
 BWD_DKV_BLOCK_N, BWD_DKV_BLOCK_M = 128, 64
 BWD_STAGES, BWD_THREADS, BWD_BOX_ROWS = 3, 384, 64
-BWD_F32_BLOCK, BWD_F32_THREADS = 32, 128
+BWD_DQ_F32_BLOCK_M, BWD_DQ_F32_BLOCK_N, BWD_DQ_F32_THREADS = 64, 32, 128
 BWD_DKV_F32_BLOCK_N, BWD_DKV_F32_BLOCK_M, BWD_DKV_F32_THREADS = 32, 32, 128
 TMA_BOX_COLS, TMA_SWIZZLE_BYTES = 64, 128
 MAX_SMEM_BYTES = 232_448  # what one block may use on an H100
@@ -296,14 +296,13 @@ def bwd_smem_bytes(hd: int, dtype: torch.dtype = torch.bfloat16
     ring of K and V tiles, barriers for Q/dO and a full and an empty one
     for each K and V slot. dK/dV: K and V, a ring of Q and dO tiles with
     each slot's lse and D (fp32), barriers for K/V and a full and an
-    empty one a slot. fp32 dQ: four 32-row tiles padded to hd + 1 columns
-    and dS. fp32 dK/dV: the K and V tile and two buffers of a Q and a dO
-    tile (rows of hd + 4 floats) with the Q tile's lse and D, and the
-    tiles its warp pairs swap (S^T and dP^T, 16 keys by the tile's rows,
-    two a pair)."""
+    empty one a slot. fp32 dQ: Q and a K tile with rows of hd + 4 floats,
+    dO and a V tile with rows of hd + 16. fp32 dK/dV: the K and V tile and
+    two buffers of a Q and a dO tile (rows of hd + 4 floats) with the Q
+    tile's lse and D, and the tiles its warp pairs swap (S^T and dP^T, 16
+    keys by the tile's rows, two a pair)."""
     if dtype == torch.float32:
-        bm = BWD_F32_BLOCK
-        dq = 4 * (4 * bm * (hd + 1) + bm * (bm + 1))
+        dq = 4 * (BWD_DQ_F32_BLOCK_M + BWD_DQ_F32_BLOCK_N) * (2 * hd + 20)
         n, m = BWD_DKV_F32_BLOCK_N, BWD_DKV_F32_BLOCK_M
         return dq, 4 * ((2 * n + 4 * m) * (hd + 4) + 4 * m + 2 * 2 * 16 * m)
     st = BWD_STAGES
@@ -322,9 +321,9 @@ def bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq_smem, dkv_smem = bwd_smem_bytes(hd, q.dtype)
     if q.dtype == torch.float32:
         return BwdPlan(
-            dq_grid=(B * H, -(-S // BWD_F32_BLOCK)),
+            dq_grid=(B * H, -(-S // BWD_DQ_F32_BLOCK_M)),
             dkv_grid=(B * k.shape[2], -(-S // BWD_DKV_F32_BLOCK_N)),
-            dq_threads=BWD_F32_THREADS, dkv_threads=BWD_DKV_F32_THREADS,
+            dq_threads=BWD_DQ_F32_THREADS, dkv_threads=BWD_DKV_F32_THREADS,
             dq_smem=dq_smem, dkv_smem=dkv_smem, maps=(),
             strides=tuple(st for t in (q, k, v, do) for st in t.stride()[:3]))
     return BwdPlan(

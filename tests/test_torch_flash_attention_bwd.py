@@ -189,7 +189,7 @@ def test_fp32_needing_grad_off_cpu_refused_before_launch():
     pt_flash._check_cuda(q, k, v, q, q)
     plan = pt_flash.bwd_plan(q, k, v, q)
     assert plan.maps == () and len(plan.strides) == 12
-    assert plan.dq_threads == pt_flash.BWD_F32_THREADS
+    assert plan.dq_threads == pt_flash.BWD_DQ_F32_THREADS
     assert plan.dkv_threads == pt_flash.BWD_DKV_F32_THREADS
     assert plan.dq_grid == (4, 1) and plan.dkv_grid == (2, 1)
     assert (plan.dq_smem, plan.dkv_smem) == pt_flash.bwd_smem_bytes(

@@ -88,9 +88,9 @@ def test_size_one_dims_get_packed_strides():
 
 def _causal_pairs_by_block(S, rows, kernel):
     """Unmasked (q, key) pairs of each block along grid y, in launch
-    order, as the kernels map block y to a tile: dQ's y walks q tiles from
-    the last (q0 = (gridDim.y - 1 - y) * 128), dK/dV's key tiles from the
-    first (k0 = y * 128)."""
+    order, as the kernels map block y to a tile of ``rows``: dQ's y walks
+    q tiles from the last (q0 = (gridDim.y - 1 - y) * rows), dK/dV's key
+    tiles from the first (k0 = y * rows)."""
     n = -(-S // rows)
     pairs = []
     for y in range(n):
@@ -144,15 +144,14 @@ F32 = torch.float32
 @pytest.mark.parametrize("layout",
                          ["contiguous", "sliced heads", "transposed view"])
 def test_fp32_bwd_plan(layout, hd, group, S):
-    # fp32: dQ keeps its simple kernel (a block of 128 threads per (b,
-    # q-head, 32 q rows)); dK/dV is the 3xTF32 kernel, a block of four
-    # warps per (b, kv-head, 32 keys). Both read q, k, v, dO through their
-    # element strides.
+    # fp32: both kernels are 3xTF32 kernels of four warps. dQ: a block per
+    # (b, q-head, 64 q rows); dK/dV: a block per (b, kv-head, 32 keys).
+    # Both read q, k, v, dO through their element strides.
     B, K = 2, 4
     H = K * group
     operands = _operands(layout, B, S, H, K, hd, dtype=F32)
     plan = pt_flash.bwd_plan(*operands)
-    assert plan.dq_grid == (B * H, -(-S // 32))
+    assert plan.dq_grid == (B * H, -(-S // 64))
     assert plan.dkv_grid == (B * K, -(-S // 32))
     assert plan.dq_threads == plan.dkv_threads == 128
     assert (plan.dq_smem, plan.dkv_smem) == pt_flash.bwd_smem_bytes(hd, F32)
@@ -164,17 +163,59 @@ def test_fp32_bwd_plan(layout, hd, group, S):
     assert len(packed) == 8 + 12
 
 
+@pytest.mark.parametrize("S", [100, 128, 1000])  # under, exactly, ragged
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("layout",
+                         ["contiguous", "sliced heads", "transposed view"])
+def test_fp32_dq_plan(layout, hd, group, S):
+    # The fp32 dQ kernel's geometry, as csrc/flash_bwd.cu checks it: four
+    # warps of 16 q rows, a block per (b, q-head, 64-row q tile), the q
+    # tiles covering S once (the last one ragged), and shared memory for Q
+    # and a 32-key K tile at rows of hd + 4 floats and dO and a V tile at
+    # hd + 16, whatever the operands' layout.
+    B, K = 2, 4
+    H = K * group
+    plan = pt_flash.bwd_plan(*_operands(layout, B, S, H, K, hd, dtype=F32))
+    bm, bn = pt_flash.BWD_DQ_F32_BLOCK_M, pt_flash.BWD_DQ_F32_BLOCK_N
+    assert (bm, bn, pt_flash.BWD_DQ_F32_THREADS) == (64, 32, 128)
+    assert plan.dq_threads == 4 * 32 and bm == 16 * plan.dq_threads // 32
+    assert plan.dq_grid[0] == B * H
+    tiles = plan.dq_grid[1]
+    assert (tiles - 1) * bm < S <= tiles * bm
+    assert plan.dq_smem == 4 * (bm * (hd + 4) + bn * (hd + 4)
+                                + bm * (hd + 16) + bn * (hd + 16))
+    # Rows of every shared tile start 16-byte aligned (cp.async).
+    assert (hd + 4) * 4 % 16 == 0 and (hd + 16) * 4 % 16 == 0
+
+
 @pytest.mark.parametrize("hd", [64, 128])
 def test_fp32_shared_memory_fits_two_blocks(hd):
     dq, dkv = pt_flash.bwd_smem_bytes(hd, F32)
-    # dQ: Q, dO, K, V tiles of 32 rows padded to hd + 1 floats, and dS.
-    assert dq == 4 * (4 * 32 * (hd + 1) + 32 * 33)
+    # dQ: Q and dO of 64 rows, a K and a V tile of 32 keys; Q and K at rows
+    # of hd + 4 floats, dO and V at hd + 16.
+    assert dq == 4 * (64 + 32) * ((hd + 4) + (hd + 16))
     # dK/dV: K and V of 32 keys, two buffers of Q and dO of 32 rows (rows
     # of hd + 4 floats) and of the Q tile's lse and D; the two warp pairs'
-    # swapped tiles (16 keys x 32 rows, two a pair). Two blocks an SM
-    # (228 KB, 1 KB reserved a block).
+    # swapped tiles (16 keys x 32 rows, two a pair).
     assert dkv == 4 * ((2 * 32 + 4 * 32) * (hd + 4) + 4 * 32 + 4 * 16 * 32)
-    assert 2 * (dkv + 1024) <= 228 * 1024 and dq <= pt_flash.MAX_SMEM_BYTES
+    # Both kernels run two blocks an SM (228 KB, 1 KB reserved a block).
+    for smem in (dq, dkv):
+        assert 2 * (smem + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("hd,kb", [(64, 55.5), (128, 103.5)])
+def test_fp32_dq_shared_memory_budget(hd, kb):
+    # The kernel's comment states 103.5 KB at hd = 128: two blocks an SM
+    # leave no room for a second K/V buffer (+35.3 KB) or a second copy of
+    # K at a conflict-free stride (+16.5 KB).
+    dq, _ = pt_flash.bwd_smem_bytes(hd, F32)
+    assert dq == kb * 1024
+    if hd == 128:
+        second_buffer = 4 * 32 * ((hd + 4) + (hd + 16))
+        second_k = 4 * 32 * (hd + 4)
+        assert 2 * (dq + second_buffer + 1024) > 228 * 1024
+        assert 2 * (dq + second_k + 1024) > 228 * 1024
 
 
 @pytest.mark.parametrize("S", [128, 1024, 4096])
@@ -186,3 +227,19 @@ def test_fp32_dkv_grid_runs_the_heaviest_causal_tiles_first(S):
     assert len(pairs) == plan.dkv_grid[1]
     assert sum(pairs) == S * (S + 1) // 2
     assert pairs == sorted(pairs, reverse=True)
+
+
+@pytest.mark.parametrize("S", [128, 1024, 4096, 1000])
+def test_fp32_dq_grid_runs_the_heaviest_causal_tiles_first(S):
+    # Block y takes q tile (tiles - 1 - y) of 64 rows: under the causal
+    # mask the last tiles see the most keys and start first. With ragged S
+    # the short last tile may be lighter than its neighbour; the rest keep
+    # the order.
+    q = torch.empty(4, S, 16, 128, dtype=F32, device="meta")
+    k = torch.empty(4, S, 8, 128, dtype=F32, device="meta")
+    plan = pt_flash.bwd_plan(q, k, k, q)
+    pairs = _causal_pairs_by_block(S, 64, "dq")
+    assert len(pairs) == plan.dq_grid[1]
+    assert sum(pairs) == S * (S + 1) // 2
+    full = pairs[1:] if S % 64 else pairs
+    assert full == sorted(full, reverse=True)

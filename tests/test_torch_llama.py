@@ -138,3 +138,84 @@ def test_attn_fn_seam(params):
     got = pt_llama.forward(tp, tokens, PT_CFG, attn_fn=attn_fn)
     assert calls == [(1, 8, 4, 16)] * PT_CFG.n_layers
     torch.testing.assert_close(got, want)
+
+
+def _boundary_ids(kind, T, V, rng):
+    """[2, 6] ids: on each side of every shard boundary of a vocab of V in
+    T shards, at the ends of the vocab, or random with repeats."""
+    if kind == "shard boundaries":
+        edges = [i * V // T + d for i in range(T + 1) for d in (-1, 0)]
+        ids = [min(max(e, 0), V - 1) for e in edges * 6][:12]
+    elif kind == "vocab ends":
+        ids = [0, V - 1] * 6
+    else:
+        ids = list(rng.integers(0, 4, 6)) + list(rng.integers(0, V, 6))
+    return np.asarray(ids, dtype=np.int32).reshape(2, 6)
+
+
+@pytest.mark.parametrize("kind", ["shard boundaries", "vocab ends", "repeats"])
+@pytest.mark.parametrize("T", [1, 2, 4])
+def test_vocab_shard_lookups_sum_to_the_table_lookup(params, T, kind):
+    # T simulated tp ranks, each looking up the ids in its own V / T rows:
+    # the rows sum to the reference's table[ids] (each id is inside one
+    # shard, the others give zeros), and the shards' gradients, stacked,
+    # to its gradient.
+    jp, pp = params
+    table_j = jp["embed"]
+    V = table_j.shape[0]
+    rng = np.random.default_rng(T)
+    ids = _boundary_ids(kind, T, V, rng)
+    cotangent = rng.standard_normal((*ids.shape, table_j.shape[1])).astype(
+        np.float32)
+    want, vjp = jax.vjp(lambda t: t[jnp.asarray(ids)], table_j)
+    (want_grad,) = vjp(jnp.asarray(cotangent))
+
+    rows = 0
+    grads = []
+    for r in range(T):
+        shard = pp["embed"][r * V // T:(r + 1) * V // T].clone()
+        shard.requires_grad_(True)
+        out = pt_llama.vocab_shard_lookup(shard, torch.from_numpy(ids),
+                                          r * V // T)
+        out.backward(torch.from_numpy(cotangent))
+        rows = rows + out.detach()
+        grads.append(shard.grad)
+    np.testing.assert_array_equal(rows.numpy(), np.asarray(want))
+    np.testing.assert_allclose(torch.cat(grads).numpy(),
+                               np.asarray(want_grad), rtol=1e-6, atol=1e-6)
+
+
+def test_embed_tokens_on_plain_tensors_is_the_table_lookup(params):
+    jp, pp = params
+    ids = _tokens(2, 6)
+    np.testing.assert_array_equal(
+        pt_llama.embed_tokens(pp["embed"], torch.from_numpy(ids)).numpy(),
+        np.asarray(jp["embed"][jnp.asarray(ids)]))
+
+
+def test_embed_tokens_without_tp_issues_no_all_reduce(params):
+    # A one-rank mesh has no tp axis: the lookup runs on the whole table,
+    # its rows come back laid out like the ids, and the forward issues no
+    # collective.
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from k8s_dra_driver_gpu_tpu_torch.parallel import mesh as pt_mesh
+
+    _, pp = params
+    ids = torch.from_numpy(_tokens(2, 6))
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = pt_mesh.build_mesh()
+        specs = pt_llama.param_specs(PT_CFG, mesh)
+        table = distribute_tensor(pp["embed"], mesh, specs["embed"])
+        tokens = distribute_tensor(ids, mesh, pt_llama.batch_spec(mesh))
+        with CommDebugMode() as comms:
+            rows = pt_llama.embed_tokens(table, tokens)
+        assert comms.get_total_counts() == 0
+        assert rows.placements == tokens.placements
+        assert torch.equal(rows.full_tensor(), pp["embed"][ids])
+    finally:
+        dist.destroy_process_group()

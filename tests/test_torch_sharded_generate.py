@@ -118,3 +118,48 @@ def test_gang_of_one_matches_generate():
         assert torch.equal(logits, want_logits)
     finally:
         dist.destroy_process_group()
+
+
+# The vocab-parallel embedding lookup in serving, recorded around one
+# prefill and one decode_step on each mesh: (collective, mesh axis, local
+# shape sent) for each collective, and the local table of each lookup.
+V, D = JAX_CFG.vocab_size, JAX_CFG.d_model
+TP = 2
+
+
+def _table_shard(shape):
+    """Whether a collective's local tensor is a [V / tp, D or D / fsdp]
+    shard of the embedding table."""
+    return len(shape) == 2 and shape[0] == V // TP and shape[1] in (D, D // 2)
+
+
+@pytest.mark.parametrize("phase", ["prefill", "decode"])
+@pytest.mark.parametrize("mesh", MESHES)
+def test_serving_moves_no_table_rows_over_tp(gang, mesh, phase):
+    ranks, _, _ = gang
+    for rank in ranks:
+        calls = rank[f"{mesh}/{phase}_calls"]
+        assert not [c for c in calls if c[1] == "tp" and _table_shard(c[2])]
+
+
+@pytest.mark.parametrize("phase", ["prefill", "decode"])
+@pytest.mark.parametrize("mesh", MESHES)
+def test_serving_lookup_all_reduces_its_rows_over_tp(gang, mesh, phase):
+    # The lookup's collectives open the step: the fsdp gather of the
+    # table's columns (fsdp meshes), then one all-reduce over tp of the
+    # rows [B / 2, positions, D].
+    ranks, _, _ = gang
+    positions = PROMPT if phase == "prefill" else 1
+    want = [("all_reduce", "tp", (BATCH // 2, positions, D))]
+    if mesh.startswith("fsdp"):
+        want.insert(0, ("all_gather_into_tensor", "fsdp", (V // TP, D // 2)))
+    for rank in ranks:
+        assert rank[f"{mesh}/{phase}_calls"][:len(want)] == want
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_serving_lookups_see_one_vocab_shard(gang, mesh):
+    # One lookup in prefill, one in the decode step, each on V / tp rows.
+    ranks, _, _ = gang
+    for rank in ranks:
+        assert rank[f"{mesh}/local_tables"] == [(V // TP, D)] * 2

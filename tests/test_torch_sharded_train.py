@@ -265,3 +265,72 @@ def test_gang_of_one_runs_flash_through_local_map(gang_of_one):
         torch.distributed.tensor.Replicate(),)
     # The CPU path launches no kernel.
     assert pt_flash.flash_attention.launches == 0
+
+
+# The vocab-parallel embedding lookup, recorded on the (fsdp=2, tp=2) mesh
+# around one embed_tokens forward and backward of the step's table and
+# batch: (collective, mesh axis, local shape sent) for each collective.
+V, D = JAX_CFG.vocab_size, JAX_CFG.d_model
+TP = FSDP = 2
+
+
+@pytest.mark.parametrize("what", ["rows", "grad"])
+def test_embed_lookup_equals_the_plain_lookup(gang, what):
+    # The rows are one rank's row plus zeros: exact. The gradient sums the
+    # same cotangent rows in another order (per rank, then over fsdp).
+    ranks, _, _ = gang
+    for rank in ranks:
+        got, want = rank[f"embed/{what}"], rank[f"embed/want_{what}"]
+        if what == "rows":
+            assert torch.equal(got, want)
+        else:
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                                       atol=1e-6)
+
+
+def test_embed_local_table_holds_one_vocab_shard(gang):
+    # The lookup runs on V / tp rows with the fsdp columns gathered.
+    ranks, _, _ = gang
+    for rank in ranks:
+        assert rank["embed/local_tables"] == [(V // TP, D)]
+
+
+def test_embed_forward_all_reduces_the_rows_over_tp_once(gang):
+    # The fsdp gather of the table's columns, then one all-reduce of the
+    # rows over tp, and nothing else.
+    ranks, _, _ = gang
+    for rank in ranks:
+        assert rank["embed/forward_calls"] == [
+            ("all_gather_into_tensor", "fsdp", (V // TP, D // FSDP)),
+            ("all_reduce", "tp", (BATCH // FSDP, SEQ + 1, D))]
+
+
+def test_embed_backward_stays_within_the_vocab_shard(gang):
+    # Each rank's gradient is its own vocab shard's: one reduce-scatter
+    # over fsdp to the parameter's columns (of the local [V / tp, D]
+    # gradient cut into its fsdp column blocks, stacked), nothing over tp.
+    ranks, _, _ = gang
+    for rank in ranks:
+        assert rank["embed/backward_calls"] == [
+            ("reduce_scatter_tensor", "fsdp", (FSDP * (V // TP), D // FSDP))]
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_embed_gathers_no_table_rows_over_tp(gang, direction):
+    ranks, _, _ = gang
+    for rank in ranks:
+        assert not [c for c in rank[f"embed/{direction}_calls"]
+                    if c[1] == "tp" and c[0] != "all_reduce"]
+
+
+def test_embed_rows_are_laid_out_like_the_batch(gang):
+    ranks, _, _ = gang
+    for rank in ranks:
+        assert rank["embed/rows_placements"] == ["S(0)", "R"]
+
+
+def test_embed_refuses_a_vocab_tp_does_not_divide(gang):
+    ranks, _, _ = gang
+    for rank in ranks:
+        assert rank["embed/indivisible_error"].startswith(
+            f"vocab {V - 1} not divisible by tp=2")

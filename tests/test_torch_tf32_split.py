@@ -6,7 +6,9 @@ nearest, ties away from zero, 10 mantissa bits). With one TF32 product
 (``1x``) the results miss the fp32 tolerance (1e-4, 1e-4) against
 ``flash_attention_reference`` / ``flash_attention_bwd_reference``; with
 the split x = hi + lo, a.b ~ hi.hi + hi.lo + lo.hi (``3x``), they meet
-it. The emulation lives here only: it is not on any path of the port."""
+it. The dQ kernel's own order of summation (16-key sums from zero, added
+in fp32) is emulated too. The emulation lives here only: it is not on any
+path of the port."""
 
 import functools
 
@@ -143,3 +145,62 @@ def test_one_tf32_product_misses_the_fp32_tolerance(label):
 def test_three_tf32_products_meet_the_fp32_tolerance(label):
     excess, lse_err = _worst(label, "3x")
     assert excess <= 0 and lse_err <= LSE_TOL, (excess, lse_err)
+
+
+# The fp32 dQ kernel's order of summation (csrc/flash_bwd.cu,
+# flash_bwd_dq_f32 through accumulate_tile): each 16 keys' dS.K products
+# are summed from zero on the tensor cores, and the sums are added to dQ in
+# fp32, in key order.
+DQ_SUM_KEYS = 16
+
+
+def emulated_dq(q, k, v, do, out, lse, causal, mode, tiled):
+    """dQ of one (b, kv-head) slice (q, dO, out [S, G, hd], k, v [S, hd],
+    lse [G, S]) from the forward's out and lse, every product through
+    ``matmul``: S and dP, then dS.K summed as the kernel sums it
+    (``tiled``: per ``DQ_SUM_KEYS`` keys from zero, then fp32 adds) or as
+    one product over every key. P, D and dS are fp32; ``scale`` is applied
+    once, at the end."""
+    S, G, hd = q.shape
+    scale = 1.0 / hd ** 0.5
+    qh, doh, oh = (t.transpose(0, 1) for t in (q, do, out))  # [G, S, hd]
+    s = matmul(qh, k.T, mode) * scale
+    if causal:
+        keep = torch.ones(S, S, dtype=torch.bool).tril()
+        s = s.masked_fill(~keep, pt_flash.NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    ds = p * (matmul(doh, v.T, mode) - (doh * oh).sum(-1, keepdim=True))
+    if not tiled:
+        return (matmul(ds, k, mode) * scale).transpose(0, 1)
+    dq = torch.zeros(G, S, hd)
+    for k0 in range(0, S, DQ_SUM_KEYS):
+        dq = dq + matmul(ds[..., k0:k0 + DQ_SUM_KEYS],
+                         k[k0:k0 + DQ_SUM_KEYS], mode)
+    return (dq * scale).transpose(0, 1)
+
+
+def _worst_dq(label, mode, tiled):
+    """Over every slice: the largest excess of dQ's |got - want| over
+    atol + rtol |want| (<= 0: within)."""
+    causal, slices = _inputs_and_reference(label)
+    excess = -np.inf
+    for q, k, v, do, (out, lse, want, _, _) in slices:
+        got = emulated_dq(q, k, v, do, out, lse, causal, mode, tiled)
+        excess = max(excess, ((got - want).abs() - ATOL
+                              - RTOL * want.abs()).max().item())
+    return excess
+
+
+@pytest.mark.parametrize("label", [c[0] for c in CASES])
+def test_dq_kernel_sums_meet_the_fp32_tolerance(label):
+    # 3xTF32 products, 16-key sums from zero, fp32 adds: within (1e-4,
+    # 1e-4) of flash_attention_bwd_reference's dQ.
+    excess = _worst_dq(label, "3x", tiled=True)
+    assert excess <= 0, excess
+
+
+@pytest.mark.parametrize("label", [c[0] for c in CASES])
+def test_dq_in_one_tf32_chain_misses_the_fp32_tolerance(label):
+    # One TF32 product for each of S, dP and dS.K over every key misses it.
+    excess = _worst_dq(label, "1x", tiled=False)
+    assert excess > 0, excess

@@ -72,6 +72,46 @@ def _load_params(out: Path) -> dict:
     return params_from_jax(tree)
 
 
+def _collectives(mesh):
+    """A ``CommDebugMode`` that also keeps, for each collective, its name,
+    the mesh axis of its group and the shape of the local tensor it sends:
+    ``calls``, a list of ``(name, axis, shape)``."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    axes = {mesh.get_group(name).group_name: name
+            for name in mesh.mesh_dim_names}
+
+    class Collectives(CommDebugMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            packet = getattr(func, "_overloadpacket", None)
+            if packet in self.comm_registry:
+                # DTensor's collectives name their group last.
+                self.calls.append((packet.__name__, axes.get(args[-1]),
+                                   tuple(args[0].shape)))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    return Collectives()
+
+
+def _recording_lookups(results: dict, key: str):
+    """Has ``llama.vocab_shard_lookup`` append the shape of each local
+    table it looks ids up in to ``results[key]``; returns the undo."""
+    from k8s_dra_driver_gpu_tpu_torch.models import llama
+
+    original = llama.vocab_shard_lookup
+
+    def recording(table, ids, vocab_start):
+        results.setdefault(key, []).append(tuple(table.shape))
+        return original(table, ids, vocab_start)
+
+    llama.vocab_shard_lookup = recording
+    return lambda: setattr(llama, "vocab_shard_lookup", original)
+
+
 def _flat(tree: dict, prefix: str = "") -> dict:
     flat = {}
     for name, value in tree.items():
@@ -136,9 +176,59 @@ def sharded_train(rank: int, world: int, out: Path) -> None:
                 results[f"allreduce/{axis}/participants"] = stats[
                     "participants"]
                 results[f"allreduce/{axis}/gbps"] = stats["gbps"]
+            _embed_lookup(mesh, cfg, out, layout(tokens[0, rank * local:
+                                                        (rank + 1) * local]),
+                          tokens[0], results)
         del state
     _multislice_train(rank, world, tokens, cfg, out, results)
     torch.save(results, out / f"rank{rank}.pt")
+
+
+def _embed_lookup(mesh, cfg, out, tokens, global_tokens, results) -> None:
+    """One ``embed_tokens`` forward and backward on the parameters' table,
+    placed as the sharded step places it, with the collectives of each
+    and the shape of the local table the lookup sees; and the rows and
+    gradient of the plain ``table[tokens]`` on the whole table."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from k8s_dra_driver_gpu_tpu_torch.models import llama
+    from k8s_dra_driver_gpu_tpu_torch.parallel import mesh as pmesh
+
+    cmesh = pmesh.compute_mesh(mesh)
+    full = _load_params(out)["embed"]
+    table = distribute_tensor(full.clone(), cmesh,
+                              llama.param_specs(cfg, cmesh)["embed"],
+                              src_data_rank=None).requires_grad_()
+    cotangent = torch.from_numpy(np.random.RandomState(11).standard_normal(
+        (*global_tokens.shape, cfg.d_model)).astype(np.float32))
+    undo = _recording_lookups(results, "embed/local_tables")
+    try:
+        with _collectives(cmesh) as forward:
+            rows = llama.embed_tokens(table, tokens)
+        with _collectives(cmesh) as backward:
+            rows.backward(distribute_tensor(cotangent, cmesh,
+                                            rows.placements,
+                                            src_data_rank=None))
+    finally:
+        undo()
+    odd = distribute_tensor(torch.zeros(cfg.vocab_size - 1, cfg.d_model),
+                            cmesh, table.placements, src_data_rank=None)
+    try:
+        llama.embed_tokens(odd, tokens)
+    except ValueError as err:
+        results["embed/indivisible_error"] = str(err)
+    plain = full.clone().requires_grad_()
+    want = plain[torch.from_numpy(global_tokens).long()]
+    want.backward(cotangent)
+    results["embed/forward_calls"] = forward.calls
+    results["embed/backward_calls"] = backward.calls
+    results["embed/rows"] = rows.full_tensor().detach()
+    results["embed/rows_placements"] = [str(p) for p in rows.placements]
+    results["embed/want_rows"] = want.detach()
+    results["embed/grad"] = table.grad.full_tensor()
+    results["embed/want_grad"] = plain.grad
 
 
 def _multislice_train(rank, world, tokens, cfg, out, results) -> None:
@@ -206,12 +296,39 @@ def sharded_generate(rank: int, world: int, out: Path) -> None:
             results[f"{key}/tokens"] = tokens.full_tensor()
             results[f"{key}/placements"] = [str(p) for p in tokens.placements]
             results[f"{key}/local_shape"] = tuple(tokens.to_local().shape)
+        _serving_lookups(mesh, cfg, place(_load_params(out)), layout(prompt),
+                         max_len, label, results)
     mesh = pmesh.build_mesh(pmesh.MeshPlan(tp=4))
     try:
         decode.make_sharded_generate(mesh, cfg, new, max_len)
     except ValueError as err:
         results["tp4/error"] = str(err)
     torch.save(results, out / f"rank{rank}.pt")
+
+
+def _serving_lookups(mesh, cfg, params, prompt, max_len, label,
+                     results) -> None:
+    """The collectives of one ``prefill`` and of one ``decode_step`` on
+    the placed parameters and prompt, and the shape of each local table
+    their lookups see."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from k8s_dra_driver_gpu_tpu_torch.models import decode
+    from k8s_dra_driver_gpu_tpu_torch.parallel import mesh as pmesh
+
+    cmesh = pmesh.compute_mesh(mesh)
+    undo = _recording_lookups(results, f"{label}/local_tables")
+    try:
+        with implicit_replication():
+            with _collectives(cmesh) as prefill:
+                logits, cache = decode.prefill(params, prompt, cfg, max_len)
+            token = logits.argmax(-1)
+            with _collectives(cmesh) as step:
+                decode.decode_step(params, cache, token, cfg)
+    finally:
+        undo()
+    results[f"{label}/prefill_calls"] = prefill.calls
+    results[f"{label}/decode_calls"] = step.calls
 
 
 def meshes(rank: int, world: int, out: Path) -> None:
