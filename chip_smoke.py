@@ -21,11 +21,13 @@ and prints no result line):
    and its factor over the library call; its edge cases (under one q
    tile, exactly one, ragged, non-causal, head dim 64, GQA groups 1 and
    4, sliced-heads and transposed-view layouts); the dQ and dK/dV
-   backward kernels at the training shape and at edge shapes (under one
-   tile, exactly one, ragged, non-causal, head dim 64, GQA groups 1 and
-   4, sliced-heads and transposed-view layouts). The fp32 entries of all
-   three at the backward's edge shapes, elementwise within
-   ``TOLERANCES[torch.float32]``, timed at the training shape against
+   backward kernels at the flagship's and the MoE-Llama's (head dim 64)
+   training shapes and at edge shapes (under one tile, exactly one,
+   ragged, non-causal, head dim 64, GQA groups 1 and 4, sliced-heads and
+   transposed-view layouts), the three timed at both training shapes.
+   The fp32 entries of all three at the backward's edge shapes,
+   elementwise within ``TOLERANCES[torch.float32]``, timed at the
+   training shape against
    SDPA's memory-efficient backend, each with its share of the bound of
    its route (3xTF32 on the tensor cores) and the FMA bound beside, and
    one fp32 gradient of a 2-layer
@@ -53,14 +55,28 @@ and prints no result line):
    weights (drawn again from the seed): tokens and prefill logits
    against ``generate``'s, launch count, prefill and decode times;
    ``bench_allreduce`` over the mesh.
+7. moe (on the same gang of one): MoE-Llama at full width and depth
+   (``LlamaMoEConfig()``: 8 experts, top-2, head dim 64), fp32 master
+   weights from the seed, bf16 compute, B=4, S=4096, through
+   ``make_moe_train`` on a (dp=1, ep=1) mesh: step 1's loss against the
+   plain ``loss_fn`` without a mesh, its kernel launches (the hd-64
+   instantiations) and collectives (none), a lower loss at step 2, the
+   median of 5 timed steps (tok/s, MFU, peak memory) and a trace.
+8. sp (on the same gang): the flagship (phase 5's parameters and batch)
+   through ``make_sp_train`` on the (dp=1, sp=1) mesh with Ulysses and
+   with ring attention: step 1's loss against the plain full-logit
+   loss, launch counts (Ulysses the three kernels, the ring none), no
+   collective, 2 timed steps and peak memory.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
-before it is the kernels' JSON record.
+before it is the kernels' JSON record (with the hd-64 instantiations'
+records after the others).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -220,6 +236,74 @@ def kernel_kind(name: str) -> str:
         if any(w in name for w in words):
             return kind
     return "other"
+
+
+def log_kinds(kernels: list, label: str) -> None:
+    """A trace's device time summed by ``kernel_kind``, with shares, and
+    the two costliest kernels of each kind."""
+    total = sum(e.self_device_time_total for e in kernels)
+    if total <= 0:
+        return
+    shares, top = {}, {}
+    for e in kernels:  # costliest first
+        kind = kernel_kind(e.key)
+        shares[kind] = shares.get(kind, 0) + e.self_device_time_total
+        top.setdefault(kind, []).append(e)
+    def names(kind):
+        return " / ".join(f"{e.key[:110]} {e.self_device_time_total / 1e3:.1f}"
+                          f" ms x{e.count}" for e in top[kind][:2])
+
+    log(f"trace {label}: device time by kind " + ", ".join(
+        f"{kind} {us / 1e3:.1f} ms ({us / total:.2f}; {names(kind)})"
+        for kind, us in sorted(shares.items(), key=lambda kv: -kv[1])))
+
+
+def reset_launches() -> None:
+    from k8s_dra_driver_gpu_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd)
+
+    flash_attention.launches = flash_attention.lse_launches = 0
+    flash_attention_bwd.dq_launches = flash_attention_bwd.dkv_launches = 0
+
+
+def read_launches() -> dict:
+    from k8s_dra_driver_gpu_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd)
+
+    return {"forward_lse": flash_attention.lse_launches,
+            "forward_only": (flash_attention.launches
+                             - flash_attention.lse_launches),
+            "dq": flash_attention_bwd.dq_launches,
+            "dkv": flash_attention_bwd.dkv_launches}
+
+
+# The torch.distributed calls a port module can make.
+COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+               "all_to_all_single", "batch_isend_irecv", "broadcast",
+               "reduce_scatter_tensor", "send", "recv", "isend", "irecv")
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """Yields a list that gets the name of every ``torch.distributed``
+    collective or point-to-point call made inside the block."""
+    import torch.distributed as dist
+
+    calls, saved = [], {name: getattr(dist, name) for name in COLLECTIVES}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(dist, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
 
 
 def leaf_names(tree: dict, prefix: str = ""):
@@ -420,11 +504,14 @@ def sdpa_backward_ms(q, k, v, do) -> tuple[float, str]:
     raise RuntimeError("no SDPA flash backward to time")
 
 
-def phase_training_kernels(gen: torch.Generator) -> tuple[dict, dict, dict]:
-    """The kernels of the training path: the with-lse forward and the dQ
+def phase_training_kernels(gen: torch.Generator) -> tuple[dict, dict, dict,
+                                                         list]:
+    """The kernels of the training paths: the with-lse forward and the dQ
     and dK/dV backward kernels, held against their plain versions at the
-    training shape (B=1 on the plain side) and at edge shapes, then timed
-    at B=4. Returns (with-lse forward numbers, dQ record, dK/dV record)."""
+    flagship's training shape (hd 128) and the MoE-Llama's (hd 64), B=1
+    on the plain side, and at edge shapes, then timed at B=4 at both.
+    Returns (with-lse forward numbers, dQ record, dK/dV record) at hd 128
+    and the three kernel records at hd 64."""
     from k8s_dra_driver_gpu_tpu_torch.ops.flash_attention import (
         _bwd_launchers, flash_attention, flash_attention_bwd,
         flash_attention_bwd_reference, flash_attention_reference)
@@ -437,9 +524,11 @@ def phase_training_kernels(gen: torch.Generator) -> tuple[dict, dict, dict]:
                          dtype=torch.float32).to(dtype)
         return q, k, v, do
 
-    # (label, B, S, H, K, hd, causal)
+    # (label, B, S, H, K, hd, causal); the first two are the flagship's
+    # and the MoE-Llama's training shapes.
     cases = [
         ("training", 1, TRAIN_SEQ, 16, 8, 128, True),
+        ("moe training", 1, TRAIN_SEQ, 16, 8, 64, True),
         ("under one tile", 1, 100, 16, 8, 128, True),
         ("one tile", 1, 128, 16, 8, 128, True),
         ("ragged S", 2, 1000, 16, 8, 128, True),
@@ -450,7 +539,9 @@ def phase_training_kernels(gen: torch.Generator) -> tuple[dict, dict, dict]:
         ("sliced heads", 2, 1000, 16, 8, 128, True),
         ("transposed view", 2, 1000, 16, 8, 128, True),
     ]
-    max_err = {"dq": 0.0, "dkv": 0.0, "forward": 0.0}
+    # Max abs error of each kernel at the two training shapes, by hd.
+    max_err = {hd: {"dq": 0.0, "dkv": 0.0, "forward": 0.0}
+               for hd in (128, 64)}
     for label, B, S, H, K, hd, causal in cases:
         q, k, v, do = inputs(B, S, H, K, hd, label=label)
         out, lse = flash_attention(q, k, v, causal=causal, with_lse=True)
@@ -470,8 +561,9 @@ def phase_training_kernels(gen: torch.Generator) -> tuple[dict, dict, dict]:
                 and row_rel <= FWD_ROW_REL_TOL and lse_err <= LSE_TOLERANCE):
             raise AssertionError(f"with-lse forward {label} disagrees with "
                                  "its plain version")
-        if label == "training":
-            max_err["forward"] = out_err
+        training = label in ("training", "moe training")
+        if training:
+            max_err[hd]["forward"] = out_err
         del want_out, want_lse, diff
         got = flash_attention_bwd(q, k, v, out, lse, do, causal)
         torch.cuda.synchronize()
@@ -485,62 +577,86 @@ def phase_training_kernels(gen: torch.Generator) -> tuple[dict, dict, dict]:
                 raise AssertionError(f"backward {label}: {name} rel L2 "
                                      f"{rel} over {BWD_REL_TOL}")
             kernel = "dq" if name == "dq" else "dkv"
-            if label == "training":
-                max_err[kernel] = max(max_err[kernel], err)
+            if training:
+                max_err[hd][kernel] = max(max_err[hd][kernel], err)
         log(f"kernel backward {label}: B={B} S={S} H={H} K={K} hd={hd} bf16 "
             f"causal={causal}: {'; '.join(errs)} (tol rel L2 {BWD_REL_TOL})")
         del q, k, v, do, out, lse, got, want
-    # Timing at the training shape.
-    B, S, H, K, hd = TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128
-    q, k, v, do = inputs(B, S, H, K, hd)
-    fwd = {"max_abs_err": max_err["forward"],
-           "ms": time_ms(lambda: flash_attention(q, k, v, with_lse=True), 20),
-           "plain_ms": time_ms(lambda: flash_attention_reference(
-               q, k, v, True, True), 3, warmup=1)}
-    fwd["bound_ms"], fwd["bound_by"] = attention_bound_ms(
-        B, S, H, K, hd, torch.bfloat16, True, with_lse=True)
-    qt, kx, vx = (t.transpose(1, 2) for t in (
-        q, k.repeat_interleave(H // K, 2), v.repeat_interleave(H // K, 2)))
-    fwd["library_ms"] = time_ms(
-        lambda: torch.ops.aten._scaled_dot_product_flash_attention(
-            qt, kx, vx, 0.0, True), 20)
-    del qt, kx, vx
-    log(f"kernel with-lse forward at training shape B={B} S={S} H={H} K={K} "
-        f"hd={hd}: ms={fwd['ms']:.4f} plain_ms={fwd['plain_ms']:.4f} "
-        f"library_ms={fwd['library_ms']:.4f} (aten flash, K/V expanded, "
-        f"returns lse) bound_ms={fwd['bound_ms']:.4f} ({fwd['bound_by']}) "
-        f"roofline_share={fwd['bound_ms'] / fwd['ms']:.3f} "
-        f"factor_over_library={fwd['ms'] / fwd['library_ms']:.2f}")
 
-    out, lse = flash_attention(q, k, v, with_lse=True)
-    launch_dq, launch_dkv, _ = _bwd_launchers(q, k, v, out, lse, do, True)
-    dq_ms = time_ms(launch_dq, 20)
-    dkv_ms = time_ms(launch_dkv, 20)
-    bwd_ms = time_ms(
-        lambda: flash_attention_bwd(q, k, v, out, lse, do, True), 10)
-    plain_ms = time_ms(lambda: flash_attention_bwd_reference(
-        q, k, v, out, lse, do, True), 2, warmup=1)
-    library_ms, library_how = sdpa_backward_ms(q, k, v, do)
-    log(f"kernel backward at training shape B={B} S={S} H={H} K={K} hd={hd}: "
-        f"dq_ms={dq_ms:.4f} dkv_ms={dkv_ms:.4f} whole backward (D, dQ, "
-        f"dK/dV) ms={bwd_ms:.4f}; plain backward ms={plain_ms:.4f}; SDPA "
-        f"backward ms={library_ms:.4f} ({library_how})")
-    records = []
-    for kernel, ms, line in (("dq", dq_ms, 104), ("dkv", dkv_ms, 157)):
-        bound, bound_by = attention_bwd_bound_ms(B, S, H, K, hd, True, kernel)
-        log(f"kernel {kernel}: ms={ms:.4f} bound_ms={bound:.4f} ({bound_by}) "
-            f"roofline_share={bound / ms:.3f}")
-        records.append({
-            "name": f"flash_attention_bwd_{kernel}", "route": "cuda",
-            "source": "k8s_dra_driver_gpu_tpu_torch/csrc/flash_bwd.cu",
-            "replaces": f"k8s_dra_driver_gpu_tpu/ops/flash_attention.py:{line}",
-            "launches": None, "max_abs_err": max_err[kernel], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": library_ms,
-        })
-    del q, k, v, do, out, lse
-    torch.cuda.empty_cache()
-    return fwd, records[0], records[1]
+    def timed(hd: int, suffix: str) -> tuple[dict, dict, dict]:
+        """The three kernels timed at the training shape of head dim
+        ``hd``: with-lse forward numbers, dQ and dK/dV records."""
+        B, S, H, K = TRAIN_BATCH, TRAIN_SEQ, 16, 8
+        q, k, v, do = inputs(B, S, H, K, hd)
+        fwd = {"max_abs_err": max_err[hd]["forward"],
+               "ms": time_ms(lambda: flash_attention(q, k, v, with_lse=True),
+                             20),
+               "plain_ms": time_ms(lambda: flash_attention_reference(
+                   q, k, v, True, True), 3, warmup=1)}
+        fwd["bound_ms"], fwd["bound_by"] = attention_bound_ms(
+            B, S, H, K, hd, torch.bfloat16, True, with_lse=True)
+        qt, kx, vx = (t.transpose(1, 2) for t in (
+            q, k.repeat_interleave(H // K, 2),
+            v.repeat_interleave(H // K, 2)))
+        fwd["library_ms"] = time_ms(
+            lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                qt, kx, vx, 0.0, True), 20)
+        del qt, kx, vx
+        log(f"kernel with-lse forward at training shape B={B} S={S} H={H} "
+            f"K={K} hd={hd}: ms={fwd['ms']:.4f} "
+            f"plain_ms={fwd['plain_ms']:.4f} "
+            f"library_ms={fwd['library_ms']:.4f} (aten flash, K/V expanded, "
+            f"returns lse) bound_ms={fwd['bound_ms']:.4f} ({fwd['bound_by']})"
+            f" roofline_share={fwd['bound_ms'] / fwd['ms']:.3f} "
+            f"factor_over_library={fwd['ms'] / fwd['library_ms']:.2f}")
+
+        out, lse = flash_attention(q, k, v, with_lse=True)
+        launch_dq, launch_dkv, _ = _bwd_launchers(q, k, v, out, lse, do,
+                                                  True)
+        dq_ms = time_ms(launch_dq, 20)
+        dkv_ms = time_ms(launch_dkv, 20)
+        bwd_ms = time_ms(
+            lambda: flash_attention_bwd(q, k, v, out, lse, do, True), 10)
+        plain_ms = time_ms(lambda: flash_attention_bwd_reference(
+            q, k, v, out, lse, do, True), 2, warmup=1)
+        library_ms, library_how = sdpa_backward_ms(q, k, v, do)
+        log(f"kernel backward at training shape B={B} S={S} H={H} K={K} "
+            f"hd={hd}: dq_ms={dq_ms:.4f} dkv_ms={dkv_ms:.4f} whole backward "
+            f"(D, dQ, dK/dV) ms={bwd_ms:.4f}; plain backward "
+            f"ms={plain_ms:.4f}; SDPA backward ms={library_ms:.4f} "
+            f"({library_how})")
+        records = []
+        for kernel, ms, line in (("dq", dq_ms, 104), ("dkv", dkv_ms, 157)):
+            bound, bound_by = attention_bwd_bound_ms(B, S, H, K, hd, True,
+                                                     kernel)
+            log(f"kernel {kernel} hd={hd}: ms={ms:.4f} bound_ms={bound:.4f} "
+                f"({bound_by}) roofline_share={bound / ms:.3f} "
+                f"factor_over_library={ms / library_ms:.3f}")
+            records.append({
+                "name": f"flash_attention_bwd_{kernel}{suffix}",
+                "route": "cuda",
+                "source": "k8s_dra_driver_gpu_tpu_torch/csrc/flash_bwd.cu",
+                "replaces": ("k8s_dra_driver_gpu_tpu/ops/flash_attention.py:"
+                             f"{line}"),
+                "launches": None, "max_abs_err": max_err[hd][kernel],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": bound_by, "library_ms": library_ms,
+            })
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+        return fwd, records[0], records[1]
+
+    fwd, dq, dkv = timed(128, "")
+    fwd64, dq64, dkv64 = timed(64, "_hd64")
+    fwd64.update({
+        "name": "flash_attention_lse_hd64", "route": "cuda",
+        "source": "k8s_dra_driver_gpu_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "k8s_dra_driver_gpu_tpu/ops/flash_attention.py:40",
+        "launches": None})
+    shape = f"B={TRAIN_BATCH} S={TRAIN_SEQ} H=16 K=8 hd=64"
+    for record in (fwd64, dq64, dkv64):
+        record["shape"] = shape
+    return fwd, dq, dkv, [fwd64, dq64, dkv64]
 
 
 FP32_GRAD_REL_TOL = 1e-3
@@ -951,16 +1067,7 @@ def phase_training(seed: int) -> tuple[dict, dict]:
         state, loss = train_step(state, tokens, cfg=cfg, optimizer=optimizer)
         loss.item()
 
-    kernels = profile(traced_step, "train step", top=12)
-    total = sum(e.self_device_time_total for e in kernels)
-    if total > 0:
-        shares = {}
-        for e in kernels:
-            shares[kernel_kind(e.key)] = (shares.get(kernel_kind(e.key), 0)
-                                          + e.self_device_time_total)
-        log("trace train step: device time by kind " + ", ".join(
-            f"{kind} {us / 1e3:.1f} ms ({us / total:.2f})"
-            for kind, us in sorted(shares.items(), key=lambda kv: -kv[1])))
+    log_kinds(profile(traced_step, "train step", top=12), "train step")
     del state
     torch.cuda.empty_cache()
     return counts, {"step_ms": step * 1e3, "mfu": mfu, "peak_gib": peak_gib}
@@ -983,18 +1090,13 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def phase_gang(seed: int, serving: dict, training: dict) -> dict:
-    """The sharded paths as a gang of one over NCCL: the launcher's
-    ``initialize_distributed`` from the ComputeDomain env, a mesh over the
-    one rank, then (i) ``make_sharded_train`` on the flagship at full
-    width and depth against ``train_step``, (ii) the scanned step against
-    single steps, (iii) ``make_sharded_generate`` on Llama-3-8B against
-    ``generate`` (phase 4's seed, prompt, tokens, logits), (iv)
-    ``bench_allreduce`` over the mesh. Returns the kernel launches of one
-    sharded step and one sharded generate."""
+@contextlib.contextmanager
+def gang_of_one():
+    """A gang of one over NCCL, joined by the launcher's
+    ``initialize_distributed`` from the ComputeDomain env; yields a mesh
+    over the one rank and leaves the gang on exit."""
     import torch.distributed as dist
 
-    from k8s_dra_driver_gpu_tpu_torch.ops.collectives import bench_allreduce
     from k8s_dra_driver_gpu_tpu_torch.parallel.mesh import build_mesh
     from k8s_dra_driver_gpu_tpu_torch.train.main import initialize_distributed
 
@@ -1007,17 +1109,29 @@ def phase_gang(seed: int, serving: dict, training: dict) -> dict:
         log(f"gang: {dist.get_backend()} world {dist.get_world_size()} via "
             f"{env['TPU_COORDINATOR_ADDRESS']}, mesh "
             f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
-        counts = {"train": _gang_train(seed, mesh, training),
-                  "generate": _gang_generate(seed, mesh, serving)}
-        stats = bench_allreduce(mesh, "dp")
-        log(f"gang: bench_allreduce over dp: participants "
-            f"{stats['participants']}, {stats['bytes']} bytes x "
-            f"{stats['iters']} in {stats['seconds'] * 1e3:.2f} ms, "
-            f"{stats['gbps']} GB/s (2*S*(n-1)/n algorithm bytes: 0 at n=1)")
-        if stats["participants"] != 1 or stats["gbps"] != 0.0:
-            raise AssertionError(f"bench_allreduce at world 1: {stats}")
+        yield mesh
     finally:
         dist.destroy_process_group()
+
+
+def phase_gang(seed: int, mesh, serving: dict, training: dict) -> dict:
+    """The sharded paths on the gang of one: (i) ``make_sharded_train`` on
+    the flagship at full width and depth against ``train_step``, (ii) the
+    scanned step against single steps, (iii) ``make_sharded_generate`` on
+    Llama-3-8B against ``generate`` (phase 4's seed, prompt, tokens,
+    logits), (iv) ``bench_allreduce`` over the mesh. Returns the kernel
+    launches of one sharded step and one sharded generate."""
+    from k8s_dra_driver_gpu_tpu_torch.ops.collectives import bench_allreduce
+
+    counts = {"train": _gang_train(seed, mesh, training),
+              "generate": _gang_generate(seed, mesh, serving)}
+    stats = bench_allreduce(mesh, "dp")
+    log(f"gang: bench_allreduce over dp: participants "
+        f"{stats['participants']}, {stats['bytes']} bytes x "
+        f"{stats['iters']} in {stats['seconds'] * 1e3:.2f} ms, "
+        f"{stats['gbps']} GB/s (2*S*(n-1)/n algorithm bytes: 0 at n=1)")
+    if stats["participants"] != 1 or stats["gbps"] != 0.0:
+        raise AssertionError(f"bench_allreduce at world 1: {stats}")
     return counts
 
 
@@ -1199,6 +1313,175 @@ def _gang_generate(seed: int, mesh, serving: dict) -> int:
     return launches
 
 
+MOE_BATCH, MOE_SEQ, MOE_TIMED_STEPS = 4, 4096, 5
+# Step 1's loss of the MoE and Ulysses trainers on one rank against the
+# plain loss without a mesh, relative: the same bf16 computation through
+# the same kernels, except that the step runs the with-lse forward under
+# remat where the plain call, without autograd, runs the forward-only one.
+# (The ring's fp32 einsum against the kernel's bf16 P takes LOSS_REL_TOL.)
+SAME_PATH_LOSS_REL_TOL = 1e-3
+SP_TIMED_STEPS = 2
+
+
+def phase_moe(seed: int) -> dict:
+    """MoE-Llama at full width and depth (``LlamaMoEConfig()``, 8 experts,
+    top-2, bf16 compute, fp32 master weights from the seed) through
+    ``make_moe_train`` on a (dp=1, ep=1) mesh of the gang of one, B=4,
+    S=4096 (the gang of one is its process group): step 1's loss
+    against the plain ``loss_fn`` without a mesh,
+    its kernel launches and collectives, a lower loss on the same batch
+    at step 2, the median of 5 timed steps (tok/s, MFU, peak memory) and
+    a trace. Returns the launch counts of one step."""
+    from k8s_dra_driver_gpu_tpu_torch.models import llama_moe
+    from k8s_dra_driver_gpu_tpu_torch.parallel.mesh import build_expert_mesh
+    from k8s_dra_driver_gpu_tpu_torch.train.train import tree_leaves
+
+    cfg = llama_moe.LlamaMoEConfig()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = llama_moe.init(cfg, gen, "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ + 1),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    with torch.no_grad():
+        plain = llama_moe.loss_fn(params, tokens, cfg).item()
+    mesh = build_expert_mesh(ep=1, dp=1)
+    init_fn, step_fn, layout, _ = llama_moe.make_moe_train(mesh, cfg)
+    state = init_fn(params)
+    del params
+    torch.cuda.empty_cache()
+    log(f"moe: LlamaMoEConfig() {n_params / 1e6:.1f}M params fp32 master, "
+        f"{str(cfg.dtype)[6:]} compute, {cfg.n_experts} experts top-"
+        f"{cfg.top_k}, head_dim {cfg.head_dim}, B={MOE_BATCH} S={MOE_SEQ}, "
+        f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+
+    # The main path, counted: one step.
+    batch = layout(tokens)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with counting_collectives() as calls:
+        state, loss = step_fn(state, batch)
+        losses = [loss.item()]
+    first_s = time.perf_counter() - t0
+    counts = read_launches()
+    want = {"forward_lse": 2 * cfg.n_layers, "forward_only": 0,
+            "dq": cfg.n_layers, "dkv": cfg.n_layers}
+    rel = abs(losses[0] - plain) / abs(plain)
+    log(f"moe: one step launched {counts} (want {want}; {first_s * 1e3:.1f}"
+        f" ms, first step), collectives {len(calls)}; loss {losses[0]:.6f}"
+        f" against the plain loss_fn's {plain:.6f}: rel {rel:.3g} (tol "
+        f"{SAME_PATH_LOSS_REL_TOL})")
+    if counts != want or calls or not rel <= SAME_PATH_LOSS_REL_TOL:
+        raise AssertionError("MoE step disagrees with the plain loss or "
+                             "its launches")
+    step_s = []
+    for _ in range(MOE_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, batch)
+        losses.append(loss.item())
+        step_s.append(time.perf_counter() - t0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log("moe: losses on one batch " + " ".join(f"{x:.4f}" for x in losses))
+    if not (all(map(math.isfinite, losses)) and losses[1] < losses[0]):
+        raise AssertionError(f"MoE loss did not fall: {losses}")
+    step = statistics.median(step_s)
+    tok_s = MOE_BATCH * MOE_SEQ / step
+    mfu = 6 * n_params * MOE_BATCH * MOE_SEQ / step / PEAK_FLOPS[
+        torch.bfloat16]
+    if not all(map(math.isfinite, (step, tok_s, mfu, peak_gib))):
+        raise AssertionError("non-finite MoE numbers")
+    log(f"moe: step median {step * 1e3:.1f} ms over {len(step_s)} steps "
+        f"(min {min(step_s) * 1e3:.1f}, max {max(step_s) * 1e3:.1f}), "
+        f"{tok_s:.0f} tok/s, MFU {mfu:.3f} (6*N*tokens at 989 TFLOP/s, N "
+        f"every expert's parameters, attention uncounted), peak "
+        f"{peak_gib:.1f} GiB")
+
+    def traced_step():
+        nonlocal state
+        state, loss = step_fn(state, batch)
+        loss.item()
+
+    log_kinds(profile(traced_step, "moe train step", top=10),
+              "moe train step")
+    del state, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_sp(seed: int, mesh) -> dict:
+    """Sequence-parallel training of the flagship (phase 5's parameters
+    and batch, B=4, S=4096) through ``make_sp_train`` on the gang's
+    (dp=1, sp=1) mesh, with Ulysses and with ring attention: step 1's
+    loss against the plain full-logit loss, its kernel launches (Ulysses
+    runs the flash kernels, the ring its fp32 einsum) and collectives
+    (none at size 1), then timed steps and peak memory. Returns the
+    launch counts of one step of each."""
+    import torch.nn.functional as F
+
+    from k8s_dra_driver_gpu_tpu_torch.models import llama
+    from k8s_dra_driver_gpu_tpu_torch.train.sp_train import make_sp_train
+
+    cfg = llama.LlamaConfig.flagship()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = llama.init(cfg, gen, "cuda", dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    with torch.no_grad():
+        logits = llama.forward(params, tokens[:, :-1], cfg)
+        plain = F.cross_entropy(logits.flatten(0, 1),
+                                tokens[:, 1:].long().flatten()).item()
+        del logits
+    result = {}
+    for attn, want, tol in (
+            ("ulysses", {"forward_lse": 2 * cfg.n_layers, "forward_only": 0,
+                         "dq": cfg.n_layers, "dkv": cfg.n_layers},
+             SAME_PATH_LOSS_REL_TOL),
+            ("ring", {"forward_lse": 0, "forward_only": 0, "dq": 0,
+                      "dkv": 0}, LOSS_REL_TOL)):
+        init_fn, step_fn, layout, _ = make_sp_train(mesh, cfg, attn)
+        state = init_fn(params)
+        batch = layout(tokens)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        with counting_collectives() as calls:
+            state, loss = step_fn(state, batch)
+            losses = [loss.item()]
+        first_s = time.perf_counter() - t0
+        counts = read_launches()
+        rel = abs(losses[0] - plain) / abs(plain)
+        log(f"sp {attn}: one step launched {counts} (want {want}; "
+            f"{first_s * 1e3:.1f} ms, first step), collectives {len(calls)}"
+            f"; loss {losses[0]:.6f} against the plain full-logit loss "
+            f"{plain:.6f}: rel {rel:.3g} (tol {tol})")
+        if counts != want or calls or not rel <= tol:
+            raise AssertionError(f"sequence-parallel {attn} step disagrees")
+        step_s = []
+        for _ in range(SP_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step_fn(state, batch)
+            losses.append(loss.item())
+            step_s.append(time.perf_counter() - t0)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"sp {attn} loss did not fall: {losses}")
+        step = statistics.median(step_s)
+        log(f"sp {attn}: losses {' '.join(f'{x:.4f}' for x in losses)}; step "
+            f"median {step * 1e3:.1f} ms over {len(step_s)} (min "
+            f"{min(step_s) * 1e3:.1f}, max {max(step_s) * 1e3:.1f}), "
+            f"{TRAIN_BATCH * TRAIN_SEQ / step:.0f} tok/s, peak "
+            f"{peak_gib:.1f} GiB")
+        result[attn] = counts
+        del state, batch
+        torch.cuda.empty_cache()
+    return result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1211,34 +1494,49 @@ def main(argv=None) -> int:
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     forward = phase_kernels(gen)
-    with_lse, dq, dkv = phase_training_kernels(gen)
+    with_lse, dq, dkv, hd64_records = phase_training_kernels(gen)
     fp32_records = phase_fp32_kernels(gen)
     serving = phase_serving(args.seed)
     serving_launches = serving["launches"]
     torch.cuda.empty_cache()
     training, train_numbers = phase_training(args.seed)
-    gang = phase_gang(args.seed, serving, train_numbers)
-    del serving
-    torch.cuda.empty_cache()
+    with gang_of_one() as mesh:
+        gang = phase_gang(args.seed, mesh, serving, train_numbers)
+        del serving
+        torch.cuda.empty_cache()
+        moe = phase_moe(args.seed)
+        sp = phase_sp(args.seed, mesh)
     forward["launches_by_path"] = {
         "serving_generate": serving_launches,
         "training_step": training["forward_lse"],
         "sharded_generate": gang["generate"],
-        "sharded_training_step": gang["train"]["forward_lse"]}
+        "sharded_training_step": gang["train"]["forward_lse"],
+        "moe_training_step": moe["forward_lse"],
+        "sp_ulysses_training_step": sp["ulysses"]["forward_lse"],
+        "sp_ring_training_step": sp["ring"]["forward_lse"]}
     forward["launches"] = sum(forward["launches_by_path"].values())
     forward.update({f"with_lse_{key}": value
                     for key, value in with_lse.items()})
     for record, kernel in ((dq, "dq"), (dkv, "dkv")):
         record["launches_by_path"] = {
             "training_step": training[kernel],
-            "sharded_training_step": gang["train"][kernel]}
+            "sharded_training_step": gang["train"][kernel],
+            "moe_training_step": moe[kernel],
+            "sp_ulysses_training_step": sp["ulysses"][kernel],
+            "sp_ring_training_step": sp["ring"][kernel]}
         record["launches"] = sum(record["launches_by_path"].values())
+    # The hd-64 instantiations: the MoE step's launches.
+    for record, kernel in zip(hd64_records, ("forward_lse", "dq", "dkv")):
+        record["launches_by_path"] = {"moe_training_step": moe[kernel]}
+        record["launches"] = moe[kernel]
     log(f"kernels: flash_attention launches={forward['launches']} "
         f"{forward['launches_by_path']}, dq {dq['launches_by_path']}, dk/dv "
-        f"{dkv['launches_by_path']}, fp32 "
+        f"{dkv['launches_by_path']}, hd 64 "
+        f"{[r['launches'] for r in hd64_records]}, fp32 "
         f"{[r['launches'] for r in fp32_records]} (total "
         f"{time.perf_counter() - t_start:.1f} s)")
-    print(json.dumps({"kernels": [forward, dq, dkv, *fp32_records]}))
+    print(json.dumps({"kernels": [forward, dq, dkv, *fp32_records,
+                                  *hd64_records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

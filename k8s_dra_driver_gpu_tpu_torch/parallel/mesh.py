@@ -156,6 +156,22 @@ def build_pipeline_mesh(pp: int, dp: int | None = None,
     return _mesh(ranks, (pp, dp), (PIPELINE_AXIS, DATA_AXIS))
 
 
+def build_expert_mesh(ep: int, dp: int | None = None,
+                      ranks: Sequence[int] | None = None) -> DeviceMesh:
+    """A ("dp", "ep") mesh for expert-parallel training, ep innermost: the
+    per-layer all-reduce of the expert mixture stays among adjacent
+    ranks, and each dp row is one whole set of experts."""
+    ranks = _ranks(ranks)
+    if dp is None:
+        if len(ranks) % ep:
+            raise ValueError(f"{len(ranks)} devices not divisible by ep={ep}")
+        dp = len(ranks) // ep
+    if dp * ep != len(ranks):
+        raise ValueError(
+            f"dp={dp} x ep={ep} needs {dp * ep} devices, have {len(ranks)}")
+    return _mesh(ranks, (dp, ep), (DATA_AXIS, EXPERT_AXIS))
+
+
 def mesh_from_topology(topology: str, tp: int | None = None) -> DeviceMesh:
     """A mesh for a topology string ("2x2x4") over the first ranks."""
     n = math.prod(int(d) for d in topology.split("x"))

@@ -5,9 +5,10 @@ driver injects.
         --seq-len 4096 --batch-size 4 [--steps 10] [--tp N] \\
         [--steps-per-call K] [--device cuda] [--local-devices N]
 
-The port of ``k8s_dra_driver_gpu_tpu/train/main.py::run``, dense path. It
-is started once per node, as the reference's process is: a pod whose
-claim carries a ComputeDomain channel gets
+The port of ``k8s_dra_driver_gpu_tpu/train/main.py::run``: the dense
+families and ``--model moe-tiny``. It is started once per node, as the
+reference's process is: a pod whose claim carries a ComputeDomain
+channel gets
 
   TPU_COORDINATOR_ADDRESS / TPU_PROCESS_ID / TPU_NUM_PROCESSES
       -> one process per node (the plugin counts nodes); absent = a gang
@@ -23,11 +24,17 @@ TCP at the coordinator (NCCL; gloo with ``--device cpu``), whose store
 global rank 0 hosts. A worker that fails makes the launcher stop its
 other workers and exit non-zero.
 
-Every run, a gang of one included, builds a (dp, fsdp, sp, tp) mesh over
-the gang (``parallel.mesh.plan_for``, ``--tp`` honoured) and trains
-through ``train.make_sharded_train`` (``make_scanned_sharded_train`` with
-``--steps-per-call`` > 1): fp32 master weights from a seeded init, the
-model's compute dtype, and JAX's synthetic next-token batches: each node
+Every run of a dense family, a gang of one included, builds a (dp,
+fsdp, sp, tp) mesh over the gang (``parallel.mesh.plan_for``, ``--tp``
+honoured) and trains through ``train.make_sharded_train``
+(``make_scanned_sharded_train`` with ``--steps-per-call`` > 1).
+``--model moe-tiny`` trains the tiny MoE-Llama through
+``models.llama_moe.make_moe_train`` on a (dp, ep) mesh sized as the
+reference sizes it (``moe_mesh_shape``); ``--tp``, ``--steps-per-call``
+> 1 and ``--mu-dtype`` are refused with it, and so is a ``--batch-size``
+that dp does not divide. Every family trains from fp32 master weights
+from a seeded init, in the model's compute dtype, on JAX's synthetic
+next-token batches: each node
 draws its ``--batch-size`` rows from ``np.random.RandomState(step * 65521
 + process_id)`` and local rank l takes rows [l b / L, (l + 1) b / L), the
 order in which ``make_array_from_process_local_data`` lays a process's
@@ -165,10 +172,20 @@ def synthetic_batch(step: int, batch_size: int, seq_len: int,
                        (batch_size, seq_len + 1)).astype(np.int32)
 
 
+def moe_mesh_shape(world: int, n_experts: int) -> tuple[int, int]:
+    """(dp, ep) of the MoE trainer over ``world`` ranks, as the reference
+    sizes it: ep takes as many ranks as divide both the rank count and
+    the expert count, dp the rest."""
+    ep = min(world, n_experts)
+    while ep > 1 and (world % ep or n_experts % ep):
+        ep -= 1
+    return world // ep, ep
+
+
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="torch-train")
-    p.add_argument("--model", choices=["tiny", "flagship", "llama3-8b"],
-                   default="tiny")
+    p.add_argument("--model", choices=["tiny", "flagship", "llama3-8b",
+                                       "moe-tiny"], default="tiny")
     p.add_argument("--mu-dtype", choices=["f32", "bf16"], default=None,
                    help="Adam first-moment dtype; bf16 frees 2 bytes a "
                         "parameter (the flagship default)")
@@ -204,6 +221,16 @@ def run(argv: list[str] | None = None) -> int:
         p.error("--steps-per-call must be >= 1")
     if args.local_devices is not None and args.local_devices < 1:
         p.error("--local-devices must be >= 1")
+    if args.model == "moe-tiny":
+        if args.mu_dtype:
+            p.error("--mu-dtype applies to the dense families only "
+                    "(the MoE trainer builds its own optimizer)")
+        if args.tp and args.tp != 1:
+            p.error("--tp applies to the dense families only; "
+                    "--model moe-tiny uses a (dp, ep) mesh")
+        if args.steps_per_call > 1:
+            p.error("--steps-per-call applies to the dense families "
+                    "only (the MoE trainer is manual-SPMD)")
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
@@ -221,7 +248,15 @@ def run(argv: list[str] | None = None) -> int:
     if args.batch_size % local_ranks:
         p.error(f"--batch-size {args.batch_size} rows a node do not split "
                 f"over its {local_ranks} local ranks")
-    validate_gang_env()  # a broken contract fails here, before any worker
+    gang = validate_gang_env()  # a broken contract fails here, first
+    if args.model == "moe-tiny":
+        from ..models.llama_moe import LlamaMoEConfig
+
+        world = (gang["num_processes"] if gang else 1) * local_ranks
+        dp, ep = moe_mesh_shape(world, LlamaMoEConfig.tiny().n_experts)
+        if args.batch_size % dp:
+            p.error(f"--batch-size {args.batch_size} must be divisible "
+                    f"by dp={dp} ({world} devices / ep={ep})")
     if local_ranks > 1 and LOCAL_RANK_VAR not in os.environ:
         return _run_local_ranks(argv, local_ranks)
     local_rank = int(os.environ.get(LOCAL_RANK_VAR, "0"))
@@ -281,8 +316,8 @@ def _train(args, device: torch.device, local_rank: int,
            local_ranks: int) -> int:
     import torch.distributed as dist
 
-    from ..models import llama
-    from ..parallel.mesh import build_mesh, plan_for
+    from ..models import llama, llama_moe
+    from ..parallel.mesh import build_expert_mesh, build_mesh, plan_for
     from .train import (make_optimizer, make_scanned_sharded_train,
                         make_sharded_train)
 
@@ -291,20 +326,30 @@ def _train(args, device: torch.device, local_rank: int,
     rows = args.batch_size // local_ranks
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
-    mesh = build_mesh(plan_for(world, tp=args.tp))
-    cfg = {"tiny": llama.LlamaConfig.tiny,
-           "flagship": llama.LlamaConfig.flagship,
-           "llama3-8b": llama.LlamaConfig.llama3_8b}[args.model]()
-    mu = args.mu_dtype or ("bf16" if args.model == "flagship" else "f32")
-    optimizer = make_optimizer(
-        mu_dtype=torch.bfloat16 if mu == "bf16" else None)
-    init_fn, step_fn, layout, _ = make_sharded_train(mesh, cfg, optimizer)
-    scan_fn = scan_layout = None
-    if args.steps_per_call > 1:
-        _, scan_fn, scan_layout, _ = make_scanned_sharded_train(
-            mesh, cfg, optimizer)
     gen = torch.Generator(device=device).manual_seed(0)
-    state = init_fn(llama.init(cfg, gen, device, dtype=torch.float32))
+    scan_fn = scan_layout = None
+    if args.model == "moe-tiny":
+        cfg = llama_moe.LlamaMoEConfig.tiny()
+        dp, ep = moe_mesh_shape(world, cfg.n_experts)
+        mesh = build_expert_mesh(ep, dp)
+        mu = "f32"
+        init_fn, step_fn, layout, _ = llama_moe.make_moe_train(mesh, cfg)
+        state = init_fn(llama_moe.init(cfg, gen, device))
+    else:
+        mesh = build_mesh(plan_for(world, tp=args.tp))
+        cfg = {"tiny": llama.LlamaConfig.tiny,
+               "flagship": llama.LlamaConfig.flagship,
+               "llama3-8b": llama.LlamaConfig.llama3_8b}[args.model]()
+        mu = args.mu_dtype or ("bf16" if args.model == "flagship"
+                               else "f32")
+        optimizer = make_optimizer(
+            mu_dtype=torch.bfloat16 if mu == "bf16" else None)
+        init_fn, step_fn, layout, _ = make_sharded_train(mesh, cfg,
+                                                         optimizer)
+        if args.steps_per_call > 1:
+            _, scan_fn, scan_layout, _ = make_scanned_sharded_train(
+                mesh, cfg, optimizer)
+        state = init_fn(llama.init(cfg, gen, device, dtype=torch.float32))
     logger.info("device %s, mesh %s, model %s, mu %s, batch %d x %d per "
                 "node over %d local rank(s), %d rank(s)", device,
                 dict(zip(mesh.mesh_dim_names, mesh.shape)), args.model, mu,

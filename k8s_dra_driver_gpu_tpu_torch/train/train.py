@@ -37,6 +37,7 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from ..models import llama
+from ..ops.collectives import MeshAxis
 from ..ops.xent import chunked_cross_entropy
 from ..parallel.mesh import (DATA_AXIS, FSDP_AXIS, axis_size, compute_mesh,
                              distribute_tree, placements)
@@ -222,6 +223,31 @@ def _batch_layout(mesh, batch_axes: tuple[str, ...], batch_dim: int):
                 f"{' * '.join(batch_axes)} = {shards}")
         return distribute_tensor(rows, mesh, batch_placements,
                                  src_data_rank=None)
+
+    return layout
+
+
+def dp_shard_layout(mesh, dp: MeshAxis):
+    """The batch layout of the manual-SPMD trainers: each process's local
+    rows -> this rank's plain rows of the global batch, which is the rows
+    of every rank of the default group concatenated in rank order (as
+    ``_batch_layout`` lays it; nothing is gathered in a gang of one),
+    split over the ``dp`` axis and replicated over the others."""
+    device = torch.device(mesh.device_type, torch.cuda.current_device()
+                          if mesh.device_type == "cuda" else None)
+
+    def layout(local) -> torch.Tensor:
+        local = torch.as_tensor(local).to(device).contiguous()
+        rows = local
+        if dist.get_world_size() > 1:
+            gathered = [torch.empty_like(local)
+                        for _ in range(dist.get_world_size())]
+            dist.all_gather(gathered, local)
+            rows = torch.cat(gathered)
+        if rows.shape[0] % dp.size:
+            raise ValueError(f"global batch {rows.shape[0]} not divisible "
+                             f"by {dp.name}={dp.size}")
+        return rows.chunk(dp.size)[dp.index].contiguous()
 
     return layout
 

@@ -4,8 +4,10 @@ as a 2-process gloo gang (``--tp 2``, with and without
 ``--steps-per-call 2``) against the port's single-process ``train_step``
 on the concatenated shard batches; 2 nodes of 2 local ranks each
 (``--local-devices 2``) against that gang; one node of 2 local ranks
-with ``--tp 2`` against ``train_step`` on the node's batch; plus the env
-and parser failures."""
+with ``--tp 2`` against ``train_step`` on the node's batch; ``--model
+moe-tiny`` on 2 nodes of 2 local ranks against ``make_moe_train`` on the
+same sizing and batches (a 4-rank gang of ``tests/torch_gang.py``); plus
+the env and parser failures, and the MoE sizing and refusals."""
 
 import math
 import os
@@ -24,6 +26,7 @@ from k8s_dra_driver_gpu_tpu.train import main as jax_main
 from k8s_dra_driver_gpu_tpu_torch.models import llama as pt_llama
 from k8s_dra_driver_gpu_tpu_torch.train import main as pt_main
 from k8s_dra_driver_gpu_tpu_torch.train import train as pt_train
+from tests import torch_gang
 
 REPO = str(Path(__file__).resolve().parents[1])
 STEPS, BATCH, SEQ, WORLD = 3, 2, 16, 2
@@ -84,15 +87,22 @@ def _args(*extra):
             *extra]
 
 
-def _launch(*extra):
-    """Starts one 2-node gang of the launcher (one process a node);
-    returns its processes, node 0's first."""
+def _moe_args(*extra):
+    return [sys.executable, "-m", "k8s_dra_driver_gpu_tpu_torch.train.main",
+            "--device", "cpu", "--model", "moe-tiny", "--steps", str(STEPS),
+            "--batch-size", str(BATCH), "--seq-len", str(SEQ), *extra]
+
+
+def _launch(*extra, argv=None):
+    """Starts one 2-node gang of the launcher (one process a node), with
+    ``argv`` or the dense ``_args(*extra)``; returns its processes, node
+    0's first."""
     port = _free_port()
     return [subprocess.Popen(
-        _args(*extra), env=_env(TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
-                                TPU_PROCESS_ID=str(rank),
-                                TPU_NUM_PROCESSES=str(WORLD),
-                                TPU_INIT_TIMEOUT_S="60"),
+        argv or _args(*extra),
+        env=_env(TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                 TPU_PROCESS_ID=str(rank), TPU_NUM_PROCESSES=str(WORLD),
+                 TPU_INIT_TIMEOUT_S="60"),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for rank in range(WORLD)]
 
@@ -101,9 +111,11 @@ def _launch(*extra):
 def gangs():
     """Every gang at once; returns {gang: [node logs]}: 1 and 2 (steps
     per call) are 2 nodes of one rank, "2x2" 2 nodes of 2 local ranks,
-    "1x2" one node (no gang env) of 2 local ranks."""
+    "1x2" one node (no gang env) of 2 local ranks, "moe" ``--model
+    moe-tiny`` on 2 nodes of 2 local ranks."""
     running = {k: _launch("--steps-per-call", str(k)) for k in (1, 2)}
     running["2x2"] = _launch("--local-devices", "2")
+    running["moe"] = _launch(argv=_moe_args("--local-devices", "2"))
     running["1x2"] = [subprocess.Popen(
         _args("--local-devices", "2"), env=_env(), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)]
@@ -237,3 +249,65 @@ def test_partial_env_fails_fast():
     assert proc.returncode != 0
     assert "GangEnvError" in proc.stderr
     assert "TPU_PROCESS_ID, TPU_NUM_PROCESSES missing" in proc.stderr
+
+
+@pytest.fixture(scope="module")
+def moe_reference(tmp_path_factory):
+    """``make_moe_train``'s losses on the launcher's sizing, init and
+    batches for 2 nodes of 2 local ranks, from a 4-rank gang of the
+    ``moe_launcher`` worker."""
+    out = tmp_path_factory.mktemp("moe_launcher")
+    np.savez(out / "launch.npz", steps=STEPS, batch=BATCH, seq=SEQ,
+             local_ranks=2)
+    torch_gang.run_gang("moe_launcher", 4, out)
+    return torch.load(out / "rank0.pt", weights_only=False)
+
+
+def test_moe_tiny_logs_the_losses_of_make_moe_train(gangs, moe_reference):
+    # World 4 and 4 experts: ep = 4, dp = 1.
+    logs = gangs["moe"]
+    assert moe_reference["mesh"] == (1, 4)
+    assert "mesh {'dp': 1, 'ep': 4}, model moe-tiny, mu f32" in logs[0], \
+        logs[0]
+    assert "local rank 1/2, rank 3/4" in logs[1], logs[1]
+    assert not _steps(logs[1]), logs[1]
+    lines = _steps(logs[0])
+    assert lines[-1][0] == str(STEPS), logs[0]
+    loss = float(lines[-1][1])
+    assert math.isfinite(loss)
+    # The log prints 4 decimals of the same computation.
+    assert abs(loss - moe_reference["losses"][-1]) <= 5e-5, (
+        loss, moe_reference["losses"])
+
+
+@pytest.mark.parametrize("world,experts,want", [
+    (1, 4, (1, 1)), (2, 4, (1, 2)), (3, 4, (3, 1)), (4, 4, (1, 4)),
+    (6, 4, (3, 2)), (8, 4, (2, 4)), (12, 4, (3, 4)), (16, 8, (2, 8)),
+    (6, 8, (3, 2)), (5, 8, (5, 1))])
+def test_moe_mesh_shape_sizes_as_the_reference(world, experts, want):
+    # ep: the most ranks, up to the expert count, that divide both.
+    assert pt_main.moe_mesh_shape(world, experts) == want
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--tp", "2"], "--tp applies to the dense families only"),
+    (["--steps-per-call", "2"], "--steps-per-call applies to the dense "
+     "families only"),
+    (["--mu-dtype", "bf16"], "--mu-dtype applies to the dense families "
+     "only"),
+    (["--batch-size", "2"], "--batch-size 2 must be divisible by dp=3 "
+     "(3 devices / ep=1)"),
+])
+def test_moe_tiny_refusals_are_parser_errors(extra, message, monkeypatch,
+                                             capsys):
+    for var in GANG_VARS:
+        monkeypatch.delenv(var, raising=False)
+    # Three nodes of one rank: 3 ranks over 4 experts give ep=1, dp=3.
+    monkeypatch.setenv("TPU_COORDINATOR_ADDRESS", f"127.0.0.1:{_free_port()}")
+    monkeypatch.setenv("TPU_PROCESS_ID", "0")
+    monkeypatch.setenv("TPU_NUM_PROCESSES", "3")
+    with pytest.raises(SystemExit) as exit_info:
+        pt_main.run(["--device", "cpu", "--model", "moe-tiny", "--batch-size",
+                     "3", *extra])
+    assert exit_info.value.code == 2
+    assert message in capsys.readouterr().err

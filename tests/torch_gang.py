@@ -359,8 +359,151 @@ def meshes(rank: int, world: int, out: Path) -> None:
     torch.save(results, out / f"rank{rank}.pt")
 
 
+def _moe_tiny():
+    import torch
+
+    from k8s_dra_driver_gpu_tpu_torch.models import llama_moe
+
+    return dataclasses.replace(llama_moe.LlamaMoEConfig.tiny(),
+                               dtype=torch.float32)
+
+
+def moe_train(rank: int, world: int, out: Path) -> None:
+    """2 steps of ``make_moe_train`` on each of the meshes (dp=2, ep=2) and
+    (dp=1, ep=4) on the tokens of ``tokens.npz`` (each rank hands in its
+    rows of the global batch); then ``make_sharded_moe`` at ep=4 on layer
+    0's weights and the activations of ``moe_x.npz``."""
+    import numpy as np
+    import torch
+
+    from k8s_dra_driver_gpu_tpu_torch.models import llama_moe, moe
+    from k8s_dra_driver_gpu_tpu_torch.parallel import mesh as pmesh
+
+    cfg = _moe_tiny()
+    tokens = np.load(out / "tokens.npz")["tokens"]  # [steps, B, S + 1]
+    local = tokens.shape[1] // world
+    results = {}
+    for label, (dp, ep) in (("dp2_ep2", (2, 2)), ("dp1_ep4", (1, 4))):
+        mesh = pmesh.build_expert_mesh(ep, dp)
+        init_fn, step_fn, layout, _ = llama_moe.make_moe_train(mesh, cfg)
+        state = init_fn(_load_params(out))
+        losses = []
+        for step in range(tokens.shape[0]):
+            batch = layout(tokens[step, rank * local:(rank + 1) * local])
+            results[f"{label}/local_batch"] = batch
+            state, loss = step_fn(state, batch)
+            losses.append(loss.item())
+        results[f"{label}/losses"] = losses
+        results[f"{label}/step"] = state.step
+        results[f"{label}/coords"] = (mesh.get_local_rank("dp"),
+                                      mesh.get_local_rank("ep"))
+        for name, leaf in _flat(state.params).items():
+            results[f"{label}/param/{name}"] = leaf.detach()
+        for moment in ("mu", "nu"):
+            for name, leaf in _flat(state.opt_state[moment]).items():
+                results[f"{label}/{moment}/{name}"] = tuple(leaf.shape)
+    mesh = pmesh.build_expert_mesh(4, 1)
+    fn, place = moe.make_sharded_moe(mesh, "ep", top_k=cfg.top_k,
+                                     dtype=torch.float32)
+    layers = _load_params(out)["layers"]
+    placed = place({name: layers[name][0]
+                    for name in ("router", "w_in", "w_out")})
+    results["sharded_moe/local_experts"] = placed["w_in"].shape[0]
+    x = torch.from_numpy(np.load(out / "moe_x.npz")["x"])
+    results["sharded_moe/out"], results["sharded_moe/aux"] = fn(placed, x)
+    torch.save(results, out / f"rank{rank}.pt")
+
+
+def moe_launcher(rank: int, world: int, out: Path) -> None:
+    """The launcher's ``--model moe-tiny`` run over 2 nodes of 2 local
+    ranks, here without the launcher: ``make_moe_train`` on its (dp, ep)
+    mesh, its seeded init and each rank's rows of its synthetic batches
+    (shape in ``launch.npz``); the losses of every step."""
+    import numpy as np
+    import torch
+
+    from k8s_dra_driver_gpu_tpu_torch.models import llama_moe
+    from k8s_dra_driver_gpu_tpu_torch.parallel import mesh as pmesh
+    from k8s_dra_driver_gpu_tpu_torch.train import main
+
+    with np.load(out / "launch.npz") as f:
+        steps, batch, seq, local_ranks = (int(f[k]) for k in (
+            "steps", "batch", "seq", "local_ranks"))
+    cfg = llama_moe.LlamaMoEConfig.tiny()
+    dp, ep = main.moe_mesh_shape(world, cfg.n_experts)
+    mesh = pmesh.build_expert_mesh(ep, dp)
+    init_fn, step_fn, layout, _ = llama_moe.make_moe_train(mesh, cfg)
+    state = init_fn(llama_moe.init(cfg, torch.Generator().manual_seed(0),
+                                   "cpu"))
+    node, local = divmod(rank, local_ranks)
+    rows = batch // local_ranks
+    losses = []
+    for step in range(steps):
+        mine = main.synthetic_batch(step, batch, seq, cfg.vocab_size, node)
+        state, loss = step_fn(state, layout(
+            mine[local * rows:(local + 1) * rows]))
+        losses.append(loss.item())
+    torch.save({"losses": losses, "mesh": (dp, ep)}, out / f"rank{rank}.pt")
+
+
+def sp_train(rank: int, world: int, out: Path) -> None:
+    """2 steps of ``make_sp_train`` with ring attention on (dp=1, sp=4) and
+    (dp=2, sp=2) and with Ulysses on (dp=2, sp=2), on the tokens of
+    ``tokens.npz``; ring attention at sp=4 on the q, k, v and cotangent
+    of ``ring.npz``, its output and gradients; Ulysses' refusal of sp=4
+    over 2 kv heads; and ``make_sp_train``'s of an unknown attention."""
+    import numpy as np
+    import torch
+
+    from k8s_dra_driver_gpu_tpu_torch.parallel import mesh as pmesh
+    from k8s_dra_driver_gpu_tpu_torch.parallel import ring_attention, ulysses
+    from k8s_dra_driver_gpu_tpu_torch.train import sp_train as pt_sp
+
+    cfg = _tiny()
+    tokens = np.load(out / "tokens.npz")["tokens"]  # [steps, B, S + 1]
+    local = tokens.shape[1] // world
+    results = {}
+    for label, attn, dp, sp in (("ring_dp1_sp4", "ring", 1, 4),
+                                ("ring_dp2_sp2", "ring", 2, 2),
+                                ("ulysses_dp2_sp2", "ulysses", 2, 2)):
+        mesh = pmesh.build_mesh(pmesh.MeshPlan(dp=dp, sp=sp))
+        init_fn, step_fn, layout, _ = pt_sp.make_sp_train(mesh, cfg, attn)
+        state = init_fn(_load_params(out))
+        losses = []
+        for step in range(tokens.shape[0]):
+            state, loss = step_fn(state, layout(
+                tokens[step, rank * local:(rank + 1) * local]))
+            losses.append(loss.item())
+        results[f"{label}/losses"] = losses
+        results[f"{label}/step"] = state.step
+        for name, leaf in _flat(state.params).items():
+            results[f"{label}/param/{name}"] = leaf.detach()
+    mesh = pmesh.build_mesh(pmesh.MeshPlan(sp=4))
+    fn, place = ring_attention.make_ring_attention(mesh)
+    with np.load(out / "ring.npz") as f:
+        q, k, v, cot = (torch.from_numpy(f[n]) for n in ("q", "k", "v",
+                                                         "cot"))
+    leaves = [place(t).requires_grad_() for t in (q, k, v)]
+    got = fn(*leaves)
+    (got * place(cot)).sum().backward()
+    results["ring/out"] = got.detach()
+    for name, leaf in zip(("dq", "dk", "dv"), leaves):
+        results[f"ring/{name}"] = leaf.grad
+    fn, place = ulysses.make_ulysses_attention(mesh)
+    try:
+        fn(*(place(t) for t in (q, k, v)))
+    except ValueError as err:
+        results["ulysses/refusal"] = str(err)
+    try:
+        pt_sp.make_sp_train(mesh, cfg, attn="flash")
+    except ValueError as err:
+        results["unknown_attn"] = str(err)
+    torch.save(results, out / f"rank{rank}.pt")
+
+
 WORKERS = {"meshes": meshes, "sharded_train": sharded_train,
-           "sharded_generate": sharded_generate}
+           "sharded_generate": sharded_generate, "moe_train": moe_train,
+           "moe_launcher": moe_launcher, "sp_train": sp_train}
 
 
 def main(argv: list[str]) -> int:
