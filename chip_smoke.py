@@ -67,6 +67,20 @@ and prints no result line):
    with ring attention: step 1's loss against the plain full-logit
    loss, launch counts (Ulysses the three kernels, the ring none), no
    collective, 2 timed steps and peak memory.
+9. pp (on the same gang): the flagship (phase 5's parameters and its
+   B=4, S=4096 batch as M=4 microbatches of one row, bf16 Adam first
+   moment) through ``make_pp_train`` on the (pp=1, dp=1) mesh: steps 1
+   and 2's losses against ``train_step``'s (phase 5), the launches of one
+   step (M times the plain step's) and its collectives (none), the median
+   of 3 timed steps (tok/s, MFU, peak memory) and a trace by kind.
+10. launcher (after the gang is left): ``train.verify --require-gang`` as
+   a gang of one from a ComputeDomain env (its JSON line); then
+   ``train.main --model flagship --batch-size 4 --seq-len 1024`` on a
+   token file written from the seed: (a) 2 steps saving a checkpoint at
+   step 2 and tracing, (b) 3 steps resumed from it, (c) 3 steps
+   uninterrupted. (b)'s step-3 loss against (c)'s, the checkpoint's bytes
+   and save and restore seconds, and a trace that names the flash
+   kernels. The checkpoint and the trace are deleted after.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record (with the hd-64 instantiations'
@@ -969,8 +983,8 @@ def phase_serving(seed: int) -> dict:
 
 def phase_training(seed: int) -> tuple[dict, dict]:
     """Flagship training at full width and depth; returns the kernel
-    launch counts of one ``train_step`` and its step median ms, MFU and
-    peak GiB."""
+    launch counts of one ``train_step`` and its step median ms, MFU, peak
+    GiB and the losses of its steps on one batch."""
     from k8s_dra_driver_gpu_tpu_torch.models import llama
     from k8s_dra_driver_gpu_tpu_torch.ops import resolve_device
     from k8s_dra_driver_gpu_tpu_torch.ops.flash_attention import (
@@ -1070,7 +1084,8 @@ def phase_training(seed: int) -> tuple[dict, dict]:
     log_kinds(profile(traced_step, "train step", top=12), "train step")
     del state
     torch.cuda.empty_cache()
-    return counts, {"step_ms": step * 1e3, "mfu": mfu, "peak_gib": peak_gib}
+    return counts, {"step_ms": step * 1e3, "mfu": mfu, "peak_gib": peak_gib,
+                    "losses": losses}
 
 
 GANG_STEPS = 3          # sharded steps held against train_step
@@ -1482,6 +1497,220 @@ def phase_sp(seed: int, mesh) -> dict:
     return result
 
 
+PP_MICROBATCHES, PP_TIMED_STEPS = 4, 3
+# Step 1 of the pipeline step against train_step's step 1 on the same 4
+# rows (phase 5): the full-logit and the chunked loss are the same mean of
+# the same bf16 logits, and the kernels treat each row alone, so what may
+# differ is cuBLAS's tiling of [4096, ...] against [16384, ...] rows.
+PP_STEP1_REL_TOL = 1e-3
+# Step 2 follows one AdamW update from the two steps' gradients. Adam's
+# first step moves a weight by lr g / (|g| + eps), about +-lr, so a weight
+# whose gradient is within rounding of zero can move 2 lr the other way;
+# the loss is held as the sharded step's steps 2-3 are (LOSS_REL_TOL).
+PP_STEP2_REL_TOL = LOSS_REL_TOL
+
+
+def phase_pp(seed: int, training: dict) -> dict:
+    """Pipeline training of the flagship at full width and depth through
+    ``make_pp_train`` on the gang's (pp=1, dp=1) mesh: phase 5's
+    parameters and B=4, S=4096 batch as M=4 microbatches of one row, the
+    bf16 Adam first moment. Steps 1 and 2's losses against
+    ``train_step``'s, the launches of one step (M times the plain step's)
+    and its collectives (none), 3 timed steps (tok/s, MFU, peak memory)
+    and a trace by kind. Returns the launch counts of one step."""
+    from k8s_dra_driver_gpu_tpu_torch.models import llama
+    from k8s_dra_driver_gpu_tpu_torch.parallel.mesh import build_pipeline_mesh
+    from k8s_dra_driver_gpu_tpu_torch.train.pp_train import make_pp_train
+    from k8s_dra_driver_gpu_tpu_torch.train.train import (make_optimizer,
+                                                          tree_leaves)
+
+    cfg = llama.LlamaConfig.flagship()
+    M = PP_MICROBATCHES
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = llama.init(cfg, gen, "cuda", dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    mesh = build_pipeline_mesh(1, 1)
+    init_fn, step_fn, layout, _ = make_pp_train(
+        mesh, cfg, M, make_optimizer(mu_dtype=torch.bfloat16))
+    state = init_fn(params)
+    del params
+    batch = layout(tokens.reshape(M, TRAIN_BATCH // M, TRAIN_SEQ + 1))
+    torch.cuda.empty_cache()
+    log(f"pp: flagship {n_params / 1e6:.1f}M params through make_pp_train "
+        f"on mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}, M={M} "
+        f"microbatches of {list(batch.shape[1:])} tokens, remat={cfg.remat},"
+        f" full-logit loss, bf16 Adam first moment")
+
+    # The main path, counted: one step.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with counting_collectives() as calls:
+        state, loss = step_fn(state, batch)
+        losses = [loss.item()]
+    first_s = time.perf_counter() - t0
+    counts = read_launches()
+    want = {"forward_lse": 2 * cfg.n_layers * M, "forward_only": 0,
+            "dq": cfg.n_layers * M, "dkv": cfg.n_layers * M}
+    state, loss = step_fn(state, batch)
+    losses.append(loss.item())
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, training["losses"])]
+    log(f"pp: one step launched {counts} (want {want}; {first_s * 1e3:.1f} "
+        f"ms, first step), collectives {len(calls)}; losses "
+        f"{' '.join(f'{x:.6f}' for x in losses)} against train_step's "
+        f"{' '.join(f'{x:.6f}' for x in training['losses'][:2])}: rel "
+        f"{' '.join(f'{x:.3g}' for x in rel)} (tol step 1 "
+        f"{PP_STEP1_REL_TOL}, step 2 {PP_STEP2_REL_TOL})")
+    if counts != want or calls or not (rel[0] <= PP_STEP1_REL_TOL
+                                       and rel[1] <= PP_STEP2_REL_TOL):
+        raise AssertionError("pipeline step disagrees with train_step or "
+                             "its launches")
+    step_s = []
+    for _ in range(PP_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, batch)
+        losses.append(loss.item())
+        step_s.append(time.perf_counter() - t0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"pp loss did not fall: {losses}")
+    step = statistics.median(step_s)
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    mfu = 6 * n_params * tokens_per_step / step / PEAK_FLOPS[torch.bfloat16]
+    log(f"pp: losses {' '.join(f'{x:.4f}' for x in losses)}; step median "
+        f"{step * 1e3:.1f} ms over {len(step_s)} (min {min(step_s) * 1e3:.1f}"
+        f", max {max(step_s) * 1e3:.1f}), {tokens_per_step / step:.0f} tok/s,"
+        f" MFU {mfu:.3f} (6*N*M*1*S at 989 TFLOP/s, attention uncounted), "
+        f"peak {peak_gib:.1f} GiB; plain train_step (phase 5) "
+        f"{training['step_ms']:.1f} ms, peak {training['peak_gib']:.1f} GiB")
+
+    def traced_step():
+        nonlocal state
+        state, loss = step_fn(state, batch)
+        loss.item()
+
+    log_kinds(profile(traced_step, "pp train step", top=10), "pp train step")
+    del state, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+LAUNCH_BATCH, LAUNCH_SEQ, LAUNCH_SEQUENCES = 4, 1024, 64
+# (b)'s step 3 after the resume against (c)'s uninterrupted step 3: the
+# same computation on the same state and batches, unless an op differs
+# from run to run.
+RESUME_REL_TOL = 1e-4
+
+
+def _launch(args: list, env: dict, label: str, timeout: float = 900
+            ) -> str:
+    """Run a module of the port as a subprocess; its log (stdout then
+    stderr); raises with its tail if it fails."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=root,
+                          env={**env, "PYTHONPATH": root}, capture_output=True,
+                          text=True, timeout=timeout, check=False)
+    out = proc.stdout + proc.stderr
+    if proc.returncode:
+        raise AssertionError(f"{label} exited with {proc.returncode}:\n"
+                             f"{out[-4000:]}")
+    return out
+
+
+def phase_launcher(seed: int) -> None:
+    """The port's entry points as a user starts them, each in its own
+    process: ``train.verify --require-gang`` as a gang of one, then
+    ``train.main`` on the flagship at S=1024 over a token file from the
+    seed: (a) 2 steps, a checkpoint at step 2 and a trace, (b) 3 steps
+    resumed from it, (c) 3 steps uninterrupted."""
+    import os
+    import re
+    import shutil
+
+    import numpy as np
+
+    from k8s_dra_driver_gpu_tpu_torch.data.loader import write_token_file
+    from k8s_dra_driver_gpu_tpu_torch.models import llama
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    # A git-ignored directory of the checkout: the token file, ~7.4 GB of
+    # checkpoint a step and the trace, all deleted at the end.
+    work = os.path.join(root, "k8s_dra_driver_gpu_tpu_torch", "build",
+                        "launcher_phase")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPU_", "CHECKPOINT_DIR", "PROFILE_DIR",
+                                "DATA_"))}
+    try:
+        out = _launch(["k8s_dra_driver_gpu_tpu_torch.train.verify",
+                       "--require-gang"],
+                      {**env, "TPU_COORDINATOR_ADDRESS":
+                       f"127.0.0.1:{free_port()}", "TPU_PROCESS_ID": "0",
+                       "TPU_NUM_PROCESSES": "1"}, "verify")
+        lines = [line for line in out.splitlines() if line.startswith("{")]
+        doc = json.loads(lines[0]) if len(lines) == 1 else {}
+        log(f"launcher: verify printed {len(lines)} JSON line(s): "
+            f"{json.dumps({k: v for k, v in doc.items() if k != 'env'})}")
+        if not (len(lines) == 1 and doc["devSum"] == 1.0
+                and doc["rankSum"] == 1.0 and doc["steps"] == 1
+                and math.isfinite(float(doc["loss"])) and doc["gang"] is True):
+            raise AssertionError(f"verify's proof failed: {lines}")
+
+        vocab = llama.LlamaConfig.flagship().vocab_size
+        data = os.path.join(work, "tokens.bin")
+        write_token_file(data, np.random.RandomState(seed).randint(
+            0, vocab, LAUNCH_SEQUENCES * LAUNCH_SEQ + 1))
+        ckpt, trace = os.path.join(work, "ckpt"), os.path.join(work, "trace")
+        common = ["k8s_dra_driver_gpu_tpu_torch.train.main", "--model",
+                  "flagship", "--batch-size", str(LAUNCH_BATCH), "--seq-len",
+                  str(LAUNCH_SEQ), "--data-file", data]
+        logs = {}
+        for label, extra in (
+                ("a", ["--steps", "2", "--checkpoint-dir", ckpt,
+                       "--checkpoint-every", "2", "--profile-dir", trace]),
+                ("b", ["--steps", "3", "--checkpoint-dir", ckpt]),
+                ("c", ["--steps", "3"])):
+            t0 = time.perf_counter()
+            logs[label] = _launch(common + extra, env, f"train.main ({label})")
+            log(f"launcher: ({label}) "
+                f"{' '.join(extra).replace(work + os.sep, '')}: "
+                f"{time.perf_counter() - t0:.1f} s of process; "
+                + "; ".join(line.split(" INFO ")[-1] for line in
+                            logs[label].splitlines()
+                            if re.search(r" INFO (step|checkpoint|resumed|"
+                                         r"profile)", line)))
+        step3 = {label: float(re.findall(r"step 3 loss (\S+) ",
+                                         logs[label])[-1])
+                 for label in ("b", "c")}
+        if "resumed from step 2" not in logs["b"]:
+            raise AssertionError("(b) did not resume from step 2")
+        rel = abs(step3["b"] - step3["c"]) / abs(step3["c"])
+        log(f"launcher: step 3 resumed {step3['b']!r} against uninterrupted "
+            f"{step3['c']!r}: bitwise equal {step3['b'] == step3['c']}, rel "
+            f"{rel:.3g} (tol {RESUME_REL_TOL}); disk free "
+            f"{shutil.disk_usage(work).free / 2**30:.0f} GiB")
+        if not (math.isfinite(step3["b"]) and rel <= RESUME_REL_TOL):
+            raise AssertionError("the resumed run left the uninterrupted one")
+        files = os.listdir(trace)
+        text = "".join(open(os.path.join(trace, name), encoding="utf-8").read()
+                       for name in files)
+        names = {kernel: text.count(kernel) for kernel in (
+            "flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")}
+        log(f"launcher: trace {files} ({len(text) / 2**20:.1f} MiB), kernel "
+            f"names in it {names}")
+        if not any(names.values()):
+            raise AssertionError("the trace names no flash kernel")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1506,6 +1735,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         moe = phase_moe(args.seed)
         sp = phase_sp(args.seed, mesh)
+        pp = phase_pp(args.seed, train_numbers)
+    torch.cuda.empty_cache()
+    phase_launcher(args.seed)
     forward["launches_by_path"] = {
         "serving_generate": serving_launches,
         "training_step": training["forward_lse"],
@@ -1513,7 +1745,8 @@ def main(argv=None) -> int:
         "sharded_training_step": gang["train"]["forward_lse"],
         "moe_training_step": moe["forward_lse"],
         "sp_ulysses_training_step": sp["ulysses"]["forward_lse"],
-        "sp_ring_training_step": sp["ring"]["forward_lse"]}
+        "sp_ring_training_step": sp["ring"]["forward_lse"],
+        "pp_training_step": pp["forward_lse"]}
     forward["launches"] = sum(forward["launches_by_path"].values())
     forward.update({f"with_lse_{key}": value
                     for key, value in with_lse.items()})
@@ -1523,7 +1756,8 @@ def main(argv=None) -> int:
             "sharded_training_step": gang["train"][kernel],
             "moe_training_step": moe[kernel],
             "sp_ulysses_training_step": sp["ulysses"][kernel],
-            "sp_ring_training_step": sp["ring"][kernel]}
+            "sp_ring_training_step": sp["ring"][kernel],
+            "pp_training_step": pp[kernel]}
         record["launches"] = sum(record["launches_by_path"].values())
     # The hd-64 instantiations: the MoE step's launches.
     for record, kernel in zip(hd64_records, ("forward_lse", "dq", "dkv")):

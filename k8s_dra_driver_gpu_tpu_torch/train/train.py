@@ -99,16 +99,22 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: list[torch.Tensor], opt_state: dict,
-               params: dict) -> dict:
+               params: dict, sq_norm: torch.Tensor | None = None) -> dict:
         """Apply one step in place to ``params`` and the moments of
         ``opt_state``; ``grads`` are in ``tree_leaves(params)`` order
-        and are overwritten. Returns the new optimizer state."""
+        and are overwritten. Returns the new optimizer state.
+
+        The clip norm is that of ``grads`` unless the caller hands in
+        ``sq_norm``, the squared norm of the whole model's gradient: a
+        trainer whose rank holds only part of the model (a pipeline
+        stage) sums it over the ranks that hold the rest."""
         leaves = tree_leaves(params)
         if len(grads) != len(leaves):
             raise ValueError(f"{len(grads)} gradients for {len(leaves)} "
                              "parameters")
-        norm = torch.stack([g.float().square().sum() for g in grads]).sum()
-        norm = norm.sqrt()
+        if sq_norm is None:
+            sq_norm = squared_norm(grads)
+        norm = sq_norm.sqrt()
         # Clip as optax does, g / norm * max_norm, and only when
         # norm >= max_norm; chosen on the device, with no host sync.
         keep = norm < MAX_NORM
@@ -131,6 +137,11 @@ class AdamW:
             mu.copy_(m)
         return {"count": count, "mu": opt_state["mu"],
                 "nu": opt_state["nu"]}
+
+
+def squared_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """The sum of the squares of every element of ``tensors``, in fp32."""
+    return torch.stack([t.float().square().sum() for t in tensors]).sum()
 
 
 def make_optimizer(lr: float = 3e-4,

@@ -55,21 +55,26 @@ def _tiny(**changes):
                                **changes)
 
 
-def _load_params(out: Path) -> dict:
-    """The reference's initial parameters, flattened with "/" keys."""
+def _load_tree(path: Path) -> dict:
+    """A nested dict of CPU tensors from an ``.npz`` of "/"-keyed arrays."""
     import numpy as np
 
     from k8s_dra_driver_gpu_tpu_torch.convert import params_from_jax
 
     tree: dict = {}
-    with np.load(out / "params.npz") as f:
+    with np.load(path) as f:
         for key in f.files:
             node = tree
-            *path, leaf = key.split("/")
-            for name in path:
+            *parents, leaf = key.split("/")
+            for name in parents:
                 node = node.setdefault(name, {})
             node[leaf] = f[key]
     return params_from_jax(tree)
+
+
+def _load_params(out: Path) -> dict:
+    """The reference's initial parameters, flattened with "/" keys."""
+    return _load_tree(out / "params.npz")
 
 
 def _collectives(mesh):
@@ -501,9 +506,248 @@ def sp_train(rank: int, world: int, out: Path) -> None:
     torch.save(results, out / f"rank{rank}.pt")
 
 
+def _recording_optimizer(norms: list):
+    """``make_optimizer()`` that appends to ``norms`` the clip norm each
+    update uses."""
+    from k8s_dra_driver_gpu_tpu_torch.train import train
+
+    class Recording(train.AdamW):
+        def update(self, grads, opt_state, params, sq_norm=None):
+            used = train.squared_norm(grads) if sq_norm is None else sq_norm
+            norms.append(used.sqrt().item())
+            return super().update(grads, opt_state, params, sq_norm)
+
+    return Recording()
+
+
+def pp_train(rank: int, world: int, out: Path) -> None:
+    """For each case of ``pp_cases.json`` ({label: [pp, dp, M, n_layers,
+    remat]}): ``make_pp_train`` on the (pp, dp) mesh from the parameters
+    of ``params_<label>.npz``, the layer rows it placed, and the losses
+    and local parameters after the steps of ``tokens_<label>.npz``
+    ([steps, M, B, S + 1], the global microbatches on every rank); then
+    the refusals."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from k8s_dra_driver_gpu_tpu_torch.parallel import mesh as pmesh
+    from k8s_dra_driver_gpu_tpu_torch.train import pp_train as pt_pp
+
+    cases = json.loads((out / "pp_cases.json").read_text())
+    results = {}
+    for label, (pp, dp, m, n_layers, remat) in cases.items():
+        cfg = _tiny(n_layers=n_layers, remat=remat)
+        mesh = pmesh.build_pipeline_mesh(pp, dp)
+        norms = results[f"{label}/clip_norms"] = []
+        init_fn, step_fn, layout, _ = pt_pp.make_pp_train(
+            mesh, cfg, m, _recording_optimizer(norms))
+        state = init_fn(_load_tree(out / f"params_{label}.npz"))
+        results[f"{label}/coords"] = (mesh.get_local_rank("pp"),
+                                      mesh.get_local_rank("dp"))
+        for name, leaf in _flat(state.params).items():
+            results[f"{label}/placed/{name}"] = leaf.detach().clone()
+        tokens = np.load(out / f"tokens_{label}.npz")["tokens"]
+        losses = []
+        for step in range(tokens.shape[0]):
+            batch = layout(tokens[step])
+            results[f"{label}/local_batch"] = batch
+            state, loss = step_fn(state, batch)
+            losses.append(loss.item())
+        results[f"{label}/losses"] = losses
+        results[f"{label}/step"] = state.step
+        results[f"{label}/count"] = state.opt_state["count"]
+        for name, leaf in _flat(state.params).items():
+            results[f"{label}/param/{name}"] = leaf.detach()
+        for moment in ("mu", "nu"):
+            for name, leaf in _flat(state.opt_state[moment]).items():
+                results[f"{label}/{moment}/{name}"] = tuple(leaf.shape)
+    mesh = pmesh.build_pipeline_mesh(4, 1)
+    for label, n_layers, m in (("layers", 2, 2), ("microbatches", 4, 0)):
+        try:
+            pt_pp.make_pp_train(mesh, _tiny(n_layers=n_layers), m)
+        except ValueError as err:
+            results[f"refusal/{label}"] = str(err)
+    _, step_fn, layout, _ = pt_pp.make_pp_train(mesh, _tiny(n_layers=4), 2)
+    for label, shape in (("three_microbatches", (3, 2, 9)),
+                         ("two_dims", (2, 9))):
+        try:
+            step_fn(None, torch.zeros(shape, dtype=torch.int64))
+        except ValueError as err:
+            results[f"refusal/{label}"] = str(err)
+    torch.save(results, out / f"rank{rank}.pt")
+
+
+def _local(leaf):
+    """A clone of the rank's own block of a state leaf."""
+    from torch.distributed.tensor import DTensor
+
+    leaf = leaf.detach()
+    return (leaf.to_local() if isinstance(leaf, DTensor) else leaf).clone()
+
+
+def _state_blocks(state) -> dict:
+    """Every tensor of a TrainState, the rank's own blocks, by "/" name."""
+    blocks = {f"params/{k}": _local(v) for k, v in _flat(state.params).items()}
+    for moment in ("mu", "nu"):
+        blocks.update({f"{moment}/{k}": _local(v) for k, v in _flat(
+            state.opt_state[moment]).items()})
+    return blocks
+
+
+def _differing(got: dict, want: dict) -> list:
+    """Names whose tensors differ in dtype or in any bit."""
+    import torch
+
+    return [name for name in want if got[name].dtype != want[name].dtype
+            or not torch.equal(got[name], want[name])]
+
+
+def checkpoint(rank: int, world: int, out: Path) -> None:
+    """For each family, 2 steps from seed 0, a save at step 2, step 3;
+    then a fresh init from seed 1 restored from the save, and its step 3:
+    the leaves that differ from the saved state and from the uninterrupted
+    step 3, the counters, and the global shapes in the saved metadata;
+    the MoE state saved without ``per_rank_axes`` and the pipeline state
+    saved without its specs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed.checkpoint as dcp
+
+    from k8s_dra_driver_gpu_tpu_torch.models import llama, llama_moe
+    from k8s_dra_driver_gpu_tpu_torch.parallel import mesh as pmesh
+    from k8s_dra_driver_gpu_tpu_torch.train import pp_train as pt_pp
+    from k8s_dra_driver_gpu_tpu_torch.train import train
+    from k8s_dra_driver_gpu_tpu_torch.train.checkpoint import (
+        TrainCheckpointer)
+
+    tokens = np.load(out / "tokens.npz")["tokens"]  # [3, M=2, B, S + 1]
+    local = tokens.shape[2] // world
+    bf16_mu = train.make_optimizer(mu_dtype=torch.bfloat16)
+    cfg, moe_cfg = _tiny(), _moe_tiny()
+
+    def sharded():
+        mesh = pmesh.build_mesh(pmesh.MeshPlan(fsdp=2, tp=2))
+        init_fn, step_fn, layout, _ = train.make_sharded_train(mesh, cfg,
+                                                               bf16_mu)
+        return (lambda seed: init_fn(llama.init(
+                    cfg, torch.Generator().manual_seed(seed), "cpu")),
+                step_fn, lambda step: layout(
+                    tokens[step, 0, rank * local:(rank + 1) * local]),
+                {})
+
+    def moe():
+        mesh = pmesh.build_expert_mesh(2, 2)
+        init_fn, step_fn, layout, _ = llama_moe.make_moe_train(mesh, moe_cfg)
+        return (lambda seed: init_fn(llama_moe.init(
+                    moe_cfg, torch.Generator().manual_seed(seed), "cpu")),
+                step_fn, lambda step: layout(
+                    tokens[step, 0, rank * local:(rank + 1) * local]),
+                dict(mesh=mesh, specs=llama_moe.param_specs(moe_cfg),
+                     per_rank_axes=("ep",)))
+
+    def pipeline():
+        pcfg = dataclasses.replace(cfg, n_layers=4)
+        mesh = pmesh.build_pipeline_mesh(2, 2)
+        init_fn, step_fn, layout, _ = pt_pp.make_pp_train(mesh, pcfg, 2,
+                                                          bf16_mu)
+        return (lambda seed: init_fn(llama.init(
+                    pcfg, torch.Generator().manual_seed(seed), "cpu")),
+                step_fn, lambda step: layout(tokens[step]),
+                dict(mesh=mesh, specs=pt_pp.pp_param_specs(pcfg)))
+
+    results = {}
+    for family, build in (("sharded", sharded), ("moe", moe),
+                          ("pp", pipeline)):
+        init, step_fn, batch, where = build()
+        ckpt = TrainCheckpointer(str(out / f"ckpt_{family}"), **where)
+        state = init(0)
+        for step in range(2):
+            state, _ = step_fn(state, batch(step))
+        results[f"{family}/saved"] = ckpt.save(state.step, state)
+        results[f"{family}/saved_again"] = ckpt.save(state.step, state)
+        saved = _state_blocks(state)
+        state, loss = step_fn(state, batch(2))
+        uninterrupted = _state_blocks(state), loss
+        del state
+
+        fresh = init(1)
+        results[f"{family}/fresh_differs"] = bool(_differing(
+            _state_blocks(fresh), saved))
+        restored = ckpt.restore(fresh)
+        results[f"{family}/counters"] = (restored.step,
+                                         restored.opt_state["count"])
+        results[f"{family}/restored_differs"] = _differing(
+            _state_blocks(restored), saved)
+        results[f"{family}/mu_dtype"] = str(_flat(
+            restored.opt_state["mu"])["layers/wq"].dtype)
+        restored, loss = step_fn(restored, batch(2))
+        results[f"{family}/step3_differs"] = _differing(
+            _state_blocks(restored), uninterrupted[0])
+        results[f"{family}/step3_losses"] = (loss.item(),
+                                             uninterrupted[1].item())
+        meta = dcp.FileSystemReader(str(out / f"ckpt_{family}" / "2")
+                                    ).read_metadata().state_dict_metadata
+        results[f"{family}/metadata"] = {
+            key: tuple(value.size) for key, value in meta.items()}
+        if family == "moe":
+            # Step 3's state saved once a replicated leaf (without
+            # per_rank_axes), restored into another fresh init.
+            once = TrainCheckpointer(str(out / "ckpt_moe_once"),
+                                     mesh=where["mesh"], specs=where["specs"])
+            once.save(restored.step, restored)
+            results["moe_once/restored_differs"] = _differing(
+                _state_blocks(once.restore(init(1))), _state_blocks(restored))
+        if family == "pp":
+            # The same state without its specs: each stage's plain layer
+            # rows look replicated, and one rank's are all that is kept.
+            plain = TrainCheckpointer(str(out / "ckpt_pp_plain"))
+            plain.save(restored.step, restored)
+            meta = dcp.FileSystemReader(str(out / "ckpt_pp_plain" / "3")
+                                        ).read_metadata().state_dict_metadata
+            results["pp_plain/metadata"] = {
+                key: tuple(value.size) for key, value in meta.items()}
+        del restored, fresh
+    torch.save(results, out / f"rank{rank}.pt")
+
+
+def pp_launcher(rank: int, world: int, out: Path) -> None:
+    """The launcher's ``--pp`` run over nodes of local ranks, here without
+    the launcher: ``make_pp_train`` on its (pp, dp) mesh, its seeded init
+    and the global microbatches of its synthetic batches (sizes in
+    ``launch.npz``); the losses of every step."""
+    import numpy as np
+    import torch
+
+    from k8s_dra_driver_gpu_tpu_torch.models import llama
+    from k8s_dra_driver_gpu_tpu_torch.parallel import mesh as pmesh
+    from k8s_dra_driver_gpu_tpu_torch.train import main, pp_train
+
+    with np.load(out / "launch.npz") as f:
+        steps, batch, seq, nodes, pp, m = (int(f[k]) for k in (
+            "steps", "batch", "seq", "nodes", "pp", "microbatches"))
+    cfg = llama.LlamaConfig.tiny()
+    mesh = pmesh.build_pipeline_mesh(pp)
+    init_fn, step_fn, layout, _ = pp_train.make_pp_train(mesh, cfg, m)
+    state = init_fn(llama.init(cfg, torch.Generator().manual_seed(0), "cpu"))
+    losses = []
+    for step in range(steps):
+        tokens = np.stack([np.concatenate([
+            main.synthetic_batch(step * m + i, batch, seq, cfg.vocab_size, s)
+            for s in range(nodes)]) for i in range(m)])
+        state, loss = step_fn(state, layout(tokens))
+        losses.append(loss.item())
+    torch.save({"losses": losses}, out / f"rank{rank}.pt")
+
+
 WORKERS = {"meshes": meshes, "sharded_train": sharded_train,
            "sharded_generate": sharded_generate, "moe_train": moe_train,
-           "moe_launcher": moe_launcher, "sp_train": sp_train}
+           "moe_launcher": moe_launcher, "sp_train": sp_train,
+           "pp_train": pp_train, "checkpoint": checkpoint,
+           "pp_launcher": pp_launcher}
 
 
 def main(argv: list[str]) -> int:
