@@ -7,6 +7,19 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. device: the card's name and power limit; TF32 off for fp32 matmuls.
+1b. device layer: ``tpulib.load()`` must give ``NvmlLib`` (NVML over
+   ctypes). Its structs' ctypes layout against the toolkit's ``nvml.h``
+   (a C probe built with the host compiler); every GPU against
+   ``nvidia-smi --query-gpu=index,uuid,name,memory.total,power.limit,
+   pci.bus_id``, field by field; the devfs backend on the same host
+   against NVML (minors, bus ids, NUMA nodes); ``cuda:0`` matched by
+   UUID, memory as an inequality; one ``health()`` poll of the idle card
+   and whether NVML took the event registration; a ``chip_telemetry``
+   sample idle and during ~2 s of bf16 products (the window's mean power
+   at or under the limit, its peak logged; memory used up by at least the
+   bytes allocated; duty > 0); the
+   MIG mode and profile count, the CLI's JSON, what NVML refused, and the
+   host milliseconds of ``enumerate()`` and of one ``health()`` poll.
 2. build: compile every kernel from ``csrc/`` (one nvcc per source, all
    started together), with ptxas's register and spill lines and its
    performance warnings; fails if a Hopper kernel (the bf16 and the fp32
@@ -345,6 +358,211 @@ def phase_device() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"capability {torch.cuda.get_device_capability(0)}")
+
+
+# nvidia-smi's view of each GPU, held field by field against NVML's.
+SMI_FIELDS = "index,uuid,name,memory.total,power.limit,pci.bus_id"
+# The loaded telemetry sample: ~2 s of bf16 products of this size, with
+# this many bytes allocated beside them.
+LOAD_SECONDS, LOAD_DIM, LOAD_BYTES = 2.0, 8192, 4 << 30
+# A real NVML UUID; a sandbox may hand out a redacted one instead.
+GPU_UUID = r"GPU-[0-9a-f]{8}(-[0-9a-f]{4}){3}-[0-9a-f]{12}"
+
+
+def _smi_chips() -> list[dict]:
+    from k8s_dra_driver_gpu_tpu_torch.tpulib.binding import normalize_bdf
+
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={SMI_FIELDS}",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    rows = []
+    for line in out.strip().splitlines():
+        index, uuid, name, mem, power, bus = (f.strip()
+                                              for f in line.split(","))
+        # "[N/A]": nvidia-smi could not read it either.
+        rows.append({"index": int(index), "uuid": uuid, "name": name,
+                     "memory.total": int(mem), "power.limit": float(power),
+                     "pci.bus_id": "" if "N/A" in bus
+                     else normalize_bdf(bus)})
+    return rows
+
+
+def _layout_against_nvml_h() -> dict:
+    """``struct_layout_probe`` built with the host C compiler against the
+    toolkit's ``nvml.h``: the C layout of every struct the binding reads."""
+    import os
+    import tempfile
+
+    from k8s_dra_driver_gpu_tpu_torch.tpulib import binding as gpulib
+
+    include = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                           "include")
+    with tempfile.TemporaryDirectory() as tmp:
+        src, exe = os.path.join(tmp, "probe.c"), os.path.join(tmp, "probe")
+        with open(src, "w", encoding="utf-8") as f:
+            f.write(gpulib.struct_layout_probe())
+        subprocess.run(["cc", "-I", include, "-o", exe, src], check=True,
+                       capture_output=True, text=True, timeout=120)
+        out = subprocess.run([exe], check=True, capture_output=True,
+                             text=True, timeout=60).stdout
+    return gpulib.parse_struct_layout(out)
+
+
+def _telemetry_under_load(lib, chip: int) -> tuple[list, int]:
+    """NVML samples of ``chip`` every 0.1 s while ~LOAD_SECONDS of bf16
+    products run with LOAD_BYTES allocated beside them; and the bytes the
+    allocator took from the card for them."""
+    import threading
+
+    reserved = torch.cuda.memory_reserved()
+    a = torch.randn(LOAD_DIM, LOAD_DIM, device="cuda", dtype=torch.bfloat16)
+    b = torch.randn_like(a)
+    ballast = torch.ones(LOAD_BYTES, device="cuda", dtype=torch.uint8)
+    matmul_ms = time_ms(lambda: a @ b, iters=5)
+    taken = torch.cuda.memory_reserved() - reserved
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            samples.append(lib.chip_telemetry()[chip])
+            stop.wait(0.1)
+
+    sampler = threading.Thread(target=sample)
+    sampler.start()
+    try:
+        for _ in range(int(LOAD_SECONDS * 1e3 / matmul_ms)):
+            a @ b
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        sampler.join(timeout=30)
+    del a, b, ballast
+    torch.cuda.empty_cache()
+    return samples, taken
+
+
+def phase_device_layer() -> None:
+    """1b. The device layer (``tpulib``) on this host's NVML."""
+    import os
+    import re
+
+    from k8s_dra_driver_gpu_tpu_torch.tpulib import binding as gpulib
+
+    lib = gpulib.load()
+    if not isinstance(lib, gpulib.NvmlLib):
+        raise AssertionError(f"load() gave {type(lib).__name__}, not NvmlLib")
+    try:
+        layout, want_layout = gpulib.struct_layout(), _layout_against_nvml_h()
+        log(f"device layer: ctypes struct layouts equal nvml.h's "
+            f"{layout == want_layout} ({len(layout)} structs)")
+        if layout != want_layout:
+            raise AssertionError(f"struct layouts: ctypes {layout}, "
+                                 f"nvml.h {want_layout}")
+        t0 = time.perf_counter()
+        host = lib.enumerate()
+        enumerate_ms = (time.perf_counter() - t0) * 1e3
+        log(f"device layer: NVML {host.driver_version}, {host.product_name}, "
+            f"{len(host.chips)} GPU(s), MIG {host.mig_mode}, power limit "
+            f"{host.power_limit_watts} W: "
+            + "; ".join(f"{c.index}: {c.uuid} minor {c.minor} bdf "
+                        f"{c.pci_bdf or '-'} numa {c.numa_node} "
+                        f"{c.memory_bytes} B" for c in host.chips))
+        # Field by field against nvidia-smi (which reads the same NVML).
+        smi = _smi_chips()
+        if len(smi) != len(host.chips):
+            raise AssertionError(f"nvidia-smi lists {len(smi)} GPUs, NVML "
+                                 f"{len(host.chips)}")
+        for row, chip in zip(smi, host.chips):
+            got = {"index": chip.index, "uuid": chip.uuid, "name": chip.name,
+                   "memory.total": chip.memory_bytes >> 20,
+                   "power.limit": host.power_limit_watts,
+                   "pci.bus_id": chip.pci_bdf}
+            bad = {k: (got[k], row[k]) for k in row if got[k] != row[k]}
+            if bad:
+                raise AssertionError(f"NVML against nvidia-smi: {bad}")
+        if any(not row["pci.bus_id"] for row in smi) and \
+                "nvmlDeviceGetPciInfo_v3" not in lib.refusals:
+            raise AssertionError("nvidia-smi has no bus id, NVML gave one")
+        log(f"device layer: nvidia-smi's {SMI_FIELDS} equal NVML's for "
+            f"{len(smi)} GPU(s)")
+
+        # devfs on the same host: the node of each NVML minor, with NVML's
+        # address and NUMA node.
+        devfs = gpulib.PyGpuLib().enumerate(gpulib.EnumerateOptions())
+        by_minor = {c.minor: c for c in devfs.chips}
+        for chip in host.chips:
+            node = by_minor.get(chip.minor)
+            if node is None or (node.pci_bdf, node.numa_node) != (
+                    chip.pci_bdf, chip.numa_node):
+                raise AssertionError(f"devfs {node} against NVML {chip}")
+        extra = sorted(set(by_minor) - {c.minor for c in host.chips})
+        proc = os.path.isdir("/proc/driver/nvidia/gpus")
+        log(f"device layer: devfs ({devfs.source}) has NVML's minors "
+            f"{[c.minor for c in host.chips]} with the same bdf and numa; "
+            f"nodes NVML does not list: {extra}; /proc/driver/nvidia/gpus "
+            f"{'present' if proc else 'absent'}")
+
+        # cuda:0 by UUID (torch prints it without "GPU-"); memory as an
+        # inequality: torch's total leaves out what the driver reserves.
+        props = torch.cuda.get_device_properties(0)
+        want_uuid = f"GPU-{props.uuid}"
+        match = [c for c in host.chips if c.uuid == want_uuid]
+        if not match:
+            if len(host.chips) == 1 and not re.fullmatch(
+                    GPU_UUID, host.chips[0].uuid):
+                log(f"device layer: NVML's UUID is {host.chips[0].uuid!r} "
+                    f"(redacted on this host), torch's {want_uuid}: cuda:0 is "
+                    "NVML's only GPU")
+                match = host.chips
+            else:
+                raise AssertionError(f"no NVML GPU has cuda:0's {want_uuid}")
+        (chip,) = match
+        if props.total_memory > chip.memory_bytes:
+            raise AssertionError("torch's memory above NVML's")
+        log(f"device layer: cuda:0 is NVML GPU {chip.index}; memory NVML "
+            f"{chip.memory_bytes} B >= torch {props.total_memory} B (gap "
+            f"{(chip.memory_bytes - props.total_memory) / 2**20:.0f} MiB)")
+
+        t0 = time.perf_counter()
+        events = lib.health()
+        health_ms = (time.perf_counter() - t0) * 1e3
+        log(f"device layer: idle health poll {list(events)}; events "
+            f"supported {lib.health_events_supported}, refused "
+            f"{lib.events_refused}")
+
+        idle = lib.chip_telemetry()[chip.index]
+        samples, taken = _telemetry_under_load(lib, chip.index)
+        busiest = max(samples, key=lambda s: (s.duty_cycle, s.power_watts))
+        rise = max(s.hbm_used_bytes for s in samples) - idle.hbm_used_bytes
+        # The card holds its power to the limit over time, not in every
+        # reading: a 1 s reading may pass it while the controller reacts,
+        # so the window's mean is held to the limit and its peak logged.
+        watts = [s.power_watts for s in samples]
+        mean_w = statistics.fmean(watts)
+        log(f"device layer: telemetry idle {idle.to_dict()}; under load "
+            f"({len(samples)} samples) busiest {busiest.to_dict()}, power "
+            f"mean {mean_w:.1f} W, peak {max(watts)} W of "
+            f"{host.power_limit_watts} W, memory used +{rise} B for {taken} B "
+            f"allocated")
+        if not (mean_w <= host.power_limit_watts and rise >= taken
+                and busiest.duty_cycle > 0):
+            raise AssertionError("telemetry under load")
+
+        profiles = lib.subslice_profiles()
+        cli = subprocess.run(
+            [sys.executable, "-m", "k8s_dra_driver_gpu_tpu_torch.tpulib"],
+            capture_output=True, text=True, timeout=120, check=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        doc = json.loads(cli.stdout)
+        log(f"device layer: MIG {host.mig_mode}, {len(profiles)} profile(s); "
+            f"CLI {json.dumps(doc, separators=(',', ':'))}")
+        if doc["backend"] != "nvml" or len(doc["chips"]) != len(host.chips):
+            raise AssertionError("the CLI's enumeration")
+        log(f"device layer: NVML refused {lib.refusals}; host ms: "
+            f"enumerate {enumerate_ms:.2f}, health poll {health_ms:.2f}")
+    finally:
+        lib.close()
 
 
 KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
@@ -1720,6 +1938,7 @@ def main(argv=None) -> int:
         return 1
     t_start = time.perf_counter()
     phase_device()
+    phase_device_layer()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     forward = phase_kernels(gen)

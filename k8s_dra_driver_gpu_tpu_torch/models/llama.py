@@ -17,7 +17,7 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
@@ -221,15 +221,49 @@ def attention_block(cfg: LlamaConfig, x: torch.Tensor, p: dict,
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     a = rms_norm(x, p["attn_norm"], cfg.norm_eps)
     q = (a @ p["wq"].to(dt)).reshape(B, S, h, hd)
-    k = (a @ p["wk"].to(dt)).reshape(B, S, kv, hd)
-    v = (a @ p["wv"].to(dt)).reshape(B, S, kv, hd)
+    k = a @ p["wk"].to(dt)
+    v = a @ p["wv"].to(dt)
+    split = _tp_splits_kv_heads(k, kv)
+    if split:
+        k, v = (_over_tp(t, Replicate()) for t in (k, v))
+    k, v = k.reshape(B, S, kv, hd), v.reshape(B, S, kv, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    if split:
+        k, v = (_as_q_heads(t, h) for t in (k, v))
     if attn_fn is not None:
         attn = attn_fn(q, k, v)
     else:
         attn = attention(q, k, v, causal=True, impl=cfg.attn_impl)
     return x + attn.reshape(B, S, h * hd) @ p["wo"].to(dt)
+
+
+def _tp_splits_kv_heads(t: torch.Tensor, kv: int) -> bool:
+    """Whether ``t``, a DTensor of [B, S, kv * hd] k or v columns, has
+    them sharded over more tp ranks than there are kv heads (or over a tp
+    that does not divide them): then a rank holds part of a head, which
+    DTensor cannot view as [B, S, kv, hd] (XLA pads instead)."""
+    return (isinstance(t, DTensor)
+            and kv % axis_size(t.device_mesh, TENSOR_AXIS) != 0)
+
+
+def _over_tp(t: DTensor, placement) -> DTensor:
+    """``t`` redistributed to ``placement`` on the tp mesh dim, its other
+    placements kept."""
+    tp = t.device_mesh.mesh_dim_names.index(TENSOR_AXIS)
+    return t.redistribute(t.device_mesh, [
+        placement if dim == tp else kept
+        for dim, kept in enumerate(t.placements)])
+
+
+def _as_q_heads(t: DTensor, h: int) -> DTensor:
+    """Whole kv heads [B, S, kv, hd], replicated over tp, repeated to one
+    a q head [B, S, h, hd] and split by heads over tp: each tp rank keeps
+    the kv head of each of its own q heads (a local slice, no
+    collective)."""
+    B, S, kv, hd = t.shape
+    t = t.unsqueeze(3).expand(B, S, kv, h // kv, hd).reshape(B, S, h, hd)
+    return _over_tp(t, Shard(2))
 
 
 def _mlp(cfg: LlamaConfig, x: torch.Tensor, p: dict) -> torch.Tensor:

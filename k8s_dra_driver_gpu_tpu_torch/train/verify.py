@@ -22,9 +22,10 @@ operator) to compare across pods:
   - ``loss``: after ``--steps`` sharded train steps of the tiny model, in
     full: equal on every node iff the gang ran one global computation.
 
-The mesh is ``parallel.mesh.plan_for``'s over the gang, its tp cut to a
-divisor of the tiny model's 2 kv heads (``_plan``). With TPU_NUM_SLICES
-> 1 it leads with a "dcn" axis over the slices
+The mesh is ``parallel.mesh.plan_for``'s over the gang, as the
+reference's is (at 4 ranks tp=4, which splits the tiny model's 2 kv
+heads; ``models.llama.attention_block`` gathers them whole). With
+TPU_NUM_SLICES > 1 it leads with a "dcn" axis over the slices
 (``parallel.mesh.build_multislice_mesh``) and the batch shards over
 ("dcn", "dp", "fsdp"), the multislice recipe. ``--require-gang`` exits 2
 when there is no channel env.
@@ -34,7 +35,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import sys
 
@@ -100,7 +100,8 @@ def _verify(args, device: torch.device, local_rank: int, local_ranks: int,
     import torch.distributed as dist
 
     from ..models import llama
-    from ..parallel.mesh import build_mesh, build_multislice_mesh
+    from ..parallel.mesh import (build_mesh, build_multislice_mesh,
+                                 plan_for)
     from .train import make_sharded_train
 
     world, rank = dist.get_world_size(), dist.get_rank()
@@ -114,10 +115,10 @@ def _verify(args, device: torch.device, local_rank: int, local_ranks: int,
             raise SystemExit(f"TPU_NUM_SLICES={num_slices} does not divide "
                              f"{world} global devices")
         mesh = build_multislice_mesh(num_slices,
-                                     _plan(world // num_slices, cfg))
+                                     plan_for(world // num_slices))
         batch_axes = ("dcn", "dp", "fsdp")
     else:
-        mesh = build_mesh(_plan(world, cfg))
+        mesh = build_mesh(plan_for(world))
         batch_axes = None
 
     # The collective proof: every rank and every node contributed.
@@ -157,18 +158,6 @@ def _verify(args, device: torch.device, local_rank: int, local_ranks: int,
             "env": {key: os.environ.get(key, "") for key in ENV_KEYS},
         }), flush=True)
     return 0
-
-
-def _plan(n: int, cfg):
-    """``plan_for(n)``, its tp cut to a divisor of the model's kv heads:
-    the sharded step cannot split a kv head over tp ranks (the reference's
-    XLA pads one), and the tiny model has 2."""
-    from ..parallel.mesh import plan_for
-
-    plan = plan_for(n)
-    if cfg.n_kv_heads % plan.tp:
-        plan = plan_for(n, tp=math.gcd(plan.tp, cfg.n_kv_heads))
-    return plan
 
 
 if __name__ == "__main__":

@@ -6,8 +6,11 @@ on the concatenated shard batches; 2 nodes of 2 local ranks each
 (``--local-devices 2``) against that gang; one node of 2 local ranks
 with ``--tp 2`` against ``train_step`` on the node's batch; ``--model
 moe-tiny`` on 2 nodes of 2 local ranks against ``make_moe_train`` on the
-same sizing and batches (a 4-rank gang of ``tests/torch_gang.py``); plus
-the env and parser failures, and the MoE sizing and refusals."""
+same sizing and batches (a 4-rank gang of ``tests/torch_gang.py``); one
+node of 4 local ranks on ``plan_for(4)`` (tp=4 over the tiny model's 2
+kv heads) against JAX's ``make_sharded_train`` on the same mesh shape,
+init and batches; plus the env and parser failures, and the MoE sizing
+and refusals."""
 
 import math
 import os
@@ -30,6 +33,8 @@ from tests import torch_gang
 
 REPO = str(Path(__file__).resolve().parents[1])
 STEPS, BATCH, SEQ, WORLD = 3, 2, 16, 2
+# One node of 4 local ranks: a row each.
+BATCH_1X4 = 4
 GANG_VARS = ("TPU_COORDINATOR_ADDRESS", "TPU_PROCESS_ID", "TPU_NUM_PROCESSES",
              "TPU_WORKER_HOSTNAMES", "TPU_INIT_TIMEOUT_S", "STEPS_PER_CALL")
 
@@ -87,6 +92,13 @@ def _args(*extra):
             *extra]
 
 
+def _tiny_args(batch, *extra):
+    """The dense launcher on ``plan_for``'s mesh (no ``--tp``)."""
+    return [sys.executable, "-m", "k8s_dra_driver_gpu_tpu_torch.train.main",
+            "--device", "cpu", "--model", "tiny", "--steps", str(STEPS),
+            "--batch-size", str(batch), "--seq-len", str(SEQ), *extra]
+
+
 def _moe_args(*extra):
     return [sys.executable, "-m", "k8s_dra_driver_gpu_tpu_torch.train.main",
             "--device", "cpu", "--model", "moe-tiny", "--steps", str(STEPS),
@@ -111,14 +123,18 @@ def _launch(*extra, argv=None):
 def gangs():
     """Every gang at once; returns {gang: [node logs]}: 1 and 2 (steps
     per call) are 2 nodes of one rank, "2x2" 2 nodes of 2 local ranks,
-    "1x2" one node (no gang env) of 2 local ranks, "moe" ``--model
-    moe-tiny`` on 2 nodes of 2 local ranks."""
+    "1x2" one node (no gang env) of 2 local ranks, "1x4" one node of 4
+    local ranks on the default mesh, "moe" ``--model moe-tiny`` on 2
+    nodes of 2 local ranks."""
     running = {k: _launch("--steps-per-call", str(k)) for k in (1, 2)}
     running["2x2"] = _launch("--local-devices", "2")
     running["moe"] = _launch(argv=_moe_args("--local-devices", "2"))
     running["1x2"] = [subprocess.Popen(
         _args("--local-devices", "2"), env=_env(), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)]
+    running["1x4"] = [subprocess.Popen(
+        _tiny_args(BATCH_1X4, "--local-devices", "4"), env=_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
     logs = {}
     try:
         for k, procs in running.items():
@@ -210,6 +226,45 @@ def test_one_node_of_local_ranks_with_tp_logs_its_batch_loss(gangs):
     lines = _steps(log)
     assert len(lines) == 1 and lines[0][0] == str(STEPS), log
     _assert_near(float(lines[0][1]), _single_process_loss(1))
+
+
+@pytest.fixture(scope="module")
+def jax_tp4_loss():
+    """The last of ``STEPS`` losses of JAX's ``make_sharded_train`` at
+    ``plan_for(4)`` (tp=4) on 4 CPU devices, from the launcher's init (the
+    port's draw, carried over) and one node's synthetic batches."""
+    import jax
+
+    from k8s_dra_driver_gpu_tpu.models import llama as jax_llama
+    from k8s_dra_driver_gpu_tpu.parallel import mesh as jax_mesh
+    from k8s_dra_driver_gpu_tpu.train import train as jax_train
+
+    cfg = pt_llama.LlamaConfig.tiny()
+    params = pt_train.tree_map(
+        lambda t: t.numpy(),
+        pt_llama.init(cfg, torch.Generator().manual_seed(0), "cpu"))
+    mesh = jax_mesh.build_mesh(jax_mesh.plan_for(4),
+                               devices=jax.devices()[:4])
+    assert dict(mesh.shape)["tp"] == 4
+    init_fn, step_fn, batch_shard, place = jax_train.make_sharded_train(
+        mesh, jax_llama.LlamaConfig.tiny())
+    state = init_fn(place(params))
+    for step in range(STEPS):
+        state, loss = step_fn(state, jax.device_put(pt_main.synthetic_batch(
+            step, BATCH_1X4, SEQ, cfg.vocab_size, 0), batch_shard))
+    return float(loss)
+
+
+def test_one_node_of_four_local_ranks_logs_jax_sharded_loss(gangs,
+                                                            jax_tp4_loss):
+    # plan_for(4) is tp=4, over the tiny model's 2 kv heads; JAX's
+    # launcher runs that mesh, and so does the port's.
+    (log,) = gangs["1x4"]
+    assert "mesh {'dp': 1, 'fsdp': 1, 'sp': 1, 'tp': 4}" in log, log
+    assert "local rank 3/4, rank 3/4" in log, log
+    lines = _steps(log)
+    assert len(lines) == 1 and lines[0][0] == str(STEPS), log
+    _assert_near(float(lines[0][1]), jax_tp4_loss)
 
 
 @pytest.mark.parametrize("batch,local", [(3, 2), (2, 4), (6, 4)])

@@ -260,7 +260,9 @@ def test_profile_dir_holds_a_trace_a_rank(runs):
 # run: (local ranks a node, mesh, devSum, rankSum); the rank sums are
 # (node id + 1) over every rank: 2 x 1 + 2 x 2, or 1 + 2.
 VERIFY_RUNS = {
-    "verify": (2, {"dp": 2, "fsdp": 1, "sp": 1, "tp": 2}, 4.0, 6.0),
+    # plan_for(4), as the reference's verifier builds it: tp=4 over the
+    # tiny model's 2 kv heads.
+    "verify": (2, {"dp": 1, "fsdp": 1, "sp": 1, "tp": 4}, 4.0, 6.0),
     "slices": (1, {"dcn": 2, "dp": 1, "fsdp": 1, "sp": 1, "tp": 1}, 2.0, 3.0),
 }
 

@@ -1,10 +1,12 @@
 """The port's sharded training against the JAX reference: one 4-rank gloo
 gang (``tests/torch_gang.py``, worker ``sharded_train``) trains the tiny
-config in fp32 for 3 steps on the meshes (dp=2, fsdp=2) and (fsdp=2,
-tp=2), then 3 steps in one scanned call, and on a multislice mesh of two
-(fsdp=2) slices with ``batch_axes=("dcn", "dp", "fsdp")``; JAX's single-device
-``train_step`` on the same parameters and global batches is the
-reference."""
+config in fp32 for 3 steps on the meshes (dp=2, fsdp=2), (fsdp=2, tp=2)
+and (tp=4), ``plan_for(4)``, where tp splits the model's 2 kv heads,
+then 3 steps in one scanned call, and on a multislice mesh of two
+(fsdp=2) slices with ``batch_axes=("dcn", "dp", "fsdp")``; JAX's
+single-device ``train_step`` on the same parameters and global batches
+is the reference, and at tp=4 JAX's own ``make_sharded_train`` on 4 CPU
+devices too. The collectives of one step on each mesh are recorded."""
 
 import dataclasses
 
@@ -15,12 +17,14 @@ import pytest
 import torch
 
 from k8s_dra_driver_gpu_tpu.models import llama as jax_llama
+from k8s_dra_driver_gpu_tpu.parallel import mesh as jax_mesh
 from k8s_dra_driver_gpu_tpu.train import train as jax_train
 from k8s_dra_driver_gpu_tpu_torch.models import llama as pt_llama
 from tests import torch_gang
 
 WORLD, STEPS, BATCH, SEQ = 4, 3, 8, 16
-MESHES = {"dp2_fsdp2": {"dp": 2, "fsdp": 2}, "fsdp2_tp2": {"fsdp": 2, "tp": 2}}
+MESHES = {"dp2_fsdp2": {"dp": 2, "fsdp": 2}, "fsdp2_tp2": {"fsdp": 2, "tp": 2},
+          "tp4": {"tp": 4}}
 # fp32 on both sides; the sharded step sums its matmuls and gradients in
 # another order than one device does.
 TOL = 1e-4
@@ -37,15 +41,22 @@ def _flat(tree, prefix=""):
     return out
 
 
+def _inputs():
+    """The reference's initial parameters and the [steps, B, S + 1]
+    global batches."""
+    params = jax_llama.init(jax.random.PRNGKey(0), JAX_CFG)
+    tokens = np.random.RandomState(7).randint(
+        0, JAX_CFG.vocab_size, (STEPS, BATCH, SEQ + 1)).astype(np.int32)
+    return params, tokens
+
+
 @pytest.fixture(scope="module")
 def gang(tmp_path_factory):
     """Runs the gang once; returns (per-rank results, JAX losses, JAX
     final params by "/" name)."""
     out = tmp_path_factory.mktemp("sharded_train")
-    params = jax_llama.init(jax.random.PRNGKey(0), JAX_CFG)
+    params, tokens = _inputs()
     np.savez(out / "params.npz", **_flat(params))
-    tokens = np.random.RandomState(7).randint(
-        0, JAX_CFG.vocab_size, (STEPS, BATCH, SEQ + 1)).astype(np.int32)
     np.savez(out / "tokens.npz", tokens=tokens)
     torch_gang.run_gang("sharded_train", WORLD, out)
     ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
@@ -61,6 +72,31 @@ def gang(tmp_path_factory):
         state, loss = step(state, jnp.asarray(tokens[i]))
         losses.append(float(loss))
     return ranks, losses, _flat(state.params)
+
+
+@pytest.fixture(scope="module")
+def jax_sharded():
+    """JAX's ``make_sharded_train`` and ``make_scanned_sharded_train`` at
+    ``plan_for(4)`` (tp=4) on 4 CPU devices: {"single" | "scanned":
+    (losses, final params by "/" name)}."""
+    params, tokens = _inputs()
+    plan = jax_mesh.plan_for(WORLD)
+    assert (plan.dp, plan.fsdp, plan.tp) == (1, 1, 4)
+    mesh = jax_mesh.build_mesh(plan, devices=jax.devices()[:WORLD])
+    init_fn, step_fn, batch_shard, place = jax_train.make_sharded_train(
+        mesh, JAX_CFG)
+    state = init_fn(place(params))
+    losses = []
+    for i in range(STEPS):
+        state, loss = step_fn(state, jax.device_put(tokens[i], batch_shard))
+        losses.append(float(loss))
+    got = {"single": (losses, _flat(state.params))}
+    init_fn, scan_fn, scan_shard, place = (
+        jax_train.make_scanned_sharded_train(mesh, JAX_CFG))
+    state, scanned = scan_fn(init_fn(place(params)),
+                             jax.device_put(tokens, scan_shard))
+    got["scanned"] = ([float(x) for x in scanned], _flat(state.params))
+    return got
 
 
 @pytest.mark.parametrize("mesh", MESHES)
@@ -97,7 +133,7 @@ def test_params_and_moments_are_sharded(gang, mesh, what):
         local = [ref.shape[d] // n for d, n in enumerate(_shards(name, mesh))]
         for rank in ranks:
             assert rank[f"{mesh}/{what}/{name}"] == tuple(local), name
-    # Something is split on every mesh: the embedding over fsdp.
+    # Something is split on every mesh: the embedding, over fsdp or tp.
     assert ranks[0][f"{mesh}/{what}/embed"] != want["embed"].shape
 
 
@@ -111,10 +147,10 @@ def test_replicas_are_equal_across_ranks(gang, mesh):
         shards = _shards(name, mesh)
         groups = {}
         for r, rank in enumerate(ranks):
-            coord = {"dp": r // 2 if "dp" in sizes else 0,
-                     "fsdp": (r // 2 if "dp" not in sizes else r % 2)
-                     if "fsdp" in sizes else 0,
-                     "tp": r % 2 if "tp" in sizes else 0}
+            # Ranks lie row-major over the mesh, (dp, fsdp, tp).
+            axes = [a for a in ("dp", "fsdp", "tp") if a in sizes]
+            coord = dict(zip(axes, np.unravel_index(
+                r, [sizes[a] for a in axes])))
             spec = pt_llama._PARAM_SPECS
             for part in name.split("/"):
                 spec = spec[part]
@@ -143,6 +179,71 @@ def test_scanned_steps_equal_single_steps(gang):
                                    atol=1e-6)
         np.testing.assert_allclose(rank["scanned/losses"], want, rtol=TOL,
                                    atol=TOL)
+
+
+@pytest.mark.parametrize("kind", ["single", "scanned"])
+def test_tp4_matches_jax_make_sharded_train(gang, jax_sharded, kind):
+    # tp=4 over 2 kv heads: JAX's sharded step runs there (XLA pads the
+    # split head), and so does the port's, with the same losses and
+    # leaves (fp32, TOL).
+    ranks, _, _ = gang
+    want_losses, want_params = jax_sharded[kind]
+    prefix = "tp4" if kind == "single" else "tp4_scanned"
+    for rank in ranks:
+        np.testing.assert_allclose(rank[f"{prefix}/losses"], want_losses,
+                                   rtol=TOL, atol=TOL)
+    for name, ref in want_params.items():
+        np.testing.assert_allclose(ranks[0][f"{prefix}/param/{name}"].numpy(),
+                                   ref, rtol=TOL, atol=TOL, err_msg=name)
+
+
+def _summary(calls):
+    """{(collective, mesh axis): (calls, elements sent)} of a record."""
+    out = {}
+    for name, axis, shape in calls:
+        count, size = out.get((name, axis), (0, 0))
+        out[name, axis] = (count + 1, size + int(np.prod(shape)))
+    return out
+
+
+# The collectives of one step (forward, backward, optimizer) on the meshes
+# where tp divides the kv heads, by (collective, mesh axis): (calls,
+# elements sent). The k/v gather of tp > kv heads must not run here; these
+# are the records of the step before that gather existed.
+STEP_CALLS = {
+    "dp2_fsdp2": {
+        ("all_gather_into_tensor", "fsdp"): (48, 118880),
+        ("all_reduce", "dp"): (14, 106818),
+        ("all_reduce", "fsdp"): (5, 16705),
+        ("reduce_scatter_tensor", "fsdp"): (9, 106496)},
+    "fsdp2_tp2": {
+        ("all_gather_into_tensor", "fsdp"): (43, 88064),
+        ("all_gather_into_tensor", "tp"): (46, 73856),
+        ("all_reduce", "fsdp"): (6, 323),
+        ("all_reduce", "tp"): (5, 4417),
+        ("reduce_scatter_tensor", "fsdp"): (9, 69632),
+        ("reduce_scatter_tensor", "tp"): (29, 184320)},
+}
+
+
+@pytest.mark.parametrize("mesh", STEP_CALLS)
+def test_step_collectives_where_tp_divides_the_kv_heads(gang, mesh):
+    ranks, _, _ = gang
+    for rank in ranks:
+        assert _summary(rank[f"{mesh}/step_calls"]) == STEP_CALLS[mesh]
+
+
+def test_tp4_step_gathers_whole_kv_heads_over_tp(gang):
+    # At tp=4 each rank's k and v columns are half a head: the forward
+    # gathers them over tp, [B, S, kv * hd / tp] a rank, once for k and
+    # once for v in each of the 2 layers. Only tp is left on this mesh.
+    ranks, _, _ = gang
+    kv_cols = JAX_CFG.n_kv_heads * JAX_CFG.head_dim // 4
+    for rank in ranks:
+        calls = rank["tp4/step_calls"]
+        assert calls.count(("all_gather_into_tensor", "tp",
+                            (BATCH, SEQ, kv_cols))) == 2 * JAX_CFG.n_layers
+        assert {axis for _, axis, _ in calls} == {"tp"}
 
 
 @pytest.mark.parametrize("kind", ["losses", "scanned_losses"])

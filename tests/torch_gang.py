@@ -128,10 +128,12 @@ def _flat(tree: dict, prefix: str = "") -> dict:
 
 
 def sharded_train(rank: int, world: int, out: Path) -> None:
-    """3 sharded steps on each of the meshes (dp=2, fsdp=2) and (fsdp=2,
-    tp=2), then 3 steps as one scanned call, on the tokens of
-    ``tokens.npz`` (the same global batch on every rank); then the
-    multislice layout (``_multislice_train``)."""
+    """3 sharded steps on each of the meshes (dp=2, fsdp=2), (fsdp=2,
+    tp=2) and (tp=4), ``plan_for(4)``, where tp splits the tiny model's 2
+    kv heads, then on the last two 3 steps as one scanned call, on the
+    tokens of ``tokens.npz`` (the same global batch on every rank); the
+    collectives of one more step on each mesh; then the multislice
+    layout (``_multislice_train``)."""
     import numpy as np
     import torch
 
@@ -145,7 +147,8 @@ def sharded_train(rank: int, world: int, out: Path) -> None:
     steps, batch = tokens.shape[:2]
     results = {}
     for label, plan in (("dp2_fsdp2", pmesh.MeshPlan(dp=2, fsdp=2)),
-                        ("fsdp2_tp2", pmesh.MeshPlan(fsdp=2, tp=2))):
+                        ("fsdp2_tp2", pmesh.MeshPlan(fsdp=2, tp=2)),
+                        ("tp4", pmesh.plan_for(world))):
         mesh = pmesh.build_mesh(plan)
         pinned = llama.pin_auto_attn_for_pjit(cfg, mesh)
         results[f"{label}/pinned_einsum"] = pinned.attn_impl == "einsum"
@@ -167,6 +170,21 @@ def sharded_train(rank: int, world: int, out: Path) -> None:
             for name, leaf in _flat(state.opt_state[moment]).items():
                 results[f"{label}/local_{moment}/{name}"] = tuple(
                     leaf.to_local().shape)
+        state = init_fn(_load_params(out))
+        rows = layout(tokens[0, rank * local:(rank + 1) * local])
+        with _collectives(pmesh.compute_mesh(mesh)) as one_step:
+            step_fn(state, rows)
+        results[f"{label}/step_calls"] = one_step.calls
+        if label == "tp4":
+            _, scan_fn, scan_layout, _ = train.make_scanned_sharded_train(
+                mesh, cfg)
+            state = init_fn(_load_params(out))
+            state, scanned = scan_fn(state, scan_layout(
+                tokens[:, rank * local:(rank + 1) * local]))
+            results["tp4_scanned/losses"] = scanned.tolist()
+            for name, leaf in _flat(state.params).items():
+                results[f"tp4_scanned/param/{name}"] = (
+                    leaf.full_tensor().detach())
         if label == "fsdp2_tp2":
             _, scan_fn, scan_layout, _ = train.make_scanned_sharded_train(
                 mesh, cfg)
