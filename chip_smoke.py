@@ -18,6 +18,12 @@ and prints no result line):
    sample idle and during ~2 s of bf16 products (the window's mean power
    at or under the limit, its peak logged; memory used up by at least the
    bytes allocated; duty > 0); the
+   NVLink error fields (``nvmlDeviceGetFieldValues``, the legacy counters
+   in place of a refused field) link by link, what NVML gave and refused,
+   ``ici_link_errors`` held to the sum of what it gave and the field
+   values to ``nvidia-smi nvlink -e``'s counters where it prints them
+   (the probe also holds ``nvmlFieldValue_t`` and the ``NVML_FI_*`` ids
+   to ``nvml.h``); the
    MIG mode and profile count, the CLI's JSON, what NVML refused, and the
    host milliseconds of ``enumerate()`` and of one ``health()`` poll.
 2. build: compile every kernel from ``csrc/`` (one nvcc per source, all
@@ -50,7 +56,8 @@ and prints no result line):
    the seed, bf16: ``generate`` for B=4 prompts of 2048 tokens and 32
    greedy new tokens. Counts the kernel launches of that run, checks the
    prefill logits against the einsum attention path, runs a short int8
-   KV-cache generation, and times prefill and decode.
+   KV-cache generation, times prefill and decode, and samples 8 tokens
+   at temperature 1.0 from a generator seeded with the seed.
 5. training: the 738M flagship (``LlamaConfig.flagship()``) at full
    width and depth, fp32 master weights from the seed, bf16 compute,
    bf16 Adam first moment, B=4, S=4096. Holds ``loss_fn``'s gradients
@@ -66,7 +73,8 @@ and prints no result line):
    memory and a trace; ``make_scanned_sharded_train`` with K=3 against
    three single steps; ``make_sharded_generate`` on phase 4's Llama-3-8B
    weights (drawn again from the seed): tokens and prefill logits
-   against ``generate``'s, launch count, prefill and decode times;
+   against ``generate``'s, launch count, prefill and decode times, then
+   phase 4's sampled draw (tokens equal, launches counted);
    ``bench_allreduce`` over the mesh.
 7. moe (on the same gang of one): MoE-Llama at full width and depth
    (``LlamaMoEConfig()``: 8 experts, top-2, head dim 64), fp32 master
@@ -94,6 +102,14 @@ and prints no result line):
    uninterrupted. (b)'s step-3 loss against (c)'s, the checkpoint's bytes
    and save and restore seconds, and a trace that names the flash
    kernels. The checkpoint and the trace are deleted after.
+11. entry: ``entry.entry()``'s forward on the card (finite logits);
+   ``entry.dryrun_multichip`` over every visible card, which starts its
+   own NCCL ranks, and meanwhile over 4 gloo ranks on the host, where
+   every family runs on this machine's torch (each family's seconds, or
+   its skip); and
+   ``entry.dryrun_multichip_multiprocess`` as one node process from a
+   bootstrap.json and members.json written here in the ComputeDomain
+   daemon's format.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record (with the hd-64 instantiations'
@@ -103,6 +119,7 @@ records after the others).
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -149,6 +166,7 @@ BWD_REL_TOL = 2e-2
 
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
 SERVE_MAX_LEN = SERVE_PROMPT + 64
+SAMPLED_NEW = 8  # new tokens of the sampled generate (phases 4 and 6)
 # Prefill logits of the flash path against the einsum path: relative L2
 # error. The einsum path rounds Q.K^T to bf16 before the softmax and the
 # kernel keeps it in fp32, and that difference passes through 32 bf16
@@ -442,6 +460,60 @@ def _telemetry_under_load(lib, chip: int) -> tuple[list, int]:
     return samples, taken
 
 
+# nvidia-smi's names of the NVLink error counters, by NVML field.
+SMI_NVLINK_ERRORS = {"Replay": "NVML_FI_DEV_NVLINK_ERROR_DL_REPLAY",
+                     "Recovery": "NVML_FI_DEV_NVLINK_ERROR_DL_RECOVERY",
+                     "CRC": "NVML_FI_DEV_NVLINK_ERROR_DL_CRC"}
+
+
+def _nvlink_errors(lib, chip: int) -> None:
+    """The NVLink error fields of ``chip``, link by link: what NVML gave
+    (field values, or the legacy counters in place of a refused field)
+    and refused; ``ici_link_errors`` must be the sum of what it gave, and
+    the field values must equal ``nvidia-smi nvlink -e``'s counters where
+    it prints them. A container that refuses everything is logged."""
+    import re
+
+    readings = lib.nvlink_errors(chip)
+    # Link by link, the links that read alike grouped.
+    alike = collections.defaultdict(list)
+    for r in readings:
+        alike[(r.field.rsplit("_", 1)[-1], r.source or "refused", r.value,
+               r.refused)].append(r.link)
+    log(f"device layer: NVLink error fields of GPU {chip}: "
+        f"{len(readings)} (link, field) readings: " + "; ".join(
+            f"{field} on links {links}: {source} {value}"
+            + (f" ({refused})" if refused else "")
+            for (field, source, value, refused), links in alike.items()))
+    given = sum(r.value for r in readings if r.source)
+    total = lib.chip_telemetry()[chip].ici_link_errors
+    sources = collections.Counter(r.source or "refused" for r in readings)
+    log(f"device layer: ici_link_errors {total}, the sum of the accepted "
+        f"values {given}; by source {dict(sources)}")
+    if total != given:
+        raise AssertionError("ici_link_errors is not the sum of the "
+                             "accepted NVLink error values")
+    smi = subprocess.run(["nvidia-smi", "nvlink", "-e", "-i", str(chip)],
+                         capture_output=True, text=True, timeout=60,
+                         check=False)
+    printed = {(int(link), SMI_NVLINK_ERRORS[kind]): int(value)
+               for link, kind, value in re.findall(
+                   r"Link (\d+): (Replay|Recovery|CRC) Errors?: (\d+)",
+                   smi.stdout)}
+    fields = {(r.link, r.field): r.value for r in readings
+              if r.source == "field"}
+    both = sorted(printed.keys() & fields.keys())
+    log(f"device layer: nvidia-smi nvlink -e exit {smi.returncode}, "
+        f"{len(printed)} counters printed, {len(both)} held against the "
+        f"field values" + ("" if printed else
+                           f"; it printed {smi.stdout.strip()[:160]!r}"))
+    bad = {key: (printed[key], fields[key]) for key in both
+           if printed[key] != fields[key]}
+    if bad:
+        raise AssertionError(f"nvidia-smi's NVLink counters against NVML's "
+                             f"fields: {bad}")
+
+
 def phase_device_layer() -> None:
     """1b. The device layer (``tpulib``) on this host's NVML."""
     import os
@@ -454,8 +526,11 @@ def phase_device_layer() -> None:
         raise AssertionError(f"load() gave {type(lib).__name__}, not NvmlLib")
     try:
         layout, want_layout = gpulib.struct_layout(), _layout_against_nvml_h()
-        log(f"device layer: ctypes struct layouts equal nvml.h's "
-            f"{layout == want_layout} ({len(layout)} structs)")
+        log(f"device layer: ctypes struct layouts and constants equal "
+            f"nvml.h's {layout == want_layout} ({len(gpulib.NVML_STRUCTS)} "
+            f"structs, {len(layout) - len(gpulib.NVML_STRUCTS)} constants: "
+            + ", ".join(f"{name} {layout[name]}" for name in
+                        ("nvmlFieldValue_t", *gpulib.NVML_FIELD_IDS)) + ")")
         if layout != want_layout:
             raise AssertionError(f"struct layouts: ctypes {layout}, "
                                  f"nvml.h {want_layout}")
@@ -549,6 +624,7 @@ def phase_device_layer() -> None:
                 and busiest.duty_cycle > 0):
             raise AssertionError("telemetry under load")
 
+        _nvlink_errors(lib, chip.index)
         profiles = lib.subslice_profiles()
         cli = subprocess.run(
             [sys.executable, "-m", "k8s_dra_driver_gpu_tpu_torch.tpulib"],
@@ -1194,9 +1270,23 @@ def phase_serving(seed: int) -> dict:
     same = (q_tokens == tokens[:, :8]).float().mean().item()
     log(f"serving: int8 KV generate 8 tokens ok, agreement with fp cache "
         f"{same:.2f}")
+
+    # Sampled at temperature 1.0 from a generator seeded with the seed:
+    # phase 6 draws the same tokens through the sharded path.
+    sampled = decode.generate(
+        params, prompt, cfg, SAMPLED_NEW, SERVE_MAX_LEN, temperature=1.0,
+        generator=torch.Generator(device=device).manual_seed(seed))
+    torch.cuda.synchronize()
+    if sampled.shape != (SERVE_BATCH, SAMPLED_NEW) or \
+            not ((sampled >= 0) & (sampled < cfg.vocab_size)).all():
+        raise AssertionError(f"bad sampled tokens {sampled.shape}")
+    log(f"serving: sampled generate (temperature 1.0, seed {seed}) "
+        f"{SAMPLED_NEW} tokens, agreement with greedy "
+        f"{(sampled == tokens[:, :SAMPLED_NEW]).float().mean().item():.2f}, "
+        f"first row {sampled[0].tolist()}")
     return {"launches": launches, "prompt": prompt, "tokens": tokens,
             "logits": logits, "prefill_ms": pre_s * 1e3,
-            "decode_ms": decode_ms}
+            "decode_ms": decode_ms, "sampled": sampled}
 
 
 def phase_training(seed: int) -> tuple[dict, dict]:
@@ -1352,12 +1442,13 @@ def phase_gang(seed: int, mesh, serving: dict, training: dict) -> dict:
     the flagship at full width and depth against ``train_step``, (ii) the
     scanned step against single steps, (iii) ``make_sharded_generate`` on
     Llama-3-8B against ``generate`` (phase 4's seed, prompt, tokens,
-    logits), (iv) ``bench_allreduce`` over the mesh. Returns the kernel
-    launches of one sharded step and one sharded generate."""
+    logits, sampled tokens), (iv) ``bench_allreduce`` over the mesh.
+    Returns the kernel launches of one sharded step and of one sharded
+    generate, greedy and sampled."""
     from k8s_dra_driver_gpu_tpu_torch.ops.collectives import bench_allreduce
 
     counts = {"train": _gang_train(seed, mesh, training),
-              "generate": _gang_generate(seed, mesh, serving)}
+              **_gang_generate(seed, mesh, serving)}
     stats = bench_allreduce(mesh, "dp")
     log(f"gang: bench_allreduce over dp: participants "
         f"{stats['participants']}, {stats['bytes']} bytes x "
@@ -1479,9 +1570,9 @@ def _gang_train(seed: int, mesh, training: dict) -> dict:
     return counts
 
 
-def _gang_generate(seed: int, mesh, serving: dict) -> int:
+def _gang_generate(seed: int, mesh, serving: dict) -> dict:
     """(iii) of ``phase_gang``; returns the flash launches of one sharded
-    generate."""
+    generate, greedy and sampled."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from k8s_dra_driver_gpu_tpu_torch.models import decode, llama
@@ -1541,9 +1632,33 @@ def _gang_generate(seed: int, mesh, serving: dict) -> int:
         f"{decode_ms - serving['decode_ms']:.2f} ms a decode step")
     if not rel <= SHARDED_LOGITS_REL_TOL:
         raise AssertionError(f"sharded prefill logits rel err {rel}")
-    del params, cache, logits
+    del cache, logits
+
+    # Sampled, counted: phase 4's draw (temperature 1.0, the seed), made
+    # from the global batch on the sharded path.
+    sample_fn, _, _ = decode.make_sharded_generate(
+        mesh, cfg, SAMPLED_NEW, SERVE_MAX_LEN, temperature=1.0)
+    torch.cuda.synchronize()
+    flash_attention.launches = flash_attention.lse_launches = 0
+    t0 = time.perf_counter()
+    sampled = sample_fn(params, prompt,
+                        torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    sampled_launches = flash_attention.launches
+    same = torch.equal(sampled.full_tensor(), serving["sampled"])
+    log(f"gang: sampled sharded generate new={SAMPLED_NEW} in "
+        f"{sample_s:.3f} s, flash launches {sampled_launches} "
+        f"({flash_attention.lse_launches} with lse), tokens placed "
+        f"{sampled.placements}, all equal to phase 4's sampled tokens: "
+        f"{same}")
+    if sampled_launches != cfg.n_layers or flash_attention.lse_launches \
+            or not same:
+        raise AssertionError("sampled sharded generate disagrees with "
+                             "generate")
+    del params
     torch.cuda.empty_cache()
-    return launches
+    return {"generate": launches, "sampled_generate": sampled_launches}
 
 
 MOE_BATCH, MOE_SEQ, MOE_TIMED_STEPS = 4, 4096, 5
@@ -1929,6 +2044,109 @@ def phase_launcher(seed: int) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def _daemon_domain_dir(directory: str, port: int) -> str:
+    """A ComputeDomain daemon's bootstrap.json and members.json for a
+    domain of one node, in the daemon's format (the daemon's stable DNS
+    names, resolved through members.json); returns the bootstrap.json."""
+    import os
+
+    from k8s_dra_driver_gpu_tpu_torch.entry import daemon_dns_name
+
+    name = daemon_dns_name(0)
+    files = {
+        "members.json": {"computeDomain": "chip-smoke", "cliqueID": "0",
+                         "numWorkers": 1, "workers": [{
+                             "name": "node-0", "ipAddress": "127.0.0.1",
+                             "cliqueID": "0", "index": 0,
+                             "status": "Ready"}]},
+        "bootstrap.json": {"coordinatorAddress": f"{name}:{port}",
+                           "numProcesses": 1, "processId": 0,
+                           "workerHostnames": [name], "scope": "clique",
+                           "cliqueID": "0"}}
+    for file, doc in files.items():
+        with open(os.path.join(directory, file), "w", encoding="utf-8") as f:
+            json.dump(doc, f, indent=1)
+    return os.path.join(directory, "bootstrap.json")
+
+
+# Ranks of the dry run on this host's CPU (gloo), beside the card's: the
+# families' DTensor paths at tp > 1 under this machine's torch, which a
+# one-card machine cannot give NCCL ranks for.
+ENTRY_CPU_RANKS = 4
+
+
+def _check_dryrun(report: dict, label: str) -> None:
+    """Every family that ran has finite losses; the dense step and
+    serving ran."""
+    for key, rep in report.items():
+        values = rep.get("losses", [rep["loss"]] if "loss" in rep else [])
+        if "skipped" not in rep and not all(map(math.isfinite, values)):
+            raise AssertionError(f"dry run {label} {key}: {rep}")
+    if "skipped" in report["train"] or len(report["serve"]["tokens"]) != \
+            report["serve"]["batch"][0]:
+        raise AssertionError(f"dry run {label}: {report}")
+
+
+def _log_dryrun(report: dict, label: str, seconds: float) -> None:
+    log(f"entry: dryrun_multichip {label} in {seconds:.1f} s of process: "
+        + "; ".join(f"{key} skipped ({rep['skipped']})" if "skipped" in rep
+                    else f"{key} {rep['seconds']:.2f} s"
+                    for key, rep in report.items()))
+
+
+def phase_entry() -> None:
+    """11. The port's entry (``entry.py``): ``entry()``'s forward on the
+    card; ``dryrun_multichip`` over every visible card (its own NCCL
+    ranks) and, at the same time, over ``ENTRY_CPU_RANKS`` gloo ranks on
+    the host, each family's seconds or skip; and
+    ``dryrun_multichip_multiprocess`` as one node process from a
+    daemon-format bootstrap.json."""
+    import tempfile
+
+    from k8s_dra_driver_gpu_tpu_torch import entry as pt_entry
+
+    def timed(fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        return fn(*args, **kwargs), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        on_host = pool.submit(timed, pt_entry.dryrun_multichip,
+                              ENTRY_CPU_RANKS, device="cpu")
+        t0 = time.perf_counter()
+        fn, args = pt_entry.entry()
+        logits = fn(*args)
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(logits).all())
+        log(f"entry: forward {tuple(logits.shape)} {logits.dtype} on "
+            f"{logits.device}, finite {finite}, "
+            f"{time.perf_counter() - t0:.2f} s")
+        if logits.shape != (2, 32, 256) or not finite:
+            raise AssertionError("entry forward")
+
+        cards = torch.cuda.device_count()
+        report, seconds = timed(pt_entry.dryrun_multichip, cards)
+        _log_dryrun(report, f"({cards}) over NCCL", seconds)
+        _check_dryrun(report, "on the card")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            reports, seconds = timed(
+                pt_entry.dryrun_multichip_multiprocess, n_procs=1,
+                local_devices=cards, timeout=300,
+                bootstrap_file=_daemon_domain_dir(tmp, free_port()))
+        log(f"entry: dryrun_multichip_multiprocess from a daemon-format "
+            f"bootstrap.json in {seconds:.1f} s: "
+            + json.dumps({k: v for k, v in reports[0].items() if k != "env"})
+            + f", coordinator {reports[0]['env']['TPU_COORDINATOR_ADDRESS']}")
+
+        report, seconds = on_host.result()
+        _log_dryrun(report, f"({ENTRY_CPU_RANKS}) over gloo on the host "
+                            f"(torch {torch.__version__})", seconds)
+        _check_dryrun(report, "on the host")
+        if [key for key, rep in report.items() if "skipped" in rep]:
+            raise AssertionError(f"a family skipped at n = "
+                                 f"{ENTRY_CPU_RANKS}: {report}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1957,10 +2175,12 @@ def main(argv=None) -> int:
         pp = phase_pp(args.seed, train_numbers)
     torch.cuda.empty_cache()
     phase_launcher(args.seed)
+    phase_entry()
     forward["launches_by_path"] = {
         "serving_generate": serving_launches,
         "training_step": training["forward_lse"],
         "sharded_generate": gang["generate"],
+        "sampled_sharded_generate": gang["sampled_generate"],
         "sharded_training_step": gang["train"]["forward_lse"],
         "moe_training_step": moe["forward_lse"],
         "sp_ulysses_training_step": sp["ulysses"]["forward_lse"],

@@ -11,7 +11,8 @@
 - Prompt attention goes through ``ops.attention.attention`` (the flash
   kernel on long CUDA shapes); cached decode attention is plain tensor
   code, as it is plain einsum in the reference.
-- Sampling: greedy, or temperature through a ``torch.Generator``.
+- Sampling: greedy, or temperature through a ``torch.Generator``; on
+  DTensors the draw is made from the global batch (``_sample``).
 - ``make_sharded_generate`` runs the same code on DTensors over a mesh:
   parameters placed by ``llama.param_specs``, the prompt by
   ``llama.batch_spec``, the cache batch-sharded over dp and fsdp and
@@ -26,8 +27,9 @@ from dataclasses import dataclass
 
 import torch
 import torch.distributed.tensor as dtensor
-from torch.distributed.tensor import DTensor
-from torch.distributed.tensor.experimental import implicit_replication
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import (implicit_replication,
+                                                  local_map)
 
 from ..ops.attention import attention
 from ..parallel.mesh import (DATA_AXIS, FSDP_AXIS, TENSOR_AXIS, axis_size,
@@ -122,8 +124,22 @@ def _attend_cached(cfg: LlamaConfig, q, ck, cv, valid_len: int,
                    k_scale=None, v_scale=None):
     """q [B,S,H,hd] vs cache ck/cv [B,max_len,K,hd]; positions >=
     valid_len are masked. int8 caches pass their scales and are
-    dequantized here."""
+    dequantized here. On DTensors each rank attends with its local
+    tensors (batch over dp and fsdp, whole kv heads over tp), as
+    ``ops.attention`` does: DTensor cannot flatten the tp-sharded head
+    dim into the einsum's batched product on every torch release."""
     del cfg
+    if isinstance(q, DTensor):
+        layout = list(placements(_KV_SPEC, q.device_mesh))
+        tensors = [t for t in (q, ck, cv, k_scale, v_scale) if t is not None]
+
+        def local(*tensors):
+            return _attend_cached(None, *tensors[:3], valid_len, *tensors[3:])
+
+        return local_map(local, out_placements=layout,
+                         in_placements=(layout,) * len(tensors),
+                         device_mesh=q.device_mesh,
+                         redistribute_inputs=True)(*tensors)
     if k_scale is not None:
         ck = _dequantize(ck, k_scale, q.dtype)
         cv = _dequantize(cv, v_scale, q.dtype)
@@ -237,10 +253,30 @@ def _check_budget(prompt_len: int, max_new_tokens: int, max_len: int):
 
 def _sample(logits: torch.Tensor, temperature: float,
             generator: torch.Generator | None) -> torch.Tensor:
-    if temperature > 0:
-        probs = torch.softmax(logits / temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0]
-    return torch.argmax(logits, dim=-1)
+    """Next tokens [B] of logits [B, V]: argmax, or a draw at
+    ``temperature`` from ``generator``.
+
+    On DTensor logits the tokens are picked from the global batch: the
+    logits are replicated on the mesh (all of them, whether they came
+    sharded over the batch or the vocab, or as partial sums), every rank
+    picks the same B tokens, its generator advancing alike on every rank,
+    and keeps its own rows, batch-sharded over dp and fsdp. So the tokens
+    are the plain path's for the same generator, and no two rows share
+    their random numbers. (DTensor's own argmax over a vocab-sharded dim
+    leaves the tokens ``Partial`` on some torch releases, 2.11 among
+    them.)"""
+    if isinstance(logits, DTensor):
+        mesh = logits.device_mesh
+        whole = logits.redistribute(
+            mesh, [Replicate()] * mesh.ndim).to_local()
+        tokens = _sample(whole, temperature, generator)
+        return DTensor.from_local(
+            tokens, mesh, [Replicate()] * mesh.ndim, run_check=False
+        ).redistribute(mesh, placements(((DATA_AXIS, FSDP_AXIS),), mesh))
+    if temperature <= 0:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(logits / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
 @torch.no_grad()

@@ -43,31 +43,52 @@ def attention(
             and q.shape[1] >= FLASH_MIN_SEQ
             else "einsum"
         )
-    if impl == "flash":
-        if isinstance(q, DTensor):
-            return _local_flash_attention(q, k, v, causal)
-        return flash_attention(q, k, v, causal=causal)
-    if impl != "einsum":
+    if impl not in ("flash", "einsum"):
         # A typo ("Flash", "pallas") must not silently take the einsum
         # path: at long S that materializes the O(S^2) scores the flash
         # kernel exists to avoid.
         raise ValueError(f"unknown attention impl {impl!r}: "
                          "want auto | flash | einsum")
-    return dot_product_attention(q, k, v, causal=causal)
+    fn = flash_attention if impl == "flash" else dot_product_attention
+    if isinstance(q, DTensor):
+        return _local_attention(fn, q, k, v, causal)
+    return fn(q, k, v, causal=causal)
 
 
-def _local_flash_attention(q: DTensor, k: DTensor, v: DTensor,
-                           causal: bool) -> DTensor:
-    """The flash kernels on each rank's local q, k, v: batch sharded over
-    dp and fsdp, heads over tp (whole kv heads a shard, so each rank's
-    GQA groups are complete and the result is exact)."""
+def _local_attention(fn, q: DTensor, k: DTensor, v: DTensor,
+                     causal: bool) -> DTensor:
+    """``fn`` (the flash kernels or the einsum) on each rank's local q, k,
+    v: batch sharded over dp and fsdp, heads over tp (whole kv heads a
+    shard, or k and v split by q heads, so each rank's GQA groups are
+    complete and the result is exact). Not DTensor's propagation through
+    the einsum: it cannot flatten the tp-sharded head dim into the
+    batched product on every torch release (2.11 refuses it)."""
     # A list: local_map reads a tuple as one placement list per output.
     layout = list(placements(((DATA_AXIS, FSDP_AXIS), None, TENSOR_AXIS),
                              q.device_mesh))
-    fn = local_map(functools.partial(flash_attention, causal=causal),
-                   out_placements=layout, in_placements=(layout,) * 3,
-                   device_mesh=q.device_mesh, redistribute_inputs=True)
-    return fn(q, k, v)
+    def local(q, k, v):
+        q, k, v = (_ContiguousGrad.apply(t) for t in (q, k, v))
+        return fn(q, k, v, causal=causal)
+
+    return local_map(local, out_placements=layout,
+                     in_placements=(layout,) * 3, device_mesh=q.device_mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, with its gradient made contiguous. The einsum's
+    gradients come out strided; leaving ``local_map`` as DTensors they
+    meet the backward of the reshapes around attention, which DTensor
+    runs as views of the local tensor, and a strided one cannot be
+    viewed."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
 
 
 def dot_product_attention(

@@ -393,14 +393,15 @@ def _free_port() -> int:
 
 
 def _run_local_ranks(argv: list[str], local_ranks: int,
-                     module: str = "k8s_dra_driver_gpu_tpu_torch.train.main"
-                     ) -> int:
+                     module: str = "k8s_dra_driver_gpu_tpu_torch.train.main",
+                     env: dict | None = None) -> int:
     """Start ``python -m module`` (this launcher by default) once per
     local rank, each with ``LOCAL_RANK_VAR`` set, and wait for them.
-    Without a gang env the node is a gang alone, meeting at a free local
-    port. When a worker fails the others are stopped (a collective would
-    wait for it forever) and its exit code is returned."""
-    env = dict(os.environ)
+    Their env is ``env`` (default this process's). Without a gang env
+    the node is a gang alone, meeting at a free local port. When a worker
+    fails the others are stopped (a collective would wait for it forever)
+    and its exit code is returned."""
+    env = dict(os.environ if env is None else env)
     if validate_gang_env(env) is None:
         env.update(TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}",
                    TPU_PROCESS_ID="0", TPU_NUM_PROCESSES="1")

@@ -1,8 +1,9 @@
 """The port's sharded serving against its single-device ``generate`` and
 the JAX reference's: one 4-rank gloo gang (``tests/torch_gang.py``,
 worker ``sharded_generate``) runs ``make_sharded_generate`` on the tiny
-config in fp32 over the meshes (dp=2, tp=2) and (fsdp=2, tp=2), with the
-fp and the int8 KV cache, and tries tp=4 over 2 kv heads."""
+config in fp32 over the meshes (dp=2, tp=2) and (fsdp=2, tp=2), greedy
+with the fp and the int8 KV cache and sampled at temperature 1.0, and
+tries tp=4 over 2 kv heads and the entry's dry run on 2 ranks."""
 
 import dataclasses
 
@@ -20,6 +21,7 @@ from k8s_dra_driver_gpu_tpu_torch.models import llama as pt_llama
 from tests import torch_gang
 
 WORLD, BATCH, PROMPT, NEW, MAX_LEN = 4, 4, 8, 6, 16
+SEED = 5  # of every rank's sampling generator
 MESHES = ("dp2_tp2", "fsdp2_tp2")
 JAX_CFG = dataclasses.replace(jax_llama.LlamaConfig.tiny(), dtype=jnp.float32)
 PT_CFG = dataclasses.replace(pt_llama.LlamaConfig.tiny(), dtype=torch.float32)
@@ -44,7 +46,8 @@ def gang(tmp_path_factory):
     np.savez(out / "params.npz", **flat)
     prompt = np.random.RandomState(3).randint(
         0, JAX_CFG.vocab_size, (BATCH, PROMPT)).astype(np.int64)
-    np.savez(out / "prompt.npz", prompt=prompt, new=NEW, max_len=MAX_LEN)
+    np.savez(out / "prompt.npz", prompt=prompt, new=NEW, max_len=MAX_LEN,
+             seed=SEED)
     torch_gang.run_gang("sharded_generate", WORLD, out)
     ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
              for r in range(WORLD)]
@@ -56,6 +59,12 @@ def gang(tmp_path_factory):
         reference[kind] = np.asarray(jax_decode.generate(
             params, jnp.asarray(prompt.astype(np.int32)), JAX_CFG, NEW,
             MAX_LEN, kv_quant=quant))
+    repeated = np.repeat(prompt[:1], BATCH, axis=0)
+    for kind, rows in (("sampled", prompt), ("sampled_repeated", repeated)):
+        single[kind] = pt_decode.generate(
+            params_from_jax(params), torch.from_numpy(rows), PT_CFG, NEW,
+            MAX_LEN, temperature=1.0,
+            generator=torch.Generator().manual_seed(SEED))
     return ranks, single, reference
 
 
@@ -70,7 +79,31 @@ def test_greedy_tokens_match_single_device_and_jax(gang, mesh, kind):
         np.testing.assert_array_equal(got.numpy(), single[kind].numpy())
 
 
-@pytest.mark.parametrize("kind", ["fp", "int8"])
+@pytest.mark.parametrize("kind", ["sampled", "sampled_repeated"])
+@pytest.mark.parametrize("mesh", MESHES)
+def test_sampled_tokens_match_single_device(gang, mesh, kind):
+    # The draw is made from the global batch: the same generator gives
+    # the same tokens as the plain generate.
+    ranks, single, _ = gang
+    for rank in ranks:
+        np.testing.assert_array_equal(
+            rank[f"{mesh}/{kind}/tokens"].numpy(), single[kind].numpy())
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_sampled_rows_of_a_repeated_prompt_differ(gang, mesh):
+    # Rows r and r + B/2 lie on different shards of the batch dim; a
+    # draw per shard from generators seeded alike gave them the same
+    # random numbers, hence the same tokens for the same prompt.
+    ranks, _, _ = gang
+    half = BATCH // 2
+    for rank in ranks:
+        got = rank[f"{mesh}/sampled_repeated/tokens"]
+        for row in range(half):
+            assert not torch.equal(got[row], got[row + half]), got
+
+
+@pytest.mark.parametrize("kind", ["fp", "int8", "sampled"])
 @pytest.mark.parametrize("mesh", MESHES)
 def test_output_is_batch_sharded(gang, mesh, kind):
     # Sharded over the mesh's dp or fsdp dim (the first), replicated over
@@ -85,6 +118,14 @@ def test_tp_over_kv_heads_refused_before_work(gang):
     ranks, _, _ = gang
     for rank in ranks:
         assert rank["tp4/error"] == "n_kv_heads=2 not divisible by tp=4"
+
+
+def test_dryrun_of_another_size_inside_the_gang_raises(gang):
+    # The entry's dry run runs in place only in a group of its size.
+    ranks, _, _ = gang
+    for rank in ranks:
+        assert rank["dryrun2/error"] == \
+            "dryrun_multichip(2) inside a process group of 4 ranks"
 
 
 def test_gang_of_one_matches_generate():

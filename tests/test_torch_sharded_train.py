@@ -208,8 +208,10 @@ def _summary(calls):
 
 # The collectives of one step (forward, backward, optimizer) on the meshes
 # where tp divides the kv heads, by (collective, mesh axis): (calls,
-# elements sent). The k/v gather of tp > kv heads must not run here; these
-# are the records of the step before that gather existed.
+# elements sent). The k/v gather of tp > kv heads must not run here.
+# (dp=2, fsdp=2) is the record of the step before that gather existed;
+# (fsdp=2, tp=2) that of attention on each rank's local q, k, v, which are
+# laid out batch over fsdp and heads over tp first.
 STEP_CALLS = {
     "dp2_fsdp2": {
         ("all_gather_into_tensor", "fsdp"): (48, 118880),
@@ -217,12 +219,12 @@ STEP_CALLS = {
         ("all_reduce", "fsdp"): (5, 16705),
         ("reduce_scatter_tensor", "fsdp"): (9, 106496)},
     "fsdp2_tp2": {
-        ("all_gather_into_tensor", "fsdp"): (43, 88064),
-        ("all_gather_into_tensor", "tp"): (46, 73856),
+        ("all_gather_into_tensor", "fsdp"): (43, 83968),
+        ("all_gather_into_tensor", "tp"): (48, 80000),
         ("all_reduce", "fsdp"): (6, 323),
         ("all_reduce", "tp"): (5, 4417),
-        ("reduce_scatter_tensor", "fsdp"): (9, 69632),
-        ("reduce_scatter_tensor", "tp"): (29, 184320)},
+        ("reduce_scatter_tensor", "fsdp"): (9, 61440),
+        ("reduce_scatter_tensor", "tp"): (32, 200704)},
 }
 
 

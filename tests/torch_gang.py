@@ -296,7 +296,10 @@ def _multislice_train(rank, world, tokens, cfg, out, results) -> None:
 def sharded_generate(rank: int, world: int, out: Path) -> None:
     """Greedy tokens of ``make_sharded_generate`` on the meshes (dp=2,
     tp=2) and (fsdp=2, tp=2), with the fp and the int8 cache, for the
-    prompt of ``prompt.npz``; and the refusal of tp=4 over 2 kv heads."""
+    prompt of ``prompt.npz``; tokens sampled at temperature 1.0 with a
+    generator seeded ``seed`` on every rank, for that prompt and for its
+    first row repeated in every row; the refusal of tp=4 over 2 kv heads;
+    and ``entry.dryrun_multichip(2)``'s inside this gang of 4."""
     import numpy as np
     import torch
 
@@ -306,16 +309,22 @@ def sharded_generate(rank: int, world: int, out: Path) -> None:
     cfg = _tiny()
     with np.load(out / "prompt.npz") as f:
         prompt = torch.from_numpy(f["prompt"])
-        new, max_len = int(f["new"]), int(f["max_len"])
+        new, max_len, seed = int(f["new"]), int(f["max_len"]), int(f["seed"])
+    repeated = prompt[:1].expand_as(prompt).contiguous()
     results = {}
     for label, plan in (("dp2_tp2", pmesh.MeshPlan(dp=2, tp=2)),
                         ("fsdp2_tp2", pmesh.MeshPlan(fsdp=2, tp=2))):
         mesh = pmesh.build_mesh(plan)
-        for quant in (False, True):
+        for kind, rows, quant, temperature in (
+                ("fp", prompt, False, 0.0), ("int8", prompt, True, 0.0),
+                ("sampled", prompt, False, 1.0),
+                ("sampled_repeated", repeated, False, 1.0)):
             generate_fn, layout, place = decode.make_sharded_generate(
-                mesh, cfg, new, max_len, kv_quant=quant)
-            tokens = generate_fn(place(_load_params(out)), layout(prompt))
-            key = f"{label}/{'int8' if quant else 'fp'}"
+                mesh, cfg, new, max_len, temperature=temperature,
+                kv_quant=quant)
+            tokens = generate_fn(place(_load_params(out)), layout(rows),
+                                 torch.Generator().manual_seed(seed))
+            key = f"{label}/{kind}"
             results[f"{key}/tokens"] = tokens.full_tensor()
             results[f"{key}/placements"] = [str(p) for p in tokens.placements]
             results[f"{key}/local_shape"] = tuple(tokens.to_local().shape)
@@ -326,6 +335,12 @@ def sharded_generate(rank: int, world: int, out: Path) -> None:
         decode.make_sharded_generate(mesh, cfg, new, max_len)
     except ValueError as err:
         results["tp4/error"] = str(err)
+    from k8s_dra_driver_gpu_tpu_torch import entry
+
+    try:
+        entry.dryrun_multichip(2, device="cpu")
+    except ValueError as err:
+        results["dryrun2/error"] = str(err)
     torch.save(results, out / f"rank{rank}.pt")
 
 
