@@ -74,8 +74,11 @@ and prints no result line):
    three single steps; ``make_sharded_generate`` on phase 4's Llama-3-8B
    weights (drawn again from the seed): tokens and prefill logits
    against ``generate``'s, launch count, prefill and decode times, then
-   phase 4's sampled draw (tokens equal, launches counted);
-   ``bench_allreduce`` over the mesh.
+   phase 4's sampled draw (tokens equal, launches counted); a one-row
+   prompt (phase 4's first row, laid out replicated) through the sharded
+   generate against the plain ``generate`` on that row, run here too
+   (tokens equal, launches counted, time); ``bench_allreduce`` over the
+   mesh.
 7. moe (on the same gang of one): MoE-Llama at full width and depth
    (``LlamaMoEConfig()``: 8 experts, top-2, head dim 64), fp32 master
    weights from the seed, bf16 compute, B=4, S=4096, through
@@ -106,10 +109,24 @@ and prints no result line):
    ``entry.dryrun_multichip`` over every visible card, which starts its
    own NCCL ranks, and meanwhile over 4 gloo ranks on the host, where
    every family runs on this machine's torch (each family's seconds, or
-   its skip); and
+   its skip), each serving the reference's prompt of a row a rank; and
    ``entry.dryrun_multichip_multiprocess`` as one node process from a
    bootstrap.json and members.json written here in the ComputeDomain
    daemon's format.
+12. kubelet plugin: "a prepared claim runs the workload". The port's
+   ``kubeletplugin.DeviceState`` over the real NVML, its state and CDI
+   roots in a temporary directory, deleted after: the
+   published devices against ``nvidia-smi`` (count and names) and each
+   ``memory`` against NVML's total, the attributes left out as refused,
+   the host ms of construction; a whole-GPU claim for ``gpu-0`` prepared
+   (checkpoint PrepareCompleted, the spec's device node exists) and
+   prepared again (the same CDI ids), host ms of each; a child
+   ``python3`` with the spec's env applied (device edits, then common
+   edits, then the claim's lines) that sees one device of the claim's
+   product name and launches the flash forward kernel once at the
+   serving shape on phase 3's inputs, against its plain version; then
+   unprepare (spec and checkpoint record gone, a second unprepare a
+   no-op), host ms.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record (with the hd-64 instantiations'
@@ -1656,9 +1673,52 @@ def _gang_generate(seed: int, mesh, serving: dict) -> dict:
             or not same:
         raise AssertionError("sampled sharded generate disagrees with "
                              "generate")
+    one_row_launches = _gang_generate_one_row(cfg, generate_fn, prompt_layout,
+                                              params, serving["prompt"][:1])
     del params
     torch.cuda.empty_cache()
-    return {"generate": launches, "sampled_generate": sampled_launches}
+    return {"generate": launches, "sampled_generate": sampled_launches,
+            "one_row_generate": one_row_launches}
+
+
+def _local_tree(tree: dict) -> dict:
+    """Each DTensor leaf's local tensor: at world 1 the whole tensor."""
+    return {name: (_local_tree(leaf) if isinstance(leaf, dict)
+                   else leaf.to_local()) for name, leaf in tree.items()}
+
+
+def _gang_generate_one_row(cfg, generate_fn, prompt_layout, params,
+                           one_row) -> int:
+    """A one-row prompt (the reference's dry run serves a row a device)
+    through the sharded generate, laid out replicated, against the plain
+    ``generate`` on the same row and weights, run here: a batch of 4 may
+    round its bf16 products differently. Returns the flash launches of the
+    sharded run."""
+    from k8s_dra_driver_gpu_tpu_torch.models import decode
+    from k8s_dra_driver_gpu_tpu_torch.ops.flash_attention import (
+        flash_attention)
+
+    plain = decode.generate(_local_tree(params), one_row, cfg, SERVE_NEW,
+                            SERVE_MAX_LEN)
+    sharded_prompt = prompt_layout(one_row)
+    torch.cuda.synchronize()
+    flash_attention.launches = flash_attention.lse_launches = 0
+    t0 = time.perf_counter()
+    tokens = generate_fn(params, sharded_prompt)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = flash_attention.launches
+    same = torch.equal(tokens.full_tensor(), plain)
+    log(f"gang: one-row sharded generate S={SERVE_PROMPT} new={SERVE_NEW} "
+        f"in {seconds:.3f} s (first call at one row), prompt placed "
+        f"{sharded_prompt.placements}, flash launches {launches} "
+        f"({flash_attention.lse_launches} with lse), tokens placed "
+        f"{tokens.placements}, equal to the plain generate's on that row: "
+        f"{same}")
+    if launches != cfg.n_layers or flash_attention.lse_launches or not same:
+        raise AssertionError("one-row sharded generate disagrees with "
+                             "generate")
+    return launches
 
 
 MOE_BATCH, MOE_SEQ, MOE_TIMED_STEPS = 4, 4096, 5
@@ -2087,6 +2147,17 @@ def _check_dryrun(report: dict, label: str) -> None:
         raise AssertionError(f"dry run {label}: {report}")
 
 
+def _check_serve_rows(report: dict, n: int, label: str) -> None:
+    """The dry run served the reference's prompt: a row a rank."""
+    serve = report["serve"]
+    log(f"entry: dryrun_multichip {label} served batch {serve['batch']} on "
+        f"mesh {serve['mesh']}: {len(serve['tokens'])} rows of "
+        f"{len(serve['tokens'][0])} tokens")
+    if serve["batch"] != [n, 8]:
+        raise AssertionError(f"dry run {label} served {serve['batch']}, "
+                             f"not the reference's [{n}, 8]")
+
+
 def _log_dryrun(report: dict, label: str, seconds: float) -> None:
     log(f"entry: dryrun_multichip {label} in {seconds:.1f} s of process: "
         + "; ".join(f"{key} skipped ({rep['skipped']})" if "skipped" in rep
@@ -2127,6 +2198,7 @@ def phase_entry() -> None:
         report, seconds = timed(pt_entry.dryrun_multichip, cards)
         _log_dryrun(report, f"({cards}) over NCCL", seconds)
         _check_dryrun(report, "on the card")
+        _check_serve_rows(report, cards, f"({cards}) over NCCL")
 
         with tempfile.TemporaryDirectory() as tmp:
             reports, seconds = timed(
@@ -2142,9 +2214,184 @@ def phase_entry() -> None:
         _log_dryrun(report, f"({ENTRY_CPU_RANKS}) over gloo on the host "
                             f"(torch {torch.__version__})", seconds)
         _check_dryrun(report, "on the host")
+        _check_serve_rows(report, ENTRY_CPU_RANKS, "over gloo on the host")
         if [key for key, rep in report.items() if "skipped" in rep]:
             raise AssertionError(f"a family skipped at n = "
                                  f"{ENTRY_CPU_RANKS}: {report}")
+
+
+# Phase 12's child: the claim's env applied, it must see the claimed GPU
+# alone, under the claim's product name, and run the flash forward
+# kernel at the serving shape on phase 3's inputs (the first draw of a
+# generator seeded with the seed), against its plain version within the
+# bf16 tolerance and within row 1's measured error (one bf16 ulp at 0.5).
+CLAIM_CHILD_MAX_ERR = 0.00391
+CLAIM_CHILD = """
+import json, sys
+import torch
+import chip_smoke as c
+from k8s_dra_driver_gpu_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_reference)
+
+seed, product = int(sys.argv[1]), sys.argv[2]
+count, name = torch.cuda.device_count(), torch.cuda.get_device_name(0)
+if count != 1 or name != product:
+    raise SystemExit(f"claim child sees {count} devices, {name!r}")
+gen = torch.Generator(device="cuda").manual_seed(seed)
+q, k, v = c.attention_inputs(gen, "serving", 4, 2048, 32, 8, 128,
+                             torch.bfloat16)
+flash_attention.launches = 0
+got = flash_attention(q, k, v, causal=True)
+launches = flash_attention.launches
+want = flash_attention_reference(q, k, v, causal=True)
+torch.cuda.synchronize()
+atol, rtol = c.TOLERANCES[torch.bfloat16]
+diff = (got.float() - want.float()).abs()
+excess = (diff - atol - rtol * want.float().abs()).max().item()
+print(json.dumps({"device_count": count, "name": name,
+                  "launches": launches, "max_abs_err": diff.max().item(),
+                  "excess": excess,
+                  "finite": bool(torch.isfinite(got).all())}))
+"""
+
+
+def phase_kubelet_plugin(seed: int) -> int:
+    """12. The port's kubelet plugin prepares a whole-GPU claim over the
+    real NVML, and a child process run under the claim's CDI env runs the
+    flash forward kernel. Returns the child's flash launches."""
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin import DRIVER_NAME
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.claim import (
+        ResourceClaim)
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.device_state import (
+        Config, DeviceState)
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.deviceinfo import (
+        parse_gpu_name)
+    from k8s_dra_driver_gpu_tpu_torch.tpulib import NvmlLib, load
+
+    def ms_since(t0):
+        return (time.perf_counter() - t0) * 1e3
+
+    tmp = tempfile.mkdtemp(prefix="kp")
+    try:
+        t0 = time.perf_counter()
+        state = DeviceState(Config(root=f"{tmp}/state",
+                                   cdi_root=f"{tmp}/cdi"))
+        construct_ms = ms_since(t0)
+        devices = state.dra_devices()
+        smi = _smi_chips()
+        lib = load()
+        if not isinstance(lib, NvmlLib):
+            raise AssertionError(f"tpulib.load() gave {type(lib).__name__}")
+        nvml = {gpu.index: gpu for gpu in lib.enumerate().chips}
+        lib.close()
+        refused = {name: dev.chip.refused_attributes()
+                   for name, dev in state.allocatable.items()}
+        log(f"kubelet plugin: DeviceState over {state.host.source} in "
+            f"{construct_ms:.2f} ms of host time: "
+            f"{[d['name'] for d in devices]}; attributes of gpu-0 "
+            f"{json.dumps(devices[0]['attributes'])}, capacity "
+            f"{devices[0]['capacity']}; left out as refused by NVML "
+            f"{refused}")
+        names = [d["attributes"]["productName"]["string"] for d in devices]
+        memory = [int(d["capacity"]["memory"]["value"]) for d in devices]
+        if names != [row["name"] for row in smi] or memory != [
+                nvml[parse_gpu_name(d["name"])].memory_bytes
+                for d in devices]:
+            raise AssertionError(
+                f"published {names} {memory}, nvidia-smi "
+                f"{[row['name'] for row in smi]}, NVML "
+                f"{[gpu.memory_bytes for gpu in nvml.values()]}")
+        # A published UUID names its GPU: NVML's form, and nvidia-smi's.
+        smi_uuid = {row["index"]: row["uuid"] for row in smi}
+        uuids = {d["name"]: d["attributes"].get("uuid", {}).get("string")
+                 for d in devices}
+        for name, uuid in uuids.items():
+            if uuid is not None and (
+                    not re.fullmatch(GPU_UUID, uuid)
+                    or uuid != smi_uuid[parse_gpu_name(name)]):
+                raise AssertionError(f"{name} publishes uuid {uuid!r}")
+        log(f"kubelet plugin: uuid published for "
+            f"{[name for name, uuid in uuids.items() if uuid]} (each "
+            f"{sorted({len(u) for u in uuids.values() if u})} chars, in "
+            "NVML's form and equal to nvidia-smi's), left out for "
+            f"{[name for name, uuid in uuids.items() if not uuid]}")
+
+        claim = ResourceClaim.from_dict({
+            "metadata": {"uid": "smoke-claim", "namespace": "default",
+                         "name": "smoke-claim"},
+            "status": {"allocation": {"devices": {"results": [
+                {"request": "gpu", "driver": DRIVER_NAME, "pool": "node",
+                 "device": "gpu-0"}], "config": []}}}})
+        t0 = time.perf_counter()
+        ids = state.prepare(claim)
+        prepare_ms = ms_since(t0)
+        segments = {k: round(v * 1e3, 3)
+                    for k, v in state.last_segments.items()}
+        t0 = time.perf_counter()
+        again = state.prepare(claim)
+        repeat_ms = ms_since(t0)
+        record = state.prepared_claims()[claim.uid]
+        spec = state._cdi.read_spec(claim.uid)
+        nodes = [n["path"] for d in spec["devices"]
+                 for n in d["containerEdits"]["deviceNodes"]]
+        gpu0 = state.allocatable["gpu-0"].chip.chip
+        log(f"kubelet plugin: prepared {ids} in {prepare_ms:.2f} ms of host "
+            f"time (segments ms {segments}), again {again} in "
+            f"{repeat_ms:.2f} ms; checkpoint {record.state}; spec device "
+            f"nodes {nodes} (exists: {[os.path.exists(n) for n in nodes]}), "
+            f"common {json.dumps(spec['containerEdits'])}")
+        if (ids != ["nvidia.com/gpu=gpu-0"] or again != ids
+                or record.state != "PrepareCompleted"
+                or nodes != [f"/dev/nvidia{gpu0.minor}"]
+                or not os.path.exists(nodes[0])):
+            raise AssertionError("kubelet plugin prepare")
+
+        env = dict(os.environ)
+        edits = [d["containerEdits"] for d in spec["devices"]] + [
+            spec["containerEdits"]]
+        for entry in (e for edit in edits for e in edit.get("env", [])):
+            key, _, value = entry.partition("=")
+            env[key] = value
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", CLAIM_CHILD, str(seed), gpu0.name],
+            env=env, capture_output=True, text=True, timeout=300,
+            check=False)
+        child_s = time.perf_counter() - t0
+        if child.returncode != 0:
+            raise AssertionError(f"claim child exited {child.returncode}: "
+                                 f"{child.stderr[-4000:]}")
+        result = json.loads(child.stdout.strip().splitlines()[-1])
+        log(f"kubelet plugin: child under CUDA_DEVICE_ORDER="
+            f"{env['CUDA_DEVICE_ORDER']} in {child_s:.2f} s of process: "
+            f"{json.dumps(result)} (flash forward at B=4 S=2048 H=32 K=8 "
+            f"hd=128 bf16, max_abs_err bound {CLAIM_CHILD_MAX_ERR})")
+        if (result["device_count"] != 1 or result["launches"] != 1
+                or not result["finite"] or result["excess"] > 0
+                or result["max_abs_err"] > CLAIM_CHILD_MAX_ERR):
+            raise AssertionError(f"claim child: {result}")
+
+        t0 = time.perf_counter()
+        state.unprepare(claim.uid)
+        unprepare_ms = ms_since(t0)
+        t0 = time.perf_counter()
+        state.unprepare(claim.uid)
+        repeat_unprepare_ms = ms_since(t0)
+        left = (state._cdi.spec_exists(claim.uid),
+                claim.uid in state.prepared_claims())
+        log(f"kubelet plugin: unprepared in {unprepare_ms:.2f} ms of host "
+            f"time, again (no-op) in {repeat_unprepare_ms:.2f} ms; spec "
+            f"left {left[0]}, checkpoint record left {left[1]}")
+        if any(left):
+            raise AssertionError("kubelet plugin unprepare left state")
+        return result["launches"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main(argv=None) -> int:
@@ -2176,11 +2423,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_launcher(args.seed)
     phase_entry()
+    t_plugin = time.perf_counter()
+    claim_child = phase_kubelet_plugin(args.seed)
+    log(f"kubelet plugin: phase 12 in "
+        f"{time.perf_counter() - t_plugin:.1f} s")
     forward["launches_by_path"] = {
         "serving_generate": serving_launches,
         "training_step": training["forward_lse"],
         "sharded_generate": gang["generate"],
         "sampled_sharded_generate": gang["sampled_generate"],
+        "one_row_sharded_generate": gang["one_row_generate"],
+        "prepared_claim_child": claim_child,
         "sharded_training_step": gang["train"]["forward_lse"],
         "moe_training_step": moe["forward_lse"],
         "sp_ulysses_training_step": sp["ulysses"]["forward_lse"],

@@ -6,8 +6,10 @@ KV cache (``models/``), its training step and gang launcher
 (``train/``), both also sharded over a ``torch.distributed`` device mesh
 (``parallel/``), the attention dispatcher, the chunked loss, an
 all-reduce benchmark and hand-written Hopper flash-attention kernels,
-forward and backward (``ops/``, ``csrc/``). The
-JAX package stays the reference; this package imports nothing of it and
+forward and backward (``ops/``, ``csrc/``); and the driver side's
+device layer (``tpulib/``, NVML) and the kubelet plugin's whole-GPU
+prepare path (``kubeletplugin/`` with ``api/`` and ``pkg/``). The JAX
+package stays the reference; this package imports nothing of it and
 nothing of JAX.
 
 Entry points run on the card unless the caller asks for the CPU

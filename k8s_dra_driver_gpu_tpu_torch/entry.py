@@ -153,7 +153,8 @@ def _dryrun(n: int, device: torch.device) -> dict:
     cfg = llama.LlamaConfig.tiny()
     rank0 = dist.get_rank() == 0
     report = {}
-    # The reference's 4 rows a batch, rounded up to a multiple of n.
+    # The reference's 4 rows a training batch, rounded up to a multiple
+    # of n.
     rows = -(-4 // n) * n
 
     def fit_sp(want: int) -> int:
@@ -311,9 +312,8 @@ def _dryrun(n: int, device: torch.device) -> dict:
         generate_fn, layout, place = make_sharded_generate(
             mesh, cfg, max_new_tokens=4, max_len=16)
         p_seed, t_seed = FAMILY_SEEDS["serve"]
-        # The reference's prompt has a row a device; a sharded prompt of
-        # one row fails in DTensor's view propagation, so at least 4.
-        shape = (rows, 8)
+        # The reference's prompt: a row a device.
+        shape = (n, 8)
         tokens = generate_fn(
             place(draw_params(cfg, p_seed, device)),
             layout(draw_tokens(t_seed, shape, cfg.vocab_size, device)))

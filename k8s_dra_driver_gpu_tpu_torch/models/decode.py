@@ -14,10 +14,12 @@
 - Sampling: greedy, or temperature through a ``torch.Generator``; on
   DTensors the draw is made from the global batch (``_sample``).
 - ``make_sharded_generate`` runs the same code on DTensors over a mesh:
-  parameters placed by ``llama.param_specs``, the prompt by
-  ``llama.batch_spec``, the cache batch-sharded over dp and fsdp and
-  kv-head-sharded over tp; prefill and decode look tokens up through
-  ``llama.embed_tokens``, vocab-parallel over tp.
+  parameters placed by ``llama.param_specs``; the prompt, the cache and
+  the tokens batch-sharded over dp and fsdp where the batch splits
+  (``parallel.mesh.batch_axes``: not one row, a multiple of dp * fsdp),
+  else replicated; the cache kv-head-sharded over tp; prefill and decode
+  look tokens up through ``llama.embed_tokens``, vocab-parallel over
+  tp.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from torch.distributed.tensor.experimental import (implicit_replication,
                                                   local_map)
 
 from ..ops.attention import attention
-from ..parallel.mesh import (DATA_AXIS, FSDP_AXIS, TENSOR_AXIS, axis_size,
+from ..parallel.mesh import (TENSOR_AXIS, axis_size, batch_axes,
                              compute_mesh, distribute_tree, placements)
 from . import llama
 from .llama import LlamaConfig, _mlp, layer_params, rms_norm, rope
@@ -59,7 +61,7 @@ class KVCache:
             if mesh is None:
                 return torch.zeros(shape, dtype=dtype, device=device)
             return dtensor.zeros(shape, dtype=dtype, device_mesh=mesh,
-                                 placements=cache_placements(mesh))
+                                 placements=cache_placements(mesh, batch))
 
         if quantized:
             sshape = shape[:-1] + (1,)
@@ -81,14 +83,17 @@ class KVCache:
         return self.k_scale is not None
 
 
-# One layer's k/v, [B, positions, K, ...]: batch over dp then fsdp, kv
-# heads over tp (whole heads a shard).
-_KV_SPEC = ((DATA_AXIS, FSDP_AXIS), None, TENSOR_AXIS)
+def _kv_spec(batch: int, mesh) -> tuple:
+    """The spec of one layer's k/v [B, positions, K, ...]: batch over dp
+    then fsdp where it splits (``batch_axes``), kv heads over tp (whole
+    heads a shard)."""
+    return (batch_axes(batch, mesh), None, TENSOR_AXIS)
 
 
-def cache_placements(mesh) -> tuple:
-    """Placements of a [L, B, max_len, K, ...] cache leaf on ``mesh``."""
-    return placements((None,) + _KV_SPEC, mesh)
+def cache_placements(mesh, batch: int) -> tuple:
+    """Placements of a [L, batch, max_len, K, ...] cache leaf on
+    ``mesh``."""
+    return placements((None,) + _kv_spec(batch, mesh), mesh)
 
 
 def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -130,7 +135,8 @@ def _attend_cached(cfg: LlamaConfig, q, ck, cv, valid_len: int,
     dim into the einsum's batched product on every torch release."""
     del cfg
     if isinstance(q, DTensor):
-        layout = list(placements(_KV_SPEC, q.device_mesh))
+        layout = list(placements(_kv_spec(q.shape[0], q.device_mesh),
+                                 q.device_mesh))
         tensors = [t for t in (q, ck, cv, k_scale, v_scale) if t is not None]
 
         def local(*tensors):
@@ -167,8 +173,8 @@ def _write_kv(cache: KVCache, layer: int, pos: int, k, v):
         # Lay k/v out as the cache's layer slice and write each rank's
         # shard into its local cache.
         mesh = cache.k.device_mesh
-        k, v = (t.redistribute(mesh, placements(_KV_SPEC, mesh)).to_local()
-                for t in (k, v))
+        layout = placements(_kv_spec(k.shape[0], mesh), mesh)
+        k, v = (t.redistribute(mesh, layout).to_local() for t in (k, v))
         cache = dataclasses.replace(cache, **{
             name: getattr(cache, name).to_local()
             for name in ("k", "v", "k_scale", "v_scale")
@@ -262,7 +268,8 @@ def _sample(logits: torch.Tensor, temperature: float,
     picks the same B tokens, its generator advancing alike on every rank,
     and keeps its own rows, batch-sharded over dp and fsdp. So the tokens
     are the plain path's for the same generator, and no two rows share
-    their random numbers. (DTensor's own argmax over a vocab-sharded dim
+    their random numbers. A batch that does not split (``batch_axes``)
+    stays replicated. (DTensor's own argmax over a vocab-sharded dim
     leaves the tokens ``Partial`` on some torch releases, 2.11 among
     them.)"""
     if isinstance(logits, DTensor):
@@ -272,7 +279,8 @@ def _sample(logits: torch.Tensor, temperature: float,
         tokens = _sample(whole, temperature, generator)
         return DTensor.from_local(
             tokens, mesh, [Replicate()] * mesh.ndim, run_check=False
-        ).redistribute(mesh, placements(((DATA_AXIS, FSDP_AXIS),), mesh))
+        ).redistribute(mesh, placements(
+            (batch_axes(tokens.shape[0], mesh),), mesh))
     if temperature <= 0:
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(logits / temperature, dim=-1)
@@ -324,14 +332,15 @@ def make_sharded_generate(
     parameters (the same on every rank) by the training placements
     (``llama.param_specs``: fsdp over the long matmul dim, tp over
     heads/ff); ``prompt_layout`` places the global prompt (the same on
-    every rank) batch-sharded over dp and fsdp. The KV cache is
-    batch-sharded over dp and fsdp and kv-head-sharded over tp; each
-    rank looks tokens up in its own vocab shard of the table
-    (``llama.embed_tokens``), and DTensor inserts the tp reductions after
-    wo and w_down. The tokens
-    come back batch-sharded like the prompt. Requires cfg.n_kv_heads % tp
-    == 0 (each tp shard owns whole kv heads) and a prompt batch that
-    divides by dp * fsdp."""
+    every rank) batch-sharded over dp and fsdp, or replicated over them
+    when it is one row or does not divide by dp * fsdp
+    (``parallel.mesh.batch_axes``; the reference's dry run serves one row
+    a device). The KV cache is laid out like the prompt's batch and
+    kv-head-sharded over tp; each rank looks tokens up in its own vocab
+    shard of the table (``llama.embed_tokens``), and DTensor inserts the
+    tp reductions after wo and w_down. The tokens come back laid out like
+    the prompt. Requires cfg.n_kv_heads % tp == 0 (each tp shard owns
+    whole kv heads)."""
     tp = axis_size(mesh, TENSOR_AXIS)
     if cfg.n_kv_heads % tp:
         raise ValueError(
@@ -339,26 +348,21 @@ def make_sharded_generate(
     cfg = llama.pin_auto_attn_for_pjit(cfg, mesh)
     cmesh = compute_mesh(mesh)
     specs = llama.param_specs(cfg, cmesh)
-    prompt_placements = llama.batch_spec(cmesh)
-    shards = axis_size(mesh, DATA_AXIS) * axis_size(mesh, FSDP_AXIS)
 
     def place_params(params: dict) -> dict:
         return distribute_tree(params, specs, cmesh)
 
     def prompt_layout(prompt: torch.Tensor) -> DTensor:
-        return dtensor.distribute_tensor(prompt, cmesh, prompt_placements,
+        layout = placements((batch_axes(prompt.shape[0], cmesh),), cmesh)
+        return dtensor.distribute_tensor(prompt, cmesh, layout,
                                          src_data_rank=None)
 
     def generate_fn(params: dict, prompt: DTensor,
                     generator: torch.Generator | None = None) -> DTensor:
         _check_budget(prompt.shape[1], max_new_tokens, max_len)
-        if prompt.shape[0] % shards:
-            raise ValueError(
-                f"prompt batch {prompt.shape[0]} not divisible by "
-                f"dp * fsdp = {shards}")
         with implicit_replication():
             tokens = generate(params, prompt, cfg, max_new_tokens, max_len,
                               temperature, generator, kv_quant)
-        return tokens.redistribute(cmesh, prompt_placements)
+        return tokens.redistribute(cmesh, prompt.placements)
 
     return generate_fn, prompt_layout, place_params

@@ -13,7 +13,7 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import local_map
 
-from ..parallel.mesh import DATA_AXIS, FSDP_AXIS, TENSOR_AXIS, placements
+from ..parallel.mesh import TENSOR_AXIS, batch_axes, placements
 from .flash_attention import HEAD_DIMS, flash_attention
 
 # Sequence length at which "auto" switches from the plain einsum path to
@@ -58,20 +58,22 @@ def attention(
 def _local_attention(fn, q: DTensor, k: DTensor, v: DTensor,
                      causal: bool) -> DTensor:
     """``fn`` (the flash kernels or the einsum) on each rank's local q, k,
-    v: batch sharded over dp and fsdp, heads over tp (whole kv heads a
-    shard, or k and v split by q heads, so each rank's GQA groups are
-    complete and the result is exact). Not DTensor's propagation through
-    the einsum: it cannot flatten the tp-sharded head dim into the
-    batched product on every torch release (2.11 refuses it)."""
+    v: batch sharded over dp and fsdp where it splits (``batch_axes``),
+    heads over tp (whole kv heads a shard, or k and v split by q heads, so
+    each rank's GQA groups are complete and the result is exact). Not
+    DTensor's propagation through the einsum: it cannot flatten the
+    tp-sharded head dim into the batched product on every torch release
+    (2.11 refuses it)."""
+    mesh = q.device_mesh
     # A list: local_map reads a tuple as one placement list per output.
-    layout = list(placements(((DATA_AXIS, FSDP_AXIS), None, TENSOR_AXIS),
-                             q.device_mesh))
+    layout = list(placements((batch_axes(q.shape[0], mesh), None,
+                              TENSOR_AXIS), mesh))
     def local(q, k, v):
         q, k, v = (_ContiguousGrad.apply(t) for t in (q, k, v))
         return fn(q, k, v, causal=causal)
 
     return local_map(local, out_placements=layout,
-                     in_placements=(layout,) * 3, device_mesh=q.device_mesh,
+                     in_placements=(layout,) * 3, device_mesh=mesh,
                      redistribute_inputs=True)(q, k, v)
 
 

@@ -195,6 +195,16 @@ def compute_mesh(mesh: DeviceMesh) -> DeviceMesh:
     return mesh[names or mesh.mesh_dim_names[:1]]
 
 
+def batch_axes(batch: int, mesh: DeviceMesh) -> tuple:
+    """The mesh axes a [batch, ...] tensor's dim 0 is split over: dp then
+    fsdp, or none (the rows replicated) when the batch is one row or does
+    not divide by their sizes. DTensor maps a size-1 dim to no dim of a
+    view, so a sharded one-row batch cannot be reshaped (its matmuls
+    flatten the batch); an uneven split would leave ranks without rows."""
+    shards = axis_size(mesh, DATA_AXIS) * axis_size(mesh, FSDP_AXIS)
+    return () if batch == 1 or batch % shards else (DATA_AXIS, FSDP_AXIS)
+
+
 def placements(spec: Sequence, mesh: DeviceMesh) -> tuple:
     """DTensor placements on ``mesh`` of a reference-style spec: entry
     ``d`` names the mesh axis (or a tuple of axes, outer first) that

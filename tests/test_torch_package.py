@@ -1,6 +1,6 @@
 """Package-level rules of the PyTorch port: it imports neither JAX nor
-the JAX package, its entry points default to the card, and its CPU paths
-need no CUDA toolkit."""
+the JAX package (nor grpc, protobuf or PyYAML), its entry points default
+to the card, and its CPU paths need no CUDA toolkit."""
 
 import ast
 import os
@@ -17,7 +17,10 @@ from k8s_dra_driver_gpu_tpu_torch.ops import flash_attention as pt_flash
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "k8s_dra_driver_gpu_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "k8s_dra_driver_gpu_tpu")
+# Nor grpc, protobuf ("google") or PyYAML: the chip machine has none of
+# them, and the port's kubelet plugin needs only the standard library.
+FORBIDDEN = ("jax", "jaxlib", "k8s_dra_driver_gpu_tpu", "grpc", "google",
+             "yaml")
 
 
 def _imported_modules(path: pathlib.Path):

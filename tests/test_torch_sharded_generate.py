@@ -2,8 +2,10 @@
 the JAX reference's: one 4-rank gloo gang (``tests/torch_gang.py``,
 worker ``sharded_generate``) runs ``make_sharded_generate`` on the tiny
 config in fp32 over the meshes (dp=2, tp=2) and (fsdp=2, tp=2), greedy
-with the fp and the int8 KV cache and sampled at temperature 1.0, and
-tries tp=4 over 2 kv heads and the entry's dry run on 2 ranks."""
+with the fp and the int8 KV cache and sampled at temperature 1.0, greedy
+and sampled for a one-row prompt (fewer rows than dp * fsdp: laid out
+replicated), and tries tp=4 over 2 kv heads and the entry's dry run on 2
+ranks."""
 
 import dataclasses
 
@@ -15,6 +17,7 @@ import torch
 
 from k8s_dra_driver_gpu_tpu.models import decode as jax_decode
 from k8s_dra_driver_gpu_tpu.models import llama as jax_llama
+from k8s_dra_driver_gpu_tpu.parallel import mesh as jax_mesh
 from k8s_dra_driver_gpu_tpu_torch.convert import params_from_jax
 from k8s_dra_driver_gpu_tpu_torch.models import decode as pt_decode
 from k8s_dra_driver_gpu_tpu_torch.models import llama as pt_llama
@@ -23,6 +26,7 @@ from tests import torch_gang
 WORLD, BATCH, PROMPT, NEW, MAX_LEN = 4, 4, 8, 6, 16
 SEED = 5  # of every rank's sampling generator
 MESHES = ("dp2_tp2", "fsdp2_tp2")
+ONE_ROW = ("one_row", "one_row_sampled")
 JAX_CFG = dataclasses.replace(jax_llama.LlamaConfig.tiny(), dtype=jnp.float32)
 PT_CFG = dataclasses.replace(pt_llama.LlamaConfig.tiny(), dtype=torch.float32)
 
@@ -60,11 +64,26 @@ def gang(tmp_path_factory):
             params, jnp.asarray(prompt.astype(np.int32)), JAX_CFG, NEW,
             MAX_LEN, kv_quant=quant))
     repeated = np.repeat(prompt[:1], BATCH, axis=0)
-    for kind, rows in (("sampled", prompt), ("sampled_repeated", repeated)):
+    for kind, rows in (("sampled", prompt), ("sampled_repeated", repeated),
+                       ("one_row_sampled", prompt[:1])):
         single[kind] = pt_decode.generate(
             params_from_jax(params), torch.from_numpy(rows), PT_CFG, NEW,
             MAX_LEN, temperature=1.0,
             generator=torch.Generator().manual_seed(SEED))
+    one_row = prompt[:1].astype(np.int32)
+    single["one_row"] = pt_decode.generate(
+        params_from_jax(params), torch.from_numpy(prompt[:1]), PT_CFG, NEW,
+        MAX_LEN)
+    reference["one_row"] = np.asarray(jax_decode.generate(
+        params, jnp.asarray(one_row), JAX_CFG, NEW, MAX_LEN))
+    # JAX's own sharded generate refuses a batch that dp * fsdp does not
+    # divide, so its one-row tokens come from a (tp=2) mesh.
+    mesh = jax_mesh.build_mesh(jax_mesh.MeshPlan(tp=2),
+                               devices=jax.devices()[:2])
+    generate_fn, prompt_shard, place = jax_decode.make_sharded_generate(
+        mesh, JAX_CFG, NEW, MAX_LEN)
+    reference["one_row_sharded"] = np.asarray(generate_fn(
+        place(params), jax.device_put(jnp.asarray(one_row), prompt_shard)))
     return ranks, single, reference
 
 
@@ -88,6 +107,33 @@ def test_sampled_tokens_match_single_device(gang, mesh, kind):
     for rank in ranks:
         np.testing.assert_array_equal(
             rank[f"{mesh}/{kind}/tokens"].numpy(), single[kind].numpy())
+
+
+@pytest.mark.parametrize("kind", ONE_ROW)
+@pytest.mark.parametrize("mesh", MESHES)
+def test_one_row_tokens_match_single_device_and_jax(gang, mesh, kind):
+    # One row on dp * fsdp = 2: replicated over the batch axes, so no
+    # rank views a sharded size-1 batch; greedy tokens also equal JAX's
+    # generate and its sharded generate (on tp=2).
+    ranks, single, reference = gang
+    if kind == "one_row":
+        np.testing.assert_array_equal(single[kind].numpy(),
+                                      reference["one_row"])
+        np.testing.assert_array_equal(reference["one_row_sharded"],
+                                      reference["one_row"])
+    for rank in ranks:
+        got = rank[f"{mesh}/{kind}/tokens"]
+        assert got.shape == (1, NEW) and got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), single[kind].numpy())
+
+
+@pytest.mark.parametrize("kind", ONE_ROW)
+@pytest.mark.parametrize("mesh", MESHES)
+def test_one_row_output_is_replicated(gang, mesh, kind):
+    ranks, _, _ = gang
+    for rank in ranks:
+        assert rank[f"{mesh}/{kind}/placements"] == ["R", "R"]
+        assert rank[f"{mesh}/{kind}/local_shape"] == (1, NEW)
 
 
 @pytest.mark.parametrize("mesh", MESHES)
@@ -131,7 +177,10 @@ def test_dryrun_of_another_size_inside_the_gang_raises(gang):
 def test_gang_of_one_matches_generate():
     # One in-process rank, "flash" attention (its plain version through
     # local_map on the CPU) and the int8 cache: the sharded generate and
-    # its prefill logits equal the plain ones bit for bit.
+    # its prefill logits equal the plain ones bit for bit, for a prompt
+    # of two rows and of one (the reference's dry run serves a row a
+    # device; one row is laid out replicated). One process group for
+    # both: each group leaves gloo threads in the test process.
     import torch.distributed as dist
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -139,24 +188,26 @@ def test_gang_of_one_matches_generate():
 
     cfg = dataclasses.replace(PT_CFG, attn_impl="flash")
     params = pt_llama.init(cfg, torch.Generator().manual_seed(2), "cpu")
-    prompt = torch.from_numpy(np.random.RandomState(4).randint(
-        0, cfg.vocab_size, (2, PROMPT)))
-    want = pt_decode.generate(params, prompt, cfg, NEW, MAX_LEN,
-                              kv_quant=True)
-    want_logits = pt_decode.prefill(params, prompt, cfg, MAX_LEN)[0]
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
                             world_size=1)
     try:
         mesh = pt_mesh.build_mesh()
         generate_fn, layout, place = pt_decode.make_sharded_generate(
             mesh, cfg, NEW, MAX_LEN, kv_quant=True)
-        placed, sharded_prompt = place(params), layout(prompt)
-        got = generate_fn(placed, sharded_prompt)
-        with implicit_replication():
-            logits = pt_decode.prefill(placed, sharded_prompt, cfg,
-                                       MAX_LEN)[0].full_tensor()
-        assert torch.equal(got.full_tensor(), want)
-        assert torch.equal(logits, want_logits)
+        placed = place(params)
+        for rows in (2, 1):
+            prompt = torch.from_numpy(np.random.RandomState(4).randint(
+                0, cfg.vocab_size, (rows, PROMPT)))
+            want = pt_decode.generate(params, prompt, cfg, NEW, MAX_LEN,
+                                      kv_quant=True)
+            want_logits = pt_decode.prefill(params, prompt, cfg, MAX_LEN)[0]
+            sharded_prompt = layout(prompt)
+            got = generate_fn(placed, sharded_prompt)
+            with implicit_replication():
+                logits = pt_decode.prefill(placed, sharded_prompt, cfg,
+                                           MAX_LEN)[0].full_tensor()
+            assert torch.equal(got.full_tensor(), want), rows
+            assert torch.equal(logits, want_logits), rows
     finally:
         dist.destroy_process_group()
 

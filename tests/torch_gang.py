@@ -298,8 +298,10 @@ def sharded_generate(rank: int, world: int, out: Path) -> None:
     tp=2) and (fsdp=2, tp=2), with the fp and the int8 cache, for the
     prompt of ``prompt.npz``; tokens sampled at temperature 1.0 with a
     generator seeded ``seed`` on every rank, for that prompt and for its
-    first row repeated in every row; the refusal of tp=4 over 2 kv heads;
-    and ``entry.dryrun_multichip(2)``'s inside this gang of 4."""
+    first row repeated in every row; greedy and sampled tokens for the
+    prompt's first row alone (a batch smaller than dp * fsdp); the
+    refusal of tp=4 over 2 kv heads; and ``entry.dryrun_multichip(2)``'s
+    inside this gang of 4."""
     import numpy as np
     import torch
 
@@ -318,7 +320,9 @@ def sharded_generate(rank: int, world: int, out: Path) -> None:
         for kind, rows, quant, temperature in (
                 ("fp", prompt, False, 0.0), ("int8", prompt, True, 0.0),
                 ("sampled", prompt, False, 1.0),
-                ("sampled_repeated", repeated, False, 1.0)):
+                ("sampled_repeated", repeated, False, 1.0),
+                ("one_row", prompt[:1], False, 0.0),
+                ("one_row_sampled", prompt[:1], False, 1.0)):
             generate_fn, layout, place = decode.make_sharded_generate(
                 mesh, cfg, new, max_len, temperature=temperature,
                 kv_quant=quant)
