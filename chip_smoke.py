@@ -127,6 +127,24 @@ and prints no result line):
    serving shape on phase 3's inputs, against its plain version; then
    unprepare (spec and checkpoint record gone, a second unprepare a
    no-op), host ms.
+13. node driver: the kubelet plugin's node service (``kubeletplugin.
+   driver.Driver``) over the real NVML and the port's ``FakeApiServer``
+   on 127.0.0.1, through the real ``KubeClient``: its ResourceSlice read
+   back over HTTP equals ``generate_resource_slices()`` (the devices of
+   ``DeviceState`` with their counters and the health-off taint) at
+   generation 1, a republish writes nothing; one ``ChipHealthMonitor``
+   poll of a fresh NVML handle (closed at ``stop()``) replaces the
+   taints with its own; a synthetic fatal ``chip_lost`` taint on
+   ``gpu-0`` and its clearing cost one PUT each at generation 1, an
+   unchanged taint set no request; a ``resource.k8s.io/v1`` claim for
+   ``gpu-0`` prepared through the API lookup, its spec mounting the
+   driver's libraries at NVML's version (each an existing file, libcuda
+   and libnvidia-ml among them); phase 12's child under that spec's env,
+   whose mapped ``libcuda`` and ``libnvidia-ml`` must be among the
+   mounts' host paths; unprepare; a second prepare, the claim deleted
+   from the server, and the sweep reaping it (``stale_claim`` 1, spec
+   and record gone); the server stopped and its threads joined. Host ms
+   of each step.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record (with the hd-64 instantiations'
@@ -2227,7 +2245,7 @@ def phase_entry() -> None:
 # bf16 tolerance and within row 1's measured error (one bf16 ulp at 0.5).
 CLAIM_CHILD_MAX_ERR = 0.00391
 CLAIM_CHILD = """
-import json, sys
+import ctypes, json, os, sys
 import torch
 import chip_smoke as c
 from k8s_dra_driver_gpu_tpu_torch.ops.flash_attention import (
@@ -2248,11 +2266,51 @@ torch.cuda.synchronize()
 atol, rtol = c.TOLERANCES[torch.bfloat16]
 diff = (got.float() - want.float()).abs()
 excess = (diff - atol - rtol * want.float().abs()).max().item()
+# The driver libraries this process really runs on (phase 13).
+ctypes.CDLL("libnvidia-ml.so.1")
+mapped = sorted({os.path.realpath(f[5]) for f in (
+    line.split() for line in open("/proc/self/maps")) if len(f) >= 6
+    and os.path.basename(f[5]).startswith(("libcuda.so",
+                                           "libnvidia-ml.so"))})
 print(json.dumps({"device_count": count, "name": name,
                   "launches": launches, "max_abs_err": diff.max().item(),
-                  "excess": excess,
+                  "excess": excess, "mapped": mapped,
                   "finite": bool(torch.isfinite(got).all())}))
 """
+
+
+def run_claim_child(spec: dict, seed: int, product: str, label: str
+                    ) -> dict:
+    """Run ``CLAIM_CHILD`` with the spec's env applied (device edits,
+    then common edits); its JSON line, checked: one device, one launch,
+    finite, within ``CLAIM_CHILD_MAX_ERR``."""
+    import os
+
+    env = dict(os.environ)
+    edits = [d["containerEdits"] for d in spec["devices"]] + [
+        spec["containerEdits"]]
+    for entry in (e for edit in edits for e in edit.get("env", [])):
+        key, _, value = entry.partition("=")
+        env[key] = value
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", CLAIM_CHILD, str(seed), product],
+        env=env, capture_output=True, text=True, timeout=300, check=False)
+    child_s = time.perf_counter() - t0
+    if child.returncode != 0:
+        raise AssertionError(f"claim child exited {child.returncode}: "
+                             f"{child.stderr[-4000:]}")
+    result = json.loads(child.stdout.strip().splitlines()[-1])
+    result["seconds"] = child_s
+    log(f"{label}: child under CUDA_DEVICE_ORDER="
+        f"{env['CUDA_DEVICE_ORDER']} in {child_s:.2f} s of process: "
+        f"{json.dumps(result)} (flash forward at B=4 S=2048 H=32 K=8 "
+        f"hd=128 bf16, max_abs_err bound {CLAIM_CHILD_MAX_ERR})")
+    if (result["device_count"] != 1 or result["launches"] != 1
+            or not result["finite"] or result["excess"] > 0
+            or result["max_abs_err"] > CLAIM_CHILD_MAX_ERR):
+        raise AssertionError(f"claim child: {result}")
+    return result
 
 
 def phase_kubelet_plugin(seed: int) -> int:
@@ -2351,30 +2409,7 @@ def phase_kubelet_plugin(seed: int) -> int:
                 or not os.path.exists(nodes[0])):
             raise AssertionError("kubelet plugin prepare")
 
-        env = dict(os.environ)
-        edits = [d["containerEdits"] for d in spec["devices"]] + [
-            spec["containerEdits"]]
-        for entry in (e for edit in edits for e in edit.get("env", [])):
-            key, _, value = entry.partition("=")
-            env[key] = value
-        t0 = time.perf_counter()
-        child = subprocess.run(
-            [sys.executable, "-c", CLAIM_CHILD, str(seed), gpu0.name],
-            env=env, capture_output=True, text=True, timeout=300,
-            check=False)
-        child_s = time.perf_counter() - t0
-        if child.returncode != 0:
-            raise AssertionError(f"claim child exited {child.returncode}: "
-                                 f"{child.stderr[-4000:]}")
-        result = json.loads(child.stdout.strip().splitlines()[-1])
-        log(f"kubelet plugin: child under CUDA_DEVICE_ORDER="
-            f"{env['CUDA_DEVICE_ORDER']} in {child_s:.2f} s of process: "
-            f"{json.dumps(result)} (flash forward at B=4 S=2048 H=32 K=8 "
-            f"hd=128 bf16, max_abs_err bound {CLAIM_CHILD_MAX_ERR})")
-        if (result["device_count"] != 1 or result["launches"] != 1
-                or not result["finite"] or result["excess"] > 0
-                or result["max_abs_err"] > CLAIM_CHILD_MAX_ERR):
-            raise AssertionError(f"claim child: {result}")
+        result = run_claim_child(spec, seed, gpu0.name, "kubelet plugin")
 
         t0 = time.perf_counter()
         state.unprepare(claim.uid)
@@ -2392,6 +2427,205 @@ def phase_kubelet_plugin(seed: int) -> int:
         return result["launches"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+NODE = "smoke-node"
+RESOURCE_SLICES = ("resource.k8s.io", "v1", "resourceslices")
+RESOURCE_CLAIMS = ("resource.k8s.io", "v1", "resourceclaims")
+
+
+def phase_node_driver(seed: int) -> int:
+    """13. The kubelet plugin as a node service over NVML, against the
+    port's fake API server on 127.0.0.1 through the real ``KubeClient``:
+    publication, health taints, a claim prepared through the API lookup
+    with the driver's libraries mounted, the child under its env, and the
+    sweep. Returns the child's flash launches."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin import DRIVER_NAME
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.cdi import (
+        driver_mounts, mapped_library_dirs)
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.device_state import (
+        Config)
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.deviceinfo import (
+        parse_gpu_name)
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.driver import Driver
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.health import (
+        ChipHealthMonitor, DeviceTaint)
+    from k8s_dra_driver_gpu_tpu_torch.pkg.fakeapiserver import FakeApiServer
+    from k8s_dra_driver_gpu_tpu_torch.pkg.kubeclient import KubeClient
+    from k8s_dra_driver_gpu_tpu_torch.tpulib import (EnumerateOptions,
+                                                     NvmlLib, load)
+
+    ms = {}
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        ms[label] = round((time.perf_counter() - t0) * 1e3, 3)
+        return out
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"node driver: {what}")
+
+    def published():
+        items = kube.list(*RESOURCE_SLICES)
+        check(len(items) == 1, f"{len(items)} slices")
+        return items[0]
+
+    tmp = tempfile.mkdtemp(prefix="nd")
+    server = FakeApiServer().start()
+    try:
+        kube = KubeClient(host=server.url)
+        driver = timed("construct", Driver, Config(
+            root=f"{tmp}/state", cdi_root=f"{tmp}/cdi"), kube, NODE, False)
+        host = driver.state.host
+        timed("find_libraries", driver_mounts, "/", host.driver_version)
+        check(host.source == "nvml" and host.driver_version,
+              f"DeviceState over {host.source}, driver "
+              f"{host.driver_version!r}")
+        log(f"node driver: this process maps libnvidia-ml from "
+            f"{mapped_library_dirs('/')} under /")
+
+        # Publication: read back over HTTP, then a converged republish.
+        stats = timed("publish", driver.publish_resources)
+        got = published()
+        want = driver.generate_resource_slices()
+        devices = [dict(dev, taints=[{"key": "tpu.dra.dev/unmonitored",
+                                      "value": "true"}],
+                        consumesCounters=[{
+                            "counterSet": "host-counters",
+                            "counters": {f"core-{i}-0": {"value": "1"},
+                                         f"hbm-{i}": dev["capacity"][
+                                             "memory"]}}])
+                   for dev in driver.state.dra_devices()
+                   for i in [parse_gpu_name(dev["name"])]]
+        log(f"node driver: publication over "
+            f"{server.url}: {stats}, slice {got['metadata']['name']} "
+            f"generation {got['spec']['pool']['generation']}, devices "
+            f"{[d['name'] for d in got['spec']['devices']]}, counters "
+            f"{json.dumps(got['spec']['sharedCounters'])}")
+        check(stats["writes"] == 1 and stats["generation"] == 1
+              and [(got["metadata"]["name"], got["spec"])] == [
+                  (w["metadata"]["name"], w["spec"]) for w in want]
+              and got["spec"]["devices"] == devices, "published slices")
+        again = timed("republish", driver.publish_resources)
+        check(again["writes"] == 0 and again["deletes"] == 0
+              and again["generation"] == 1, f"republish {again}")
+
+        # Health: one NVML poll's taints replace the unmonitored ones.
+        lib = load()
+        check(isinstance(lib, NvmlLib), f"tpulib.load() gave {lib!r}")
+        monitor = ChipHealthMonitor(lib, EnumerateOptions(),
+                                    driver._on_health_taints)
+        taints = timed("poll", monitor.poll_and_reconcile)
+        monitor.stop()
+        check(lib._lib is None, "the monitor left NVML open")
+        if taints:
+            log(f"node driver: the card reports health events {taints}")
+        timed("taints", driver._on_health_taints, taints)
+
+        def published_taints():
+            return {d["name"]: d.get("taints", [])
+                    for d in published()["spec"]["devices"]}
+
+        poll = {name: [t.to_dict() for t in taints if t.device == name]
+                for name in driver.state.allocatable}
+        check(published_taints() == poll, f"taints {published_taints()}")
+
+        # A fatal taint and its clearing: one PUT each, no new generation;
+        # an unchanged set: no request at all.
+        fatal = [DeviceTaint("gpu-0", "tpu.dra.dev/chip_lost", "true",
+                             "NoExecute")]
+        requests = dict(server.requests)
+        timed("fatal_taint", driver._on_health_taints, taints + fatal)
+        raised = published()
+        puts = server.requests["PUT"] - requests.get("PUT", 0)
+        count = server.request_count()
+        for _ in range(5):
+            driver._on_health_taints(taints + fatal)
+        steady = server.request_count() - count
+        requests = dict(server.requests)
+        timed("clear_taint", driver._on_health_taints, taints)
+        cleared = server.requests["PUT"] - requests.get("PUT", 0)
+        log(f"node driver: fatal taint on gpu-0 {puts} PUT at generation "
+            f"{raised['spec']['pool']['generation']}, unchanged x5 "
+            f"{steady} requests, cleared {cleared} PUT; requests "
+            f"{dict(server.requests)}")
+        check(puts == 1 and cleared == 1 and steady == 0
+              and raised["spec"]["pool"]["generation"] == 1
+              and fatal[0].to_dict() in raised["spec"]["devices"][0]["taints"]
+              and published_taints() == poll, "taint flip")
+
+        # A claim for gpu-0, prepared through the API lookup.
+        claim = {"metadata": {"uid": "smoke-node-claim", "namespace":
+                              "default", "name": "smoke-node-claim"},
+                 "status": {"allocation": {
+                     "devices": {"results": [
+                         {"request": "gpu", "driver": DRIVER_NAME,
+                          "pool": NODE, "device": "gpu-0"}], "config": []},
+                     "nodeSelector": {"nodeSelectorTerms": [{"matchFields": [
+                         {"key": "metadata.name", "operator": "In",
+                          "values": [NODE]}]}]}}}}
+        kube.create(*RESOURCE_CLAIMS, claim, namespace="default")
+        ref = {key: claim["metadata"][key]
+               for key in ("uid", "namespace", "name")}
+        uid = ref["uid"]
+        out = timed("prepare", driver.prepare_resource_claims, [ref])
+        check(out == {uid: ([{"request_names": ["gpu"], "pool_name": NODE,
+                              "device_name": "gpu-0",
+                              "cdi_device_ids": ["nvidia.com/gpu=gpu-0"]}],
+                            "")}, f"prepare {out}")
+        spec = driver.state._cdi.read_spec(uid)
+        mounts = spec["containerEdits"]["mounts"]
+        hosts = {os.path.realpath(m["hostPath"]) for m in mounts}
+        names = {os.path.basename(m["hostPath"]) for m in mounts}
+        log(f"node driver: NVML driver {host.driver_version}; spec mounts "
+            + json.dumps([[m["hostPath"], m["containerPath"]]
+                          for m in mounts]))
+        check(all(os.path.isfile(m["hostPath"]) for m in mounts)
+              and {f"libcuda.so.{host.driver_version}",
+                   f"libnvidia-ml.so.{host.driver_version}"} <= names,
+              "the spec's mounts")
+
+        # The child under the spec's env maps the mounted libraries.
+        result = run_claim_child(spec, seed, driver.state.allocatable[
+            "gpu-0"].chip.chip.name, "node driver")
+        ms["child"] = round(result["seconds"] * 1e3, 3)
+        mapped = result["mapped"]
+        check(any("libcuda.so" in p for p in mapped)
+              and any("libnvidia-ml.so" in p for p in mapped)
+              and set(mapped) <= hosts,
+              f"the child maps {mapped}, the spec mounts {sorted(hosts)}")
+
+        out = timed("unprepare", driver.unprepare_resource_claims,
+                    [{"uid": uid}])
+        check(out == {uid: ""} and not driver.state._cdi.spec_exists(uid)
+              and uid not in driver.state.prepared_claims(), "unprepare")
+
+        # The sweep reaps a claim the API server no longer has.
+        timed("prepare_again", driver.prepare_resource_claims, [ref])
+        kube.delete(*RESOURCE_CLAIMS, "smoke-node-claim",
+                    namespace="default")
+        counts = timed("sweep", driver.reconciler.reconcile_once)
+        log(f"node driver: sweep {counts}")
+        check(counts["stale_claim"] == 1 and sum(counts.values()) == 1
+              and not driver.state._cdi.spec_exists(uid)
+              and driver.state.prepared_claims() == {}, "sweep")
+        driver.stop()
+    finally:
+        server.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(server._thread is None and not any(
+        t.name == "fake-apiserver" for t in threading.enumerate()),
+        "the server's thread outlived it")
+    log(f"node driver: host ms {json.dumps(ms)} (server stopped, its "
+        "threads joined)")
+    return result["launches"]
 
 
 def main(argv=None) -> int:
@@ -2427,6 +2661,9 @@ def main(argv=None) -> int:
     claim_child = phase_kubelet_plugin(args.seed)
     log(f"kubelet plugin: phase 12 in "
         f"{time.perf_counter() - t_plugin:.1f} s")
+    t_node = time.perf_counter()
+    node_child = phase_node_driver(args.seed)
+    log(f"node driver: phase 13 in {time.perf_counter() - t_node:.1f} s")
     forward["launches_by_path"] = {
         "serving_generate": serving_launches,
         "training_step": training["forward_lse"],
@@ -2434,6 +2671,7 @@ def main(argv=None) -> int:
         "sampled_sharded_generate": gang["sampled_generate"],
         "one_row_sharded_generate": gang["one_row_generate"],
         "prepared_claim_child": claim_child,
+        "node_driver_claim_child": node_child,
         "sharded_training_step": gang["train"]["forward_lse"],
         "moe_training_step": moe["forward_lse"],
         "sp_ulysses_training_step": sp["ulysses"]["forward_lse"],

@@ -1,12 +1,20 @@
-"""The kubelet plugin's whole-GPU prepare path on an NVIDIA H100 host.
+"""The kubelet plugin for whole GPUs on an NVIDIA H100 host.
 
 The counterpart of the JAX package's ``kubeletplugin/`` (and of the
-upstream driver's ``cmd/gpu-kubelet-plugin/``) for whole GPUs: enumerate
-the GPUs once through the port's ``tpulib`` (NVML), describe each as a
-DRA ``ResourceSlice`` device, and prepare a claim with a two-phase
-checkpoint and a CDI spec; unprepare tears both down. ``DeviceState`` is
-driven by direct calls: there is no gRPC transport and no kube client
-yet (ROADMAP.md §1b). Standard library only.
+upstream driver's ``cmd/gpu-kubelet-plugin/``) for whole GPUs:
+
+- ``device_state``: enumerate the GPUs once through the port's
+  ``tpulib`` (NVML), describe each as a DRA ``ResourceSlice`` device
+  (``deviceinfo``), and prepare a claim (``claim``) with a two-phase
+  checkpoint (``checkpoint``) and a CDI spec that injects its device
+  nodes and the driver's libraries (``cdi``); unprepare tears both down;
+- ``driver``: the node service over an API server (``pkg.kubeclient``):
+  ResourceSlice publication with shared counters (``partitions``), claim
+  lookup for prepare and unprepare, health taints (``health``) and the
+  reconcile sweep (``cleanup``, ``reconcile``).
+
+There is no gRPC transport yet (ROADMAP.md §1b item 8): the callbacks
+are driven by direct calls. Standard library only.
 """
 
 DRIVER_NAME = "gpu.nvidia.com"

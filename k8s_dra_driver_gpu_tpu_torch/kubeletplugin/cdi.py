@@ -1,5 +1,6 @@
-"""CDI specs: inject a claim's GPUs and their env into its containers
-(the JAX package's ``kubeletplugin/cdi.py``; the upstream driver's
+"""CDI specs: inject a claim's GPUs, the NVIDIA driver's user-space
+libraries and the env into its containers (the JAX package's
+``kubeletplugin/cdi.py``; the upstream driver's
 ``cmd/gpu-kubelet-plugin/cdi.go``).
 
 One transient spec a claim, of kind ``nvidia.com/gpu``:
@@ -8,39 +9,145 @@ One transient spec a claim, of kind ``nvidia.com/gpu``:
 - the spec's common edits hold ``/dev/nvidiactl``, ``/dev/nvidia-uvm``
   and ``/dev/nvidia-uvm-tools``, each only where it exists under the
   device root (checked with ``os.path.exists``: a device node is never
-  opened), and the host env: ``TPU_ACCELERATOR_TYPE`` and
-  ``TPU_WORKER_ID`` (the names of the launcher's ``TPU_*`` contract,
-  which the port's launcher reads) and the two migration annotations;
+  opened); the driver's libraries and ``nvidia-smi`` (below); and the
+  host env: ``TPU_ACCELERATOR_TYPE`` and ``TPU_WORKER_ID`` (the names of
+  the launcher's ``TPU_*`` contract, which the port's launcher reads)
+  and the two migration annotations;
 - the claim's own line follows (``device_state``):
   ``CUDA_DEVICE_ORDER=PCI_BUS_ID``.
 
-The JAX package's libtpu mount has no counterpart yet: the spec mounts
-none of the NVIDIA driver's user-space libraries (``libcuda.so.1``,
-``libnvidia-ml.so.1``), so a container run from this spec alone needs
-them in its image. Mounting them, as the upstream driver's CDI library
-discovery does, is queued in ROADMAP.md §1b. Nor has the spec the JAX
+**Driver libraries** (the counterpart of the JAX plugin's libtpu mount,
+as the upstream driver's CDI library discovery finds them): each of
+``DRIVER_LIBRARIES`` as ``<name>.so.<driver version>``, the version
+NVML reports, from the first directory under the driver root that has
+it, bound read-only at its own path with the driver root stripped. The
+directories searched are those this process maps ``libnvidia-ml`` from
+(``/proc/self/maps``: the NVML the device layer loaded, so the driver
+the host really runs), then ``LIBRARY_DIRS``. A driver version whose
+``libcuda`` or ``libnvidia-ml`` is not found is an error: a spec
+without them would start a container that cannot run CUDA. Every soname link in that directory that resolves to the
+file (``libcuda.so.1``, ``libcuda.so``) gets a second bind of the same
+host file at the link's path: the effect of the upstream's
+``create-symlinks`` hook without a hook binary. A library of another
+version is never mounted (a host may keep a CUDA compat copy beside the
+driver's); without a driver version (the mock and devfs backends)
+nothing is mounted. ``nvidia-smi`` is bound from the first of
+``BINARY_DIRS`` that has it. Not ported: the ``update-ldcache`` hook
+(the container's loader cache does not list the libraries; their
+soname binds sit in the image's own library directory), and the MPS
+and persistenced binaries (ROADMAP.md §1b). Nor has the spec the JAX
 package's ``TPU_SKIP_MDS_QUERY`` (a GCE metadata switch).
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
+import re
 from dataclasses import dataclass, field
 
 from ..pkg.fsutil import write_json_atomic
 from . import CDI_CLASS, CDI_VENDOR
 
+logger = logging.getLogger(__name__)
+
 CDI_VERSION = "0.6.0"
 DEFAULT_CDI_ROOT = "/var/run/cdi"
 # The control nodes every CUDA process opens besides its GPU's own.
 COMMON_DEVICE_NODES = ("nvidiactl", "nvidia-uvm", "nvidia-uvm-tools")
+# The driver's compute and utility libraries that the upstream mounts
+# (nvidia-container-toolkit's library discovery).
+DRIVER_LIBRARIES = ("libcuda", "libcudadebugger", "libnvidia-ml",
+                    "libnvidia-ptxjitcompiler", "libnvidia-nvvm",
+                    "libnvidia-gpucomp")
+DRIVER_BINARIES = ("nvidia-smi",)
+# Without them a container cannot run CUDA.
+REQUIRED_LIBRARIES = ("libcuda", "libnvidia-ml")
+# Searched in this order under the driver root, after the directories
+# this process maps NVML from; the first that has a library wins. The
+# H100 machine's CUDA processes map the driver from
+# usr/lib/x86_64-linux-gnu (PERF.md); usr/local/nvidia/lib64 is the
+# layout of GKE and of the GPU operator's driver container.
+LIBRARY_DIRS = ("usr/lib/x86_64-linux-gnu", "usr/lib64",
+                "lib/x86_64-linux-gnu", "lib64", "usr/lib", "lib",
+                "usr/local/nvidia/lib64")
+BINARY_DIRS = ("usr/local/sbin", "usr/local/bin", "usr/sbin", "usr/bin",
+               "sbin", "bin")
+
+
+def _first_file(root: str, dirs: tuple[str, ...], name: str) -> str | None:
+    """The path relative to ``root`` of the first ``dir/name`` that is a
+    file (a link to one counts), or None."""
+    for d in dirs:
+        rel = os.path.join(d, name)
+        if os.path.isfile(os.path.join(root, rel)):
+            return rel
+    return None
+
+
+def mapped_library_dirs(driver_root: str) -> tuple[str, ...]:
+    """The directories, relative to ``driver_root``, that this process
+    maps a ``libnvidia-ml`` from; those outside the root are left out."""
+    root = os.path.realpath(driver_root)
+    dirs: list[str] = []
+    with open("/proc/self/maps", encoding="utf-8") as f:
+        for fields in map(str.split, f):
+            if len(fields) < 6 or not os.path.basename(
+                    fields[5]).startswith("libnvidia-ml.so"):
+                continue
+            rel = os.path.relpath(os.path.dirname(fields[5]), root)
+            if not rel.startswith("..") and rel not in dirs:
+                dirs.append(rel)
+    return tuple(dirs)
+
+
+def driver_mounts(driver_root: str, version: str
+                  ) -> list[tuple[str, str, bool]]:
+    """The read-only binds of the driver's libraries at ``version`` and
+    of its binaries under ``driver_root``: (hostPath, containerPath,
+    read_only), each library file first, then its soname links.
+    FileNotFoundError when a library of ``REQUIRED_LIBRARIES`` is not
+    found."""
+    mapped = mapped_library_dirs(driver_root)
+    dirs = mapped + tuple(d for d in LIBRARY_DIRS if d not in mapped)
+    missing = [lib for lib in REQUIRED_LIBRARIES
+               if _first_file(driver_root, dirs,
+                              f"{lib}.so.{version}") is None]
+    if missing:
+        raise FileNotFoundError(
+            f"driver {version}: no {', '.join(missing)} of that version "
+            f"under {driver_root} in {', '.join(dirs)}")
+    mounts: list[tuple[str, str, bool]] = []
+    for lib in DRIVER_LIBRARIES:
+        rel = _first_file(driver_root, dirs, f"{lib}.so.{version}")
+        if rel is None:
+            continue
+        host = os.path.join(driver_root, rel)
+        mounts.append((host, "/" + rel, True))
+        directory = os.path.dirname(host)
+        target = os.path.realpath(host)
+        soname = re.compile(re.escape(lib) + r"\.so(\.\d+)*")
+        for entry in sorted(os.listdir(directory)):
+            link = os.path.join(directory, entry)
+            if (entry != os.path.basename(host) and soname.fullmatch(entry)
+                    and os.path.islink(link)
+                    and os.path.realpath(link) == target):
+                mounts.append((host, "/" + os.path.join(
+                    os.path.dirname(rel), entry), True))
+    for binary in DRIVER_BINARIES:
+        rel = _first_file(driver_root, BINARY_DIRS, binary)
+        if rel is not None:
+            mounts.append((os.path.join(driver_root, rel), "/" + rel, True))
+    return mounts
 
 
 @dataclass
 class ContainerEdits:
     env: list[str] = field(default_factory=list)
     device_nodes: list[str] = field(default_factory=list)
+    # (hostPath, containerPath, read_only)
+    mounts: list[tuple[str, str, bool]] = field(default_factory=list)
 
     def to_dict(self) -> dict:
         out: dict = {}
@@ -48,12 +155,19 @@ class ContainerEdits:
             out["env"] = self.env
         if self.device_nodes:
             out["deviceNodes"] = [{"path": p} for p in self.device_nodes]
+        if self.mounts:
+            out["mounts"] = [
+                {"hostPath": h, "containerPath": c,
+                 "options": (["ro"] if ro else ["rw"])
+                 + ["nosuid", "nodev", "bind"]}
+                for h, c, ro in self.mounts]
         return out
 
     def merge(self, other: "ContainerEdits") -> "ContainerEdits":
         return ContainerEdits(env=self.env + other.env,
                               device_nodes=self.device_nodes
-                              + other.device_nodes)
+                              + other.device_nodes,
+                              mounts=self.mounts + other.mounts)
 
 
 def qualified_device_id(name: str) -> str:
@@ -61,13 +175,38 @@ def qualified_device_id(name: str) -> str:
 
 
 class CDIHandler:
-    """Writes and removes the per-claim spec files under the CDI root."""
+    """Writes and removes the per-claim spec files under the CDI root.
+    The driver's files are looked up under ``driver_root``, and the spec
+    names them by that path: it must be the host's own path of the
+    driver root as this process sees it ("/" for a plugin that runs in
+    the host's mount namespace). A plugin that sees the host's root
+    under another path needs the upstream's separate host driver root,
+    which comes with the entry point (ROADMAP.md §1b item 8)."""
 
     def __init__(self, cdi_root: str = DEFAULT_CDI_ROOT,
-                 dev_root: str = "/dev"):
+                 dev_root: str = "/dev", driver_root: str = "/"):
         self._root = cdi_root
         self._dev_root = dev_root
+        self._driver_root = driver_root
+        # driver version -> its mounts (upstream GetCommonEditsCached).
+        self._mounts: dict[str, list[tuple[str, str, bool]]] = {}
         os.makedirs(self._root, exist_ok=True)
+
+    def driver_mounts(self, version: str) -> list[tuple[str, str, bool]]:
+        """The driver's binds at ``version``, found once a version;
+        FileNotFoundError when its ``libcuda`` or ``libnvidia-ml`` is
+        missing."""
+        if version not in self._mounts:
+            if not version:
+                logger.warning("no driver version (not NVML): the CDI "
+                               "spec mounts no driver library")
+                self._mounts[version] = []
+            else:
+                self._mounts[version] = driver_mounts(self._driver_root,
+                                                      version)
+                logger.info("driver %s: %d mounts under %s", version,
+                            len(self._mounts[version]), self._driver_root)
+        return list(self._mounts[version])
 
     def spec_path(self, claim_uid: str) -> str:
         return os.path.join(self._root,
@@ -86,7 +225,8 @@ class CDIHandler:
                   "resource.tpu.dra/migration-intent"),
                  ("TPU_DRA_MIGRATION_ACK_ANNOTATION="
                   "resource.tpu.dra/migration-ack")],
-            device_nodes=nodes)
+            device_nodes=nodes,
+            mounts=self.driver_mounts(host.driver_version))
 
     def create_claim_spec_file(self, claim_uid: str,
                                device_edits: dict[str, ContainerEdits],
@@ -103,6 +243,17 @@ class CDIHandler:
             spec["containerEdits"] = common.to_dict()
         write_json_atomic(self.spec_path(claim_uid), json.dumps(spec))
         return [qualified_device_id(d["name"]) for d in devices]
+
+    def list_claim_uids(self) -> list[str]:
+        """The claim uids that have a spec file: the reconcile sweep's
+        inventory of the CDI layer."""
+        prefix = f"{CDI_VENDOR}-{CDI_CLASS}_"
+        try:
+            names = os.listdir(self._root)
+        except FileNotFoundError:
+            return []
+        return [name[len(prefix):-len(".json")] for name in names
+                if name.startswith(prefix) and name.endswith(".json")]
 
     def delete_claim_spec_file(self, claim_uid: str) -> None:
         try:

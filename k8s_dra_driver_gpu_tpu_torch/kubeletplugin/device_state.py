@@ -84,13 +84,16 @@ class Config:
     """Node plugin configuration. ``backend`` is ``tpulib.load``'s: None
     for NVML, "python" for the mock (``gpulib_opts.mock_topology``) or the
     devfs backend. The common device nodes are looked up under
-    ``gpulib_opts.dev_root`` (default /dev)."""
+    ``gpulib_opts.dev_root`` (default /dev), the driver's libraries under
+    ``driver_root``, which must be the host's path of the driver root as
+    the plugin sees it (``CDIHandler``)."""
 
     root: str  # state root: the checkpoint and the node lock
     gpulib_opts: EnumerateOptions = field(default_factory=EnumerateOptions)
     cdi_root: str | None = None
     boot_id: str | None = None
     backend: str | None = None
+    driver_root: str = "/"
 
     @classmethod
     def mock(cls, root: str, topology: str = "h100-8") -> "Config":
@@ -125,7 +128,11 @@ class DeviceState:
                                              boot_id=config.boot_id)
         self._cdi = CDIHandler(
             cdi_root=config.cdi_root or os.path.join(config.root, "cdi"),
-            dev_root=config.gpulib_opts.dev_root or "/dev")
+            dev_root=config.gpulib_opts.dev_root or "/dev",
+            driver_root=config.driver_root)
+        # Find the driver's libraries now, not in the first prepare: a
+        # driver whose libcuda or libnvidia-ml is missing fails here.
+        self._cdi.driver_mounts(self.host.driver_version)
         # The segments (seconds) of the last prepare or unprepare.
         self.last_segments: dict[str, float] = {}
 

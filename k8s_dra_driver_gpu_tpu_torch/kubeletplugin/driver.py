@@ -1,0 +1,239 @@
+"""The node service of the kubelet plugin: DRA callbacks, ResourceSlice
+publication, health taints and the reconcile sweep (the JAX package's
+``kubeletplugin/driver.py``; the upstream driver's
+``cmd/gpu-kubelet-plugin/driver.go``).
+
+``Driver`` owns the node's ``DeviceState`` and talks to the API server
+through any object with ``KubeClient``'s surface:
+
+- **Publication.** The node's GPUs go out as one ResourceSlice with the
+  shared counters (the reference's ``combined`` mode) through
+  ``sliceutil``'s content-hash diff, which also deletes this driver's
+  other slices of the node. The reference's other two modes are not
+  ported: with whole GPUs only, its ``split`` mode publishes the same
+  one slice, and its ``legacy`` mode (no counters) is chosen by a flag
+  of ``main.py``; they come back with partition devices (ROADMAP.md
+  §1b item 5) and the entry point (item 8).
+- **Prepare.** Each claim is fetched from the API server by namespace
+  and name; a uid that differs from the kubelet's is refused. Its CDI
+  ids come back grouped by request, and errors come back per claim.
+  Claims are prepared one after another: every prepare runs under the
+  node lock (the port has no per-GPU shard locks), so the reference's
+  thread pool (``MAX_PARALLEL_PREPARES``) would buy nothing.
+- **Health.** ``ChipHealthMonitor`` polls its own ``tpulib`` handle
+  (``DeviceState`` closes the one it enumerated with); its taints land
+  on the published devices. An unchanged taint set costs no API call at
+  all (the published hashes are remembered), except that every
+  ``TPU_DRA_PUBLISH_RECHECK_S`` the live pool is read again, so a slice
+  deleted or changed behind the driver's back comes back. With the
+  monitor off, every GPU carries an observe-only ``unmonitored`` taint,
+  as the upstream's ``device_health.go:36-40``.
+- **Sweep.** ``NodeStateReconciler`` runs the stale-claim GC and the
+  orphan passes on its own thread.
+
+Not ported: the gRPC transport (ROADMAP.md §1b item 8), metrics and
+tracing, the flight recorder, telemetry and power-cap attributes, the
+partition engine and its watcher, autoscale prewarm and tenancy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import time
+
+from ..pkg.kubeclient import NotFoundError
+from ..pkg.sliceutil import publish_resource_slices, slice_content_hash
+from ..tpulib.binding import load
+from . import DRIVER_NAME
+from .claim import ResourceClaim
+from .device_state import Config, DeviceState
+from .health import TAINT_KEY_PREFIX, ChipHealthMonitor, DeviceTaint
+from .partitions import consumed_counters, shared_counter_sets
+from .reconcile import NodeStateReconciler
+
+logger = logging.getLogger(__name__)
+
+RESOURCE_GROUP = "resource.k8s.io"
+RESOURCE_VERSION = "v1"
+
+
+class Driver:
+    """The kubelet plugin's node service over this host's GPUs."""
+
+    def __init__(self, config: Config, kube_client, node_name: str,
+                 enable_health_monitor: bool = True,
+                 additional_ignored_health_kinds: tuple[str, ...] = ()):
+        self.state = DeviceState(config)
+        self.kube = kube_client
+        self.node_name = node_name
+        self._taints: dict[str, list[dict]] = {}
+        # The hashes of the last slice set published, and when the live
+        # pool was last read.
+        self._published_hashes: tuple | None = None
+        self._published_verified_at = 0.0
+        try:
+            self._publish_recheck_s = float(os.environ.get(
+                "TPU_DRA_PUBLISH_RECHECK_S", "300"))
+        except ValueError:
+            self._publish_recheck_s = 300.0
+        self.reconciler = NodeStateReconciler(self.state, kube_client,
+                                              node_name)
+        self.health_monitor: ChipHealthMonitor | None = None
+        if enable_health_monitor:
+            # The startup enumeration is the baseline of the devfs
+            # backend's health: a node that vanishes is chip_lost, and
+            # the AER counters are read at the GPUs' PCI addresses.
+            gpus = sorted((d.chip.chip for d in self.state.allocatable
+                           .values()), key=lambda c: c.index)
+            opts = dataclasses.replace(
+                config.gpulib_opts,
+                expected_chips=",".join(str(c.minor) for c in gpus),
+                expected_bdfs=",".join(c.pci_bdf for c in gpus))
+            self.health_monitor = ChipHealthMonitor(
+                load(config.backend), opts, self._on_health_taints,
+                additional_ignored=additional_ignored_health_kinds)
+        else:
+            self._taints = {
+                name: [DeviceTaint(device=name,
+                                   key=f"{TAINT_KEY_PREFIX}/unmonitored",
+                                   value="true", effect="").to_dict()]
+                for name in self.state.allocatable}
+
+    def start(self) -> None:
+        """Start the sweep (the stale-claim GC is its first pass) and the
+        health monitor, then publish."""
+        self.reconciler.start()
+        if self.health_monitor:
+            self.health_monitor.start()
+        self.publish_resources()
+
+    def stop(self) -> None:
+        """Stop and join every thread this driver started; the monitor
+        closes its device library."""
+        self.reconciler.stop()
+        if self.health_monitor:
+            self.health_monitor.stop()
+
+    # -- DRA callbacks ---------------------------------------------------
+
+    def prepare_resource_claims(self, claim_refs: list) -> dict:
+        """``claim_refs``: dicts with uid, namespace and name. Returns
+        uid -> (devices, error), error "" on success."""
+        out = {}
+        for ref in claim_refs:
+            uid = ref["uid"]
+            try:
+                out[uid] = (self._prepare_one(ref), "")
+            except Exception as e:  # noqa: BLE001 - wire boundary
+                logger.exception("prepare failed for claim %s", uid)
+                out[uid] = ([], str(e))
+        return out
+
+    def _prepare_one(self, ref) -> list[dict]:
+        uid, namespace, name = ref["uid"], ref["namespace"], ref["name"]
+        t0 = time.monotonic()
+        obj = self.kube.get(RESOURCE_GROUP, RESOURCE_VERSION,
+                            "resourceclaims", name, namespace=namespace)
+        if obj.get("metadata", {}).get("uid") != uid:
+            raise NotFoundError(f"claim {namespace}/{name} UID mismatch")
+        claim = ResourceClaim.from_dict(obj)
+        self.state.prepare(claim)
+        # The CDI ids, grouped by request for the kubelet's answer.
+        record = self.state.prepared_claims()[uid]
+        request_of = {r.device: r.request for r in claim.results}
+        by_request: dict[str, list] = {}
+        for dev in record.devices:
+            by_request.setdefault(request_of.get(dev.canonical_name, ""),
+                                  []).append(dev)
+        devices = [{"request_names": [request] if request else [],
+                    "pool_name": self.node_name,
+                    "device_name": dev.canonical_name,
+                    "cdi_device_ids": dev.cdi_device_ids}
+                   for request, devs in by_request.items() for dev in devs]
+        logger.info("prepared claim %s (%d devices) in %.1fms", uid,
+                    len(devices), (time.monotonic() - t0) * 1e3)
+        return devices
+
+    def unprepare_resource_claims(self, claim_refs: list) -> dict:
+        """``claim_refs``: dicts with uid. Returns uid -> error, "" on
+        success."""
+        out = {}
+        for ref in claim_refs:
+            uid = ref["uid"]
+            try:
+                self.state.unprepare(uid)
+                out[uid] = ""
+            except Exception as e:  # noqa: BLE001 - wire boundary
+                logger.exception("unprepare failed for claim %s", uid)
+                out[uid] = str(e)
+        return out
+
+    # -- ResourceSlice publication ---------------------------------------
+
+    def generate_resource_slices(self) -> list[dict]:
+        """The node's ResourceSlices: one slice of every GPU, each with
+        its taints and its counters."""
+        devices = []
+        for dev in sorted(self.state.allocatable.values(),
+                          key=lambda d: d.chip.chip.index):
+            entry = dev.to_dra_device()
+            taints = self._taints.get(dev.canonical_name)
+            if taints:
+                entry["taints"] = taints
+            entry["consumesCounters"] = consumed_counters(dev)
+            devices.append(entry)
+        spec = {"driver": DRIVER_NAME, "nodeName": self.node_name,
+                "pool": {"name": self.node_name, "resourceSliceCount": 1,
+                         "generation": 1},
+                "perDeviceNodeSelection": False, "devices": devices,
+                "sharedCounters": shared_counter_sets(self.state.host)}
+        return [{"apiVersion": f"{RESOURCE_GROUP}/{RESOURCE_VERSION}",
+                 "kind": "ResourceSlice",
+                 "metadata": {"name": f"{self.node_name}-{DRIVER_NAME}"},
+                 "spec": spec}]
+
+    @staticmethod
+    def _slice_hashes(slices: list[dict]) -> tuple:
+        return tuple(sorted((s["metadata"]["name"], slice_content_hash(s))
+                            for s in slices))
+
+    def publish_resources(self) -> dict:
+        """Publish through the content-hash diff: an unchanged pool
+        costs one list and no write; the generation moves only with the
+        inventory. Returns ``publish_resource_slices``'s stats."""
+        slices = self.generate_resource_slices()
+        hashes = self._slice_hashes(slices)
+        stats = publish_resource_slices(self.kube, slices)
+        self._published_hashes = hashes
+        self._published_verified_at = time.monotonic()
+        return stats
+
+    # -- health ----------------------------------------------------------
+
+    def _on_health_taints(self, taints: list[DeviceTaint]) -> None:
+        """Take the monitor's full taint list and republish
+        (``driver.go:496-566``)."""
+        new: dict[str, list[dict]] = {}
+        for t in taints:
+            new.setdefault(t.device, []).append(t.to_dict())
+        self._taints = new
+        self._republish_reconciled()
+
+    def _republish_reconciled(self) -> None:
+        """No API call when the slices hash to what was last published
+        and the live pool was read within the recheck period; else a
+        publish through the diff (which writes only what differs)."""
+        slices = self.generate_resource_slices()
+        hashes = self._slice_hashes(slices)
+        fresh = (time.monotonic() - self._published_verified_at
+                 < self._publish_recheck_s)
+        if hashes == self._published_hashes and fresh:
+            return
+        try:
+            publish_resource_slices(self.kube, slices)
+            self._published_hashes = hashes
+            self._published_verified_at = time.monotonic()
+        except Exception:  # noqa: BLE001 - the next poll publishes again
+            logger.exception("republish after health event failed")

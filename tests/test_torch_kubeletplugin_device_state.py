@@ -357,11 +357,22 @@ class _FakeLib:
         self.closed = True
 
 
+def driver_root(tmp_path, version="550.54.15") -> str:
+    """A driver root holding the two libraries a spec cannot go without,
+    at ``version`` (the fake hosts' and the fake NVML's)."""
+    lib = tmp_path / "driver" / "usr" / "lib64"
+    lib.mkdir(parents=True)
+    for name in ("libcuda", "libnvidia-ml"):
+        (lib / f"{name}.so.{version}").write_text(version)
+    return str(tmp_path / "driver")
+
+
 def test_gpu_without_device_node_is_not_published(tmp_path, monkeypatch,
                                                    caplog):
     lib = _FakeLib(_host([_chip(0, devpath="", minor=-1), _chip(1)]))
     monkeypatch.setattr(pt_ds, "load", lambda backend: lib)
-    state = pt_ds.DeviceState(pt_ds.Config(root=str(tmp_path)))
+    state = pt_ds.DeviceState(pt_ds.Config(
+        root=str(tmp_path / "state"), driver_root=driver_root(tmp_path)))
     assert lib.closed  # enumerated once, then closed
     assert list(state.allocatable) == ["gpu-1"]
     assert "GPU 0 (GPU-0) has no device node" in caplog.text
@@ -436,7 +447,8 @@ def test_nvml_host_prepares_a_whole_gpu(tmp_path, monkeypatch, fake_nvml,
     monkeypatch.setattr(pt_ds, "load", lambda backend: NvmlLib(
         fake_nvml, sys_root=str(sys_root)))
     state = pt_ds.DeviceState(pt_ds.Config(root=str(tmp_path / "state"),
-                                           boot_id=BOOT))
+                                           boot_id=BOOT,
+                                           driver_root=driver_root(tmp_path)))
     devices = state.dra_devices()
     assert [d["name"] for d in devices] == [f"gpu-{i}" for i in range(4)]
     attrs = devices[2]["attributes"]

@@ -1,0 +1,218 @@
+"""The port's reconcile sweep and stale-claim lookup against the JAX
+package's: the same claims, checkpoints, spec files and API objects give
+the same sweep counts and leave the same state, in both wirings of
+``test_torch_kubeletplugin_driver.py`` (in memory, and each package's
+client over the other's server). The JAX sweep reports its partition
+pass only with a partition engine (none at ``gates=""``); the port's
+always reports it, as 0.
+"""
+
+import threading
+
+import pytest
+
+from k8s_dra_driver_gpu_tpu.kubeletplugin import cdi as jax_cdi
+from k8s_dra_driver_gpu_tpu.kubeletplugin import cleanup as jax_cleanup
+from k8s_dra_driver_gpu_tpu.pkg import kubeclient as jax_kube
+from k8s_dra_driver_gpu_tpu.pkg import recovery as jax_recovery
+from k8s_dra_driver_gpu_tpu_torch.kubeletplugin import cdi as pt_cdi
+from k8s_dra_driver_gpu_tpu_torch.kubeletplugin import cleanup as pt_cleanup
+from k8s_dra_driver_gpu_tpu_torch.kubeletplugin import \
+    device_state as pt_ds
+from k8s_dra_driver_gpu_tpu_torch.kubeletplugin import driver as pt_driver
+from k8s_dra_driver_gpu_tpu_torch.pkg import fakeapiserver as pt_server
+from k8s_dra_driver_gpu_tpu_torch.pkg import kubeclient as pt_kube
+from k8s_dra_driver_gpu_tpu_torch.pkg import recovery as pt_recovery
+from tests.fake_kube import make_claim_dict
+from tests.test_torch_kubeletplugin_driver import (  # noqa: F401 - fixtures
+    RC, ref, same, servers, sides)
+
+
+def sweep(d) -> dict:
+    counts = dict(d.reconciler.reconcile_once())
+    counts.setdefault("idle_partition", 0)
+    return counts
+
+
+def prepared(side, uid, indices, **kw):
+    d = side.driver(**{k: kw.pop(k) for k in ("gpus", "node")
+                       if k in kw})
+    side.put_claim(uid, indices, **kw)
+    out = d.prepare_resource_claims([ref(uid, kw.get("namespace",
+                                                     "default"))])
+    assert out[uid][1] == "", out
+    return d
+
+
+def layers(side, d, uid):
+    return (sorted(d.state.prepared_claims()),
+            d.state._cdi.spec_exists(uid))
+
+
+def test_nothing_to_repair(sides):
+    def run(side):
+        d = prepared(side, "u1", [0, 1])
+        return sweep(d), layers(side, d, "u1")
+    got = same(sides, run)
+    assert "'stale_claim': 0" in got and "True" in got
+
+
+def test_stale_claim(sides):
+    def run(side):
+        d = prepared(side, "u1", [0])
+        side.kube.delete(*RC, "u1", namespace="default")
+        return sweep(d), layers(side, d, "u1"), sweep(d)
+    assert "'stale_claim': 1" in same(sides, run)
+
+
+def test_recreated_claim_is_stale(sides):
+    def run(side):
+        d = prepared(side, "u1", [0])
+        side.kube.delete(*RC, "u1", namespace="default")
+        side.put_claim("u1-again", [0], name="u1")
+        return sweep(d), layers(side, d, "u1")
+    assert "'stale_claim': 1" in same(sides, run)
+
+
+def test_deallocated_claim_is_moved(sides):
+    def run(side):
+        d = prepared(side, "u1", [2])
+        side.kube.patch(*RC, "u1", {"status": {"allocation": None}},
+                        namespace="default")
+        return sweep(d), layers(side, d, "u1")
+    assert "'moved_claim': 1" in same(sides, run)
+
+
+@pytest.mark.parametrize("pinned,moved", [(["node-z"], 1), (["node-a"], 0),
+                                          (None, 0),
+                                          (["node-a", "node-z"], 0)])
+def test_claim_pinned_elsewhere_is_moved(sides, pinned, moved):
+    def run(side):
+        d = prepared(side, "u1", [1])
+        if pinned is not None:
+            side.kube.patch(*RC, "u1", {"status": {"allocation": {
+                "nodeSelector": {"nodeSelectorTerms": [{"matchFields": [
+                    {"key": "metadata.name", "operator": "In",
+                     "values": pinned}]}]}}}}, namespace="default")
+        return sweep(d), layers(side, d, "u1")
+    assert f"'moved_claim': {moved}" in same(sides, run)
+
+
+def test_orphan_cdi_spec(sides):
+    def run(side):
+        d = prepared(side, "u1", [0])
+        mod = pt_cdi if side.name == "pt" else jax_cdi
+        d.state._cdi.create_claim_spec_file(
+            "orphan", {side.dev(3): mod.ContainerEdits(env=["A=1"])})
+        listed = sorted(d.state._cdi.list_claim_uids())
+        return listed, sweep(d), sorted(d.state._cdi.list_claim_uids())
+    assert "'cdi_spec': 1" in same(sides, run)
+
+
+def test_devices_gone_declares_permanent_failure(sides):
+    """A restart on a host with two GPUs, with a claim on the fourth."""
+    def run(side):
+        prepared(side, "u1", [3])
+        d = side.driver(gpus=2)
+        first = sweep(d)
+        claim = side.kube.get(*RC, "u1", namespace="default")
+        conditions = [(c["type"], c["status"], c["reason"])
+                      for c in claim["status"]["conditions"]]
+        return first, conditions, sweep(d), sorted(
+            d.state.prepared_claims())
+    got = same(sides, run)
+    assert "'devices_gone': 1" in got and "'DevicesGone'" in got
+    assert "'devices_gone': 0" in got  # declared once
+
+
+def test_unreachable_api_server_keeps_everything(sides):
+    def run(side):
+        d = prepared(side, "u1", [0])
+        side.kube.delete(*RC, "u1", namespace="default")
+        server = pt_server.FakeApiServer()
+        url = server.url
+        server.stop()
+        mod = pt_kube if side.name == "pt" else jax_kube
+        d.reconciler._kube = mod.KubeClient(host=url)
+        if side.name == "jax":  # the port's sweep has no GC object
+            d.cleanup._kube = d.reconciler._kube
+        return sweep(d), layers(side, d, "u1")
+    assert "'stale_claim': 0" in same(sides, run)
+
+
+@pytest.mark.parametrize("case", ["live", "gone", "reborn", "no-identity",
+                                  "down"])
+def test_lookup_claim_equals_the_references(sides, case):
+    def run(side):
+        side.put_claim("u1", [0], namespace="ns")
+        kube, ns, name = side.kube, "ns", "u1"
+        if case == "gone":
+            kube.delete(*RC, "u1", namespace="ns")
+        elif case == "reborn":
+            kube.delete(*RC, "u1", namespace="ns")
+            side.put_claim("u2", [0], namespace="ns", name="u1")
+        elif case == "no-identity":
+            ns = ""
+        elif case == "down":
+            server = pt_server.FakeApiServer()
+            url = server.url
+            server.stop()
+            mod = pt_kube if side.name == "pt" else jax_kube
+            kube = mod.KubeClient(host=url)
+        mod = pt_cleanup if side.name == "pt" else jax_cleanup
+        status, obj = mod.lookup_claim(kube, "u1", ns, name)
+        return status, obj is not None
+    same(sides, run)
+
+
+CLAIMS = [
+    {},
+    {"status": {"conditions": [{"type": "PermanentFailure",
+                                "status": "True", "reason": "DevicesGone"}]}},
+    {"status": {"conditions": [{"type": "PermanentFailure",
+                                "status": "False", "reason": "DevicesGone"},
+                               {"type": "Other", "status": "True"}]}},
+    {"status": {"allocation": {"nodeSelector": {"nodeSelectorTerms": [
+        {"matchFields": [{"key": "metadata.name", "values": ["a", "b"]}]},
+        {"matchFields": [{"key": "other", "values": ["c"]},
+                         {"key": "metadata.name", "values": ["d"]}]}]}}}},
+]
+
+
+@pytest.mark.parametrize("claim", CLAIMS)
+def test_recovery_helpers_equal_the_references(claim):
+    written = {}
+    for name, mod, kube_mod in (("pt", pt_recovery, pt_kube),
+                                ("jax", jax_recovery, jax_kube)):
+        kube = kube_mod.FakeKubeClient()
+        obj = dict(make_claim_dict("u1", ["gpu-0"]), **claim)
+        obj = kube.create(*RC, obj, namespace="default")
+        wrote = mod.set_permanent_failure_condition(
+            kube, obj, "True", "DevicesGone", "gone")
+        written[name] = (mod.allocation_nodes(obj), wrote,
+                         kube.get(*RC, "u1", namespace="default"))
+    assert written["pt"] == written["jax"]
+    assert pt_recovery.PERMANENT_FAILURE_CONDITION == \
+        jax_recovery.PERMANENT_FAILURE_CONDITION
+
+
+def test_sweep_thread_reaps_and_stops(tmp_path):
+    before = set(threading.enumerate())
+    kube = pt_kube.FakeKubeClient()
+    d = pt_driver.Driver(pt_ds.Config.mock(str(tmp_path), topology="h100-2"),
+                         kube, node_name="node-a",
+                         enable_health_monitor=False)
+    kube.create(*RC, make_claim_dict("u1", ["gpu-1"], driver="gpu.nvidia.com"),
+                namespace="default")
+    assert d.prepare_resource_claims([ref("u1")])["u1"][1] == ""
+    kube.delete(*RC, "u1", namespace="default")
+    d.reconciler._interval = 0.01
+    d.start()
+    for _ in range(500):
+        if not d.state.prepared_claims():
+            break
+        threading.Event().wait(0.01)
+    d.stop()
+    assert d.state.prepared_claims() == {}
+    assert d.reconciler.last_sweep["stale_claim"] in (0, 1)
+    assert set(threading.enumerate()) == before
