@@ -8,8 +8,10 @@ and prints no result line):
 
 1. device: the card's name and power limit; TF32 off for fp32 matmuls.
 1b. device layer: ``tpulib.load()`` must give ``NvmlLib`` (NVML over
-   ctypes). Its structs' ctypes layout against the toolkit's ``nvml.h``
-   (a C probe built with the host compiler); every GPU against
+   ctypes), read in a process of its own that never initialises CUDA
+   (``NVML_READER``), as the plugin's. Its structs' ctypes layout
+   against the toolkit's ``nvml.h`` (a C probe built with the host
+   compiler); every GPU against
    ``nvidia-smi --query-gpu=index,uuid,name,memory.total,power.limit,
    pci.bus_id``, field by field; the devfs backend on the same host
    against NVML (minors, bus ids, NUMA nodes); ``cuda:0`` matched by
@@ -145,6 +147,28 @@ and prints no result line):
    from the server, and the sweep reaping it (``stale_claim`` 1, spec
    and record gone); the server stopped and its threads joined. Host ms
    of each step.
+14. sharing: ``DeviceState`` over the real NVML with the gates
+   ``TimeSlicingSettings`` and ``MultiTenancySupport`` on, in a
+   temporary directory. It logs where ``nvidia-cuda-mps-control`` and
+   ``-server`` are and ``gpu-0``'s timeslice (``nvidia-smi compute-policy
+   -l``). ``gpu-0`` prepared at the Long interval: it reads Long and,
+   after unprepare, Default; or the machine refuses ("Insufficient
+   Permissions" or "Not Supported"), the ``PrepareError`` quotes it, and
+   no record, spec or other level is left. ``gpu-0`` prepared with MPS
+   (``maxClients`` 2, ``hbmLimit`` 8Gi): its daemon answers with an 8G
+   limit for device 0 and the spec points at its pipe directory; two
+   concurrent ``python3`` clients under the spec's env (the pipe dir's
+   container path mapped back to its host path) each see one GPU, run
+   the flash forward kernel once against its plain version, allocate 4
+   GiB and get ``torch.OutOfMemoryError`` for 12 GiB, and
+   ``get_server_list`` names a server; or, where the machine will not run
+   MPS's server, each client fails with CUDA's "MPS client failed to
+   connect" and the server's log says why. Where there is no MPS binary
+   or its daemon does not start, the prepare's ``PrepareError`` and
+   rollback are checked instead. Unprepare quits the daemon: no
+   ``nvidia-cuda-mps-*`` process is left. A ``finally`` quits any daemon
+   the phase started and restores ``gpu-0``'s timeslice. Host ms of each
+   step.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record (with the hd-64 instantiations'
@@ -462,11 +486,98 @@ def _layout_against_nvml_h() -> dict:
     return gpulib.parse_struct_layout(out)
 
 
-def _telemetry_under_load(lib, chip: int) -> tuple[list, int]:
-    """NVML samples of ``chip`` every 0.1 s while ~LOAD_SECONDS of bf16
-    products run with LOAD_BYTES allocated beside them; and the bytes the
-    allocator took from the card for them."""
-    import threading
+# Phase 1b's NVML reader, a process of its own that never initialises
+# CUDA, as the plugin never does. On an H100 host (driver 580.159.03) some
+# processes that had initialised CUDA through torch and then read the
+# NVLink error fields through NVML aborted with a corrupted heap ("double
+# free or corruption (!prev)", "free(): invalid next size"); processes
+# without CUDA did not (``python -m k8s_dra_driver_gpu_tpu_torch.tpulib.
+# heap_probe`` counts both; PERF.md has its counts). It writes one JSON
+# line after the enumeration, the health poll and an idle sample; waits
+# for a line on stdin; samples the GPUs every 0.1 s until the next one;
+# and writes the samples, the NVLink fields and what NVML refused.
+NVML_READER = """
+import dataclasses, json, select, sys, time
+from k8s_dra_driver_gpu_tpu_torch.tpulib import binding as gpulib
+
+def emit(**doc):
+    print(json.dumps(doc), flush=True)
+
+def telemetry():
+    return [s.to_dict() for s in lib.chip_telemetry()]
+
+lib = gpulib.load()
+try:
+    t0 = time.perf_counter()
+    host = lib.enumerate()
+    enumerate_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    events = lib.health()
+    health_ms = (time.perf_counter() - t0) * 1e3
+    emit(backend=type(lib).__name__, host=dataclasses.asdict(host),
+         enumerate_ms=enumerate_ms, health=[dataclasses.asdict(e)
+                                            for e in events],
+         health_ms=health_ms, events_supported=lib.health_events_supported,
+         events_refused=lib.events_refused, refusals=lib.refusals,
+         idle=telemetry())
+    sys.stdin.readline()
+    samples = []
+    while not select.select([sys.stdin], [], [], 0.1)[0]:
+        samples.append(telemetry())
+    sys.stdin.readline()
+    nvlink = [[dataclasses.asdict(r) for r in lib.nvlink_errors(chip.index)]
+              for chip in host.chips]
+    emit(samples=samples, nvlink=nvlink, telemetry=telemetry(),
+         profiles=len(lib.subslice_profiles()), refusals=lib.refusals)
+finally:
+    lib.close()
+"""
+
+
+class NvmlReader:
+    """``NVML_READER`` run from the repo's root: ``reply()`` reads its next
+    JSON line, ``tell()`` writes it a line."""
+
+    def __init__(self):
+        import os
+
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", NVML_READER], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def reply(self) -> dict:
+        line = self.proc.stdout.readline()
+        if not line:
+            raise AssertionError(f"the NVML reader exited "
+                                 f"{self.proc.wait(timeout=60)}")
+        return json.loads(line)
+
+    def tell(self) -> None:
+        self.proc.stdin.write("\n")
+        self.proc.stdin.flush()
+
+    def close(self) -> None:
+        """Ends the reader's input and waits for its exit (it then reads
+        the NVLink fields and writes its last line, unread); kills it if
+        it is still running after a minute."""
+        try:
+            self.proc.stdin.close()
+            rc = self.proc.wait(timeout=60)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        if rc:
+            raise AssertionError(f"the NVML reader exited {rc}")
+
+
+def _telemetry_under_load(reader: NvmlReader, chip: int
+                          ) -> tuple[list, int, dict]:
+    """The reader's samples of ``chip`` every 0.1 s while ~LOAD_SECONDS of
+    bf16 products run with LOAD_BYTES allocated beside them; the bytes the
+    allocator took from the card for them; and the reader's last reply."""
+    from k8s_dra_driver_gpu_tpu_torch.tpulib import binding as gpulib
 
     reserved = torch.cuda.memory_reserved()
     a = torch.randn(LOAD_DIM, LOAD_DIM, device="cuda", dtype=torch.bfloat16)
@@ -474,25 +585,19 @@ def _telemetry_under_load(lib, chip: int) -> tuple[list, int]:
     ballast = torch.ones(LOAD_BYTES, device="cuda", dtype=torch.uint8)
     matmul_ms = time_ms(lambda: a @ b, iters=5)
     taken = torch.cuda.memory_reserved() - reserved
-    samples, stop = [], threading.Event()
-
-    def sample():
-        while not stop.is_set():
-            samples.append(lib.chip_telemetry()[chip])
-            stop.wait(0.1)
-
-    sampler = threading.Thread(target=sample)
-    sampler.start()
+    reader.tell()
     try:
         for _ in range(int(LOAD_SECONDS * 1e3 / matmul_ms)):
             a @ b
         torch.cuda.synchronize()
     finally:
-        stop.set()
-        sampler.join(timeout=30)
+        reader.tell()
+    done = reader.reply()
     del a, b, ballast
     torch.cuda.empty_cache()
-    return samples, taken
+    samples = [gpulib.ChipTelemetry(**sample[chip])
+               for sample in done["samples"]]
+    return samples, taken, done
 
 
 # nvidia-smi's names of the NVLink error counters, by NVML field.
@@ -501,15 +606,18 @@ SMI_NVLINK_ERRORS = {"Replay": "NVML_FI_DEV_NVLINK_ERROR_DL_REPLAY",
                      "CRC": "NVML_FI_DEV_NVLINK_ERROR_DL_CRC"}
 
 
-def _nvlink_errors(lib, chip: int) -> None:
-    """The NVLink error fields of ``chip``, link by link: what NVML gave
-    (field values, or the legacy counters in place of a refused field)
-    and refused; ``ici_link_errors`` must be the sum of what it gave, and
-    the field values must equal ``nvidia-smi nvlink -e``'s counters where
-    it prints them. A container that refuses everything is logged."""
+def _nvlink_errors(done: dict, chip: int) -> None:
+    """The NVLink error fields of ``chip``, link by link, from the NVML
+    reader's last reply: what NVML gave (field values, or the legacy
+    counters in place of a refused field) and refused; ``ici_link_errors``
+    must be the sum of what it gave, and the field values must equal
+    ``nvidia-smi nvlink -e``'s counters where it prints them. A container
+    that refuses everything is logged."""
     import re
 
-    readings = lib.nvlink_errors(chip)
+    from k8s_dra_driver_gpu_tpu_torch.tpulib import binding as gpulib
+
+    readings = [gpulib.NvLinkErrorReading(**r) for r in done["nvlink"][chip]]
     # Link by link, the links that read alike grouped.
     alike = collections.defaultdict(list)
     for r in readings:
@@ -521,7 +629,7 @@ def _nvlink_errors(lib, chip: int) -> None:
             + (f" ({refused})" if refused else "")
             for (field, source, value, refused), links in alike.items()))
     given = sum(r.value for r in readings if r.source)
-    total = lib.chip_telemetry()[chip].ici_link_errors
+    total = done["telemetry"][chip]["ici_link_errors"]
     sources = collections.Counter(r.source or "refused" for r in readings)
     log(f"device layer: ici_link_errors {total}, the sum of the accepted "
         f"values {given}; by source {dict(sources)}")
@@ -550,16 +658,19 @@ def _nvlink_errors(lib, chip: int) -> None:
 
 
 def phase_device_layer() -> None:
-    """1b. The device layer (``tpulib``) on this host's NVML."""
+    """1b. The device layer (``tpulib``) on this host's NVML, read by
+    ``NVML_READER`` in a process without CUDA."""
     import os
     import re
 
     from k8s_dra_driver_gpu_tpu_torch.tpulib import binding as gpulib
 
-    lib = gpulib.load()
-    if not isinstance(lib, gpulib.NvmlLib):
-        raise AssertionError(f"load() gave {type(lib).__name__}, not NvmlLib")
+    reader = NvmlReader()
     try:
+        first = reader.reply()
+        if first["backend"] != "NvmlLib":
+            raise AssertionError(f"load() gave {first['backend']}, not "
+                                 f"NvmlLib")
         layout, want_layout = gpulib.struct_layout(), _layout_against_nvml_h()
         log(f"device layer: ctypes struct layouts and constants equal "
             f"nvml.h's {layout == want_layout} ({len(gpulib.NVML_STRUCTS)} "
@@ -569,9 +680,9 @@ def phase_device_layer() -> None:
         if layout != want_layout:
             raise AssertionError(f"struct layouts: ctypes {layout}, "
                                  f"nvml.h {want_layout}")
-        t0 = time.perf_counter()
-        host = lib.enumerate()
-        enumerate_ms = (time.perf_counter() - t0) * 1e3
+        host = gpulib.GpuHostInfo(**{**first["host"], "chips": tuple(
+            gpulib.GpuChip(**c) for c in first["host"]["chips"])})
+        enumerate_ms = first["enumerate_ms"]
         log(f"device layer: NVML {host.driver_version}, {host.product_name}, "
             f"{len(host.chips)} GPU(s), MIG {host.mig_mode}, power limit "
             f"{host.power_limit_watts} W: "
@@ -592,7 +703,7 @@ def phase_device_layer() -> None:
             if bad:
                 raise AssertionError(f"NVML against nvidia-smi: {bad}")
         if any(not row["pci.bus_id"] for row in smi) and \
-                "nvmlDeviceGetPciInfo_v3" not in lib.refusals:
+                "nvmlDeviceGetPciInfo_v3" not in first["refusals"]:
             raise AssertionError("nvidia-smi has no bus id, NVML gave one")
         log(f"device layer: nvidia-smi's {SMI_FIELDS} equal NVML's for "
             f"{len(smi)} GPU(s)")
@@ -634,15 +745,13 @@ def phase_device_layer() -> None:
             f"{chip.memory_bytes} B >= torch {props.total_memory} B (gap "
             f"{(chip.memory_bytes - props.total_memory) / 2**20:.0f} MiB)")
 
-        t0 = time.perf_counter()
-        events = lib.health()
-        health_ms = (time.perf_counter() - t0) * 1e3
-        log(f"device layer: idle health poll {list(events)}; events "
-            f"supported {lib.health_events_supported}, refused "
-            f"{lib.events_refused}")
+        health_ms = first["health_ms"]
+        log(f"device layer: idle health poll {first['health']}; events "
+            f"supported {first['events_supported']}, refused "
+            f"{first['events_refused']}")
 
-        idle = lib.chip_telemetry()[chip.index]
-        samples, taken = _telemetry_under_load(lib, chip.index)
+        idle = gpulib.ChipTelemetry(**first["idle"][chip.index])
+        samples, taken, done = _telemetry_under_load(reader, chip.index)
         busiest = max(samples, key=lambda s: (s.duty_cycle, s.power_watts))
         rise = max(s.hbm_used_bytes for s in samples) - idle.hbm_used_bytes
         # The card holds its power to the limit over time, not in every
@@ -659,21 +768,21 @@ def phase_device_layer() -> None:
                 and busiest.duty_cycle > 0):
             raise AssertionError("telemetry under load")
 
-        _nvlink_errors(lib, chip.index)
-        profiles = lib.subslice_profiles()
+        _nvlink_errors(done, chip.index)
         cli = subprocess.run(
             [sys.executable, "-m", "k8s_dra_driver_gpu_tpu_torch.tpulib"],
             capture_output=True, text=True, timeout=120, check=True,
             cwd=os.path.dirname(os.path.abspath(__file__)))
         doc = json.loads(cli.stdout)
-        log(f"device layer: MIG {host.mig_mode}, {len(profiles)} profile(s); "
+        log(f"device layer: MIG {host.mig_mode}, {done['profiles']} "
+            f"profile(s); "
             f"CLI {json.dumps(doc, separators=(',', ':'))}")
         if doc["backend"] != "nvml" or len(doc["chips"]) != len(host.chips):
             raise AssertionError("the CLI's enumeration")
-        log(f"device layer: NVML refused {lib.refusals}; host ms: "
+        log(f"device layer: NVML refused {done['refusals']}; host ms: "
             f"enumerate {enumerate_ms:.2f}, health poll {health_ms:.2f}")
     finally:
-        lib.close()
+        reader.close()
 
 
 KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
@@ -2628,6 +2737,331 @@ def phase_node_driver(seed: int) -> int:
     return result["launches"]
 
 
+# Phase 14's MPS clients: the claim's env applied, each must see one GPU
+# of the claim's product name, run the flash forward kernel at the
+# serving shape on phase 3's inputs against its plain version (a batch
+# row at a time, so the reference's scores fit the memory limit), then
+# allocate 4 GiB, which the 8 GiB limit allows, and 12 GiB, which MPS's
+# pinned limit refuses.
+MPS_CHILD = """
+import json, sys
+import torch
+import chip_smoke as c
+from k8s_dra_driver_gpu_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_reference)
+
+seed, product = int(sys.argv[1]), sys.argv[2]
+count, name = torch.cuda.device_count(), torch.cuda.get_device_name(0)
+if count != 1 or name != product:
+    raise SystemExit(f"MPS child sees {count} devices, {name!r}")
+gen = torch.Generator(device="cuda").manual_seed(seed)
+q, k, v = c.attention_inputs(gen, "serving", 4, 2048, 32, 8, 128,
+                             torch.bfloat16)
+flash_attention.launches = 0
+got = flash_attention(q, k, v, causal=True)
+launches = flash_attention.launches
+want = torch.cat([flash_attention_reference(q[i:i + 1], k[i:i + 1],
+                                            v[i:i + 1], causal=True)
+                  for i in range(q.shape[0])])
+atol, rtol = c.TOLERANCES[torch.bfloat16]
+diff = (got.float() - want.float()).abs()
+result = {"device_count": count, "name": name, "launches": launches,
+          "max_abs_err": diff.max().item(),
+          "excess": (diff - atol - rtol * want.float().abs()).max().item(),
+          "finite": bool(torch.isfinite(got).all())}
+del q, k, v, got, want, diff
+torch.cuda.empty_cache()
+small = torch.empty(4 << 30, dtype=torch.uint8, device="cuda")
+small.fill_(1)
+torch.cuda.synchronize()
+result["alloc_4gib"] = "ok"
+del small
+torch.cuda.empty_cache()
+try:
+    big = torch.empty(12 << 30, dtype=torch.uint8, device="cuda")
+    result["alloc_12gib"] = "ok"
+except torch.OutOfMemoryError as err:
+    result["alloc_12gib"] = "OutOfMemoryError: " + str(err).splitlines()[0]
+print(json.dumps(result))
+"""
+# What a client prints when the machine will not run MPS's server.
+MPS_CLIENT_REFUSED = "MPS client failed to connect"
+# The only reason a server's start may fail for phase 14 to pass: the
+# machine refuses MPS's server.
+MPS_SERVER_REFUSED = "Failed to start : operation not supported"
+PR_SET_CHILD_SUBREAPER = 36  # <linux/prctl.h>
+
+
+def _timeslice_level(index: int) -> str:
+    """GPU ``index``'s timeslice as ``nvidia-smi compute-policy -l``
+    lists it (Default, Short, Medium or Long)."""
+    import re
+
+    out = subprocess.run(["nvidia-smi", "compute-policy", "-l"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout
+    for m in re.finditer(r"^\|\s*(\d+)\s+Timeslice\s+(\w+)", out, re.M):
+        if int(m.group(1)) == index:
+            return m.group(2)
+    raise AssertionError(f"no timeslice of GPU {index} in {out!r}")
+
+
+def phase_sharing(seed: int) -> int:
+    """14. Time-slicing and MPS through the kubelet plugin over NVML with
+    both sharing gates on: ``gpu-0`` at the Long interval (set and read
+    back, or refused by the machine and rolled back), then ``gpu-0``
+    under an MPS daemon with two concurrent clients (served, or refused by
+    the machine). Returns the clients' flash launches."""
+    import ctypes
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin import DRIVER_NAME
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.cdi import find_binary
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.claim import (
+        ResourceClaim)
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.device_state import (
+        Config, DeviceState, PrepareError)
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.sharing import (
+        MPS_CONTROL, MPS_SERVER, TIMESLICE_LEVELS, mps_pids)
+    from k8s_dra_driver_gpu_tpu_torch.pkg.featuregates import FeatureGates
+
+    ms = {}
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            ms[label] = round((time.perf_counter() - t0) * 1e3, 3)
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"sharing: {what}")
+
+    def claim(uid, sharing):
+        return ResourceClaim.from_dict({
+            "metadata": {"uid": uid, "namespace": "default", "name": uid},
+            "status": {"allocation": {"devices": {
+                "results": [{"request": "gpu", "driver": DRIVER_NAME,
+                             "pool": "node", "device": "gpu-0"}],
+                "config": [{"source": "FromClaim", "requests": [],
+                            "opaque": {"driver": DRIVER_NAME, "parameters": {
+                                "apiVersion": "resource.nvidia.com/v1beta1",
+                                "kind": "GpuConfig",
+                                "sharing": sharing}}}]}}}})
+
+    def rolled_back(uid):
+        return (uid not in state.prepared_claims()
+                and not state._cdi.spec_exists(uid)
+                and not state._tenancy._dirs_of(uid))
+
+    def ours():
+        """The MPS processes started under this phase's directory."""
+        pids = []
+        for pid in mps_pids():
+            try:
+                with open(f"/proc/{pid}/environ", "rb") as f:
+                    env = f.read().split(b"\0")
+            except OSError:
+                continue
+            if any(e.startswith(f"CUDA_MPS_PIPE_DIRECTORY={tmp}/".encode())
+                   for e in env):
+                pids.append(pid)
+        return pids
+
+    def reap_zombies():
+        """Reap the dead MPS processes whose parent is this process; the
+        pids reaped, and the others' (pid, parent)."""
+        reaped, left = [], []
+        for pid in filter(str.isdigit, os.listdir("/proc")):
+            try:
+                with open(f"/proc/{pid}/stat", encoding="utf-8") as f:
+                    head, _, tail = f.read().rpartition(")")
+            except OSError:
+                continue
+            state_, ppid = tail.split()[:2]
+            if state_ != "Z" or "nvidia-cuda-mps" not in head:
+                continue
+            if int(ppid) == os.getpid():
+                os.waitpid(int(pid), os.WNOHANG)
+                reaped.append(int(pid))
+            else:
+                left.append((int(pid), int(ppid)))
+        return reaped, left
+
+    control = find_binary("/", MPS_CONTROL)
+    server = find_binary("/", MPS_SERVER)
+    level0 = timed("read_level", _timeslice_level, 0)
+    before = mps_pids()
+    log(f"sharing: {MPS_CONTROL} {control or 'absent'}, {MPS_SERVER} "
+        f"{server or 'absent'}; gpu-0's timeslice {level0}; MPS processes "
+        f"running before {before}")
+    check(not before, "an MPS daemon runs before the phase")
+    tmp = tempfile.mkdtemp(prefix="sh")
+    state = None
+    launches = 0
+    # The daemon that MPS's control binary forks off, and its servers,
+    # come back to this process when their parent exits, so that it reaps
+    # them once they quit.
+    prctl = ctypes.CDLL(None, use_errno=True).prctl
+    prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0)
+    try:
+        state = timed("construct", DeviceState, Config(
+            root=f"{tmp}/state", cdi_root=f"{tmp}/cdi",
+            feature_gates=FeatureGates.parse(
+                "TimeSlicingSettings=true,MultiTenancySupport=true")))
+
+        # Time-slicing: Long, then back to Default; or the machine's
+        # refusal, quoted, with nothing left behind.
+        ts = claim("smoke-timeslice", {"strategy": "TimeSlicing",
+                                       "timeSlicing": {"interval": "Long"}})
+        try:
+            timed("prepare_long", state.prepare, ts)
+            refusal = None
+        except PrepareError as err:
+            refusal = str(err)
+        level = _timeslice_level(0)
+        log(f"sharing: prepare at Long: "
+            f"{'refused: ' + refusal if refusal else 'set'}; gpu-0 reads "
+            f"{level}; record {state._timeslicing.current(0)}")
+        if refusal is None:
+            check(level == "Long" and state._timeslicing.current(0)[
+                "holders"] == {ts.uid: "Long"}, f"Long set, reads {level}")
+            timed("unprepare_long", state.unprepare, ts.uid)
+            level = _timeslice_level(0)
+            check(level == "Default" and state._timeslicing.current(0)
+                  is None and rolled_back(ts.uid),
+                  f"after unprepare gpu-0 reads {level}")
+            log(f"sharing: unprepared: gpu-0 reads {level}")
+        else:
+            check(("Insufficient Permissions" in refusal
+                   or "Not Supported" in refusal)
+                  and "compute-policy" in refusal, f"refusal {refusal!r}")
+            check(level == level0 and state._timeslicing.current(0) is None
+                  and rolled_back(ts.uid), "the refused claim left state")
+
+        # MPS: one daemon for the claim, two clients at once.
+        mps = claim("smoke-mps", {"strategy": "MultiTenancy",
+                                  "multiTenancy": {"maxClients": 2,
+                                                   "hbmLimit": "8Gi"}})
+        try:
+            timed("prepare_mps", state.prepare, mps)
+        except PrepareError as err:
+            log(f"sharing: MPS refused at prepare: {err}; "
+                f"{state.last_segments}")
+            check(MPS_CONTROL in str(err) or "MPS control daemon" in str(err),
+                  f"prepare refused {err!r}")
+            check(rolled_back(mps.uid) and not mps_pids(),
+                  "the refused MPS claim left state")
+            return 0
+        segments = {k: round(v * 1e3, 3)
+                    for k, v in state.last_segments.items()}
+        spec = state._cdi.read_spec(mps.uid)
+        common = spec["containerEdits"]
+        (edits,) = [dd["containerEdits"] for dd in spec["devices"]]
+        (d, owner), = state._tenancy._owners().items()
+        pipe = state._tenancy.pipe_dir(d)
+        daemons = mps_pids(pipe)
+        limit = timed("read_limit", state._tenancy.command, mps.uid, "gpu",
+                      "get_default_device_pinned_mem_limit 0").strip()
+        log(f"sharing: MPS prepared (segments ms {segments}); daemon pids "
+            f"{daemons}, {owner}, its limit of device 0 {limit!r}; gpu-0's "
+            f"env {edits['env']}, mounts {edits['mounts']}")
+        container = f"/var/run/nvidia-mps/{os.path.basename(d)}"
+        check(daemons and limit == "8G" and owner["visibleDevices"] == "0"
+              and edits["env"] == [
+                  f"CUDA_MPS_PIPE_DIRECTORY={container}",
+                  "CUDA_MPS_PINNED_DEVICE_MEM_LIMIT=0=8192M"]
+              and [(m["hostPath"], m["containerPath"], "rw" in m["options"])
+                   for m in edits["mounts"]] == [(pipe, container, True)]
+              and not any("MPS" in e for e in common["env"]), "the MPS spec")
+
+        env = dict(os.environ)
+        for entry in (e for edit in [dd["containerEdits"]
+                                     for dd in spec["devices"]] + [common]
+                      for e in edit.get("env", [])):
+            key, _, value = entry.partition("=")
+            env[key] = value
+        # No container: the pipe dir's container path is its host path.
+        env["CUDA_MPS_PIPE_DIRECTORY"] = pipe
+        product = state.allocatable["gpu-0"].chip.chip.name
+        t0 = time.perf_counter()
+        children = [subprocess.Popen(
+            [sys.executable, "-c", MPS_CHILD, str(seed), product], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for _ in range(2)]
+        outs = [child.communicate(timeout=300) for child in children]
+        ms["children"] = round((time.perf_counter() - t0) * 1e3, 3)
+        servers = timed("server_list", state._tenancy.command, mps.uid,
+                        "gpu", "get_server_list").split()
+        with open(os.path.join(d, "log", "server.log")) as f:
+            server_log = f.read()
+        codes = [child.returncode for child in children]
+        log(f"sharing: MPS clients exited {codes} in {ms['children']} ms; "
+            f"get_server_list {servers}")
+        if all(code == 0 for code in codes):
+            results = [json.loads(out.strip().splitlines()[-1])
+                       for out, _ in outs]
+            for result in results:
+                log(f"sharing: MPS client {json.dumps(result)}")
+                check(result["device_count"] == 1 and result["launches"] == 1
+                      and result["finite"] and result["excess"] <= 0
+                      and result["max_abs_err"] <= CLAIM_CHILD_MAX_ERR
+                      and result["alloc_4gib"] == "ok"
+                      and result["alloc_12gib"].startswith(
+                          "OutOfMemoryError"), f"MPS client {result}")
+            check(servers, "no MPS server served the clients")
+            launches = sum(result["launches"] for result in results)
+        else:
+            # The machine's refusal, not a fault of the daemon's settings:
+            # every start failed for its reason, on gpu-0's product.
+            lines = server_log.splitlines()
+            failed = [line for line in lines if "Failed to start" in line]
+            devices = [line for line in lines
+                       if "server context on device" in line]
+            log(f"sharing: MPS clients refused: "
+                f"{[err.strip().splitlines()[-1] for _, err in outs]}; the "
+                f"server's log: {devices[:1]} {failed[:1]} ({len(failed)} "
+                f"starts failed, {len(lines)} lines)")
+            check(all(code != 0 and MPS_CLIENT_REFUSED in err
+                      for code, (_, err) in zip(codes, outs)),
+                  f"MPS clients {codes}: {[e[-2000:] for _, e in outs]}")
+            check(failed and all(line.endswith(MPS_SERVER_REFUSED)
+                                 for line in failed),
+                  f"the server failed otherwise: {lines[-20:]}")
+            check(devices and all(f"device 0 ({product})" in line
+                                  for line in devices),
+                  f"the server's device is not gpu-0 ({product}): {devices}")
+
+        timed("unprepare_mps", state.unprepare, mps.uid)
+        check(rolled_back(mps.uid) and not os.path.exists(d)
+              and not mps_pids(), f"after unprepare MPS processes "
+              f"{mps_pids()}")
+        log(f"sharing: unprepared: no MPS process left, {d} removed")
+        return launches
+    finally:
+        if state is not None:
+            for uid in ("smoke-timeslice", "smoke-mps"):
+                state._tenancy.stop(uid)
+        for pid in ours():
+            log(f"sharing: MPS process {pid} left: killed")
+            os.kill(pid, signal.SIGKILL)
+        reaped, zombies = reap_zombies()
+        prctl(PR_SET_CHILD_SUBREAPER, 0, 0, 0, 0)
+        log(f"sharing: MPS processes after the phase: {mps_pids()}; dead "
+            f"ones reaped {reaped}, not this process's to reap (pid, "
+            f"parent) {zombies}")
+        if _timeslice_level(0) != level0:
+            subprocess.run(["nvidia-smi", "compute-policy", "-i", "0",
+                            f"--set-timeslice={TIMESLICE_LEVELS[level0]}"],
+                           check=True, timeout=60)
+        shutil.rmtree(tmp, ignore_errors=True)
+        log(f"sharing: host ms {json.dumps(ms)}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2664,6 +3098,9 @@ def main(argv=None) -> int:
     t_node = time.perf_counter()
     node_child = phase_node_driver(args.seed)
     log(f"node driver: phase 13 in {time.perf_counter() - t_node:.1f} s")
+    t_sharing = time.perf_counter()
+    mps_children = phase_sharing(args.seed)
+    log(f"sharing: phase 14 in {time.perf_counter() - t_sharing:.1f} s")
     forward["launches_by_path"] = {
         "serving_generate": serving_launches,
         "training_step": training["forward_lse"],
@@ -2672,6 +3109,7 @@ def main(argv=None) -> int:
         "one_row_sharded_generate": gang["one_row_generate"],
         "prepared_claim_child": claim_child,
         "node_driver_claim_child": node_child,
+        "mps_children": mps_children,
         "sharded_training_step": gang["train"]["forward_lse"],
         "moe_training_step": moe["forward_lse"],
         "sp_ulysses_training_step": sp["ulysses"]["forward_lse"],

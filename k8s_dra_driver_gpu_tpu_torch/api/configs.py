@@ -3,11 +3,10 @@
 ``api/nvidia.com/resource/v1beta1/{gpuconfig.go,sharing.go}``).
 
 ``GpuConfig`` is the config of a whole-GPU claim (the JAX package's
-``TpuConfig``). Its ``Sharing`` union decodes and validates as there; the
-kubelet plugin then runs only the default (time-slicing at the default
-interval, which is what a GPU does unconfigured) and refuses any other
-sharing with the ROADMAP item that ports it. The MIG and vfio configs
-are not ported (``device_state.NOT_PORTED_KINDS``).
+``TpuConfig``). Its ``Sharing`` union decodes and validates as there;
+the kubelet plugin runs it through ``kubeletplugin/sharing.py``
+(time-slicing at an interval, MPS with per-device memory limits). The
+MIG and vfio configs are not ported (``device_state.NOT_PORTED_KINDS``).
 """
 
 from __future__ import annotations
@@ -79,6 +78,13 @@ class MultiTenancyConfig:
             _parse_memory(lim)
             if dev != "*" and not dev:
                 raise ValidationError("empty device key in hbm limits")
+
+    def hbm_limit_bytes_for(self, device: str) -> int | None:
+        """The memory limit of ``device`` in bytes: its own entry, else
+        the "*" entry, else None."""
+        lim = self.per_device_hbm_limits.get(
+            device, self.per_device_hbm_limits.get("*"))
+        return _parse_memory(lim) if lim else None
 
 
 @dataclass

@@ -7,7 +7,10 @@ upstream driver's ``cmd/gpu-kubelet-plugin/``) for whole GPUs:
   ``tpulib`` (NVML), describe each as a DRA ``ResourceSlice`` device
   (``deviceinfo``), and prepare a claim (``claim``) with a two-phase
   checkpoint (``checkpoint``) and a CDI spec that injects its device
-  nodes and the driver's libraries (``cdi``); unprepare tears both down;
+  nodes and the driver's libraries (``cdi``), and the claim's sharing
+  (``sharing``: a GPU's timeslice through ``nvidia-smi``, an MPS control
+  daemon a claim request), each behind its feature gate
+  (``pkg.featuregates``); unprepare tears them down;
 - ``driver``: the node service over an API server (``pkg.kubeclient``):
   ResourceSlice publication with shared counters (``partitions``), claim
   lookup for prepare and unprepare, health taints (``health``) and the

@@ -31,12 +31,14 @@ host file at the link's path: the effect of the upstream's
 ``create-symlinks`` hook without a hook binary. A library of another
 version is never mounted (a host may keep a CUDA compat copy beside the
 driver's); without a driver version (the mock and devfs backends)
-nothing is mounted. ``nvidia-smi`` is bound from the first of
-``BINARY_DIRS`` that has it. Not ported: the ``update-ldcache`` hook
-(the container's loader cache does not list the libraries; their
-soname binds sit in the image's own library directory), and the MPS
-and persistenced binaries (ROADMAP.md §1b). Nor has the spec the JAX
-package's ``TPU_SKIP_MDS_QUERY`` (a GCE metadata switch).
+nothing is mounted. ``nvidia-smi`` and the MPS binaries
+(``nvidia-cuda-mps-control``, ``nvidia-cuda-mps-server``) are bound
+from the first of ``BINARY_DIRS`` that has each (``find_binary``, which
+``sharing.py`` runs them from too), where found. Not ported: the
+``update-ldcache`` hook (the container's loader cache does not list the
+libraries; their soname binds sit in the image's own library
+directory), and the persistenced binary (ROADMAP.md §1b). Nor has the
+spec the JAX package's ``TPU_SKIP_MDS_QUERY`` (a GCE metadata switch).
 """
 
 from __future__ import annotations
@@ -61,7 +63,9 @@ COMMON_DEVICE_NODES = ("nvidiactl", "nvidia-uvm", "nvidia-uvm-tools")
 DRIVER_LIBRARIES = ("libcuda", "libcudadebugger", "libnvidia-ml",
                     "libnvidia-ptxjitcompiler", "libnvidia-nvvm",
                     "libnvidia-gpucomp")
-DRIVER_BINARIES = ("nvidia-smi",)
+# nvidia-smi, and MPS's control daemon and server (``sharing.py``).
+DRIVER_BINARIES = ("nvidia-smi", "nvidia-cuda-mps-control",
+                   "nvidia-cuda-mps-server")
 # Without them a container cannot run CUDA.
 REQUIRED_LIBRARIES = ("libcuda", "libnvidia-ml")
 # Searched in this order under the driver root, after the directories
@@ -84,6 +88,13 @@ def _first_file(root: str, dirs: tuple[str, ...], name: str) -> str | None:
         if os.path.isfile(os.path.join(root, rel)):
             return rel
     return None
+
+
+def find_binary(driver_root: str, name: str) -> str | None:
+    """The host path of the driver's binary ``name``: the first of
+    ``BINARY_DIRS`` under ``driver_root`` that has it, or None."""
+    rel = _first_file(driver_root, BINARY_DIRS, name)
+    return None if rel is None else os.path.join(driver_root, rel)
 
 
 def mapped_library_dirs(driver_root: str) -> tuple[str, ...]:
@@ -136,9 +147,10 @@ def driver_mounts(driver_root: str, version: str
                 mounts.append((host, "/" + os.path.join(
                     os.path.dirname(rel), entry), True))
     for binary in DRIVER_BINARIES:
-        rel = _first_file(driver_root, BINARY_DIRS, binary)
-        if rel is not None:
-            mounts.append((os.path.join(driver_root, rel), "/" + rel, True))
+        host = find_binary(driver_root, binary)
+        if host is not None:
+            mounts.append((host, "/" + os.path.relpath(host, driver_root),
+                           True))
     return mounts
 
 

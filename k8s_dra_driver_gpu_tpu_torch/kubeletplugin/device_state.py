@@ -18,11 +18,24 @@ What differs from the JAX plugin, on an H100 host:
   container's NVML may redact the UUID in some calls) and matches no GPU
   by UUID. A GPU whose minor number NVML refused has no device node to
   inject and is not published; a warning names it.
-- **Whole GPUs only.** A claim config asking for sharing other than the
-  default, sub-slices (MIG) or passthrough (vfio) raises
-  ``NotPortedError`` at prepare, naming the ROADMAP.md item that ports
-  it. There are no feature gates yet: they come with the first ported
-  feature that reads one.
+- **Whole GPUs, shared or not.** A claim config may ask for
+  time-slicing at an interval (``TimeSlicingSettings``) or MPS
+  (``MultiTenancySupport``), run by ``sharing.py``: ``nvidia-smi`` sets
+  the GPU's timeslice, an MPS control daemon a claim request runs the
+  clients; a gate that is off refuses its feature at prepare, as in the
+  JAX plugin. An MPS request must be its claim's only request (the
+  ``NotPortedError`` below): CDI merges same-named env, so two daemons'
+  pipe directories would reach a container as one, and the clients of
+  one daemon see only its GPUs. Sub-slices (MIG) and passthrough (vfio)
+  raise ``NotPortedError`` at prepare, naming the ROADMAP.md item that
+  ports them; so does, at construction, every gate but the two sharing
+  ones when set away from its default (``NOT_PORTED_GATES``). A
+  completed claim whose spec is lost while its MPS daemon runs is not
+  prepared again (that would kill the daemon's clients): its prepare
+  raises, and unprepare recovers it.
+  Construction starts again the dead MPS daemons of completed claims and
+  quits the others'; a boot id change drops the sharing records with the
+  claims.
 - **The claim's GPUs are its device nodes.** The spec injects each GPU's
   ``/dev/nvidia<minor>``; a container given only those nodes sees only
   those GPUs, numbered from 0. So the spec sets no
@@ -45,19 +58,25 @@ from __future__ import annotations
 
 import logging
 import os
+import shutil
 import time
 from dataclasses import dataclass, field
 
-from ..api.configs import GpuConfig
+from ..api.configs import GpuConfig, Sharing
 from ..api.decode import strict_decode
+from ..pkg.featuregates import (MULTI_TENANCY_SUPPORT,
+                                TIME_SLICING_SETTINGS, FeatureGates)
 from ..pkg.flock import Flock
 from ..pkg.timing import SegmentTimer
 from ..tpulib.binding import EnumerateOptions, GpuHostInfo, load
-from .cdi import CDIHandler, ContainerEdits
+from .cdi import CDIHandler, ContainerEdits, find_binary
 from .checkpoint import (CheckpointedClaim, CheckpointedDevice,
                          CheckpointManager, ClaimState)
 from .claim import ResourceClaim
-from .deviceinfo import AllocatableDevice, ChipInfo, DeviceKind
+from .deviceinfo import (AllocatableDevice, ChipInfo, DeviceKind,
+                         parse_gpu_name)
+from .sharing import (MPS_CONTROL, MultiTenancyManager, SharingError,
+                      TimeSlicingManager)
 
 logger = logging.getLogger(__name__)
 
@@ -65,10 +84,24 @@ LOCK_TIMEOUT_S = 10.0
 
 # What the JAX plugin runs and this one does not yet, by the ROADMAP.md
 # §1b item that ports it.
-_SHARING = "time-slicing and MPS sharing (ROADMAP.md §1b item 4, sharing.py)"
 _MIG = "MIG devices (ROADMAP.md §1b item 5, sub-slices -> MIG)"
 _VFIO = "vfio passthrough (ROADMAP.md §1b item 6, vfio.py)"
+_CD = "the ComputeDomain daemon (ROADMAP.md §1b item 9, computedomain/)"
 NOT_PORTED_KINDS = {"MigDeviceConfig": _MIG, "VfioDeviceConfig": _VFIO}
+# Every gate but TimeSlicingSettings and MultiTenancySupport: refused
+# when set away from its default.
+NOT_PORTED_GATES = {
+    "DynamicSubSlice": _MIG, "TenantPartitioning": _MIG,
+    "PassthroughSupport": _VFIO,
+    "DomainDaemonsWithDNSNames": _CD, "ComputeDomainCliques": _CD,
+    "TopologyAwarePlacement": "topology-aware placement (the JAX package's "
+    "scheduler and ComputeDomain controller, ROADMAP.md §1b item 9)",
+    "ChipHealthCheck": "switching the health monitor by gate (the entry "
+    "point's, ROADMAP.md §1b item 8; Driver(enable_health_monitor=) now)",
+    "CrashOnICIFabricErrors": _CD,
+    "DeviceMetadata": "device metadata (no module of the JAX package reads "
+    "this gate either)",
+}
 
 
 class PrepareError(RuntimeError):
@@ -86,24 +119,29 @@ class Config:
     devfs backend. The common device nodes are looked up under
     ``gpulib_opts.dev_root`` (default /dev), the driver's libraries under
     ``driver_root``, which must be the host's path of the driver root as
-    the plugin sees it (``CDIHandler``)."""
+    the plugin sees it (``CDIHandler``); so are ``nvidia-smi`` and MPS's
+    control daemon (``cdi.find_binary``)."""
 
-    root: str  # state root: the checkpoint and the node lock
+    root: str  # state root: the checkpoint, the node lock, sharing state
     gpulib_opts: EnumerateOptions = field(default_factory=EnumerateOptions)
+    feature_gates: FeatureGates = field(default_factory=FeatureGates)
     cdi_root: str | None = None
     boot_id: str | None = None
     backend: str | None = None
     driver_root: str = "/"
 
     @classmethod
-    def mock(cls, root: str, topology: str = "h100-8") -> "Config":
+    def mock(cls, root: str, topology: str = "h100-8",
+             gates: str = "") -> "Config":
         """A mock host of ``topology`` GPUs; its CDI specs under
         ``root/cdi`` and its device root ``root/dev`` (empty unless a
-        test makes nodes there)."""
+        test makes nodes there); ``gates`` as ``FEATURE_GATES`` takes
+        them."""
         return cls(root=root,
                    gpulib_opts=EnumerateOptions(
                        mock_topology=topology,
                        dev_root=os.path.join(root, "dev")),
+                   feature_gates=FeatureGates.parse(gates),
                    cdi_root=os.path.join(root, "cdi"), backend="python")
 
 
@@ -112,6 +150,12 @@ class DeviceState:
 
     def __init__(self, config: Config):
         self._config = config
+        for gate in config.feature_gates.unported():
+            raise NotPortedError(
+                f"feature gate {gate}="
+                f"{str(config.feature_gates.enabled[gate]).lower()}: "
+                f"{NOT_PORTED_GATES[gate]} is not ported to the GPU plugin "
+                "yet")
         os.makedirs(config.root, exist_ok=True)
         # The node lock: excludes other plugin processes and the other
         # threads of this one (upstream driver.go:46-47).
@@ -133,6 +177,23 @@ class DeviceState:
         # Find the driver's libraries now, not in the first prepare: a
         # driver whose libcuda or libnvidia-ml is missing fails here.
         self._cdi.driver_mounts(self.host.driver_version)
+        if self._checkpoint.invalidated_on_boot:
+            # A reboot reset every GPU's timeslice and ended every MPS
+            # daemon: their records went with the claims.
+            for sub in ("timeslice", "mps"):
+                shutil.rmtree(os.path.join(config.root, sub),
+                              ignore_errors=True)
+            logger.warning("boot id changed: cleared the sharing state")
+        self._timeslicing = TimeSlicingManager(
+            config.root, find_binary(config.driver_root, "nvidia-smi"))
+        self._tenancy = MultiTenancyManager(
+            config.root, hbm_capacity_bytes=self.host.memory_bytes_per_chip,
+            control_binary=find_binary(config.driver_root, MPS_CONTROL))
+        # Re-own the MPS daemons of the claims that survived a restart,
+        # quit the others'.
+        self._tenancy.reconcile({
+            uid for uid, c in self._checkpoint.get().claims.items()
+            if c.state == ClaimState.PREPARE_COMPLETED.value})
         # The segments (seconds) of the last prepare or unprepare.
         self.last_segments: dict[str, float] = {}
 
@@ -184,6 +245,12 @@ class DeviceState:
                 if spec_ok:
                     return [i for d in existing.devices
                             for i in d.cdi_device_ids]
+                if self._tenancy.active(claim.uid):
+                    raise PrepareError(
+                        f"claim {claim.uid} completed but its CDI spec is "
+                        "missing or corrupt, and its MPS daemon runs: not "
+                        "prepared again under its clients; unprepare it to "
+                        "recover")
                 logger.warning("claim %s completed but its CDI spec is "
                                "missing or corrupt; preparing again",
                                claim.uid)
@@ -194,7 +261,7 @@ class DeviceState:
         self._validate_no_overlap(cp, claim)
         # Configs resolve before the PrepareStarted write: a bad config
         # fails without touching the checkpoint.
-        self._resolve_configs(claim)
+        configs = self._resolve_configs(claim)
         reservation = CheckpointedClaim(
             uid=claim.uid, namespace=claim.namespace, name=claim.name,
             state=ClaimState.PREPARE_STARTED.value,
@@ -205,7 +272,7 @@ class DeviceState:
             self._checkpoint.update_claim(claim.uid, reservation)
         try:
             with timer.segment("prep_devices"):
-                prepared = self._prepare_devices(claim, timer)
+                prepared = self._prepare_devices(claim, configs, timer)
         except BaseException:
             self._checkpoint.update_claim(claim.uid, None)
             raise
@@ -234,11 +301,11 @@ class DeviceState:
                     f"device {result.device} overlaps with prepared claim "
                     f"{held[result.device]}")
 
-    def _resolve_configs(self, claim: ResourceClaim) -> dict:
+    def _resolve_configs(self, claim: ResourceClaim
+                         ) -> dict[str, GpuConfig]:
         """The config of each request: the last one that applies, class
         configs before claim configs; a default ``GpuConfig`` when none
-        does. Normalized and validated; anything but the default sharing
-        is refused (``NotPortedError``)."""
+        does. Normalized and validated."""
         ordered = [c for c in claim.configs if c.source == "FromClass"] + [
             c for c in claim.configs if c.source != "FromClass"]
         per_request: dict[str, GpuConfig] = {}
@@ -260,39 +327,88 @@ class DeviceState:
                 cfg = strict_decode(winner.parameters)
             cfg.normalize()
             cfg.validate()
-            if not cfg.sharing.is_default:
-                raise NotPortedError(
-                    f"request {request!r}: sharing strategy "
-                    f"{cfg.sharing.strategy} other than the default: "
-                    f"{_SHARING} is not ported to the GPU plugin yet")
             per_request[request] = cfg
+        mps = [r for r, cfg in per_request.items()
+               if not cfg.sharing.is_time_slicing]
+        if mps and len(per_request) > 1:
+            raise NotPortedError(
+                f"requests {sorted(per_request)}: MPS ({mps}) for one "
+                "request of a claim that has others: an MPS request must "
+                "be its claim's only one (ROADMAP.md §1b item 4)")
         return per_request
 
-    def _prepare_devices(self, claim: ResourceClaim, timer: SegmentTimer
+    def _prepare_devices(self, claim: ResourceClaim,
+                         configs: dict[str, GpuConfig], timer: SegmentTimer
                          ) -> list[CheckpointedDevice]:
-        """The CDI spec of the claim's GPUs; removed again if writing it
-        fails."""
+        """Each request's sharing, then the CDI spec of the claim's GPUs;
+        all of it undone if any part fails."""
         prepared: list[CheckpointedDevice] = []
         device_edits: dict[str, ContainerEdits] = {}
+        # request -> its GPUs' indices and names: one sharing a request.
+        groups: dict[str, tuple[list[int], list[str]]] = {}
         for result in claim.results:
             dev = self.allocatable[result.device]
             device_edits[result.device] = ContainerEdits(
                 device_nodes=[dev.chip.chip.devpath])
             prepared.append(CheckpointedDevice(canonical_name=result.device,
                                                kind=dev.kind.value))
-        common = self._cdi.common_edits(self.host)
-        common.env.append("CUDA_DEVICE_ORDER=PCI_BUS_ID")
+            indices, names = groups.setdefault(result.request, ([], []))
+            indices.append(dev.chip.chip.index)
+            names.append(result.device)
+        claim_gpus = [i for indices, _ in groups.values() for i in indices]
         try:
+            common = self._cdi.common_edits(self.host)
+            common.env.append("CUDA_DEVICE_ORDER=PCI_BUS_ID")
+            with timer.segment("prep_sharing"):
+                for request, (indices, names) in groups.items():
+                    # By index, as the JAX plugin lists a group's chips.
+                    indices, names = map(list, zip(*sorted(zip(indices,
+                                                               names))))
+                    # A request's sharing reaches the containers bound to
+                    # it: its GPUs' own edits.
+                    edits = self._apply_sharing(
+                        claim, request, configs[request].sharing, indices,
+                        names)
+                    for name in names:
+                        device_edits[name] = device_edits[name].merge(edits)
             with timer.segment("gen_write_cdi_spec"):
                 ids = self._cdi.create_claim_spec_file(
                     claim.uid, device_edits, common)
         except BaseException:
+            self._release_sharing(claim.uid, claim_gpus)
             self._cdi.delete_claim_spec_file(claim.uid)
             raise
         by_name = dict(zip(sorted(device_edits), ids))
         for dev in prepared:
             dev.cdi_device_ids = [by_name[dev.canonical_name]]
         return prepared
+
+    def _apply_sharing(self, claim: ResourceClaim, request: str,
+                       sharing: Sharing, gpu_indices: list[int],
+                       device_names: list[str]) -> ContainerEdits:
+        """The request's time-slicing or MPS, if its gate is on (the JAX
+        plugin's ``_apply_sharing``)."""
+        gates = self._config.feature_gates
+        try:
+            if sharing.is_time_slicing:
+                if not sharing.is_default and not gates.is_enabled(
+                        TIME_SLICING_SETTINGS):
+                    raise PrepareError(
+                        "TimeSlicingSettings feature gate disabled")
+                return self._timeslicing.set_time_slice(
+                    claim.uid, gpu_indices, sharing.time_slicing)
+            if not gates.is_enabled(MULTI_TENANCY_SUPPORT):
+                raise PrepareError("MultiTenancySupport feature gate disabled")
+            return self._tenancy.start(
+                claim.uid, request, gpu_indices, sharing.multi_tenancy,
+                device_names)
+        except SharingError as e:
+            raise PrepareError(f"request {request!r}: {e}") from e
+
+    def _release_sharing(self, claim_uid: str, gpu_indices: list[int]
+                         ) -> None:
+        self._timeslicing.release(claim_uid, sorted(gpu_indices))
+        self._tenancy.stop(claim_uid)
 
     # -- unprepare -------------------------------------------------------
 
@@ -316,7 +432,12 @@ class DeviceState:
             timer.done()
 
     def _rollback(self, checkpointed: CheckpointedClaim) -> None:
-        """Remove what a claim holds: its CDI spec, then its record."""
+        """Remove what a claim holds: its sharing, its CDI spec, then its
+        record."""
+        indices = map(parse_gpu_name,
+                      (d.canonical_name for d in checkpointed.devices))
+        self._release_sharing(checkpointed.uid,
+                              [i for i in indices if i is not None])
         self._cdi.delete_claim_spec_file(checkpointed.uid)
         self._checkpoint.update_claim(checkpointed.uid, None)
 

@@ -1,0 +1,417 @@
+"""Sharing managers: time-slicing and MPS (the JAX package's
+``kubeletplugin/sharing.py``; the upstream driver's
+``cmd/gpu-kubelet-plugin/sharing.go``: ``TimeSlicingManager`` sets a
+GPU's compute timeslice through ``nvidia-smi`` (:135), ``MpsManager``
+runs an MPS control daemon per claim and points the workload at its
+pipe directory through CDI edits (:214-379)).
+
+- ``TimeSlicingManager`` keeps the JAX plugin's holder-counted record a
+  GPU, ``<root>/timeslice/gpu-<index>.json`` with ``interval`` (the last
+  setter's) and ``holders`` (claim uid -> interval), and gone with the
+  last holder. The GPU's effective level is the record's interval while
+  a holder asks for a non-default one, else Default; ``nvidia-smi
+  compute-policy -i <index> --set-timeslice=<level>`` runs only when it
+  changes. A claim at the Default interval writes its record and starts
+  no process.
+- ``MultiTenancyManager`` starts one ``nvidia-cuda-mps-control -d`` a
+  claim request, under ``<root>/mps/<hash>/``: ``claim.json`` (the JAX
+  manifest's ``chips``, ``maxClients``, ``hbmCapacityBytes`` and
+  ``hbmLimits``, the owner and the daemon's settings) and the daemon's
+  claim-private ``pipe/`` and ``log/`` directories. The daemon sees the
+  request's GPUs (``CUDA_VISIBLE_DEVICES`` by index, in PCI bus order)
+  and gets ``set_default_device_pinned_mem_limit`` for each GPU with a
+  memory limit; prepare waits until it answers a control command. The
+  request's containers get ``CUDA_MPS_PIPE_DIRECTORY`` and the pipe
+  directory mounted read-write at that path, and
+  ``CUDA_MPS_PINNED_DEVICE_MEM_LIMIT`` in the daemon's numbering (the
+  request's GPUs by index, from 0), which is what its clients see.
+
+What differs from the JAX plugin, on an H100 host:
+
+- **The GPU's driver enforces both.** The JAX plugin's env contract
+  (``TPU_TIMESLICE_INTERVAL_US``, ``TPU_PROCESS_SHARING``,
+  ``TPU_MULTI_TENANT``, ``TPU_TENANCY_DIR``, ``TPU_MAX_TENANTS``, the
+  group's minimum ``TPU_HBM_LIMIT_BYTES``) is gone: the timeslice is the
+  GPU's own, and MPS caps each device's memory by itself, so the limits
+  are per device.
+- **No client cap.** MPS has none: ``maxClients`` is written to
+  ``claim.json`` only. Admission against it is the tenancy agent's
+  (ROADMAP.md §1b item 7), as are the JAX plugin's preflight hooks.
+- **The daemons outlive the plugin**, as the upstream's daemon
+  Deployment does: a dead control daemon kills its clients, so the
+  plugin's restart re-owns the live ones (``reconcile``) and only
+  ``stop`` (unprepare) quits them.
+- **Short pipe paths.** A request's directory is named by a hash of its
+  claim uid and request name, so ``<root>/mps/<hash>/pipe/control``
+  is ``len(root) + 31`` bytes whatever the names: AF_UNIX paths end at
+  108. The default ``/tmp/nvidia-mps`` is never used: a leftover daemon
+  there would capture every CUDA process of the node.
+"""
+
+from __future__ import annotations
+
+import copy
+import hashlib
+import json
+import logging
+import os
+import shutil
+import signal
+import subprocess
+import time
+
+from ..api.configs import MultiTenancyConfig, TimeSlicingConfig
+from ..pkg.flock import Flock
+from ..pkg.fsutil import write_json_atomic
+from .cdi import ContainerEdits
+
+logger = logging.getLogger(__name__)
+
+LOCK_TIMEOUT_S = 10.0
+# nvidia-smi compute-policy --set-timeslice values (the upstream's
+# Interval.Int()).
+TIMESLICE_LEVELS = {"Default": 0, "Short": 1, "Medium": 2, "Long": 3}
+MPS_CONTROL = "nvidia-cuda-mps-control"
+MPS_SERVER = "nvidia-cuda-mps-server"
+# Where a container finds its claim's pipe directory.
+MPS_CONTAINER_ROOT = "/var/run/nvidia-mps"
+
+
+class SharingError(RuntimeError):
+    """nvidia-smi or the MPS control daemon refused or failed."""
+
+
+def _run(argv: list[str], stdin: str | None = None,
+         env: dict | None = None, timeout: float = 30.0
+         ) -> subprocess.CompletedProcess:
+    try:
+        return subprocess.run(argv, input=stdin, env=env, text=True,
+                              capture_output=True, timeout=timeout,
+                              check=False)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise SharingError(f"{' '.join(argv)}: {e}") from e
+
+
+class TimeSlicingManager:
+    """The compute timeslice of each GPU, holder-counted across claims."""
+
+    def __init__(self, policy_root: str, nvidia_smi: str | None):
+        self._root = os.path.join(policy_root, "timeslice")
+        os.makedirs(self._root, exist_ok=True)
+        self._lock = Flock(os.path.join(policy_root, "timeslice.lock"))
+        self._smi = nvidia_smi
+
+    def _path(self, index: int) -> str:
+        return os.path.join(self._root, f"gpu-{index}.json")
+
+    def _load(self, index: int) -> dict | None:
+        try:
+            with open(self._path(index), encoding="utf-8") as f:
+                return json.load(f)
+        except FileNotFoundError:
+            return None
+
+    def _store(self, index: int, doc: dict | None) -> None:
+        if doc is not None:
+            write_json_atomic(self._path(index), json.dumps(doc))
+            return
+        try:
+            os.unlink(self._path(index))
+        except FileNotFoundError:
+            pass
+
+    @staticmethod
+    def level(doc: dict | None) -> int:
+        """The level a record asks of its GPU: its interval's while a
+        holder asks for a non-default interval, else Default's."""
+        if not doc or all(v == "Default" for v in doc["holders"].values()):
+            return 0
+        return TIMESLICE_LEVELS[doc["interval"]]
+
+    def _set_level(self, index: int, level: int) -> None:
+        if self._smi is None:
+            raise SharingError("nvidia-smi not found: cannot set the "
+                               f"timeslice of GPU {index}")
+        argv = [self._smi, "compute-policy", "-i", str(index),
+                f"--set-timeslice={level}"]
+        out = _run(argv)
+        if out.returncode != 0:
+            raise SharingError(
+                f"{' '.join(argv)} exited {out.returncode}: "
+                f"{(out.stdout + out.stderr).strip()}")
+        logger.info("GPU %d: timeslice level %d", index, level)
+
+    def set_time_slice(self, claim_uid: str, gpu_indices: list[int],
+                       cfg: TimeSlicingConfig) -> ContainerEdits:
+        """Hold ``cfg.interval`` on each GPU for the claim (the last
+        setter's interval wins). A GPU that nvidia-smi refuses raises
+        ``SharingError`` with the GPUs of this call restored."""
+        with self._lock.acquire(timeout=LOCK_TIMEOUT_S):
+            done: list[tuple[int, dict | None, int, int]] = []
+            try:
+                for index in gpu_indices:
+                    old = self._load(index)
+                    doc = copy.deepcopy(old) if old else {"holders": {}}
+                    doc["interval"] = cfg.interval
+                    doc["holders"][claim_uid] = cfg.interval
+                    before, after = self.level(old), self.level(doc)
+                    if after != before:
+                        self._set_level(index, after)
+                    done.append((index, old, before, after))
+                    self._store(index, doc)
+            except BaseException:
+                for index, old, before, after in reversed(done):
+                    try:
+                        if after != before:
+                            self._set_level(index, before)
+                    except SharingError:
+                        logger.exception("GPU %d: timeslice not restored",
+                                         index)
+                    self._store(index, old)
+                raise
+        return ContainerEdits()
+
+    def release(self, claim_uid: str, gpu_indices: list[int]) -> None:
+        """Drop the claim's hold; a GPU's record goes with its last
+        holder, and its level returns to Default with its last holder of
+        a non-default interval. A refused reset is logged, not raised:
+        unprepare and rollbacks go on."""
+        with self._lock.acquire(timeout=LOCK_TIMEOUT_S):
+            for index in gpu_indices:
+                doc = self._load(index)
+                if doc is None or claim_uid not in doc["holders"]:
+                    continue
+                before = self.level(doc)
+                del doc["holders"][claim_uid]
+                after = self.level(doc)
+                if after != before:
+                    try:
+                        self._set_level(index, after)
+                    except SharingError:
+                        logger.exception("GPU %d: timeslice not reset",
+                                         index)
+                self._store(index, doc if doc["holders"] else None)
+
+    def current(self, index: int) -> dict | None:
+        return self._load(index)
+
+
+def _proc_argv(pid: str) -> list[str]:
+    with open(f"/proc/{pid}/cmdline", "rb") as f:
+        return [a.decode(errors="replace") for a in f.read().split(b"\0")]
+
+
+def mps_pids(pipe_dir: str | None = None) -> list[int]:
+    """The pids of MPS control daemons and servers (an argv[0] or argv[1]
+    named ``nvidia-cuda-mps-*``), only those started with
+    ``CUDA_MPS_PIPE_DIRECTORY=pipe_dir`` when it is given."""
+    want = None if pipe_dir is None else (
+        f"CUDA_MPS_PIPE_DIRECTORY={pipe_dir}".encode())
+    pids = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            argv = _proc_argv(pid)
+            if not any(os.path.basename(a).startswith("nvidia-cuda-mps-")
+                       for a in argv[:2]):
+                continue
+            if want is not None:
+                with open(f"/proc/{pid}/environ", "rb") as f:
+                    if want not in f.read().split(b"\0"):
+                        continue
+        except OSError:
+            continue
+        pids.append(int(pid))
+    return sorted(pids)
+
+
+def _alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat", encoding="utf-8") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (OSError, IndexError):
+        return False
+
+
+class MultiTenancyManager:
+    """One MPS control daemon a claim request (the upstream's
+    ``MpsControlDaemon``)."""
+
+    def __init__(self, tenancy_root: str, hbm_capacity_bytes: int | None,
+                 control_binary: str | None, timeout: float = 10.0):
+        """``timeout``: how long a daemon may take to answer after its
+        start, and to exit after ``quit``."""
+        self._root = os.path.join(tenancy_root, "mps")
+        os.makedirs(self._root, exist_ok=True)
+        self._capacity = hbm_capacity_bytes
+        self._control = control_binary
+        self._timeout = timeout
+
+    @staticmethod
+    def dir_name(claim_uid: str, request: str) -> str:
+        return hashlib.sha256(
+            f"{claim_uid}/{request}".encode()).hexdigest()[:12]
+
+    def _dir(self, claim_uid: str, request: str) -> str:
+        return os.path.join(self._root, self.dir_name(claim_uid, request))
+
+    @staticmethod
+    def pipe_dir(d: str) -> str:
+        return os.path.join(d, "pipe")
+
+    def _owners(self) -> dict[str, dict | None]:
+        """Each request directory -> its ``claim.json`` (None when it is
+        missing or unreadable: a start that crashed before writing it)."""
+        out: dict[str, dict | None] = {}
+        for name in sorted(os.listdir(self._root)):
+            d = os.path.join(self._root, name)
+            try:
+                with open(os.path.join(d, "claim.json"),
+                          encoding="utf-8") as f:
+                    out[d] = json.load(f)
+            except (OSError, ValueError):
+                out[d] = None
+        return out
+
+    def _dirs_of(self, claim_uid: str) -> list[str]:
+        return [d for d, owner in self._owners().items()
+                if owner is not None and owner["claim"] == claim_uid]
+
+    def _daemon_env(self, d: str, visible: str) -> dict:
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("CUDA_MPS_")}
+        env.update(CUDA_MPS_PIPE_DIRECTORY=self.pipe_dir(d),
+                   CUDA_MPS_LOG_DIRECTORY=os.path.join(d, "log"),
+                   CUDA_VISIBLE_DEVICES=visible,
+                   CUDA_DEVICE_ORDER="PCI_BUS_ID")
+        return env
+
+    def _command(self, d: str, command: str, timeout: float = 5.0
+                 ) -> subprocess.CompletedProcess:
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("CUDA_MPS_")}
+        env["CUDA_MPS_PIPE_DIRECTORY"] = self.pipe_dir(d)
+        return _run([self._control], stdin=command + "\n", env=env,
+                    timeout=timeout)
+
+    def command(self, claim_uid: str, request: str, command: str) -> str:
+        """One control command to the request's daemon; its output."""
+        out = self._command(self._dir(claim_uid, request), command)
+        if out.returncode != 0:
+            raise SharingError(f"{command!r} exited {out.returncode}: "
+                               f"{(out.stdout + out.stderr).strip()}")
+        return out.stdout
+
+    def start(self, claim_uid: str, request: str, gpu_indices: list[int],
+              cfg: MultiTenancyConfig, device_names: list[str]
+              ) -> ContainerEdits:
+        """Write the request's manifest, start its daemon and wait until
+        it answers; the edits of the request's containers.
+        ``device_names`` name ``gpu_indices`` one for one."""
+        if self._control is None:
+            raise SharingError(f"{MPS_CONTROL} not found: MPS is not "
+                               "available on this node")
+        d = self._dir(claim_uid, request)
+        os.makedirs(self.pipe_dir(d), exist_ok=True)
+        os.makedirs(os.path.join(d, "log"), exist_ok=True)
+        limits = {name: cfg.hbm_limit_bytes_for(name)
+                  for name in device_names}
+        # The daemon's numbering: the request's GPUs by index, from 0.
+        by_index = sorted(zip(gpu_indices, device_names))
+        pinned = {str(ordinal): f"{limits[name] >> 20}M"
+                  for ordinal, (_, name) in enumerate(by_index)
+                  if limits[name] is not None}
+        owner = {"claim": claim_uid, "request": request,
+                 "chips": list(gpu_indices), "maxClients": cfg.max_clients,
+                 "hbmCapacityBytes": self._capacity, "hbmLimits": limits,
+                 "visibleDevices": ",".join(str(i) for i, _ in by_index),
+                 "pinnedMemLimits": pinned}
+        write_json_atomic(os.path.join(d, "claim.json"), json.dumps(owner))
+        self._ensure_daemon(d, owner)
+        container = f"{MPS_CONTAINER_ROOT}/{os.path.basename(d)}"
+        env = [f"CUDA_MPS_PIPE_DIRECTORY={container}"]
+        if pinned:
+            env.append("CUDA_MPS_PINNED_DEVICE_MEM_LIMIT=" + ",".join(
+                f"{ordinal}={limit}" for ordinal, limit in pinned.items()))
+        return ContainerEdits(env=env,
+                              mounts=[(self.pipe_dir(d), container, False)])
+
+    def _ensure_daemon(self, d: str, owner: dict) -> None:
+        """Start the directory's daemon unless it runs, wait until it
+        answers, and give it its memory limits."""
+        pipe = self.pipe_dir(d)
+        if not mps_pids(pipe):
+            # A dead daemon's sockets would stop a new one binding.
+            for name in os.listdir(pipe):
+                os.unlink(os.path.join(pipe, name))
+            out = _run([self._control, "-d"],
+                       env=self._daemon_env(d, owner["visibleDevices"]))
+            if out.returncode != 0:
+                raise SharingError(
+                    f"{MPS_CONTROL} -d exited {out.returncode}: "
+                    f"{(out.stdout + out.stderr).strip()}")
+        deadline = time.monotonic() + self._timeout
+        while True:
+            out = self._command(d, "get_default_active_thread_percentage")
+            if out.returncode == 0:
+                break
+            if time.monotonic() > deadline:
+                raise SharingError(
+                    f"MPS control daemon of {d} not ready after "
+                    f"{self._timeout} s: "
+                    f"{(out.stdout + out.stderr).strip()}")
+            time.sleep(0.05)
+        for ordinal, limit in owner["pinnedMemLimits"].items():
+            command = f"set_default_device_pinned_mem_limit {ordinal} {limit}"
+            out = self._command(d, command)
+            if out.returncode != 0:
+                raise SharingError(
+                    f"{command!r} exited {out.returncode}: "
+                    f"{(out.stdout + out.stderr).strip()}")
+
+    def _quit(self, d: str) -> None:
+        """Quit the directory's daemon and wait for it and its servers to
+        exit; what outlives the timeout is killed."""
+        pids = mps_pids(self.pipe_dir(d))
+        if not pids:
+            return
+        self._command(d, "quit")
+        deadline = time.monotonic() + self._timeout
+        while any(map(_alive, pids)) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        for pid in filter(_alive, pids):
+            logger.warning("MPS process %d of %s did not quit: killed",
+                           pid, d)
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+
+    def stop(self, claim_uid: str) -> None:
+        """Quit the claim's daemons and remove their directories."""
+        for d in self._dirs_of(claim_uid):
+            self._quit(d)
+            shutil.rmtree(d, ignore_errors=True)
+
+    def reconcile(self, active_claim_uids: set[str]) -> None:
+        """Plugin start: quit the daemons of directories no active claim
+        owns and remove them; start again the dead daemon of an active
+        claim (a live one is left alone). A daemon that does not start
+        is logged: its claim's unprepare deals with it."""
+        for d, owner in self._owners().items():
+            if owner is None or owner["claim"] not in active_claim_uids:
+                self._quit(d)
+                shutil.rmtree(d, ignore_errors=True)
+                continue
+            if mps_pids(self.pipe_dir(d)):
+                continue
+            try:
+                self._ensure_daemon(d, owner)
+            except SharingError:
+                logger.exception("could not re-own the MPS daemon of %s", d)
+
+    def active(self, claim_uid: str) -> bool:
+        """Whether a daemon of the claim runs."""
+        return any(mps_pids(self.pipe_dir(d))
+                   for d in self._dirs_of(claim_uid))

@@ -1,7 +1,8 @@
 """Helpers of the kubelet plugin (the counterparts of the JAX package's
 ``pkg/`` modules that the node service needs): atomic JSON writes, a
 file lock with a timeout, the node's boot id, the checkpoint's
-claim-state machine and the prepare timer; the kube client and its fake
+claim-state machine and the prepare timer; the feature gates
+(``featuregates``); the kube client and its fake
 API server (``kubeclient``, ``fakeapiserver``), ResourceSlice
 publication by content hash (``sliceutil``) and the two claim helpers of
 the reconcile sweep (``recovery``). Standard library only."""

@@ -1,0 +1,92 @@
+"""Feature gates of the kubelet plugin: the JAX package's gate names and
+defaults (its ``pkg/featuregates.py``; the upstream driver's
+``pkg/featuregates/featuregates.go``), so one ``FEATURE_GATES`` string
+means the same to both plugins.
+
+The GPU plugin reads two: ``TimeSlicingSettings`` and
+``MultiTenancySupport`` (the upstream's ``MPSSupport``), which needs the
+first, as in both. Any other gate set away from its default names a
+feature the port does not run: ``unported()`` lists it and
+``DeviceState`` refuses it (``NotPortedError``). Upstream counterparts of
+the others: ``DynamicSubSlice`` is ``DynamicMIG``,
+``DomainDaemonsWithDNSNames`` is ``IMEXDaemonsWithDNSNames``,
+``ChipHealthCheck`` is ``NVMLDeviceHealthCheck``,
+``CrashOnICIFabricErrors`` is ``CrashOnNVLinkFabricErrors``;
+``PassthroughSupport``, ``ComputeDomainCliques`` and ``DeviceMetadata``
+keep their names; ``TenantPartitioning`` and ``TopologyAwarePlacement``
+have none.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+TIME_SLICING_SETTINGS = "TimeSlicingSettings"
+MULTI_TENANCY_SUPPORT = "MultiTenancySupport"
+# The gates the GPU plugin reads.
+READ = (TIME_SLICING_SETTINGS, MULTI_TENANCY_SUPPORT)
+
+# Every gate of the JAX plugin, by its default.
+DEFAULTS: dict[str, bool] = {
+    TIME_SLICING_SETTINGS: False,
+    MULTI_TENANCY_SUPPORT: False,
+    "DomainDaemonsWithDNSNames": True,
+    "PassthroughSupport": False,
+    "ChipHealthCheck": True,
+    "DynamicSubSlice": False,
+    "TenantPartitioning": False,
+    "ComputeDomainCliques": True,
+    "CrashOnICIFabricErrors": True,
+    "DeviceMetadata": False,
+    "TopologyAwarePlacement": True,
+}
+
+
+class FeatureGateError(ValueError):
+    pass
+
+
+@dataclass(frozen=True)
+class FeatureGates:
+    """The gates a spec set; the others keep their defaults."""
+
+    enabled: dict[str, bool] = field(default_factory=dict)
+
+    def is_enabled(self, name: str) -> bool:
+        if name not in DEFAULTS:
+            raise FeatureGateError(f"unknown feature gate {name!r}")
+        return self.enabled.get(name, DEFAULTS[name])
+
+    def unported(self) -> list[str]:
+        """The gates set away from their default that the GPU plugin
+        does not read."""
+        return [name for name, value in self.enabled.items()
+                if name not in READ and value != DEFAULTS[name]]
+
+    @classmethod
+    def parse(cls, spec: str) -> "FeatureGates":
+        """Parse "Gate1=true,Gate2=false" (k8s-style; the later entry of a
+        gate wins). The empty string gives the defaults."""
+        enabled: dict[str, bool] = {}
+        for item in filter(None, (p.strip() for p in spec.split(","))):
+            if "=" not in item:
+                raise FeatureGateError(
+                    f"invalid feature gate spec {item!r}: expected Name=bool"
+                )
+            name, _, val = item.partition("=")
+            name, val = name.strip(), val.strip().lower()
+            if val not in ("true", "false"):
+                raise FeatureGateError(
+                    f"invalid value {val!r} for feature gate {name!r}"
+                )
+            enabled[name] = val == "true"
+        for name in enabled:
+            if name not in DEFAULTS:
+                raise FeatureGateError(f"unknown feature gate {name!r}")
+        gates = cls(enabled=enabled)
+        if gates.is_enabled(MULTI_TENANCY_SUPPORT) and not gates.is_enabled(
+                TIME_SLICING_SETTINGS):
+            raise FeatureGateError(
+                f"feature gate {MULTI_TENANCY_SUPPORT} requires "
+                f"{TIME_SLICING_SETTINGS} to be enabled")
+        return gates

@@ -184,6 +184,29 @@ def test_the_other_version_mounts_no_soname(tmp_path):
         "/usr/bin/nvidia-smi"]
 
 
+@pytest.mark.parametrize("found", [(), ("nvidia-cuda-mps-control",),
+                                   ("nvidia-cuda-mps-control",
+                                    "nvidia-cuda-mps-server")])
+def test_the_mps_binaries_are_mounted_where_found(tmp_path, found):
+    # As on the H100 machine: nvidia-smi in usr/local/bin, MPS in usr/bin.
+    root = _driver_root(tmp_path)
+    (root / "usr" / "local" / "bin").mkdir(parents=True)
+    os.replace(root / "usr" / "bin" / "nvidia-smi",
+               root / "usr" / "local" / "bin" / "nvidia-smi")
+    for name in found:
+        (root / "usr" / "bin" / name).write_text("#!/bin/sh\n")
+    mounts = pt_cdi.driver_mounts(str(root), NEW)
+    binaries = [("nvidia-smi", "usr/local/bin")] + [
+        (name, "usr/bin") for name in found]
+    assert mounts[-len(binaries):] == [
+        (f"{root}/{d}/{name}", f"/{d}/{name}", True)
+        for name, d in binaries]
+    for name in pt_cdi.DRIVER_BINARIES:
+        where = dict(binaries).get(name)
+        assert pt_cdi.find_binary(str(root), name) == (
+            where and f"{root}/{where}/{name}")
+
+
 @pytest.mark.parametrize("version", ["", "999.1", NEW + ".0"])
 def test_no_library_without_the_version(tmp_path, version, caplog):
     """No version: nothing mounted, and why is logged. A version whose

@@ -1,14 +1,17 @@
 """The port's whole-GPU ``DeviceState`` against the JAX plugin's.
 
-The JAX side runs ``Config.mock(topology="v5e-4", gates="")`` (whole
-chips, no sharing gates), the port ``Config.mock(topology="h100-4")``;
-both are fed the same claim sequences (``chip-i`` <-> ``gpu-i``) and give
-the same results or the same error class, the same visible devices (the
-JAX plugin's ``TPU_VISIBLE_DEVICES`` against the GPUs a container made
-from the port's spec sees) and the same checkpoint states after every
-step. Then what such a container sees, the device list's structure, what
-NVML refused (left out or unpublished), the refusals of what is not
-ported, and the NVML path over a fake ``libnvidia-ml.so.1``.
+The JAX side runs ``Config.mock(topology="v5e-4", gates=...)`` (whole
+chips), the port ``Config.mock(topology="h100-4", gates=...)``, with the
+sharing gates off (``SCENARIOS``) or on (``SHARING_SCENARIOS``, the port
+over the fake ``nvidia-smi`` and MPS control daemon of
+``test_torch_kubeletplugin_sharing.py``); both are fed the same claim
+sequences (``chip-i`` <-> ``gpu-i``) and give the same results or the
+same error class, the same visible devices (the JAX plugin's
+``TPU_VISIBLE_DEVICES`` against the GPUs a container made from the port's
+spec sees), the same checkpoint states and the same sharing records
+after every step. Then what such a container sees, the device list's
+structure, what NVML refused (left out or unpublished), the refusals of
+what is not ported, and the NVML path over a fake ``libnvidia-ml.so.1``.
 """
 
 import json
@@ -26,33 +29,70 @@ from k8s_dra_driver_gpu_tpu_torch.kubeletplugin import device_state as pt_ds
 from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.checkpoint import \
     CheckpointedClaim
 from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.claim import ResourceClaim
+from k8s_dra_driver_gpu_tpu_torch.pkg import featuregates as pt_fg
 from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.deviceinfo import (
     ChipInfo, gpu_name, parse_gpu_name)
 from k8s_dra_driver_gpu_tpu_torch.tpulib.binding import (GpuChip,
                                                          GpuHostInfo,
                                                          NvmlLib)
 from tests.fake_kube import make_claim, make_claim_dict
+from tests.test_torch_kubeletplugin_sharing import (expected_level,
+                                                    fake_daemon_pids,
+                                                    kill_fake_daemons,
+                                                    smi_calls,
+                                                    write_fake_binaries)
 
 BOOT = "boot-0"
+SHARING_GATES = "TimeSlicingSettings=true,MultiTenancySupport=true"
 
 
 class Side:
-    """One plugin under test: the JAX one or the port."""
+    """One plugin under test: the JAX one or the port (over the fake
+    binaries under ``driver_root``, where given)."""
 
-    def __init__(self, name: str, root: str):
+    def __init__(self, name: str, root: str, gates: str = "",
+                 driver_root: str | None = None):
         self.name = name
         self.root = root
+        self.gates = gates
+        self.driver_root = driver_root
         self.module = jax_ds if name == "jax" else pt_ds
         self.state = self.new_state()
 
     def new_state(self):
         if self.name == "jax":
             cfg = jax_ds.Config.mock(root=self.root, topology="v5e-4",
-                                     gates="")
+                                     gates=self.gates)
         else:
-            cfg = pt_ds.Config.mock(root=self.root, topology="h100-4")
+            cfg = pt_ds.Config.mock(root=self.root, topology="h100-4",
+                                    gates=self.gates)
+            if self.driver_root:
+                cfg.driver_root = self.driver_root
         cfg.boot_id = BOOT
         return self.module.DeviceState(cfg)
+
+    def sharing(self):
+        """Each GPU's timeslice record (interval, holders), and each MPS
+        request's manifest by claim (the devices named neutrally, the
+        capacity left out: a v5e's and an H100's differ)."""
+        records = [doc and (doc["interval"], doc["holders"])
+                   for doc in map(self.state._timeslicing.current,
+                                  range(4))]
+        manifests = []
+        if self.name == "jax":
+            root = os.path.join(self.root, "tenancy")
+            found = [(uid, os.path.join(root, uid, req, "tenancy.json"))
+                     for uid in sorted(os.listdir(root))
+                     for req in sorted(os.listdir(os.path.join(root, uid)))]
+        else:
+            found = [(owner["claim"], os.path.join(d, "claim.json"))
+                     for d, owner in self.state._tenancy._owners().items()]
+        for uid, path in sorted(found):
+            with open(path) as f:
+                doc = json.load(f)
+            manifests.append((uid, doc["chips"], doc["maxClients"], {
+                _neutral(k): v for k, v in doc["hbmLimits"].items()}))
+        return records, manifests
 
     def device(self, index: int) -> str:
         return f"chip-{index}" if self.name == "jax" else gpu_name(index)
@@ -149,6 +189,17 @@ def _run(side: Side, op: tuple, monkeypatch):
                 uid, cls(uid=uid, state="PrepareStarted"))
         if kind == "restart":
             side.state = side.new_state()
+        if kind == "prepare_under_live_mps":
+            # Neither plugin prepares such a claim again: the JAX one
+            # returns its ids, the port raises (unprepare recovers it).
+            try:
+                side.state.prepare(side.claim(uid, *op[2:]))
+                how = "returned"
+            except side.module.PrepareError:
+                how = "raised"
+            return ("not prepared again",
+                    how == ("returned" if side.name == "jax" else "raised"),
+                    side.state._cdi.spec_exists(uid))
     except Exception as err:  # noqa: BLE001 - the class is compared
         if isinstance(err, side.module.PrepareError):
             return "error", "PrepareError"
@@ -192,16 +243,107 @@ SCENARIOS = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(SCENARIOS))
-def test_claim_sequence_matches_the_references(tmp_path, monkeypatch, name):
-    sides = [Side(side, str(tmp_path / side)) for side in ("jax", "pt")]
-    for op in SCENARIOS[name]:
+def _mps(max_clients=2, hbm_limit="8Gi") -> dict:
+    return {"sharing": {"strategy": "MultiTenancy", "multiTenancy": {
+        "maxClients": max_clients, "hbmLimit": hbm_limit}}}
+
+
+SCENARIOS["sharing refused with its gates off"] = [
+    ("prepare", "c1", [0], [("FromClaim", _shared("Short"))]),
+    ("prepare", "c1", [0], [("FromClaim", _mps())]),
+    ("prepare", "c1", [0], [("FromClaim", _shared("Default"))]),
+    ("prepare", "c2", [1], [("FromClass", _shared("Long"))])]
+
+SHARING_SCENARIOS = {
+    "short and long": [
+        ("prepare", "c1", [0], [("FromClaim", _shared("Short"))]),
+        ("prepare", "c2", [1, 2], [("FromClass", _shared("Long"))]),
+        ("prepare", "c3", [3], [("FromClaim", _shared("Default"))]),
+        ("prepare", "c1", [0], [("FromClaim", _shared("Short"))]),
+        ("unprepare", "c1"), ("prepare", "c1", [0]),
+        ("unprepare", "c2"), ("unprepare", "c1"), ("unprepare", "c3")],
+    "multi-tenancy": [
+        ("prepare", "c1", [0, 1], [("FromClaim", _mps())]),
+        ("prepare", "c2", [2], [("FromClaim", _mps(None, None))]),
+        ("prepare", "c3", [3], [("FromClaim", _shared("Medium"))]),
+        ("prepare", "c1", [0, 1], [("FromClaim", _mps())]),
+        ("unprepare", "c1"), ("prepare", "c4", [1, 0],
+                              [("FromClaim", _mps(1, "1Gi"))]),
+        ("unprepare", "c2"), ("unprepare", "c4")],
+    "failure midway": [
+        ("prepare", "c0", [3], [("FromClaim", _shared("Long"))]),
+        ("fail_prepare", "c1", [0, 1], [("FromClaim", _shared("Short"))]),
+        ("fail_prepare", "c2", [2], [("FromClaim", _mps())]),
+        ("prepare", "c2", [2], [("FromClaim", _mps())]),
+        ("prepare", "c1", [0, 1], [("FromClaim", _shared("Short"))])],
+    "restart": [
+        ("prepare", "c1", [0], [("FromClaim", _mps())]),
+        ("prepare", "c2", [1], [("FromClaim", _shared("Long"))]),
+        ("restart", "-"),
+        ("prepare", "c1", [0], [("FromClaim", _mps())]),
+        ("prepare", "c3", [2], [("FromClaim", _mps(3, "4Gi"))]),
+        ("unprepare", "c1"), ("restart", "-"), ("unprepare", "c2"),
+        ("unprepare", "c3")],
+    "lost spec with MPS live": [
+        ("prepare", "c1", [0], [("FromClaim", _mps())]),
+        ("lose_spec", "c1"),
+        ("prepare_under_live_mps", "c1", [0], [("FromClaim", _mps())]),
+        ("unprepare", "c1"),
+        ("prepare", "c1", [0], [("FromClaim", _mps())]),
+        ("unprepare", "c1")],
+}
+
+
+def _check_the_port_on_its_card(side: Side) -> None:
+    """The fake nvidia-smi's last level of each GPU is what its record
+    asks for, and an MPS daemon runs for each request directory."""
+    level = dict.fromkeys(range(4), 0)
+    for argv in smi_calls(side.driver_root):
+        level[int(argv[2])] = int(argv[3].split("=")[1])
+    assert [level[i] for i in range(4)] == [
+        expected_level(side.state._timeslicing.current(i))
+        for i in range(4)]
+    assert len(fake_daemon_pids(side.driver_root)) == len(
+        side.state._tenancy._owners())
+
+
+def _compare(sides, ops, monkeypatch):
+    for op in ops:
         got = [_run(side, op, monkeypatch) for side in sides]
         assert got[1] == got[0], op
         assert sides[1].states() == sides[0].states(), op
+        assert sides[1].sharing() == sides[0].sharing(), op
         if op[0] in ("prepare", "unprepare") and got[0][0] == "ok":
             assert sides[1].state._cdi.spec_exists(op[1]) == \
                 sides[0].state._cdi.spec_exists(op[1])
+        if sides[1].driver_root:
+            _check_the_port_on_its_card(sides[1])
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_claim_sequence_matches_the_references(tmp_path, monkeypatch, name):
+    sides = [Side(side, str(tmp_path / side)) for side in ("jax", "pt")]
+    _compare(sides, SCENARIOS[name], monkeypatch)
+
+
+@pytest.fixture()
+def fake_driver(tmp_path):
+    root = write_fake_binaries(tmp_path / "driver")
+    yield root
+    kill_fake_daemons(root)
+
+
+@pytest.mark.parametrize("name", sorted(SHARING_SCENARIOS))
+def test_shared_claims_match_the_references(tmp_path, monkeypatch,
+                                            fake_driver, name):
+    sides = [Side("jax", str(tmp_path / "jax"), SHARING_GATES),
+             Side("pt", str(tmp_path / "pt"), SHARING_GATES, fake_driver)]
+    _compare(sides, SHARING_SCENARIOS[name], monkeypatch)
+    for side in sides:
+        for uid in list(side.state.prepared_claims()):
+            side.state.unprepare(uid)
+    assert fake_daemon_pids(fake_driver) == []
+    assert [level for level in sides[1].sharing()[0]] == [None] * 4
 
 
 @pytest.fixture()
@@ -399,9 +541,6 @@ def test_a_uuid_that_gpus_share_is_left_out(shared):
 @pytest.mark.parametrize("parameters, item", [
     ({"apiVersion": PT_API, "kind": "MigDeviceConfig"}, 5),
     ({"apiVersion": PT_API, "kind": "VfioDeviceConfig"}, 6),
-    ({"apiVersion": PT_API, "kind": "GpuConfig", **_shared("Short")}, 4),
-    ({"apiVersion": PT_API, "kind": "GpuConfig",
-      "sharing": {"strategy": "MultiTenancy", "multiTenancy": {}}}, 4),
 ])
 def test_configs_of_unported_features_are_refused(state, parameters, item):
     claim = ResourceClaim.from_dict(make_claim_dict(
@@ -463,3 +602,193 @@ def test_nvml_host_prepares_a_whole_gpu(tmp_path, monkeypatch, fake_nvml,
     assert container_gpus(state, [state._cdi.read_spec("c1")]) == [2]
     state.unprepare("c1")
     assert state.prepared_claims() == {}
+
+
+# -- sharing on the port alone ---------------------------------------------------
+
+def _sharing_state(tmp_path, driver, gates=SHARING_GATES, boot=BOOT):
+    cfg = pt_ds.Config.mock(str(tmp_path / "state"), topology="h100-4",
+                            gates=gates)
+    cfg.driver_root, cfg.boot_id = driver, boot
+    return pt_ds.DeviceState(cfg)
+
+
+def _claim(uid, indices, body=None):
+    configs = [] if body is None else [{"parameters": {
+        "apiVersion": PT_API, "kind": "GpuConfig", **body}}]
+    return ResourceClaim.from_dict(make_claim_dict(
+        uid, [gpu_name(i) for i in indices], driver=DRIVER_NAME,
+        request="gpu", configs=configs))
+
+
+@pytest.mark.parametrize("gates, item", [
+    ("DynamicSubSlice=true", 5),
+    ("TenantPartitioning=true,DynamicSubSlice=true", 5),
+    ("PassthroughSupport=true", 6),
+    ("DomainDaemonsWithDNSNames=false", 9),
+    ("ComputeDomainCliques=false", 9),
+    ("CrashOnICIFabricErrors=false", 9),
+    ("TopologyAwarePlacement=false", 9),
+    ("ChipHealthCheck=false", 8),
+    ("DeviceMetadata=true", None),
+])
+def test_gates_of_unported_features_are_refused(tmp_path, gates, item):
+    # Every gate but the two sharing ones, set away from its default.
+    match = f"ROADMAP.md §1b item {item}" if item else "reads this gate"
+    with pytest.raises(pt_ds.NotPortedError,
+                       match=f"feature gate {gates.split(',')[0]}.*{match}"):
+        pt_ds.DeviceState(pt_ds.Config.mock(str(tmp_path), "h100-4", gates))
+
+
+def test_every_gate_is_read_or_refused(tmp_path):
+    assert pt_ds.NOT_PORTED_GATES.keys() == set(
+        pt_fg.DEFAULTS) - set(pt_fg.READ)
+    # At its default a gate is no refusal, and the sharing gates are read.
+    spec = ",".join(f"{name}={str(value).lower()}"
+                    for name, value in pt_fg.DEFAULTS.items())
+    pt_ds.DeviceState(pt_ds.Config.mock(str(tmp_path), "h100-4", spec))
+    pt_ds.DeviceState(pt_ds.Config.mock(str(tmp_path), "h100-4",
+                                        SHARING_GATES))
+
+
+def test_an_mps_claims_spec(tmp_path, fake_driver):
+    state = _sharing_state(tmp_path, fake_driver)
+    state.prepare(_claim("c1", [3, 1], {
+        "sharing": {"strategy": "MultiTenancy", "multiTenancy": {
+            "hbmLimit": "8Gi", "perDeviceHbmLimits": {"gpu-3": "2Gi"}}}}))
+    spec = state._cdi.read_spec("c1")
+    common = spec["containerEdits"]
+    (d, owner), = state._tenancy._owners().items()
+    container = f"/var/run/nvidia-mps/{os.path.basename(d)}"
+    assert (owner["visibleDevices"], owner["pinnedMemLimits"]) == (
+        "1,3", {"0": "8192M", "1": "2048M"})
+    # The MPS edits are the request's GPUs' own, in the daemon's
+    # numbering: GPU 1 is its 0, GPU 3 its 1.
+    assert common["env"][-1] == "CUDA_DEVICE_ORDER=PCI_BUS_ID"
+    assert not any("MPS" in e for e in common["env"])
+    assert not any(m["containerPath"] == container
+                   for m in common.get("mounts", []))
+    for device in spec["devices"]:
+        edits = device["containerEdits"]
+        assert edits["env"] == [
+            f"CUDA_MPS_PIPE_DIRECTORY={container}",
+            "CUDA_MPS_PINNED_DEVICE_MEM_LIMIT=0=8192M,1=2048M"]
+        assert edits["mounts"] == [{
+            "hostPath": os.path.join(d, "pipe"), "containerPath": container,
+            "options": ["rw", "nosuid", "nodev", "bind"]}]
+    assert container_gpus(state, [spec]) == [1, 3]
+    assert "prep_sharing" in state.last_segments
+    state.unprepare("c1")
+    assert fake_daemon_pids(fake_driver) == [] and not os.listdir(
+        state._tenancy._root)
+
+
+def _two_requests(uid, first, second):
+    # Request "a" on GPU 0 and "b" on GPU 1, each with its own config.
+    claim = make_claim_dict(uid, [gpu_name(0), gpu_name(1)],
+                            driver=DRIVER_NAME, request="a")
+    devices = claim["status"]["allocation"]["devices"]
+    devices["results"][1]["request"] = "b"
+    devices["config"] = [
+        {"source": "FromClaim", "requests": [request], "opaque": {
+            "driver": DRIVER_NAME, "parameters": {
+                "apiVersion": PT_API, "kind": "GpuConfig", **body}}}
+        for request, body in (("a", first), ("b", second))]
+    return ResourceClaim.from_dict(claim)
+
+
+@pytest.mark.parametrize("first, second", [
+    (_mps(), _mps()),
+    (_mps(), _shared("Default")),
+    (_shared("Long"), _mps(1, "1Gi")),
+], ids=["two MPS requests", "MPS and a plain request",
+        "a timesliced request and MPS"])
+def test_an_mps_request_must_be_its_claims_only_one(tmp_path, fake_driver,
+                                                     first, second):
+    state = _sharing_state(tmp_path, fake_driver)
+    with pytest.raises(pt_ds.NotPortedError,
+                       match="its claim's only one .*§1b item 4"):
+        state.prepare(_two_requests("c1", first, second))
+    assert state.prepared_claims() == {}
+    assert not state._cdi.spec_exists("c1")
+    assert os.listdir(state._tenancy._root) == []
+    assert [state._timeslicing.current(i) for i in range(4)] == [None] * 4
+    assert fake_daemon_pids(fake_driver) == [] and smi_calls(fake_driver) \
+        == []
+    # Two requests without MPS still prepare, each its own timeslice.
+    state.prepare(_two_requests("c2", _shared("Long"), _shared("Short")))
+    assert [state._timeslicing.current(i)["interval"] for i in (0, 1)] == [
+        "Long", "Short"]
+
+
+def test_a_refused_timeslice_rolls_the_claim_back(tmp_path, fake_driver):
+    # As on the H100 machine's container: nvidia-smi "Not Supported".
+    with open(os.path.join(fake_driver, "smi.refuse"), "w") as f:
+        f.write("0 1 2 3")
+    state = _sharing_state(tmp_path, fake_driver)
+    with pytest.raises(pt_ds.PrepareError, match="exited 3: .*Not Supported"):
+        state.prepare(_claim("c1", [0, 2], _shared("Long")))
+    assert state.prepared_claims() == {}
+    assert not state._cdi.spec_exists("c1")
+    assert [state._timeslicing.current(i) for i in range(4)] == [None] * 4
+    # A plain claim still prepares: its Default level calls nothing.
+    state.prepare(_claim("c2", [0]))
+    assert smi_calls(fake_driver) == []
+
+
+@pytest.mark.parametrize("knob", ["mps.refuse", None])
+def test_mps_that_does_not_start_rolls_the_claim_back(tmp_path, fake_driver,
+                                                      knob):
+    if knob:
+        open(os.path.join(fake_driver, knob), "w").close()
+    else:
+        os.unlink(os.path.join(fake_driver, "usr", "bin",
+                               "nvidia-cuda-mps-control"))
+    state = _sharing_state(tmp_path, fake_driver)
+    with pytest.raises(pt_ds.PrepareError, match="nvidia-cuda-mps-control"):
+        state.prepare(_claim("c1", [1], _mps()))
+    assert state.prepared_claims() == {}
+    assert not state._cdi.spec_exists("c1")
+    assert os.listdir(state._tenancy._root) == []
+    assert fake_daemon_pids(fake_driver) == []
+
+
+def test_construction_restarts_dead_daemons_and_quits_orphans(tmp_path,
+                                                              fake_driver):
+    state = _sharing_state(tmp_path, fake_driver)
+    for uid, index in (("live", 0), ("dead", 1), ("crashed", 2)):
+        state.prepare(_claim(uid, [index], _mps()))
+    live, dead = sharing_pids(state, "live"), sharing_pids(state, "dead")
+    os.kill(dead[0], 9)
+    # "crashed" is left PrepareStarted, as by a prepare that died.
+    state._checkpoint.update_claim("crashed", None)
+    state._checkpoint.update_claim("crashed", CheckpointedClaim(
+        uid="crashed", state="PrepareStarted"))
+    again = _sharing_state(tmp_path, fake_driver)
+    assert sharing_pids(again, "live") == live
+    assert sharing_pids(again, "dead") not in ([], dead)
+    assert not again._tenancy._dirs_of("crashed")
+    assert len(fake_daemon_pids(fake_driver)) == 2
+    for uid in ("live", "dead", "crashed"):
+        again.unprepare(uid)
+    assert fake_daemon_pids(fake_driver) == []
+
+
+def sharing_pids(state, uid) -> list[int]:
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.sharing import mps_pids
+
+    return [pid for d in state._tenancy._dirs_of(uid)
+            for pid in mps_pids(state._tenancy.pipe_dir(d))]
+
+
+def test_a_boot_id_change_clears_the_sharing_state(tmp_path, fake_driver):
+    state = _sharing_state(tmp_path, fake_driver)
+    state.prepare(_claim("c1", [0], _shared("Long")))
+    state.prepare(_claim("c2", [1], _mps()))
+    # The reboot: every daemon and level is gone with it.
+    kill_fake_daemons(fake_driver)
+    again = _sharing_state(tmp_path, fake_driver, boot="boot-1")
+    assert again.prepared_claims() == {}
+    assert again._timeslicing.current(0) is None
+    assert os.listdir(again._tenancy._root) == []
+    assert fake_daemon_pids(fake_driver) == []
