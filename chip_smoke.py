@@ -169,6 +169,28 @@ and prints no result line):
    ``nvidia-cuda-mps-*`` process is left. A ``finally`` quits any daemon
    the phase started and restores ``gpu-0``'s timeslice. Host ms of each
    step.
+15. mig: MIG devices through the node service, run in a child process
+   that never initialises CUDA (``MIG_PLUGIN``): ``Driver`` over the real
+   NVML with ``DynamicSubSlice`` on, ``split`` publication over the
+   port's fake API server, temporary roots. It logs ``nvidia-smi``'s MIG
+   mode, NVML's ``mig_mode`` and refusals, and whether
+   ``/proc/driver/nvidia-caps/mig-minors`` and ``/dev/nvidia-caps/``
+   exist. Exactly one of three outcomes must hold: (a) MIG off (or its
+   mode refused): no MIG device published, one slice whose GPUs carry
+   their per-GPU counter sets, a claim for ``gpu-0-mig-1g10gb-0`` refused
+   as an unknown device with no record, spec or registry entry left, and
+   a ``static_subslices`` entry failing construction with ``ValueError``;
+   (b) MIG on and creation allowed: the claim's 1g.10gb instance at slot 0
+   listed by NVML's walk, a ``python3`` child under its spec's env plus
+   ``CUDA_VISIBLE_DEVICES=<its MIG UUID>`` that sees one device with the
+   profile's SMs and runs the flash forward at the serving shape against
+   its plain version within phase 12's tolerance, and unprepare
+   destroying it; (c) MIG on and creation refused: the ``PrepareError``
+   quotes NVML's return code and the rollback leaves nothing. The sweep
+   follows; a ``finally`` (and a cleanup child if the first one failed)
+   destroys whatever the registry still names. It never changes the MIG
+   mode. Host ms of construction, publication, prepare (with its
+   ``prep_create_subslice`` segment), unprepare and the sweep.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record (with the hd-64 instantiations'
@@ -2604,15 +2626,23 @@ def phase_node_driver(seed: int) -> int:
         stats = timed("publish", driver.publish_resources)
         got = published()
         want = driver.generate_resource_slices()
+        # Each GPU consumes all of its own counter set: its 8 MIG memory
+        # slots and its memory (and its SMs, with MIG on).
+        sets = {s["name"]: s["counters"]
+                for s in got["spec"]["sharedCounters"]}
         devices = [dict(dev, taints=[{"key": "tpu.dra.dev/unmonitored",
                                       "value": "true"}],
                         consumesCounters=[{
-                            "counterSet": "host-counters",
-                            "counters": {f"core-{i}-0": {"value": "1"},
-                                         f"hbm-{i}": dev["capacity"][
-                                             "memory"]}}])
+                            "counterSet": f"gpu-{i}-counter-set",
+                            "counters": sets[f"gpu-{i}-counter-set"]}])
                    for dev in driver.state.dra_devices()
                    for i in [parse_gpu_name(dev["name"])]]
+        check(all({f"memory-slice-{k}" for k in range(8)} | {"memory"}
+                  <= set(c) for c in sets.values())
+              and [sets[f"gpu-{parse_gpu_name(d['name'])}-counter-set"][
+                  "memory"] for d in devices] == [
+                  d["capacity"]["memory"] for d in devices],
+              f"counter sets {sets}")
         log(f"node driver: publication over "
             f"{server.url}: {stats}, slice {got['metadata']['name']} "
             f"generation {got['spec']['pool']['generation']}, devices "
@@ -3062,6 +3092,313 @@ def phase_sharing(seed: int) -> int:
         log(f"sharing: host ms {json.dumps(ms)}")
 
 
+# Phase 15's plugin side, run in a process of its own that never
+# initialises CUDA (as the kubelet plugin is; NVML's MIG calls beside
+# CUDA are not proven safe, ROADMAP.md §3 item 9): the node service over
+# the real NVML with DynamicSubSlice on, split publication over the
+# port's fake API server, a claim for gpu-0's 1g.10gb MIG device at
+# memory slot 0, and which of the three outcomes the GPU gave. With
+# "cleanup" it only destroys what the registry under its root names.
+# Writes one JSON line.
+MIG_PLUGIN = r"""
+import json, os, subprocess, sys, time
+from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.device_state import (
+    Config, DeviceState, SubSliceRegistry)
+from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.driver import Driver
+from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.subslice import (
+    parse_mig_name)
+from k8s_dra_driver_gpu_tpu_torch.pkg.fakeapiserver import FakeApiServer
+from k8s_dra_driver_gpu_tpu_torch.pkg.featuregates import FeatureGates
+from k8s_dra_driver_gpu_tpu_torch.pkg.kubeclient import KubeClient
+from k8s_dra_driver_gpu_tpu_torch.tpulib import binding as gpulib
+
+tmp, seed, mode = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+RS = ("resource.k8s.io", "v1", "resourceslices")
+RC = ("resource.k8s.io", "v1", "resourceclaims")
+NODE, DEVICE, UID = "smoke-mig-node", "gpu-0-mig-1g10gb-0", "smoke-mig"
+out = {"cuda_initialised_at_start": gpulib.cuda_initialised()}
+lib = gpulib.NvmlLib()
+registry = SubSliceRegistry(f"{tmp}/state")
+
+def destroy_recorded():
+    gone = []
+    for uuid, live in registry.list().items():
+        lib.destroy_mig(live.instance())
+        registry.drop(uuid)
+        gone.append(uuid)
+    return gone
+
+if mode == "cleanup":
+    try:
+        print(json.dumps({"destroyed": destroy_recorded()}))
+    finally:
+        lib.close()
+    raise SystemExit(0)
+
+ms = {}
+
+def timed(label, fn, *args, **kw):
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        ms[label] = round((time.perf_counter() - t0) * 1e3, 3)
+
+def walk():
+    return [i.__dict__ for i in lib.mig_instances(0)]
+
+server, driver = FakeApiServer().start(), None
+try:
+    host = lib.enumerate()
+    out["mig_mode"] = host.mig_mode
+    out["profiles"] = [p.__dict__ for p in lib.subslice_profiles()]
+    out["refusals"] = dict(lib.refusals)
+    out["caps"] = {
+        "/proc/driver/nvidia-caps/mig-minors": os.path.exists(
+            "/proc/driver/nvidia-caps/mig-minors"),
+        "/dev/nvidia-caps": sorted(os.listdir("/dev/nvidia-caps"))
+        if os.path.isdir("/dev/nvidia-caps") else None}
+    before = walk()
+    out["instances_before"] = before
+    kube = KubeClient(host=server.url)
+    driver = timed("construct", Driver, Config(
+        root=f"{tmp}/state", cdi_root=f"{tmp}/cdi",
+        feature_gates=FeatureGates.parse("DynamicSubSlice=true")), kube,
+        NODE, enable_health_monitor=False, publication_mode="split")
+    state = driver.state
+    out["publish"] = timed("publish", driver.publish_resources)
+    slices = kube.list(*RS)
+    names = [d["name"] for s in slices for d in s["spec"]["devices"]]
+    out["slices"] = sorted(s["metadata"]["name"] for s in slices)
+    out["published"] = names
+    out["mig_published"] = [n for n in names if parse_mig_name(n)]
+    sets = {c["name"]: c["counters"] for s in slices
+            for c in s["spec"]["sharedCounters"]}
+    out["counter_sets"] = {k: sorted(v) for k, v in sets.items()}
+    out["counters_whole"] = all(
+        d["consumesCounters"] == [{"counterSet": f"{d['name']}-counter-set",
+                                   "counters": sets[
+                                       f"{d['name']}-counter-set"]}]
+        for s in slices for d in s["spec"]["devices"]
+        if not parse_mig_name(d["name"]))
+    claim = {"metadata": {"uid": UID, "namespace": "default", "name": UID},
+             "status": {"allocation": {
+                 "devices": {"results": [
+                     {"request": "mig", "driver": "gpu.nvidia.com",
+                      "pool": NODE, "device": DEVICE}], "config": []},
+                 "nodeSelector": {"nodeSelectorTerms": [{"matchFields": [
+                     {"key": "metadata.name", "operator": "In",
+                      "values": [NODE]}]}]}}}}
+    kube.create(*RC, claim, namespace="default")
+    ref = {"uid": UID, "namespace": "default", "name": UID}
+    (devices, error), = timed("prepare", driver.prepare_resource_claims,
+                              [ref]).values()
+    out["prepare_error"] = error
+    out["prepare_segments_ms"] = {k: round(v * 1e3, 3)
+                                  for k, v in state.last_segments.items()}
+    out["registry_after_prepare"] = sorted(state.mig_registry())
+    out["record_after_prepare"] = UID in state.prepared_claims()
+    out["spec_after_prepare"] = state._cdi.spec_exists(UID)
+    out["instances_after_prepare"] = walk()
+    if not error:
+        spec = state._cdi.read_spec(UID)
+        live = state.prepared_claims()[UID].devices[0].live
+        out["device_nodes"] = [n["path"] for d in spec["devices"]
+                               for n in d["containerEdits"]["deviceNodes"]]
+        env = dict(os.environ)
+        for edit in [d["containerEdits"] for d in spec["devices"]] + [
+                spec["containerEdits"]]:
+            env.update(e.partition("=")[::2] for e in edit.get("env", []))
+        # No container here: the MIG device is named by its UUID.
+        env["CUDA_VISIBLE_DEVICES"] = live["uuid"]
+        sms = [p["cores"] for p in out["profiles"]
+               if p["name"] == "1g.10gb"][0]
+        child = subprocess.run(
+            [sys.executable, "-c", sys.argv[4], str(seed), str(sms)],
+            env=env, capture_output=True, text=True, timeout=600)
+        out["child_rc"] = child.returncode
+        out["child"] = json.loads(child.stdout.strip().splitlines()[-1]) \
+            if child.returncode == 0 else child.stderr[-3000:]
+    out["unprepare"] = timed("unprepare", driver.unprepare_resource_claims,
+                             [{"uid": UID}])
+    out["instances_after_unprepare"] = walk()
+    kube.delete(*RC, UID, namespace="default")
+    out["sweep"] = timed("sweep", driver.reconciler.reconcile_once)
+    out["left"] = {"record": UID in state.prepared_claims(),
+                   "spec": state._cdi.spec_exists(UID),
+                   "registry": sorted(state.mig_registry()),
+                   "instances": walk()}
+    try:
+        timed("static_construct", DeviceState, Config(
+            root=f"{tmp}/static", cdi_root=f"{tmp}/static-cdi",
+            static_subslices=(DEVICE,)))
+        out["static"] = "constructed"
+    except ValueError as err:
+        out["static"] = f"ValueError: {err}"
+finally:
+    out["destroyed_in_finally"] = destroy_recorded()
+    if driver is not None:
+        driver.stop()
+    server.stop()
+    lib.close()
+out["ms"] = ms
+out["cuda_initialised_at_end"] = gpulib.cuda_initialised()
+print(json.dumps(out))
+"""
+# Phase 15's CUDA child under outcome (b): the MIG device alone, with the
+# profile's SMs, running the flash forward at the serving shape on phase
+# 3's inputs against its plain version, a batch row at a time.
+MIG_CUDA_CHILD = """
+import json, sys
+import torch
+import chip_smoke as c
+from k8s_dra_driver_gpu_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_reference)
+
+seed, sms = int(sys.argv[1]), int(sys.argv[2])
+count = torch.cuda.device_count()
+props = torch.cuda.get_device_properties(0)
+if count != 1 or props.multi_processor_count != sms:
+    raise SystemExit(f"MIG child sees {count} devices, "
+                     f"{props.multi_processor_count} SMs, {props.name!r}")
+gen = torch.Generator(device="cuda").manual_seed(seed)
+q, k, v = c.attention_inputs(gen, "serving", 4, 2048, 32, 8, 128,
+                             torch.bfloat16)
+flash_attention.launches = 0
+got = flash_attention(q, k, v, causal=True)
+launches = flash_attention.launches
+want = torch.cat([flash_attention_reference(q[i:i + 1], k[i:i + 1],
+                                            v[i:i + 1], causal=True)
+                  for i in range(q.shape[0])])
+atol, rtol = c.TOLERANCES[torch.bfloat16]
+diff = (got.float() - want.float()).abs()
+print(json.dumps({
+    "device_count": count, "name": props.name,
+    "sms": props.multi_processor_count, "launches": launches,
+    "max_abs_err": diff.max().item(),
+    "excess": (diff - atol - rtol * want.float().abs()).max().item(),
+    "finite": bool(torch.isfinite(got).all())}))
+"""
+
+
+def _mig_outcome(r: dict) -> str:
+    """Which of phase 15's three outcomes ``r`` (``MIG_PLUGIN``'s line)
+    shows, checked; AssertionError for anything else."""
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"mig: {what}: {json.dumps(r)[:4000]}")
+
+    check(not r["cuda_initialised_at_start"]
+          and not r["cuda_initialised_at_end"],
+          "the plugin's process initialised CUDA")
+    left = r["left"]
+    check(not left["record"] and not left["spec"] and not left["registry"]
+          and not r["destroyed_in_finally"]
+          and left["instances"] == r["instances_before"],
+          "the claim left state behind")
+    check(r["unprepare"] == {"smoke-mig": ""} and r["counters_whole"]
+          and r["sweep"]["carveout"] == 0, "unprepare, counters or sweep")
+    if r["mig_mode"] != "enabled":
+        # (a) MIG off (or its mode refused): nothing published or created
+        # that the GPU cannot give.
+        check(r["mig_published"] == [] and r["profiles"] == []
+              and len(r["slices"]) == 1 and r["counter_sets"]
+              and all({f"memory-slice-{k}" for k in range(8)} | {"memory"}
+                      <= set(c) for c in r["counter_sets"].values())
+              and "unknown device 'gpu-0-mig-1g10gb-0'" in r["prepare_error"]
+              and not r["record_after_prepare"]
+              and not r["spec_after_prepare"]
+              and r["registry_after_prepare"] == []
+              and "prep_create_subslice" not in r["prepare_segments_ms"]
+              and r["static"].startswith("ValueError: static MIG device "
+                                         "'gpu-0-mig-1g10gb-0'"),
+              "outcome (a)")
+        return "a"
+    check("gpu-0-mig-1g10gb-0" in r["mig_published"]
+          and len(r["slices"]) == 2, "MIG on: the MIG devices' slice")
+    if r["prepare_error"]:
+        # (c) MIG on, creation refused: NVML's return code quoted, the
+        # rollback leaves nothing.
+        check("NVML_ERROR_" in r["prepare_error"]
+              and not r["record_after_prepare"]
+              and not r["spec_after_prepare"]
+              and r["registry_after_prepare"] == []
+              and r["instances_after_prepare"] == r["instances_before"],
+              "outcome (c)")
+        return "c"
+    # (b) MIG on, creation allowed.
+    made = [i for i in r["instances_after_prepare"]
+            if i not in r["instances_before"]]
+    child = r["child"]
+    check(len(made) == 1 and made[0]["profile"] == "1g.10gb"
+          and made[0]["start"] == 0 and r["child_rc"] == 0
+          and child["launches"] == 1 and child["finite"]
+          and child["excess"] <= 0
+          and child["max_abs_err"] <= CLAIM_CHILD_MAX_ERR
+          and "prep_create_subslice" in r["prepare_segments_ms"]
+          and r["instances_after_unprepare"] == r["instances_before"],
+          "outcome (b)")
+    return "b"
+
+
+def phase_mig(seed: int) -> int:
+    """15. MIG devices through the kubelet plugin over NVML, in a child
+    that never initialises CUDA (``MIG_PLUGIN``). Checks which of three
+    outcomes holds: (a) MIG off, (b) MIG on and a 1g.10gb instance
+    created, run and destroyed, (c) MIG on and its creation refused.
+    Never changes the MIG mode. Returns the flash launches of (b)'s
+    child, 0 otherwise."""
+    import os
+    import shutil
+    import tempfile
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,mig.mode.current,mig.mode.pending",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    log(f"mig: nvidia-smi mig.mode.current,pending: "
+        f"{(smi.stdout or smi.stderr).strip()!r} (rc {smi.returncode})")
+    tmp = tempfile.mkdtemp(prefix="mig")
+    root = os.path.dirname(os.path.abspath(__file__))
+    r = None
+    try:
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", MIG_PLUGIN, tmp, str(seed), "run",
+             MIG_CUDA_CHILD], capture_output=True, text=True, timeout=900,
+            cwd=root)
+        child_s = time.perf_counter() - t0
+        if child.returncode != 0:
+            raise AssertionError(f"mig: the plugin child exited "
+                                 f"{child.returncode}: "
+                                 f"{child.stderr[-4000:]}")
+        r = json.loads(child.stdout.strip().splitlines()[-1])
+    finally:
+        # A child that failed: whatever its registry still names is
+        # destroyed by a child of its own (no MIG call in this CUDA
+        # process).
+        if r is None and os.path.exists(f"{tmp}/state/mig.json"):
+            done = subprocess.run(
+                [sys.executable, "-c", MIG_PLUGIN, tmp, str(seed),
+                 "cleanup"], capture_output=True, text=True, timeout=300,
+                cwd=root)
+            log(f"mig: cleanup child rc {done.returncode}: "
+                f"{(done.stdout + done.stderr).strip()[-2000:]}")
+        shutil.rmtree(tmp, ignore_errors=True)
+    outcome = _mig_outcome(r)
+    log(f"mig: outcome ({outcome}); NVML mig_mode {r['mig_mode']!r}, "
+        f"profiles {len(r['profiles'])}, refusals {r['refusals']}; caps "
+        f"{json.dumps(r['caps'])}; slices {r['slices']}, MIG devices "
+        f"published {len(r['mig_published'])}, counter sets "
+        f"{json.dumps(r['counter_sets'])}; prepare of gpu-0-mig-1g10gb-0: "
+        f"{r['prepare_error'] or 'prepared'} (segments ms "
+        f"{r['prepare_segments_ms']}); static: {r['static']}; sweep "
+        f"{r['sweep']}; child {r.get('child')}")
+    log(f"mig: host ms {json.dumps(r['ms'])} (plugin child "
+        f"{child_s:.2f} s of process)")
+    return r["child"]["launches"] if outcome == "b" else 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3101,6 +3438,9 @@ def main(argv=None) -> int:
     t_sharing = time.perf_counter()
     mps_children = phase_sharing(args.seed)
     log(f"sharing: phase 14 in {time.perf_counter() - t_sharing:.1f} s")
+    t_mig = time.perf_counter()
+    mig_child = phase_mig(args.seed)
+    log(f"mig: phase 15 in {time.perf_counter() - t_mig:.1f} s")
     forward["launches_by_path"] = {
         "serving_generate": serving_launches,
         "training_step": training["forward_lse"],
@@ -3110,6 +3450,7 @@ def main(argv=None) -> int:
         "prepared_claim_child": claim_child,
         "node_driver_claim_child": node_child,
         "mps_children": mps_children,
+        "mig_child": mig_child,
         "sharded_training_step": gang["train"]["forward_lse"],
         "moe_training_step": moe["forward_lse"],
         "sp_ulysses_training_step": sp["ulysses"]["forward_lse"],

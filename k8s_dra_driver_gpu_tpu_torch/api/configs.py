@@ -3,10 +3,13 @@
 ``api/nvidia.com/resource/v1beta1/{gpuconfig.go,sharing.go}``).
 
 ``GpuConfig`` is the config of a whole-GPU claim (the JAX package's
-``TpuConfig``). Its ``Sharing`` union decodes and validates as there;
-the kubelet plugin runs it through ``kubeletplugin/sharing.py``
-(time-slicing at an interval, MPS with per-device memory limits). The
-MIG and vfio configs are not ported (``device_state.NOT_PORTED_KINDS``).
+``TpuConfig``), ``MigDeviceConfig`` that of a MIG device claim (the
+upstream's kind, ``migconfig.go:28``; the JAX package's
+``SubSliceConfig``, without its partition-only ``oversubscribe``). Their
+``Sharing`` union decodes and validates as there; the kubelet plugin
+runs it through ``kubeletplugin/sharing.py`` (time-slicing at an
+interval, MPS with per-device memory limits). The vfio config is not
+ported (``device_state.NOT_PORTED_KINDS``).
 """
 
 from __future__ import annotations
@@ -139,6 +142,24 @@ class GpuConfig:
     """The config of a whole-GPU claim (gpuconfig.go:29)."""
 
     KIND = "GpuConfig"
+
+    sharing: Sharing | None = None
+
+    def normalize(self) -> None:
+        if self.sharing is None:
+            self.sharing = Sharing()
+        self.sharing.normalize()
+
+    def validate(self) -> None:
+        if self.sharing:
+            self.sharing.validate()
+
+
+@dataclass
+class MigDeviceConfig:
+    """The config of a MIG device claim (migconfig.go:28)."""
+
+    KIND = "MigDeviceConfig"
 
     sharing: Sharing | None = None
 

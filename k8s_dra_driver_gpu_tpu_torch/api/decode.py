@@ -11,8 +11,8 @@ from __future__ import annotations
 from dataclasses import fields as dc_fields
 from typing import Any, Type
 
-from .configs import (GpuConfig, MultiTenancyConfig, Sharing,
-                      TimeSlicingConfig)
+from .configs import (GpuConfig, MigDeviceConfig, MultiTenancyConfig,
+                      Sharing, TimeSlicingConfig)
 
 API_VERSION = "resource.nvidia.com/v1beta1"
 
@@ -21,11 +21,12 @@ class DecodeError(ValueError):
     pass
 
 
-_KINDS: dict[str, Type] = {GpuConfig.KIND: GpuConfig}
+_KINDS: dict[str, Type] = {c.KIND: c for c in (GpuConfig, MigDeviceConfig)}
 
 # JSON field name -> dataclass attribute, per type.
 _FIELD_MAPS: dict[Type, dict[str, str]] = {
     GpuConfig: {"sharing": "sharing"},
+    MigDeviceConfig: {"sharing": "sharing"},
     Sharing: {
         "strategy": "strategy",
         "timeSlicing": "time_slicing",
@@ -41,6 +42,7 @@ _FIELD_MAPS: dict[Type, dict[str, str]] = {
 
 _NESTED: dict[tuple[Type, str], Type] = {
     (GpuConfig, "sharing"): Sharing,
+    (MigDeviceConfig, "sharing"): Sharing,
     (Sharing, "time_slicing"): TimeSlicingConfig,
     (Sharing, "multi_tenancy"): MultiTenancyConfig,
 }

@@ -1,18 +1,23 @@
-"""The kubelet plugin for whole GPUs on an NVIDIA H100 host.
+"""The kubelet plugin for whole GPUs and MIG devices on an NVIDIA H100
+host.
 
 The counterpart of the JAX package's ``kubeletplugin/`` (and of the
-upstream driver's ``cmd/gpu-kubelet-plugin/``) for whole GPUs:
+upstream driver's ``cmd/gpu-kubelet-plugin/``) for whole GPUs and MIG
+devices:
 
 - ``device_state``: enumerate the GPUs once through the port's
-  ``tpulib`` (NVML), describe each as a DRA ``ResourceSlice`` device
+  ``tpulib`` (NVML), describe each, and each MIG device NVML offers or
+  holds (``subslice``), as a DRA ``ResourceSlice`` device
   (``deviceinfo``), and prepare a claim (``claim``) with a two-phase
   checkpoint (``checkpoint``) and a CDI spec that injects its device
   nodes and the driver's libraries (``cdi``), and the claim's sharing
   (``sharing``: a GPU's timeslice through ``nvidia-smi``, an MPS control
   daemon a claim request), each behind its feature gate
-  (``pkg.featuregates``); unprepare tears them down;
+  (``pkg.featuregates``), and creates a dynamic MIG device through NVML;
+  unprepare tears them down;
 - ``driver``: the node service over an API server (``pkg.kubeclient``):
-  ResourceSlice publication with shared counters (``partitions``), claim
+  ResourceSlice publication (``combined`` or ``split``) with per-GPU
+  shared counters (``partitions``), claim
   lookup for prepare and unprepare, health taints (``health``) and the
   reconcile sweep (``cleanup``, ``reconcile``).
 

@@ -1,23 +1,26 @@
-"""DeviceState: the node's claim state machine for whole GPUs (the JAX
-package's ``kubeletplugin/device_state.py``, its ``DeviceKind.CHIP``
-path; the upstream driver's ``cmd/gpu-kubelet-plugin/device_state.go``).
+"""DeviceState: the node's claim state machine for whole GPUs and MIG
+devices (the JAX package's ``kubeletplugin/device_state.py``, its
+``DeviceKind.CHIP`` and sub-slice paths; the upstream driver's
+``cmd/gpu-kubelet-plugin/device_state.go``).
 
 Prepare is idempotent and two-phase: the durable PrepareStarted record
 (the reservation, with the claim's device names) comes before any device
 state, PrepareCompleted after the CDI spec; a failure in between rolls
-both back (upstream ``:229-334``, ``:536``). Another claim's device is
-refused (``:1212``); configs resolve class first, then claim, the later
-winning (``:1138``).
+both back (upstream ``:229-334``, ``:536``). A device whose GPU memory
+slots another claim holds is refused (``:1212``); configs resolve class
+first, then claim, the later winning (``:1138``).
 
 What differs from the JAX plugin, on an H100 host:
 
 - **Enumerate once.** ``__init__`` loads the port's ``tpulib`` (NVML; the
-  mock or devfs backend with ``Config.backend="python"``), enumerates
-  once and closes it. Prepare works from that snapshot and never asks
-  NVML again, so it does not depend on what NVML answers later (a
-  container's NVML may redact the UUID in some calls) and matches no GPU
-  by UUID. A GPU whose minor number NVML refused has no device node to
-  inject and is not published; a warning names it.
+  mock or devfs backend with ``Config.backend="python"``) and enumerates
+  once. Prepare works from that snapshot, so it does not depend on what
+  NVML answers later (a container's NVML may redact the UUID in some
+  calls) and matches no GPU by UUID. A GPU whose minor number NVML
+  refused has no device node to inject and is not published; a warning
+  names it. The library is closed after the enumeration unless MIG is
+  on (``host.mig_mode == "enabled"``): then it stays open for the MIG
+  creates, destroys and walks, and ``close()`` closes it.
 - **Whole GPUs, shared or not.** A claim config may ask for
   time-slicing at an interval (``TimeSlicingSettings``) or MPS
   (``MultiTenancySupport``), run by ``sharing.py``: ``nvidia-smi`` sets
@@ -26,16 +29,46 @@ What differs from the JAX plugin, on an H100 host:
   JAX plugin. An MPS request must be its claim's only request (the
   ``NotPortedError`` below): CDI merges same-named env, so two daemons'
   pipe directories would reach a container as one, and the clients of
-  one daemon see only its GPUs. Sub-slices (MIG) and passthrough (vfio)
-  raise ``NotPortedError`` at prepare, naming the ROADMAP.md item that
-  ports them; so does, at construction, every gate but the two sharing
-  ones when set away from its default (``NOT_PORTED_GATES``). A
-  completed claim whose spec is lost while its MPS daemon runs is not
-  prepared again (that would kill the daemon's clients): its prepare
-  raises, and unprepare recovers it.
-  Construction starts again the dead MPS daemons of completed claims and
-  quits the others'; a boot id change drops the sharing records with the
-  claims.
+  one daemon see only its GPUs. Passthrough (vfio) raises
+  ``NotPortedError`` at prepare, naming the ROADMAP.md item that ports
+  it; so does, at construction, every gate the plugin does not read when
+  set away from its default (``NOT_PORTED_GATES``). A completed claim
+  whose spec is lost while its MPS daemon runs is not prepared again
+  (that would kill the daemon's clients): its prepare raises, and
+  unprepare recovers it. Construction starts again the dead MPS daemons
+  of completed claims and quits the others'; a boot id change drops the
+  sharing records with the claims.
+- **MIG devices** (the JAX plugin's sub-slices), named
+  ``gpu-<i>-mig-<profile>-<start>`` (``subslice.py``). Dynamic ones, one
+  for each placement of each profile NVML offers on each GPU, are
+  published with the ``DynamicSubSlice`` gate on and MIG on; prepare
+  creates the GPU instance and its compute instance through NVML
+  (``create_mig``) between the PrepareStarted and PrepareCompleted
+  records, and unprepare, a failed prepare and a rollback destroy it.
+  Static ones are the GPU instances NVML's walk finds at construction
+  that this plugin did not create and that ``Config.static_subslices``
+  names; a name there that is not among them fails construction. Prepare
+  neither creates nor destroys a static device. A host with a GPU it
+  cannot publish publishes no MIG device, as the JAX plugin's degraded
+  host. Two devices overlap when they share a memory slot of one GPU (a
+  whole GPU holds all 8). The registry (``SubSliceRegistry``,
+  ``<root>/mig.json``) names the instances this plugin created; it is
+  the only thing the orphan sweep (``destroy_unknown_subslices``, at
+  construction and in the reconcile sweep) destroys from, so an admin's
+  GPU instance is never touched. A crash between NVML's create and the
+  registry write leaves a GPU instance the registry does not name: it is
+  then an admin's to remove. A boot id change drops the registry without
+  destroying anything: MIG instances do not survive a reboot, and an
+  admin's mig-parted may since have made instances under the same ids.
+  The spec of a MIG device injects its GPU's ``/dev/nvidia<minor>`` and
+  the GPU and compute instance's ``/dev/nvidia-caps/nvidia-cap<N>``, the
+  minors from ``/proc/driver/nvidia-caps/mig-minors`` (what the NVIDIA
+  container toolkit's CDI does); a missing file fails prepare, naming
+  it. A MIG device takes no timeslice (``compute-policy`` sets the
+  whole GPU's, and the upstream refuses it on MIG): a non-default one is
+  refused with ``PrepareError``, and MPS on a MIG device raises
+  ``NotPortedError`` (ROADMAP.md §1b item 5c). ``TenantPartitioning``
+  (the JAX plugin's partitions over sub-slices) is not ported.
 - **The claim's GPUs are its device nodes.** The spec injects each GPU's
   ``/dev/nvidia<minor>``; a container given only those nodes sees only
   those GPUs, numbered from 0. So the spec sets no
@@ -46,37 +79,41 @@ What differs from the JAX plugin, on an H100 host:
   wins. It sets ``CUDA_DEVICE_ORDER=PCI_BUS_ID``: CUDA numbers devices
   fastest first by default, and bus order is NVML's, so the container's
   GPU ``i`` is the claim's ``i``-th by NVML index.
-- **One plugin process a node.** Every prepare and unprepare runs under
-  the node lock (a ``Flock`` with a time limit), so a PrepareStarted
-  record found by a prepare is a crashed prepare's and is rolled back.
-  The JAX plugin's per-chip shard locks, reservation leases for an
-  upgrade handover, fault-injection seams, tracing and flight recorder
-  are not ported.
+- **One plugin process a node.** Every prepare, unprepare and orphan
+  sweep runs under the node lock (a ``Flock`` with a time limit), so a
+  PrepareStarted record found by a prepare is a crashed prepare's and is
+  rolled back. The JAX plugin's per-chip shard locks, reservation leases
+  for an upgrade handover, fault-injection seams, tracing and flight
+  recorder are not ported.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import shutil
 import time
 from dataclasses import dataclass, field
 
-from ..api.configs import GpuConfig, Sharing
+from ..api.configs import GpuConfig, MigDeviceConfig, Sharing
 from ..api.decode import strict_decode
-from ..pkg.featuregates import (MULTI_TENANCY_SUPPORT,
+from ..pkg.featuregates import (DYNAMIC_SUB_SLICE, MULTI_TENANCY_SUPPORT,
                                 TIME_SLICING_SETTINGS, FeatureGates)
 from ..pkg.flock import Flock
 from ..pkg.timing import SegmentTimer
-from ..tpulib.binding import EnumerateOptions, GpuHostInfo, load
+from ..tpulib.binding import (EnumerateOptions, GpuHostInfo, GpuLibError,
+                              SubSliceProfile, load)
 from .cdi import CDIHandler, ContainerEdits, find_binary
 from .checkpoint import (CheckpointedClaim, CheckpointedDevice,
                          CheckpointManager, ClaimState)
 from .claim import ResourceClaim
-from .deviceinfo import (AllocatableDevice, ChipInfo, DeviceKind,
-                         parse_gpu_name)
+from .deviceinfo import (MIG_MEMORY_SLICES, AllocatableDevice, ChipInfo,
+                         DeviceKind, SubSliceInfo, parse_gpu_name)
 from .sharing import (MPS_CONTROL, MultiTenancyManager, SharingError,
                       TimeSlicingManager)
+from .subslice import (SubSliceLiveTuple, SubSliceSpecTuple,
+                       enumerate_subslice_devices, parse_mig_name)
 
 logger = logging.getLogger(__name__)
 
@@ -84,14 +121,15 @@ LOCK_TIMEOUT_S = 10.0
 
 # What the JAX plugin runs and this one does not yet, by the ROADMAP.md
 # §1b item that ports it.
-_MIG = "MIG devices (ROADMAP.md §1b item 5, sub-slices -> MIG)"
+_PARTITIONS = ("tenant partitions (ROADMAP.md §1b item 5b, pkg/partition/ "
+               "and its watcher)")
 _VFIO = "vfio passthrough (ROADMAP.md §1b item 6, vfio.py)"
 _CD = "the ComputeDomain daemon (ROADMAP.md §1b item 9, computedomain/)"
-NOT_PORTED_KINDS = {"MigDeviceConfig": _MIG, "VfioDeviceConfig": _VFIO}
-# Every gate but TimeSlicingSettings and MultiTenancySupport: refused
-# when set away from its default.
+NOT_PORTED_KINDS = {"VfioDeviceConfig": _VFIO}
+# Every gate the plugin does not read (featuregates.READ): refused when
+# set away from its default.
 NOT_PORTED_GATES = {
-    "DynamicSubSlice": _MIG, "TenantPartitioning": _MIG,
+    "TenantPartitioning": _PARTITIONS,
     "PassthroughSupport": _VFIO,
     "DomainDaemonsWithDNSNames": _CD, "ComputeDomainCliques": _CD,
     "TopologyAwarePlacement": "topology-aware placement (the JAX package's "
@@ -104,12 +142,61 @@ NOT_PORTED_GATES = {
 }
 
 
+_MIG_KINDS = (DeviceKind.SUBSLICE_STATIC, DeviceKind.SUBSLICE_DYNAMIC)
+
+
 class PrepareError(RuntimeError):
     pass
 
 
 class NotPortedError(PrepareError):
     """A claim asks for what the GPU plugin does not run yet."""
+
+
+class SubSliceRegistry:
+    """The MIG instances this plugin created (the JAX plugin's
+    ``SubSliceRegistry``): ``<root>/mig.json``, MIG UUID -> live tuple,
+    read-modify-written under its own flock and fsync'd, as the
+    checkpoint is."""
+
+    def __init__(self, root: str):
+        self.path = os.path.join(root, "mig.json")
+        self._lock = Flock(self.path + ".lock")
+
+    def list(self) -> dict[str, SubSliceLiveTuple]:
+        try:
+            with open(self.path, encoding="utf-8") as f:
+                return {uuid: SubSliceLiveTuple.from_dict(d)
+                        for uuid, d in json.load(f).items()}
+        except (FileNotFoundError, json.JSONDecodeError):
+            return {}
+
+    def _write(self, entries: dict[str, SubSliceLiveTuple]) -> None:
+        tmp = self.path + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump({uuid: live.to_dict()
+                       for uuid, live in entries.items()}, f, indent=1)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, self.path)
+
+    def record(self, live: SubSliceLiveTuple) -> None:
+        with self._lock.acquire(timeout=LOCK_TIMEOUT_S):
+            entries = self.list()
+            entries[live.uuid] = live
+            self._write(entries)
+
+    def drop(self, uuid: str) -> None:
+        with self._lock.acquire(timeout=LOCK_TIMEOUT_S):
+            entries = self.list()
+            if entries.pop(uuid, None) is not None:
+                self._write(entries)
+
+    def clear(self) -> None:
+        try:
+            os.unlink(self.path)
+        except FileNotFoundError:
+            pass
 
 
 @dataclass
@@ -129,24 +216,32 @@ class Config:
     boot_id: str | None = None
     backend: str | None = None
     driver_root: str = "/"
+    # Static MIG devices by name (gpu-<i>-mig-<profile>-<start>): GPU
+    # instances an admin made, published as they are (the JAX plugin's
+    # static sub-slices, the upstream's static MIG).
+    static_subslices: tuple[str, ...] = ()
 
     @classmethod
-    def mock(cls, root: str, topology: str = "h100-8",
-             gates: str = "") -> "Config":
-        """A mock host of ``topology`` GPUs; its CDI specs under
-        ``root/cdi`` and its device root ``root/dev`` (empty unless a
-        test makes nodes there); ``gates`` as ``FEATURE_GATES`` takes
-        them."""
+    def mock(cls, root: str, topology: str = "h100-8", gates: str = "",
+             mig_mode: str = "disabled") -> "Config":
+        """A mock host of ``topology`` GPUs with MIG ``mig_mode``; its CDI
+        specs under ``root/cdi``, its device root ``root/dev`` and its
+        proc root ``root/proc`` (empty unless a test makes nodes and
+        files there), its MIG instances in ``root/mock-mig.json``;
+        ``gates`` as ``FEATURE_GATES`` takes them."""
         return cls(root=root,
                    gpulib_opts=EnumerateOptions(
                        mock_topology=topology,
-                       dev_root=os.path.join(root, "dev")),
+                       dev_root=os.path.join(root, "dev"),
+                       proc_root=os.path.join(root, "proc"),
+                       mock_mig_mode=mig_mode,
+                       mock_mig_state=os.path.join(root, "mock-mig.json")),
                    feature_gates=FeatureGates.parse(gates),
                    cdi_root=os.path.join(root, "cdi"), backend="python")
 
 
 class DeviceState:
-    """Prepare and unprepare over this host's GPUs."""
+    """Prepare and unprepare over this host's GPUs and MIG devices."""
 
     def __init__(self, config: Config):
         self._config = config
@@ -161,15 +256,41 @@ class DeviceState:
         # threads of this one (upstream driver.go:46-47).
         self.pu_lock = Flock(os.path.join(config.root, "pu.lock"))
         lib = load(config.backend)
+        self._lib = None
         try:
             self.host: GpuHostInfo = lib.enumerate(config.gpulib_opts)
+            self.subslice_profiles: tuple[SubSliceProfile, ...] = ()
+            if self.host.mig_mode == "enabled":
+                self.subslice_profiles = lib.subslice_profiles(
+                    config.gpulib_opts)
+                self._lib = lib
         finally:
             close = getattr(lib, "close", None)
-            if close is not None:
+            if self._lib is None and close is not None:
                 close()
-        self.allocatable = self._enumerate_allocatable()
+        try:
+            self._init_state()
+        except BaseException:
+            self.close()
+            raise
+
+    def _init_state(self) -> None:
+        config = self._config
         self._checkpoint = CheckpointManager(config.root,
                                              boot_id=config.boot_id)
+        self._registry = SubSliceRegistry(config.root)
+        if self._checkpoint.invalidated_on_boot:
+            # A reboot reset every GPU's timeslice, ended every MPS daemon
+            # and destroyed every MIG instance: their records went with
+            # the claims. The registry is dropped, not swept: an admin
+            # may have made instances under its ids since.
+            for sub in ("timeslice", "mps"):
+                shutil.rmtree(os.path.join(config.root, sub),
+                              ignore_errors=True)
+            self._registry.clear()
+            logger.warning("boot id changed: cleared the sharing state and "
+                           "the MIG registry")
+        self.allocatable = self._enumerate_allocatable()
         self._cdi = CDIHandler(
             cdi_root=config.cdi_root or os.path.join(config.root, "cdi"),
             dev_root=config.gpulib_opts.dev_root or "/dev",
@@ -177,18 +298,12 @@ class DeviceState:
         # Find the driver's libraries now, not in the first prepare: a
         # driver whose libcuda or libnvidia-ml is missing fails here.
         self._cdi.driver_mounts(self.host.driver_version)
-        if self._checkpoint.invalidated_on_boot:
-            # A reboot reset every GPU's timeslice and ended every MPS
-            # daemon: their records went with the claims.
-            for sub in ("timeslice", "mps"):
-                shutil.rmtree(os.path.join(config.root, sub),
-                              ignore_errors=True)
-            logger.warning("boot id changed: cleared the sharing state")
         self._timeslicing = TimeSlicingManager(
             config.root, find_binary(config.driver_root, "nvidia-smi"))
         self._tenancy = MultiTenancyManager(
             config.root, hbm_capacity_bytes=self.host.memory_bytes_per_chip,
             control_binary=find_binary(config.driver_root, MPS_CONTROL))
+        self.destroy_unknown_subslices()
         # Re-own the MPS daemons of the claims that survived a restart,
         # quit the others'.
         self._tenancy.reconcile({
@@ -196,6 +311,15 @@ class DeviceState:
             if c.state == ClaimState.PREPARE_COMPLETED.value})
         # The segments (seconds) of the last prepare or unprepare.
         self.last_segments: dict[str, float] = {}
+
+    def close(self) -> None:
+        """Close the device library kept open for MIG."""
+        lib, self._lib = self._lib, None
+        close = getattr(lib, "close", None)
+        if close is not None:
+            close()
+
+    # -- enumeration -------------------------------------------------------
 
     def _enumerate_allocatable(self) -> dict[str, AllocatableDevice]:
         out: dict[str, AllocatableDevice] = {}
@@ -208,12 +332,121 @@ class DeviceState:
             info = ChipInfo(chip=chip, host=self.host)
             out[info.canonical_name] = AllocatableDevice(
                 kind=DeviceKind.CHIP, chip=info)
+        degraded = len(out) < len(self.host.chips)
+        if degraded:
+            # As the JAX plugin's host missing chips: the whole GPUs it
+            # can publish stay published, and it offers no MIG device.
+            logger.warning("degraded host (%d/%d GPUs published): not "
+                           "publishing MIG devices", len(out),
+                           len(self.host.chips))
+        profiles = self.subslice_profiles
+        gpus = {chip.index: chip for chip in self.host.chips}
+        by_name = {p.name: p for p in profiles}
+        specs = enumerate_subslice_devices(self.host, profiles) \
+            if not degraded else []
+        if self._config.feature_gates.is_enabled(DYNAMIC_SUB_SLICE):
+            for spec in specs:
+                info = SubSliceInfo(spec=spec, profile=by_name[spec.profile],
+                                    chip=gpus[spec.gpu], dynamic=True)
+                out[info.canonical_name] = AllocatableDevice(
+                    kind=DeviceKind.SUBSLICE_DYNAMIC, subslice=info)
+        if self._config.static_subslices:
+            if degraded:
+                logger.warning("degraded host: not publishing static MIG "
+                               "devices %s",
+                               list(self._config.static_subslices))
+                return out
+            found = self._static_instances()
+            for name in self._config.static_subslices:
+                live = found.get(name)
+                if live is None:
+                    # A bad name is a config error on a healthy host:
+                    # fail startup rather than publish less than declared.
+                    raise ValueError(
+                        f"static MIG device {name!r} is not a GPU instance "
+                        "with a compute instance on this host (MIG "
+                        f"{self.host.mig_mode}; found {sorted(found)})")
+                info = SubSliceInfo(spec=live.spec,
+                                    profile=by_name[live.spec.profile],
+                                    chip=gpus[live.spec.gpu], dynamic=False,
+                                    uuid=live.uuid)
+                # Static wins over the dynamic device of the same name:
+                # an admin made it, and unprepare must not destroy it.
+                out[name] = AllocatableDevice(
+                    kind=DeviceKind.SUBSLICE_STATIC, subslice=info)
         return out
 
+    def _static_instances(self) -> dict[str, SubSliceLiveTuple]:
+        """The MIG devices NVML's walk finds that this plugin did not
+        create, by name."""
+        if self._lib is None:
+            return {}
+        ours = self._registry.list()
+        found = {}
+        for chip in self.host.chips:
+            for inst in self._lib.mig_instances(chip.index):
+                if inst.ci_id >= 0 and inst.uuid not in ours:
+                    live = SubSliceLiveTuple.from_instance(inst)
+                    found[live.spec.canonical_name()] = live
+        return found
+
     def dra_devices(self) -> list[dict]:
-        """The ResourceSlice devices of this node, in index order."""
+        """The ResourceSlice devices of this node: by GPU, each whole GPU
+        before its MIG devices."""
         return [dev.to_dra_device() for dev in sorted(
-            self.allocatable.values(), key=lambda d: d.chip.chip.index)]
+            self.allocatable.values(), key=AllocatableDevice.sort_key)]
+
+    # -- the MIG orphan sweep ----------------------------------------------
+
+    def destroy_unknown_subslices(self) -> int:
+        """Destroy the registry's MIG instances that no checkpointed
+        claim references, and drop the entries whose GPU instance is gone
+        (the JAX plugin's ``destroy_unknown_subslices``; upstream
+        ``device_state.go:388``). Runs under the node lock, so no prepare
+        is between its create and its PrepareCompleted record. Returns the
+        entries removed."""
+        if not self._registry.list():
+            return 0
+        with self.pu_lock.acquire(timeout=LOCK_TIMEOUT_S):
+            entries = self._registry.list()
+            if self._lib is None:
+                # MIG is off: turning it off took every GPU instance.
+                for uuid in entries:
+                    self._registry.drop(uuid)
+                logger.warning("MIG is off: dropped %d MIG registry "
+                               "entries", len(entries))
+                return len(entries)
+            referenced = {dev.live["uuid"]
+                          for c in self._checkpoint.get().claims.values()
+                          for dev in c.devices
+                          if dev.live and "uuid" in dev.live}
+            existing = {(i.gpu, i.gi_id, i.profile, i.start)
+                        for gpu in {live.spec.gpu
+                                    for live in entries.values()}
+                        for i in self._lib.mig_instances(gpu)}
+            removed = 0
+            for uuid, live in entries.items():
+                key = (live.spec.gpu, live.gi_id, live.spec.profile,
+                       live.spec.start)
+                if key not in existing:
+                    logger.warning("MIG instance %s (%s) is gone: dropped "
+                                   "from the registry", uuid,
+                                   live.spec.canonical_name())
+                elif uuid not in referenced:
+                    try:
+                        self._lib.destroy_mig(live.instance())
+                    except GpuLibError:
+                        logger.exception("could not destroy orphan MIG "
+                                         "instance %s; the next sweep "
+                                         "tries again", uuid)
+                        continue
+                    logger.warning("destroyed orphan MIG instance %s (%s)",
+                                   uuid, live.spec.canonical_name())
+                else:
+                    continue
+                self._registry.drop(uuid)
+                removed += 1
+            return removed
 
     # -- prepare ---------------------------------------------------------
 
@@ -289,33 +522,65 @@ class DeviceState:
             raise PrepareError(f"unknown device {canonical_name!r}")
         return dev.kind.value
 
-    def _validate_no_overlap(self, cp, claim: ResourceClaim) -> None:
-        """Refuse a device another claim holds, prepared or reserved
-        (PrepareStarted): a scheduler race."""
-        held = {dev.canonical_name: other.uid
-                for other in cp.claims.values() if other.uid != claim.uid
-                for dev in other.devices}
-        for result in claim.results:
-            if result.device in held:
-                raise PrepareError(
-                    f"device {result.device} overlaps with prepared claim "
-                    f"{held[result.device]}")
+    def _slices_of(self, name: str, live: dict | None = None
+                   ) -> set[tuple[int, int]]:
+        """(GPU, memory slot) of each slot device ``name`` takes: from the
+        published device, else a MIG live tuple, else a whole GPU's name
+        (a device no longer published still holds what it held)."""
+        dev = self.allocatable.get(name)
+        if dev is not None:
+            return dev.memory_slices()
+        if live and "size" in live:
+            return {(live["gpu"], k) for k in range(
+                live["start"], live["start"] + live["size"])}
+        index = parse_gpu_name(name)
+        if index is not None:
+            return {(index, k) for k in range(MIG_MEMORY_SLICES)}
+        return set()
 
-    def _resolve_configs(self, claim: ResourceClaim
-                         ) -> dict[str, GpuConfig]:
+    def _validate_no_overlap(self, cp, claim: ResourceClaim) -> None:
+        """Refuse a device that shares a GPU memory slot with a device
+        another claim holds, prepared or reserved (PrepareStarted): a
+        scheduler race. A whole GPU holds all its slots."""
+        held: dict[tuple[int, int], tuple[str, str]] = {}
+        for other in cp.claims.values():
+            if other.uid == claim.uid:
+                continue
+            for dev in other.devices:
+                for cell in self._slices_of(dev.canonical_name, dev.live):
+                    held[cell] = (dev.canonical_name, other.uid)
+        for result in claim.results:
+            for cell in sorted(self._slices_of(result.device)):
+                if cell in held:
+                    device, uid = held[cell]
+                    raise PrepareError(
+                        f"device {result.device} overlaps with prepared "
+                        f"claim {uid} (device {device})")
+
+    def _resolve_configs(self, claim: ResourceClaim) -> dict:
         """The config of each request: the last one that applies, class
-        configs before claim configs; a default ``GpuConfig`` when none
-        does. Normalized and validated."""
+        configs before claim configs; when none does, the default of its
+        first device's kind (``GpuConfig`` or ``MigDeviceConfig``).
+        Normalized and validated; a config of the other kind than a
+        device of its request is refused (the JAX plugin's
+        ``_check_config_kind``)."""
         ordered = [c for c in claim.configs if c.source == "FromClass"] + [
             c for c in claim.configs if c.source != "FromClass"]
-        per_request: dict[str, GpuConfig] = {}
-        for request in dict.fromkeys(r.request for r in claim.results):
+        devices: dict[str, list[AllocatableDevice]] = {}
+        for r in claim.results:
+            dev = self.allocatable.get(r.device)
+            devices.setdefault(r.request, [])
+            if dev is not None:
+                devices[r.request].append(dev)
+        per_request: dict = {}
+        for request, devs in devices.items():
             winner = None
             for oc in ordered:
                 if oc.applies_to(request):
                     winner = oc
             if winner is None:
-                cfg = GpuConfig()
+                cfg = MigDeviceConfig() if devs and devs[0].kind \
+                    in _MIG_KINDS else GpuConfig()
             else:
                 kind = winner.parameters.get("kind") \
                     if isinstance(winner.parameters, dict) else None
@@ -327,6 +592,15 @@ class DeviceState:
                 cfg = strict_decode(winner.parameters)
             cfg.normalize()
             cfg.validate()
+            for dev in devs:
+                want = MigDeviceConfig if dev.kind in _MIG_KINDS \
+                    else GpuConfig
+                if not isinstance(cfg, want):
+                    raise PrepareError(
+                        f"request {request!r}: config kind "
+                        f"{type(cfg).__name__} cannot apply to "
+                        f"{dev.canonical_name} (a "
+                        f"{'MIG device' if want is MigDeviceConfig else 'whole GPU'})")
             per_request[request] = cfg
         mps = [r for r, cfg in per_request.items()
                if not cfg.sharing.is_time_slicing]
@@ -337,26 +611,108 @@ class DeviceState:
                 "be its claim's only one (ROADMAP.md §1b item 4)")
         return per_request
 
-    def _prepare_devices(self, claim: ResourceClaim,
-                         configs: dict[str, GpuConfig], timer: SegmentTimer
-                         ) -> list[CheckpointedDevice]:
-        """Each request's sharing, then the CDI spec of the claim's GPUs;
-        all of it undone if any part fails."""
+    def _mig_edits(self, chip, live: SubSliceLiveTuple) -> ContainerEdits:
+        """The device nodes of a MIG device: its GPU's, and the caps of
+        its GPU and compute instance (``/dev/nvidia-caps/nvidia-cap<N>``,
+        N from the driver's ``mig-minors``)."""
+        proc = self._config.gpulib_opts.proc_root or "/proc"
+        dev = self._config.gpulib_opts.dev_root or "/dev"
+        path = os.path.join(proc, "driver", "nvidia-caps", "mig-minors")
+        try:
+            with open(path, encoding="utf-8") as f:
+                minors = dict(line.split()[:2] for line in f
+                              if len(line.split()) >= 2)
+        except OSError as e:
+            raise PrepareError(f"{live.spec.canonical_name()}: cannot read "
+                               f"{path}: {e}") from e
+        prefix = f"gpu{chip.minor}/gi{live.gi_id}"
+        nodes = [chip.devpath]
+        for cap in (f"{prefix}/access", f"{prefix}/ci{live.ci_id}/access"):
+            if cap not in minors:
+                raise PrepareError(f"{live.spec.canonical_name()}: no {cap} "
+                                   f"in {path}")
+            node = os.path.join(dev, "nvidia-caps",
+                                f"nvidia-cap{minors[cap]}")
+            if not os.path.exists(node):
+                raise PrepareError(f"{live.spec.canonical_name()}: "
+                                   f"{node} does not exist")
+            nodes.append(node)
+        return ContainerEdits(device_nodes=nodes)
+
+    def _create_mig(self, spec: SubSliceSpecTuple) -> SubSliceLiveTuple:
+        """The HOT path's ``createMigDevice`` (``nvlib.go:926``): the
+        instance, recorded in the registry."""
+        try:
+            inst = self._lib.create_mig(spec.gpu, spec.profile, spec.start)
+        except GpuLibError as e:
+            raise PrepareError(f"{spec.canonical_name()}: {e}") from e
+        live = SubSliceLiveTuple.from_instance(inst)
+        try:
+            self._registry.record(live)
+        except BaseException:
+            self._destroy_mig(live, quiet=True)
+            raise
+        return live
+
+    def _destroy_mig(self, live: SubSliceLiveTuple, quiet: bool = False
+                     ) -> None:
+        """Destroy a created instance and drop its registry entry. A
+        failure raises, the entry kept for the sweep; with ``quiet`` it
+        is logged instead (a failed prepare's cleanup, whose own error
+        wins). With MIG off there is no instance left to destroy."""
+        try:
+            if self._lib is not None:
+                self._lib.destroy_mig(live.instance())
+        except GpuLibError as e:
+            if not quiet:
+                raise PrepareError(f"destroying MIG instance {live.uuid} "
+                                   f"({live.spec.canonical_name()}): {e}"
+                                   ) from e
+            logger.exception("could not destroy MIG instance %s; the sweep "
+                             "tries again", live.uuid)
+            return
+        self._registry.drop(live.uuid)
+
+    def _prepare_devices(self, claim: ResourceClaim, configs: dict,
+                         timer: SegmentTimer) -> list[CheckpointedDevice]:
+        """Each MIG device created, each request's sharing, then the CDI
+        spec of the claim's devices; all of it undone if any part
+        fails."""
         prepared: list[CheckpointedDevice] = []
         device_edits: dict[str, ContainerEdits] = {}
-        # request -> its GPUs' indices and names: one sharing a request.
+        created: list[SubSliceLiveTuple] = []
+        # request -> the indices of its devices' GPUs and the devices'
+        # names: one sharing a request (a MIG device holds its GPU's
+        # default timeslice, as the JAX plugin's sub-slice its chip's).
         groups: dict[str, tuple[list[int], list[str]]] = {}
-        for result in claim.results:
-            dev = self.allocatable[result.device]
-            device_edits[result.device] = ContainerEdits(
-                device_nodes=[dev.chip.chip.devpath])
-            prepared.append(CheckpointedDevice(canonical_name=result.device,
-                                               kind=dev.kind.value))
-            indices, names = groups.setdefault(result.request, ([], []))
-            indices.append(dev.chip.chip.index)
-            names.append(result.device)
-        claim_gpus = [i for indices, _ in groups.values() for i in indices]
+        claim_gpus: list[int] = []
         try:
+            for result in claim.results:
+                dev = self.allocatable[result.device]
+                live = None
+                indices, names = groups.setdefault(result.request, ([], []))
+                indices.append(dev.gpu.index)
+                names.append(result.device)
+                claim_gpus.append(dev.gpu.index)
+                if dev.kind == DeviceKind.CHIP:
+                    edits = ContainerEdits(device_nodes=[dev.gpu.devpath])
+                else:
+                    self._check_mig_sharing(result.request,
+                                            configs[result.request].sharing)
+                    ss = dev.subslice
+                    if dev.kind == DeviceKind.SUBSLICE_DYNAMIC:
+                        with timer.segment("prep_create_subslice"):
+                            made = self._create_mig(ss.spec)
+                        created.append(made)
+                        live = made.to_dict()
+                    else:
+                        made = SubSliceLiveTuple.from_instance(
+                            self._static_instance(ss))
+                    edits = self._mig_edits(dev.gpu, made)
+                device_edits[result.device] = edits
+                prepared.append(CheckpointedDevice(
+                    canonical_name=result.device, kind=dev.kind.value,
+                    live=live))
             common = self._cdi.common_edits(self.host)
             common.env.append("CUDA_DEVICE_ORDER=PCI_BUS_ID")
             with timer.segment("prep_sharing"):
@@ -377,11 +733,34 @@ class DeviceState:
         except BaseException:
             self._release_sharing(claim.uid, claim_gpus)
             self._cdi.delete_claim_spec_file(claim.uid)
+            for live in created:
+                self._destroy_mig(live, quiet=True)
             raise
         by_name = dict(zip(sorted(device_edits), ids))
         for dev in prepared:
             dev.cdi_device_ids = [by_name[dev.canonical_name]]
         return prepared
+
+    def _static_instance(self, ss: SubSliceInfo):
+        """The static device's instance as NVML's walk finds it now."""
+        for inst in self._lib.mig_instances(ss.spec.gpu):
+            if inst.uuid == ss.uuid:
+                return inst
+        raise PrepareError(f"static MIG device {ss.canonical_name} "
+                           f"({ss.uuid}) is gone")
+
+    def _check_mig_sharing(self, request: str, sharing: Sharing) -> None:
+        """A MIG device takes the default timeslice only: the GPU's
+        timeslice is the whole GPU's, and MPS on MIG is not ported."""
+        if not sharing.is_time_slicing:
+            raise NotPortedError(
+                f"request {request!r}: MPS on a MIG device is not ported "
+                "to the GPU plugin yet (ROADMAP.md §1b item 5c)")
+        if not sharing.is_default:
+            raise PrepareError(
+                f"request {request!r}: a timeslice on a MIG device: "
+                "compute-policy sets the whole GPU's, so it is refused on "
+                "MIG, as by the upstream driver")
 
     def _apply_sharing(self, claim: ResourceClaim, request: str,
                        sharing: Sharing, gpu_indices: list[int],
@@ -396,7 +775,8 @@ class DeviceState:
                     raise PrepareError(
                         "TimeSlicingSettings feature gate disabled")
                 return self._timeslicing.set_time_slice(
-                    claim.uid, gpu_indices, sharing.time_slicing)
+                    claim.uid, sorted(set(gpu_indices)),
+                    sharing.time_slicing)
             if not gates.is_enabled(MULTI_TENANCY_SUPPORT):
                 raise PrepareError("MultiTenancySupport feature gate disabled")
             return self._tenancy.start(
@@ -407,15 +787,16 @@ class DeviceState:
 
     def _release_sharing(self, claim_uid: str, gpu_indices: list[int]
                          ) -> None:
-        self._timeslicing.release(claim_uid, sorted(gpu_indices))
+        self._timeslicing.release(claim_uid, sorted(set(gpu_indices)))
         self._tenancy.stop(claim_uid)
 
     # -- unprepare -------------------------------------------------------
 
     def unprepare(self, claim_uid: str) -> None:
-        """Idempotent: removes the claim's CDI spec and its checkpoint
-        record; a claim never prepared (or already unprepared) is a
-        no-op, apart from removing a stray spec."""
+        """Idempotent: destroys the claim's MIG instances, removes its
+        sharing, its CDI spec and its checkpoint record; a claim never
+        prepared (or already unprepared) is a no-op, apart from removing a
+        stray spec."""
         timer = SegmentTimer("unprepare", claim_uid)
         try:
             t0 = time.monotonic()
@@ -432,10 +813,15 @@ class DeviceState:
             timer.done()
 
     def _rollback(self, checkpointed: CheckpointedClaim) -> None:
-        """Remove what a claim holds: its sharing, its CDI spec, then its
-        record."""
-        indices = map(parse_gpu_name,
-                      (d.canonical_name for d in checkpointed.devices))
+        """Remove what a claim holds: its MIG instances (a failure raises
+        and keeps the record, so the kubelet's retry finds it), its
+        sharing, its CDI spec, then its record."""
+        for dev in checkpointed.devices:
+            if dev.live and "uuid" in dev.live:
+                self._destroy_mig(SubSliceLiveTuple.from_dict(dev.live))
+        indices = [(parse_mig_name(name) or (parse_gpu_name(name),))[0]
+                   for name in (d.canonical_name
+                                for d in checkpointed.devices)]
         self._release_sharing(checkpointed.uid,
                               [i for i in indices if i is not None])
         self._cdi.delete_claim_spec_file(checkpointed.uid)
@@ -445,3 +831,7 @@ class DeviceState:
 
     def prepared_claims(self) -> dict[str, CheckpointedClaim]:
         return self._checkpoint.get().claims
+
+    def mig_registry(self) -> dict[str, SubSliceLiveTuple]:
+        """The MIG instances this plugin created and has not destroyed."""
+        return self._registry.list()

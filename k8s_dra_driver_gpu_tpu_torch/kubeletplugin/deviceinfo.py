@@ -14,6 +14,13 @@ is a UUID that names no one GPU: NVML's placeholder ``GPU-REDACTED``, or
 one that two GPUs of the host share. (An H100 container may refuse the
 PCI info, and then ``pciBdf`` and ``numaNode`` go, and may answer the
 placeholder for the UUID.)
+
+A MIG device (``SubSliceInfo``) is named ``gpu-<index>-mig-<profile>-
+<start>`` (``subslice.py``). Its attributes: ``profile`` (NVML's name,
+``1g.10gb``), ``parentIndex``, ``placement`` (its first memory slot),
+``productName`` and, for a static device (one that exists before any
+claim), its MIG ``uuid``; its capacities are the profile's
+``multiprocessors`` and ``memory`` (bytes).
 """
 
 from __future__ import annotations
@@ -22,7 +29,8 @@ import re
 from dataclasses import dataclass
 from enum import Enum
 
-from ..tpulib.binding import GpuChip, GpuHostInfo
+from ..tpulib.binding import GpuChip, GpuHostInfo, SubSliceProfile
+from .subslice import SubSliceSpecTuple
 
 _GPU_RE = re.compile(r"^gpu-(\d+)$")
 
@@ -38,7 +46,9 @@ def parse_gpu_name(name: str) -> int | None:
 
 class DeviceKind(str, Enum):
     """Every kind the JAX plugin allocates, under its names; the port
-    builds CHIP (a whole GPU) only."""
+    builds CHIP (a whole GPU) and the two MIG kinds: SUBSLICE_STATIC (a
+    MIG device that exists before the claim) and SUBSLICE_DYNAMIC (one
+    created at prepare)."""
 
     CHIP = "chip"
     SUBSLICE_STATIC = "subslice-static"
@@ -48,6 +58,8 @@ class DeviceKind(str, Enum):
 
 
 REDACTED_UUID = "GPU-REDACTED"
+# An H100's MIG memory slots: every placement is a run of them.
+MIG_MEMORY_SLICES = 8
 
 
 def _refused(key: str, value) -> bool:
@@ -104,22 +116,78 @@ class ChipInfo:
         return {"memory": self.chip.memory_bytes}
 
 
-@dataclass
-class AllocatableDevice:
-    """One device this node can allocate (upstream ``allocatable.go:48``,
-    a union over the kinds; here a whole GPU)."""
+@dataclass(frozen=True)
+class SubSliceInfo:
+    """A MIG device of GPU ``chip``: ``dynamic`` when prepare creates it,
+    else static with the UUID of the MIG device that exists."""
 
-    kind: DeviceKind
-    chip: ChipInfo
+    spec: SubSliceSpecTuple
+    profile: SubSliceProfile
+    chip: GpuChip
+    dynamic: bool
+    uuid: str = ""
 
     @property
     def canonical_name(self) -> str:
-        return self.chip.canonical_name
+        return self.spec.canonical_name()
+
+    def attributes(self) -> dict:
+        attrs = {"profile": self.spec.profile,
+                 "parentIndex": self.chip.index,
+                 "placement": self.spec.start,
+                 "productName": self.chip.name}
+        if self.uuid:
+            attrs["uuid"] = self.uuid
+        return {k: v for k, v in attrs.items() if v != ""}
+
+    def capacities(self) -> dict:
+        return {"multiprocessors": self.profile.cores,
+                "memory": self.profile.hbm_bytes}
+
+
+@dataclass
+class AllocatableDevice:
+    """One device this node can allocate (upstream ``allocatable.go:48``,
+    a union over the kinds): a whole GPU (``chip``) or a MIG device
+    (``subslice``)."""
+
+    kind: DeviceKind
+    chip: ChipInfo | None = None
+    subslice: SubSliceInfo | None = None
+
+    @property
+    def _info(self):
+        return self.chip if self.chip is not None else self.subslice
+
+    @property
+    def canonical_name(self) -> str:
+        return self._info.canonical_name
+
+    @property
+    def gpu(self) -> GpuChip:
+        """The GPU this device is or lies on."""
+        return self.chip.chip if self.chip is not None else self.subslice.chip
+
+    def memory_slices(self) -> set[tuple[int, int]]:
+        """(GPU index, memory slot) of each MIG memory slot this device
+        takes: all of its GPU's for a whole GPU."""
+        if self.subslice is not None:
+            return {(self.gpu.index, k)
+                    for k in self.subslice.spec.memory_slices}
+        return {(self.gpu.index, k) for k in range(MIG_MEMORY_SLICES)}
+
+    def sort_key(self) -> tuple:
+        """Publication order: by GPU, the whole GPU first, then its MIG
+        devices by profile and start."""
+        if self.subslice is None:
+            return (self.gpu.index, 0, "", 0)
+        return (self.gpu.index, 1, self.subslice.spec.profile,
+                self.subslice.spec.start)
 
     def to_dra_device(self) -> dict:
         """A resource.k8s.io Device entry of a ResourceSlice."""
         attrs = {}
-        for key, val in self.chip.attributes().items():
+        for key, val in self._info.attributes().items():
             if isinstance(val, bool):
                 attrs[key] = {"bool": val}
             elif isinstance(val, int):
@@ -130,5 +198,5 @@ class AllocatableDevice:
             "name": self.canonical_name,
             "attributes": attrs,
             "capacity": {key: {"value": str(val)}
-                         for key, val in self.chip.capacities().items()},
+                         for key, val in self._info.capacities().items()},
         }

@@ -6,14 +6,19 @@ publication, health taints and the reconcile sweep (the JAX package's
 ``Driver`` owns the node's ``DeviceState`` and talks to the API server
 through any object with ``KubeClient``'s surface:
 
-- **Publication.** The node's GPUs go out as one ResourceSlice with the
-  shared counters (the reference's ``combined`` mode) through
-  ``sliceutil``'s content-hash diff, which also deletes this driver's
-  other slices of the node. The reference's other two modes are not
-  ported: with whole GPUs only, its ``split`` mode publishes the same
-  one slice, and its ``legacy`` mode (no counters) is chosen by a flag
-  of ``main.py``; they come back with partition devices (ROADMAP.md
-  §1b item 5) and the entry point (item 8).
+- **Publication.** The node's devices go out with the per-GPU shared
+  counters (``partitions``) through ``sliceutil``'s content-hash diff,
+  which also deletes this driver's other slices of the node, in one of
+  the reference's modes (``driver.py:102-113``, ``:380-440``):
+  ``combined``, one slice of every device; or ``split`` (KEP-4815, an
+  API server from 1.35), whole GPUs in ``<node>-gpu.nvidia.com-gpus``
+  and MIG devices in ``<node>-gpu.nvidia.com-mig``, each slice with the
+  counters, both counted in ``resourceSliceCount`` (one slice, as
+  ``combined``, while there is no MIG device). Without a
+  ``publication_mode`` the server's ``/version`` chooses, as the
+  reference's ``_server_supports_split`` does: one request at
+  construction. The reference's ``legacy`` mode (no counters, no MIG)
+  comes with the entry point (ROADMAP.md §1b item 8).
 - **Prepare.** Each claim is fetched from the API server by namespace
   and name; a uid that differs from the kubelet's is refused. Its CDI
   ids come back grouped by request, and errors come back per claim.
@@ -22,18 +27,20 @@ through any object with ``KubeClient``'s surface:
   thread pool (``MAX_PARALLEL_PREPARES``) would buy nothing.
 - **Health.** ``ChipHealthMonitor`` polls its own ``tpulib`` handle
   (``DeviceState`` closes the one it enumerated with); its taints land
-  on the published devices. An unchanged taint set costs no API call at
-  all (the published hashes are remembered), except that every
-  ``TPU_DRA_PUBLISH_RECHECK_S`` the live pool is read again, so a slice
-  deleted or changed behind the driver's back comes back. With the
-  monitor off, every GPU carries an observe-only ``unmonitored`` taint,
-  as the upstream's ``device_health.go:36-40``.
+  on the published devices, and a GPU's on its MIG devices too (the JAX
+  driver leaves its sub-slices untainted). An unchanged taint set costs
+  no API call at all (the published hashes are remembered), except that
+  every ``TPU_DRA_PUBLISH_RECHECK_S`` the live pool is read again, so a
+  slice deleted or changed behind the driver's back comes back. With the
+  monitor off, every device carries an observe-only ``unmonitored``
+  taint, as the upstream's ``device_health.go:36-40``.
 - **Sweep.** ``NodeStateReconciler`` runs the stale-claim GC and the
   orphan passes on its own thread.
 
 Not ported: the gRPC transport (ROADMAP.md §1b item 8), metrics and
 tracing, the flight recorder, telemetry and power-cap attributes, the
-partition engine and its watcher, autoscale prewarm and tenancy.
+partition engine and its watcher (item 5b), autoscale prewarm and
+tenancy.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from ..tpulib.binding import load
 from . import DRIVER_NAME
 from .claim import ResourceClaim
 from .device_state import Config, DeviceState
+from .deviceinfo import AllocatableDevice, DeviceKind, gpu_name
 from .health import TAINT_KEY_PREFIX, ChipHealthMonitor, DeviceTaint
 from .partitions import consumed_counters, shared_counter_sets
 from .reconcile import NodeStateReconciler
@@ -57,6 +65,9 @@ logger = logging.getLogger(__name__)
 
 RESOURCE_GROUP = "resource.k8s.io"
 RESOURCE_VERSION = "v1"
+PUBLICATION_MODES = ("combined", "split")
+# The first API server version that serves the split layout (KEP-4815).
+SPLIT_SERVER_VERSION = (1, 35)
 
 
 class Driver:
@@ -64,10 +75,20 @@ class Driver:
 
     def __init__(self, config: Config, kube_client, node_name: str,
                  enable_health_monitor: bool = True,
-                 additional_ignored_health_kinds: tuple[str, ...] = ()):
-        self.state = DeviceState(config)
+                 additional_ignored_health_kinds: tuple[str, ...] = (),
+                 publication_mode: str | None = None):
         self.kube = kube_client
         self.node_name = node_name
+        if publication_mode is None:
+            publication_mode = "split" if self._server_supports_split() \
+                else "combined"
+        if publication_mode not in PUBLICATION_MODES:
+            raise ValueError(
+                f"unknown publication mode {publication_mode!r}: want one "
+                f"of {PUBLICATION_MODES} (legacy comes with the entry "
+                "point, ROADMAP.md §1b item 8)")
+        self.publication_mode = publication_mode
+        self.state = DeviceState(config)
         self._taints: dict[str, list[dict]] = {}
         # The hashes of the last slice set published, and when the live
         # pool was last read.
@@ -85,8 +106,9 @@ class Driver:
             # The startup enumeration is the baseline of the devfs
             # backend's health: a node that vanishes is chip_lost, and
             # the AER counters are read at the GPUs' PCI addresses.
-            gpus = sorted((d.chip.chip for d in self.state.allocatable
-                           .values()), key=lambda c: c.index)
+            gpus = sorted((d.gpu for d in self.state.allocatable.values()
+                           if d.kind == DeviceKind.CHIP),
+                          key=lambda c: c.index)
             opts = dataclasses.replace(
                 config.gpulib_opts,
                 expected_chips=",".join(str(c.minor) for c in gpus),
@@ -111,10 +133,21 @@ class Driver:
 
     def stop(self) -> None:
         """Stop and join every thread this driver started; the monitor
-        closes its device library."""
+        closes its device library, and the device state the one it kept
+        for MIG."""
         self.reconciler.stop()
         if self.health_monitor:
             self.health_monitor.stop()
+        self.state.close()
+
+    def _server_supports_split(self) -> bool:
+        try:
+            v = self.kube.server_version()
+            return (int(v.get("major", "0")),
+                    int(v.get("minor", "0").rstrip("+"))) \
+                >= SPLIT_SERVER_VERSION
+        except Exception:  # noqa: BLE001 - an unknown server: combined
+            return False
 
     # -- DRA callbacks ---------------------------------------------------
 
@@ -173,26 +206,42 @@ class Driver:
     # -- ResourceSlice publication ---------------------------------------
 
     def generate_resource_slices(self) -> list[dict]:
-        """The node's ResourceSlices: one slice of every GPU, each with
-        its taints and its counters."""
-        devices = []
+        """The node's ResourceSlices in the publication mode, each device
+        with its taints and its counters, each slice with the counter
+        sets; ``resourceSliceCount`` is the number of slices built."""
+        profiles = self.state.subslice_profiles
+        gpus, migs = [], []
         for dev in sorted(self.state.allocatable.values(),
-                          key=lambda d: d.chip.chip.index):
+                          key=AllocatableDevice.sort_key):
             entry = dev.to_dra_device()
-            taints = self._taints.get(dev.canonical_name)
+            # A MIG device carries its GPU's health taints.
+            taints = self._taints.get(dev.canonical_name) or \
+                self._taints.get(gpu_name(dev.gpu.index))
             if taints:
                 entry["taints"] = taints
-            entry["consumesCounters"] = consumed_counters(dev)
-            devices.append(entry)
-        spec = {"driver": DRIVER_NAME, "nodeName": self.node_name,
-                "pool": {"name": self.node_name, "resourceSliceCount": 1,
-                         "generation": 1},
-                "perDeviceNodeSelection": False, "devices": devices,
-                "sharedCounters": shared_counter_sets(self.state.host)}
-        return [{"apiVersion": f"{RESOURCE_GROUP}/{RESOURCE_VERSION}",
-                 "kind": "ResourceSlice",
-                 "metadata": {"name": f"{self.node_name}-{DRIVER_NAME}"},
-                 "spec": spec}]
+            entry["consumesCounters"] = consumed_counters(dev, profiles)
+            (gpus if dev.kind == DeviceKind.CHIP else migs).append(entry)
+
+        def slice_obj(suffix: str, devices: list[dict]) -> dict:
+            spec = {"driver": DRIVER_NAME, "nodeName": self.node_name,
+                    "pool": {"name": self.node_name,
+                             "resourceSliceCount": 1, "generation": 1},
+                    "perDeviceNodeSelection": False, "devices": devices,
+                    "sharedCounters": shared_counter_sets(self.state.host,
+                                                          profiles)}
+            return {"apiVersion": f"{RESOURCE_GROUP}/{RESOURCE_VERSION}",
+                    "kind": "ResourceSlice",
+                    "metadata": {"name":
+                                 f"{self.node_name}-{DRIVER_NAME}{suffix}"},
+                    "spec": spec}
+
+        if self.publication_mode == "split" and migs:
+            slices = [slice_obj("-gpus", gpus), slice_obj("-mig", migs)]
+        else:
+            slices = [slice_obj("", gpus + migs)]
+        for s in slices:
+            s["spec"]["pool"]["resourceSliceCount"] = len(slices)
+        return slices
 
     @staticmethod
     def _slice_hashes(slices: list[dict]) -> tuple:

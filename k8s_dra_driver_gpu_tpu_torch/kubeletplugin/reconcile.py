@@ -12,17 +12,24 @@ the JAX order (``reconcile_once``):
    this node's devices any more, or is pinned to another node, are
    unprepared;
 3. ``cdi_spec``: spec files with no checkpoint record are removed;
-4. ``devices_gone``: a completed claim whose GPUs this host no longer
+4. ``carveout``: MIG instances this plugin created that no checkpointed
+   claim references are destroyed, and registry entries whose GPU
+   instance is gone are dropped
+   (``DeviceState.destroy_unknown_subslices``);
+5. ``devices_gone``: a completed claim whose GPUs this host no longer
    has gets a ``PermanentFailure`` condition on the API server, so the
    control plane moves it.
 
-The claim lookups are made once a sweep and shared by the passes.
+The claim lookups are made once a sweep and shared by the passes. The
+MIG instance of a claim that moved or was deleted is destroyed by its
+unprepare (passes 1 and 2), with the rest of its teardown; pass 4 finds
+what a crash left.
 
-The JAX sweep's carve-out pass (ROADMAP.md §1b item 5, MIG), its idle
-partition pass (item 5) and its reservation-lease pass (the upgrade
-handover's leases, not ported with ``DeviceState``) have nothing to
-repair here and report 0. ``CDStateReconciler`` waits for
-``computedomain/`` (item 9); the recovery metrics are not ported.
+The JAX sweep's idle partition pass (ROADMAP.md §1b item 5b) and its
+reservation-lease pass (the upgrade handover's leases, not ported with
+``DeviceState``) have nothing to repair here and report 0.
+``CDStateReconciler`` waits for ``computedomain/`` (item 9); the
+recovery metrics are not ported.
 """
 
 from __future__ import annotations
@@ -88,6 +95,7 @@ class NodeStateReconciler:
         counts["moved_claim"] = self._sweep_moved_claims(
             self._state.prepared_claims(), lookups)
         counts["cdi_spec"] = self._sweep_cdi_specs()
+        counts["carveout"] = self._state.destroy_unknown_subslices()
         counts["devices_gone"] = self._declare_gone_devices(
             self._state.prepared_claims(), lookups)
         if any(counts.values()):

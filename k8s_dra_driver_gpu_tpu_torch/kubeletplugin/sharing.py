@@ -34,6 +34,14 @@ What differs from the JAX plugin, on an H100 host:
   group's minimum ``TPU_HBM_LIMIT_BYTES``) is gone: the timeslice is the
   GPU's own, and MPS caps each device's memory by itself, so the limits
   are per device.
+- **Memory limits in whole MiB.** MPS pins device memory in MiB
+  (``set_default_device_pinned_mem_limit``, ``CUDA_MPS_PINNED_DEVICE_
+  MEM_LIMIT``), while the JAX plugin hands its limit on in bytes. A limit
+  that is zero or not a whole number of MiB (``"1000000"``, ``"0"``,
+  ``"1572865"``) is refused at prepare, naming the request and the value,
+  with nothing left behind: rounding it would enforce another limit than
+  the claim records and the user asked for. ``"8Gi"`` and ``"512Mi"``
+  pass as they are.
 - **No client cap.** MPS has none: ``maxClients`` is written to
   ``claim.json`` only. Admission against it is the tenancy agent's
   (ROADMAP.md §1b item 7), as are the JAX plugin's preflight hooks.
@@ -75,6 +83,7 @@ MPS_CONTROL = "nvidia-cuda-mps-control"
 MPS_SERVER = "nvidia-cuda-mps-server"
 # Where a container finds its claim's pipe directory.
 MPS_CONTAINER_ROOT = "/var/run/nvidia-mps"
+MIB = 1 << 20
 
 
 class SharingError(RuntimeError):
@@ -312,14 +321,22 @@ class MultiTenancyManager:
         if self._control is None:
             raise SharingError(f"{MPS_CONTROL} not found: MPS is not "
                                "available on this node")
+        limits = {name: cfg.hbm_limit_bytes_for(name)
+                  for name in device_names}
+        for name, limit in limits.items():
+            if limit is not None and (limit <= 0 or limit % MIB):
+                given = cfg.per_device_hbm_limits.get(
+                    name, cfg.per_device_hbm_limits.get("*"))
+                raise SharingError(
+                    f"hbmLimit {given!r} of {name} is {limit} bytes: MPS "
+                    "pins device memory in whole MiB, so a limit must be "
+                    "a positive whole number of MiB")
         d = self._dir(claim_uid, request)
         os.makedirs(self.pipe_dir(d), exist_ok=True)
         os.makedirs(os.path.join(d, "log"), exist_ok=True)
-        limits = {name: cfg.hbm_limit_bytes_for(name)
-                  for name in device_names}
         # The daemon's numbering: the request's GPUs by index, from 0.
         by_index = sorted(zip(gpu_indices, device_names))
-        pinned = {str(ordinal): f"{limits[name] >> 20}M"
+        pinned = {str(ordinal): f"{limits[name] // MIB}M"
                   for ordinal, (_, name) in enumerate(by_index)
                   if limits[name] is not None}
         owner = {"claim": claim_uid, "request": request,

@@ -3,13 +3,14 @@ defaults (its ``pkg/featuregates.py``; the upstream driver's
 ``pkg/featuregates/featuregates.go``), so one ``FEATURE_GATES`` string
 means the same to both plugins.
 
-The GPU plugin reads two: ``TimeSlicingSettings`` and
+The GPU plugin reads three: ``TimeSlicingSettings`` and
 ``MultiTenancySupport`` (the upstream's ``MPSSupport``), which needs the
-first, as in both. Any other gate set away from its default names a
+first, as in both; and ``DynamicSubSlice`` (the upstream's
+``DynamicMIG``): MIG devices created at prepare. Any other gate set away
+from its default names a
 feature the port does not run: ``unported()`` lists it and
 ``DeviceState`` refuses it (``NotPortedError``). Upstream counterparts of
-the others: ``DynamicSubSlice`` is ``DynamicMIG``,
-``DomainDaemonsWithDNSNames`` is ``IMEXDaemonsWithDNSNames``,
+the others: ``DomainDaemonsWithDNSNames`` is ``IMEXDaemonsWithDNSNames``,
 ``ChipHealthCheck`` is ``NVMLDeviceHealthCheck``,
 ``CrashOnICIFabricErrors`` is ``CrashOnNVLinkFabricErrors``;
 ``PassthroughSupport``, ``ComputeDomainCliques`` and ``DeviceMetadata``
@@ -23,8 +24,9 @@ from dataclasses import dataclass, field
 
 TIME_SLICING_SETTINGS = "TimeSlicingSettings"
 MULTI_TENANCY_SUPPORT = "MultiTenancySupport"
+DYNAMIC_SUB_SLICE = "DynamicSubSlice"
 # The gates the GPU plugin reads.
-READ = (TIME_SLICING_SETTINGS, MULTI_TENANCY_SUPPORT)
+READ = (TIME_SLICING_SETTINGS, MULTI_TENANCY_SUPPORT, DYNAMIC_SUB_SLICE)
 
 # Every gate of the JAX plugin, by its default.
 DEFAULTS: dict[str, bool] = {
@@ -33,7 +35,7 @@ DEFAULTS: dict[str, bool] = {
     "DomainDaemonsWithDNSNames": True,
     "PassthroughSupport": False,
     "ChipHealthCheck": True,
-    "DynamicSubSlice": False,
+    DYNAMIC_SUB_SLICE: False,
     "TenantPartitioning": False,
     "ComputeDomainCliques": True,
     "CrashOnICIFabricErrors": True,

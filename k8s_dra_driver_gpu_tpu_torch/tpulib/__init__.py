@@ -14,6 +14,8 @@ from .binding import (
     GpuHostInfo,
     GpuLibError,
     HealthEvent,
+    MigInstance,
+    NvmlError,
     NvmlLib,
     PyGpuLib,
     SubSliceProfile,
@@ -28,6 +30,8 @@ __all__ = [
     "GpuHostInfo",
     "GpuLibError",
     "HealthEvent",
+    "MigInstance",
+    "NvmlError",
     "NvmlLib",
     "PyGpuLib",
     "SubSliceProfile",

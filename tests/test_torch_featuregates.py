@@ -57,7 +57,8 @@ def test_the_same_gates_with_the_same_defaults():
     assert pt_fg.DEFAULTS == {name: spec.default for name, spec
                               in jax_fg.KNOWN_FEATURES.items()}
     assert set(pt_fg.READ) == {jax_fg.TIME_SLICING_SETTINGS,
-                               jax_fg.MULTI_TENANCY_SUPPORT}
+                               jax_fg.MULTI_TENANCY_SUPPORT,
+                               jax_fg.DYNAMIC_SUB_SLICE}
     assert jax_fg.KNOWN_FEATURES[pt_fg.MULTI_TENANCY_SUPPORT].requires == (
         pt_fg.TIME_SLICING_SETTINGS,)
 
@@ -79,7 +80,8 @@ def test_parse_matches_the_references(spec):
     ("ChipHealthCheck=true,TopologyAwarePlacement=true", []),
     ("ChipHealthCheck=false", ["ChipHealthCheck"]),
     ("DeviceMetadata=true,TimeSlicingSettings=true,DynamicSubSlice=true",
-     ["DeviceMetadata", "DynamicSubSlice"]),
+     ["DeviceMetadata"]),
+    ("TenantPartitioning=true,DynamicSubSlice=true", ["TenantPartitioning"]),
 ])
 def test_unported_names_the_gates_set_away_from_their_default(spec,
                                                               unported):

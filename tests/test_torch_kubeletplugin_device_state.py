@@ -14,8 +14,12 @@ structure, what NVML refused (left out or unpublished), the refusals of
 what is not ported, and the NVML path over a fake ``libnvidia-ml.so.1``.
 """
 
+import contextlib
+import dataclasses
 import json
 import os
+import re
+from unittest import mock
 
 import pytest
 
@@ -44,32 +48,102 @@ from tests.test_torch_kubeletplugin_sharing import (expected_level,
 
 BOOT = "boot-0"
 SHARING_GATES = "TimeSlicingSettings=true,MultiTenancySupport=true"
+MIG_GATES = "DynamicSubSlice=true"
+
+
+def write_mig_caps(root: str, gpus: int = 8) -> None:
+    """The driver's MIG capability files under a mock host's ``root``:
+    ``proc/driver/nvidia-caps/mig-minors`` in the driver's format (every
+    GPU instance 0-14 and compute instance 0-7 of GPUs 0 .. gpus - 1),
+    and each minor's ``dev/nvidia-caps/nvidia-cap<N>`` as an empty
+    file."""
+    lines, minor = ["config 1", "monitor 2"], 2
+    for gpu in range(gpus):
+        for gi in range(15):
+            minor += 1
+            lines.append(f"gpu{gpu}/gi{gi}/access {minor}")
+            for ci in range(8):
+                minor += 1
+                lines.append(f"gpu{gpu}/gi{gi}/ci{ci}/access {minor}")
+    proc = os.path.join(root, "proc", "driver", "nvidia-caps")
+    caps = os.path.join(root, "dev", "nvidia-caps")
+    os.makedirs(proc, exist_ok=True)
+    os.makedirs(caps, exist_ok=True)
+    with open(os.path.join(proc, "mig-minors"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    for n in range(1, minor + 1):
+        open(os.path.join(caps, f"nvidia-cap{n}"), "w").close()
+
+
+class _Degraded:
+    """A device library whose host lacks its last chip (the JAX mock) or
+    cannot publish its last GPU (the port's: no device node)."""
+
+    def __init__(self, lib, jax: bool):
+        self._lib, self._jax = lib, jax
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def enumerate(self, opts=None):
+        host = self._lib.enumerate(opts)
+        last = host.chips[-1]
+        if self._jax:
+            return dataclasses.replace(host, chips=host.chips[:-1])
+        return dataclasses.replace(host, chips=host.chips[:-1] + (
+            dataclasses.replace(last, devpath="", minor=-1),))
 
 
 class Side:
     """One plugin under test: the JAX one or the port (over the fake
-    binaries under ``driver_root``, where given)."""
+    binaries under ``driver_root``, where given). With ``mig`` the JAX
+    plugin runs a ``v5p-8`` host (four chips of two TensorCores, with
+    their sub-slices) and the port an ``h100-4`` host with MIG on and the
+    driver's MIG capability files."""
 
     def __init__(self, name: str, root: str, gates: str = "",
-                 driver_root: str | None = None):
+                 driver_root: str | None = None, mig: bool = False):
         self.name = name
         self.root = root
         self.gates = gates
         self.driver_root = driver_root
+        self.mig = mig
+        self.statics: tuple = ()
+        self.degraded = False
+        self.admin = 0  # GPU instances an admin made (the port's)
         self.module = jax_ds if name == "jax" else pt_ds
+        if mig and name == "pt":
+            write_mig_caps(root)
         self.state = self.new_state()
 
     def new_state(self):
         if self.name == "jax":
-            cfg = jax_ds.Config.mock(root=self.root, topology="v5e-4",
+            cfg = jax_ds.Config.mock(root=self.root, topology="v5p-8"
+                                     if self.mig else "v5e-4",
                                      gates=self.gates)
+            real = jax_ds.load_tpulib
+            patch = mock.patch.object(jax_ds, "load_tpulib", lambda: _Degraded(
+                real(), True)) if self.degraded else contextlib.nullcontext()
         else:
             cfg = pt_ds.Config.mock(root=self.root, topology="h100-4",
-                                    gates=self.gates)
+                                    gates=self.gates, mig_mode="enabled"
+                                    if self.mig else "disabled")
             if self.driver_root:
                 cfg.driver_root = self.driver_root
+            real = pt_ds.load
+            patch = mock.patch.object(pt_ds, "load", lambda backend: _Degraded(
+                real(backend), False)) if self.degraded \
+                else contextlib.nullcontext()
+        cfg.static_subslices = tuple(map(self.device, self.statics))
         cfg.boot_id = BOOT
-        return self.module.DeviceState(cfg)
+        with patch:
+            return self.module.DeviceState(cfg)
+
+    def registry(self) -> int:
+        """The live instances the plugin's registry names."""
+        if self.name == "jax":
+            return len(self.state._registry.list())
+        return len(self.state.mig_registry())
 
     def sharing(self):
         """Each GPU's timeslice record (interval, holders), and each MPS
@@ -94,8 +168,22 @@ class Side:
                 _neutral(k): v for k, v in doc["hbmLimits"].items()}))
         return records, manifests
 
-    def device(self, index: int) -> str:
-        return f"chip-{index}" if self.name == "jax" else gpu_name(index)
+    def device(self, token) -> str:
+        """A whole chip or GPU by index; ("mig", i, k) the JAX plugin's
+        TensorCore k of chip i and the port's 1g.10gb MIG device at
+        memory slot k of GPU i; ("full", i) a sub-slice of all chip i and
+        the 7g.80gb MIG device of GPU i; ("bad",) a name of neither."""
+        jax = self.name == "jax"
+        if isinstance(token, int):
+            return f"chip-{token}" if jax else gpu_name(token)
+        kind, *at = token
+        if kind == "mig":
+            return f"chip-{at[0]}-ss-1c-{at[1]}" if jax \
+                else f"gpu-{at[0]}-mig-1g10gb-{at[1]}"
+        if kind == "full":
+            return f"ss-1x1x1-{at[0]}" if jax \
+                else f"gpu-{at[0]}-mig-7g80gb-0"
+        return "chip-0-ss-9c-0" if jax else "gpu-0-mig-9g90gb-0"
 
     def claim(self, uid, indices, configs=()):
         devices = [self.device(i) for i in indices]
@@ -142,7 +230,7 @@ def container_gpus(state, specs) -> list[int]:
             nodes += [n["path"] for n in edits.get("deviceNodes", [])]
             env.update(e.partition("=")[::2] for e in edits.get("env", []))
     assert env["CUDA_DEVICE_ORDER"] == "PCI_BUS_ID"
-    by_node = {dev.chip.chip.devpath: dev.chip.chip.index
+    by_node = {dev.gpu.devpath: dev.gpu.index
                for dev in state.allocatable.values()}
     gpus = sorted({by_node[n] for n in nodes if n in by_node})
     if "CUDA_VISIBLE_DEVICES" not in env:
@@ -156,7 +244,16 @@ def container_gpus(state, specs) -> list[int]:
 
 
 def _neutral(name: str) -> str:
+    name = re.sub(r"chip-(\d+)-ss-1c-(\d+)|gpu-(\d+)-mig-1g10gb-(\d+)",
+                  lambda m: f"#{m[1] or m[3]}.m{m[2] or m[4]}", name)
+    name = re.sub(r"ss-1x1x1-(\d+)|gpu-(\d+)-mig-7g80gb-0",
+                  lambda m: f"#{m[1] or m[2]}.full", name)
     return name.replace("chip-", "#").replace("gpu-", "#")
+
+
+# The devices whose publication the MIG scenarios compare.
+MIG_TOKENS = [("mig", i, k) for i in range(4) for k in range(2)] + [
+    ("full", i) for i in range(4)] + list(range(4))
 
 
 def _shared(state: str) -> dict:
@@ -189,6 +286,39 @@ def _run(side: Side, op: tuple, monkeypatch):
                 uid, cls(uid=uid, state="PrepareStarted"))
         if kind == "restart":
             side.state = side.new_state()
+        if kind == "degrade":
+            side.degraded = True
+            side.state = side.new_state()
+        if kind == "restart_static":
+            side.statics = tuple(op[2])
+            side.state = side.new_state()
+        if kind == "published":
+            kinds = {name: dev.kind.value
+                     for name, dev in side.state.allocatable.items()}
+            return "ok", [(_neutral(side.device(t)),
+                           kinds.get(side.device(t))) for t in MIG_TOKENS]
+        if kind == "admin" and side.name == "pt":
+            # An admin's GPU instance, made before the plugin starts.
+            from k8s_dra_driver_gpu_tpu_torch.tpulib import PyGpuLib
+            from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.subslice import \
+                parse_mig_name
+
+            lib = PyGpuLib()
+            lib.enumerate(side.state._config.gpulib_opts)
+            lib.create_mig(*parse_mig_name(side.device(op[2])))
+            side.admin += 1
+        if kind == "orphan":
+            # What a crash after the create leaves: a live instance in
+            # the registry that no claim names.
+            name = side.device(op[2])
+            if side.name == "jax":
+                from k8s_dra_driver_gpu_tpu.kubeletplugin import subslice
+                side.state._registry.create(subslice.SubSliceLiveTuple(
+                    spec=subslice.SubSliceSpecTuple.from_canonical_name(
+                        name), uuid="tpu-ss-orphan"))
+            else:
+                side.state._create_mig(
+                    side.state.allocatable[name].subslice.spec)
         if kind == "prepare_under_live_mps":
             # Neither plugin prepares such a claim again: the JAX one
             # returns its ids, the port raises (unprepare recovers it).
@@ -241,6 +371,53 @@ SCENARIOS = {
         ("prepare", "c1", [0, 1]), ("restart", "-"), ("prepare", "c1", [0, 1]),
         ("prepare", "c2", [1]), ("unprepare", "c1"), ("prepare", "c2", [1])],
 }
+
+
+# MIG devices against the JAX plugin's sub-slices (tests/
+# test_device_state.py:37-226): the same outcome class and the same count
+# of live instances in the registry after every step.
+_M00, _M01, _M10, _M11 = (("mig", 0, 0), ("mig", 0, 1), ("mig", 1, 0),
+                          ("mig", 1, 1))
+SCENARIOS.update({
+    "MIG dynamic devices published": [("published", "-")],
+    "MIG gate off publishes none": [
+        ("published", "-"), ("prepare", "c1", [_M00]),
+        ("prepare", "c2", [0])],
+    "MIG overlap with a whole GPU refused": [
+        ("prepare", "c1", [_M00]), ("prepare", "c2", [0]),
+        ("prepare", "c3", [1]), ("prepare", "c4", [_M11]),
+        ("prepare", "c5", [("full", 2)]), ("prepare", "c6", [("mig", 2, 1)]),
+        ("prepare", "c7", [2]), ("prepare", "c8", [3, ("mig", 3, 0)])],
+    "MIG disjoint devices allowed": [
+        ("prepare", "c1", [_M00]), ("prepare", "c2", [_M01]),
+        ("prepare", "c3", [_M00]), ("prepare", "c4", [0]),
+        ("prepare", "c5", [("full", 0)]), ("prepare", "c6", [_M10, _M11]),
+        ("prepare", "c7", [2, ("mig", 3, 1)])],
+    "MIG dynamic lifecycle": [
+        ("prepare", "c1", [_M00]), ("prepare", "c1", [_M00]),
+        ("unprepare", "c1"), ("prepare", "c2", [("full", 3)]),
+        ("restart", "-"), ("prepare", "c2", [("full", 3)]),
+        ("unprepare", "c2"), ("unprepare", "c2"), ("prepare", "c3", [3])],
+    "MIG static device prepared and not destroyed": [
+        ("admin", "-", _M00), ("restart_static", "-", [_M00]),
+        ("published", "-"), ("prepare", "c1", [_M00]), ("unprepare", "c1"),
+        ("published", "-"), ("prepare", "c2", [_M00, _M01]),
+        ("unprepare", "c2")],
+    "MIG degraded host publishes none": [
+        ("degrade", "-"), ("published", "-"), ("prepare", "c1", [_M00]),
+        ("prepare", "c2", [0])],
+    "MIG invalid static name fails startup": [
+        ("restart_static", "-", [("bad",)]),
+        ("restart_static", "-", [("mig", 9, 0)]), ("prepare", "c1", [_M00])],
+    "MIG failure midway rolls back": [
+        ("prepare", "c0", [3]), ("fail_prepare", "c1", [_M00, _M11]),
+        ("prepare", "c2", [_M00]), ("prepare", "c1", [_M11]),
+        ("unprepare", "c2")],
+    "MIG restart sweeps an orphan": [
+        ("prepare", "c1", [_M00]), ("orphan", "-", _M10),
+        ("restart", "-"), ("prepare", "c2", [_M10]), ("unprepare", "c1"),
+        ("orphan", "-", _M01), ("restart", "-")],
+})
 
 
 def _mps(max_clients=2, hbm_limit="8Gi") -> dict:
@@ -307,6 +484,19 @@ def _check_the_port_on_its_card(side: Side) -> None:
         side.state._tenancy._owners())
 
 
+def _check_the_port_on_its_gpus(side: Side) -> None:
+    """The instances on the mock GPUs are the registry's and the
+    admin's, and every prepared MIG device of the registry exists."""
+    from k8s_dra_driver_gpu_tpu_torch.tpulib import PyGpuLib
+
+    lib = PyGpuLib()
+    lib.enumerate(side.state._config.gpulib_opts)
+    walk = {i.uuid for gpu in range(4) for i in lib.mig_instances(gpu)}
+    registry = side.state.mig_registry()
+    assert set(registry) <= walk
+    assert len(walk) == len(registry) + side.admin
+
+
 def _compare(sides, ops, monkeypatch):
     for op in ops:
         got = [_run(side, op, monkeypatch) for side in sides]
@@ -318,11 +508,17 @@ def _compare(sides, ops, monkeypatch):
                 sides[0].state._cdi.spec_exists(op[1])
         if sides[1].driver_root:
             _check_the_port_on_its_card(sides[1])
+        if sides[1].mig:
+            assert sides[1].registry() == sides[0].registry(), op
+            _check_the_port_on_its_gpus(sides[1])
 
 
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
 def test_claim_sequence_matches_the_references(tmp_path, monkeypatch, name):
-    sides = [Side(side, str(tmp_path / side)) for side in ("jax", "pt")]
+    mig = name.startswith("MIG")
+    gates = MIG_GATES if mig and "gate off" not in name else ""
+    sides = [Side(side, str(tmp_path / side), gates, mig=mig)
+             for side in ("jax", "pt")]
     _compare(sides, SCENARIOS[name], monkeypatch)
 
 
@@ -539,7 +735,6 @@ def test_a_uuid_that_gpus_share_is_left_out(shared):
 # -- what is not ported --------------------------------------------------------
 
 @pytest.mark.parametrize("parameters, item", [
-    ({"apiVersion": PT_API, "kind": "MigDeviceConfig"}, 5),
     ({"apiVersion": PT_API, "kind": "VfioDeviceConfig"}, 6),
 ])
 def test_configs_of_unported_features_are_refused(state, parameters, item):
@@ -622,8 +817,7 @@ def _claim(uid, indices, body=None):
 
 
 @pytest.mark.parametrize("gates, item", [
-    ("DynamicSubSlice=true", 5),
-    ("TenantPartitioning=true,DynamicSubSlice=true", 5),
+    ("TenantPartitioning=true,DynamicSubSlice=true", "5b"),
     ("PassthroughSupport=true", 6),
     ("DomainDaemonsWithDNSNames=false", 9),
     ("ComputeDomainCliques=false", 9),
@@ -643,12 +837,15 @@ def test_gates_of_unported_features_are_refused(tmp_path, gates, item):
 def test_every_gate_is_read_or_refused(tmp_path):
     assert pt_ds.NOT_PORTED_GATES.keys() == set(
         pt_fg.DEFAULTS) - set(pt_fg.READ)
-    # At its default a gate is no refusal, and the sharing gates are read.
+    # At its default a gate is no refusal, and the sharing and MIG gates
+    # are read.
     spec = ",".join(f"{name}={str(value).lower()}"
                     for name, value in pt_fg.DEFAULTS.items())
     pt_ds.DeviceState(pt_ds.Config.mock(str(tmp_path), "h100-4", spec))
     pt_ds.DeviceState(pt_ds.Config.mock(str(tmp_path), "h100-4",
                                         SHARING_GATES))
+    pt_ds.DeviceState(pt_ds.Config.mock(str(tmp_path), "h100-4",
+                                        "DynamicSubSlice=true"))
 
 
 def test_an_mps_claims_spec(tmp_path, fake_driver):

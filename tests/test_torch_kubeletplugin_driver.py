@@ -96,10 +96,9 @@ class Side:
         cfg = kw.pop("config", None) or self.config(**{
             k: kw.pop(k) for k in ("sub", "gpus", "health_events")
             if k in kw})
-        if self.name == "jax":
-            # The one layout the port publishes, without the JAX
-            # driver's sniff of the server's version.
-            kw["publication_mode"] = "combined"
+        # One layout on both sides, without either driver's sniff of the
+        # server's version.
+        kw.setdefault("publication_mode", "combined")
         d = self.driver_mod.Driver(cfg, kube or self.kube, node_name=node,
                                    enable_health_monitor=monitor, **kw)
         self.drivers.append(d)
@@ -178,22 +177,38 @@ def same(sides, fn):
     return pt
 
 
+def counters_by_chip(sets, set_key="name"):
+    """The counters of a ``sharedCounters`` or ``consumesCounters`` block
+    by the chip or GPU they count: the JAX layout's ``core-<i>-<k>`` and
+    ``hbm-<i>`` of its one host set, the port's every counter of its set
+    ``gpu-<i>-counter-set``."""
+    out: dict[int, dict] = {}
+    for c in sets:
+        m = re.fullmatch(r"gpu-(\d+)-counter-set", c[set_key])
+        for key, value in c["counters"].items():
+            index = int(m.group(1)) if m else int(
+                re.match(r"(?:core|hbm)-(\d+)", key).group(1))
+            out.setdefault(index, {})[key] = value
+    return out
+
+
 def structure(slices):
     """What the comparison reads of a pool: per slice its name, count,
-    generation, shared counter keys, and per device its name, counter
-    keys and taints by key and effect."""
+    generation, the chips its shared counters count, and per device its
+    name, what it consumes of each chip's counters (all of them, or a
+    part) and its taints by key and effect."""
     out = []
     for s in sorted(slices, key=lambda s: s["metadata"]["name"]):
         spec = s["spec"]
+        shared = counters_by_chip(spec.get("sharedCounters", []))
         out.append((
             s["metadata"]["name"], spec["driver"], spec["nodeName"],
             spec["pool"]["resourceSliceCount"], spec["pool"]["generation"],
-            [sorted(c["counters"]) for c in spec.get("sharedCounters", [])],
+            sorted(shared),
             [(d["name"],
-              [(c["counterSet"], sorted(c["counters"]),
-                [v["value"] == "1" for k, v in sorted(c["counters"].items())
-                 if k.startswith("core")])
-               for c in d.get("consumesCounters", [])],
+              [(i, "all" if used == shared.get(i) else "part")
+               for i, used in sorted(counters_by_chip(
+                   d.get("consumesCounters", []), "counterSet").items())],
               [(t["key"], t.get("effect")) for t in d.get("taints", [])])
              for d in spec["devices"]]))
     return out
@@ -208,19 +223,95 @@ class TestResourceSlices:
             d = side.driver()
             return d.publish_resources(), structure(side.slices())
         got = same(sides, run)
-        assert "'#0'" in got and "'core-0-0'" in got
+        assert "('#0', [(0, 'all')]" in got
 
     def test_construction_sends_no_request(self, tmp_path):
-        """The port publishes one layout, so nothing asks the server's
+        """With its publication mode given, nothing asks the server's
         version: a driver costs no request until it publishes."""
         with pt_server.FakeApiServer() as server:
             d = pt_driver.Driver(
                 pt_ds.Config.mock(str(tmp_path), topology="h100-4"),
                 pt_kube.KubeClient(host=server.url), node_name="node-a",
-                enable_health_monitor=False)
+                enable_health_monitor=False, publication_mode="combined")
             assert server.request_count() == 0
             d.publish_resources()
             assert server.requests == {"GET": 1, "POST": 1}
+
+    @pytest.mark.parametrize("version, mode", [("34", "combined"),
+                                               ("35", "split"),
+                                               ("36+", "split")])
+    def test_the_servers_version_chooses_the_mode(self, tmp_path, version,
+                                                  mode):
+        """Without a publication mode, one ``/version`` request chooses
+        it, as the JAX driver's sniff does."""
+        with pt_server.FakeApiServer() as server:
+            server.store.version = {"major": "1", "minor": version}
+            d = pt_driver.Driver(
+                pt_ds.Config.mock(str(tmp_path), topology="h100-4"),
+                pt_kube.KubeClient(host=server.url), node_name="node-a",
+                enable_health_monitor=False)
+            jax_mode = jax_driver.Driver(
+                jax_ds.Config.mock(root=str(tmp_path / "jax"),
+                                   topology="v5e-4", gates=""),
+                jax_kube.KubeClient(host=server.url), node_name="node-a",
+                enable_health_monitor=False).publication_mode
+            assert (d.publication_mode, jax_mode) == (mode, mode)
+            assert server.requests == {"GET": 2}
+        with pytest.raises(ValueError, match="legacy .*§1b item 8"):
+            pt_driver.Driver(pt_ds.Config.mock(str(tmp_path)),
+                             pt_kube.FakeKubeClient(), "n",
+                             enable_health_monitor=False,
+                             publication_mode="legacy")
+
+    @pytest.mark.parametrize("mode", ["split", "combined"])
+    def test_mig_publication_has_the_references_structure(self, sides,
+                                                          mode):
+        """Whole devices and sub-devices (the JAX plugin's sub-slices on
+        a v5p-8, the port's MIG devices on an h100-4 with MIG on): in
+        split mode two slices, each counted in ``resourceSliceCount``,
+        one of whole devices that each consume all of their chip's
+        counters and one of sub-devices that each consume a part of
+        theirs, or all of it for a carve-out of a whole chip (``ss-1x1x1``,
+        ``7g.80gb``); in combined mode one slice of both."""
+        def run(side):
+            root = f"{side.root}/mig"
+            if side.name == "jax":
+                cfg = jax_ds.Config.mock(root=root, topology="v5p-8",
+                                         gates="DynamicSubSlice=true")
+            else:
+                cfg = pt_ds.Config.mock(root, topology="h100-4",
+                                        gates="DynamicSubSlice=true",
+                                        mig_mode="enabled")
+            stats = side.driver(config=cfg,
+                                publication_mode=mode).publish_resources()
+            out = []
+            for s in sorted(side.slices(), key=lambda s: s["metadata"][
+                    "name"]):
+                spec = s["spec"]
+                shared = counters_by_chip(spec["sharedCounters"])
+                kinds = set()
+                for d in spec["devices"]:
+                    whole = bool(re.fullmatch(r"(chip|gpu)-\d+", d["name"]))
+                    kinds |= {("whole" if whole else "sub",
+                               "all" if u == shared[i] else "part")
+                              for i, u in counters_by_chip(
+                                  d["consumesCounters"],
+                                  "counterSet").items()}
+                name = re.sub(r"-(chips|gpus)$", "-WHOLE", re.sub(
+                    r"-(partitions|mig)$", "-SUB", s["metadata"]["name"]))
+                out.append((name, spec["pool"]["resourceSliceCount"],
+                            sorted(kinds), sorted(shared)))
+            return stats["writes"], out
+        got = same(sides, run)
+        sub = [("sub", "all"), ("sub", "part")]
+        if mode == "split":
+            assert got == neutral(repr((2, [
+                ("node-a-DRV-WHOLE", 2, [("whole", "all")], [0, 1, 2, 3]),
+                ("node-a-DRV-SUB", 2, sub, [0, 1, 2, 3])])))
+        else:
+            assert got == neutral(repr((1, [
+                ("node-a-DRV", 1, sub + [("whole", "all")],
+                 [0, 1, 2, 3])])))
 
     def test_republish_unchanged_is_write_free(self, sides):
         def run(side):
@@ -256,13 +347,15 @@ class TestResourceSlices:
         def run(side):
             side.driver().publish_resources()
             spec = side.slices()[0]["spec"]
-            counters = spec["sharedCounters"][0]["counters"]
-            mem = {d["name"]: int(d["consumesCounters"][0]["counters"][
-                f"hbm-{i}"]["value"]) for i, d in enumerate(spec["devices"])}
-            return (spec["sharedCounters"][0]["name"], sorted(counters),
-                    [mem[side.dev(i)] == int(counters[f"hbm-{i}"]["value"])
-                     for i in range(4)])
-        same(sides, run)
+            shared = counters_by_chip(spec["sharedCounters"])
+            memory = "hbm-{}" if side.name == "jax" else "memory"
+            used = {d["name"]: counters_by_chip(d["consumesCounters"],
+                                                "counterSet")
+                    for d in spec["devices"]}
+            return (sorted(shared),
+                    [used[side.dev(i)][i][memory.format(i)]
+                     == shared[i][memory.format(i)] for i in range(4)])
+        assert same(sides, run) == repr(([0, 1, 2, 3], [True] * 4))
 
 
 # -- sliceutil: the publish diff on scripted pools ------------------------

@@ -98,6 +98,64 @@ def test_claim_pinned_elsewhere_is_moved(sides, pinned, moved):
     assert f"'moved_claim': {moved}" in same(sides, run)
 
 
+def _mig_driver(side):
+    """A driver over sub-devices: the JAX plugin's sub-slices on a v5p-8,
+    the port's MIG devices on an h100-4 with MIG on."""
+    from k8s_dra_driver_gpu_tpu.kubeletplugin import device_state as jax_ds
+    from tests.test_torch_kubeletplugin_device_state import write_mig_caps
+
+    root = f"{side.root}/mig"
+    if side.name == "jax":
+        cfg = jax_ds.Config.mock(root=root, topology="v5p-8",
+                                 gates="DynamicSubSlice=true")
+    else:
+        write_mig_caps(root)
+        cfg = pt_ds.Config.mock(root, topology="h100-4",
+                                gates="DynamicSubSlice=true",
+                                mig_mode="enabled")
+    return side.driver(config=cfg)
+
+
+def test_carveout_pass_destroys_what_no_claim_references(sides):
+    """A claim's sub-device is destroyed with the rest of its teardown
+    when the claim goes; an instance no claim references (a crash after
+    its create) is destroyed by the carve-out pass."""
+    def run(side):
+        jax = side.name == "jax"
+        d = _mig_driver(side)
+        device = "chip-0-ss-1c-0" if jax else "gpu-0-mig-1g10gb-0"
+        obj = make_claim_dict("u1", [device], request="req",
+                              driver=side.driver_name)
+        side.kube.create(*RC, obj, namespace="default")
+        out = d.prepare_resource_claims([ref("u1")])
+        assert out["u1"][1] == "", out
+        state = d.state
+        if jax:
+            from k8s_dra_driver_gpu_tpu.kubeletplugin import subslice
+            state._registry.create(subslice.SubSliceLiveTuple(
+                spec=subslice.SubSliceSpecTuple.from_canonical_name(
+                    "chip-1-ss-1c-1"), uuid="tpu-ss-orphan"))
+
+            def live():
+                return len(state._registry.list())
+        else:
+            state._create_mig(state.allocatable[
+                "gpu-1-mig-1g10gb-1"].subslice.spec)
+
+            def live():
+                return len(state.mig_registry())
+        counts = [live()]
+        counts.append(sweep(d))
+        counts.append(live())
+        side.kube.delete(*RC, "u1", namespace="default")
+        counts.append(sweep(d))
+        counts.append(live())
+        return counts
+    got = same(sides, run)
+    assert "2, {'stale_claim': 0" in got and "'carveout': 1" in got
+    assert "'stale_claim': 1" in got and got.endswith(", 0]")
+
+
 def test_orphan_cdi_spec(sides):
     def run(side):
         d = prepared(side, "u1", [0])

@@ -545,3 +545,63 @@ def test_pipe_paths_stay_short(tmp_path, uid, req):
             assert len(os.path.join(mt.pipe_dir(d), "control")) < 108
     container = f"{sharing.MPS_CONTAINER_ROOT}/{mt.dir_name(uid, req)}"
     assert len(container + "/control_privileged") < 108
+
+
+# -- memory limits in whole MiB (ROADMAP.md §3 item 10) -------------------------
+
+
+@pytest.mark.parametrize("hbm_limit, per_device", [
+    ("1000000", None), ("0", None), ("1572865", None),
+    ("8Gi", {"gpu-1": "1572865"}), (None, {"gpu-0": "0Mi"})])
+def test_a_limit_that_is_no_whole_mib_is_refused(tmp_path, driver_root,
+                                                 hbm_limit, per_device):
+    # A prepare through the plugin: refused, naming the request and the
+    # value, with no manifest, daemon or spec left behind.
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin import device_state
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.claim import \
+        ResourceClaim
+    from tests.fake_kube import make_claim_dict
+
+    cfg = device_state.Config.mock(
+        str(tmp_path / "state"), topology="h100-4",
+        gates="TimeSlicingSettings=true,MultiTenancySupport=true")
+    cfg.driver_root = driver_root
+    state = device_state.DeviceState(cfg)
+    multi = {"maxClients": 2}
+    if hbm_limit is not None:
+        multi["hbmLimit"] = hbm_limit
+    if per_device:
+        multi["perDeviceHbmLimits"] = per_device
+    claim = ResourceClaim.from_dict(make_claim_dict(
+        "c1", ["gpu-0", "gpu-1"], driver="gpu.nvidia.com", request="gpu",
+        configs=[{"parameters": {
+            "apiVersion": "resource.nvidia.com/v1beta1", "kind": "GpuConfig",
+            "sharing": {"strategy": "MultiTenancy",
+                        "multiTenancy": multi}}}]))
+    bad = [v for v in [hbm_limit, *(per_device or {}).values()]
+           if v not in ("8Gi", None)][0]
+    with pytest.raises(device_state.PrepareError,
+                       match=f"request 'gpu': hbmLimit '{bad}' of gpu-.* "
+                             "whole MiB"):
+        state.prepare(claim)
+    assert state.prepared_claims() == {}
+    assert not state._cdi.spec_exists("c1")
+    assert os.listdir(state._tenancy._root) == []
+    assert fake_daemon_pids(driver_root) == []
+
+
+@pytest.mark.parametrize("hbm_limit, pinned", [("8Gi", "8192M"),
+                                               ("512Mi", "512M"),
+                                               ("1048576", "1M")])
+def test_a_whole_mib_limit_is_pinned_unchanged(tmp_path, driver_root,
+                                               hbm_limit, pinned):
+    mt = manager(tmp_path, driver_root)
+    edits = mt.start("c1", "gpu", [0], _cfg(MultiTenancyConfig,
+                                            hbm_limit=hbm_limit), ["gpu-0"])
+    assert edits.env[-1] == f"CUDA_MPS_PINNED_DEVICE_MEM_LIMIT=0={pinned}"
+    with open(os.path.join(request_dir(mt, "c1", "gpu"),
+                           "claim.json")) as f:
+        owner = json.load(f)
+    assert owner["pinnedMemLimits"] == {"0": pinned}
+    assert owner["hbmLimits"]["gpu-0"] == int(pinned[:-1]) << 20
+    mt.stop("c1")
