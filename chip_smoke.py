@@ -191,6 +191,33 @@ and prints no result line):
    destroys whatever the registry still names. It never changes the MIG
    mode. Host ms of construction, publication, prepare (with its
    ``prep_create_subslice`` segment), unprepare and the sweep.
+16. partitions: tenant partitions over MIG instances, in a child that
+   never initialises CUDA (``PARTITION_PLUGIN``). ``DeviceState`` over
+   the real NVML with ``DynamicSubSlice``, ``TenantPartitioning`` and
+   both sharing gates, and a ``PartitionSet`` of two profiles over
+   ``1g.10gb``: ``x1`` (one tenant) and ``s2`` (two, ``hbmFraction``
+   0.9). Exactly one of three outcomes must hold: (a) MIG off:
+   construction refuses the set with ``PartitionSpecError`` naming
+   ``1g.10gb`` as no carve-out of this host, nothing left behind; (b) MIG
+   on and MPS served: two tenant claims on ``pt-s2-0`` give one MIG
+   instance and one MPS daemon, each tenant's ``python3`` child runs
+   phase 15's flash forward under its spec's env (the daemon's pipe
+   directory and pinned memory limit) against its plain version, and
+   unpreparing both destroys the instance and quits the daemon; (c) MIG
+   on and the create or MPS refused: the ``PrepareError`` is logged and
+   the rollback leaves nothing. On every outcome, the watch over HTTP: a
+   ``Driver`` over the port's fake API server on 127.0.0.1 with a
+   bootstrap set whose pool glob matches no node (0 partition devices),
+   then a PartitionSet CRD for this pool naming ``1g.10gb`` (under (a)
+   refused fail-closed: ``last_error`` set, ``failed_total`` 1, no slice
+   written), then its delete (the bootstrap plan again, no write under
+   (a)); the ms from each CRD write to the watcher's decision, the
+   requests by method, and one sweep. A ``finally`` (and a cleanup child
+   if the first one failed) destroys whatever the registries still name
+   and kills any MPS process whose pipe directory lies under the phase's
+   temporary root. It never changes the MIG mode. Host ms of
+   construction, prepare (with ``prep_attach_partition``), unprepare and
+   the sweep, beside the card's name and power limit.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record (with the hd-64 instantiations'
@@ -203,6 +230,8 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import functools
+import inspect
 import json
 import math
 import statistics
@@ -2859,13 +2888,7 @@ def phase_sharing(seed: int) -> int:
     from k8s_dra_driver_gpu_tpu_torch.pkg.featuregates import FeatureGates
 
     ms = {}
-
-    def timed(label, fn, *args):
-        t0 = time.perf_counter()
-        try:
-            return fn(*args)
-        finally:
-            ms[label] = round((time.perf_counter() - t0) * 1e3, 3)
+    timed = functools.partial(_timed, ms)
 
     def check(ok, what):
         if not ok:
@@ -2887,20 +2910,6 @@ def phase_sharing(seed: int) -> int:
         return (uid not in state.prepared_claims()
                 and not state._cdi.spec_exists(uid)
                 and not state._tenancy._dirs_of(uid))
-
-    def ours():
-        """The MPS processes started under this phase's directory."""
-        pids = []
-        for pid in mps_pids():
-            try:
-                with open(f"/proc/{pid}/environ", "rb") as f:
-                    env = f.read().split(b"\0")
-            except OSError:
-                continue
-            if any(e.startswith(f"CUDA_MPS_PIPE_DIRECTORY={tmp}/".encode())
-                   for e in env):
-                pids.append(pid)
-        return pids
 
     def reap_zombies():
         """Reap the dead MPS processes whose parent is this process; the
@@ -3076,7 +3085,7 @@ def phase_sharing(seed: int) -> int:
         if state is not None:
             for uid in ("smoke-timeslice", "smoke-mps"):
                 state._tenancy.stop(uid)
-        for pid in ours():
+        for pid in _mps_pids_under(f"{tmp}/"):
             log(f"sharing: MPS process {pid} left: killed")
             os.kill(pid, signal.SIGKILL)
         reaped, zombies = reap_zombies()
@@ -3092,6 +3101,68 @@ def phase_sharing(seed: int) -> int:
         log(f"sharing: host ms {json.dumps(ms)}")
 
 
+# -- helpers of phase 14 and of the plugin children of phases 15-16 ---------
+# Those children run as `python -c` scripts; _CHILD_HELPERS hands them
+# these functions' source, so each is written once.
+
+
+def _mps_pids_under(root: str) -> list[int]:
+    """The MPS processes whose pipe directory lies under ``root``."""
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.sharing import mps_pids
+    found = []
+    for pid in mps_pids():
+        try:
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                env = dict(kv.split(b"=", 1) for kv in f.read().split(b"\0")
+                           if b"=" in kv)
+        except OSError:
+            continue
+        if env.get(b"CUDA_MPS_PIPE_DIRECTORY", b"").startswith(
+                root.encode()):
+            found.append(pid)
+    return found
+
+
+def _destroy_recorded(lib, registries, pipe_root: str | None = None
+                      ) -> list[str]:
+    """Kill the MPS processes under ``pipe_root``; destroy every MIG
+    instance that ``registries`` name and drop its entry. What went."""
+    import os
+    import signal
+    gone = []
+    for pid in _mps_pids_under(pipe_root) if pipe_root else ():
+        try:
+            os.kill(pid, signal.SIGKILL)
+            gone.append(f"mps:{pid}")
+        except ProcessLookupError:
+            pass
+    for registry in registries:
+        for uuid, live in registry.list().items():
+            lib.destroy_mig(live.instance())
+            registry.drop(uuid)
+            gone.append(uuid)
+    return gone
+
+
+def _timed(ms: dict, label: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its host ms kept in ``ms[label]``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        ms[label] = round((time.perf_counter() - t0) * 1e3, 3)
+
+
+def _walk(lib) -> list[dict]:
+    """GPU 0's MIG instances as NVML walks them."""
+    return [i.__dict__ for i in lib.mig_instances(0)]
+
+
+_CHILD_HELPERS = "import functools, time\n\n" + "\n\n".join(
+    inspect.getsource(f)
+    for f in (_mps_pids_under, _destroy_recorded, _timed, _walk)) + "\n"
+
+
 # Phase 15's plugin side, run in a process of its own that never
 # initialises CUDA (as the kubelet plugin is; NVML's MIG calls beside
 # CUDA are not proven safe, ROADMAP.md §3 item 9): the node service over
@@ -3100,8 +3171,8 @@ def phase_sharing(seed: int) -> int:
 # memory slot 0, and which of the three outcomes the GPU gave. With
 # "cleanup" it only destroys what the registry under its root names.
 # Writes one JSON line.
-MIG_PLUGIN = r"""
-import json, os, subprocess, sys, time
+MIG_PLUGIN = _CHILD_HELPERS + r"""
+import json, os, subprocess, sys
 from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.device_state import (
     Config, DeviceState, SubSliceRegistry)
 from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.driver import Driver
@@ -3120,13 +3191,9 @@ out = {"cuda_initialised_at_start": gpulib.cuda_initialised()}
 lib = gpulib.NvmlLib()
 registry = SubSliceRegistry(f"{tmp}/state")
 
+
 def destroy_recorded():
-    gone = []
-    for uuid, live in registry.list().items():
-        lib.destroy_mig(live.instance())
-        registry.drop(uuid)
-        gone.append(uuid)
-    return gone
+    return _destroy_recorded(lib, [registry])
 
 if mode == "cleanup":
     try:
@@ -3136,16 +3203,8 @@ if mode == "cleanup":
     raise SystemExit(0)
 
 ms = {}
-
-def timed(label, fn, *args, **kw):
-    t0 = time.perf_counter()
-    try:
-        return fn(*args, **kw)
-    finally:
-        ms[label] = round((time.perf_counter() - t0) * 1e3, 3)
-
-def walk():
-    return [i.__dict__ for i in lib.mig_instances(0)]
+timed = functools.partial(_timed, ms)
+walk = functools.partial(_walk, lib)
 
 server, driver = FakeApiServer().start(), None
 try:
@@ -3399,6 +3458,327 @@ def phase_mig(seed: int) -> int:
     return r["child"]["launches"] if outcome == "b" else 0
 
 
+PARTITION_PLUGIN = _CHILD_HELPERS + r"""
+import json, os, subprocess, sys, time
+from k8s_dra_driver_gpu_tpu_torch.api.decode import API_VERSION
+from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.claim import ResourceClaim
+from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.device_state import (
+    Config, DeviceState, PrepareError, SubSliceRegistry)
+from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.driver import Driver
+from k8s_dra_driver_gpu_tpu_torch.pkg.fakeapiserver import FakeApiServer
+from k8s_dra_driver_gpu_tpu_torch.pkg.featuregates import FeatureGates
+from k8s_dra_driver_gpu_tpu_torch.pkg.kubeclient import KubeClient
+from k8s_dra_driver_gpu_tpu_torch.pkg.partition import (PartitionSet,
+                                                        PartitionSpecError)
+from k8s_dra_driver_gpu_tpu_torch.pkg.partition import watch as pwatch
+from k8s_dra_driver_gpu_tpu_torch.tpulib import binding as gpulib
+
+tmp, seed, mode = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+RS = ("resource.k8s.io", "v1", "resourceslices")
+CRD = (pwatch.CRD_GROUP, pwatch.CRD_VERSION, pwatch.CRD_RESOURCE)
+NODE, DEVICE = "smoke-partition-node", "pt-s2-0"
+GATES = ("DynamicSubSlice=true,TenantPartitioning=true,"
+         "TimeSlicingSettings=true,MultiTenancySupport=true")
+PROFILES = [{"name": "x1", "subslice": "1g.10gb", "maxTenants": 1},
+            {"name": "s2", "subslice": "1g.10gb", "maxTenants": 2,
+             "hbmFraction": 0.9}]
+out = {"cuda_initialised_at_start": gpulib.cuda_initialised()}
+lib = gpulib.NvmlLib()
+registries = [SubSliceRegistry(f"{tmp}/{sub}") for sub in ("state", "watch")]
+
+def ours():
+    return _mps_pids_under(f"{tmp}/")
+
+def destroy_recorded():
+    return _destroy_recorded(lib, registries, f"{tmp}/")
+
+if mode == "cleanup":
+    try:
+        print(json.dumps({"destroyed": destroy_recorded()}))
+    finally:
+        lib.close()
+    raise SystemExit(0)
+
+ms = {}
+timed = functools.partial(_timed, ms)
+walk = functools.partial(_walk, lib)
+
+def claim(uid):
+    return ResourceClaim.from_dict({
+        "metadata": {"uid": uid, "namespace": "default", "name": uid},
+        "status": {"allocation": {"devices": {
+            "results": [{"request": "tenant", "driver": "gpu.nvidia.com",
+                         "pool": NODE, "device": DEVICE}],
+            "config": [{"source": "FromClaim", "opaque": {
+                "driver": "gpu.nvidia.com", "parameters": {
+                    "apiVersion": API_VERSION, "kind": "MigDeviceConfig",
+                    "oversubscribe": True}}}]}}}})
+
+def writes(server):
+    return sum(server.requests[m] for m in ("POST", "PUT", "PATCH",
+                                            "DELETE"))
+
+server, driver, state = None, None, None
+try:
+    host = lib.enumerate()
+    out["mig_mode"] = host.mig_mode
+    out["instances_before"] = walk()
+    # -- the partition path on DeviceState --------------------------------
+    try:
+        state = timed("construct", DeviceState, Config(
+            root=f"{tmp}/state", cdi_root=f"{tmp}/cdi",
+            feature_gates=FeatureGates.parse(GATES),
+            partition_set=PartitionSet.from_dict({"profiles": PROFILES})))
+        out["construct_error"] = ""
+    except PartitionSpecError as err:
+        out["construct_error"] = str(err)
+    if state is not None:
+        out["partitions"] = sorted(n for n in state.allocatable
+                                   if n.startswith("pt-"))
+        info = state.allocatable[DEVICE].partition
+        out["budget_bytes"] = info.tenant_memory_bytes
+        out["prepare"], out["segments_ms"], out["children"] = {}, {}, {}
+        for uid in ("tenant-1", "tenant-2"):
+            try:
+                timed(f"prepare_{uid}", state.prepare, claim(uid))
+                out["prepare"][uid] = ""
+            except PrepareError as err:
+                out["prepare"][uid] = str(err)
+            out["segments_ms"][uid] = {
+                k: round(v * 1e3, 3) for k, v in state.last_segments.items()}
+            if out["prepare"][uid]:
+                break
+        out["instances_prepared"] = walk()
+        out["daemons_prepared"] = len(ours())
+        out["records_prepared"] = {
+            n: r.state for n, r in state.partition_engine.records().items()}
+        if len(out["prepare"]) == 2 and all(
+                not e for e in out["prepare"].values()):
+            live = state.prepared_claims()["tenant-1"].devices[0].live
+            for uid in ("tenant-1", "tenant-2"):
+                spec = state._cdi.read_spec(uid)
+                edits = spec["devices"][0]["containerEdits"]
+                env = dict(os.environ)
+                for e in edits.get("env", []) + spec.get(
+                        "containerEdits", {}).get("env", []):
+                    k, _, v = e.partition("=")
+                    env[k] = v
+                # No container here: the pipe directory at its host path,
+                # the MIG device named by its UUID.
+                for m in edits.get("mounts", []):
+                    if m["containerPath"] == env["CUDA_MPS_PIPE_DIRECTORY"]:
+                        env["CUDA_MPS_PIPE_DIRECTORY"] = m["hostPath"]
+                env["CUDA_VISIBLE_DEVICES"] = live["uuid"]
+                child = subprocess.run(
+                    [sys.executable, "-c", sys.argv[4], str(seed),
+                     str(info.mig.cores)], env=env, capture_output=True,
+                    text=True, timeout=600)
+                out["children"][uid] = json.loads(
+                    child.stdout.strip().splitlines()[-1])                     if child.returncode == 0 else {
+                        "rc": child.returncode,
+                        "stderr": child.stderr[-3000:]}
+                out.setdefault("pinned_limits", []).append(
+                    env.get("CUDA_MPS_PINNED_DEVICE_MEM_LIMIT"))
+        out["unprepare"] = {}
+        for uid in ("tenant-1", "tenant-2"):
+            try:
+                timed(f"unprepare_{uid}", state.unprepare, uid)
+                out["unprepare"][uid] = ""
+            except PrepareError as err:
+                out["unprepare"][uid] = str(err)
+            out.setdefault("instances_unprepared", []).append(len(walk()))
+        # A refused create leaves its Creating record to the sweep's
+        # idle-partition pass, as the JAX plugin does.
+        out["reaped"] = timed("reap_idle", state.partition_engine.reap_idle)
+        out["daemons_left"] = len(ours())
+        out["left"] = {"records": sorted(state.partition_engine.records()),
+                       "claims": sorted(state.prepared_claims()),
+                       "registry": sorted(state.mig_registry())}
+    # -- the watch over HTTP ----------------------------------------------
+    server = FakeApiServer(keepalive=0.5).start()
+    kube = KubeClient(host=server.url)
+    cfg = Config(root=f"{tmp}/watch", cdi_root=f"{tmp}/watch-cdi",
+                 feature_gates=FeatureGates.parse(GATES),
+                 partition_set=PartitionSet.from_dict({
+                     "profiles": PROFILES, "pools": ["no-such-pool-*"]}),
+                 pool_name=NODE)
+    driver = timed("driver_construct", Driver, cfg, kube, NODE,
+                   enable_health_monitor=False, publication_mode="split")
+    timed("driver_start", driver.start)
+    watcher = driver.partition_watcher
+    def published():
+        return sorted(d["name"] for s in kube.list(*RS)
+                      for d in s["spec"]["devices"]
+                      if d["name"].startswith("pt-"))
+    w = {"published_before": published(), "requests_before":
+         dict(server.requests)}
+    base = writes(server)
+    for step in ("create", "delete"):
+        n, t0 = watcher.reconciles, time.perf_counter()
+        if step == "create":
+            server.store.create(*CRD, pwatch.crd_object(
+                "smoke-partitions", PartitionSet.from_dict({
+                    "profiles": PROFILES, "pools": [NODE]})))
+        else:
+            server.store.delete(*CRD, "smoke-partitions")
+        decided = watcher.wait_for(lambda: watcher.reconciles > n, 30)
+        ms[f"watch_{step}_to_decision"] = round(
+            (time.perf_counter() - t0) * 1e3, 3)
+        w[step] = {"decided": decided, "last_error": watcher.last_error,
+                   "failed_total": watcher.failed_total,
+                   "applied_total": watcher.applied_total,
+                   "writes": writes(server) - base,
+                   "published": published()}
+        base = writes(server)
+    w["sweep"] = timed("sweep", driver.reconciler.reconcile_once)
+    w["requests"] = dict(server.requests)
+    out["watch"] = w
+finally:
+    if driver is not None:
+        driver.stop()
+    if server is not None:
+        server.stop()
+    if state is not None:
+        state.close()
+    out["destroyed_in_finally"] = destroy_recorded()
+    out["instances_after"] = walk()
+    lib.close()
+out["ms"] = ms
+out["cuda_initialised_at_end"] = gpulib.cuda_initialised()
+print(json.dumps(out))
+"""
+
+
+def _partition_outcome(r: dict) -> str:
+    """Which of phase 16's three outcomes ``r`` (``PARTITION_PLUGIN``'s
+    line) shows, checked; AssertionError for anything else."""
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"partitions: {what}: "
+                                 f"{json.dumps(r)[:4000]}")
+
+    check(not r["cuda_initialised_at_start"]
+          and not r["cuda_initialised_at_end"],
+          "the plugin's process initialised CUDA")
+    check(not r["destroyed_in_finally"]
+          and r["instances_after"] == r["instances_before"],
+          "the phase left state behind")
+    w = r["watch"]
+    check(w["published_before"] == [] and w["create"]["decided"]
+          and w["delete"]["decided"] and w["sweep"]["idle_partition"] == 0,
+          "the watch")
+    if r["construct_error"]:
+        # (a) MIG off: the set and the CRD refused, nothing written.
+        check(r["mig_mode"] != "enabled"
+              and "'1g.10gb' is no carve-out of this host"
+              in r["construct_error"], "outcome (a): construction")
+        c, d = w["create"], w["delete"]
+        check("'1g.10gb' is no carve-out of this host"
+              in (c["last_error"] or "") and c["failed_total"] == 1
+              and c["applied_total"] == 0 and c["writes"] == 0
+              and c["published"] == [] and d["last_error"] is None
+              and d["failed_total"] == 1 and d["applied_total"] == 0
+              and d["writes"] == 0 and d["published"] == [],
+              "outcome (a): the watch")
+        return "a"
+    check(r["mig_mode"] == "enabled" and r["partitions"]
+          and r["left"] == {"records": [], "claims": [], "registry": []}
+          and r["daemons_left"] == 0
+          and all(not e for e in r["unprepare"].values()),
+          "MIG on: the partitions and their teardown")
+    c, d = w["create"], w["delete"]
+    check(c["applied_total"] == 1 and c["writes"] >= 1 and c["published"]
+          and d["applied_total"] == 2 and d["published"] == [],
+          "MIG on: the watch")
+    errors = [e for e in r["prepare"].values() if e]
+    if errors:
+        # (c) MIG on, the create or the MPS daemon refused: rolled back.
+        check(r["instances_prepared"] == r["instances_before"]
+              and r["daemons_prepared"] == 0
+              and r["records_prepared"] in (
+                  {}, {"pt-s2-0": "PartitionCreating"})
+              and r["reaped"] == len(r["records_prepared"]),
+              "outcome (c)")
+        return "c"
+    made = [i for i in r["instances_prepared"]
+            if i not in r["instances_before"]]
+    budget = r["budget_bytes"] >> 20
+    check(len(made) == 1 and made[0]["profile"] == "1g.10gb"
+          and made[0]["start"] == 0 and r["daemons_prepared"] == 1
+          and r["pinned_limits"] == [f"0={budget}M"] * 2
+          and all(ch.get("launches") == 1 and ch["finite"]
+                  and ch["excess"] <= 0
+                  and ch["max_abs_err"] <= CLAIM_CHILD_MAX_ERR
+                  for ch in r["children"].values())
+          and r["instances_unprepared"][0] == len(r["instances_before"]) + 1
+          and r["instances_unprepared"][1] == len(r["instances_before"])
+          and r["reaped"] == 0
+          and all("prep_attach_partition" in s
+                  for s in r["segments_ms"].values()), "outcome (b)")
+    return "b"
+
+
+def phase_partitions(seed: int) -> int:
+    """16. Tenant partitions over MIG instances through the kubelet
+    plugin over NVML, and the PartitionSet watch over HTTP, in a child
+    that never initialises CUDA (``PARTITION_PLUGIN``). Checks which of
+    three outcomes holds: (a) MIG off, (b) MIG on and MPS served, (c) MIG
+    on and the create or MPS refused. Never changes the MIG mode.
+    Returns the flash launches of (b)'s tenant children, 0 otherwise."""
+    import os
+    import shutil
+    import tempfile
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = (smi.stdout or smi.stderr).strip().splitlines()[0]
+    # Short: the MPS pipe paths under it end within AF_UNIX's 108 bytes.
+    tmp = tempfile.mkdtemp(prefix="pt")
+    root = os.path.dirname(os.path.abspath(__file__))
+    r = None
+    try:
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", PARTITION_PLUGIN, tmp, str(seed), "run",
+             MIG_CUDA_CHILD], capture_output=True, text=True, timeout=900,
+            cwd=root)
+        child_s = time.perf_counter() - t0
+        if child.returncode != 0:
+            raise AssertionError(f"partitions: the plugin child exited "
+                                 f"{child.returncode}: "
+                                 f"{child.stderr[-4000:]}")
+        r = json.loads(child.stdout.strip().splitlines()[-1])
+    finally:
+        if r is None:
+            done = subprocess.run(
+                [sys.executable, "-c", PARTITION_PLUGIN, tmp, str(seed),
+                 "cleanup"], capture_output=True, text=True, timeout=300,
+                cwd=root)
+            log(f"partitions: cleanup child rc {done.returncode}: "
+                f"{(done.stdout + done.stderr).strip()[-2000:]}")
+        shutil.rmtree(tmp, ignore_errors=True)
+    outcome = _partition_outcome(r)
+    w = r["watch"]
+    for step in ("create", "delete"):
+        w[step]["published"] = len(w[step]["published"])
+    log(f"partitions: outcome ({outcome}); NVML mig_mode "
+        f"{r['mig_mode']!r}; construction: "
+        f"{r['construct_error'] or str(len(r['partitions'])) + ' partitions'}"
+        f"; prepare {r.get('prepare')} (segments ms {r.get('segments_ms')})"
+        f"; children {r.get('children')}; Creating records reaped "
+        f"{r.get('reaped')}")
+    log(f"partitions: watch over HTTP (partition devices published as "
+        f"counts): CRD create -> {json.dumps(w['create'])}; delete -> "
+        f"{json.dumps(w['delete'])}; requests {w['requests']}; sweep "
+        f"{w['sweep']}")
+    log(f"partitions: host ms {json.dumps(r['ms'])} (plugin child "
+        f"{child_s:.2f} s of process) on {card}")
+    return sum(ch.get("launches", 0) for ch in r["children"].values()) \
+        if outcome == "b" else 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3441,6 +3821,9 @@ def main(argv=None) -> int:
     t_mig = time.perf_counter()
     mig_child = phase_mig(args.seed)
     log(f"mig: phase 15 in {time.perf_counter() - t_mig:.1f} s")
+    t_part = time.perf_counter()
+    partition_children = phase_partitions(args.seed)
+    log(f"partitions: phase 16 in {time.perf_counter() - t_part:.1f} s")
     forward["launches_by_path"] = {
         "serving_generate": serving_launches,
         "training_step": training["forward_lse"],
@@ -3451,6 +3834,7 @@ def main(argv=None) -> int:
         "node_driver_claim_child": node_child,
         "mps_children": mps_children,
         "mig_child": mig_child,
+        "partition_children": partition_children,
         "sharded_training_step": gang["train"]["forward_lse"],
         "moe_training_step": moe["forward_lse"],
         "sp_ulysses_training_step": sp["ulysses"]["forward_lse"],

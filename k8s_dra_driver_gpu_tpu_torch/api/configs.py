@@ -5,7 +5,7 @@
 ``GpuConfig`` is the config of a whole-GPU claim (the JAX package's
 ``TpuConfig``), ``MigDeviceConfig`` that of a MIG device claim (the
 upstream's kind, ``migconfig.go:28``; the JAX package's
-``SubSliceConfig``, without its partition-only ``oversubscribe``). Their
+``SubSliceConfig``, its partition-only ``oversubscribe`` too). Their
 ``Sharing`` union decodes and validates as there; the kubelet plugin
 runs it through ``kubeletplugin/sharing.py`` (time-slicing at an
 interval, MPS with per-device memory limits). The vfio config is not
@@ -157,11 +157,16 @@ class GpuConfig:
 
 @dataclass
 class MigDeviceConfig:
-    """The config of a MIG device claim (migconfig.go:28)."""
+    """The config of a MIG device claim (migconfig.go:28), and of a
+    tenant partition device (``pkg/partition``): a claim on an
+    oversubscribed partition (one that publishes ``oversubscribeSlots``
+    > 1) must set ``oversubscribe: true``, the opt-in to sharing its MIG
+    instance with up to N-1 other tenants under one MPS daemon."""
 
     KIND = "MigDeviceConfig"
 
     sharing: Sharing | None = None
+    oversubscribe: bool = False
 
     def normalize(self) -> None:
         if self.sharing is None:
@@ -171,3 +176,10 @@ class MigDeviceConfig:
     def validate(self) -> None:
         if self.sharing:
             self.sharing.validate()
+        if not isinstance(self.oversubscribe, bool):
+            raise ValidationError("oversubscribe must be a boolean")
+        if self.oversubscribe and self.sharing and \
+                not self.sharing.is_time_slicing:
+            raise ValidationError(
+                "oversubscribe provisions its own per-tenant MPS limit; a "
+                "MultiTenancy sharing config cannot be combined with it")

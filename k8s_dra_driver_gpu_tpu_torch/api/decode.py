@@ -26,7 +26,7 @@ _KINDS: dict[str, Type] = {c.KIND: c for c in (GpuConfig, MigDeviceConfig)}
 # JSON field name -> dataclass attribute, per type.
 _FIELD_MAPS: dict[Type, dict[str, str]] = {
     GpuConfig: {"sharing": "sharing"},
-    MigDeviceConfig: {"sharing": "sharing"},
+    MigDeviceConfig: {"sharing": "sharing", "oversubscribe": "oversubscribe"},
     Sharing: {
         "strategy": "strategy",
         "timeSlicing": "time_slicing",

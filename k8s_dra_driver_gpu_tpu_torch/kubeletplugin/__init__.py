@@ -1,5 +1,5 @@
-"""The kubelet plugin for whole GPUs and MIG devices on an NVIDIA H100
-host.
+"""The kubelet plugin for whole GPUs, MIG devices and tenant partitions
+on an NVIDIA H100 host.
 
 The counterpart of the JAX package's ``kubeletplugin/`` (and of the
 upstream driver's ``cmd/gpu-kubelet-plugin/``) for whole GPUs and MIG
@@ -14,12 +14,15 @@ devices:
   (``sharing``: a GPU's timeslice through ``nvidia-smi``, an MPS control
   daemon a claim request), each behind its feature gate
   (``pkg.featuregates``), and creates a dynamic MIG device through NVML;
-  unprepare tears them down;
+  tenant partitions over MIG instances (``pkg.partition``), with one MPS
+  daemon over an oversubscribed partition's instance; unprepare tears
+  them down;
 - ``driver``: the node service over an API server (``pkg.kubeclient``):
   ResourceSlice publication (``combined`` or ``split``) with per-GPU
   shared counters (``partitions``), claim
-  lookup for prepare and unprepare, health taints (``health``) and the
-  reconcile sweep (``cleanup``, ``reconcile``).
+  lookup for prepare and unprepare, health taints (``health``), the
+  reconcile sweep (``cleanup``, ``reconcile``) and the PartitionSet CRD
+  watch (``pkg.partition.watch``).
 
 There is no gRPC transport yet (ROADMAP.md §1b item 8): the callbacks
 are driven by direct calls. Standard library only.

@@ -17,8 +17,9 @@ checkpoint written before the node's last reboot is dropped at start-up.
 ``CheckpointManager`` is simpler than the reference's: no group commit
 and no fragment cache. Each mutation takes the file lock (with a time
 limit), re-reads the file if another process changed it, validates the
-claim-state transitions against the two-phase policy, and writes the
-file durably (``pkg/fsutil.write_json_atomic``) before it returns.
+claim-state transitions against its policy (the two-phase one unless
+another is given: the partition engine's records use
+``PARTITION_POLICY``), and writes the file durably (``pkg/fsutil.write_json_atomic``) before it returns.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from enum import Enum
 from ..pkg import bootid
 from ..pkg.flock import Flock
 from ..pkg.fsutil import stat_signature, write_json_atomic
-from ..pkg.statemachine import TWO_PHASE_POLICY
+from ..pkg.statemachine import TWO_PHASE_POLICY, TransitionPolicy
 
 logger = logging.getLogger(__name__)
 
@@ -183,13 +184,15 @@ def _diagnose(on_disk: dict, payload: dict, version: str) -> str:
 
 class CheckpointManager:
     """The file lock-guarded reader and writer of ``checkpoint.json``
-    under ``root``; every mutation is validated against the two-phase
-    policy."""
+    under ``root``; every mutation is validated against
+    ``transition_policy``."""
 
     FILENAME = "checkpoint.json"
 
-    def __init__(self, root: str, boot_id: str | None = None):
+    def __init__(self, root: str, boot_id: str | None = None,
+                 transition_policy: TransitionPolicy = TWO_PHASE_POLICY):
         os.makedirs(root, exist_ok=True)
+        self._policy = transition_policy
         self._path = os.path.join(root, self.FILENAME)
         self._lock = Flock(os.path.join(root, "checkpoint.lock"))
         self._boot_id = boot_id if boot_id is not None \
@@ -251,7 +254,7 @@ class CheckpointManager:
             cp = Checkpoint(node_boot_id=current.node_boot_id,
                             claims=dict(current.claims))
             fn(cp)
-            TWO_PHASE_POLICY.validate_states(
+            self._policy.validate_states(
                 {uid: c.state for uid, c in current.claims.items()},
                 {uid: c.state for uid, c in cp.claims.items()},
                 scope=dirty_uids)

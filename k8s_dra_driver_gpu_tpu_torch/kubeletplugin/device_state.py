@@ -1,6 +1,7 @@
-"""DeviceState: the node's claim state machine for whole GPUs and MIG
-devices (the JAX package's ``kubeletplugin/device_state.py``, its
-``DeviceKind.CHIP`` and sub-slice paths; the upstream driver's
+"""DeviceState: the node's claim state machine for whole GPUs, MIG
+devices and tenant partitions (the JAX package's
+``kubeletplugin/device_state.py``, its ``DeviceKind.CHIP``, sub-slice and
+partition paths; the upstream driver's
 ``cmd/gpu-kubelet-plugin/device_state.go``).
 
 Prepare is idempotent and two-phase: the durable PrepareStarted record
@@ -67,8 +68,34 @@ What differs from the JAX plugin, on an H100 host:
   it. A MIG device takes no timeslice (``compute-policy`` sets the
   whole GPU's, and the upstream refuses it on MIG): a non-default one is
   refused with ``PrepareError``, and MPS on a MIG device raises
-  ``NotPortedError`` (ROADMAP.md §1b item 5c). ``TenantPartitioning``
-  (the JAX plugin's partitions over sub-slices) is not ported.
+  ``NotPortedError`` (ROADMAP.md §1b item 5c).
+- **Tenant partitions** (``TenantPartitioning``, which needs
+  ``DynamicSubSlice``; ``pkg/partition``). ``Config.partition_set`` is
+  projected onto the MIG placements as ``pt-<profile>-<k>`` devices
+  (those of ``Config.pool_name``'s pools), which join the allocatable
+  set; a profile naming a MIG profile the host does not offer (with MIG
+  off, any) fails construction with ``PartitionSpecError``. The engine
+  creates a partition's MIG instance at its first tenant's prepare (the
+  ``prep_attach_partition`` segment) through ``_create_mig`` and the
+  registry, which names the partition as the instance's owner; co-tenants
+  attach to it, up to ``maxTenants`` claims on one device, while any
+  other device on its memory slots is refused; the last tenant's
+  unprepare destroys it. A claim on an oversubscribed partition must
+  opt in (``MigDeviceConfig.oversubscribe``), needs both sharing gates,
+  takes the default timeslice only, and must be its claim's only device
+  (the MPS clients of a container reach one daemon); its MIG instance
+  has one MPS control daemon (``sharing.start_partition``), and each
+  tenant's spec carries the daemon's pipe directory and its whole-MiB
+  pinned memory limit, the tenant budget. Every tenant's spec gets
+  ``TPU_PARTITION`` and ``TPU_PARTITION_HBM_BYTES`` (the JAX contract's
+  names) and the instance's device nodes; a shared device's CDI name is
+  scoped to the claim (``<device>-t-<uid>``). A request that mixes
+  oversubscribed partitions with other devices is refused. Unprepare and
+  a failed prepare detach through the engine, holder-counted, and
+  without an engine (the gate turned off across a restart) by the same
+  derived count. ``apply_partition_set`` re-plans (the CRD watcher's
+  path) and ``prune_retired_partitions`` drops retired devices once their
+  records are gone.
 - **The claim's GPUs are its device nodes.** The spec injects each GPU's
   ``/dev/nvidia<minor>``; a container given only those nodes sees only
   those GPUs, numbered from 0. So the spec sets no
@@ -93,14 +120,21 @@ import json
 import logging
 import os
 import shutil
+import threading
 import time
 from dataclasses import dataclass, field
 
 from ..api.configs import GpuConfig, MigDeviceConfig, Sharing
 from ..api.decode import strict_decode
 from ..pkg.featuregates import (DYNAMIC_SUB_SLICE, MULTI_TENANCY_SUPPORT,
-                                TIME_SLICING_SETTINGS, FeatureGates)
+                                TENANT_PARTITIONING, TIME_SLICING_SETTINGS,
+                                FeatureGates)
 from ..pkg.flock import Flock
+from ..pkg.partition.engine import (ForeignInstanceError, PartitionEngine,
+                                    PartitionEngineError)
+from ..pkg.partition.spec import PartitionSet
+from ..pkg.statemachine import (PARTITION_DESTROYING, PARTITION_POLICY,
+                                PARTITION_READY)
 from ..pkg.timing import SegmentTimer
 from ..tpulib.binding import (EnumerateOptions, GpuHostInfo, GpuLibError,
                               SubSliceProfile, load)
@@ -113,7 +147,7 @@ from .deviceinfo import (MIG_MEMORY_SLICES, AllocatableDevice, ChipInfo,
 from .sharing import (MPS_CONTROL, MultiTenancyManager, SharingError,
                       TimeSlicingManager)
 from .subslice import (SubSliceLiveTuple, SubSliceSpecTuple,
-                       enumerate_subslice_devices, parse_mig_name)
+                       enumerate_subslice_devices)
 
 logger = logging.getLogger(__name__)
 
@@ -121,15 +155,12 @@ LOCK_TIMEOUT_S = 10.0
 
 # What the JAX plugin runs and this one does not yet, by the ROADMAP.md
 # §1b item that ports it.
-_PARTITIONS = ("tenant partitions (ROADMAP.md §1b item 5b, pkg/partition/ "
-               "and its watcher)")
 _VFIO = "vfio passthrough (ROADMAP.md §1b item 6, vfio.py)"
 _CD = "the ComputeDomain daemon (ROADMAP.md §1b item 9, computedomain/)"
 NOT_PORTED_KINDS = {"VfioDeviceConfig": _VFIO}
 # Every gate the plugin does not read (featuregates.READ): refused when
 # set away from its default.
 NOT_PORTED_GATES = {
-    "TenantPartitioning": _PARTITIONS,
     "PassthroughSupport": _VFIO,
     "DomainDaemonsWithDNSNames": _CD, "ComputeDomainCliques": _CD,
     "TopologyAwarePlacement": "topology-aware placement (the JAX package's "
@@ -142,7 +173,8 @@ NOT_PORTED_GATES = {
 }
 
 
-_MIG_KINDS = (DeviceKind.SUBSLICE_STATIC, DeviceKind.SUBSLICE_DYNAMIC)
+_MIG_KINDS = (DeviceKind.SUBSLICE_STATIC, DeviceKind.SUBSLICE_DYNAMIC,
+              DeviceKind.PARTITION)
 
 
 class PrepareError(RuntimeError):
@@ -155,7 +187,8 @@ class NotPortedError(PrepareError):
 
 class SubSliceRegistry:
     """The MIG instances this plugin created (the JAX plugin's
-    ``SubSliceRegistry``): ``<root>/mig.json``, MIG UUID -> live tuple,
+    ``SubSliceRegistry``): ``<root>/mig.json``, MIG UUID -> live tuple
+    (with ``owner``, the partition device, for a partition's instance),
     read-modify-written under its own flock and fsync'd, as the
     checkpoint is."""
 
@@ -163,32 +196,39 @@ class SubSliceRegistry:
         self.path = os.path.join(root, "mig.json")
         self._lock = Flock(self.path + ".lock")
 
-    def list(self) -> dict[str, SubSliceLiveTuple]:
+    def _read(self) -> dict[str, dict]:
         try:
             with open(self.path, encoding="utf-8") as f:
-                return {uuid: SubSliceLiveTuple.from_dict(d)
-                        for uuid, d in json.load(f).items()}
+                return json.load(f)
         except (FileNotFoundError, json.JSONDecodeError):
             return {}
 
-    def _write(self, entries: dict[str, SubSliceLiveTuple]) -> None:
+    def list(self) -> dict[str, SubSliceLiveTuple]:
+        return {uuid: SubSliceLiveTuple.from_dict(d)
+                for uuid, d in self._read().items()}
+
+    def owners(self) -> dict[str, str]:
+        """MIG UUID -> the partition device that owns it ("" for none)."""
+        return {uuid: d.get("owner", "") for uuid, d in self._read().items()}
+
+    def _write(self, entries: dict[str, dict]) -> None:
         tmp = self.path + ".tmp"
         with open(tmp, "w", encoding="utf-8") as f:
-            json.dump({uuid: live.to_dict()
-                       for uuid, live in entries.items()}, f, indent=1)
+            json.dump(entries, f, indent=1)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, self.path)
 
-    def record(self, live: SubSliceLiveTuple) -> None:
+    def record(self, live: SubSliceLiveTuple, owner: str = "") -> None:
         with self._lock.acquire(timeout=LOCK_TIMEOUT_S):
-            entries = self.list()
-            entries[live.uuid] = live
+            entries = self._read()
+            entries[live.uuid] = dict(live.to_dict(), **(
+                {"owner": owner} if owner else {}))
             self._write(entries)
 
     def drop(self, uuid: str) -> None:
         with self._lock.acquire(timeout=LOCK_TIMEOUT_S):
-            entries = self.list()
+            entries = self._read()
             if entries.pop(uuid, None) is not None:
                 self._write(entries)
 
@@ -220,16 +260,23 @@ class Config:
     # instances an admin made, published as they are (the JAX plugin's
     # static sub-slices, the upstream's static MIG).
     static_subslices: tuple[str, ...] = ()
+    # The desired tenant partitions (pkg/partition); read with the
+    # TenantPartitioning gate on, else no partition is published.
+    partition_set: PartitionSet | None = None
+    # This node's pool, matched against the PartitionSet's pool globs;
+    # None: every PartitionSet applies.
+    pool_name: str | None = None
 
     @classmethod
     def mock(cls, root: str, topology: str = "h100-8", gates: str = "",
-             mig_mode: str = "disabled") -> "Config":
+             mig_mode: str = "disabled",
+             partition_set: PartitionSet | None = None) -> "Config":
         """A mock host of ``topology`` GPUs with MIG ``mig_mode``; its CDI
         specs under ``root/cdi``, its device root ``root/dev`` and its
         proc root ``root/proc`` (empty unless a test makes nodes and
         files there), its MIG instances in ``root/mock-mig.json``;
         ``gates`` as ``FEATURE_GATES`` takes them."""
-        return cls(root=root,
+        return cls(root=root, partition_set=partition_set,
                    gpulib_opts=EnumerateOptions(
                        mock_topology=topology,
                        dev_root=os.path.join(root, "dev"),
@@ -241,7 +288,8 @@ class Config:
 
 
 class DeviceState:
-    """Prepare and unprepare over this host's GPUs and MIG devices."""
+    """Prepare and unprepare over this host's GPUs, MIG devices and
+    tenant partitions."""
 
     def __init__(self, config: Config):
         self._config = config
@@ -255,6 +303,10 @@ class DeviceState:
         # The node lock: excludes other plugin processes and the other
         # threads of this one (upstream driver.go:46-47).
         self.pu_lock = Flock(os.path.join(config.root, "pu.lock"))
+        # Guards swaps of the allocatable set (a re-plan on the watcher's
+        # thread against readers on others).
+        self._alloc_lock = threading.Lock()
+        self.partition_engine: PartitionEngine | None = None
         lib = load(config.backend)
         self._lib = None
         try:
@@ -291,6 +343,11 @@ class DeviceState:
             logger.warning("boot id changed: cleared the sharing state and "
                            "the MIG registry")
         self.allocatable = self._enumerate_allocatable()
+        if config.partition_set is not None and \
+                config.feature_gates.is_enabled(TENANT_PARTITIONING):
+            self.partition_engine = PartitionEngine(
+                self, config.partition_set, pool=config.pool_name)
+            self.allocatable.update(self.partition_engine.devices())
         self._cdi = CDIHandler(
             cdi_root=config.cdi_root or os.path.join(config.root, "cdi"),
             dev_root=config.gpulib_opts.dev_root or "/dev",
@@ -303,14 +360,126 @@ class DeviceState:
         self._tenancy = MultiTenancyManager(
             config.root, hbm_capacity_bytes=self.host.memory_bytes_per_chip,
             control_binary=find_binary(config.driver_root, MPS_CONTROL))
+        engine = self.partition_engine
+        if engine is not None:
+            # Crashed creates and destroys settle before the orphan
+            # sweep, which spares the instances the records own.
+            engine.resume()
         self.destroy_unknown_subslices()
-        # Re-own the MPS daemons of the claims that survived a restart,
-        # quit the others'.
-        self._tenancy.reconcile({
-            uid for uid, c in self._checkpoint.get().claims.items()
-            if c.state == ClaimState.PREPARE_COMPLETED.value})
+        # Re-own the MPS daemons of the claims and partitions that
+        # survived a restart, quit the others'. A partition's daemon
+        # lives while a completed claim holds it (with the engine gone
+        # too) or its record is Ready.
+        completed = {uid: c for uid, c in self._checkpoint.get().claims.items()
+                     if c.state == ClaimState.PREPARE_COMPLETED.value}
+        held = {d.canonical_name for c in completed.values()
+                for d in c.devices if d.live and d.live.get("partition")}
+        if engine is not None:
+            held |= {name for name, rec in engine.records().items()
+                     if rec.state == PARTITION_READY}
+        self._tenancy.reconcile(set(completed), held)
         # The segments (seconds) of the last prepare or unprepare.
         self.last_segments: dict[str, float] = {}
+
+    # -- the partition engine's surface ----------------------------------
+
+    @property
+    def partition_root(self) -> str:
+        return os.path.join(self._config.root, "partition")
+
+    @property
+    def boot_id(self) -> str | None:
+        return self._config.boot_id
+
+    def partition_instance(self, name: str, spec: SubSliceSpecTuple
+                           ) -> SubSliceLiveTuple | None:
+        """The MIG instance the registry names as partition ``name``'s at
+        placement ``spec`` and NVML's walk still finds; None if none."""
+        owners = self._registry.owners()
+        for uuid, live in self._registry.list().items():
+            if owners.get(uuid) == name and live.spec == spec and \
+                    self._lib is not None and any(
+                        (i.gi_id, i.profile, i.start) == (
+                            live.gi_id, spec.profile, spec.start)
+                        for i in self._lib.mig_instances(spec.gpu)):
+                return live
+        return None
+
+    def create_partition_instance(self, name: str, spec: SubSliceSpecTuple
+                                  ) -> SubSliceLiveTuple:
+        """Create partition ``name``'s MIG instance at ``spec``, named in
+        the registry with ``name`` as owner. A GPU instance the registry
+        does not name on the placement's slots is never adopted
+        (``ForeignInstanceError``)."""
+        if self._lib is None:
+            raise PrepareError(f"{spec.canonical_name()}: MIG is off")
+        ours = self._registry.list()
+        for inst in self._lib.mig_instances(spec.gpu):
+            if inst.uuid in ours:
+                continue
+            if set(range(inst.start, inst.start + inst.size)) & \
+                    set(spec.memory_slices):
+                raise ForeignInstanceError(
+                    f"partition {name}: placement {spec.canonical_name()} "
+                    f"(GPU {spec.gpu}, memory slots {spec.start}.."
+                    f"{spec.start + spec.size - 1}) holds GPU instance "
+                    f"{inst.gi_id} ({inst.profile}) that this plugin did "
+                    "not create: it is left to its admin")
+        return self._create_mig(spec, owner=name)
+
+    def destroy_partition_instance(self, name: str, live: dict) -> None:
+        """Quit partition ``name``'s MPS daemon, then destroy its MIG
+        instance: the one its record names, else the registry's for it
+        (a create that crashed before its Ready record)."""
+        self._tenancy.stop_partition(name)
+        if "uuid" in live:
+            targets = [SubSliceLiveTuple.from_dict(live)]
+        else:
+            owners = self._registry.owners()
+            targets = [inst for uuid, inst in self._registry.list().items()
+                       if owners.get(uuid) == name]
+        for inst in targets:
+            self._destroy_mig(inst)
+
+    def partition_registry_uuids(self, names: set[str]) -> set[str]:
+        """The registry's MIG UUIDs whose owner is in ``names``."""
+        return {uuid for uuid, owner in self._registry.owners().items()
+                if owner and owner in names}
+
+    def apply_partition_set(self, partition_set: PartitionSet) -> None:
+        """Swap in a new desired partition layout (the JAX plugin's);
+        the caller republishes. A retired partition that still has a
+        record (tenants, or a teardown in flight) stays allocatable, so
+        overlap validation still sees its memory slots; new attaches to
+        it fail, and ``prune_retired_partitions`` drops it once its
+        record is gone."""
+        if self.partition_engine is None:
+            raise PrepareError("partition engine not enabled")
+        devices = self.partition_engine.apply(partition_set)
+        held = self.partition_engine.recorded_devices()
+        with self._alloc_lock:
+            merged = {name: dev for name, dev in self.allocatable.items()
+                      if dev.kind != DeviceKind.PARTITION
+                      or (name in held and name not in devices)}
+            merged.update(devices)
+            self.allocatable = merged
+
+    def prune_retired_partitions(self) -> int:
+        """Drop the partition devices that are neither desired nor held
+        by a record any more; returns how many."""
+        if self.partition_engine is None:
+            return 0
+        desired = set(self.partition_engine.devices())
+        held = self.partition_engine.recorded_devices()
+        with self._alloc_lock:
+            retired = [name for name, dev in self.allocatable.items()
+                       if dev.kind == DeviceKind.PARTITION
+                       and name not in desired and name not in held]
+            if retired:
+                self.allocatable = {
+                    name: dev for name, dev in self.allocatable.items()
+                    if name not in retired}
+        return len(retired)
 
     def close(self) -> None:
         """Close the device library kept open for MIG."""
@@ -420,6 +589,9 @@ class DeviceState:
                           for c in self._checkpoint.get().claims.values()
                           for dev in c.devices
                           if dev.live and "uuid" in dev.live}
+            if self.partition_engine is not None:
+                # A partition's instance mid-lifecycle is its records'.
+                referenced |= self.partition_engine.live_uuids()
             existing = {(i.gpu, i.gi_id, i.profile, i.start)
                         for gpu in {live.spec.gpu
                                     for live in entries.values()}
@@ -538,21 +710,42 @@ class DeviceState:
             return {(index, k) for k in range(MIG_MEMORY_SLICES)}
         return set()
 
+    def _slots_of(self, name: str) -> int:
+        """The tenant slots of a device: ``maxTenants`` for a partition,
+        1 (exclusive) for everything else."""
+        dev = self.allocatable.get(name)
+        if dev is not None and dev.partition is not None:
+            return dev.partition.profile.max_tenants
+        return 1
+
     def _validate_no_overlap(self, cp, claim: ResourceClaim) -> None:
         """Refuse a device that shares a GPU memory slot with a device
         another claim holds, prepared or reserved (PrepareStarted): a
-        scheduler race. A whole GPU holds all its slots."""
+        scheduler race. A whole GPU holds all its slots. An
+        oversubscribed partition is the one sanctioned overlap: up to
+        ``maxTenants`` claims may hold the same device, whose slots still
+        exclude every other device."""
         held: dict[tuple[int, int], tuple[str, str]] = {}
+        holders: dict[str, set[str]] = {}
         for other in cp.claims.values():
             if other.uid == claim.uid:
                 continue
             for dev in other.devices:
+                holders.setdefault(dev.canonical_name, set()).add(other.uid)
                 for cell in self._slices_of(dev.canonical_name, dev.live):
                     held[cell] = (dev.canonical_name, other.uid)
         for result in claim.results:
+            slots = self._slots_of(result.device)
+            already = holders.get(result.device, set())
+            if slots > 1 and len(already) >= slots:
+                raise PrepareError(
+                    f"device {result.device} has no free tenant slot "
+                    f"({len(already)}/{slots} held)")
             for cell in sorted(self._slices_of(result.device)):
-                if cell in held:
-                    device, uid = held[cell]
+                entry = held.get(cell)
+                if entry is not None and (slots == 1
+                                          or entry[0] != result.device):
+                    device, uid = entry
                     raise PrepareError(
                         f"device {result.device} overlaps with prepared "
                         f"claim {uid} (device {device})")
@@ -609,7 +802,58 @@ class DeviceState:
                 f"requests {sorted(per_request)}: MPS ({mps}) for one "
                 "request of a claim that has others: an MPS request must "
                 "be its claim's only one (ROADMAP.md §1b item 4)")
+        self._check_partitions(claim, per_request)
         return per_request
+
+    def _check_partitions(self, claim: ResourceClaim, configs: dict) -> None:
+        """The partition rules that need no device state, checked before
+        any is made: the engine; a request that mixes an oversubscribed
+        partition with other devices; the opt-in, the gates and the
+        default timeslice of an oversubscribed device, which must be its
+        claim's only device."""
+        names: dict[str, list[str]] = {}
+        for r in claim.results:
+            names.setdefault(r.request, []).append(r.device)
+        gates = self._config.feature_gates
+        for request, devices in names.items():
+            if self.partition_engine is None and any(
+                    n in self.allocatable
+                    and self.allocatable[n].partition is not None
+                    for n in devices):
+                raise PrepareError("partition engine not enabled on this "
+                                   "node")
+            over = [n for n in devices if self._slots_of(n) > 1]
+            if not over:
+                continue
+            if len(over) != len(devices):
+                raise PrepareError(
+                    f"request {request!r} mixes oversubscribed partition "
+                    f"devices ({sorted(over)}) with exclusive devices "
+                    f"({sorted(set(devices) - set(over))}); split them "
+                    "into separate requests")
+            cfg = configs[request]
+            if not cfg.oversubscribe:
+                raise PrepareError(
+                    f"device {over[0]} is oversubscribed "
+                    f"({self._slots_of(over[0])} tenant slots); the "
+                    "claim's MigDeviceConfig must opt in with "
+                    "oversubscribe: true")
+            if not gates.is_enabled(TIME_SLICING_SETTINGS) or \
+                    not gates.is_enabled(MULTI_TENANCY_SUPPORT):
+                raise PrepareError(
+                    "oversubscribed partitions need the TimeSlicingSettings "
+                    "and MultiTenancySupport feature gates")
+            if not cfg.sharing.is_default:
+                raise PrepareError(
+                    f"request {request!r}: a timeslice on an oversubscribed "
+                    "partition: compute-policy sets the whole GPU's, so it "
+                    "is refused on MIG")
+            if len(claim.results) > 1:
+                raise PrepareError(
+                    f"claim {claim.uid}: oversubscribed partition "
+                    f"{over[0]} must be its claim's only device: the MPS "
+                    "clients of a container reach one daemon, which sees "
+                    "only its MIG instance")
 
     def _mig_edits(self, chip, live: SubSliceLiveTuple) -> ContainerEdits:
         """The device nodes of a MIG device: its GPU's, and the caps of
@@ -639,16 +883,18 @@ class DeviceState:
             nodes.append(node)
         return ContainerEdits(device_nodes=nodes)
 
-    def _create_mig(self, spec: SubSliceSpecTuple) -> SubSliceLiveTuple:
+    def _create_mig(self, spec: SubSliceSpecTuple, owner: str = ""
+                    ) -> SubSliceLiveTuple:
         """The HOT path's ``createMigDevice`` (``nvlib.go:926``): the
-        instance, recorded in the registry."""
+        instance, recorded in the registry (with its partition as
+        ``owner``)."""
         try:
             inst = self._lib.create_mig(spec.gpu, spec.profile, spec.start)
         except GpuLibError as e:
             raise PrepareError(f"{spec.canonical_name()}: {e}") from e
         live = SubSliceLiveTuple.from_instance(inst)
         try:
-            self._registry.record(live)
+            self._registry.record(live, owner=owner)
         except BaseException:
             self._destroy_mig(live, quiet=True)
             raise
@@ -675,12 +921,16 @@ class DeviceState:
 
     def _prepare_devices(self, claim: ResourceClaim, configs: dict,
                          timer: SegmentTimer) -> list[CheckpointedDevice]:
-        """Each MIG device created, each request's sharing, then the CDI
-        spec of the claim's devices; all of it undone if any part
-        fails."""
+        """Each MIG device created (a partition attached), each request's
+        sharing, then the CDI spec of the claim's devices; all of it
+        undone if any part fails."""
         prepared: list[CheckpointedDevice] = []
         device_edits: dict[str, ContainerEdits] = {}
+        # A shared partition's CDI name is scoped to the claim: its
+        # tenants hold one device, and qualified CDI ids must not clash.
+        cdi_name_of: dict[str, str] = {}
         created: list[SubSliceLiveTuple] = []
+        attached: list[str] = []
         # request -> the indices of its devices' GPUs and the devices'
         # names: one sharing a request (a MIG device holds its GPU's
         # default timeslice, as the JAX plugin's sub-slice its chip's).
@@ -696,6 +946,10 @@ class DeviceState:
                 claim_gpus.append(dev.gpu.index)
                 if dev.kind == DeviceKind.CHIP:
                     edits = ContainerEdits(device_nodes=[dev.gpu.devpath])
+                elif dev.kind == DeviceKind.PARTITION:
+                    edits, live = self._prepare_partition(
+                        claim, result, configs[result.request], timer,
+                        attached)
                 else:
                     self._check_mig_sharing(result.request,
                                             configs[result.request].sharing)
@@ -709,7 +963,11 @@ class DeviceState:
                         made = SubSliceLiveTuple.from_instance(
                             self._static_instance(ss))
                     edits = self._mig_edits(dev.gpu, made)
-                device_edits[result.device] = edits
+                cdi_name = result.device
+                if self._slots_of(result.device) > 1:
+                    cdi_name = f"{result.device}-t-{claim.uid}"
+                cdi_name_of[result.device] = cdi_name
+                device_edits[cdi_name] = edits
                 prepared.append(CheckpointedDevice(
                     canonical_name=result.device, kind=dev.kind.value,
                     live=live))
@@ -725,7 +983,7 @@ class DeviceState:
                     edits = self._apply_sharing(
                         claim, request, configs[request].sharing, indices,
                         names)
-                    for name in names:
+                    for name in map(cdi_name_of.get, names):
                         device_edits[name] = device_edits[name].merge(edits)
             with timer.segment("gen_write_cdi_spec"):
                 ids = self._cdi.create_claim_spec_file(
@@ -735,11 +993,53 @@ class DeviceState:
             self._cdi.delete_claim_spec_file(claim.uid)
             for live in created:
                 self._destroy_mig(live, quiet=True)
+            for name in attached:
+                # Holder-counted: the instance stays while a co-tenant
+                # holds it. A failed detach must not hide the error: its
+                # durable Destroying record is finished by the sweep.
+                try:
+                    self.partition_engine.detach(claim.uid, name)
+                except PartitionEngineError:
+                    logger.exception("rollback: partition detach of %s "
+                                     "failed; the sweep finishes it", name)
             raise
         by_name = dict(zip(sorted(device_edits), ids))
         for dev in prepared:
-            dev.cdi_device_ids = [by_name[dev.canonical_name]]
+            dev.cdi_device_ids = [by_name[cdi_name_of[dev.canonical_name]]]
         return prepared
+
+    def _prepare_partition(self, claim: ResourceClaim, result, cfg,
+                           timer: SegmentTimer, attached: list[str]
+                           ) -> tuple[ContainerEdits, dict]:
+        """Attach a tenant to its partition (the first creates the MIG
+        instance); the device's edits and its live record. An
+        oversubscribed partition's tenant gets its MPS daemon's pipe
+        directory and memory limit."""
+        dev = self.allocatable[result.device]
+        info = dev.partition
+        if not info.oversubscribed:
+            self._check_mig_sharing(result.request, cfg.sharing)
+        try:
+            with timer.segment("prep_attach_partition"):
+                live = self.partition_engine.attach(claim.uid, result.device)
+        except PartitionEngineError as e:
+            raise PrepareError(str(e)) from e
+        attached.append(result.device)
+        made = SubSliceLiveTuple.from_dict(live)
+        edits = self._mig_edits(dev.gpu, made)
+        edits.env += [f"TPU_PARTITION={info.profile.name}",
+                      f"TPU_PARTITION_HBM_BYTES={info.tenant_memory_bytes}"]
+        if info.oversubscribed:
+            try:
+                with timer.segment("prep_partition_mps"):
+                    edits = edits.merge(self._tenancy.start_partition(
+                        result.device, dev.gpu.index, made.uuid,
+                        info.mig.hbm_bytes, info.tenant_memory_bytes,
+                        info.profile.max_tenants))
+            except SharingError as e:
+                raise PrepareError(f"request {result.request!r}: {e}"
+                                   ) from e
+        return edits, live
 
     def _static_instance(self, ss: SubSliceInfo):
         """The static device's instance as NVML's walk finds it now."""
@@ -815,17 +1115,51 @@ class DeviceState:
     def _rollback(self, checkpointed: CheckpointedClaim) -> None:
         """Remove what a claim holds: its MIG instances (a failure raises
         and keeps the record, so the kubelet's retry finds it), its
-        sharing, its CDI spec, then its record."""
+        partitions' holds, its sharing, its CDI spec, then its record.
+        A reservation (no live state) holds no instance."""
         for dev in checkpointed.devices:
-            if dev.live and "uuid" in dev.live:
+            if dev.live and dev.live.get("partition"):
+                self._detach_partition(checkpointed.uid, dev)
+            elif dev.live and "uuid" in dev.live:
                 self._destroy_mig(SubSliceLiveTuple.from_dict(dev.live))
-        indices = [(parse_mig_name(name) or (parse_gpu_name(name),))[0]
-                   for name in (d.canonical_name
-                                for d in checkpointed.devices)]
-        self._release_sharing(checkpointed.uid,
-                              [i for i in indices if i is not None])
+        indices = {gpu for d in checkpointed.devices
+                   for gpu, _ in self._slices_of(d.canonical_name, d.live)}
+        self._release_sharing(checkpointed.uid, sorted(indices))
         self._cdi.delete_claim_spec_file(checkpointed.uid)
         self._checkpoint.update_claim(checkpointed.uid, None)
+
+    def _detach_partition(self, uid: str, dev: CheckpointedDevice) -> None:
+        """Drop a tenant's hold through the engine; without one (the gate
+        turned off across a restart), by the same derived count: the
+        instance and its MPS daemon go only when no other claim record
+        names the device."""
+        if self.partition_engine is not None:
+            try:
+                self.partition_engine.detach(uid, dev.canonical_name)
+            except PartitionEngineError as e:
+                raise PrepareError(str(e)) from e
+            return
+        if any(other.uid != uid and any(
+                d.canonical_name == dev.canonical_name
+                for d in other.devices)
+               for other in self._checkpoint.get().claims.values()):
+            return
+        self._tenancy.stop_partition(dev.canonical_name)
+        self._destroy_mig(SubSliceLiveTuple.from_dict(dev.live))
+        # Its record goes too: a later engine must not destroy what may
+        # since stand under the same ids.
+        if os.path.exists(os.path.join(self.partition_root,
+                                       CheckpointManager.FILENAME)):
+            records = CheckpointManager(self.partition_root,
+                                        boot_id=self._config.boot_id,
+                                        transition_policy=PARTITION_POLICY)
+            rec = records.get().claims.get(dev.canonical_name)
+            if rec is not None:
+                if rec.state != PARTITION_DESTROYING:
+                    records.update_claim(rec.uid, CheckpointedClaim(
+                        uid=rec.uid, state=PARTITION_DESTROYING,
+                        devices=rec.devices))
+                records.update_claim(rec.uid, None)
 
     # -- introspection ---------------------------------------------------
 

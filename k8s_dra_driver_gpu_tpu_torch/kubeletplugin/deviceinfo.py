@@ -21,6 +21,18 @@ A MIG device (``SubSliceInfo``) is named ``gpu-<index>-mig-<profile>-
 ``productName`` and, for a static device (one that exists before any
 claim), its MIG ``uuid``; its capacities are the profile's
 ``multiprocessors`` and ``memory`` (bytes).
+
+A tenant partition (``PartitionInfo``, ``pkg/partition``) is a
+PartitionSet profile over one placement of its MIG profile, named
+``pt-<profile>-<k>`` (``k`` counts the profile's placements over the
+host's GPUs). Its attributes are the JAX ones with GPU names:
+``profile``, ``subslice`` (the MIG profile), ``placement`` (``k``),
+``parentIndex``, ``migStart`` (the placement's first memory slot),
+``productName``, ``partition`` and ``oversubscribeSlots``
+(``maxTenants``). Its capacities are a tenant slot's: ``memory``, the
+MIG profile's bytes x ``hbmFraction`` / ``maxTenants`` rounded down to
+whole MiB (MPS pins memory in MiB), and ``multiprocessors``, the
+profile's SMs / ``maxTenants``.
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ import re
 from dataclasses import dataclass
 from enum import Enum
 
+from ..pkg.partition.spec import PartitionProfile, partition_device_name
 from ..tpulib.binding import GpuChip, GpuHostInfo, SubSliceProfile
 from .subslice import SubSliceSpecTuple
 
@@ -46,9 +59,10 @@ def parse_gpu_name(name: str) -> int | None:
 
 class DeviceKind(str, Enum):
     """Every kind the JAX plugin allocates, under its names; the port
-    builds CHIP (a whole GPU) and the two MIG kinds: SUBSLICE_STATIC (a
+    builds CHIP (a whole GPU), the two MIG kinds: SUBSLICE_STATIC (a
     MIG device that exists before the claim) and SUBSLICE_DYNAMIC (one
-    created at prepare)."""
+    created at prepare), and PARTITION (a tenant partition over a MIG
+    instance)."""
 
     CHIP = "chip"
     SUBSLICE_STATIC = "subslice-static"
@@ -60,6 +74,7 @@ class DeviceKind(str, Enum):
 REDACTED_UUID = "GPU-REDACTED"
 # An H100's MIG memory slots: every placement is a run of them.
 MIG_MEMORY_SLICES = 8
+MIB = 1 << 20
 
 
 def _refused(key: str, value) -> bool:
@@ -145,19 +160,74 @@ class SubSliceInfo:
                 "memory": self.profile.hbm_bytes}
 
 
+@dataclass(frozen=True)
+class PartitionInfo:
+    """A tenant partition: ``profile`` over the MIG placement ``spec`` of
+    GPU ``chip`` (its MIG profile ``mig``), the ``placement``-th of the
+    profile's placements on this host."""
+
+    profile: PartitionProfile
+    spec: SubSliceSpecTuple
+    mig: SubSliceProfile
+    chip: GpuChip
+    placement: int
+
+    @property
+    def canonical_name(self) -> str:
+        return partition_device_name(self.profile.name, self.placement)
+
+    @property
+    def oversubscribed(self) -> bool:
+        return self.profile.max_tenants > 1
+
+    @property
+    def tenant_memory_bytes(self) -> int:
+        """A tenant's memory budget and MPS ceiling: whole MiB."""
+        budget = int(self.mig.hbm_bytes * self.profile.hbm_fraction) \
+            // self.profile.max_tenants
+        return budget // MIB * MIB
+
+    @property
+    def tenant_multiprocessors(self) -> int:
+        return self.mig.cores // self.profile.max_tenants
+
+    @property
+    def tenant_slice_milli(self) -> int:
+        """A tenant's share of each memory slot of the placement, in
+        thousandths."""
+        return 1000 // self.profile.max_tenants
+
+    def attributes(self) -> dict:
+        return {"profile": self.profile.name,
+                "subslice": self.profile.subslice,
+                "placement": self.placement,
+                "parentIndex": self.chip.index,
+                "migStart": self.spec.start,
+                "productName": self.chip.name,
+                "partition": True,
+                # > 1 marks a device a scheduler may allocate to several
+                # tenant claims.
+                "oversubscribeSlots": self.profile.max_tenants}
+
+    def capacities(self) -> dict:
+        return {"multiprocessors": self.tenant_multiprocessors,
+                "memory": self.tenant_memory_bytes}
+
+
 @dataclass
 class AllocatableDevice:
     """One device this node can allocate (upstream ``allocatable.go:48``,
-    a union over the kinds): a whole GPU (``chip``) or a MIG device
-    (``subslice``)."""
+    a union over the kinds): a whole GPU (``chip``), a MIG device
+    (``subslice``) or a tenant partition (``partition``)."""
 
     kind: DeviceKind
     chip: ChipInfo | None = None
     subslice: SubSliceInfo | None = None
+    partition: PartitionInfo | None = None
 
     @property
     def _info(self):
-        return self.chip if self.chip is not None else self.subslice
+        return self.chip or self.subslice or self.partition
 
     @property
     def canonical_name(self) -> str:
@@ -166,23 +236,30 @@ class AllocatableDevice:
     @property
     def gpu(self) -> GpuChip:
         """The GPU this device is or lies on."""
-        return self.chip.chip if self.chip is not None else self.subslice.chip
+        if self.chip is not None:
+            return self.chip.chip
+        return (self.subslice or self.partition).chip
 
     def memory_slices(self) -> set[tuple[int, int]]:
         """(GPU index, memory slot) of each MIG memory slot this device
-        takes: all of its GPU's for a whole GPU."""
-        if self.subslice is not None:
-            return {(self.gpu.index, k)
-                    for k in self.subslice.spec.memory_slices}
+        takes: all of its GPU's for a whole GPU, its placement's for a
+        partition."""
+        ss = self.subslice or self.partition
+        if ss is not None:
+            return {(self.gpu.index, k) for k in ss.spec.memory_slices}
         return {(self.gpu.index, k) for k in range(MIG_MEMORY_SLICES)}
 
     def sort_key(self) -> tuple:
         """Publication order: by GPU, the whole GPU first, then its MIG
-        devices by profile and start."""
-        if self.subslice is None:
-            return (self.gpu.index, 0, "", 0)
-        return (self.gpu.index, 1, self.subslice.spec.profile,
-                self.subslice.spec.start)
+        devices by profile and start, then its partitions by profile
+        and placement."""
+        if self.subslice is not None:
+            return (self.gpu.index, 1, self.subslice.spec.profile,
+                    self.subslice.spec.start)
+        if self.partition is not None:
+            return (self.gpu.index, 2, self.partition.profile.name,
+                    self.partition.placement)
+        return (self.gpu.index, 0, "", 0)
 
     def to_dra_device(self) -> dict:
         """A resource.k8s.io Device entry of a ResourceSlice."""

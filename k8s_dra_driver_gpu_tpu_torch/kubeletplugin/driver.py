@@ -11,10 +11,11 @@ through any object with ``KubeClient``'s surface:
   which also deletes this driver's other slices of the node, in one of
   the reference's modes (``driver.py:102-113``, ``:380-440``):
   ``combined``, one slice of every device; or ``split`` (KEP-4815, an
-  API server from 1.35), whole GPUs in ``<node>-gpu.nvidia.com-gpus``
-  and MIG devices in ``<node>-gpu.nvidia.com-mig``, each slice with the
-  counters, both counted in ``resourceSliceCount`` (one slice, as
-  ``combined``, while there is no MIG device). Without a
+  API server from 1.35), whole GPUs in ``<node>-gpu.nvidia.com-gpus``,
+  MIG devices in ``<node>-gpu.nvidia.com-mig`` and tenant partitions in
+  ``<node>-gpu.nvidia.com-partitions``, each slice with the counters, all
+  counted in ``resourceSliceCount`` (a slice only where it has devices;
+  one slice, as ``combined``, while there are only whole GPUs). Without a
   ``publication_mode`` the server's ``/version`` chooses, as the
   reference's ``_server_supports_split`` does: one request at
   construction. The reference's ``legacy`` mode (no counters, no MIG)
@@ -36,11 +37,18 @@ through any object with ``KubeClient``'s surface:
   taint, as the upstream's ``device_health.go:36-40``.
 - **Sweep.** ``NodeStateReconciler`` runs the stale-claim GC and the
   orphan passes on its own thread.
+- **Partitions.** With the partition engine on, a
+  ``PartitionSetWatcher`` (``pkg/partition/watch.py``) follows the
+  cluster's PartitionSet CRDs for this node's pool (``Config.pool_name``,
+  else the node's name): started after the bootstrap publish, it
+  re-plans through ``apply_partition_set`` (which republishes through the
+  diff: a converged re-apply costs no write) and passes the pre-warm hint
+  to ``apply_prewarm``; ``stop()`` joins it. ``TPU_DRA_PARTITION_WATCH=0``
+  turns it off (the bootstrap plan stays).
 
 Not ported: the gRPC transport (ROADMAP.md §1b item 8), metrics and
-tracing, the flight recorder, telemetry and power-cap attributes, the
-partition engine and its watcher (item 5b), autoscale prewarm and
-tenancy.
+tracing, the flight recorder, telemetry and power-cap attributes, and
+the tenant-telemetry feed of the JAX planner.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ import os
 import time
 
 from ..pkg.kubeclient import NotFoundError
+from ..pkg.partition.watch import PartitionSetWatcher
 from ..pkg.sliceutil import publish_resource_slices, slice_content_hash
 from ..tpulib.binding import load
 from . import DRIVER_NAME
@@ -101,6 +110,15 @@ class Driver:
             self._publish_recheck_s = 300.0
         self.reconciler = NodeStateReconciler(self.state, kube_client,
                                               node_name)
+        self.partition_watcher: PartitionSetWatcher | None = None
+        if self.state.partition_engine is not None and os.environ.get(
+                "TPU_DRA_PARTITION_WATCH", "1") not in ("0", "false",
+                                                        "False"):
+            self.partition_watcher = PartitionSetWatcher(
+                kube_client, pool=config.pool_name or node_name,
+                apply_fn=self.apply_partition_set,
+                bootstrap=self.state.partition_engine.partition_set,
+                prewarm_fn=self.apply_prewarm)
         self.health_monitor: ChipHealthMonitor | None = None
         if enable_health_monitor:
             # The startup enumeration is the baseline of the devfs
@@ -130,11 +148,17 @@ class Driver:
         if self.health_monitor:
             self.health_monitor.start()
         self.publish_resources()
+        # After the bootstrap publish: the watcher's first reconcile
+        # converges onto the governing CRD, if any.
+        if self.partition_watcher is not None:
+            self.partition_watcher.start()
 
     def stop(self) -> None:
         """Stop and join every thread this driver started; the monitor
         closes its device library, and the device state the one it kept
         for MIG."""
+        if self.partition_watcher is not None:
+            self.partition_watcher.stop()
         self.reconciler.stop()
         if self.health_monitor:
             self.health_monitor.stop()
@@ -210,7 +234,7 @@ class Driver:
         with its taints and its counters, each slice with the counter
         sets; ``resourceSliceCount`` is the number of slices built."""
         profiles = self.state.subslice_profiles
-        gpus, migs = [], []
+        gpus, migs, parts = [], [], []
         for dev in sorted(self.state.allocatable.values(),
                           key=AllocatableDevice.sort_key):
             entry = dev.to_dra_device()
@@ -220,7 +244,8 @@ class Driver:
             if taints:
                 entry["taints"] = taints
             entry["consumesCounters"] = consumed_counters(dev, profiles)
-            (gpus if dev.kind == DeviceKind.CHIP else migs).append(entry)
+            (gpus if dev.kind == DeviceKind.CHIP else parts
+             if dev.kind == DeviceKind.PARTITION else migs).append(entry)
 
         def slice_obj(suffix: str, devices: list[dict]) -> dict:
             spec = {"driver": DRIVER_NAME, "nodeName": self.node_name,
@@ -235,10 +260,12 @@ class Driver:
                                  f"{self.node_name}-{DRIVER_NAME}{suffix}"},
                     "spec": spec}
 
-        if self.publication_mode == "split" and migs:
-            slices = [slice_obj("-gpus", gpus), slice_obj("-mig", migs)]
+        if self.publication_mode == "split" and (migs or parts):
+            slices = [slice_obj("-gpus", gpus)] + [
+                slice_obj(suffix, devs) for suffix, devs in (
+                    ("-mig", migs), ("-partitions", parts)) if devs]
         else:
-            slices = [slice_obj("", gpus + migs)]
+            slices = [slice_obj("", gpus + migs + parts)]
         for s in slices:
             s["spec"]["pool"]["resourceSliceCount"] = len(slices)
         return slices
@@ -258,6 +285,23 @@ class Driver:
         self._published_hashes = hashes
         self._published_verified_at = time.monotonic()
         return stats
+
+    # -- partitions ------------------------------------------------------
+
+    def apply_partition_set(self, partition_set) -> dict:
+        """Re-plan the partitions and republish through the diff: only
+        slices whose devices changed are written, and a converged
+        re-apply writes nothing. Returns the publish's stats."""
+        self.state.apply_partition_set(partition_set)
+        return self.publish_resources()
+
+    def apply_prewarm(self, hints: dict) -> int:
+        """Converge the engine's warm MIG instances onto the watcher's
+        hint; no republish (a warm instance changes no published device).
+        Returns the instances created."""
+        if self.state.partition_engine is None:
+            return 0
+        return self.state.partition_engine.set_prewarm(hints or {})
 
     # -- health ----------------------------------------------------------
 

@@ -13,7 +13,17 @@ One counter set a GPU, ``gpu-<index>-counter-set``, holds:
 
 A whole GPU consumes every counter of its set. A MIG device consumes the
 memory slots of its placement, ``[start, start + size)``, and its
-profile's SMs and memory bytes. So the scheduler can never place a
+profile's SMs and memory bytes. An oversubscribed tenant partition
+(``pkg/partition``, ``maxTenants`` > 1) consumes a tenant slot's share:
+each memory slot of its placement is debited ``1000 // maxTenants``
+thousandths (``"500m"`` for two tenants), ``memory`` the tenant's budget
+and ``multiprocessors`` its SM share; so ``maxTenants`` tenants together
+never consume more than the MIG instance, and a whole-GPU claim or an
+overlapping MIG device cannot land beside a live tenant. An exclusive
+partition (one slot) holds its whole MIG instance and consumes exactly
+what its MIG device does, whatever its ``hbmFraction`` (where the JAX
+plugin debits the budget: the instance's memory past the budget is no
+other claim's either). So the scheduler can never place a
 whole-GPU claim and a MIG claim, or two MIG devices whose placements
 overlap, on one GPU; and MIG devices whose slots are disjoint but whose
 SMs or memory together exceed the GPU's are refused too.
@@ -66,12 +76,23 @@ def consumed_counters(dev: AllocatableDevice,
                       ) -> list[dict]:
     """The ``consumesCounters`` block of one device."""
     chip = dev.gpu
-    if dev.subslice is None:
+    part = dev.partition
+    if part is not None and part.oversubscribed:
+        counters = {f"memory-slice-{k}": {
+            "value": f"{part.tenant_slice_milli}m"}
+            for k in part.spec.memory_slices}
+        counters["memory"] = {"value": str(part.tenant_memory_bytes)}
+        if _multiprocessors(profiles):
+            counters["multiprocessors"] = {
+                "value": str(part.tenant_multiprocessors)}
+    elif part is None and dev.subslice is None:
         counters = _gpu_counters(chip, profiles)
     else:
-        prof = dev.subslice.profile
+        # A MIG device, or an exclusive partition over one.
+        spec, prof = (part.spec, part.mig) if part is not None else (
+            dev.subslice.spec, dev.subslice.profile)
         counters = {f"memory-slice-{k}": {"value": "1"}
-                    for k in dev.subslice.spec.memory_slices}
+                    for k in spec.memory_slices}
         counters["memory"] = {"value": str(prof.hbm_bytes)}
         if _multiprocessors(profiles):
             counters["multiprocessors"] = {"value": str(prof.cores)}

@@ -16,7 +16,13 @@ the JAX order (``reconcile_once``):
    claim references are destroyed, and registry entries whose GPU
    instance is gone are dropped
    (``DeviceState.destroy_unknown_subslices``);
-5. ``devices_gone``: a completed claim whose GPUs this host no longer
+5. ``idle_partition``: partition records no tenant holds are torn down
+   (``PartitionEngine.reap_idle``: a partition whose last tenant was
+   GC'd rather than unprepared, an orphaned Creating or Destroying
+   record), and partition devices a re-plan retired leave the
+   allocatable set once their records are gone
+   (``DeviceState.prune_retired_partitions``);
+6. ``devices_gone``: a completed claim whose GPUs this host no longer
    has gets a ``PermanentFailure`` condition on the API server, so the
    control plane moves it.
 
@@ -25,9 +31,9 @@ MIG instance of a claim that moved or was deleted is destroyed by its
 unprepare (passes 1 and 2), with the rest of its teardown; pass 4 finds
 what a crash left.
 
-The JAX sweep's idle partition pass (ROADMAP.md §1b item 5b) and its
-reservation-lease pass (the upgrade handover's leases, not ported with
-``DeviceState``) have nothing to repair here and report 0.
+The JAX sweep's reservation-lease pass (the upgrade handover's leases,
+not ported with ``DeviceState``) has nothing to repair here and reports
+0.
 ``CDStateReconciler`` waits for ``computedomain/`` (item 9); the
 recovery metrics are not ported.
 """
@@ -96,6 +102,10 @@ class NodeStateReconciler:
             self._state.prepared_claims(), lookups)
         counts["cdi_spec"] = self._sweep_cdi_specs()
         counts["carveout"] = self._state.destroy_unknown_subslices()
+        if self._state.partition_engine is not None:
+            counts["idle_partition"] = \
+                self._state.partition_engine.reap_idle() + \
+                self._state.prune_retired_partitions()
         counts["devices_gone"] = self._declare_gone_devices(
             self._state.prepared_claims(), lookups)
         if any(counts.values()):

@@ -25,6 +25,18 @@ pipe directory through CDI edits (:214-379)).
   directory mounted read-write at that path, and
   ``CUDA_MPS_PINNED_DEVICE_MEM_LIMIT`` in the daemon's numbering (the
   request's GPUs by index, from 0), which is what its clients see.
+- An oversubscribed tenant partition (``pkg/partition``) has one MPS
+  control daemon for its MIG instance, not one a claim: two servers
+  over one MIG instance would contend. ``start_partition`` starts it
+  with ``CUDA_VISIBLE_DEVICES=<the instance's MIG-… UUID>`` at the first
+  tenant's attach (a running one is kept), under
+  ``<root>/mps/<sha256("partition/" + device)[:12]>/``, its default
+  pinned memory limit the tenant budget; each tenant's edits carry its
+  pipe directory and ``CUDA_MPS_PINNED_DEVICE_MEM_LIMIT=0=<budget>M``
+  (device 0 in the daemon's numbering). ``stop_partition`` quits it at
+  the partition's teardown; so its life follows the partition's derived
+  holder count, and the JAX plugin's per-slot tenancy ceiling
+  (``_apply_oversubscription``) is the instance's MPS limit.
 
 What differs from the JAX plugin, on an H100 host:
 
@@ -285,7 +297,7 @@ class MultiTenancyManager:
 
     def _dirs_of(self, claim_uid: str) -> list[str]:
         return [d for d, owner in self._owners().items()
-                if owner is not None and owner["claim"] == claim_uid]
+                if owner is not None and owner.get("claim") == claim_uid]
 
     def _daemon_env(self, d: str, visible: str) -> dict:
         env = {k: v for k, v in os.environ.items()
@@ -411,13 +423,18 @@ class MultiTenancyManager:
             self._quit(d)
             shutil.rmtree(d, ignore_errors=True)
 
-    def reconcile(self, active_claim_uids: set[str]) -> None:
+    def reconcile(self, active_claim_uids: set[str],
+                  active_partitions: set[str] = frozenset()) -> None:
         """Plugin start: quit the daemons of directories no active claim
-        owns and remove them; start again the dead daemon of an active
-        claim (a live one is left alone). A daemon that does not start
-        is logged: its claim's unprepare deals with it."""
+        or partition owns and remove them; start again the dead daemon
+        of an active one (a live one is left alone). A daemon that does
+        not start is logged: its claim's unprepare, or its partition's
+        next attach, deals with it."""
         for d, owner in self._owners().items():
-            if owner is None or owner["claim"] not in active_claim_uids:
+            if owner is None or (
+                    owner.get("claim") not in active_claim_uids
+                    if "partition" not in owner
+                    else owner["partition"] not in active_partitions):
                 self._quit(d)
                 shutil.rmtree(d, ignore_errors=True)
                 continue
@@ -432,3 +449,53 @@ class MultiTenancyManager:
         """Whether a daemon of the claim runs."""
         return any(mps_pids(self.pipe_dir(d))
                    for d in self._dirs_of(claim_uid))
+
+    # -- the daemon of an oversubscribed partition ----------------------
+
+    def _partition_dir(self, device: str) -> str:
+        return os.path.join(self._root, hashlib.sha256(
+            f"partition/{device}".encode()).hexdigest()[:12])
+
+    def start_partition(self, device: str, gpu: int, mig_uuid: str,
+                        capacity_bytes: int, limit_bytes: int,
+                        max_tenants: int) -> ContainerEdits:
+        """Start (or keep) the MPS daemon of partition ``device`` over
+        its MIG instance ``mig_uuid``, each client capped at
+        ``limit_bytes``; a tenant's edits."""
+        if self._control is None:
+            raise SharingError(f"{MPS_CONTROL} not found: MPS is not "
+                               "available on this node")
+        if limit_bytes <= 0 or limit_bytes % MIB:
+            raise SharingError(
+                f"partition {device}: tenant budget {limit_bytes} bytes: "
+                "MPS pins device memory in whole MiB")
+        d = self._partition_dir(device)
+        os.makedirs(self.pipe_dir(d), exist_ok=True)
+        os.makedirs(os.path.join(d, "log"), exist_ok=True)
+        limit = f"{limit_bytes // MIB}M"
+        owner = {"partition": device, "chips": [gpu],
+                 "maxClients": max_tenants,
+                 "hbmCapacityBytes": capacity_bytes,
+                 "hbmLimits": {device: limit_bytes},
+                 "visibleDevices": mig_uuid, "pinnedMemLimits": {"0": limit}}
+        if not mps_pids(self.pipe_dir(d)):
+            # The first tenant's; a co-tenant's finds it running.
+            write_json_atomic(os.path.join(d, "claim.json"),
+                              json.dumps(owner))
+            self._ensure_daemon(d, owner)
+        container = f"{MPS_CONTAINER_ROOT}/{os.path.basename(d)}"
+        return ContainerEdits(
+            env=[f"CUDA_MPS_PIPE_DIRECTORY={container}",
+                 f"CUDA_MPS_PINNED_DEVICE_MEM_LIMIT=0={limit}"],
+            mounts=[(self.pipe_dir(d), container, False)])
+
+    def stop_partition(self, device: str) -> None:
+        """Quit the partition's daemon and remove its directory."""
+        d = self._partition_dir(device)
+        if os.path.isdir(d):
+            self._quit(d)
+            shutil.rmtree(d, ignore_errors=True)
+
+    def partition_active(self, device: str) -> bool:
+        """Whether the partition's daemon runs."""
+        return bool(mps_pids(self.pipe_dir(self._partition_dir(device))))

@@ -2,10 +2,12 @@
 ``pkg/`` modules that the node service needs): atomic JSON writes, a
 file lock with a timeout, the node's boot id, the checkpoint's
 claim-state machine and the prepare timer; the feature gates
-(``featuregates``); the kube client and its fake
-API server (``kubeclient``, ``fakeapiserver``), ResourceSlice
-publication by content hash (``sliceutil``) and the two claim helpers of
-the reconcile sweep (``recovery``). Standard library only."""
+(``featuregates``); the kube client with its streamed watch and its fake
+API server (``kubeclient``, ``fakeapiserver``), a list-and-watch cache
+(``informer``), ResourceSlice publication by content hash
+(``sliceutil``), the two claim helpers of the reconcile sweep
+(``recovery``), and tenant partitions (``partition``: the PartitionSet
+spec, the engine, the CRD watcher). Standard library only."""
 
 from __future__ import annotations
 

@@ -2,15 +2,27 @@
 served over real HTTP from a ``FakeKubeClient`` store (the JAX package's
 ``pkg/fakeapiserver.py``).
 
-It serves CRUD, JSON merge patch, label and field selectors and
-``/version``, so the real ``KubeClient`` runs over a socket: its paths,
-query strings and error mapping are what is tested. ``requests`` counts
-the requests served by HTTP method.
+It serves CRUD, JSON merge patch, label and field selectors,
+``/version`` and streamed watches, so the real ``KubeClient`` runs over
+a socket: its paths, query strings, error mapping and watch framing are
+what is tested. ``requests`` counts the requests served by HTTP method.
 
-Not ported: watch streaming (no module of the port watches yet; a watch
-request is answered 501), the admission webhook leg, the health
-endpoints, pod logs and the command line. ``stop()`` joins the serving
-thread and every request thread, so no thread outlives the server.
+A watch (``?watch=true``) is streamed as JSON lines with HTTP/1.0
+framing (no Content-Length: read until close), as the JAX server does.
+With ``resourceVersion`` it first replays the store's logged writes
+after it, and answers 410 Gone when the log no longer reaches back so
+far; without, it starts from now. Each event's object carries the
+event's place in the store's write sequence as its resourceVersion, so
+a client resumes from what it saw (the stored objects keep their own
+counts). A BOOKMARK line every ``keepalive`` seconds shows the stream
+alive. ``close_watches()`` ends every open stream (a server restart as a
+client sees it); with ``hold`` it also answers new watches 503 until
+``release_watches()``, so writes can pass while no client watches.
+
+Not ported: the admission webhook leg, the health endpoints, pod logs
+and the command line. ``stop()`` ends the watch streams, then joins the
+serving thread and every request thread, so no thread outlives the
+server.
 """
 
 from __future__ import annotations
@@ -18,12 +30,15 @@ from __future__ import annotations
 import collections
 import json
 import logging
+import queue
 import re
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
-from .kubeclient import ConflictError, FakeKubeClient, KubeError, NotFoundError
+from .kubeclient import (ConflictError, FakeKubeClient, GoneError, KubeError,
+                         NotFoundError)
 
 logger = logging.getLogger(__name__)
 
@@ -73,6 +88,8 @@ class _Handler(BaseHTTPRequestHandler):
             code, reason = 404, "NotFound"
         elif isinstance(exc, ConflictError):
             code, reason = 409, "AlreadyExists"
+        elif isinstance(exc, GoneError):
+            code, reason = 410, "Expired"
         elif isinstance(exc, KubeError):
             code, reason = exc.status or 500, "InternalError"
         else:
@@ -113,16 +130,63 @@ class _Handler(BaseHTTPRequestHandler):
                     group, version, resource, name, namespace=namespace))
                 return
             if query.get("watch", ["false"])[0] == "true":
-                raise KubeError(501, "watch is not served")
+                if self.server.watch_hold.is_set():
+                    raise KubeError(503, "watches are held")
+                self._serve_watch(group, resource, namespace, query.get(
+                    "resourceVersion", [""])[0])
+                return
+            seq = self.store.current_version()
             items = self.store.list(
                 group, version, resource, namespace=namespace,
                 label_selector=query.get("labelSelector", [""])[0] or None,
                 field_selector=query.get("fieldSelector", [""])[0] or None)
             self._send_json(200, {"kind": "List", "apiVersion": "v1",
-                                  "metadata": {"resourceVersion": "1"},
+                                  "metadata": {"resourceVersion": seq},
                                   "items": items})
         except Exception as e:  # noqa: BLE001 - wire boundary
             self._send_error(e)
+
+    def _serve_watch(self, group: str, resource: str,
+                     namespace: str | None, since: str) -> None:
+        """Stream the writes to ``group/resource`` until the client hangs
+        up or the server closes its watches."""
+        server = self.server
+        gen = server.watch_generation
+        replay, events, last = self.store.subscribe(group, resource,
+                                                    namespace, since)
+        try:
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.end_headers()
+
+            def send(ev_type: str, obj: dict, seq: int) -> None:
+                obj = dict(obj, metadata=dict(obj.get("metadata", {}),
+                                              resourceVersion=str(seq)))
+                self.wfile.write((json.dumps({"type": ev_type,
+                                              "object": obj}) + "\n"
+                                  ).encode())
+
+            for seq, _, _, _, ev_type, obj in replay:
+                send(ev_type, obj, seq)
+            self.wfile.flush()
+            bookmark = time.monotonic() + server.keepalive
+            while server.watch_generation == gen:
+                try:
+                    seq, _, _, _, ev_type, obj = events.get(timeout=0.05)
+                    if server.watch_generation != gen:
+                        break  # closed: the client's resume replays it
+                    send(ev_type, obj, seq)
+                    last = seq
+                except queue.Empty:
+                    if time.monotonic() < bookmark:
+                        continue
+                    send("BOOKMARK", {"metadata": {}}, last)
+                bookmark = time.monotonic() + server.keepalive
+                self.wfile.flush()
+        except OSError:
+            pass  # the client hung up
+        finally:
+            self.store.unsubscribe(events)
 
     def do_POST(self):  # noqa: N802
         self._count()
@@ -194,11 +258,15 @@ class _Server(ThreadingHTTPServer):
     daemon_threads = False
     block_on_close = True
 
-    def __init__(self, address, store: FakeKubeClient):
+    def __init__(self, address, store: FakeKubeClient, keepalive: float):
         super().__init__(address, _Handler)
         self.store = store
         self.requests: collections.Counter = collections.Counter()
         self._count_lock = threading.Lock()
+        # Streams end when this moves (close_watches, stop).
+        self.watch_generation = 0
+        self.watch_hold = threading.Event()
+        self.keepalive = keepalive
 
     def count(self, method: str) -> None:
         with self._count_lock:
@@ -206,12 +274,15 @@ class _Server(ThreadingHTTPServer):
 
 
 class FakeApiServer:
-    """The fake API server (tests, ``chip_smoke.py``)."""
+    """The fake API server (tests, ``chip_smoke.py``) over ``store`` (a
+    new ``FakeKubeClient`` by default); ``keepalive``: the seconds
+    between a watch stream's bookmarks."""
 
-    def __init__(self):
-        self.store = FakeKubeClient()
+    def __init__(self, store: FakeKubeClient | None = None,
+                 keepalive: float = 1.0):
+        self.store = store if store is not None else FakeKubeClient()
         # Loopback only, on a free port.
-        self._httpd = _Server(("127.0.0.1", 0), self.store)
+        self._httpd = _Server(("127.0.0.1", 0), self.store, keepalive)
         self._thread: threading.Thread | None = None
 
     @property
@@ -239,8 +310,20 @@ class FakeApiServer:
         logger.info("fake apiserver on %s", self.url)
         return self
 
+    def close_watches(self, hold: bool = False) -> None:
+        """End every open watch stream (its client resumes); with
+        ``hold``, refuse new ones until ``release_watches()``."""
+        if hold:
+            self._httpd.watch_hold.set()
+        self._httpd.watch_generation += 1
+
+    def release_watches(self) -> None:
+        self._httpd.watch_hold.clear()
+
     def stop(self) -> None:
-        """Stop serving, close the socket, join every thread."""
+        """End the watch streams, stop serving, close the socket, join
+        every thread."""
+        self.close_watches()
         if self._thread is not None:
             self._httpd.shutdown()
             self._thread.join()

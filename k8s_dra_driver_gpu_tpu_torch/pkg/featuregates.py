@@ -3,10 +3,12 @@ defaults (its ``pkg/featuregates.py``; the upstream driver's
 ``pkg/featuregates/featuregates.go``), so one ``FEATURE_GATES`` string
 means the same to both plugins.
 
-The GPU plugin reads three: ``TimeSlicingSettings`` and
+The GPU plugin reads four: ``TimeSlicingSettings`` and
 ``MultiTenancySupport`` (the upstream's ``MPSSupport``), which needs the
-first, as in both; and ``DynamicSubSlice`` (the upstream's
-``DynamicMIG``): MIG devices created at prepare. Any other gate set away
+first, as in both; ``DynamicSubSlice`` (the upstream's ``DynamicMIG``):
+MIG devices created at prepare; and ``TenantPartitioning``: tenant
+partitions over MIG instances (``pkg/partition``), which needs
+``DynamicSubSlice``, as in the JAX package. Any other gate set away
 from its default names a
 feature the port does not run: ``unported()`` lists it and
 ``DeviceState`` refuses it (``NotPortedError``). Upstream counterparts of
@@ -25,8 +27,13 @@ from dataclasses import dataclass, field
 TIME_SLICING_SETTINGS = "TimeSlicingSettings"
 MULTI_TENANCY_SUPPORT = "MultiTenancySupport"
 DYNAMIC_SUB_SLICE = "DynamicSubSlice"
+TENANT_PARTITIONING = "TenantPartitioning"
 # The gates the GPU plugin reads.
-READ = (TIME_SLICING_SETTINGS, MULTI_TENANCY_SUPPORT, DYNAMIC_SUB_SLICE)
+READ = (TIME_SLICING_SETTINGS, MULTI_TENANCY_SUPPORT, DYNAMIC_SUB_SLICE,
+        TENANT_PARTITIONING)
+# gate -> the gate it needs on.
+REQUIRES = {MULTI_TENANCY_SUPPORT: TIME_SLICING_SETTINGS,
+            TENANT_PARTITIONING: DYNAMIC_SUB_SLICE}
 
 # Every gate of the JAX plugin, by its default.
 DEFAULTS: dict[str, bool] = {
@@ -36,7 +43,7 @@ DEFAULTS: dict[str, bool] = {
     "PassthroughSupport": False,
     "ChipHealthCheck": True,
     DYNAMIC_SUB_SLICE: False,
-    "TenantPartitioning": False,
+    TENANT_PARTITIONING: False,
     "ComputeDomainCliques": True,
     "CrashOnICIFabricErrors": True,
     "DeviceMetadata": False,
@@ -86,9 +93,8 @@ class FeatureGates:
             if name not in DEFAULTS:
                 raise FeatureGateError(f"unknown feature gate {name!r}")
         gates = cls(enabled=enabled)
-        if gates.is_enabled(MULTI_TENANCY_SUPPORT) and not gates.is_enabled(
-                TIME_SLICING_SETTINGS):
-            raise FeatureGateError(
-                f"feature gate {MULTI_TENANCY_SUPPORT} requires "
-                f"{TIME_SLICING_SETTINGS} to be enabled")
+        for gate, needed in REQUIRES.items():
+            if gates.is_enabled(gate) and not gates.is_enabled(needed):
+                raise FeatureGateError(
+                    f"feature gate {gate} requires {needed} to be enabled")
         return gates

@@ -1,11 +1,22 @@
-"""The checkpoint's claim-state machine (the JAX package's
-``pkg/analysis/statemachine.py``, its two-phase policy).
+"""The checkpoint's state machines (the JAX package's
+``pkg/analysis/statemachine.py``, its two-phase and partition policies).
 
-The kubelet plugin's lifecycle: absent -> PrepareStarted (the durable
-reservation) -> PrepareCompleted, torn down from either state back to
-absent (rollback, unprepare). A claim never appears PrepareCompleted
-without its PrepareStarted record having been durable first. The
-checkpoint manager validates every mutation against the policy. The
+The kubelet plugin's lifecycle (``TWO_PHASE_POLICY``): absent ->
+PrepareStarted (the durable reservation) -> PrepareCompleted, torn down
+from either state back to absent (rollback, unprepare). A claim never
+appears PrepareCompleted without its PrepareStarted record having been
+durable first.
+
+A tenant partition's MIG instance (``PARTITION_POLICY``,
+``pkg/partition/engine.py``): absent -> PartitionCreating (the durable
+intent, the placement pinned) -> PartitionReady (the instance exists,
+its identity recorded) -> PartitionDestroying -> absent. A Creating
+record may go to Destroying (a crashed create rolled back) or straight
+to absent (a create that failed); a Ready record never vanishes without
+its destroy intent having been durable first, so a crashed teardown
+resumes instead of leaking the instance.
+
+The checkpoint manager validates every mutation against its policy. The
 reference's model checker (``crash_closure``) and the policies of its
 other controllers are not ported.
 """
@@ -72,5 +83,22 @@ TWO_PHASE_POLICY = TransitionPolicy(
         (PREPARE_STARTED, PREPARE_COMPLETED),  # the devices are ready
         (PREPARE_STARTED, ABSENT),             # rollback
         (PREPARE_COMPLETED, ABSENT),           # unprepare
+    }),
+)
+
+
+PARTITION_CREATING = "PartitionCreating"
+PARTITION_READY = "PartitionReady"
+PARTITION_DESTROYING = "PartitionDestroying"
+
+PARTITION_POLICY = TransitionPolicy(
+    "partition",
+    frozenset({
+        (ABSENT, PARTITION_CREATING),                # durable intent
+        (PARTITION_CREATING, PARTITION_READY),       # instance live
+        (PARTITION_CREATING, PARTITION_DESTROYING),  # crash rollback
+        (PARTITION_CREATING, ABSENT),                # create failed
+        (PARTITION_READY, PARTITION_DESTROYING),     # teardown intent
+        (PARTITION_DESTROYING, ABSENT),              # destroy done
     }),
 )

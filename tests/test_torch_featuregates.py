@@ -58,9 +58,13 @@ def test_the_same_gates_with_the_same_defaults():
                               in jax_fg.KNOWN_FEATURES.items()}
     assert set(pt_fg.READ) == {jax_fg.TIME_SLICING_SETTINGS,
                                jax_fg.MULTI_TENANCY_SUPPORT,
-                               jax_fg.DYNAMIC_SUB_SLICE}
+                               jax_fg.DYNAMIC_SUB_SLICE,
+                               jax_fg.TENANT_PARTITIONING}
     assert jax_fg.KNOWN_FEATURES[pt_fg.MULTI_TENANCY_SUPPORT].requires == (
         pt_fg.TIME_SLICING_SETTINGS,)
+    # Each dependency the port enforces is the JAX package's.
+    for gate, needed in pt_fg.REQUIRES.items():
+        assert jax_fg.KNOWN_FEATURES[gate].requires == (needed,)
 
 
 @pytest.mark.parametrize("spec", SPECS)
@@ -81,7 +85,7 @@ def test_parse_matches_the_references(spec):
     ("ChipHealthCheck=false", ["ChipHealthCheck"]),
     ("DeviceMetadata=true,TimeSlicingSettings=true,DynamicSubSlice=true",
      ["DeviceMetadata"]),
-    ("TenantPartitioning=true,DynamicSubSlice=true", ["TenantPartitioning"]),
+    ("TenantPartitioning=true,DynamicSubSlice=true", []),
 ])
 def test_unported_names_the_gates_set_away_from_their_default(spec,
                                                               unported):
@@ -91,3 +95,16 @@ def test_unported_names_the_gates_set_away_from_their_default(spec,
 def test_an_unknown_gate_is_refused_by_is_enabled():
     with pytest.raises(pt_fg.FeatureGateError, match="MPSSupport"):
         pt_fg.FeatureGates().is_enabled("MPSSupport")
+
+
+def test_tenant_partitioning_needs_dynamic_sub_slice_as_the_reference():
+    for module in (pt_fg, jax_fg):
+        with pytest.raises(module.FeatureGateError,
+                           match="TenantPartitioning requires "
+                                 "DynamicSubSlice"):
+            module.FeatureGates.parse("TenantPartitioning=true")
+        gates = module.FeatureGates.parse(
+            "TenantPartitioning=true,DynamicSubSlice=true")
+        assert gates.is_enabled("TenantPartitioning")
+    # Read by the port: no refusal at construction.
+    assert pt_fg.TENANT_PARTITIONING in pt_fg.READ

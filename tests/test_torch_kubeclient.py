@@ -284,13 +284,16 @@ def test_server_counts_requests_and_refuses_what_it_does_not_serve():
         codes = {}
         for path in ("/healthz", "/not/a/kube/path",
                      "/api/v1/namespaces/ns/pods/pod/log",
-                     "/apis/resource.k8s.io/v1/resourceclaims?watch=true"):
+                     # A watch from a resourceVersion that is none of
+                     # the store's writes: 410 Gone.
+                     "/apis/resource.k8s.io/v1/resourceclaims?watch=true"
+                     "&resourceVersion=x"):
             with pytest.raises(urllib.error.HTTPError) as err:
                 urllib.request.urlopen(server.url + path, timeout=10)
             codes[path.split("?")[0].rsplit("/", 1)[-1]] = err.value.code
             err.value.close()
         assert codes == {"healthz": 404, "path": 404, "log": 404,
-                         "resourceclaims": 501}
+                         "resourceclaims": 410}
         assert server.store.objects() == []
     finally:
         server.stop()
@@ -314,3 +317,75 @@ def test_unreachable_server_raises_os_error():
     with pytest.raises(OSError):
         pt_kube.KubeClient(host=url).get(*RC, "a", namespace="ns",
                                          timeout=2)
+
+
+# -- watch --------------------------------------------------------------------
+
+def _watch_script(k):
+    k.create(*RC, _claim("a"), namespace="ns")
+    k.patch(*RC, "a", {"spec": {"x": 1}}, namespace="ns")
+    obj = k.get(*RC, "a", namespace="ns")
+    obj["spec"]["x"] = 2
+    k.update(*RC, "a", obj, namespace="ns")
+    k.create(*RS, _slice("s", "d", "n"))
+    k.create(*("", "v1", "namespaces"), {"metadata": {"name": "ns"}})
+    k.create(*RC, _claim("b"), namespace="ns")
+    k.delete(*RC, "zz", namespace="ns")  # absent: no event
+    k.delete(*("", "v1", "namespaces"), "ns")  # cascades to a and b
+
+
+def test_resource_watchers_see_the_references_events():
+    """The in-memory fakes' resource watchers: the same events, in the
+    same order, with the same objects as they were at the write (the
+    namespace cascade included)."""
+    seen = {}
+    for side, module in (("jax", jax_kube), ("pt", pt_kube)):
+        k = module.FakeKubeClient()
+        events = []
+
+        def record(g, r, ns, t, o, events=events):
+            events.append((g, r, ns, t, copy.deepcopy(o)))
+        k.add_resource_watcher(record)
+        _watch_script(k)
+        seen[side] = events
+    assert seen["pt"] == seen["jax"]
+
+
+@pytest.mark.parametrize("server_pkg", ["pt", "jax"])
+def test_the_port_client_watches_either_server(server_pkg):
+    """``KubeClient.watch`` over HTTP against each package's server: the
+    writes come as events, in order, and stop() ends the stream at
+    once."""
+    server = PACKAGES[server_pkg][1].FakeApiServer().start()
+    got, cond = [], threading.Condition()
+
+    def on_event(ev_type, obj):
+        with cond:
+            got.append((ev_type, obj["metadata"]["name"]))
+            cond.notify_all()
+    try:
+        client = pt_kube.KubeClient(host=server.url)
+        rv = client.list_with_version(*RC)[1] if server_pkg == "pt" else ""
+        w = client.watch(*RC, on_event, resource_version=rv,
+                         reconnect_delay=0.05)
+        try:
+            if server_pkg == "jax":
+                # Its streams start from now: write once one is up (the
+                # JAX store has no event to wait on; at most 10 s).
+                tick = threading.Event()
+                for _ in range(1000):
+                    if server.store._resource_watchers:
+                        break
+                    tick.wait(0.01)
+            client.create(*RC, _claim("a"), namespace="ns")
+            client.patch(*RC, "a", {"spec": {"x": 1}}, namespace="ns")
+            client.delete(*RC, "a", namespace="ns")
+            with cond:
+                assert cond.wait_for(lambda: len(got) >= 3, 10), got
+            assert got == [("ADDED", "a"), ("MODIFIED", "a"),
+                           ("DELETED", "a")]
+        finally:
+            w.stop()
+        assert not w.alive()
+    finally:
+        server.stop()

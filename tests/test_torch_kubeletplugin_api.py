@@ -258,3 +258,39 @@ def test_flock_refuses_reentry(tmp_path):
     with lock.acquire(timeout=1.0):
         with pytest.raises(FlockReentrantError):
             lock.acquire(timeout=1.0)
+
+
+# -- oversubscribe (MigDeviceConfig <-> SubSliceConfig) ----------------------
+
+OVERSUBSCRIBE_BODIES = {
+    "absent": {},
+    "true": {"oversubscribe": True},
+    "false": {"oversubscribe": False},
+    "with a default timeslice": {"oversubscribe": True, "sharing": {
+        "strategy": "TimeSlicing", "timeSlicing": {"interval": "Default"}}},
+    "with a timeslice": {"oversubscribe": True, "sharing": {
+        "strategy": "TimeSlicing", "timeSlicing": {"interval": "Long"}}},
+    "with MPS": {"oversubscribe": True, "sharing": {
+        "strategy": "MultiTenancy", "multiTenancy": {"hbmLimit": "1Gi"}}},
+    "false with MPS": {"oversubscribe": False, "sharing": {
+        "strategy": "MultiTenancy", "multiTenancy": {"hbmLimit": "1Gi"}}},
+}
+
+
+@pytest.mark.parametrize("name", list(OVERSUBSCRIBE_BODIES))
+def test_oversubscribe_decodes_and_validates_as_the_reference(name):
+    body = OVERSUBSCRIBE_BODIES[name]
+    outcomes = []
+    for side, decode, kind in (("jax", jax_decode, "SubSliceConfig"),
+                               ("pt", pt_decode, "MigDeviceConfig")):
+        cfg = decode.strict_decode({"apiVersion": decode.API_VERSION,
+                                    "kind": kind, **body})
+        cfg.normalize()
+        try:
+            cfg.validate()
+        except ValueError as e:
+            outcomes.append(("refused", "oversubscribe" in str(e)))
+            continue
+        outcomes.append(("ok", cfg.oversubscribe,
+                         _body(decode.encode_config(cfg))))
+    assert outcomes[1] == outcomes[0]

@@ -817,7 +817,6 @@ def _claim(uid, indices, body=None):
 
 
 @pytest.mark.parametrize("gates, item", [
-    ("TenantPartitioning=true,DynamicSubSlice=true", "5b"),
     ("PassthroughSupport=true", 6),
     ("DomainDaemonsWithDNSNames=false", 9),
     ("ComputeDomainCliques=false", 9),
@@ -846,6 +845,9 @@ def test_every_gate_is_read_or_refused(tmp_path):
                                         SHARING_GATES))
     pt_ds.DeviceState(pt_ds.Config.mock(str(tmp_path), "h100-4",
                                         "DynamicSubSlice=true"))
+    # TenantPartitioning is read (pkg/partition): no refusal.
+    pt_ds.DeviceState(pt_ds.Config.mock(
+        str(tmp_path), "h100-4", "DynamicSubSlice=true,TenantPartitioning=true"))
 
 
 def test_an_mps_claims_spec(tmp_path, fake_driver):

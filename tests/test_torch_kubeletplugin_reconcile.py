@@ -4,7 +4,8 @@ the same sweep counts and leave the same state, in both wirings of
 ``test_torch_kubeletplugin_driver.py`` (in memory, and each package's
 client over the other's server). The JAX sweep reports its partition
 pass only with a partition engine (none at ``gates=""``); the port's
-always reports it, as 0.
+always reports it, as 0 without one. With the engine on both sides the
+pass reaps and prunes the same partitions.
 """
 
 import threading
@@ -274,3 +275,77 @@ def test_sweep_thread_reaps_and_stops(tmp_path):
     assert d.state.prepared_claims() == {}
     assert d.reconciler.last_sweep["stale_claim"] in (0, 1)
     assert set(threading.enumerate()) == before
+
+
+PARTITION_GATES = ("DynamicSubSlice=true,TimeSlicingSettings=true,"
+                   "MultiTenancySupport=true,TenantPartitioning=true")
+
+
+def _partition_driver(side, driver_root, name="serv"):
+    """A driver with the partition engine: the JAX plugin's partitions
+    over one-chip carve-outs of a v5e-4, the port's over the one-GPU
+    7g.80gb MIG profile of an h100-4 with MIG on."""
+    from k8s_dra_driver_gpu_tpu.kubeletplugin import device_state as jax_ds
+    from k8s_dra_driver_gpu_tpu.pkg import partition as jax_partition
+    from k8s_dra_driver_gpu_tpu_torch.pkg import partition as pt_partition
+    from tests.test_torch_kubeletplugin_device_state import write_mig_caps
+
+    root = f"{side.root}/partitions"
+    if side.name == "jax":
+        ps = jax_partition.PartitionSet(profiles=(
+            jax_partition.PartitionProfile(name, "1x1", max_tenants=2),))
+        cfg = jax_ds.Config.mock(root=root, topology="v5e-4",
+                                 gates=PARTITION_GATES, partition_set=ps)
+    else:
+        write_mig_caps(root, gpus=4)
+        ps = pt_partition.PartitionSet(profiles=(
+            pt_partition.PartitionProfile(name, "7g.80gb", max_tenants=2),))
+        cfg = pt_ds.Config.mock(root, "h100-4", PARTITION_GATES,
+                                mig_mode="enabled", partition_set=ps)
+        cfg.driver_root = driver_root
+    return side.driver(config=cfg), type(ps), type(ps.profiles[0])
+
+
+def test_idle_partition_pass_reaps_and_prunes(sides, tmp_path):
+    """A tenant holds a partition a re-plan retires; its claim goes: the
+    stale-claim pass unprepares it (the last tenant: the instance goes),
+    and the partition pass drops the retired device. A warm instance
+    the hint no longer wants is reaped by the same pass."""
+    from tests.test_torch_kubeletplugin_sharing import (kill_fake_daemons,
+                                                        write_fake_binaries)
+    driver_root = write_fake_binaries(tmp_path / "driver")
+
+    def run(side):
+        d, pset, prof = _partition_driver(side, driver_root)
+        config = {"apiVersion": "resource.tpu.dra/v1beta1",
+                  "kind": "SubSliceConfig", "oversubscribe": True} \
+            if side.name == "jax" else {
+                "apiVersion": "resource.nvidia.com/v1beta1",
+                "kind": "MigDeviceConfig", "oversubscribe": True}
+        obj = make_claim_dict("u1", ["pt-serv-0"], request="req",
+                              driver=side.driver_name,
+                              configs=[{"parameters": config}])
+        side.kube.create(*RC, obj, namespace="default")
+        out = d.prepare_resource_claims([ref("u1")])
+        assert out["u1"][1] == "", out
+        engine = d.state.partition_engine
+        counts = [sweep(d)]
+        d.apply_partition_set(pset(profiles=(prof(
+            "dense", "1x1" if side.name == "jax" else "7g.80gb",
+            max_tenants=4),)))
+        side.kube.delete(*RC, "u1", namespace="default")
+        counts.append(sweep(d))
+        counts.append(sorted(n for n in d.state.allocatable
+                             if n.startswith("pt-")))
+        counts.append(engine.set_prewarm({"dense": 1}))
+        engine.set_prewarm({})
+        counts.append(sweep(d))
+        counts.append(engine.active_partitions())
+        return counts
+    try:
+        got = same(sides, run)
+    finally:
+        assert kill_fake_daemons(driver_root) == []
+    assert "'idle_partition': 0" in got
+    assert "'stale_claim': 1" in got and "'idle_partition': 1" in got
+    assert "pt-serv-0" not in got and got.endswith(", 0]")
