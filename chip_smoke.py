@@ -168,7 +168,8 @@ and prints no result line):
    rollback are checked instead. Unprepare quits the daemon: no
    ``nvidia-cuda-mps-*`` process is left. A ``finally`` quits any daemon
    the phase started and restores ``gpu-0``'s timeslice. Host ms of each
-   step.
+   step. It runs without tenancy agents (``tenancy_agents=False``), as
+   before they were ported: phase 17 runs them.
 15. mig: MIG devices through the node service, run in a child process
    that never initialises CUDA (``MIG_PLUGIN``): ``Driver`` over the real
    NVML with ``DynamicSubSlice`` on, ``split`` publication over the
@@ -218,6 +219,33 @@ and prints no result line):
    temporary root. It never changes the MIG mode. Host ms of
    construction, prepare (with ``prep_attach_partition``), unprepare and
    the sweep, beside the card's name and power limit.
+17. tenancy: admission through the tenancy agents, in this process,
+   over the real NVML with both sharing gates on and agents on
+   (``Config.tenancy_agents``, the production default; phase 14 runs
+   with them off). The native preflight hook is built from
+   ``csrc/tenancy_preflight.cc`` (the compiler, its flags and whether the
+   binary is static, by its ELF program headers, are logged). An MPS
+   prepare and unprepare of ``gpu-0`` without agents (a second state
+   root) is timed beside the same with agents. With agents: a claim with
+   no client cap and a ``48Gi`` limit admits one container through the
+   spec's own ``createContainer`` hook and denies a second, whose 48 GiB
+   would pass the GPU's memory ("HBM budget exceeded", the bytes left
+   quoted); unprepared. Then ``gpu-0`` with ``maxClients: 1`` and
+   ``8Gi``: the hooks run as a runtime runs them (the OCI state on
+   stdin): ``ctr-a`` admitted, ``ctr-b`` denied ("max clients (1)
+   reached"), ``ctr-a``'s poststop, ``ctr-b`` admitted; one round trip
+   of the native hook and of the Python one (``tenancy_preflight``, a
+   ``python3`` process) timed. ``ctr-b``'s client, a ``python3`` child
+   under the spec's env as in phase 14, runs the flash forward once
+   where MPS serves, or fails with the MPS refusal phase 14 checks. The
+   agent is SIGKILLed: its watchdog starts it again and ``MEMBERS`` still
+   lists ``ctr-b``. A second ``DeviceState`` over the same root (the
+   plugin restarted after ``close()``) re-owns it, ``ctr-b`` kept.
+   Unprepare: no agent process (by its pidfile and a ``/proc`` scan), no
+   agent directory, no socket and no MPS process of the phase is left.
+   Host ms of the build, each prepare and unprepare, the hook round
+   trips, the respawn and the re-own, beside the card's name and power
+   limit.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record (with the hd-64 instantiations'
@@ -2951,7 +2979,8 @@ def phase_sharing(seed: int) -> int:
         state = timed("construct", DeviceState, Config(
             root=f"{tmp}/state", cdi_root=f"{tmp}/cdi",
             feature_gates=FeatureGates.parse(
-                "TimeSlicingSettings=true,MultiTenancySupport=true")))
+                "TimeSlicingSettings=true,MultiTenancySupport=true"),
+            tenancy_agents=False))
 
         # Time-slicing: Long, then back to Default; or the machine's
         # refusal, quoted, with nothing left behind.
@@ -3779,6 +3808,305 @@ def phase_partitions(seed: int) -> int:
         if outcome == "b" else 0
 
 
+def _elf_interpreter(path: str) -> str | None:
+    """The program interpreter an ELF file asks for (its ``PT_INTERP``),
+    None for a static binary."""
+    import struct
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:4] != b"\x7fELF" or data[4] != 2:
+        raise ValueError(f"{path} is no 64-bit ELF file")
+    end = "<" if data[5] == 1 else ">"
+    phoff, = struct.unpack_from(end + "Q", data, 32)
+    phentsize, phnum = struct.unpack_from(end + "HH", data, 54)
+    for i in range(phnum):
+        base = phoff + i * phentsize
+        p_type, = struct.unpack_from(end + "I", data, base)
+        if p_type == 3:  # PT_INTERP
+            offset, = struct.unpack_from(end + "Q", data, base + 8)
+            size, = struct.unpack_from(end + "Q", data, base + 32)
+            return data[offset:offset + size].rstrip(b"\0").decode()
+    return None
+
+
+def _agent_pids_under(root: str) -> list[int]:
+    """The live tenancy agents whose directory lies under ``root``."""
+    import os
+
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.sharing import (
+        AGENT_MODULE, _alive)
+    found = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().decode(errors="replace").split("\0")
+        except OSError:
+            continue
+        if AGENT_MODULE in argv and any(a.startswith(root) for a in argv) \
+                and _alive(int(pid)):
+            found.append(int(pid))
+    return found
+
+
+def phase_tenancy(seed: int) -> int:
+    """17. Tenancy admission through the kubelet plugin's agents and its
+    native preflight hook, over NVML. Returns the flash launches of the
+    admitted client's child (0 where the machine refuses MPS's server)."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin import (DRIVER_NAME,
+                                                            native_hook)
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.claim import (
+        ResourceClaim)
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.device_state import (
+        Config, DeviceState, PrepareError)
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.sharing import (
+        MPS_CONTROL, _alive, mps_pids)
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.tenancy_agent import (
+        query)
+    from k8s_dra_driver_gpu_tpu_torch.pkg.featuregates import FeatureGates
+
+    ms = {}
+    timed = functools.partial(_timed, ms)
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"tenancy: {what}")
+
+    def claim(uid, multi_tenancy):
+        return ResourceClaim.from_dict({
+            "metadata": {"uid": uid, "namespace": "default", "name": uid},
+            "status": {"allocation": {"devices": {
+                "results": [{"request": "gpu", "driver": DRIVER_NAME,
+                             "pool": "node", "device": "gpu-0"}],
+                "config": [{"source": "FromClaim", "requests": [],
+                            "opaque": {"driver": DRIVER_NAME, "parameters": {
+                                "apiVersion": "resource.nvidia.com/v1beta1",
+                                "kind": "GpuConfig", "sharing": {
+                                    "strategy": "MultiTenancy",
+                                    "multiTenancy": multi_tenancy}}}}]}}}})
+
+    def config(sub, agents=True):
+        return Config(root=f"{tmp}/{sub}", cdi_root=f"{tmp}/{sub}-cdi",
+                      feature_gates=FeatureGates.parse(
+                          "TimeSlicingSettings=true,MultiTenancySupport=true"),
+                      tenancy_agents=agents)
+
+    def hooks(state, uid):
+        spec = state._cdi.read_spec(uid)
+        (edits,) = [d["containerEdits"] for d in spec["devices"]]
+        return spec, edits, {h["hookName"]: h for h in edits["hooks"]}
+
+    def run(hook, cid, label=None):
+        """``hook`` as a runtime runs it, the OCI state on stdin."""
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [hook["path"], *hook["args"][1:]], input=json.dumps({
+                "ociVersion": "1.0.2", "id": cid, "status": "creating",
+                "pid": os.getpid(), "bundle": tmp}),
+            capture_output=True, text=True, timeout=hook["timeout"])
+        if label:
+            ms[label] = round((time.perf_counter() - t0) * 1e3, 3)
+        return out.returncode, out.stderr.strip()
+
+    def agent_pid(d):
+        with open(os.path.join(d, "agent.pid")) as f:
+            return int(f.read())
+
+    def wait_ready(d, timeout=30.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            try:
+                if query(d, "STATUS") == "READY":
+                    return True
+            except OSError:
+                pass
+            time.sleep(0.005)
+        return False
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = (smi.stdout or smi.stderr).strip().splitlines()[0]
+    # Short: the agents' sockets and the MPS pipes under it fit AF_UNIX.
+    tmp = tempfile.mkdtemp(prefix="tn")
+    states = []
+    launches = 0
+    try:
+        built = timed("build", native_hook.build)
+        interp = _elf_interpreter(built.path)
+        log(f"tenancy: hook built by {built.compiler} "
+            f"{' '.join(built.flags)} in {built.seconds:.3f} s: "
+            f"{'static' if interp is None else 'dynamic, ' + interp}, "
+            f"{os.path.getsize(built.path)} bytes"
+            + (f"; the compiler said: {built.log.strip()}"
+               if built.log.strip() else ""))
+        check(interp is None, f"the hook is not static ({interp})")
+
+        # Without agents: the MPS prepare as phase 14 runs it.
+        plain = DeviceState(config("plain", agents=False))
+        states.append(plain)
+        mt = {"maxClients": 1, "hbmLimit": "8Gi"}
+        try:
+            timed("prepare_without_agent", plain.prepare,
+                  claim("smoke-plain", mt))
+        except PrepareError as err:
+            # No MPS here: the refusal and its rollback, as phase 14.
+            log(f"tenancy: MPS refused at prepare: {err}")
+            check(MPS_CONTROL in str(err) or "MPS control daemon" in str(err),
+                  f"prepare refused {err!r}")
+            check(not _mps_pids_under(f"{tmp}/"),
+                  "the refused claim left a daemon")
+            return 0
+        timed("unprepare_without_agent", plain.unprepare, "smoke-plain")
+        plain.close()
+
+        state = timed("construct", DeviceState, config("state"))
+        states.append(state)
+        check(state._tenancy._spawn, "the agents are off")
+        # Memory: no client cap; a second 48 GiB client would pass the
+        # GPU's memory.
+        capacity = state.host.memory_bytes_per_chip
+        limit = 48 << 30
+        timed("prepare_memory_claim", state.prepare,
+              claim("smoke-memory", {"hbmLimit": "48Gi"}))
+        _, _, mem_hooks = hooks(state, "smoke-memory")
+        first = run(mem_hooks["createContainer"], "ctr-m1")
+        over = run(mem_hooks["createContainer"], "ctr-m2")
+        want = (f"tenancy-preflight: DENIED HBM budget exceeded: {limit} "
+                f"requested, {capacity - limit} available")
+        log(f"tenancy: no client cap, 48Gi: ctr-m1 {first}, ctr-m2 {over} "
+            f"(the GPU's memory {capacity} bytes)")
+        check(first == (0, "") and over == (1, want), "the memory budget")
+        timed("unprepare_memory_claim", state.unprepare, "smoke-memory")
+
+        # The client cap.
+        uid = "smoke-tenancy"
+        timed("prepare_with_agent", state.prepare, claim(uid, mt))
+        segments = {k: round(v * 1e3, 3)
+                    for k, v in state.last_segments.items()}
+        d = state._tenancy.agent_dir(uid, "gpu")
+        spec, edits, h = hooks(state, uid)
+        pid = agent_pid(d)
+        log(f"tenancy: prepared with its agent (pid {pid}; segments ms "
+            f"{segments}); hooks {json.dumps(edits['hooks'])}")
+        check(_agent_pids_under(tmp) == [pid]
+              and h["createContainer"]["args"][1:] == [
+                  "--dir", d, "--hbm-bytes", str(8 << 30)]
+              and h["poststop"]["args"][1:] == ["--dir", d, "--release"]
+              and not any(m["hostPath"].startswith(os.path.dirname(d))
+                          for m in edits["mounts"]), "the spec's hooks")
+        steps = [("ctr-a", "createContainer", (0, "")),
+                 ("ctr-b", "createContainer",
+                  (1, "tenancy-preflight: DENIED max clients (1) reached")),
+                 ("ctr-a", "poststop", (0, "")),
+                 ("ctr-b", "createContainer", (0, ""))]
+        for i, (cid, name, want) in enumerate(steps):
+            got = run(h[name], cid, f"hook_{i}_{name}_{cid}")
+            log(f"tenancy: {name} {cid}: exit {got[0]} {got[1]!r}")
+            check(got == want, f"{name} {cid} gave {got}, not {want}")
+        check(json.loads(query(d, "MEMBERS"))["clients"] == {
+            "ctr-b": 8 << 30}, "the members after the steps")
+        # One round trip each: a release of an id the agent does not hold.
+        run(h["poststop"], "probe", "hook_round_trip_native")
+        t0 = time.perf_counter()
+        py = subprocess.run(
+            [sys.executable, "-m",
+             "k8s_dra_driver_gpu_tpu_torch.kubeletplugin.tenancy_preflight",
+             "--dir", d, "--release", "--client-id", "probe"],
+            capture_output=True, text=True, timeout=60,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        ms["hook_round_trip_python"] = round(
+            (time.perf_counter() - t0) * 1e3, 3)
+        check(py.returncode == 0, f"the Python hook: {py.stderr}")
+
+        # ctr-b's client under the spec's env, as phase 14's.
+        env = dict(os.environ)
+        for entry in edits.get("env", []) + spec.get(
+                "containerEdits", {}).get("env", []):
+            key, _, value = entry.partition("=")
+            env[key] = value
+        pipe = edits["mounts"][0]["hostPath"]
+        env["CUDA_MPS_PIPE_DIRECTORY"] = pipe
+        product = state.allocatable["gpu-0"].chip.chip.name
+        child = timed("client_child", subprocess.run,
+                      [sys.executable, "-c", MPS_CHILD, str(seed), product],
+                      env=env, capture_output=True, text=True, timeout=300)
+        if child.returncode == 0:
+            result = json.loads(child.stdout.strip().splitlines()[-1])
+            log(f"tenancy: ctr-b's client {json.dumps(result)}")
+            check(result["device_count"] == 1 and result["launches"] == 1
+                  and result["finite"] and result["excess"] <= 0
+                  and result["max_abs_err"] <= CLAIM_CHILD_MAX_ERR,
+                  f"ctr-b's client {result}")
+            launches = result["launches"]
+        else:
+            with open(os.path.join(os.path.dirname(pipe), "log",
+                                   "server.log")) as f:
+                failed = [line for line in f if "Failed to start" in line]
+            log(f"tenancy: ctr-b's client refused by MPS: "
+                f"{child.stderr.strip().splitlines()[-1]}; the server: "
+                f"{failed[:1]} ({len(failed)} starts failed)")
+            check(MPS_CLIENT_REFUSED in child.stderr and failed and all(
+                line.rstrip().endswith(MPS_SERVER_REFUSED)
+                for line in failed), f"the client: {child.stderr[-2000:]}")
+
+        # The watchdog.
+        t0 = time.perf_counter()
+        os.kill(pid, signal.SIGKILL)
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and (
+                _agent_pids_under(tmp) in ([], [pid])):
+            time.sleep(0.005)
+        check(wait_ready(d), "the agent was not respawned")
+        ms["respawn"] = round((time.perf_counter() - t0) * 1e3, 3)
+        respawned = agent_pid(d)
+        members = json.loads(query(d, "MEMBERS"))["clients"]
+        log(f"tenancy: SIGKILLed agent {pid}; respawned as {respawned}; "
+            f"members {members}")
+        check(respawned != pid and members == {"ctr-b": 8 << 30},
+              "the respawn")
+
+        # A plugin restart re-owns it.
+        timed("close", state.close)
+        check(not _agent_pids_under(tmp), "close() left an agent")
+        state = timed("reown", DeviceState, config("state"))
+        states.append(state)
+        reowned = agent_pid(d)
+        members = json.loads(query(d, "MEMBERS"))["clients"]
+        log(f"tenancy: restarted plugin re-owned the agent as {reowned}; "
+            f"members {members}")
+        check(_agent_pids_under(tmp) == [reowned]
+              and state._tenancy.agent_count() == 1
+              and members == {"ctr-b": 8 << 30}, "the re-own")
+
+        timed("unprepare_with_agent", state.unprepare, uid)
+        left = {"agents": _agent_pids_under(tmp),
+                "pidfile_pid_alive": _alive(reowned),
+                "agent_dirs": os.listdir(f"{tmp}/state/tenancy"),
+                "socket": os.path.exists(f"{d}/agent.sock"),
+                "mps": _mps_pids_under(f"{tmp}/")}
+        log(f"tenancy: unprepared; left {left}")
+        check(left == {"agents": [], "pidfile_pid_alive": False,
+                       "agent_dirs": [], "socket": False, "mps": []},
+              "unprepare left state behind")
+        return launches
+    finally:
+        for state in states:
+            state.close()
+        for pid in _agent_pids_under(tmp) + _mps_pids_under(f"{tmp}/"):
+            log(f"tenancy: process {pid} left: killed")
+            os.kill(pid, signal.SIGKILL)
+        shutil.rmtree(tmp, ignore_errors=True)
+        log(f"tenancy: host ms {json.dumps(ms)} on {card}; MPS processes "
+            f"after the phase {mps_pids()}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3824,6 +4152,9 @@ def main(argv=None) -> int:
     t_part = time.perf_counter()
     partition_children = phase_partitions(args.seed)
     log(f"partitions: phase 16 in {time.perf_counter() - t_part:.1f} s")
+    t_tenancy = time.perf_counter()
+    tenancy_child = phase_tenancy(args.seed)
+    log(f"tenancy: phase 17 in {time.perf_counter() - t_tenancy:.1f} s")
     forward["launches_by_path"] = {
         "serving_generate": serving_launches,
         "training_step": training["forward_lse"],
@@ -3835,6 +4166,7 @@ def main(argv=None) -> int:
         "mps_children": mps_children,
         "mig_child": mig_child,
         "partition_children": partition_children,
+        "tenancy_child": tenancy_child,
         "sharded_training_step": gang["train"]["forward_lse"],
         "moe_training_step": moe["forward_lse"],
         "sp_ulysses_training_step": sp["ulysses"]["forward_lse"],

@@ -12,7 +12,9 @@ devices:
   checkpoint (``checkpoint``) and a CDI spec that injects its device
   nodes and the driver's libraries (``cdi``), and the claim's sharing
   (``sharing``: a GPU's timeslice through ``nvidia-smi``, an MPS control
-  daemon a claim request), each behind its feature gate
+  daemon a claim request, admitted through a tenancy agent
+  (``tenancy_agent``) and the native preflight hook (``native_hook``,
+  ``tenancy_preflight``)), each behind its feature gate
   (``pkg.featuregates``), and creates a dynamic MIG device through NVML;
   tenant partitions over MIG instances (``pkg.partition``), with one MPS
   daemon over an oversubscribed partition's instance; unprepare tears

@@ -14,7 +14,11 @@ One transient spec a claim, of kind ``nvidia.com/gpu``:
   the launcher's ``TPU_*`` contract, which the port's launcher reads)
   and the two migration annotations;
 - the claim's own line follows (``device_state``):
-  ``CUDA_DEVICE_ORDER=PCI_BUS_ID``.
+  ``CUDA_DEVICE_ORDER=PCI_BUS_ID``;
+- an MPS request's GPUs (and an oversubscribed partition tenant's
+  device) carry the tenancy preflight's ``createContainer`` and
+  ``poststop`` hooks when the plugin runs tenancy agents
+  (``sharing.py``), each with a 10 s timeout.
 
 **Driver libraries** (the counterpart of the JAX plugin's libtpu mount,
 as the upstream driver's CDI library discovery finds them): each of
@@ -160,6 +164,10 @@ class ContainerEdits:
     device_nodes: list[str] = field(default_factory=list)
     # (hostPath, containerPath, read_only)
     mounts: list[tuple[str, str, bool]] = field(default_factory=list)
+    # OCI hooks the runtime runs on the host: (hookName, path, args), the
+    # args from argv[0]. The tenancy preflight is a createContainer hook,
+    # so a DENIED admission fails the container's start.
+    hooks: list[tuple[str, str, list[str]]] = field(default_factory=list)
 
     def to_dict(self) -> dict:
         out: dict = {}
@@ -173,13 +181,20 @@ class ContainerEdits:
                  "options": (["ro"] if ro else ["rw"])
                  + ["nosuid", "nodev", "bind"]}
                 for h, c, ro in self.mounts]
+        if self.hooks:
+            # The runtime kills a hook that outlives its timeout (a wedged
+            # agent); for createContainer that fails the start, closed.
+            out["hooks"] = [{"hookName": name, "path": path, "args": args,
+                             "timeout": 10}
+                            for name, path, args in self.hooks]
         return out
 
     def merge(self, other: "ContainerEdits") -> "ContainerEdits":
         return ContainerEdits(env=self.env + other.env,
                               device_nodes=self.device_nodes
                               + other.device_nodes,
-                              mounts=self.mounts + other.mounts)
+                              mounts=self.mounts + other.mounts,
+                              hooks=self.hooks + other.hooks)
 
 
 def qualified_device_id(name: str) -> str:

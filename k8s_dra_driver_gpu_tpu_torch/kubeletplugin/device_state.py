@@ -39,6 +39,26 @@ What differs from the JAX plugin, on an H100 host:
   unprepare recovers it. Construction starts again the dead MPS daemons
   of completed claims and quits the others'; a boot id change drops the
   sharing records with the claims.
+- **Tenancy admission** (``Config.tenancy_agents``: on in production,
+  off in ``Config.mock``, as in the JAX plugin; read with
+  ``MultiTenancySupport`` on). Preparing an MPS request starts, after
+  its daemon answers, one tenancy agent for it (``tenancy_agent.py``,
+  supervised by ``computedomain.daemon.process``) and returns once the
+  agent answers READY; the request's CDI edits carry the native preflight
+  hook (``csrc/tenancy_preflight.cc``, built at first use) as a
+  ``createContainer`` and a ``poststop`` hook. A container whose
+  admission would pass ``maxClients`` or the GPU's memory does not
+  start; an agent that cannot be reached fails admission closed. An
+  oversubscribed partition tenant gets an agent and the hooks too, its
+  limit the tenant budget. The agents die with the plugin: ``close()``
+  stops them, and their parent-death signal ends them if the plugin
+  dies. Construction re-owns the agents of completed claims and drops
+  the other agent directories; unprepare and a failed prepare stop a
+  claim's agents before anything else of it goes; a live agent, like a
+  live daemon, keeps a completed claim whose spec is lost from being
+  prepared again; a boot id change drops every agent directory with the
+  claims. A state root too long for the agents' sockets (AF_UNIX's 107
+  bytes) fails construction.
 - **MIG devices** (the JAX plugin's sub-slices), named
   ``gpu-<i>-mig-<profile>-<start>`` (``subslice.py``). Dynamic ones, one
   for each placement of each profile NVML offers on each GPU, are
@@ -266,17 +286,23 @@ class Config:
     # This node's pool, matched against the PartitionSet's pool globs;
     # None: every PartitionSet applies.
     pool_name: str | None = None
+    # Run a supervised tenancy agent for each MPS request and admit its
+    # containers through the preflight hooks; off in ``mock`` configs,
+    # whose tests would pay a process start a prepare.
+    tenancy_agents: bool = True
 
     @classmethod
     def mock(cls, root: str, topology: str = "h100-8", gates: str = "",
              mig_mode: str = "disabled",
-             partition_set: PartitionSet | None = None) -> "Config":
+             partition_set: PartitionSet | None = None,
+             tenancy_agents: bool = False) -> "Config":
         """A mock host of ``topology`` GPUs with MIG ``mig_mode``; its CDI
         specs under ``root/cdi``, its device root ``root/dev`` and its
         proc root ``root/proc`` (empty unless a test makes nodes and
         files there), its MIG instances in ``root/mock-mig.json``;
         ``gates`` as ``FEATURE_GATES`` takes them."""
         return cls(root=root, partition_set=partition_set,
+                   tenancy_agents=tenancy_agents,
                    gpulib_opts=EnumerateOptions(
                        mock_topology=topology,
                        dev_root=os.path.join(root, "dev"),
@@ -333,10 +359,10 @@ class DeviceState:
         self._registry = SubSliceRegistry(config.root)
         if self._checkpoint.invalidated_on_boot:
             # A reboot reset every GPU's timeslice, ended every MPS daemon
-            # and destroyed every MIG instance: their records went with
-            # the claims. The registry is dropped, not swept: an admin
-            # may have made instances under its ids since.
-            for sub in ("timeslice", "mps"):
+            # and tenancy agent and destroyed every MIG instance: their
+            # records went with the claims. The registry is dropped, not
+            # swept: an admin may have made instances under its ids since.
+            for sub in ("timeslice", "mps", "tenancy"):
                 shutil.rmtree(os.path.join(config.root, sub),
                               ignore_errors=True)
             self._registry.clear()
@@ -359,17 +385,19 @@ class DeviceState:
             config.root, find_binary(config.driver_root, "nvidia-smi"))
         self._tenancy = MultiTenancyManager(
             config.root, hbm_capacity_bytes=self.host.memory_bytes_per_chip,
-            control_binary=find_binary(config.driver_root, MPS_CONTROL))
+            control_binary=find_binary(config.driver_root, MPS_CONTROL),
+            spawn_agents=config.tenancy_agents
+            and config.feature_gates.is_enabled(MULTI_TENANCY_SUPPORT))
         engine = self.partition_engine
         if engine is not None:
             # Crashed creates and destroys settle before the orphan
             # sweep, which spares the instances the records own.
             engine.resume()
         self.destroy_unknown_subslices()
-        # Re-own the MPS daemons of the claims and partitions that
-        # survived a restart, quit the others'. A partition's daemon
-        # lives while a completed claim holds it (with the engine gone
-        # too) or its record is Ready.
+        # Re-own the tenancy agents and MPS daemons of the claims and
+        # partitions that survived a restart, stop the others'. A
+        # partition's daemon lives while a completed claim holds it (with
+        # the engine gone too) or its record is Ready.
         completed = {uid: c for uid, c in self._checkpoint.get().claims.items()
                      if c.state == ClaimState.PREPARE_COMPLETED.value}
         held = {d.canonical_name for c in completed.values()
@@ -482,7 +510,12 @@ class DeviceState:
         return len(retired)
 
     def close(self) -> None:
-        """Close the device library kept open for MIG."""
+        """Stop the tenancy agents (their directories stay, for the next
+        plugin to re-own) and close the device library kept open for
+        MIG."""
+        tenancy = getattr(self, "_tenancy", None)
+        if tenancy is not None:
+            tenancy.shutdown()
         lib, self._lib = self._lib, None
         close = getattr(lib, "close", None)
         if close is not None:
@@ -653,9 +686,9 @@ class DeviceState:
                 if self._tenancy.active(claim.uid):
                     raise PrepareError(
                         f"claim {claim.uid} completed but its CDI spec is "
-                        "missing or corrupt, and its MPS daemon runs: not "
-                        "prepared again under its clients; unprepare it to "
-                        "recover")
+                        "missing or corrupt, and its MPS daemon or tenancy "
+                        "agent runs: not prepared again under its clients; "
+                        "unprepare it to recover")
                 logger.warning("claim %s completed but its CDI spec is "
                                "missing or corrupt; preparing again",
                                claim.uid)
@@ -1014,7 +1047,8 @@ class DeviceState:
         """Attach a tenant to its partition (the first creates the MIG
         instance); the device's edits and its live record. An
         oversubscribed partition's tenant gets its MPS daemon's pipe
-        directory and memory limit."""
+        directory and memory limit, and, with agents on, a tenancy agent
+        of its own and the preflight hooks."""
         dev = self.allocatable[result.device]
         info = dev.partition
         if not info.oversubscribed:
@@ -1036,6 +1070,10 @@ class DeviceState:
                         result.device, dev.gpu.index, made.uuid,
                         info.mig.hbm_bytes, info.tenant_memory_bytes,
                         info.profile.max_tenants))
+                with timer.segment("prep_tenant_agent"):
+                    edits = edits.merge(self._tenancy.start_tenant_agent(
+                        claim.uid, result.request, dev.gpu.index,
+                        result.device, info.tenant_memory_bytes))
             except SharingError as e:
                 raise PrepareError(f"request {result.request!r}: {e}"
                                    ) from e
@@ -1113,10 +1151,12 @@ class DeviceState:
             timer.done()
 
     def _rollback(self, checkpointed: CheckpointedClaim) -> None:
-        """Remove what a claim holds: its MIG instances (a failure raises
-        and keeps the record, so the kubelet's retry finds it), its
-        partitions' holds, its sharing, its CDI spec, then its record.
-        A reservation (no live state) holds no instance."""
+        """Remove what a claim holds: its tenancy agents first, then its
+        MIG instances (a failure raises and keeps the record, so the
+        kubelet's retry finds it), its partitions' holds, its sharing,
+        its CDI spec, then its record. A reservation (no live state)
+        holds no instance."""
+        self._tenancy.stop_agents(checkpointed.uid)
         for dev in checkpointed.devices:
             if dev.live and dev.live.get("partition"):
                 self._detach_partition(checkpointed.uid, dev)

@@ -45,6 +45,10 @@ through any object with ``KubeClient``'s surface:
   diff: a converged re-apply costs no write) and passes the pre-warm hint
   to ``apply_prewarm``; ``stop()`` joins it. ``TPU_DRA_PARTITION_WATCH=0``
   turns it off (the bootstrap plan stays).
+- **Tenancy agents** (``sharing.py``). ``stop()`` stops them through
+  ``DeviceState.close()``, and a ``Driver`` constructed again over the
+  same root re-owns those of the claims still prepared (the JAX
+  driver's restart path), their grants kept.
 
 Not ported: the gRPC transport (ROADMAP.md §1b item 8), metrics and
 tracing, the flight recorder, telemetry and power-cap attributes, and
@@ -155,8 +159,10 @@ class Driver:
 
     def stop(self) -> None:
         """Stop and join every thread this driver started; the monitor
-        closes its device library, and the device state the one it kept
-        for MIG."""
+        closes its device library, and the device state stops its
+        tenancy agents and closes the library it kept for MIG. A
+        ``Driver`` constructed again over the same root re-owns the
+        agents of the claims still prepared."""
         if self.partition_watcher is not None:
             self.partition_watcher.stop()
         self.reconciler.stop()

@@ -37,6 +37,24 @@ pipe directory through CDI edits (:214-379)).
   the partition's teardown; so its life follows the partition's derived
   holder count, and the JAX plugin's per-slot tenancy ceiling
   (``_apply_oversubscription``) is the instance's MPS limit.
+- **Tenancy agents** (with ``spawn_agents``, the plugin's production
+  default, ``device_state.Config.tenancy_agents``): each MPS request, and
+  each oversubscribed partition tenant's request, gets one supervised
+  agent process (``tenancy_agent.py``, under
+  ``computedomain.daemon.process.ProcessManager``) that admits the
+  request's containers, started after the daemon answers; prepare
+  returns once the agent answers ``READY``. Its directory is
+  ``<root>/tenancy/<sha256(uid/request)[:12]>/`` (``tenancy.json``: the
+  owner, ``chips``, ``maxClients``, ``hbmCapacityBytes`` (the GPU's
+  memory), ``hbmLimits``; ``clients.json``, ``released.d/``,
+  ``agent.pid``, ``agent.sock``). The request's edits carry the native
+  preflight hook (``native_hook.py``, copied to ``<root>/bin/``) as a
+  ``createContainer`` hook (``--dir <agent dir> --hbm-bytes <the
+  smallest limit of the request's devices, 0 without one>``) and a
+  ``poststop`` hook (``--release``). The agents die with the plugin (their
+  parent-death signal); construction re-owns those of active claims
+  (``reconcile``) and drops the other directories; ``stop`` stops a
+  claim's agents before its daemons quit.
 
 What differs from the JAX plugin, on an H100 host:
 
@@ -54,9 +72,23 @@ What differs from the JAX plugin, on an H100 host:
   with nothing left behind: rounding it would enforce another limit than
   the claim records and the user asked for. ``"8Gi"`` and ``"512Mi"``
   pass as they are.
-- **No client cap.** MPS has none: ``maxClients`` is written to
-  ``claim.json`` only. Admission against it is the tenancy agent's
-  (ROADMAP.md §1b item 7), as are the JAX plugin's preflight hooks.
+- **The client cap is the agent's.** MPS caps each client's memory but
+  neither how many clients there are nor their sum: the tenancy agent
+  refuses the container whose ``REGISTER`` would pass ``maxClients`` or
+  push the request's registered memory past the GPU's, and the native
+  hook makes the runtime refuse its start. An agent that cannot be
+  reached fails admission closed. Without agents (``Config.mock``, a
+  plugin run with ``tenancy_agents=False``) ``maxClients`` is recorded
+  in ``claim.json`` only.
+- **The agent's control plane is outside every mount.** A container gets
+  the daemon's ``pipe/`` only; the agent's socket, grants and tombstones
+  lie under ``<root>/tenancy/``, so a tenant cannot ``RELEASE`` a
+  sibling (the protocol is unauthenticated).
+- **A partition tenant's agent budgets against the whole GPU.** Its
+  manifest's ``hbmCapacityBytes`` is the GPU's memory, not its MIG
+  instance's, its limit the tenant budget and ``maxClients`` unset, as
+  the JAX plugin's ``_apply_oversubscription`` writes it; the instance's
+  MPS daemon caps each tenant at the budget.
 - **The daemons outlive the plugin**, as the upstream's daemon
   Deployment does: a dead control daemon kills its clients, so the
   plugin's restart re-owns the live ones (``reconcile``) and only
@@ -65,7 +97,10 @@ What differs from the JAX plugin, on an H100 host:
   claim uid and request name, so ``<root>/mps/<hash>/pipe/control``
   is ``len(root) + 31`` bytes whatever the names: AF_UNIX paths end at
   108. The default ``/tmp/nvidia-mps`` is never used: a leftover daemon
-  there would capture every CUDA process of the node.
+  there would capture every CUDA process of the node. An agent's socket
+  is ``len(root) + 32`` bytes; a root too long for it fails the
+  manager's construction, naming it (the JAX plugin's short symlinks are
+  not needed).
 """
 
 from __future__ import annotations
@@ -78,12 +113,17 @@ import os
 import shutil
 import signal
 import subprocess
+import sys
+import threading
 import time
 
 from ..api.configs import MultiTenancyConfig, TimeSlicingConfig
+from ..computedomain.daemon.process import ProcessManager, kill_recorded
 from ..pkg.flock import Flock
 from ..pkg.fsutil import write_json_atomic
+from . import native_hook
 from .cdi import ContainerEdits
+from .tenancy_agent import MANIFEST_NAME, SOCKET_NAME, query
 
 logger = logging.getLogger(__name__)
 
@@ -96,10 +136,20 @@ MPS_SERVER = "nvidia-cuda-mps-server"
 # Where a container finds its claim's pipe directory.
 MPS_CONTAINER_ROOT = "/var/run/nvidia-mps"
 MIB = 1 << 20
+AGENT_MODULE = "k8s_dra_driver_gpu_tpu_torch.kubeletplugin.tenancy_agent"
+# The directory that holds the package, which the agent imports from.
+PACKAGE_PARENT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+# The longest AF_UNIX path: sun_path holds 108 bytes with its NUL.
+SUN_PATH_MAX = 107
 
 
 class SharingError(RuntimeError):
     """nvidia-smi or the MPS control daemon refused or failed."""
+
+
+class TenancyAgentError(SharingError):
+    """A tenancy agent did not answer, or its hook could not be built."""
 
 
 def _run(argv: list[str], stdin: str | None = None,
@@ -260,14 +310,34 @@ class MultiTenancyManager:
     ``MpsControlDaemon``)."""
 
     def __init__(self, tenancy_root: str, hbm_capacity_bytes: int | None,
-                 control_binary: str | None, timeout: float = 10.0):
-        """``timeout``: how long a daemon may take to answer after its
-        start, and to exit after ``quit``."""
+                 control_binary: str | None, timeout: float = 10.0,
+                 spawn_agents: bool = False):
+        """``timeout``: how long a daemon or an agent may take to answer
+        after its start, and a daemon to exit after ``quit``.
+        ``spawn_agents``: give each request a tenancy agent and the
+        preflight hooks; ValueError when the agents' sockets would not
+        fit AF_UNIX's paths under ``tenancy_root``."""
         self._root = os.path.join(tenancy_root, "mps")
         os.makedirs(self._root, exist_ok=True)
         self._capacity = hbm_capacity_bytes
         self._control = control_binary
         self._timeout = timeout
+        self._spawn = spawn_agents
+        self._agent_root = os.path.join(os.path.abspath(tenancy_root),
+                                        "tenancy")
+        self._bin_dir = os.path.join(os.path.abspath(tenancy_root), "bin")
+        # agent directory -> (its claim's uid, its supervisor)
+        self._agents: dict[str, tuple[str, ProcessManager]] = {}
+        self._agents_lock = threading.Lock()
+        if spawn_agents:
+            sock = os.path.join(self._agent_root, "0" * 12, SOCKET_NAME)
+            if len(sock.encode()) > SUN_PATH_MAX:
+                raise ValueError(
+                    f"state root {tenancy_root!r} is too long for the "
+                    f"tenancy agents' sockets: {sock} is "
+                    f"{len(sock.encode())} bytes, AF_UNIX takes "
+                    f"{SUN_PATH_MAX}")
+            os.makedirs(self._agent_root, exist_ok=True)
 
     @staticmethod
     def dir_name(claim_uid: str, request: str) -> str:
@@ -363,8 +433,10 @@ class MultiTenancyManager:
         if pinned:
             env.append("CUDA_MPS_PINNED_DEVICE_MEM_LIMIT=" + ",".join(
                 f"{ordinal}={limit}" for ordinal, limit in pinned.items()))
-        return ContainerEdits(env=env,
-                              mounts=[(self.pipe_dir(d), container, False)])
+        edits = ContainerEdits(env=env,
+                               mounts=[(self.pipe_dir(d), container, False)])
+        return edits.merge(self._admission(
+            claim_uid, request, list(gpu_indices), cfg.max_clients, limits))
 
     def _ensure_daemon(self, d: str, owner: dict) -> None:
         """Start the directory's daemon unless it runs, wait until it
@@ -418,18 +490,30 @@ class MultiTenancyManager:
                 pass
 
     def stop(self, claim_uid: str) -> None:
-        """Quit the claim's daemons and remove their directories."""
+        """Stop the claim's agents, then quit its daemons; their
+        directories go."""
+        self.stop_agents(claim_uid)
         for d in self._dirs_of(claim_uid):
             self._quit(d)
             shutil.rmtree(d, ignore_errors=True)
 
     def reconcile(self, active_claim_uids: set[str],
                   active_partitions: set[str] = frozenset()) -> None:
-        """Plugin start: quit the daemons of directories no active claim
-        or partition owns and remove them; start again the dead daemon
-        of an active one (a live one is left alone). A daemon that does
-        not start is logged: its claim's unprepare, or its partition's
-        next attach, deals with it."""
+        """Plugin start: stop the agents and quit the daemons of
+        directories no active claim or partition owns and remove them;
+        start again the agent of an active claim request (with agents
+        on) and the dead daemon of an active one (a live daemon is left
+        alone). One that does not start is logged: its claim's
+        unprepare, or its partition's next attach, deals with it."""
+        for d, owner in self._agent_owners().items():
+            if owner is None or owner.get("claim") not in active_claim_uids:
+                self._drop_agent(d)
+            elif self._spawn:
+                try:
+                    self._ensure_agent(d, owner["claim"])
+                except TenancyAgentError:
+                    logger.exception("could not re-own the tenancy agent "
+                                     "of %s", d)
         for d, owner in self._owners().items():
             if owner is None or (
                     owner.get("claim") not in active_claim_uids
@@ -446,9 +530,145 @@ class MultiTenancyManager:
                 logger.exception("could not re-own the MPS daemon of %s", d)
 
     def active(self, claim_uid: str) -> bool:
-        """Whether a daemon of the claim runs."""
-        return any(mps_pids(self.pipe_dir(d))
-                   for d in self._dirs_of(claim_uid))
+        """Whether an agent or a daemon of the claim runs."""
+        with self._agents_lock:
+            agents = [pm for uid, pm in self._agents.values()
+                      if uid == claim_uid]
+        return any(pm.alive() for pm in agents) or any(
+            mps_pids(self.pipe_dir(d)) for d in self._dirs_of(claim_uid))
+
+    # -- the tenancy agents ------------------------------------------------
+
+    def agent_dir(self, claim_uid: str, request: str) -> str:
+        """The agent directory of a claim request."""
+        return os.path.join(self._agent_root,
+                            self.dir_name(claim_uid, request))
+
+    def _agent_owners(self) -> dict[str, dict | None]:
+        """Each agent directory -> its manifest (None when it is missing
+        or unreadable: a start that crashed before writing it)."""
+        out: dict[str, dict | None] = {}
+        if not os.path.isdir(self._agent_root):
+            return out
+        for name in sorted(os.listdir(self._agent_root)):
+            d = os.path.join(self._agent_root, name)
+            try:
+                with open(os.path.join(d, MANIFEST_NAME),
+                          encoding="utf-8") as f:
+                    out[d] = json.load(f)
+            except (OSError, ValueError):
+                out[d] = None
+        return out
+
+    @staticmethod
+    def _agent_identity(d: str) -> list[str]:
+        """The argv prefix of ``d``'s agent under any supervisor."""
+        return [sys.executable, "-m", AGENT_MODULE, "--dir", d]
+
+    def _admission(self, claim_uid: str, request: str, chips: list[int],
+                   max_clients: int | None, limits: dict[str, int | None]
+                   ) -> ContainerEdits:
+        """With agents on: write the request's agent manifest, start its
+        agent and wait until it answers READY; the request's
+        ``createContainer`` and ``poststop`` hooks. Without: no edits."""
+        if not self._spawn:
+            return ContainerEdits()
+        try:
+            hook = native_hook.install(self._bin_dir)
+        except native_hook.HookBuildError as e:
+            raise TenancyAgentError(str(e)) from e
+        d = self.agent_dir(claim_uid, request)
+        os.makedirs(d, exist_ok=True)
+        write_json_atomic(os.path.join(d, MANIFEST_NAME), json.dumps({
+            "claim": claim_uid, "request": request, "chips": chips,
+            "maxClients": max_clients, "hbmCapacityBytes": self._capacity,
+            "hbmLimits": limits}))
+        self._ensure_agent(d, claim_uid)
+        budget = min((v for v in limits.values() if v is not None),
+                     default=0)
+        base = [hook, "--dir", d]
+        return ContainerEdits(hooks=[
+            ("createContainer", hook, base + ["--hbm-bytes", str(budget)]),
+            ("poststop", hook, base + ["--release"])])
+
+    def _ensure_agent(self, d: str, claim_uid: str) -> None:
+        """Start ``d``'s agent unless it runs (a stale one recorded in
+        its pidfile is killed first), with its watchdog on, and wait
+        until it answers READY."""
+        with self._agents_lock:
+            entry = self._agents.get(d)
+            if entry is None:
+                env = dict(os.environ)
+                env["PYTHONPATH"] = os.pathsep.join(
+                    p for p in (PACKAGE_PARENT, env.get("PYTHONPATH")) if p)
+                identity = self._agent_identity(d)
+                entry = self._agents[d] = (claim_uid, ProcessManager(
+                    identity + ["--parent-pid", str(os.getpid())], env=env,
+                    pidfile=os.path.join(d, "agent.pid"), identity=identity))
+        pm = entry[1]
+        try:
+            pm.ensure_started()
+        except OSError as e:
+            raise TenancyAgentError(f"tenancy agent of {d}: {e}") from e
+        pm.start_watchdog()
+        deadline = time.monotonic() + self._timeout
+        while True:
+            try:
+                if query(d, "STATUS", timeout=1.0) == "READY":
+                    return
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                raise TenancyAgentError(f"tenancy agent of {d} not ready "
+                                        f"after {self._timeout} s")
+            time.sleep(0.01)
+
+    def _drop_agent(self, d: str, pm: ProcessManager | None = None) -> None:
+        """Stop ``d``'s agent (through ``pm``, else the one its pidfile
+        names) and remove the directory."""
+        if pm is not None:
+            pm.stop()
+        else:
+            kill_recorded(os.path.join(d, "agent.pid"),
+                          self._agent_identity(d))
+        shutil.rmtree(d, ignore_errors=True)
+
+    def stop_agents(self, claim_uid: str) -> None:
+        """Stop the claim's agents and remove their directories."""
+        with self._agents_lock:
+            mine: dict[str, ProcessManager | None] = {
+                d: pm for d, (uid, pm) in self._agents.items()
+                if uid == claim_uid}
+            for d in mine:
+                del self._agents[d]
+        for d, owner in self._agent_owners().items():
+            if owner is not None and owner.get("claim") == claim_uid:
+                mine.setdefault(d, None)
+        for d, pm in mine.items():
+            self._drop_agent(d, pm)
+
+    def agent_count(self) -> int:
+        with self._agents_lock:
+            return len(self._agents)
+
+    def shutdown(self) -> None:
+        """Stop every agent (the plugin's stop). Their directories stay:
+        the next plugin's ``reconcile`` re-owns them."""
+        with self._agents_lock:
+            agents = [pm for _, pm in self._agents.values()]
+            self._agents.clear()
+        for pm in agents:
+            pm.stop()
+
+    def start_tenant_agent(self, claim_uid: str, request: str, gpu: int,
+                           device: str, limit_bytes: int) -> ContainerEdits:
+        """The agent and hooks of an oversubscribed partition tenant's
+        request (the JAX plugin's ``_apply_oversubscription``): no client
+        cap, its limit the tenant budget, and its capacity the whole
+        GPU's memory, not the MIG instance's, as the JAX plugin budgets
+        it. No edits without agents."""
+        return self._admission(claim_uid, request, [gpu], None,
+                               {device: limit_bytes})
 
     # -- the daemon of an oversubscribed partition ----------------------
 
