@@ -246,6 +246,35 @@ and prints no result line):
    Host ms of the build, each prepare and unprepare, the hook round
    trips, the respawn and the re-own, beside the card's name and power
    limit.
+18. compute domain: a ComputeDomain gang of one through the port's
+   stack over its ``FakeApiServer`` on 127.0.0.1 (the controller, the CD
+   plugin and the daemon each over HTTP). A domain of ``numNodes: 1``:
+   the controller's reconcile (finalizer, DaemonSet, both claim
+   templates); a daemon claim prepared by ``CDDriver``; ``python -m
+   ...computedomain.daemon.main run`` under that claim's CDI env (its
+   ``DOMAIN_STATE_DIR`` the host side of the spec's mount) with free
+   rendezvous and coordinator ports; within a bound, its service READY,
+   its clique member Ready and the controller's ``status: Ready``; a
+   channel claim prepared (its retries counted). A ``python3`` child
+   under that spec's env merged with a ``gpu-0`` claim's spec (the GPU
+   plugin's, as CDI merges two claims of one pod) runs ``train.verify
+   --require-gang --steps 2`` as a gang of one over NCCL from the
+   injected ``TPU_*`` env alone, then the flash forward at the serving
+   shape against its plain version (phase 12's child and tolerance).
+   ``entry.dryrun_multichip_multiprocess`` runs from the daemon's own
+   ``bootstrap.json`` (its coordinator's DNS name resolved through its
+   ``members.json``) and must reach the channel env's coordinator. A
+   second domain of ``numNodes: 2``, whose second node never comes, on a
+   second node: its channel prepare aborts twice at a 1 s deadline and
+   unwinds (no spec, no record, one ``GangPrepareAborted`` Event; the
+   label kept while the domain lives, and gone after its deletion).
+   Teardown in a cluster's order: the channel claim unprepared (the label
+   goes), the daemon SIGTERMed (it deregisters, its rendezvous child
+   exits), the daemon and GPU claims unprepared, the first domain deleted
+   (as an API server does: ``deletionTimestamp``, the controller's
+   teardown, then the object), the stale domain dir removed; no process,
+   spec, domain dir or registration is left. Host ms of each step beside
+   the card's name and power limit.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record (with the hd-64 instantiations'
@@ -2467,22 +2496,25 @@ print(json.dumps({"device_count": count, "name": name,
 """
 
 
-def run_claim_child(spec: dict, seed: int, product: str, label: str
-                    ) -> dict:
-    """Run ``CLAIM_CHILD`` with the spec's env applied (device edits,
-    then common edits); its JSON line, checked: one device, one launch,
-    finite, within ``CLAIM_CHILD_MAX_ERR``."""
+def run_claim_child(spec: dict, seed: int, product: str, label: str,
+                    also: tuple = (), script: str = CLAIM_CHILD) -> dict:
+    """Run ``script`` (``CLAIM_CHILD`` by default) with the env of the
+    spec and then of each spec of ``also`` applied (device edits, then
+    common edits), as CDI merges the claims of one pod; its last JSON
+    line, checked: one device, one launch, finite, within
+    ``CLAIM_CHILD_MAX_ERR``. ``stdout`` holds the child's whole output."""
     import os
 
     env = dict(os.environ)
-    edits = [d["containerEdits"] for d in spec["devices"]] + [
-        spec["containerEdits"]]
+    edits = [edit for one in (spec, *also) for edit in
+             [d["containerEdits"] for d in one["devices"]]
+             + [one.get("containerEdits", {})]]
     for entry in (e for edit in edits for e in edit.get("env", [])):
         key, _, value = entry.partition("=")
         env[key] = value
     t0 = time.perf_counter()
     child = subprocess.run(
-        [sys.executable, "-c", CLAIM_CHILD, str(seed), product],
+        [sys.executable, "-c", script, str(seed), product],
         env=env, capture_output=True, text=True, timeout=300, check=False)
     child_s = time.perf_counter() - t0
     if child.returncode != 0:
@@ -2490,9 +2522,11 @@ def run_claim_child(spec: dict, seed: int, product: str, label: str
                              f"{child.stderr[-4000:]}")
     result = json.loads(child.stdout.strip().splitlines()[-1])
     result["seconds"] = child_s
+    result["stdout"] = child.stdout
     log(f"{label}: child under CUDA_DEVICE_ORDER="
         f"{env['CUDA_DEVICE_ORDER']} in {child_s:.2f} s of process: "
-        f"{json.dumps(result)} (flash forward at B=4 S=2048 H=32 K=8 "
+        f"{json.dumps({k: v for k, v in result.items() if k != 'stdout'})} "
+        f"(flash forward at B=4 S=2048 H=32 K=8 "
         f"hd=128 bf16, max_abs_err bound {CLAIM_CHILD_MAX_ERR})")
     if (result["device_count"] != 1 or result["launches"] != 1
             or not result["finite"] or result["excess"] > 0
@@ -4107,6 +4141,378 @@ def phase_tenancy(seed: int) -> int:
             f"after the phase {mps_pids()}")
 
 
+# Phase 18's child: ``train.verify`` as a gang of one from the channel
+# claim's ``TPU_*`` env alone (it prints its own JSON line), then phase
+# 12's flash forward check, whose JSON line comes last.
+CD_CHILD = """
+import sys
+from k8s_dra_driver_gpu_tpu_torch.train import verify
+rc = verify.run(["--require-gang", "--steps", "2"])
+if rc:
+    raise SystemExit(f"train.verify exited {rc}")
+""" + CLAIM_CHILD
+CD_NODE = "smoke-cd-node"
+CD_NODE_B = "smoke-cd-node-b"
+CD_READY_TIMEOUT_S = 60.0
+# The gang deadline of the domain whose second node never comes.
+CD_ABORT_DEADLINE_S = 1.0
+
+
+def phase_compute_domain(seed: int) -> int:
+    """18. A ComputeDomain gang of one through the port's controller,
+    daemon and CD plugin. Returns the channel child's flash launches."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from k8s_dra_driver_gpu_tpu_torch import entry as pt_entry
+    from k8s_dra_driver_gpu_tpu_torch.api.decode import API_VERSION
+    from k8s_dra_driver_gpu_tpu_torch.computedomain import (
+        API_GROUP, API_VERSION as CD_VERSION, COMPUTE_DOMAIN_DRIVER_NAME,
+        FINALIZER, NODE_LABEL)
+    from k8s_dra_driver_gpu_tpu_torch.computedomain.controller.controller import (
+        ComputeDomainController)
+    from k8s_dra_driver_gpu_tpu_torch.computedomain.daemon.process import _gone
+    from k8s_dra_driver_gpu_tpu_torch.computedomain.daemon.rendezvous import (
+        query)
+    from k8s_dra_driver_gpu_tpu_torch.computedomain.plugin.device_state import (
+        DOMAIN_STATE_ROOT, CDDeviceState)
+    from k8s_dra_driver_gpu_tpu_torch.computedomain.plugin.driver import (
+        CDDriver)
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin import DRIVER_NAME
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.claim import (
+        ResourceClaim)
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.device_state import (
+        Config, DeviceState)
+    from k8s_dra_driver_gpu_tpu_torch.pkg.fakeapiserver import FakeApiServer
+    from k8s_dra_driver_gpu_tpu_torch.pkg.kubeclient import KubeClient
+
+    ms = {}
+    timed = functools.partial(_timed, ms)
+    root = os.path.dirname(os.path.abspath(__file__))
+    cds = (API_GROUP, CD_VERSION, "computedomains")
+    cliques = (API_GROUP, CD_VERSION, "computedomaincliques")
+    claims = ("resource.k8s.io", "v1", "resourceclaims")
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"compute domain: {what}")
+
+    def wait(fn, timeout, what):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            value = fn()
+            if value:
+                return value
+            time.sleep(0.01)
+        raise AssertionError(f"compute domain: timed out waiting for {what}")
+
+    def answer(port):
+        try:
+            return query("127.0.0.1", port, "STATUS", timeout=2.0)
+        except OSError:
+            return ""
+
+    def make_cd(name, num_nodes):
+        return kube.create(*cds, {
+            "apiVersion": f"{API_GROUP}/{CD_VERSION}",
+            "kind": "ComputeDomain",
+            "metadata": {"name": name, "namespace": "default"},
+            "spec": {"numNodes": num_nodes, "channel": {
+                "resourceClaimTemplate": {"name": f"{name}-channel"}}}},
+            namespace="default")
+
+    def put_claim(uid, namespace, device, kind, cd_uid):
+        request = "daemon" if device == "daemon" else "channel"
+        kube.create(*claims, {
+            "metadata": {"uid": uid, "namespace": namespace, "name": uid},
+            "status": {"allocation": {"devices": {
+                "results": [{"request": request,
+                             "driver": COMPUTE_DOMAIN_DRIVER_NAME,
+                             "pool": CD_NODE, "device": device}],
+                "config": [{"source": "FromClaim", "requests": [request],
+                            "opaque": {
+                                "driver": COMPUTE_DOMAIN_DRIVER_NAME,
+                                "parameters": {"apiVersion": API_VERSION,
+                                               "kind": kind,
+                                               "domainID": cd_uid}}}]}}}},
+            namespace=namespace)
+        return {"uid": uid, "namespace": namespace, "name": uid}
+
+    def delete_cd(name):
+        """As an API server deletes an object with finalizers: a
+        deletionTimestamp, the controller's teardown drops the
+        finalizer, then the object goes."""
+        cd = kube.get(*cds, name, namespace="default")
+        cd["metadata"]["deletionTimestamp"] = "2026-01-01T00:00:00Z"
+        kube.update(*cds, name, cd, namespace="default")
+        wait(lambda: FINALIZER not in kube.get(*cds, name, namespace="default")
+             ["metadata"].get("finalizers", []), 30, f"{name}'s teardown")
+        kube.delete(*cds, name, namespace="default")
+
+    def label(node):
+        return kube.get("", "v1", "nodes", node)["metadata"].get(
+            "labels", {}).get(NODE_LABEL)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = (smi.stdout or smi.stderr).strip().splitlines()[0]
+    tmp = tempfile.mkdtemp(prefix="cd")
+    server = FakeApiServer().start()
+    kube = KubeClient(server.url)
+    for node in (CD_NODE, CD_NODE_B):
+        kube.create("", "v1", "nodes", {"kind": "Node",
+                                        "metadata": {"name": node}})
+    controller = ComputeDomainController(kube)
+    jax_port, rendezvous_port = free_port(), free_port()
+    # The plugin's coordinator port, as a cluster's plugin reads it.
+    port_before = os.environ.get("JAX_COORDINATOR_PORT")
+    os.environ["JAX_COORDINATOR_PORT"] = str(jax_port)
+    state = CDDeviceState(f"{tmp}/cd", kube, CD_NODE, cdi_root=f"{tmp}/cdi")
+    state_b = CDDeviceState(f"{tmp}/cd-b", kube, CD_NODE_B,
+                            cdi_root=f"{tmp}/cdi-b")
+    driver = CDDriver(state, kube, CD_NODE, retry_timeout=30.0)
+    gpu = None
+    daemon = None
+    daemon_log = open(f"{tmp}/daemon.log", "w+", encoding="utf-8")
+    launches = 0
+    try:
+        # The controller's two watches and the plugins' two informers.
+        controller.start(resync_interval=1.0)
+        check(server.store.wait_for_streams(4, 30), "the watches")
+        t0 = time.perf_counter()
+        cd = make_cd("smoke-cd", 1)
+        uid = cd["metadata"]["uid"]
+
+        def made():
+            cd = kube.get(*cds, "smoke-cd", namespace="default")
+            objects = {
+                "finalizers": cd["metadata"].get("finalizers"),
+                "daemonsets": [o["metadata"]["name"] for o in kube.list(
+                    "apps", "v1", "daemonsets")],
+                "templates": sorted(o["metadata"]["name"] for o in kube.list(
+                    "resource.k8s.io", "v1", "resourceclaimtemplates")),
+                "status": cd.get("status", {}).get("status")}
+            return objects if objects == {
+                "finalizers": [FINALIZER],
+                "daemonsets": [f"computedomain-daemon-{uid}"],
+                "templates": ["smoke-cd-channel", "smoke-cd-daemon-claim"],
+                "status": "NotReady"} else None
+        objects = wait(made, 30, "the controller's objects")
+        ms["reconcile"] = round((time.perf_counter() - t0) * 1e3, 3)
+        log(f"compute domain: {uid} reconciled from its watch event in "
+            f"{ms['reconcile']} ms: {objects}")
+
+        # The daemon: its claim, then its process under the claim's env.
+        ref = put_claim("smoke-cd-daemon", "tpu-dra-driver", "daemon",
+                        "ComputeDomainDaemonConfig", uid)
+        out = timed("daemon_prepare", driver.prepare_resource_claims,
+                    [ref])[ref["uid"]]
+        check(out[1] == "", f"the daemon claim: {out[1]}")
+        spec = state._cdi.read_spec(ref["uid"])
+        (mount,) = spec["containerEdits"]["mounts"]
+        check(mount["hostPath"] == state.domain_dir(uid)
+              and mount["containerPath"] == DOMAIN_STATE_ROOT,
+              f"the daemon's mount {mount}")
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("TPU_", "KUBERNETES_"))}
+        env.update(entry.split("=", 1)
+                   for entry in spec["containerEdits"]["env"])
+        env.update({"KUBE_API": server.url, "POD_IP": "127.0.0.1",
+                    "COORDINATION_PORT": str(rendezvous_port),
+                    "JAX_COORDINATOR_PORT": str(jax_port),
+                    "HOSTS_FILE": f"{tmp}/hosts",
+                    # No container runtime: the host side of the mount is
+                    # the path the process sees.
+                    "DOMAIN_STATE_DIR": mount["hostPath"],
+                    "PYTHONPATH": root})
+        t0 = time.perf_counter()
+        daemon = subprocess.Popen(
+            [sys.executable, "-m",
+             "k8s_dra_driver_gpu_tpu_torch.computedomain.daemon.main", "run"],
+            env=env, cwd=root, stdin=subprocess.DEVNULL, stdout=daemon_log,
+            stderr=subprocess.STDOUT)
+
+        def ready():
+            if daemon.poll() is not None:
+                raise AssertionError(f"the daemon exited {daemon.returncode}")
+            members = [m for c in kube.list(*cliques) for m in
+                       c.get("status", {}).get("daemons", [])]
+            got = kube.get(*cds, "smoke-cd", namespace="default")
+            return (answer(rendezvous_port) == "READY"
+                    and [m["status"] for m in members] == ["Ready"]
+                    and got.get("status", {}).get("status") == "Ready"
+                    and members)
+        members = wait(ready, CD_READY_TIMEOUT_S, "the domain Ready")
+        ms["daemon_start_to_ready"] = round(
+            (time.perf_counter() - t0) * 1e3, 3)
+        # The supervisor thread forked it: every task's children.
+        rendezvous = [int(p) for task in os.listdir(f"/proc/{daemon.pid}/task")
+                      for p in open(f"/proc/{daemon.pid}/task/{task}/children",
+                                    encoding="ascii").read().split()]
+        check(len(rendezvous) == 1, f"the daemon's children {rendezvous}")
+        log(f"compute domain: daemon pid {daemon.pid} (rendezvous child "
+            f"{rendezvous}) Ready in {ms['daemon_start_to_ready']:.1f} ms; "
+            f"member {json.dumps(members)}")
+
+        # The channel claim.
+        ref = put_claim("smoke-cd-channel", "default", "channel-0",
+                        "ComputeDomainChannelConfig", uid)
+        out = timed("channel_prepare", driver.prepare_resource_claims,
+                    [ref])[ref["uid"]]
+        check(out[1] == "", f"the channel claim: {out[1]}")
+        channel = state._cdi.read_spec(ref["uid"])
+        channel_env = dict(entry.split("=", 1) for entry in
+                           channel["containerEdits"]["env"])
+        log(f"compute domain: channel prepared in {ms['channel_prepare']} ms "
+            f"after {driver.retries[ref['uid']]} retries (segments ms "
+            f"{ {k: round(v * 1e3, 3) for k, v in state.last_segments.items()} }"
+            f"): ids {out[0][0]['cdi_device_ids']}, env {channel_env}, "
+            f"mounts {channel['containerEdits']['mounts']}; node label "
+            f"{label(CD_NODE)}")
+        check(channel_env["TPU_COORDINATOR_ADDRESS"] ==
+              f"127.0.0.1:{jax_port}"
+              and channel_env["TPU_PROCESS_ID"] == "0"
+              and channel_env["TPU_NUM_PROCESSES"] == "1"
+              and channel_env["TPU_WORKER_HOSTNAMES"] == "127.0.0.1"
+              and channel["containerEdits"]["mounts"][0]["hostPath"]
+              == state.domain_dir(uid) and label(CD_NODE) == uid,
+              "the channel's spec")
+
+        # The workload: the channel's env merged with a gpu-0 claim's.
+        gpu = DeviceState(Config(root=f"{tmp}/gpu", cdi_root=f"{tmp}/gpu-cdi"))
+        gpu.prepare(ResourceClaim.from_dict({
+            "metadata": {"uid": "smoke-cd-gpu", "namespace": "default",
+                         "name": "smoke-cd-gpu"},
+            "status": {"allocation": {"devices": {"results": [
+                {"request": "gpu", "driver": DRIVER_NAME, "pool": "node",
+                 "device": "gpu-0"}], "config": []}}}}))
+        gpu_spec = gpu._cdi.read_spec("smoke-cd-gpu")
+        product = gpu.allocatable["gpu-0"].chip.chip.name
+        result = timed("channel_child", run_claim_child, gpu_spec, seed,
+                       product, "compute domain", also=(channel,),
+                       script=CD_CHILD)
+        lines = [line for line in result["stdout"].splitlines()
+                 if line.startswith("{")]
+        gang = json.loads(lines[0])
+        log(f"compute domain: the child's train.verify "
+            f"{json.dumps({k: v for k, v in gang.items() if k != 'env'})}")
+        check(len(lines) == 2 and gang["devSum"] == 1.0
+              and gang["rankSum"] == 1.0 and gang["gang"] is True
+              and gang["steps"] == 2 and math.isfinite(float(gang["loss"]))
+              and gang["env"]["TPU_COORDINATOR_ADDRESS"]
+              == channel_env["TPU_COORDINATOR_ADDRESS"],
+              f"the child's gang: {lines}")
+        launches = result["launches"]
+
+        # The daemon's own bootstrap.json.
+        boot = os.path.join(state.domain_dir(uid), "bootstrap.json")
+        with open(boot, encoding="utf-8") as f:
+            boot_doc = json.load(f)
+        reports = timed("dryrun_from_bootstrap",
+                        pt_entry.dryrun_multichip_multiprocess, n_procs=1,
+                        local_devices=torch.cuda.device_count(),
+                        bootstrap_file=boot, timeout=300)
+        log(f"compute domain: the daemon's bootstrap.json {boot_doc}; "
+            "dryrun_multichip_multiprocess from it: "
+            + json.dumps({k: v for k, v in reports[0].items() if k != "env"})
+            + f", coordinator {reports[0]['env']['TPU_COORDINATOR_ADDRESS']}")
+        check(boot_doc["coordinatorAddress"].endswith(f":{jax_port}")
+              and reports[0]["env"]["TPU_COORDINATOR_ADDRESS"]
+              == channel_env["TPU_COORDINATOR_ADDRESS"]
+              and reports[0]["gang"] is True, "the dry run's gang")
+
+        # A domain whose second node never comes, on the second node.
+        cd2 = make_cd("smoke-cd2", 2)
+        uid2 = cd2["metadata"]["uid"]
+        driver_b = CDDriver(state_b, kube, CD_NODE_B,
+                            retry_timeout=CD_ABORT_DEADLINE_S)
+        ref2 = put_claim("smoke-cd2-channel", "default", "channel-0",
+                         "ComputeDomainChannelConfig", uid2)
+        errors = [timed(f"abort_{i}", driver_b.prepare_resource_claims,
+                        [ref2])[ref2["uid"]][1] for i in range(2)]
+        events = [e for e in kube.list("", "v1", "events", namespace="default")
+                  if e["reason"] == "GangPrepareAborted"]
+        left = {"spec": state_b._cdi.spec_exists(ref2["uid"]),
+                "record": ref2["uid"] in state_b.prepared_claims(),
+                "label_while_the_domain_lives": label(CD_NODE_B)}
+        timed("delete_cd2", delete_cd, "smoke-cd2")
+        left["label_after_its_deletion"] = label(CD_NODE_B)
+        log(f"compute domain: the 2-node domain aborted "
+            f"{driver_b.gang_aborts} times ({errors[0][:120]}...); "
+            f"{len(events)} GangPrepareAborted Event(s): "
+            f"{[e['message'][:80] for e in events]}; left {left}")
+        check(driver_b.gang_aborts == 2 and len(events) == 1
+              and all(e.startswith("gang prepare deadline") for e in errors)
+              and left == {"spec": False, "record": False,
+                           "label_while_the_domain_lives": uid2,
+                           "label_after_its_deletion": None},
+              "the abort and its unwind")
+
+        # Teardown, in a cluster's order.
+        t_down = time.perf_counter()
+        out = timed("channel_unprepare", driver.unprepare_resource_claims,
+                    [{"uid": "smoke-cd-channel"}])
+        check(out == {"smoke-cd-channel": ""} and label(CD_NODE) is None,
+              "the channel's unprepare")
+        daemon.send_signal(signal.SIGTERM)
+        rc = timed("daemon_stop", daemon.wait, 30)
+        deregistered = [m for c in kube.list(*cliques) for m in
+                        c.get("status", {}).get("daemons", [])]
+        check(rc == 0 and deregistered == [] and all(
+            _gone(p) for p in rendezvous), f"the daemon's stop (exit {rc}, "
+              f"members {deregistered}, rendezvous {rendezvous})")
+        out = timed("daemon_unprepare", driver.unprepare_resource_claims,
+                    [{"uid": "smoke-cd-daemon"}])
+        check(out == {"smoke-cd-daemon": ""}, "the daemon's unprepare")
+        timed("gpu_unprepare", gpu.unprepare, "smoke-cd-gpu")
+        timed("delete_cd", delete_cd, "smoke-cd")
+        removed = timed("domain_dir_gc", state.cleanup_stale_domain_dirs)
+        ms["teardown"] = round((time.perf_counter() - t_down) * 1e3, 3)
+        left = {"cds": kube.list(*cds), "cliques": kube.list(*cliques),
+                "daemonsets": kube.list("apps", "v1", "daemonsets"),
+                "templates": kube.list("resource.k8s.io", "v1",
+                                       "resourceclaimtemplates"),
+                "specs": sorted(state._cdi.list_claim_uids()
+                                + state_b._cdi.list_claim_uids()
+                                + gpu._cdi.list_claim_uids()),
+                "records": sorted(state.prepared_claims())
+                + sorted(gpu.prepared_claims()),
+                "domain_dirs": os.listdir(f"{tmp}/cd/domains"),
+                "labels": [label(CD_NODE), label(CD_NODE_B)]}
+        log(f"compute domain: torn down (domain dirs removed {removed}); "
+            f"left {left}")
+        check(removed == [uid] and left == {
+            "cds": [], "cliques": [], "daemonsets": [], "templates": [],
+            "specs": [], "records": [], "domain_dirs": [],
+            "labels": [None, None]}, "the teardown left state")
+        return launches
+    finally:
+        if daemon is not None and daemon.poll() is None:
+            daemon.kill()
+            daemon.wait()
+        daemon_log.seek(0)
+        tail = daemon_log.read()[-3000:]
+        daemon_log.close()
+        if daemon is not None and daemon.returncode:
+            log(f"compute domain: the daemon's log: {tail}")
+        if gpu is not None:
+            gpu.close()
+        controller.stop()
+        driver.stop_background()
+        state_b.stop()
+        server.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+        if port_before is None:
+            os.environ.pop("JAX_COORDINATOR_PORT", None)
+        else:
+            os.environ["JAX_COORDINATOR_PORT"] = port_before
+        log(f"compute domain: host ms {json.dumps(ms)} on {card}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4155,6 +4561,9 @@ def main(argv=None) -> int:
     t_tenancy = time.perf_counter()
     tenancy_child = phase_tenancy(args.seed)
     log(f"tenancy: phase 17 in {time.perf_counter() - t_tenancy:.1f} s")
+    t_cd = time.perf_counter()
+    cd_child = phase_compute_domain(args.seed)
+    log(f"compute domain: phase 18 in {time.perf_counter() - t_cd:.1f} s")
     forward["launches_by_path"] = {
         "serving_generate": serving_launches,
         "training_step": training["forward_lse"],
@@ -4167,6 +4576,7 @@ def main(argv=None) -> int:
         "mig_child": mig_child,
         "partition_children": partition_children,
         "tenancy_child": tenancy_child,
+        "cd_channel_child": cd_child,
         "sharded_training_step": gang["train"]["forward_lse"],
         "moe_training_step": moe["forward_lse"],
         "sp_ulysses_training_step": sp["ulysses"]["forward_lse"],

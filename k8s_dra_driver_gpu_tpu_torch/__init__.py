@@ -7,8 +7,9 @@ KV cache (``models/``), its training step and gang launcher
 (``parallel/``), the attention dispatcher, the chunked loss, an
 all-reduce benchmark and hand-written Hopper flash-attention kernels,
 forward and backward (``ops/``, ``csrc/``); and the driver side's
-device layer (``tpulib/``, NVML) and the kubelet plugin's whole-GPU
-prepare path (``kubeletplugin/`` with ``api/`` and ``pkg/``). The JAX
+device layer (``tpulib/``, NVML), the kubelet plugin
+(``kubeletplugin/`` with ``api/`` and ``pkg/``) and the ComputeDomain
+stack (``computedomain/``: controller, daemon, CD plugin). The JAX
 package stays the reference; this package imports nothing of it and
 nothing of JAX.
 

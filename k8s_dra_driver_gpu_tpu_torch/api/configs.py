@@ -9,7 +9,9 @@ upstream's kind, ``migconfig.go:28``; the JAX package's
 ``Sharing`` union decodes and validates as there; the kubelet plugin
 runs it through ``kubeletplugin/sharing.py`` (time-slicing at an
 interval, MPS with per-device memory limits). The vfio config is not
-ported (``device_state.NOT_PORTED_KINDS``).
+ported (``device_state.NOT_PORTED_KINDS``). ``ComputeDomainChannelConfig``
+and ``ComputeDomainDaemonConfig`` are the ComputeDomain plugin's
+(``computedomain/plugin``; upstream ``computedomainconfig.go``).
 """
 
 from __future__ import annotations
@@ -183,3 +185,48 @@ class MigDeviceConfig:
             raise ValidationError(
                 "oversubscribe provisions its own per-tenant MPS limit; a "
                 "MultiTenancy sharing config cannot be combined with it")
+
+
+class AllocationMode(str, Enum):
+    SINGLE = "Single"
+    ALL = "All"
+
+
+@dataclass
+class ComputeDomainChannelConfig:
+    """A workload's channel claim on a ComputeDomain
+    (computedomainconfig.go:28-56)."""
+
+    KIND = "ComputeDomainChannelConfig"
+
+    domain_id: str = ""
+    allocation_mode: str = AllocationMode.SINGLE.value
+
+    def normalize(self) -> None:
+        if not self.allocation_mode:
+            self.allocation_mode = AllocationMode.SINGLE.value
+
+    def validate(self) -> None:
+        if not self.domain_id:
+            raise ValidationError("domainID must be set")
+        modes = [m.value for m in AllocationMode]
+        if self.allocation_mode not in modes:
+            raise ValidationError(
+                f"unknown allocationMode {self.allocation_mode!r}")
+
+
+@dataclass
+class ComputeDomainDaemonConfig:
+    """The daemon's claim on its ComputeDomain
+    (computedomainconfig.go:58-86)."""
+
+    KIND = "ComputeDomainDaemonConfig"
+
+    domain_id: str = ""
+
+    def normalize(self) -> None:
+        pass
+
+    def validate(self) -> None:
+        if not self.domain_id:
+            raise ValidationError("domainID must be set")

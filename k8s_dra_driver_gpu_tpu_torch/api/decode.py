@@ -11,7 +11,8 @@ from __future__ import annotations
 from dataclasses import fields as dc_fields
 from typing import Any, Type
 
-from .configs import (GpuConfig, MigDeviceConfig, MultiTenancyConfig,
+from .configs import (ComputeDomainChannelConfig, ComputeDomainDaemonConfig,
+                      GpuConfig, MigDeviceConfig, MultiTenancyConfig,
                       Sharing, TimeSlicingConfig)
 
 API_VERSION = "resource.nvidia.com/v1beta1"
@@ -21,7 +22,9 @@ class DecodeError(ValueError):
     pass
 
 
-_KINDS: dict[str, Type] = {c.KIND: c for c in (GpuConfig, MigDeviceConfig)}
+_KINDS: dict[str, Type] = {c.KIND: c for c in (
+    GpuConfig, MigDeviceConfig, ComputeDomainChannelConfig,
+    ComputeDomainDaemonConfig)}
 
 # JSON field name -> dataclass attribute, per type.
 _FIELD_MAPS: dict[Type, dict[str, str]] = {
@@ -38,6 +41,11 @@ _FIELD_MAPS: dict[Type, dict[str, str]] = {
         "hbmLimit": "hbm_limit",
         "perDeviceHbmLimits": "per_device_hbm_limits",
     },
+    ComputeDomainChannelConfig: {
+        "domainID": "domain_id",
+        "allocationMode": "allocation_mode",
+    },
+    ComputeDomainDaemonConfig: {"domainID": "domain_id"},
 }
 
 _NESTED: dict[tuple[Type, str], Type] = {

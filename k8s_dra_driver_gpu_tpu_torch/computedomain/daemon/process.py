@@ -4,8 +4,9 @@
 child, records its pid in a pidfile, kills a stale survivor of an earlier
 supervisor before a start, stops it (SIGTERM, then SIGKILL after
 ``TERM_GRACE_S``) and, with its watchdog on, starts it again when it dies
-unexpectedly, after ``RESTART_BACKOFF_S``. The kubelet plugin runs its
-tenancy agents under it (``kubeletplugin/sharing.py``).
+unexpectedly, after ``RESTART_BACKOFF_S``. The ComputeDomain daemon runs
+its rendezvous service under it (``main.py``), and the kubelet plugin its
+tenancy agents (``kubeletplugin/sharing.py``).
 
 What differs from the JAX package:
 
@@ -15,8 +16,9 @@ What differs from the JAX package:
   pytest worker with gloo threads did). The child starts in a session of
   its own (``start_new_session=True``, which the C code of ``subprocess``
   does) and arms its parent-death signal itself at startup: the tenancy
-  agent calls ``prctl(PR_SET_PDEATHSIG, SIGTERM)`` and exits at once when
-  its parent is no longer the pid on its command line.
+  agent and the rendezvous service call ``prctl(PR_SET_PDEATHSIG,
+  SIGTERM)`` and exit at once when their parent is no longer the pid on
+  their command line.
 - **One long-lived thread starts every child.** The kernel sends the
   parent-death signal when the *thread* that forked the child ends, not
   the process. A start made on a short-lived thread (a test's, a gRPC
@@ -146,6 +148,20 @@ class ProcessManager:
         """From now on, a child that exits unless ``stop`` ended it is
         started again."""
         self._watch = True
+
+    def restart(self) -> None:
+        """Stop the child and start it again (the start on the supervisor
+        thread, as ever)."""
+        with self._lock:
+            self._expected_exit = True
+            self._stop_locked()
+        self.ensure_started()
+
+    def signal(self, sig: int) -> None:
+        """Send ``sig`` to the child if it runs."""
+        with self._lock:
+            if self._proc is not None and self._proc.poll() is None:
+                self._proc.send_signal(sig)
 
     def stop(self) -> None:
         """Stop the child and the supervisor thread."""

@@ -36,17 +36,16 @@ import time
 
 import torch
 
+from .computedomain import (BOOTSTRAP_KEYS, JAX_COORDINATOR_PORT,
+                            daemon_dns_name)  # noqa: F401 - re-exported
+from .computedomain.daemon.dnsnames import dns_name_mappings
 from .models import llama
 from .ops import resolve_device
 
-# The ComputeDomain daemon's file contract, copied from the driver side
-# (the port imports nothing of the JAX package): the coordinator port it
-# advertises, the stable DNS name of the daemon of each clique index, and
-# the keys of the bootstrap.json it writes into the domain dir.
-COORDINATOR_PORT = 8476
-DAEMON_DNS_PATTERN = "compute-domain-daemon-{index:04d}"
-BOOTSTRAP_KEYS = ("coordinatorAddress", "numProcesses", "processId",
-                  "workerHostnames")
+# The ComputeDomain daemon's file contract: the coordinator port it
+# advertises, the stable DNS names of the daemons and the keys of its
+# bootstrap.json.
+COORDINATOR_PORT = JAX_COORDINATOR_PORT
 
 # The seeds of each dry-run family's parameters and tokens, the numbers of
 # the reference's PRNGKeys (None: the family reuses the state before it).
@@ -56,23 +55,6 @@ FAMILY_SEEDS = {"train": (0, 1), "scan": (None, 11), "sp": (2, 3),
 # A rank started by ``dryrun_multichip`` writes rank 0's report here.
 REPORT_VAR = "TORCH_ENTRY_REPORT"
 _MODULE = "k8s_dra_driver_gpu_tpu_torch.entry"
-
-
-def daemon_dns_name(index: int) -> str:
-    """The daemon of clique index ``index``: its stable DNS name."""
-    return DAEMON_DNS_PATTERN.format(index=index)
-
-
-def dns_name_mappings(nodes: list[dict]) -> dict[str, str]:
-    """DNS name -> IP of every daemon of a members.json ``workers`` list
-    that has an index and an address."""
-    out = {}
-    for node in nodes:
-        index = node.get("index", -1)
-        ip = node.get("ipAddress", "")
-        if index >= 0 and ip:
-            out[daemon_dns_name(index)] = ip
-    return out
 
 
 def entry(device: str | torch.device | None = None):

@@ -211,10 +211,14 @@ class CDIHandler:
     which comes with the entry point (ROADMAP.md §1b item 8)."""
 
     def __init__(self, cdi_root: str = DEFAULT_CDI_ROOT,
-                 dev_root: str = "/dev", driver_root: str = "/"):
+                 dev_root: str = "/dev", driver_root: str = "/",
+                 vendor: str = CDI_VENDOR, cdi_class: str = CDI_CLASS):
         self._root = cdi_root
         self._dev_root = dev_root
         self._driver_root = driver_root
+        # The spec kind, "<vendor>/<class>": the ComputeDomain plugin's
+        # differs, so the two plugins' sweeps never take each other's.
+        self._vendor, self._class = vendor, cdi_class
         # driver version -> its mounts (upstream GetCommonEditsCached).
         self._mounts: dict[str, list[tuple[str, str, bool]]] = {}
         os.makedirs(self._root, exist_ok=True)
@@ -237,7 +241,7 @@ class CDIHandler:
 
     def spec_path(self, claim_uid: str) -> str:
         return os.path.join(self._root,
-                            f"{CDI_VENDOR}-{CDI_CLASS}_{claim_uid}.json")
+                            f"{self._vendor}-{self._class}_{claim_uid}.json")
 
     def common_edits(self, host) -> ContainerEdits:
         """The edits every claim on this host shares (upstream
@@ -265,16 +269,16 @@ class CDIHandler:
         devices = [{"name": name, "containerEdits": edits.to_dict()}
                    for name, edits in sorted(device_edits.items())]
         spec = {"cdiVersion": CDI_VERSION,
-                "kind": f"{CDI_VENDOR}/{CDI_CLASS}", "devices": devices}
+                "kind": f"{self._vendor}/{self._class}", "devices": devices}
         if common and common.to_dict():
             spec["containerEdits"] = common.to_dict()
         write_json_atomic(self.spec_path(claim_uid), json.dumps(spec))
-        return [qualified_device_id(d["name"]) for d in devices]
+        return [f"{self._vendor}/{self._class}={d['name']}" for d in devices]
 
     def list_claim_uids(self) -> list[str]:
         """The claim uids that have a spec file: the reconcile sweep's
         inventory of the CDI layer."""
-        prefix = f"{CDI_VENDOR}-{CDI_CLASS}_"
+        prefix = f"{self._vendor}-{self._class}_"
         try:
             names = os.listdir(self._root)
         except FileNotFoundError:

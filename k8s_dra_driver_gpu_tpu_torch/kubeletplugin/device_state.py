@@ -176,18 +176,18 @@ LOCK_TIMEOUT_S = 10.0
 # What the JAX plugin runs and this one does not yet, by the ROADMAP.md
 # §1b item that ports it.
 _VFIO = "vfio passthrough (ROADMAP.md §1b item 6, vfio.py)"
-_CD = "the ComputeDomain daemon (ROADMAP.md §1b item 9, computedomain/)"
 NOT_PORTED_KINDS = {"VfioDeviceConfig": _VFIO}
-# Every gate the plugin does not read (featuregates.READ): refused when
-# set away from its default.
+# Every gate the port does not read (featuregates.READ): refused when set
+# away from its default. The ComputeDomain daemon's two gates are read
+# (by the daemon), so the GPU plugin takes them, as the JAX plugin does.
 NOT_PORTED_GATES = {
     "PassthroughSupport": _VFIO,
-    "DomainDaemonsWithDNSNames": _CD, "ComputeDomainCliques": _CD,
-    "TopologyAwarePlacement": "topology-aware placement (the JAX package's "
-    "scheduler and ComputeDomain controller, ROADMAP.md §1b item 9)",
+    "TopologyAwarePlacement": "topology-aware placement (the JAX "
+    "package's scheduler, which is not ported: ROADMAP.md, \"Not queued\")",
     "ChipHealthCheck": "switching the health monitor by gate (the entry "
     "point's, ROADMAP.md §1b item 8; Driver(enable_health_monitor=) now)",
-    "CrashOnICIFabricErrors": _CD,
+    "CrashOnICIFabricErrors": "crashing on fabric errors (no module of the "
+    "JAX package reads this gate either)",
     "DeviceMetadata": "device metadata (no module of the JAX package reads "
     "this gate either)",
 }

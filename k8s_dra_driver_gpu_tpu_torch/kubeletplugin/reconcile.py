@@ -34,8 +34,8 @@ what a crash left.
 The JAX sweep's reservation-lease pass (the upgrade handover's leases,
 not ported with ``DeviceState``) has nothing to repair here and reports
 0.
-``CDStateReconciler`` waits for ``computedomain/`` (item 9); the
-recovery metrics are not ported.
+``CDStateReconciler`` is the sweep of the ComputeDomain plugin
+(``computedomain/plugin``). The recovery metrics are not ported.
 """
 
 from __future__ import annotations
@@ -195,3 +195,44 @@ class NodeStateReconciler:
                 logger.error("claim %s references vanished device(s) %s: "
                              "declared PermanentFailure", uid, sorted(gone))
         return declared
+
+
+class CDStateReconciler:
+    """The same audit over the ComputeDomain plugin's single-phase
+    records (the JAX package's ``CDStateReconciler``): a record whose
+    claim is gone is unprepared (which drops the node label with the last
+    channel), and a spec with no record is unwound
+    (``CDDeviceState.unwind_failed_prepare``, which drops the label too
+    once its domain is positively gone). Its driver runs it from its
+    background thread."""
+
+    def __init__(self, cd_state, kube):
+        self._state = cd_state
+        self._kube = kube
+        self.last_sweep: dict = {}
+
+    def reconcile_once(self) -> dict:
+        counts = {"cd_stale_claim": 0, "cd_cdi_spec": 0}
+        for uid, rec in list(self._state.prepared_claims().items()):
+            status, _ = lookup_claim(self._kube, uid, rec.namespace,
+                                     rec.name)
+            if status != "gone":
+                continue
+            try:
+                self._state.unprepare(uid)
+            except Exception:  # noqa: BLE001 - sweep must survive
+                logger.exception("stale CD claim unprepare failed for %s",
+                                 uid)
+                continue
+            counts["cd_stale_claim"] += 1
+            logger.warning("unprepared stale CD claim %s (%s/%s)", uid,
+                           rec.namespace, rec.name)
+        claims = self._state.prepared_claims()
+        for uid in self._state._cdi.list_claim_uids():
+            if uid in claims:
+                continue
+            self._state.unwind_failed_prepare(uid)
+            counts["cd_cdi_spec"] += 1
+            logger.warning("unwound orphan CD CDI spec for %s", uid)
+        self.last_sweep = counts
+        return counts

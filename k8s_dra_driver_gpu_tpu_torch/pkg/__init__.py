@@ -7,7 +7,9 @@ API server (``kubeclient``, ``fakeapiserver``), a list-and-watch cache
 (``informer``), ResourceSlice publication by content hash
 (``sliceutil``), the two claim helpers of the reconcile sweep
 (``recovery``), and tenant partitions (``partition``: the PartitionSet
-spec, the engine, the CRD watcher). Standard library only."""
+spec, the engine, the CRD watcher); for the ComputeDomain stack a keyed
+retrying work queue (``workqueue``) and Warning Events (``events``).
+Standard library only."""
 
 from __future__ import annotations
 

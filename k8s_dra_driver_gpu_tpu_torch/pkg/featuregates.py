@@ -1,23 +1,25 @@
-"""Feature gates of the kubelet plugin: the JAX package's gate names and
+"""Feature gates of the driver: the JAX package's gate names and
 defaults (its ``pkg/featuregates.py``; the upstream driver's
 ``pkg/featuregates/featuregates.go``), so one ``FEATURE_GATES`` string
-means the same to both plugins.
+means the same to every binary of both packages.
 
 The GPU plugin reads four: ``TimeSlicingSettings`` and
 ``MultiTenancySupport`` (the upstream's ``MPSSupport``), which needs the
 first, as in both; ``DynamicSubSlice`` (the upstream's ``DynamicMIG``):
 MIG devices created at prepare; and ``TenantPartitioning``: tenant
 partitions over MIG instances (``pkg/partition``), which needs
-``DynamicSubSlice``, as in the JAX package. Any other gate set away
-from its default names a
-feature the port does not run: ``unported()`` lists it and
-``DeviceState`` refuses it (``NotPortedError``). Upstream counterparts of
-the others: ``DomainDaemonsWithDNSNames`` is ``IMEXDaemonsWithDNSNames``,
+``DynamicSubSlice``, as in the JAX package. The ComputeDomain daemon
+reads two: ``ComputeDomainCliques`` (registration in clique objects, or
+in the domain's status when off) and ``DomainDaemonsWithDNSNames`` (the
+upstream's ``IMEXDaemonsWithDNSNames``: a peer change rewrites the hosts
+file and nudges the rendezvous service, or restarts it when off). Any
+other gate set away from its default names a feature the port does not
+run: ``unported()`` lists it and the GPU plugin's ``DeviceState`` refuses
+it (``NotPortedError``). Upstream counterparts of the others:
 ``ChipHealthCheck`` is ``NVMLDeviceHealthCheck``,
 ``CrashOnICIFabricErrors`` is ``CrashOnNVLinkFabricErrors``;
-``PassthroughSupport``, ``ComputeDomainCliques`` and ``DeviceMetadata``
-keep their names; ``TenantPartitioning`` and ``TopologyAwarePlacement``
-have none.
+``PassthroughSupport`` and ``DeviceMetadata`` keep their names;
+``TenantPartitioning`` and ``TopologyAwarePlacement`` have none.
 """
 
 from __future__ import annotations
@@ -28,9 +30,13 @@ TIME_SLICING_SETTINGS = "TimeSlicingSettings"
 MULTI_TENANCY_SUPPORT = "MultiTenancySupport"
 DYNAMIC_SUB_SLICE = "DynamicSubSlice"
 TENANT_PARTITIONING = "TenantPartitioning"
-# The gates the GPU plugin reads.
+COMPUTE_DOMAIN_CLIQUES = "ComputeDomainCliques"
+DOMAIN_DAEMONS_WITH_DNS_NAMES = "DomainDaemonsWithDNSNames"
+# The gates the port reads: the GPU plugin's four, the ComputeDomain
+# daemon's two.
 READ = (TIME_SLICING_SETTINGS, MULTI_TENANCY_SUPPORT, DYNAMIC_SUB_SLICE,
-        TENANT_PARTITIONING)
+        TENANT_PARTITIONING, COMPUTE_DOMAIN_CLIQUES,
+        DOMAIN_DAEMONS_WITH_DNS_NAMES)
 # gate -> the gate it needs on.
 REQUIRES = {MULTI_TENANCY_SUPPORT: TIME_SLICING_SETTINGS,
             TENANT_PARTITIONING: DYNAMIC_SUB_SLICE}
@@ -39,12 +45,12 @@ REQUIRES = {MULTI_TENANCY_SUPPORT: TIME_SLICING_SETTINGS,
 DEFAULTS: dict[str, bool] = {
     TIME_SLICING_SETTINGS: False,
     MULTI_TENANCY_SUPPORT: False,
-    "DomainDaemonsWithDNSNames": True,
+    DOMAIN_DAEMONS_WITH_DNS_NAMES: True,
     "PassthroughSupport": False,
     "ChipHealthCheck": True,
     DYNAMIC_SUB_SLICE: False,
     TENANT_PARTITIONING: False,
-    "ComputeDomainCliques": True,
+    COMPUTE_DOMAIN_CLIQUES: True,
     "CrashOnICIFabricErrors": True,
     "DeviceMetadata": False,
     "TopologyAwarePlacement": True,
@@ -67,8 +73,8 @@ class FeatureGates:
         return self.enabled.get(name, DEFAULTS[name])
 
     def unported(self) -> list[str]:
-        """The gates set away from their default that the GPU plugin
-        does not read."""
+        """The gates set away from their default that the port does not
+        read."""
         return [name for name, value in self.enabled.items()
                 if name not in READ and value != DEFAULTS[name]]
 

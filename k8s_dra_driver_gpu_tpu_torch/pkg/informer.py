@@ -18,7 +18,8 @@ MODIFIED or DELETED; ``relist_total`` counts the full lists. ``wait_for_sync`` w
 ``get`` and ``list`` read the cache. ``stop()`` ends the watch and the
 resync and joins their threads.
 
-Not ported: the JAX informer's uid index, change hooks, relist
+``get_by_uid`` scans the cache (the ComputeDomain plugin reads domains
+by uid). Not ported: the JAX informer's uid index, change hooks, relist
 coalescing and ``RelistCoordinator`` (its restart-storm gate), and the
 model checker's delivery seam; they wait for a module that needs them.
 """
@@ -198,3 +199,8 @@ class Informer:
     def list(self) -> list[dict]:
         with self._lock:
             return list(self._cache.values())
+
+    def get_by_uid(self, uid: str) -> dict | None:
+        with self._lock:
+            return next((o for o in self._cache.values()
+                         if o.get("metadata", {}).get("uid") == uid), None)

@@ -1,11 +1,16 @@
 """The checkpoint's state machines (the JAX package's
-``pkg/analysis/statemachine.py``, its two-phase and partition policies).
+``pkg/analysis/statemachine.py``, its two-phase, single-phase and
+partition policies).
 
 The kubelet plugin's lifecycle (``TWO_PHASE_POLICY``): absent ->
 PrepareStarted (the durable reservation) -> PrepareCompleted, torn down
 from either state back to absent (rollback, unprepare). A claim never
 appears PrepareCompleted without its PrepareStarted record having been
 durable first.
+
+The ComputeDomain plugin's claims (``SINGLE_PHASE_POLICY``) change no
+device state, so their prepare is one step: absent -> PrepareCompleted
+-> absent. A PrepareStarted record in its checkpoint is refused.
 
 A tenant partition's MIG instance (``PARTITION_POLICY``,
 ``pkg/partition/engine.py``): absent -> PartitionCreating (the durable
@@ -83,6 +88,15 @@ TWO_PHASE_POLICY = TransitionPolicy(
         (PREPARE_STARTED, PREPARE_COMPLETED),  # the devices are ready
         (PREPARE_STARTED, ABSENT),             # rollback
         (PREPARE_COMPLETED, ABSENT),           # unprepare
+    }),
+)
+
+
+SINGLE_PHASE_POLICY = TransitionPolicy(
+    "single-phase",
+    frozenset({
+        (ABSENT, PREPARE_COMPLETED),  # one-step prepare
+        (PREPARE_COMPLETED, ABSENT),  # unprepare
     }),
 )
 

@@ -1,8 +1,9 @@
 """The port's feature gates against the JAX package's: the same gate
 names and defaults, and for every spec string the same answer where the
-port reads it. The port refuses every spec the JAX package refuses; a
-spec it accepts and the JAX package refuses sets a gate the port does not
-read (``unported()``), which the GPU plugin refuses at construction."""
+port reads it (the GPU plugin's gates and the ComputeDomain daemon's).
+The port refuses every spec the JAX package refuses; a spec it accepts
+and the JAX package refuses sets a gate the port does not read
+(``unported()``), which the GPU plugin refuses at construction."""
 
 import pytest
 
@@ -59,7 +60,9 @@ def test_the_same_gates_with_the_same_defaults():
     assert set(pt_fg.READ) == {jax_fg.TIME_SLICING_SETTINGS,
                                jax_fg.MULTI_TENANCY_SUPPORT,
                                jax_fg.DYNAMIC_SUB_SLICE,
-                               jax_fg.TENANT_PARTITIONING}
+                               jax_fg.TENANT_PARTITIONING,
+                               jax_fg.COMPUTE_DOMAIN_CLIQUES,
+                               jax_fg.DOMAIN_DAEMONS_WITH_DNS_NAMES}
     assert jax_fg.KNOWN_FEATURES[pt_fg.MULTI_TENANCY_SUPPORT].requires == (
         pt_fg.TIME_SLICING_SETTINGS,)
     # Each dependency the port enforces is the JAX package's.
