@@ -274,7 +274,34 @@ and prints no result line):
    (as an API server does: ``deletionTimestamp``, the controller's
    teardown, then the object), the stale domain dir removed; no process,
    spec, domain dir or registration is left. Host ms of each step beside
-   the card's name and power limit.
+   the card's name and power limit, and the span split (``span_tree``,
+   from the phase's own exporter) of the reconcile (each ``cd.reconcile``
+   pass, from the domain's create) and of the channel prepare (its
+   ``cd_prepare`` span and segments; its retries from the
+   ``cd_prepare_done`` flight event).
+19. observability (``phase_observability``): the kubelet plugin's
+   ``Driver`` over NVML (phase 13's construction: no health monitor)
+   with ``DRARequestMetrics`` and a loopback ``MetricsServer``; one
+   ``gpu-0`` claim carrying a traceparent annotation (ids from the seed)
+   prepared and unprepared: ``/metrics`` shows one
+   ``NodePrepareResources`` and no error, the prepared-devices gauge 1
+   then 0; ``/debug/traces/<trace id>`` holds the ``prepare`` span under
+   the annotation's span, with its segment spans; ``/debug/claims/<uid>``
+   and ``/debug/claims/<ns>/<name>`` give the same ``prepare_done``
+   event. Then two ``computedomain.controller.main --leader-election``
+   processes over the fake server (default 30/10/2 s timings): one holds
+   the Lease and reconciles a domain (finalizer, DaemonSet, templates;
+   its status gauge and ``cd.reconcile`` spans on its listener, nothing
+   on the standby's); SIGTERM makes it exit 0 and release; the standby
+   takes over and reconciles a second domain; SIGTERM, exit 0, the Lease
+   released. Then the webhook: with ``openssl``, ``certbootstrap.run``
+   against a ValidatingWebhookConfiguration and ``webhook.main`` on the
+   secret's cert, three AdmissionReviews over TLS verified as the
+   service's name against the patched caBundle (a valid GPU config
+   allowed, an unknown field refused 422, a domain whose nodes do not
+   split over its slices refused); without ``openssl`` it says so on a
+   line of its own and posts them over plain HTTP. Every child is reaped
+   and every server stopped; host ms of each step beside the card.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record (with the hd-64 instantiations'
@@ -4141,6 +4168,24 @@ def phase_tenancy(seed: int) -> int:
             f"after the phase {mps_pids()}")
 
 
+def span_tree(spans: list[dict], root: dict) -> list[str]:
+    """``root`` and its descendants among ``spans`` (the exporter's
+    dicts), one line a span: its name and ms, indented by depth, in start
+    order."""
+    children = collections.defaultdict(list)
+    for sp in spans:
+        children[sp["parent_id"]].append(sp)
+    lines = []
+
+    def walk(sp, depth):
+        lines.append(f"{'  ' * depth}{sp['name']} {sp['duration_ms']} ms")
+        for child in sorted(children[sp["span_id"]],
+                            key=lambda c: c["start"]):
+            walk(child, depth + 1)
+    walk(root, 0)
+    return lines
+
+
 # Phase 18's child: ``train.verify`` as a gang of one from the channel
 # claim's ``TPU_*`` env alone (it prints its own JSON line), then phase
 # 12's flash forward check, whose JSON line comes last.
@@ -4185,12 +4230,18 @@ def phase_compute_domain(seed: int) -> int:
         ResourceClaim)
     from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.device_state import (
         Config, DeviceState)
+    from k8s_dra_driver_gpu_tpu_torch.pkg import flightrecorder, tracing
     from k8s_dra_driver_gpu_tpu_torch.pkg.fakeapiserver import FakeApiServer
     from k8s_dra_driver_gpu_tpu_torch.pkg.kubeclient import KubeClient
 
     ms = {}
     timed = functools.partial(_timed, ms)
     root = os.path.dirname(os.path.abspath(__file__))
+    # This phase's spans and flight events, apart from other phases'.
+    exporter_before = tracing.exporter()
+    recorder_before = flightrecorder.default()
+    exporter = tracing.set_exporter(tracing.TraceExporter())
+    recorder = flightrecorder.set_default(flightrecorder.FlightRecorder())
     cds = (API_GROUP, CD_VERSION, "computedomains")
     cliques = (API_GROUP, CD_VERSION, "computedomaincliques")
     claims = ("resource.k8s.io", "v1", "resourceclaims")
@@ -4301,10 +4352,23 @@ def phase_compute_domain(seed: int) -> int:
                 "daemonsets": [f"computedomain-daemon-{uid}"],
                 "templates": ["smoke-cd-channel", "smoke-cd-daemon-claim"],
                 "status": "NotReady"} else None
+        t_created = time.time() - (time.perf_counter() - t0)
         objects = wait(made, 30, "the controller's objects")
         ms["reconcile"] = round((time.perf_counter() - t0) * 1e3, 3)
         log(f"compute domain: {uid} reconciled from its watch event in "
             f"{ms['reconcile']} ms: {objects}")
+        # Where those ms went: each cd.reconcile pass of the domain until
+        # its objects stood, from the create (the watch event and the
+        # queue before it), and its own ms.
+        passes = [sp for sp in exporter.spans()
+                  if sp["name"] == "cd.reconcile"
+                  and sp["attrs"].get("claim_uid") == uid]
+        check(passes and all(sp["parent_id"] == "" for sp in passes),
+              f"the reconcile spans {passes}")
+        log("compute domain: span split of the reconcile: " + "; ".join(
+            f"pass {i} at +{(sp['start'] - t_created) * 1e3:.3f} ms: "
+            + " / ".join(span_tree(exporter.spans(), sp))
+            for i, sp in enumerate(passes)))
 
         # The daemon: its claim, then its process under the claim's env.
         ref = put_claim("smoke-cd-daemon", "tpu-dra-driver", "daemon",
@@ -4367,8 +4431,22 @@ def phase_compute_domain(seed: int) -> int:
         channel = state._cdi.read_spec(ref["uid"])
         channel_env = dict(entry.split("=", 1) for entry in
                            channel["containerEdits"]["env"])
+        (done,) = [e for e in recorder.events(ref["uid"])
+                   if e["event"] == "cd_prepare_done"]
+        prepares = [sp for sp in exporter.spans()
+                    if sp["name"] == "cd_prepare"
+                    and sp["attrs"].get("claim_uid") == ref["uid"]]
+        log("compute domain: span split of the channel prepare ("
+            f"cd_prepare_done {done['ms']} ms, {done['retries']} retries): "
+            + "; ".join(" / ".join(span_tree(exporter.spans(), sp))
+                        for sp in prepares))
+        # A try that failed in the claim's lookup has no cd_prepare span;
+        # the last try's has its segments.
+        check(1 <= len(prepares) <= done["retries"] + 1
+              and span_tree(exporter.spans(), prepares[-1])[1:],
+              f"the channel's spans {prepares}")
         log(f"compute domain: channel prepared in {ms['channel_prepare']} ms "
-            f"after {driver.retries[ref['uid']]} retries (segments ms "
+            f"after {done['retries']} retries (segments ms "
             f"{ {k: round(v * 1e3, 3) for k, v in state.last_segments.items()} }"
             f"): ids {out[0][0]['cdi_device_ids']}, env {channel_env}, "
             f"mounts {channel['containerEdits']['mounts']}; node label "
@@ -4510,7 +4588,425 @@ def phase_compute_domain(seed: int) -> int:
             os.environ.pop("JAX_COORDINATOR_PORT", None)
         else:
             os.environ["JAX_COORDINATOR_PORT"] = port_before
+        tracing.set_exporter(exporter_before)
+        flightrecorder.set_default(recorder_before)
         log(f"compute domain: host ms {json.dumps(ms)} on {card}")
+
+
+OBS_NODE = "smoke-obs-node"
+CONTROLLER_MAIN = "k8s_dra_driver_gpu_tpu_torch.computedomain.controller.main"
+WEBHOOK_MAIN = "k8s_dra_driver_gpu_tpu_torch.webhook.main"
+WEBHOOK_SERVICE = "tpu-dra-webhook"
+WEBHOOK_NAMESPACE = "tpu-dra-driver"
+LEASE = ("coordination.k8s.io", "v1", "leases")
+LEASE_NAME = "tpu-dra-cd-controller"  # the controller's --lease-name default
+
+
+def metric_samples(text: str) -> dict:
+    """A text exposition's samples: (name, sorted label pairs) -> value
+    (the chip machine has no ``prometheus_client`` to parse it)."""
+    import re
+
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, value = line.rsplit(" ", 1)
+        name, _, rest = head.partition("{")
+        labels = tuple(sorted(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"',
+                                         rest)))
+        out[(name, labels)] = float(value)
+    return out
+
+
+def _http_get(url: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as resp:
+        return resp.read().decode()
+
+
+def phase_observability(seed: int) -> dict:
+    """19. The driver's observability and the two binaries that need no
+    gRPC, on this machine's host: the kubelet plugin over NVML with its
+    metrics listener, two controller processes with leader election, and
+    the webhook with its TLS bootstrap. Returns the host ms."""
+    import base64
+    import http.client
+    import os
+    import random
+    import shutil
+    import signal
+    import socket
+    import ssl
+    import tempfile
+    import threading
+
+    from k8s_dra_driver_gpu_tpu_torch.api.decode import API_VERSION
+    from k8s_dra_driver_gpu_tpu_torch.computedomain import (
+        API_GROUP, API_VERSION as CD_VERSION, FINALIZER)
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin import DRIVER_NAME
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.device_state import (
+        Config)
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.driver import Driver
+    from k8s_dra_driver_gpu_tpu_torch.pkg import flightrecorder, tracing
+    from k8s_dra_driver_gpu_tpu_torch.pkg.fakeapiserver import FakeApiServer
+    from k8s_dra_driver_gpu_tpu_torch.pkg.kubeclient import (KubeClient,
+                                                             NotFoundError)
+    from k8s_dra_driver_gpu_tpu_torch.pkg.metrics import (DRARequestMetrics,
+                                                          MetricsServer)
+    from k8s_dra_driver_gpu_tpu_torch.pkg.retry import RetryingKubeClient
+    from k8s_dra_driver_gpu_tpu_torch.webhook import certbootstrap
+    from k8s_dra_driver_gpu_tpu_torch.webhook.main import VALIDATE_PATH
+
+    ms = {}
+    timed = functools.partial(_timed, ms)
+    root = os.path.dirname(os.path.abspath(__file__))
+    cds = (API_GROUP, CD_VERSION, "computedomains")
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"observability: {what}")
+
+    def wait(fn, timeout, what):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            value = fn()
+            if value:
+                return value
+            time.sleep(0.01)
+        raise AssertionError(f"observability: timed out waiting for {what}")
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = (smi.stdout or smi.stderr).strip().splitlines()[0]
+    tmp = tempfile.mkdtemp(prefix="obs")
+    exporter_before = tracing.exporter()
+    recorder_before = flightrecorder.default()
+    tracing.set_exporter(tracing.TraceExporter())
+    flightrecorder.set_default(flightrecorder.FlightRecorder())
+    threads_before = set(threading.enumerate())
+    procs: dict = {}
+    servers = []
+    passed = False
+    try:
+        # -- 1. the node: the kubelet plugin over NVML, with its metrics
+        # listener (phase 13's construction: no health monitor, so no
+        # NVML read beside this process's CUDA).
+        server = FakeApiServer().start()
+        servers.append(server)
+        kube = KubeClient(host=server.url)
+        metrics = DRARequestMetrics()
+        driver = timed("node_construct", Driver, Config(
+            root=f"{tmp}/state", cdi_root=f"{tmp}/cdi"), kube, OBS_NODE,
+            False, metrics=metrics)
+        listener = MetricsServer(metrics.registry, host="127.0.0.1", port=0)
+        listener.start()
+        servers.append(listener)
+        base = f"http://127.0.0.1:{listener.port}"
+        driver.publish_resources()
+        rng = random.Random(seed)
+        parent = tracing.SpanContext(f"{rng.getrandbits(128) | 1:032x}",
+                                     f"{rng.getrandbits(64) | 1:016x}")
+        claim = {"metadata": {
+            "uid": "smoke-obs-claim", "namespace": "default",
+            "name": "smoke-obs-claim", "annotations": {
+                tracing.TRACEPARENT_ANNOTATION: parent.to_traceparent()}},
+            "status": {"allocation": {"devices": {"results": [
+                {"request": "gpu", "driver": DRIVER_NAME, "pool": OBS_NODE,
+                 "device": "gpu-0"}], "config": []}}}}
+        kube.create("resource.k8s.io", "v1", "resourceclaims", claim,
+                    namespace="default")
+        ref = {k: claim["metadata"][k] for k in ("uid", "namespace", "name")}
+        uid = ref["uid"]
+        out = timed("node_prepare", driver.prepare_resource_claims, [ref])
+        check(out[uid][1] == "" and out[uid][0][0]["cdi_device_ids"] ==
+              ["nvidia.com/gpu=gpu-0"], f"the prepare {out}")
+        samples = metric_samples(timed("scrape", _http_get,
+                                       base + "/metrics"))
+        prep = (("operation", "NodePrepareResources"),)
+        errors = {k: v for k, v in samples.items()
+                  if k[0] == "tpu_dra_request_errors_total"}
+        check(samples.get(("tpu_dra_request_duration_seconds_count", prep))
+              == 1.0 and errors == {}
+              and samples[("tpu_dra_prepared_devices", ())] == 1.0
+              and samples.get(("tpu_dra_claim_e2e_seconds_count",
+                               (("phase", "prepare"),))) == 1.0,
+              f"/metrics after the prepare: {samples}")
+        doc = json.loads(_http_get(
+            f"{base}/debug/traces/{parent.trace_id}"))
+        spans = doc["spans"]
+        (prepare,) = [sp for sp in spans if sp["name"] == "prepare"]
+        tree = span_tree(spans, prepare)
+        check(prepare["parent_id"] == parent.span_id and len(tree) > 1
+              and prepare["attrs"]["claim_uid"] == uid,
+              f"the prepare's trace {spans}")
+        by_uid = json.loads(_http_get(f"{base}/debug/claims/{uid}"))
+        by_name = json.loads(_http_get(
+            f"{base}/debug/claims/default/{ref['name']}"))
+        done = [e for e in by_uid["events"] if e["event"] == "prepare_done"]
+        check(len(done) == 1 and done == [
+            e for e in by_name["events"] if e["event"] == "prepare_done"]
+              and done[0]["trace_id"] == parent.trace_id
+              and done[0]["alias"] == f"default/{ref['name']}",
+              f"/debug/claims: {by_uid} / {by_name}")
+        out = timed("node_unprepare", driver.unprepare_resource_claims,
+                    [{"uid": uid}])
+        samples = metric_samples(_http_get(base + "/metrics"))
+        check(out == {uid: ""}
+              and samples[("tpu_dra_prepared_devices", ())] == 0.0
+              and samples.get(("tpu_dra_request_duration_seconds_count",
+                               (("operation", "NodeUnprepareResources"),)))
+              == 1.0, f"/metrics after the unprepare: {samples}")
+        log(f"observability: node prepare {ms['node_prepare']} ms, its "
+            f"metrics served; trace {parent.trace_id}: " + " / ".join(tree)
+            + f"; prepare_done {done[0]['ms']} ms; events "
+            f"{[e['event'] for e in by_uid['events']]}")
+        listener.stop()
+        servers.remove(listener)
+        driver.stop()
+
+        # -- 2. the controller binary: two replicas, one Lease.
+        ports = {ident: free_port() for ident in ("cd-a", "cd-b")}
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("KUBE_API", "KUBERNETES_"))}
+        env.update({"PYTHONPATH": root, "TPU_DRA_DEBUG_HTTP": "1"})
+
+        def holder():
+            try:
+                return kube.get(*LEASE, LEASE_NAME, namespace=WEBHOOK_NAMESPACE
+                                )["spec"]["holderIdentity"]
+            except NotFoundError:
+                return None
+
+        def finalized(name):
+            return FINALIZER in kube.get(*cds, name, namespace="default")[
+                "metadata"].get("finalizers", [])
+
+        def make_cd(name):
+            return kube.create(*cds, {
+                "apiVersion": f"{API_GROUP}/{CD_VERSION}",
+                "kind": "ComputeDomain",
+                "metadata": {"name": name, "namespace": "default"},
+                "spec": {"numNodes": 1, "channel": {
+                    "resourceClaimTemplate": {"name": f"{name}-channel"}}}},
+                namespace="default")
+
+        def spawn(name, args):
+            with open(f"{tmp}/{name}.log", "w", encoding="utf-8") as out:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", *args], env=env, cwd=root,
+                    stdin=subprocess.DEVNULL, stdout=out,
+                    stderr=subprocess.STDOUT)
+
+        t0 = time.perf_counter()
+        for ident, port in ports.items():
+            spawn(ident, [CONTROLLER_MAIN, "--leader-election", "--kube-api",
+                          server.url, "--metrics-port", str(port),
+                          "--identity", ident, "--namespace",
+                          WEBHOOK_NAMESPACE])
+        leader = wait(holder, 60, "a leader")
+        ms["controller_start_to_leader"] = round(
+            (time.perf_counter() - t0) * 1e3, 3)
+        standby = "cd-b" if leader == "cd-a" else "cd-a"
+        t0 = time.perf_counter()
+        cd_uid = make_cd("obs-cd")["metadata"]["uid"]
+
+        def made():
+            return (finalized("obs-cd")
+                    and kube.list("apps", "v1", "daemonsets",
+                                  namespace=WEBHOOK_NAMESPACE)
+                    and len(kube.list("resource.k8s.io", "v1",
+                                      "resourceclaimtemplates")) == 2)
+        wait(made, 30, "the leader's objects")
+        ms["leader_reconcile"] = round((time.perf_counter() - t0) * 1e3, 3)
+        lead_url = f"http://127.0.0.1:{ports[leader]}"
+        status = (("name", "obs-cd"), ("namespace", "default"))
+        wait(lambda: ("tpu_compute_domain_status", status) in
+             metric_samples(_http_get(lead_url + "/metrics")), 30,
+             "the leader's status gauge")
+        def reconciles():
+            # A span is exported when it ends, after the gauge is set in it.
+            traces = json.loads(_http_get(lead_url + "/debug/traces"))[
+                "traces"]
+            return [sp for spans_ in traces.values() for sp in spans_
+                    if sp["name"] == "cd.reconcile"
+                    and sp["attrs"]["claim_uid"] == cd_uid]
+        reconciles = wait(reconciles, 30, "the leader's reconcile span")
+        standby_url = f"http://127.0.0.1:{ports[standby]}"
+        standby_spans = json.loads(_http_get(
+            standby_url + "/debug/traces"))["traces"]
+        check(not standby_spans
+              and ("tpu_compute_domain_status", status) not in
+              metric_samples(_http_get(standby_url + "/metrics")),
+              f"the leader's spans {reconciles}, the standby's "
+              f"{standby_spans}")
+        t0 = time.perf_counter()
+        procs[leader].send_signal(signal.SIGTERM)
+        rc = procs[leader].wait(timeout=60)
+        ms["leader_sigterm_to_exit"] = round(
+            (time.perf_counter() - t0) * 1e3, 3)
+        released = holder()
+        t0 = time.perf_counter()
+        check(rc == 0 and released in ("", standby),
+              f"the leader's exit {rc}, the Lease's holder {released!r}")
+        wait(lambda: holder() == standby, 30, "the standby's takeover")
+        ms["takeover"] = round((time.perf_counter() - t0) * 1e3, 3)
+        t0 = time.perf_counter()
+        make_cd("obs-cd2")
+        wait(lambda: finalized("obs-cd2"), 30, "the new leader's reconcile")
+        ms["new_leader_reconcile"] = round(
+            (time.perf_counter() - t0) * 1e3, 3)
+        procs[standby].send_signal(signal.SIGTERM)
+        rc = procs[standby].wait(timeout=60)
+        check(rc == 0 and holder() == "",
+              f"the second leader's exit {rc}, holder {holder()!r}")
+        log(f"observability: controller binaries: {leader} led after "
+            f"{ms['controller_start_to_leader']} ms and reconciled in "
+            f"{ms['leader_reconcile']} ms ({len(reconciles)} cd.reconcile "
+            f"spans, {[sp['duration_ms'] for sp in reconciles]} ms); "
+            f"SIGTERM to exit 0 in {ms['leader_sigterm_to_exit']} ms, "
+            f"Lease released ({released!r}); {standby} took over in "
+            f"{ms['takeover']} ms and reconciled a second domain in "
+            f"{ms['new_leader_reconcile']} ms; both exited 0")
+
+        # -- 3. the webhook, with its TLS bootstrap where openssl runs.
+        openssl = shutil.which("openssl")
+        port = free_port()
+        args = [WEBHOOK_MAIN, "--port", str(port)]
+        service_dns = f"{WEBHOOK_SERVICE}.{WEBHOOK_NAMESPACE}.svc"
+        transport = "plain HTTP"
+        if openssl:
+            transport = (f"TLS, verified as {service_dns} against the "
+                         "patched caBundle")
+            kube.create("admissionregistration.k8s.io", "v1",
+                        "validatingwebhookconfigurations", {
+                            "apiVersion": "admissionregistration.k8s.io/v1",
+                            "kind": "ValidatingWebhookConfiguration",
+                            "metadata": {"name": WEBHOOK_SERVICE},
+                            "webhooks": [{"name": "validate.nvidia.com",
+                                          "clientConfig": {"service": {
+                                              "name": WEBHOOK_SERVICE,
+                                              "namespace":
+                                              WEBHOOK_NAMESPACE}}}]})
+            rc = timed("cert_bootstrap", certbootstrap.run,
+                       RetryingKubeClient(kube), WEBHOOK_SERVICE,
+                       WEBHOOK_NAMESPACE, f"{WEBHOOK_SERVICE}-tls",
+                       WEBHOOK_SERVICE)
+            secret = kube.get("", "v1", "secrets", f"{WEBHOOK_SERVICE}-tls",
+                              namespace=WEBHOOK_NAMESPACE)
+            for key in ("tls.crt", "tls.key"):
+                with open(f"{tmp}/{key}", "wb") as f:
+                    f.write(base64.b64decode(secret["data"][key]))
+            bundle = base64.b64decode(kube.get(
+                "admissionregistration.k8s.io", "v1",
+                "validatingwebhookconfigurations", WEBHOOK_SERVICE)[
+                    "webhooks"][0]["clientConfig"]["caBundle"])
+            check(rc == 0 and bundle == base64.b64decode(
+                secret["data"]["tls.crt"]), "the bootstrap's secret and "
+                "caBundle")
+            args += ["--tls-cert", f"{tmp}/tls.crt",
+                     "--tls-key", f"{tmp}/tls.key"]
+            context = ssl.create_default_context(cadata=bundle.decode())
+
+            class Connection(http.client.HTTPSConnection):
+                """TLS to 127.0.0.1 verified as the service's name."""
+
+                def connect(self):
+                    sock = socket.create_connection((self.host, self.port),
+                                                    self.timeout)
+                    self.sock = context.wrap_socket(
+                        sock, server_hostname=service_dns)
+        else:
+            log("webhook: TLS not run (no openssl on this machine)")
+
+            class Connection(http.client.HTTPConnection):
+                pass
+        t0 = time.perf_counter()
+        spawn("webhook", args)
+
+        def listening():
+            check(procs["webhook"].poll() is None, "the webhook exited")
+            with socket.socket() as sock:
+                return sock.connect_ex(("127.0.0.1", port)) == 0
+        wait(listening, 60, "the webhook's port")
+        ms["webhook_start"] = round((time.perf_counter() - t0) * 1e3, 3)
+
+        def claim_review(body):
+            return {"apiVersion": "admission.k8s.io/v1",
+                    "kind": "AdmissionReview", "request": {
+                        "uid": "r1", "object": {
+                            "apiVersion": "resource.k8s.io/v1",
+                            "kind": "ResourceClaim", "spec": {"devices": {
+                                "requests": [{"name": "gpu"}],
+                                "config": [{"opaque": {
+                                    "driver": DRIVER_NAME, "parameters": {
+                                        "apiVersion": API_VERSION,
+                                        "kind": "GpuConfig", **body}}}]}}}}}
+
+        good = {"sharing": {"strategy": "TimeSlicing",
+                            "timeSlicing": {"interval": "Short"}}}
+        reviews = {
+            "valid": claim_review(good),
+            "unknown_field": claim_review({**good, "bogus": 1}),
+            "indivisible_domain": {
+                "apiVersion": "admission.k8s.io/v1",
+                "kind": "AdmissionReview", "request": {
+                    "uid": "r3", "object": {
+                        "apiVersion": f"{API_GROUP}/{CD_VERSION}",
+                        "kind": "ComputeDomain",
+                        "spec": {"numNodes": 3, "numSlices": 2}}}}}
+        answers = {}
+        for name, body in reviews.items():
+            t0 = time.perf_counter()
+            conn = Connection("127.0.0.1", port, timeout=30)
+            conn.request("POST", VALIDATE_PATH, json.dumps(body),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            answer = json.loads(resp.read())["response"]
+            conn.close()
+            ms[f"review_{name}"] = round((time.perf_counter() - t0) * 1e3, 3)
+            answers[name] = (resp.status, answer["allowed"],
+                             answer.get("status", {}).get("code"),
+                             answer.get("status", {}).get("message", ""))
+        log(f"observability: webhook over {transport}: "
+            f"{json.dumps(answers)}")
+        check(answers["valid"][:3] == (200, True, None)
+              and answers["unknown_field"][:3] == (200, False, 422)
+              and "unknown field" in answers["unknown_field"][3]
+              and answers["indivisible_domain"][:3] == (200, False, 422)
+              and "split evenly" in answers["indivisible_domain"][3],
+              f"the reviews {answers}")
+        procs["webhook"].send_signal(signal.SIGTERM)
+        rc = procs["webhook"].wait(timeout=60)
+        check(rc == 0, f"the webhook exited {rc}")
+        passed = True
+        return ms
+    finally:
+        for name, proc in procs.items():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if proc.returncode:
+                with open(f"{tmp}/{name}.log", encoding="utf-8") as f:
+                    log(f"observability: {name} exited {proc.returncode}: "
+                        f"{f.read()[-3000:]}")
+        for srv in reversed(servers):
+            srv.stop()
+        tracing.set_exporter(exporter_before)
+        flightrecorder.set_default(recorder_before)
+        shutil.rmtree(tmp, ignore_errors=True)
+        left = [t.name for t in threading.enumerate()
+                if t not in threads_before and t.is_alive()]
+        alive = [n for n, p in procs.items() if p.poll() is None]
+        log(f"observability: host ms {json.dumps(ms)} on {card}; threads "
+            f"left {left}; children alive {alive}")
+        # Only when nothing else failed: do not hide the first error.
+        if passed:
+            check(not left and not alive, "a thread or a child outlived "
+                  "the phase")
 
 
 def main(argv=None) -> int:
@@ -4564,6 +5060,9 @@ def main(argv=None) -> int:
     t_cd = time.perf_counter()
     cd_child = phase_compute_domain(args.seed)
     log(f"compute domain: phase 18 in {time.perf_counter() - t_cd:.1f} s")
+    t_obs = time.perf_counter()
+    phase_observability(args.seed)
+    log(f"observability: phase 19 in {time.perf_counter() - t_obs:.1f} s")
     forward["launches_by_path"] = {
         "serving_generate": serving_launches,
         "training_step": training["forward_lse"],

@@ -30,8 +30,15 @@ Left out: the ``TopologyAwarePlacement`` window (the JAX controller's
 ``workerId`` attribute of the chip driver's ResourceSlices that the
 port's GPU slices do not publish, and without one the JAX controller
 stamps no window either; its only reader is the JAX scheduler, which is
-not ported. Nor are the JAX controller's metrics, tracing and flight
-recorder.
+not ported.
+
+Observability, at the JAX controller's hook points: each ``reconcile`` is
+a ``cd.reconcile`` span (a root unless a span is active) and a
+``cd_reconcile`` flight event keyed by the domain's uid, aliased by
+``namespace/name``; with ``metrics`` (a ``ComputeDomainMetrics``) the
+status pass sets ``tpu_compute_domain_status`` and
+``tpu_compute_domain_nodes`` for the domain, and the teardown removes
+both.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import logging
 import threading
 
 from ...api.computedomain import ComputeDomainStatusValue
+from ...pkg import flightrecorder, tracing
 from ...pkg.kubeclient import ConflictError, NotFoundError
 from ...pkg.workqueue import CONTROLLER_DEFAULT_LIMITER, WorkQueue
 from .. import API_GROUP, API_VERSION, FINALIZER, NODE_LABEL, expected_workers
@@ -56,9 +64,11 @@ CLIQUE_RESOURCE = "computedomaincliques"
 class ComputeDomainController:
     _ALL_KEY = ("*", "*")  # reconcile every domain
 
-    def __init__(self, kube, driver_namespace: str = "tpu-dra-driver"):
+    def __init__(self, kube, driver_namespace: str = "tpu-dra-driver",
+                 metrics=None):
         self.kube = kube
         self.ns = driver_namespace
+        self.metrics = metrics  # ComputeDomainMetrics | None
         self.queue = WorkQueue(limiter=CONTROLLER_DEFAULT_LIMITER,
                                name="cd-controller")
         self._stop = threading.Event()
@@ -145,6 +155,20 @@ class ComputeDomainController:
     # -- reconcile ---------------------------------------------------------
 
     def reconcile(self, cd: dict) -> None:
+        """One span and one flight event a pass, keyed by the domain's
+        uid (``/debug/claims/<uid>`` finds it, as a claim's)."""
+        meta = cd["metadata"]
+        domain = f"{meta.get('namespace', 'default')}/{meta.get('name', '?')}"
+        with tracing.span("cd.reconcile", attrs={
+                "domain": domain, "claim_uid": meta.get("uid", "")}) as sp:
+            flightrecorder.default().record(
+                meta.get("uid", "") or meta.get("name", "?"),
+                "cd_reconcile", alias=domain,
+                trace_id=sp.context.trace_id if sp.recording else "",
+                deleting=bool(meta.get("deletionTimestamp")))
+            self._reconcile_inner(cd)
+
+    def _reconcile_inner(self, cd: dict) -> None:
         meta = cd["metadata"]
         if meta.get("deletionTimestamp"):
             self._teardown(cd)
@@ -210,6 +234,11 @@ class ComputeDomainController:
                 "nodes": sorted(nodes, key=lambda n: n.get("index", -1)),
             }
             changed = cd.get("status") != status_patch
+        if self.metrics is not None:
+            ns = cd["metadata"].get("namespace", "default")
+            name = cd["metadata"]["name"]
+            self.metrics.status.labels(ns, name).set(1 if ready else 0)
+            self.metrics.nodes.labels(ns, name).set(len(nodes))
         if not changed:
             return
         try:
@@ -244,6 +273,10 @@ class ComputeDomainController:
                     clique["metadata"]["name"],
                     namespace=clique["metadata"].get("namespace"))
         self._remove_node_labels(uid)
+        if self.metrics is not None:
+            ns = meta.get("namespace", "default")
+            for gauge in (self.metrics.status, self.metrics.nodes):
+                gauge.remove(ns, meta["name"])
         if FINALIZER not in meta.get("finalizers", []):
             return  # done already: no write, so no event to loop on
         finalizers = [f for f in meta.get("finalizers", []) if f != FINALIZER]

@@ -35,8 +35,12 @@ and mount. The last channel claim's unprepare drops the node label;
 drops the label only once the domain is positively gone.
 
 Domains are read through an informer (``pkg/informer.py``) that
-``stop()`` ends. The JAX plugin's tracing and flight recorder are not
-ported.
+``stop()`` ends.
+
+A prepare is one ``cd_prepare`` span, parented by the claim's
+traceparent annotation (``pkg/tracing.extract``), with a child span a
+segment; a prepare that completes records ``cd_prepare_segments`` (each
+segment's ms) in the flight recorder, as the JAX plugin does.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from ...kubeletplugin.checkpoint import (CheckpointedClaim,
                                          CheckpointedDevice,
                                          CheckpointManager, ClaimState)
 from ...kubeletplugin.claim import ResourceClaim
+from ...pkg import flightrecorder, tracing
 from ...pkg.informer import Informer
 from ...pkg.kubeclient import KubeError, NotFoundError
 from ...pkg.statemachine import SINGLE_PHASE_POLICY
@@ -121,7 +126,8 @@ class CDDeviceState:
 
     def prepare(self, claim: ResourceClaim) -> list[str]:
         """The claim's qualified CDI device ids."""
-        timer = SegmentTimer("cd_prepare", claim.uid)
+        timer = SegmentTimer("cd_prepare", claim.uid,
+                             parent=tracing.extract(claim.annotations))
         try:
             return self._prepare_locked(claim, timer)
         finally:
@@ -158,6 +164,10 @@ class CDDeviceState:
                          for name, cid in zip(sorted(devices), cdi_ids)])
             with timer.segment("cd_checkpoint_write"):
                 self._checkpoint.update_claim(claim.uid, record)
+            flightrecorder.default().record(
+                claim.uid, "cd_prepare_segments", trace_id=timer.trace_id,
+                **{f"{name}_ms": round(dt * 1e3, 2)
+                   for name, dt in sorted(timer.segments.items())})
             return cdi_ids
 
     def _decode_config(self, claim: ResourceClaim):

@@ -19,8 +19,17 @@ The callbacks are driven by direct calls (no gRPC yet, ROADMAP.md §1b
 item 8). ``publish_resources`` publishes the node's devices through
 ``pkg/sliceutil.py``; ``start_background`` runs the stale domain-dir GC
 and the reconcile sweep (``kubeletplugin/reconcile.CDStateReconciler``)
-every ``STALE_DIR_GC_INTERVAL_S``. Not ported: the JAX driver's flight
-recorder, tracing, metrics and incident bundles.
+every ``STALE_DIR_GC_INTERVAL_S``.
+
+Observability, at the JAX driver's hook points: each callback runs under
+``metrics.observe`` (``DRARequestMetrics``); a prepare that succeeds
+observes the SLO's ``prepare`` phase and records ``cd_prepare_done``
+in the flight recorder (``alias``, ``trace_id``, ``retries``: the
+failed tries before it, ``ms``); a gang abort records ``gang_abort``,
+puts the claim's timeline in the log and counts
+``ResilienceMetrics.gang_aborts``. The driver keeps nothing per claim.
+Not ported: the incident bundle of a gang abort (``pkg/doctor``,
+ROADMAP.md §1c).
 """
 
 from __future__ import annotations
@@ -31,8 +40,10 @@ import time
 
 from ...kubeletplugin.claim import ResourceClaim
 from ...kubeletplugin.reconcile import CDStateReconciler
+from ...pkg import flightrecorder, tracing
 from ...pkg.events import RETRIABLE_STATUSES, emit_warning_event
 from ...pkg.kubeclient import KubeError, NotFoundError
+from ...pkg.metrics import DRARequestMetrics
 from ...pkg.sliceutil import publish_resource_slices
 from ...pkg.workqueue import PermanentError, RateLimiter
 from .. import COMPUTE_DOMAIN_DRIVER_NAME
@@ -52,14 +63,16 @@ def _ref_field(ref, key: str):
 
 class CDDriver:
     def __init__(self, state: CDDeviceState, kube, node_name: str,
-                 retry_timeout: float = ERROR_RETRY_MAX_TIMEOUT_S):
+                 metrics: DRARequestMetrics | None = None,
+                 retry_timeout: float = ERROR_RETRY_MAX_TIMEOUT_S,
+                 resilience=None):
         self.state = state
         self.kube = kube
         self.node_name = node_name
+        self.metrics = metrics or DRARequestMetrics()
         self.retry_timeout = retry_timeout
+        self.resilience = resilience  # pkg.metrics.ResilienceMetrics | None
         self.gang_aborts = 0
-        # The retries of the last prepare of each claim uid.
-        self.retries: dict[str, int] = {}
         self._gc_stop: threading.Event | None = None
         self._gc_thread: threading.Thread | None = None
         self.reconciler = CDStateReconciler(state, kube)
@@ -106,7 +119,8 @@ class CDDriver:
         for ref in claim_refs:
             uid = _ref_field(ref, "uid")
             try:
-                out[uid] = (self._prepare_with_retry(ref), "")
+                with self.metrics.observe("NodePrepareResources"):
+                    out[uid] = (self._prepare_with_retry(ref), "")
             except Exception as e:  # noqa: BLE001 - the callback's boundary
                 logger.warning("prepare failed for %s: %s", uid, e)
                 out[uid] = ([], str(e))
@@ -114,13 +128,21 @@ class CDDriver:
 
     def _prepare_with_retry(self, ref) -> list[dict]:
         uid = _ref_field(ref, "uid")
-        deadline = time.monotonic() + self.retry_timeout
+        t0 = time.monotonic()
+        deadline = t0 + self.retry_timeout
         failures = 0
-        self.retries[uid] = 0
         while True:
             try:
                 claim = self._fetch_claim(ref)
                 cdi_ids = self.state.prepare(claim)
+                trace_id = tracing.trace_id_of(claim.annotations)
+                self.metrics.slo.observe("prepare", time.monotonic() - t0,
+                                         trace_id)
+                flightrecorder.default().record(
+                    uid, "cd_prepare_done",
+                    alias=f"{claim.namespace}/{claim.name}",
+                    trace_id=trace_id, retries=failures,
+                    ms=round((time.monotonic() - t0) * 1e3, 2))
                 return [{"request_names": [r.request],
                          "pool_name": self.node_name,
                          "device_name": r.device,
@@ -135,7 +157,6 @@ class CDDriver:
                         e.status not in RETRIABLE_STATUSES:
                     raise
                 failures += 1
-                self.retries[uid] = failures
                 delay = RETRY_LIMITER.delay_for(failures)
                 if time.monotonic() + delay >= deadline:
                     self._abort_gang_prepare(uid, e, ref=ref)
@@ -149,12 +170,18 @@ class CDDriver:
 
     def _abort_gang_prepare(self, uid: str, cause: Exception,
                             ref=None) -> None:
-        """The deadline passed: report it once on the claim and unwind
-        this node's half-prepared state."""
+        """The deadline passed: report it once on the claim, with the
+        claim's flight record in the log, and unwind this node's
+        half-prepared state."""
         self.gang_aborts += 1
+        if self.resilience is not None:
+            self.resilience.gang_aborts.inc()
+        flight = flightrecorder.default()
+        flight.record(uid, "gang_abort", error=str(cause)[:200],
+                      deadline_s=self.retry_timeout)
         logger.warning("gang prepare abort for claim %s after %.0fs: %s "
-                       "(unwinding node-local state)", uid,
-                       self.retry_timeout, cause)
+                       "(unwinding node-local state); flight record:\n%s",
+                       uid, self.retry_timeout, cause, flight.dump(uid))
         name = _ref_field(ref, "name") if ref is not None else ""
         if name:
             emit_warning_event(
@@ -164,7 +191,8 @@ class CDDriver:
                 message=(f"gang prepare deadline ({self.retry_timeout:.0f}s)"
                          f" exceeded on node {self.node_name}: "
                          f"{str(cause)[:300]}; node-local state unwound, "
-                         "kubelet will retry"),
+                         "kubelet will retry (timeline at "
+                         "/debug/claims/<uid> on the node plugin)"),
                 involved_kind="ResourceClaim", involved_name=name,
                 involved_uid=uid, component="compute-domain-kubelet-plugin")
         try:
@@ -178,7 +206,8 @@ class CDDriver:
         for ref in claim_refs:
             uid = _ref_field(ref, "uid")
             try:
-                self.state.unprepare(uid)
+                with self.metrics.observe("NodeUnprepareResources"):
+                    self.state.unprepare(uid)
                 out[uid] = ""
             except Exception as e:  # noqa: BLE001 - the callback's boundary
                 logger.exception("unprepare failed for %s", uid)

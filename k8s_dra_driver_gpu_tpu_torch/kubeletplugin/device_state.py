@@ -130,8 +130,13 @@ What differs from the JAX plugin, on an H100 host:
   sweep runs under the node lock (a ``Flock`` with a time limit), so a
   PrepareStarted record found by a prepare is a crashed prepare's and is
   rolled back. The JAX plugin's per-chip shard locks, reservation leases
-  for an upgrade handover, fault-injection seams, tracing and flight
-  recorder are not ported.
+  for an upgrade handover and fault-injection seams are not ported.
+- **Tracing and the flight recorder**, as in the JAX plugin: a prepare
+  is one ``prepare`` span, parented by the claim's traceparent
+  annotation (``pkg/tracing.extract``), with a child span a segment;
+  every prepare and unprepare records ``<operation>_segments`` (each
+  segment's ms) under the claim's uid and hands the segments to
+  ``segment_observer`` (the driver's histogram), if one is set.
 """
 
 from __future__ import annotations
@@ -146,6 +151,7 @@ from dataclasses import dataclass, field
 
 from ..api.configs import GpuConfig, MigDeviceConfig, Sharing
 from ..api.decode import strict_decode
+from ..pkg import flightrecorder, tracing
 from ..pkg.featuregates import (DYNAMIC_SUB_SLICE, MULTI_TENANCY_SUPPORT,
                                 TENANT_PARTITIONING, TIME_SLICING_SETTINGS,
                                 FeatureGates)
@@ -408,6 +414,8 @@ class DeviceState:
         self._tenancy.reconcile(set(completed), held)
         # The segments (seconds) of the last prepare or unprepare.
         self.last_segments: dict[str, float] = {}
+        # callable(operation, segments) | None: the driver's metrics.
+        self.segment_observer = None
 
     # -- the partition engine's surface ----------------------------------
 
@@ -659,14 +667,17 @@ class DeviceState:
         """Idempotent two-phase prepare; returns the claim's CDI device
         ids. A completed claim whose spec survived returns its ids; one
         whose spec is missing or truncated is prepared again."""
-        timer = SegmentTimer("prepare", claim.uid)
+        # The claim's traceparent annotation (a scheduler's commit span)
+        # parents this prepare and its segments.
+        timer = SegmentTimer("prepare", claim.uid,
+                             parent=tracing.extract(claim.annotations))
         try:
             t0 = time.monotonic()
             with self.pu_lock.acquire(timeout=LOCK_TIMEOUT_S):
                 timer.segments["prep_lock_wait"] = time.monotonic() - t0
                 return self._prepare_locked(claim, timer)
         finally:
-            self.last_segments = dict(timer.segments)
+            self._record_segments(timer)
             timer.done()
 
     def _prepare_locked(self, claim: ResourceClaim,
@@ -834,7 +845,8 @@ class DeviceState:
             raise NotPortedError(
                 f"requests {sorted(per_request)}: MPS ({mps}) for one "
                 "request of a claim that has others: an MPS request must "
-                "be its claim's only one (ROADMAP.md §1b item 4)")
+                "be its claim's only one (ROADMAP.md, \"MPS beside other "
+                "requests\")")
         self._check_partitions(claim, per_request)
         return per_request
 
@@ -1147,8 +1159,26 @@ class DeviceState:
                 with timer.segment("unprep_rollback"):
                     self._rollback(existing)
         finally:
-            self.last_segments = dict(timer.segments)
+            self._record_segments(timer)
             timer.done()
+
+    def _record_segments(self, timer: SegmentTimer) -> None:
+        """The segments of one prepare or unprepare: ``last_segments``,
+        the claim's flight record, tied to the trace, and the
+        observer."""
+        self.last_segments = dict(timer.segments)
+        if timer.key:
+            flightrecorder.default().record(
+                timer.key, f"{timer.operation}_segments",
+                trace_id=timer.trace_id,
+                **{f"{name}_ms": round(dt * 1e3, 2)
+                   for name, dt in sorted(timer.segments.items())})
+        observer = self.segment_observer
+        if observer is not None:
+            try:
+                observer(timer.operation, dict(timer.segments))
+            except Exception:  # noqa: BLE001 - metrics must not fail it
+                logger.exception("segment observer failed")
 
     def _rollback(self, checkpointed: CheckpointedClaim) -> None:
         """Remove what a claim holds: its tenancy agents first, then its
@@ -1205,6 +1235,17 @@ class DeviceState:
 
     def prepared_claims(self) -> dict[str, CheckpointedClaim]:
         return self._checkpoint.get().claims
+
+    def prepared_device_count(self) -> int:
+        """Devices of the completed claims (the prepared-devices
+        gauge)."""
+        return sum(len(c.devices) for c in self._checkpoint.get()
+                   .claims.values()
+                   if c.state == ClaimState.PREPARE_COMPLETED.value)
+
+    def tenancy_agent_count(self) -> int:
+        """Tenancy agents running (the tenancy-agents gauge)."""
+        return self._tenancy.agent_count()
 
     def mig_registry(self) -> dict[str, SubSliceLiveTuple]:
         """The MIG instances this plugin created and has not destroyed."""

@@ -50,9 +50,23 @@ through any object with ``KubeClient``'s surface:
   same root re-owns those of the claims still prepared (the JAX
   driver's restart path), their grants kept.
 
-Not ported: the gRPC transport (ROADMAP.md §1b item 8), metrics and
-tracing, the flight recorder, telemetry and power-cap attributes, and
-the tenant-telemetry feed of the JAX planner.
+- **Metrics, traces, flight records** (``pkg/metrics.py``,
+  ``pkg/tracing.py``, ``pkg/flightrecorder.py``), at the JAX driver's
+  hook points: each callback a claim runs under ``metrics.observe``
+  (``tpu_dra_request_*``); the prepared-devices and tenancy-agents
+  gauges after each callback and at ``start()``; a prepare observes the
+  SLO's ``prepare`` phase with the claim's trace id and records
+  ``prepare_done`` (or ``prepare_failed``) under its uid, aliased by
+  ``namespace/name``; ``DeviceState.segment_observer`` feeds
+  ``tpu_dra_prepare_segment_seconds``; the taint gauge follows the
+  monitor's taints; publishes count the slice writes the diff skipped.
+  With the partition engine on, ``PartitionMetrics`` share the registry.
+  Serve the registry with ``MetricsServer(driver.metrics.registry)``.
+
+Not ported: the gRPC transport (ROADMAP.md §1b item 8), the resilience
+and recovery hooks of the health monitor (its quarantine counter,
+``RecoveryMetrics``), telemetry and power-cap attributes, and the
+tenant-telemetry feed of the JAX planner (ROADMAP.md §1c).
 """
 
 from __future__ import annotations
@@ -62,7 +76,9 @@ import logging
 import os
 import time
 
+from ..pkg import flightrecorder, tracing
 from ..pkg.kubeclient import NotFoundError
+from ..pkg.metrics import DRARequestMetrics, PartitionMetrics
 from ..pkg.partition.watch import PartitionSetWatcher
 from ..pkg.sliceutil import publish_resource_slices, slice_content_hash
 from ..tpulib.binding import load
@@ -89,7 +105,8 @@ class Driver:
     def __init__(self, config: Config, kube_client, node_name: str,
                  enable_health_monitor: bool = True,
                  additional_ignored_health_kinds: tuple[str, ...] = (),
-                 publication_mode: str | None = None):
+                 publication_mode: str | None = None,
+                 metrics: DRARequestMetrics | None = None):
         self.kube = kube_client
         self.node_name = node_name
         if publication_mode is None:
@@ -102,6 +119,15 @@ class Driver:
                 "point, ROADMAP.md §1b item 8)")
         self.publication_mode = publication_mode
         self.state = DeviceState(config)
+        self.metrics = metrics or DRARequestMetrics()
+        if self.state.partition_engine is not None:
+            self.state.partition_engine.metrics = PartitionMetrics(
+                registry=self.metrics.registry)
+            self.state.partition_engine.metrics.set_active(
+                self.state.partition_engine.active_partitions())
+        # The segment breakdown of each prepare and unprepare, into the
+        # request metrics' histogram.
+        self.state.segment_observer = self.metrics.observe_segments
         self._taints: dict[str, list[dict]] = {}
         # The hashes of the last slice set published, and when the live
         # pool was last read.
@@ -151,6 +177,9 @@ class Driver:
         self.reconciler.start()
         if self.health_monitor:
             self.health_monitor.start()
+        # Construction may have re-owned prepared claims and their
+        # agents: the gauges start from them, not from 0.
+        self._set_gauges()
         self.publish_resources()
         # After the bootstrap publish: the watcher's first reconcile
         # converges onto the governing CRD, if any.
@@ -181,6 +210,10 @@ class Driver:
 
     # -- DRA callbacks ---------------------------------------------------
 
+    def _set_gauges(self) -> None:
+        self.metrics.prepared_devices.set(self.state.prepared_device_count())
+        self.metrics.tenancy_agents.set(self.state.tenancy_agent_count())
+
     def prepare_resource_claims(self, claim_refs: list) -> dict:
         """``claim_refs``: dicts with uid, namespace and name. Returns
         uid -> (devices, error), error "" on success."""
@@ -188,10 +221,14 @@ class Driver:
         for ref in claim_refs:
             uid = ref["uid"]
             try:
-                out[uid] = (self._prepare_one(ref), "")
+                with self.metrics.observe("NodePrepareResources"):
+                    out[uid] = (self._prepare_one(ref), "")
             except Exception as e:  # noqa: BLE001 - wire boundary
                 logger.exception("prepare failed for claim %s", uid)
+                flightrecorder.default().record(
+                    uid, "prepare_failed", error=str(e)[:200])
                 out[uid] = ([], str(e))
+        self._set_gauges()
         return out
 
     def _prepare_one(self, ref) -> list[dict]:
@@ -202,7 +239,14 @@ class Driver:
         if obj.get("metadata", {}).get("uid") != uid:
             raise NotFoundError(f"claim {namespace}/{name} UID mismatch")
         claim = ResourceClaim.from_dict(obj)
+        # A scheduler's commit span rides the claim's traceparent
+        # annotation: the prepare records under the same trace id.
+        trace_id = tracing.trace_id_of(claim.annotations)
         self.state.prepare(claim)
+        self.metrics.slo.observe("prepare", time.monotonic() - t0, trace_id)
+        flightrecorder.default().record(
+            uid, "prepare_done", alias=f"{namespace}/{name}",
+            trace_id=trace_id, ms=round((time.monotonic() - t0) * 1e3, 2))
         # The CDI ids, grouped by request for the kubelet's answer.
         record = self.state.prepared_claims()[uid]
         request_of = {r.device: r.request for r in claim.results}
@@ -226,11 +270,13 @@ class Driver:
         for ref in claim_refs:
             uid = ref["uid"]
             try:
-                self.state.unprepare(uid)
+                with self.metrics.observe("NodeUnprepareResources"):
+                    self.state.unprepare(uid)
                 out[uid] = ""
             except Exception as e:  # noqa: BLE001 - wire boundary
                 logger.exception("unprepare failed for claim %s", uid)
                 out[uid] = str(e)
+        self._set_gauges()
         return out
 
     # -- ResourceSlice publication ---------------------------------------
@@ -287,7 +333,8 @@ class Driver:
         inventory. Returns ``publish_resource_slices``'s stats."""
         slices = self.generate_resource_slices()
         hashes = self._slice_hashes(slices)
-        stats = publish_resource_slices(self.kube, slices)
+        stats = publish_resource_slices(
+            self.kube, slices, on_skip=self.metrics.slice_publish_skipped.inc)
         self._published_hashes = hashes
         self._published_verified_at = time.monotonic()
         return stats
@@ -318,6 +365,7 @@ class Driver:
         for t in taints:
             new.setdefault(t.device, []).append(t.to_dict())
         self._taints = new
+        self.metrics.set_taints(taints)
         self._republish_reconciled()
 
     def _republish_reconciled(self) -> None:
@@ -329,9 +377,12 @@ class Driver:
         fresh = (time.monotonic() - self._published_verified_at
                  < self._publish_recheck_s)
         if hashes == self._published_hashes and fresh:
+            self.metrics.slice_publish_skipped.inc(len(slices))
             return
         try:
-            publish_resource_slices(self.kube, slices)
+            publish_resource_slices(
+                self.kube, slices,
+                on_skip=self.metrics.slice_publish_skipped.inc)
             self._published_hashes = hashes
             self._published_verified_at = time.monotonic()
         except Exception:  # noqa: BLE001 - the next poll publishes again

@@ -9,7 +9,13 @@ API server (``kubeclient``, ``fakeapiserver``), a list-and-watch cache
 (``recovery``), and tenant partitions (``partition``: the PartitionSet
 spec, the engine, the CRD watcher); for the ComputeDomain stack a keyed
 retrying work queue (``workqueue``) and Warning Events (``events``).
-Standard library only."""
+Observability: claim-lifecycle spans (``tracing``), the per-claim
+flight recorder (``flightrecorder``), the Prometheus metrics
+(``metrics``) on the port's own registry and text format
+(``exposition``), served with the debug routes by ``httpserver`` and
+``debug``, and the logging contract (``logsetup``). For the binaries:
+the retrying kube client with its circuit breaker (``retry``) and the
+Lease leader election (``leaderelection``). Standard library only."""
 
 from __future__ import annotations
 

@@ -37,8 +37,14 @@ What differs from the JAX engine, on an H100 host:
 - **MPS.** The teardown of an oversubscribed partition quits its MPS
   daemon (``kubeletplugin/sharing.py``) before it destroys the instance.
 
-Not ported: the engine's metrics, tracing, flight recorder and fault
-seams (ROADMAP.md §1b).
+Observability, at the JAX engine's hook points: ``attach`` and
+``detach`` are ``partition.attach`` / ``partition.detach`` spans
+(children of the prepare's segment span on the same thread) with a
+``partition_attach`` / ``partition_detach`` flight event under the
+tenant's claim uid; once the kubelet ``Driver`` sets ``metrics`` (a
+``pkg/metrics.PartitionMetrics``), creates, destroys, the Ready count
+and the pre-warm created, hit and reaped counts are exported. Not ported: the engine's fault seams (with
+``pkg/faults.py``, ROADMAP.md §1c).
 """
 
 from __future__ import annotations
@@ -54,7 +60,7 @@ from ...kubeletplugin.checkpoint import (CheckpointedClaim,
 from ...kubeletplugin.deviceinfo import (AllocatableDevice, DeviceKind,
                                          PartitionInfo)
 from ...kubeletplugin.subslice import enumerate_subslice_devices
-from .. import positive_float_env
+from .. import flightrecorder, positive_float_env, tracing
 from ..statemachine import (PARTITION_CREATING, PARTITION_DESTROYING,
                             PARTITION_POLICY, PARTITION_READY)
 from .spec import (PartitionProfile, PartitionSet, PartitionSpecError,
@@ -151,6 +157,8 @@ class PartitionEngine:
         self._state = state
         self.partition_set = partition_set
         self._pool = pool
+        # pkg.metrics.PartitionMetrics, set by the kubelet Driver.
+        self.metrics = None
         self._checkpoint = CheckpointManager(
             state.partition_root, boot_id=state.boot_id,
             transition_policy=PARTITION_POLICY)
@@ -280,6 +288,16 @@ class PartitionEngine:
         """Make sure the MIG instance of ``device_name`` exists; its live
         identity for the tenant's checkpoint record. Runs under the node
         lock (the caller's prepare)."""
+        with tracing.span("partition.attach", attrs={
+                "device": device_name, "claim_uid": claim_uid}) as sp:
+            live = self._attach_inner(device_name)
+            flightrecorder.default().record(
+                claim_uid, "partition_attach",
+                trace_id=sp.context.trace_id if sp.recording else "",
+                device=device_name, uuid=live.get("uuid", ""))
+            return live
+
+    def _attach_inner(self, device_name: str) -> dict:
         with self._dev_lock(device_name):
             with self._mutex:
                 dev = self._devices.get(device_name)
@@ -300,9 +318,15 @@ class PartitionEngine:
                         f"partition {device_name!r}: its MIG placement "
                         f"changed ({pinned} -> {want}); the old instance "
                         "is still settling")
+            # A pre-warm hit: the attach found a Ready record made ahead
+            # of demand, and skipped the create.
+            warm_hit = rec is not None and rec.state == PARTITION_READY
             live = self._realize_locked(device_name, dev, rec)
             with self._mutex:
+                warm_hit = warm_hit and device_name in self._prewarm_idle
                 self._prewarm_idle.discard(device_name)
+            if warm_hit and self.metrics is not None:
+                self.metrics.inc_prewarm_hit()
             return live
 
     def _realize_locked(self, name: str, dev: AllocatableDevice,
@@ -340,6 +364,9 @@ class PartitionEngine:
                     canonical_name=name, kind=DeviceKind.PARTITION.value,
                     live=record)])
             self._checkpoint.update_claim(name, rec)
+            if self.metrics is not None:
+                self.metrics.inc_create()
+                self.metrics.set_active(self.active_partitions())
             logger.info("partition %s: MIG instance %s created", name,
                         live.uuid)
         return dict(rec.devices[0].live)
@@ -348,20 +375,28 @@ class PartitionEngine:
         """Drop one tenant's hold; the MIG instance goes with the last
         holder, unless the current pre-warm hint wants it warm. Runs
         under the node lock (the caller's unprepare or rollback)."""
-        with self._dev_lock(device_name):
-            rec = self._record(device_name)
-            if rec is None:
-                return
-            if self._holders(device_name,
-                             exclude=frozenset({claim_uid})) > 0:
-                return
-            with self._mutex:
-                kept_warm = (device_name in self._prewarm_desired
-                             and rec.state == PARTITION_READY)
-                if kept_warm:
-                    self._prewarm_idle.add(device_name)
-            if not kept_warm:
-                self._teardown_locked(device_name, rec)
+        with tracing.span("partition.detach", attrs={
+                "device": device_name, "claim_uid": claim_uid}) as sp:
+            kept_warm = last = False
+            with self._dev_lock(device_name):
+                rec = self._record(device_name)
+                if rec is None:
+                    return
+                last = self._holders(device_name,
+                                     exclude=frozenset({claim_uid})) == 0
+                if last:
+                    with self._mutex:
+                        kept_warm = (device_name in self._prewarm_desired
+                                     and rec.state == PARTITION_READY)
+                        if kept_warm:
+                            self._prewarm_idle.add(device_name)
+                    if not kept_warm:
+                        self._teardown_locked(device_name, rec)
+            flightrecorder.default().record(
+                claim_uid, "partition_detach",
+                trace_id=sp.context.trace_id if sp.recording else "",
+                device=device_name, destroyed=last and not kept_warm,
+                kept_warm=kept_warm)
 
     def _teardown_locked(self, name: str, rec: CheckpointedClaim) -> None:
         """Durable-intent destroy: the Destroying record first, so a
@@ -377,6 +412,9 @@ class PartitionEngine:
         except Exception as e:
             raise PartitionEngineError(f"partition {name}: {e}") from e
         self._checkpoint.update_claim(name, None)
+        if self.metrics is not None:
+            self.metrics.inc_destroy()
+            self.metrics.set_active(self.active_partitions())
         logger.info("partition %s: MIG instance destroyed", name)
 
     # -- pre-warming -----------------------------------------------------
@@ -445,6 +483,8 @@ class PartitionEngine:
                     created += 1
                     with self._mutex:
                         self._prewarm_idle.add(name)
+                    if self.metrics is not None:
+                        self.metrics.inc_prewarm_created()
             with self._mutex:
                 self._prewarm_desired = desired
         if created or want:
@@ -506,6 +546,8 @@ class PartitionEngine:
                             "tenant(s); the held instance stays until "
                             "they leave", name, self._pinned_spec(rec),
                             dev.partition.spec.canonical_name(), holders)
+        if self.metrics is not None:
+            self.metrics.set_active(self.active_partitions())
         return repaired
 
     def reap_idle(self) -> int:
@@ -530,5 +572,9 @@ class PartitionEngine:
                 self._teardown_locked(name, rec)
                 reaped += 1
                 with self._mutex:
+                    was_idle_warm = name in self._prewarm_idle
                     self._prewarm_idle.discard(name)
+                if was_idle_warm and self.metrics is not None:
+                    # Made ahead of demand and never attached.
+                    self.metrics.inc_prewarm_reaped()
         return reaped

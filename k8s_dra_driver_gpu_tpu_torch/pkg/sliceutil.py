@@ -63,7 +63,7 @@ def _existing_pool_slices(kube, driver: str, node_name: str) -> list[dict]:
     ]
 
 
-def publish_resource_slices(kube, slices: list[dict]) -> dict:
+def publish_resource_slices(kube, slices: list[dict], on_skip=None) -> dict:
     """Publish the desired slice set for one (driver, node) pool.
 
     All slices must belong to the same driver/node. An empty set is a
@@ -74,7 +74,7 @@ def publish_resource_slices(kube, slices: list[dict]) -> dict:
     The desired set is compared against the live set by content hash:
 
     - identical -> zero writes (``skipped`` counts the no-op PUTs
-      avoided).
+      avoided; ``on_skip(n)`` is called with them, for the metrics).
     - same slice names AND same per-slice device-name inventory at one
       shared generation -> only the changed slices are rewritten, at
       the CURRENT generation (no bump: taint/attribute updates are not
@@ -112,6 +112,8 @@ def publish_resource_slices(kube, slices: list[dict]) -> dict:
             # Fully converged: zero kube writes, generation untouched.
             stats["skipped"] = len(slices)
             stats["generation"] = generation
+            if on_skip is not None:
+                on_skip(len(slices))
             return stats
         same_inventory = all(
             _device_names(obj)
@@ -138,6 +140,8 @@ def publish_resource_slices(kube, slices: list[dict]) -> dict:
                 stats["writes"] += 1
             stats["generation"] = generation
             stats["changed"] = True
+            if on_skip is not None and stats["skipped"]:
+                on_skip(stats["skipped"])
             return stats
 
     # Inventory change: one new shared pool

@@ -908,7 +908,8 @@ def test_an_mps_request_must_be_its_claims_only_one(tmp_path, fake_driver,
                                                      first, second):
     state = _sharing_state(tmp_path, fake_driver)
     with pytest.raises(pt_ds.NotPortedError,
-                       match="its claim's only one .*§1b item 4"):
+                       match="its claim's only one .*MPS beside other "
+                       "requests"):
         state.prepare(_two_requests("c1", first, second))
     assert state.prepared_claims() == {}
     assert not state._cdi.spec_exists("c1")

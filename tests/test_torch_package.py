@@ -17,10 +17,12 @@ from k8s_dra_driver_gpu_tpu_torch.ops import flash_attention as pt_flash
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "k8s_dra_driver_gpu_tpu_torch"
-# Nor grpc, protobuf ("google") or PyYAML: the chip machine has none of
-# them, and the port's kubelet plugin needs only the standard library.
+# Nor grpc, protobuf ("google"), PyYAML or prometheus_client. The chip
+# machine has no grpcio or protobuf. It has prometheus_client, but the
+# port keeps a metrics registry of its own (pkg/exposition.py) so that
+# its driver side needs only the standard library.
 FORBIDDEN = ("jax", "jaxlib", "k8s_dra_driver_gpu_tpu", "grpc", "google",
-             "yaml")
+             "yaml", "prometheus_client")
 
 
 def _imported_modules(path: pathlib.Path):
