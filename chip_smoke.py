@@ -302,6 +302,33 @@ and prints no result line):
    split over its slices refused); without ``openssl`` it says so on a
    line of its own and posts them over plain HTTP. Every child is reaped
    and every server stopped; host ms of each step beside the card.
+20. scheduler (``phase_scheduler``, host clock): (a) the kubelet
+   plugin's ``Driver`` publishes the card from NVML to the port's
+   ``FakeApiServer`` on 127.0.0.1, the port's five DeviceClasses are
+   created, and the scheduler binary (``python -m
+   k8s_dra_driver_gpu_tpu_torch.pkg.scheduler --interval 0.1
+   --metrics-port N``) runs as a process. A ResourceClaimTemplate (class
+   ``gpu.nvidia.com``, CEL on NVML's ``productName`` and on
+   ``capacity.memory`` against ``quantity("40Gi")``) and a pod using it:
+   the binary generates the claim, allocates ``gpu-0`` on the node,
+   reserves it for the pod and binds the pod; the ``Driver`` prepares it
+   through the API lookup and a child under its CDI spec runs the flash
+   forward against its plain version (phase 12's child). The claim's
+   traceparent is the binary's ``sched.commit`` span (its
+   ``/debug/traces``), the prepare's parent, with the segment spans
+   below. A second ``gpu.nvidia.com`` claim (after one claim a further
+   GPU, none on one card) waits three passes while the GPU is held and a
+   ``mig.nvidia.com`` claim finds no MIG device; once the first claim is
+   unprepared and deleted, the second is allocated within two passes.
+   ``/metrics`` shows the passes and the fit, commit and patch phases;
+   SIGTERM gives exit 0. (b) The node's published slice cloned onto 128
+   nodes of 8 GPUs (fresh UUIDs) in the port's in-process
+   ``FakeKubeClient``: 16 eight-GPU claims (``matchAttribute`` on
+   ``acceleratorType``), 768 one-GPU claims and 2 that cannot fit (9 GPUs;
+   a product no device has), ``sync_once`` until a pass allocates
+   nothing: each pass's ms, claims a second, no device twice, every
+   claim that fits allocated, each 8-GPU claim on one node, the two
+   pending; under 90 s. Host ms beside the card's name and power limit.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record (with the hd-64 instantiations'
@@ -5009,6 +5036,473 @@ def phase_observability(seed: int) -> dict:
                   "the phase")
 
 
+SCHED_NODE = "smoke-sched-node"
+SCHEDULER_MAIN = "k8s_dra_driver_gpu_tpu_torch.pkg.scheduler"
+# Phase 20 (b): an HGX-class fleet of FLEET_NODES nodes of FLEET_GPUS GPUs.
+FLEET_NODES = 128
+FLEET_GPUS = 8
+FLEET_SINGLES = 768
+FLEET_EIGHTS = 16
+FLEET_BUDGET_S = 90.0
+# Seeded orders in which the 8-GPU claims arrive at random places among
+# the singles (after the ``--seed`` offset).
+FLEET_SHUFFLES = 3
+
+
+def _fleet_slices(real: dict, node_names: list[str]) -> list[dict]:
+    """``real`` (a node's published slice) cloned onto ``node_names``, each
+    with ``FLEET_GPUS`` GPUs: the slice's first GPU, its attributes and its
+    counter set, once a GPU, with fresh UUIDs and its own index."""
+    import copy
+    import uuid
+
+    spec = real["spec"]
+    dev0 = spec["devices"][0]
+    counters0 = spec["sharedCounters"][0]
+    out = []
+    for node in node_names:
+        devices, sets = [], []
+        for i in range(FLEET_GPUS):
+            dev = copy.deepcopy(dev0)
+            dev["name"] = f"gpu-{i}"
+            dev["attributes"]["uuid"] = {"string": f"GPU-{uuid.uuid4()}"}
+            dev["attributes"]["minor"] = {"int": i}
+            dev["attributes"]["acceleratorType"] = {
+                "string": f"h100-{FLEET_GPUS}"}
+            dev["consumesCounters"] = [dict(
+                dev0["consumesCounters"][0],
+                counterSet=f"gpu-{i}-counter-set")]
+            devices.append(dev)
+            sets.append(dict(copy.deepcopy(counters0),
+                             name=f"gpu-{i}-counter-set"))
+        out.append({
+            "apiVersion": "resource.k8s.io/v1", "kind": "ResourceSlice",
+            "metadata": {"name": f"{node}-gpu.nvidia.com"},
+            "spec": dict(copy.deepcopy(spec), nodeName=node,
+                         pool={"name": node, "generation": 1,
+                               "resourceSliceCount": 1},
+                         devices=devices, sharedCounters=sets)})
+    return out
+
+
+def _fleet_run(real: dict, product: str, shuffle: int | None = None) -> dict:
+    """20 (b): the fleet in the port's in-process ``FakeKubeClient``,
+    passes of the port's ``DraScheduler`` until one allocates nothing.
+    The claims arrive 8-GPU first, or in the order ``shuffle`` seeds."""
+    import random
+
+    from k8s_dra_driver_gpu_tpu_torch.api import deviceclasses
+    from k8s_dra_driver_gpu_tpu_torch.pkg.kubeclient import FakeKubeClient
+    from k8s_dra_driver_gpu_tpu_torch.pkg.scheduler import DraScheduler
+
+    res = ("resource.k8s.io", "v1")
+    kube = FakeKubeClient()
+    deviceclasses.create_all(kube)
+    nodes = [f"hgx-{n:03d}" for n in range(FLEET_NODES)]
+    t0 = time.perf_counter()
+    for s in _fleet_slices(real, nodes):
+        kube.create(*res, "resourceslices", s)
+
+    def claim(name, count=1, cel=None, constraint=None):
+        exactly = {"deviceClassName": deviceclasses.GPU_CLASS}
+        if count != 1:
+            exactly["count"] = count
+        if cel:
+            exactly["selectors"] = [{"cel": {"expression": cel}}]
+        devices = {"requests": [{"name": "gpu", "exactly": exactly}]}
+        if constraint:
+            devices["constraints"] = [{"matchAttribute": constraint}]
+        kube.create(*res, "resourceclaims", {
+            "apiVersion": "resource.k8s.io/v1", "kind": "ResourceClaim",
+            "metadata": {"name": name, "namespace": "fleet"},
+            "spec": {"devices": devices}}, namespace="fleet")
+
+    # A pass takes the claims in creation order and puts each on the
+    # least-loaded node it fits, so the singles land on empty nodes while
+    # there are any: 8-GPU claims first all fit, and one that comes after
+    # (FLEET_NODES - the 8-GPU claims placed) singles finds no node free.
+    kinds = [FLEET_GPUS] * FLEET_EIGHTS + [1] * FLEET_SINGLES
+    if shuffle is not None:
+        random.Random(shuffle).shuffle(kinds)
+    made = collections.Counter()
+    for count in kinds:
+        if count == 1:
+            claim(f"one-{made[count]:03d}")
+        else:
+            claim(f"eight-{made[count]:02d}", FLEET_GPUS,
+                  constraint="gpu.nvidia.com/acceleratorType")
+        made[count] += 1
+    claim("unfit-nine", FLEET_GPUS + 1)
+    claim("unfit-product", cel='device.attributes["gpu.nvidia.com"]'
+          '.productName == "NVIDIA B200"')
+    setup_ms = round((time.perf_counter() - t0) * 1e3, 3)
+    sched = DraScheduler(kube)
+    passes, allocated = [], 0
+    while True:
+        t0 = time.perf_counter()
+        sched.sync_once()
+        passes.append(round((time.perf_counter() - t0) * 1e3, 3))
+        now = sum(1 for c in kube.list(*res, "resourceclaims")
+                  if c.get("status", {}).get("allocation"))
+        if now == allocated:
+            break
+        allocated = now
+        if len(passes) > 10:
+            raise AssertionError(f"scheduler fleet: {passes} passes")
+    claims = kube.list(*res, "resourceclaims")
+    held = [(r["pool"], r["device"]) for c in claims
+            for r in (c.get("status", {}).get("allocation") or {}).get(
+                "devices", {}).get("results", [])]
+    pending = sorted(c["metadata"]["name"] for c in claims
+                     if not c.get("status", {}).get("allocation"))
+    eight_nodes = [{r["pool"] for r in c["status"]["allocation"]["devices"][
+        "results"]} for c in claims if c["metadata"]["name"].startswith(
+            "eight") and c.get("status", {}).get("allocation")]
+    return {"setup_ms": setup_ms, "passes_ms": passes,
+            "allocated": allocated, "held": held, "pending": pending,
+            "eight_nodes": eight_nodes, "product": product,
+            "eights_pending": sum(n.startswith("eight") for n in pending),
+            "claims_per_s": allocated / (sum(passes[:-1]) / 1e3)
+            if len(passes) > 1 else 0.0}
+
+
+def phase_scheduler(seed: int) -> int:
+    """20. The port's scheduler from a claim to the flash kernel, on this
+    machine's host: (a) the binary over the fake API server on 127.0.0.1
+    with the GPU published from NVML; (b) a 128-node fleet of 8 GPUs in
+    process. Returns the child's flash launches."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from k8s_dra_driver_gpu_tpu_torch.api import deviceclasses
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.device_state import (
+        Config)
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.driver import Driver
+    from k8s_dra_driver_gpu_tpu_torch.pkg import flightrecorder, tracing
+    from k8s_dra_driver_gpu_tpu_torch.pkg.fakeapiserver import FakeApiServer
+    from k8s_dra_driver_gpu_tpu_torch.pkg.kubeclient import KubeClient
+
+    res = ("resource.k8s.io", "v1")
+    ms = {}
+    timed = functools.partial(_timed, ms)
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"scheduler: {what}")
+
+    def wait(fn, timeout, what):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            value = fn()
+            if value:
+                return value
+            time.sleep(0.005)
+        raise AssertionError(f"scheduler: timed out waiting for {what}")
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = (smi.stdout or smi.stderr).strip().splitlines()[0]
+    tmp = tempfile.mkdtemp(prefix="sched")
+    exporter_before = tracing.exporter()
+    recorder_before = flightrecorder.default()
+    tracing.set_exporter(tracing.TraceExporter())
+    flightrecorder.set_default(flightrecorder.FlightRecorder())
+    threads_before = set(threading.enumerate())
+    proc = None
+    server = None
+    passed = False
+    try:
+        # -- (a) the binary over HTTP, from a template to the kernel.
+        server = FakeApiServer().start()
+        kube = KubeClient(host=server.url)
+        # The store's writes, stamped as they land (host clock).
+        stamps: dict = {}
+
+        def on_write(group, resource, namespace, ev_type, obj):
+            now = time.perf_counter()
+            name = obj.get("metadata", {}).get("name", "")
+            if resource == "resourceclaims":
+                stamps.setdefault(("created", name), now)
+                if obj.get("status", {}).get("allocation"):
+                    stamps.setdefault(("allocated", name), now)
+            elif resource == "pods" and obj.get("spec", {}).get("nodeName"):
+                stamps.setdefault(("bound", name), now)
+        server.store.add_resource_watcher(on_write)
+        driver = timed("driver_construct", Driver, Config(
+            root=f"{tmp}/state", cdi_root=f"{tmp}/cdi"), kube, SCHED_NODE,
+            False)
+        timed("publish", driver.publish_resources)
+        gpus = sorted(driver.state.allocatable)
+        product = driver.state.allocatable["gpu-0"].chip.chip.name
+        deviceclasses.create_all(kube)
+        port = free_port()
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("KUBE_API", "KUBERNETES_", "TPU_DRA_"))}
+        env.update({"PYTHONPATH": root, "TPU_DRA_DEBUG_HTTP": "1"})
+        with open(f"{tmp}/scheduler.log", "w", encoding="utf-8") as out:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", SCHEDULER_MAIN, "--kube-api",
+                 server.url, "--interval", "0.1", "--metrics-port",
+                 str(port)], env=env, cwd=root, stdin=subprocess.DEVNULL,
+                stdout=out, stderr=subprocess.STDOUT)
+        base = f"http://127.0.0.1:{port}"
+
+        def metrics():
+            try:
+                return metric_samples(_http_get(base + "/metrics"))
+            except OSError:
+                return None
+
+        def full_passes():
+            return (metrics() or {}).get(
+                ("tpu_dra_sched_sync_seconds_count", (("mode", "full"),)))
+        wait(full_passes, 60, "the scheduler's first pass")
+        ms["binary_start_to_first_pass"] = round(
+            (time.perf_counter() - t0) * 1e3, 3)
+        cel = (f'device.attributes["gpu.nvidia.com"].productName == '
+               f'"{product}" && device.capacity["gpu.nvidia.com"].memory'
+               f'.compareTo(quantity("40Gi")) >= 0')
+        kube.create(*res, "resourceclaimtemplates", {
+            "apiVersion": "resource.k8s.io/v1",
+            "kind": "ResourceClaimTemplate",
+            "metadata": {"name": "smoke-gpu", "namespace": "default"},
+            "spec": {"spec": {"devices": {"requests": [{
+                "name": "gpu", "exactly": {
+                    "deviceClassName": deviceclasses.GPU_CLASS,
+                    "selectors": [{"cel": {"expression": cel}}]}}]}}}},
+            namespace="default")
+        kube.create("", "v1", "pods", {
+            "apiVersion": "v1", "kind": "Pod",
+            "metadata": {"name": "smoke-sched-pod", "namespace": "default"},
+            "spec": {"containers": [{"name": "main"}],
+                     "resourceClaims": [{
+                         "name": "gpu",
+                         "resourceClaimTemplateName": "smoke-gpu"}]}},
+            namespace="default")
+        pod = wait(lambda: (lambda p: p if p["spec"].get("nodeName")
+                            else None)(kube.get("", "v1", "pods",
+                                                "smoke-sched-pod",
+                                                namespace="default")),
+                   30, "the pod's binding")
+        (status,) = pod["status"]["resourceClaimStatuses"]
+        claim_name = status["resourceClaimName"]
+        claim = kube.get(*res, "resourceclaims", claim_name,
+                         namespace="default")
+        alloc = claim["status"]["allocation"]
+        results = alloc["devices"]["results"]
+        check(pod["spec"]["nodeName"] == SCHED_NODE
+              and [(r["driver"], r["pool"], r["device"]) for r in results]
+              == [("gpu.nvidia.com", SCHED_NODE, "gpu-0")]
+              and claim["status"]["reservedFor"] == [{
+                  "resource": "pods", "name": "smoke-sched-pod",
+                  "uid": pod["metadata"]["uid"]}]
+              and claim["metadata"]["ownerReferences"][0]["name"] ==
+              "smoke-sched-pod", f"the claim {claim} and the pod {pod}")
+        ms["claim_created_to_allocated"] = round(
+            (stamps[("allocated", claim_name)]
+             - stamps[("created", claim_name)]) * 1e3, 3)
+        ms["allocated_to_bound"] = round(
+            (stamps[("bound", "smoke-sched-pod")]
+             - stamps[("allocated", claim_name)]) * 1e3, 3)
+        # The kubelet's turn: prepare through the API lookup.
+        ref = {"uid": claim["metadata"]["uid"], "namespace": "default",
+               "name": claim_name}
+        uid = ref["uid"]
+        out = timed("prepare", driver.prepare_resource_claims, [ref])
+        prepared_at = time.perf_counter()
+        ms["allocated_to_prepare_done"] = round(
+            (prepared_at - stamps[("allocated", claim_name)]) * 1e3, 3)
+        check(out[uid][1] == "" and out[uid][0][0]["cdi_device_ids"] ==
+              ["nvidia.com/gpu=gpu-0"], f"the prepare {out}")
+        spec = driver.state._cdi.read_spec(uid)
+        result = run_claim_child(spec, seed, product, "scheduler")
+        ms["child"] = round(result["seconds"] * 1e3, 3)
+
+        # One trace: the scheduler's commit span (its listener), the
+        # plugin's prepare and its segments (this process's exporter).
+        header = claim["metadata"]["annotations"][
+            tracing.TRACEPARENT_ANNOTATION]
+        ctx = tracing.SpanContext.from_traceparent(header)
+        remote = json.loads(_http_get(
+            f"{base}/debug/traces/{ctx.trace_id}"))["spans"]
+        local = tracing.exporter().trace(ctx.trace_id)
+        (commit,) = [sp for sp in remote if sp["name"] == "sched.commit"]
+        (prepare,) = [sp for sp in local if sp["name"] == "prepare"]
+        segments = span_tree(local, prepare)
+        check(ctx.sampled and commit["span_id"] == ctx.span_id
+              and commit["attrs"]["claim_uid"] == uid
+              and prepare["parent_id"] == commit["span_id"]
+              and any(line.strip().startswith("prep_devices ")
+                      for line in segments[1:]),
+              f"the trace: scheduler {remote}, plugin {local}")
+        tree = span_tree(remote, next(sp for sp in remote
+                                      if not sp["parent_id"]))
+
+        # A second GPU claim waits while the GPUs are held; a MIG claim
+        # finds no MIG device (MIG off: none published).
+        def gpu_claim(name, class_name=deviceclasses.GPU_CLASS):
+            kube.create(*res, "resourceclaims", {
+                "apiVersion": "resource.k8s.io/v1", "kind": "ResourceClaim",
+                "metadata": {"name": name, "namespace": "default"},
+                "spec": {"devices": {"requests": [{
+                    "name": "gpu", "exactly": {
+                        "deviceClassName": class_name}}]}}},
+                namespace="default")
+        fillers = [f"smoke-filler-{g}" for g in gpus[1:]]
+        for name in fillers:
+            gpu_claim(name)
+        gpu_claim("smoke-second")
+        gpu_claim("smoke-mig", deviceclasses.MIG_CLASS)
+        seen = full_passes()
+        wait(lambda: (full_passes() or 0) >= seen + 3, 30, "three passes")
+        held = [kube.get(*res, "resourceclaims", n, namespace="default")[
+            "status"].get("allocation") for n in fillers]
+        second = kube.get(*res, "resourceclaims", "smoke-second",
+                          namespace="default")
+        mig = kube.get(*res, "resourceclaims", "smoke-mig",
+                       namespace="default")
+        check(all(held) and not second.get("status", {}).get("allocation")
+              and not mig.get("status", {}).get("allocation")
+              and not any(d.startswith("gpu-0-mig")
+                          for d in driver.state.allocatable),
+              f"while the GPUs are held: second {second}, mig {mig}")
+        # The first claim goes: unprepared, its pod and the claim deleted.
+        out = timed("unprepare", driver.unprepare_resource_claims,
+                    [{"uid": uid}])
+        check(out == {uid: ""}, f"the unprepare {out}")
+        kube.delete("", "v1", "pods", "smoke-sched-pod",
+                    namespace="default")
+        t_deleted = time.perf_counter()
+        kube.delete(*res, "resourceclaims", claim_name, namespace="default")
+        before = full_passes()
+        wait(lambda: ("allocated", "smoke-second") in stamps, 30,
+             "the second claim's allocation")
+        after = full_passes()
+        ms["first_deleted_to_second_allocated"] = round(
+            (stamps[("allocated", "smoke-second")] - t_deleted) * 1e3, 3)
+        second = kube.get(*res, "resourceclaims", "smoke-second",
+                          namespace="default")
+        check([r["device"] for r in second["status"]["allocation"][
+            "devices"]["results"]] == ["gpu-0"] and after - before <= 2
+              and not kube.get(*res, "resourceclaims", "smoke-mig",
+                               namespace="default").get("status", {}).get(
+                                   "allocation"),
+              f"the second claim {second} after {after - before} passes")
+        samples = metrics()
+        phases = {dict(lb)["phase"]: v for (n, lb), v in samples.items()
+                  if n == "tpu_dra_claim_e2e_seconds_count"}
+        count = samples[("tpu_dra_sched_sync_seconds_count",
+                         (("mode", "full"),))]
+        ms["pass_mean"] = round(samples[(
+            "tpu_dra_sched_sync_seconds_sum", (("mode", "full"),))]
+            / count * 1e3, 3)
+        check(count > 0 and phases.get("fit", 0) >= 2
+              and phases.get("commit", 0) >= 2
+              and phases.get("patch", 0) >= 2,
+              f"/metrics: passes {count}, phases {phases}")
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        ms["sigterm_to_exit"] = round((time.perf_counter() - t0) * 1e3, 3)
+        with open(f"{tmp}/scheduler.log", encoding="utf-8") as f:
+            text = f.read()
+        check(rc == 0 and "scheduler running" in text,
+              f"the binary exited {rc}: {text[-2000:]}")
+        slice_obj = kube.list(*res, "resourceslices")[0]
+        driver.stop()
+        log(f"scheduler: binary on {card}: a template's claim generated, "
+            f"allocated {[r['device'] for r in results]} with CEL "
+            f"productName == {product!r} && memory >= 40Gi, reserved for "
+            f"and bound to its pod; claim created -> allocated "
+            f"{ms['claim_created_to_allocated']} ms, allocated -> bound "
+            f"{ms['allocated_to_bound']} ms, allocated -> prepare done "
+            f"{ms['allocated_to_prepare_done']} ms; one pass "
+            f"{ms['pass_mean']} ms (mean of {int(count)}); the flash "
+            f"kernel in the claim's child: {result['launches']} launch, "
+            f"max_abs_err {result['max_abs_err']}; trace {ctx.trace_id}: "
+            + " / ".join(tree) + " -> " + " / ".join(segments)
+            + f"; second claim waited, then allocated "
+            f"{ms['first_deleted_to_second_allocated']} ms after the first "
+            f"was deleted; the MIG claim stayed pending; /metrics phases "
+            f"{phases}; SIGTERM -> exit 0 in {ms['sigterm_to_exit']} ms")
+
+        # -- (b) the fleet, in process.
+        t0 = time.perf_counter()
+        fleet = _fleet_run(slice_obj, product)
+        ms["fleet_phase"] = round((time.perf_counter() - t0) * 1e3, 3)
+        held = fleet["held"]
+        check(len(held) == len(set(held)) == FLEET_SINGLES
+              + FLEET_EIGHTS * FLEET_GPUS
+              and fleet["allocated"] == FLEET_SINGLES + FLEET_EIGHTS
+              and fleet["pending"] == ["unfit-nine", "unfit-product"]
+              and all(len(n) == 1 for n in fleet["eight_nodes"])
+              and len(fleet["eight_nodes"]) == FLEET_EIGHTS,
+              f"the fleet: {fleet['allocated']} allocated, pending "
+              f"{fleet['pending']}, 8-GPU nodes {fleet['eight_nodes']}")
+        check(ms["fleet_phase"] < FLEET_BUDGET_S * 1e3,
+              f"the fleet took {ms['fleet_phase']} ms")
+        log(f"scheduler: fleet of {FLEET_NODES} nodes x {FLEET_GPUS} GPUs "
+            f"({FLEET_NODES * FLEET_GPUS} devices, {product!r} cloned from "
+            f"this node's slice), {FLEET_SINGLES} one-GPU and "
+            f"{FLEET_EIGHTS} eight-GPU claims (matchAttribute "
+            f"acceleratorType) and 2 that cannot fit: passes "
+            f"{fleet['passes_ms']} ms, {fleet['allocated']} allocated, "
+            f"{fleet['claims_per_s']:.1f} claims/s, no device twice, each "
+            f"8-GPU claim on one node, pending {fleet['pending']}; setup "
+            f"{fleet['setup_ms']} ms, phase {ms['fleet_phase']} ms")
+        # The same fleet with the 8-GPU claims at seeded places among the
+        # singles: how many the least-loaded spreading strands.
+        for shuffle in range(seed, seed + FLEET_SHUFFLES):
+            t0 = time.perf_counter()
+            mixed = _fleet_run(slice_obj, product, shuffle=shuffle)
+            ms[f"fleet_shuffle_{shuffle}"] = round(
+                (time.perf_counter() - t0) * 1e3, 3)
+            held = mixed["held"]
+            placed = FLEET_EIGHTS - mixed["eights_pending"]
+            check(len(held) == len(set(held)) == FLEET_SINGLES
+                  + placed * FLEET_GPUS
+                  and mixed["allocated"] == FLEET_SINGLES + placed
+                  and [n for n in mixed["pending"]
+                       if not n.startswith("eight")]
+                  == ["unfit-nine", "unfit-product"]
+                  and all(len(n) == 1 for n in mixed["eight_nodes"])
+                  and len(mixed["eight_nodes"]) == placed,
+                  f"the fleet, order {shuffle}: {mixed['allocated']} "
+                  f"allocated, pending {mixed['pending']}, 8-GPU nodes "
+                  f"{mixed['eight_nodes']}")
+            log(f"scheduler: the fleet with the 8-GPU claims in seeded "
+                f"order {shuffle}: passes {mixed['passes_ms']} ms, "
+                f"{mixed['allocated']} allocated, "
+                f"{mixed['claims_per_s']:.1f} claims/s, 8-GPU claims "
+                f"pending {mixed['eights_pending']} of {FLEET_EIGHTS}, "
+                f"every single placed, no device twice; phase "
+                f"{ms[f'fleet_shuffle_{shuffle}']} ms")
+        passed = True
+        return result["launches"]
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        if server is not None:
+            server.stop()
+        tracing.set_exporter(exporter_before)
+        flightrecorder.set_default(recorder_before)
+        shutil.rmtree(tmp, ignore_errors=True)
+        left = [t.name for t in threading.enumerate()
+                if t not in threads_before and t.is_alive()]
+        log(f"scheduler: host ms {json.dumps(ms)} on {card}; threads left "
+            f"{left}; child alive {proc is not None and proc.poll() is None}")
+        if passed:
+            check(not left, "a thread outlived the phase")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5063,6 +5557,9 @@ def main(argv=None) -> int:
     t_obs = time.perf_counter()
     phase_observability(args.seed)
     log(f"observability: phase 19 in {time.perf_counter() - t_obs:.1f} s")
+    t_sched = time.perf_counter()
+    sched_child = phase_scheduler(args.seed)
+    log(f"scheduler: phase 20 in {time.perf_counter() - t_sched:.1f} s")
     forward["launches_by_path"] = {
         "serving_generate": serving_launches,
         "training_step": training["forward_lse"],
@@ -5076,6 +5573,7 @@ def main(argv=None) -> int:
         "partition_children": partition_children,
         "tenancy_child": tenancy_child,
         "cd_channel_child": cd_child,
+        "scheduler_claim_child": sched_child,
         "sharded_training_step": gang["train"]["forward_lse"],
         "moe_training_step": moe["forward_lse"],
         "sp_ulysses_training_step": sp["ulysses"]["forward_lse"],

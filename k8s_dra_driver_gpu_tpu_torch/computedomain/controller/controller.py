@@ -29,8 +29,9 @@ Left out: the ``TopologyAwarePlacement`` window (the JAX controller's
 ``_host_workers`` and ``_sync_preferred_nodes``). It reads a
 ``workerId`` attribute of the chip driver's ResourceSlices that the
 port's GPU slices do not publish, and without one the JAX controller
-stamps no window either; its only reader is the JAX scheduler, which is
-not ported.
+stamps no window either; its reader is the scheduler
+(``pkg/scheduler.py``'s ``_preferred_gang_nodes``), which then keeps its
+least-loaded node order.
 
 Observability, at the JAX controller's hook points: each ``reconcile`` is
 a ``cd.reconcile`` span (a root unless a span is active) and a

@@ -184,12 +184,11 @@ LOCK_TIMEOUT_S = 10.0
 _VFIO = "vfio passthrough (ROADMAP.md §1b item 6, vfio.py)"
 NOT_PORTED_KINDS = {"VfioDeviceConfig": _VFIO}
 # Every gate the port does not read (featuregates.READ): refused when set
-# away from its default. The ComputeDomain daemon's two gates are read
-# (by the daemon), so the GPU plugin takes them, as the JAX plugin does.
+# away from its default. The ComputeDomain daemon's two gates and the
+# scheduler's one are read (by those binaries), so the GPU plugin takes
+# them, as the JAX plugin does.
 NOT_PORTED_GATES = {
     "PassthroughSupport": _VFIO,
-    "TopologyAwarePlacement": "topology-aware placement (the JAX "
-    "package's scheduler, which is not ported: ROADMAP.md, \"Not queued\")",
     "ChipHealthCheck": "switching the health monitor by gate (the entry "
     "point's, ROADMAP.md §1b item 8; Driver(enable_health_monitor=) now)",
     "CrashOnICIFabricErrors": "crashing on fabric errors (no module of the "

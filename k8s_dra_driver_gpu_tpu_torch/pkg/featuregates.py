@@ -12,8 +12,9 @@ partitions over MIG instances (``pkg/partition``), which needs
 reads two: ``ComputeDomainCliques`` (registration in clique objects, or
 in the domain's status when off) and ``DomainDaemonsWithDNSNames`` (the
 upstream's ``IMEXDaemonsWithDNSNames``: a peer change rewrites the hosts
-file and nudges the rendezvous service, or restarts it when off). Any
-other gate set away from its default names a feature the port does not
+file and nudges the rendezvous service, or restarts it when off). The
+scheduler reads one: ``TopologyAwarePlacement`` (the ICI scorer orders
+each request's candidates; off, first-fit). Any other gate set away from its default names a feature the port does not
 run: ``unported()`` lists it and the GPU plugin's ``DeviceState`` refuses
 it (``NotPortedError``). Upstream counterparts of the others:
 ``ChipHealthCheck`` is ``NVMLDeviceHealthCheck``,
@@ -32,11 +33,12 @@ DYNAMIC_SUB_SLICE = "DynamicSubSlice"
 TENANT_PARTITIONING = "TenantPartitioning"
 COMPUTE_DOMAIN_CLIQUES = "ComputeDomainCliques"
 DOMAIN_DAEMONS_WITH_DNS_NAMES = "DomainDaemonsWithDNSNames"
+TOPOLOGY_AWARE_PLACEMENT = "TopologyAwarePlacement"
 # The gates the port reads: the GPU plugin's four, the ComputeDomain
-# daemon's two.
+# daemon's two, the scheduler's one.
 READ = (TIME_SLICING_SETTINGS, MULTI_TENANCY_SUPPORT, DYNAMIC_SUB_SLICE,
         TENANT_PARTITIONING, COMPUTE_DOMAIN_CLIQUES,
-        DOMAIN_DAEMONS_WITH_DNS_NAMES)
+        DOMAIN_DAEMONS_WITH_DNS_NAMES, TOPOLOGY_AWARE_PLACEMENT)
 # gate -> the gate it needs on.
 REQUIRES = {MULTI_TENANCY_SUPPORT: TIME_SLICING_SETTINGS,
             TENANT_PARTITIONING: DYNAMIC_SUB_SLICE}
@@ -53,7 +55,7 @@ DEFAULTS: dict[str, bool] = {
     COMPUTE_DOMAIN_CLIQUES: True,
     "CrashOnICIFabricErrors": True,
     "DeviceMetadata": False,
-    "TopologyAwarePlacement": True,
+    TOPOLOGY_AWARE_PLACEMENT: True,
 }
 
 

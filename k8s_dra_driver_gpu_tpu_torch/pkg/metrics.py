@@ -10,13 +10,17 @@ package's, on the port's own registry (``pkg/exposition.py``; the port
 does not import ``prometheus_client``). Ported: ``register_build_info``,
 ``ClaimSLOMetrics``, ``DRARequestMetrics`` (without its ``telemetry``
 member), ``ResilienceMetrics``, ``PartitionMetrics``,
-``ComputeDomainMetrics`` and ``MetricsServer``. The others wait for
-their producers (ROADMAP.md §1c): ``RecoveryMetrics`` for the health
-monitor's quarantine and failure hooks and the recovery controller,
-``TelemetryMetrics`` and ``FleetMetrics`` for the telemetry plane
-(``fleetstate``), ``PlacementMetrics``, ``WorkQueueMetrics`` and
-``SchedulerMetrics`` for the scheduler, ``DefragMetrics``,
-``MigrationMetrics`` and ``AutoscaleMetrics`` for their controllers.
+``ComputeDomainMetrics``, ``PlacementMetrics``, ``SchedulerMetrics``
+(the families of the scheduler's polled pass: sync time, snapshot
+builds and the control-plane SLO phases) and
+``MetricsServer``. The others wait for their producers (ROADMAP.md
+§1c): ``RecoveryMetrics`` for the health monitor's quarantine and
+failure hooks and the recovery controller, ``TelemetryMetrics`` and
+``FleetMetrics`` for the telemetry plane (``fleetstate``),
+``WorkQueueMetrics`` and the event-mode families of ``SchedulerMetrics``
+(dirty queue, informer relists, delta builds, domains) for the
+scheduler's event mode, ``DefragMetrics``, ``MigrationMetrics`` and
+``AutoscaleMetrics`` for their controllers.
 """
 
 from __future__ import annotations
@@ -72,9 +76,10 @@ class ClaimSLOMetrics:
     ``commit`` (atomic reserve), ``patch`` (the allocation kube write),
     ``prepare`` (node-side NodePrepareResources, reported by both
     kubelet plugins), and ``evict`` (recovery-controller eviction to
-    re-placement). In the port only the node plugins observe (the
-    ``prepare`` phase); the others wait for the scheduler and the
-    recovery controller (ROADMAP.md §1c). Observations carry the
+    re-placement). In the port the scheduler observes ``fit``,
+    ``commit`` and ``patch``, the node plugins ``prepare``; ``queued``
+    waits for the scheduler's event mode and ``evict`` for the recovery
+    controller (ROADMAP.md §1c). Observations carry the
     claim's trace id as an exemplar when one is active (kept on the
     bucket; the text format 0.0.4 does not print it)."""
 
@@ -326,6 +331,73 @@ class PartitionMetrics:
 
     def inc_prewarm_reaped(self) -> None:
         self.prewarm_reaped.inc()
+
+
+class PlacementMetrics:
+    """Topology-aware placement (pkg/topology): ``pool`` labels carry
+    ``<driver>/<pool>``. Only coordinated pools report; the port's GPU
+    slices publish no ICI coordinates, so on them these stay empty."""
+
+    # Max-hop distances are small integers.
+    _HOP_BUCKETS = (0, 1, 2, 3, 4, 6, 8, 12, 16)
+
+    def __init__(self, registry: CollectorRegistry | None = None):
+        self.registry = registry or CollectorRegistry()
+        self.frag_score = Gauge(
+            "tpu_dra_placement_frag_score",
+            "Fragmentation of a pool's free chips: 1 - largest "
+            "allocatable sub-torus / free chips (0 = one perfect "
+            "contiguous block).",
+            ["pool"],
+            registry=self.registry,
+        )
+        self.largest_shape = Gauge(
+            "tpu_dra_placement_largest_free_shape_chips",
+            "Chips in the largest sub-torus shape still allocatable "
+            "from a pool's free chips.",
+            ["pool"],
+            registry=self.registry,
+        )
+        self.compactness = Histogram(
+            "tpu_dra_placement_compactness",
+            "Max ICI hop distance inside each allocated device set "
+            "(0 = single chip; lower = tighter collective).",
+            ["pool"],
+            buckets=self._HOP_BUCKETS,
+            registry=self.registry,
+        )
+
+
+class SchedulerMetrics:
+    """The scheduler's polled pass (pkg/scheduler, pkg/schedcache):
+    ``sync_seconds{mode="full"}`` per pass, the inventory snapshot's
+    rebuilds, and the control plane's SLO phases (``slo``: fit, commit,
+    patch). The JAX class's event-mode families (the dirty queue's
+    depth, informer relists, per-pool delta builds, relist backoff, the
+    domains' counters, the workqueue) and its
+    ``tpu_dra_slice_publish_skipped_total`` wait for event mode, and its
+    ``tpu_dra_sched_commit_conflicts_total`` for workers > 1 (ROADMAP.md
+    §1c), since one worker fits and reserves against the same state."""
+
+    def __init__(self, registry: CollectorRegistry | None = None):
+        self.registry = registry or CollectorRegistry()
+        self.sync_seconds = Histogram(
+            "tpu_dra_sched_sync_seconds",
+            "Scheduler sync work duration by mode (full resync pass "
+            "vs. one incremental dirty-key drain).",
+            ["mode"],
+            buckets=_BUCKETS,
+            registry=self.registry,
+        )
+        self.snapshot_build = Histogram(
+            "tpu_dra_sched_snapshot_build_seconds",
+            "Wall time to (re)build the indexed inventory snapshot "
+            "from the published ResourceSlices (pkg/schedcache); one "
+            "sample per actual rebuild, cache hits cost nothing.",
+            buckets=_BUCKETS,
+            registry=self.registry,
+        )
+        self.slo = ClaimSLOMetrics(registry=self.registry)
 
 
 class ComputeDomainMetrics:

@@ -11,8 +11,8 @@ reconcile, the partition engine's attach and detach.
   :data:`TRACEPARENT_ANNOTATION` onto the claim with its allocation, and
   every consumer ``extract()``\\ s it, so a node's prepare segments
   become children of the scheduler's commit span: one trace id end to
-  end. (The JAX package's scheduler stamps it; the port has none yet, so
-  a claim without the annotation starts its own trace.)
+  end. (The port's ``pkg/scheduler.py`` stamps it; a claim without the
+  annotation starts its own trace.)
 - **Export is in-process and bounded**: a fixed-size ring served as JSON
   at ``/debug/traces`` (``pkg/metrics.MetricsServer``) plus an optional
   append-only JSONL file (``TPU_DRA_TRACE_FILE``, rotated at

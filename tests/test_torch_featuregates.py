@@ -62,7 +62,8 @@ def test_the_same_gates_with_the_same_defaults():
                                jax_fg.DYNAMIC_SUB_SLICE,
                                jax_fg.TENANT_PARTITIONING,
                                jax_fg.COMPUTE_DOMAIN_CLIQUES,
-                               jax_fg.DOMAIN_DAEMONS_WITH_DNS_NAMES}
+                               jax_fg.DOMAIN_DAEMONS_WITH_DNS_NAMES,
+                               jax_fg.TOPOLOGY_AWARE_PLACEMENT}
     assert jax_fg.KNOWN_FEATURES[pt_fg.MULTI_TENANCY_SUPPORT].requires == (
         pt_fg.TIME_SLICING_SETTINGS,)
     # Each dependency the port enforces is the JAX package's.

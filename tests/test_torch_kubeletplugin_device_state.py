@@ -818,7 +818,6 @@ def _claim(uid, indices, body=None):
 
 @pytest.mark.parametrize("gates, match", [
     ("PassthroughSupport=true", "ROADMAP.md §1b item 6"),
-    ("TopologyAwarePlacement=false", "scheduler, which is not ported"),
     ("ChipHealthCheck=false", "ROADMAP.md §1b item 8"),
     ("CrashOnICIFabricErrors=false", "reads this gate"),
     ("DeviceMetadata=true", "reads this gate"),
@@ -842,6 +841,10 @@ def test_every_gate_is_read_or_refused(tmp_path):
                                         SHARING_GATES))
     pt_ds.DeviceState(pt_ds.Config.mock(str(tmp_path), "h100-4",
                                         "DynamicSubSlice=true"))
+    # The scheduler's gate is read (pkg/scheduler.py): the GPU plugin
+    # takes it, off too, as the JAX plugin does.
+    pt_ds.DeviceState(pt_ds.Config.mock(
+        str(tmp_path), "h100-4", "TopologyAwarePlacement=false"))
     # TenantPartitioning is read (pkg/partition): no refusal.
     pt_ds.DeviceState(pt_ds.Config.mock(
         str(tmp_path), "h100-4", "DynamicSubSlice=true,TenantPartitioning=true"))
