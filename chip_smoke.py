@@ -329,6 +329,36 @@ and prints no result line):
    nothing: each pass's ms, claims a second, no device twice, every
    claim that fits allocated, each 8-GPU claim on one node, the two
    pending; under 90 s. Host ms beside the card's name and power limit.
+21. recovery (``phase_recovery``, host clock): the card's telemetry, a
+   node failure and a device failure over the port's ``FakeApiServer`` on
+   127.0.0.1, with the scheduler binary run with ``--recovery-root``,
+   ``--interval 0.1`` and short knobs (``TPU_DRA_RECOVERY_NOTREADY_S``,
+   ``TPU_DRA_RECOVERY_DEADLINE_S``). One card, two nodes: two kubelet
+   plugins, each in a process of its own that never initialises CUDA
+   (``RECOVERY_PLUGIN``; NVML's ``chip_telemetry`` refuses beside CUDA),
+   publish the same card as ``h100-a`` and ``h100-b`` from their own
+   state and CDI roots, with the health monitor's telemetry on. (a) The
+   card's quantized telemetry attributes on ``h100-a``'s slice, an idle
+   sample and one under the flash kernel's load, the slice writes steady
+   samples caused, ``/debug/telemetry`` of the plugin and ``/debug/fleet``
+   of the binary, the anomaly kinds that fired. (b) A claim with a
+   consumer pod allocated on ``h100-a``, prepared there, its child runs
+   the flash kernel (checked against its plain version, then a few
+   seconds of launches for load); ``h100-a`` goes NotReady: the binary's
+   recovery controller declares the node failed, taints it, sets
+   ``PermanentFailure`` on the claim, drains the pod and deallocates; the
+   binary re-places the claim on ``h100-b``, whose plugin prepares it,
+   and a second child runs the kernel under it; ``h100-a``'s reconcile
+   sweep unprepares the claim it lost; the claim ends ``PermanentFailure``
+   False ``Recovered``; the eviction record's stages are read from the
+   recovery root as they land. (c) ``h100-b``'s monitor escalates
+   ``gpu-0`` to the sticky ``failed`` taint (``QuarantineTracker.
+   mark_failed``); with ``h100-a`` failed there is nowhere to go, and the
+   claim retires cleanly at the deadline (``RecoveryDeadlineExceeded``,
+   no allocation, no record). (d) Phase 20's fleet with telemetry
+   attributes on every device and a ``FleetAggregator`` folding each
+   pass, then one ``EvictionController.sync_once`` with one of the 128
+   nodes NotReady. Host ms of each step beside the card.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record (with the hd-64 instantiations'
@@ -5085,13 +5115,19 @@ def _fleet_slices(real: dict, node_names: list[str]) -> list[dict]:
     return out
 
 
-def _fleet_run(real: dict, product: str, shuffle: int | None = None) -> dict:
+def _fleet_run(real: dict, product: str, shuffle: int | None = None,
+               fleet_metrics=None) -> dict:
     """20 (b): the fleet in the port's in-process ``FakeKubeClient``,
     passes of the port's ``DraScheduler`` until one allocates nothing.
-    The claims arrive 8-GPU first, or in the order ``shuffle`` seeds."""
+    The claims arrive 8-GPU first, or in the order ``shuffle`` seeds.
+    With ``fleet_metrics`` (phase 21 (d)) every device also carries
+    telemetry attributes drawn from the shuffle seed, each node is a Ready
+    Node object, and the scheduler folds its fleet into that sink; the
+    result then holds the store and the scheduler."""
     import random
 
     from k8s_dra_driver_gpu_tpu_torch.api import deviceclasses
+    from k8s_dra_driver_gpu_tpu_torch.pkg import fleetstate
     from k8s_dra_driver_gpu_tpu_torch.pkg.kubeclient import FakeKubeClient
     from k8s_dra_driver_gpu_tpu_torch.pkg.scheduler import DraScheduler
 
@@ -5100,7 +5136,20 @@ def _fleet_run(real: dict, product: str, shuffle: int | None = None) -> dict:
     deviceclasses.create_all(kube)
     nodes = [f"hgx-{n:03d}" for n in range(FLEET_NODES)]
     t0 = time.perf_counter()
+    rng = random.Random(shuffle)
     for s in _fleet_slices(real, nodes):
+        if fleet_metrics is not None:
+            for dev in s["spec"]["devices"]:
+                dev["attributes"].update({
+                    fleetstate.ATTR_POWER: {"int": rng.randrange(7, 71) * 10},
+                    fleetstate.ATTR_TEMP: {"int": rng.randrange(6, 17) * 5},
+                    fleetstate.ATTR_DUTY: {"int": rng.randrange(0, 11) * 10},
+                    fleetstate.ATTR_HBM: {"int": rng.randrange(0, 11) * 10},
+                    fleetstate.ATTR_ICI_ERR: {"int": 0}})
+            kube.create("", "v1", "nodes", {
+                "metadata": {"name": s["spec"]["nodeName"]},
+                "status": {"conditions": [{"type": "Ready",
+                                           "status": "True"}]}})
         kube.create(*res, "resourceslices", s)
 
     def claim(name, count=1, cel=None, constraint=None):
@@ -5136,7 +5185,7 @@ def _fleet_run(real: dict, product: str, shuffle: int | None = None) -> dict:
     claim("unfit-product", cel='device.attributes["gpu.nvidia.com"]'
           '.productName == "NVIDIA B200"')
     setup_ms = round((time.perf_counter() - t0) * 1e3, 3)
-    sched = DraScheduler(kube)
+    sched = DraScheduler(kube, fleet_metrics=fleet_metrics)
     passes, allocated = [], 0
     while True:
         t0 = time.perf_counter()
@@ -5158,12 +5207,15 @@ def _fleet_run(real: dict, product: str, shuffle: int | None = None) -> dict:
     eight_nodes = [{r["pool"] for r in c["status"]["allocation"]["devices"][
         "results"]} for c in claims if c["metadata"]["name"].startswith(
             "eight") and c.get("status", {}).get("allocation")]
-    return {"setup_ms": setup_ms, "passes_ms": passes,
-            "allocated": allocated, "held": held, "pending": pending,
-            "eight_nodes": eight_nodes, "product": product,
-            "eights_pending": sum(n.startswith("eight") for n in pending),
-            "claims_per_s": allocated / (sum(passes[:-1]) / 1e3)
-            if len(passes) > 1 else 0.0}
+    out = {"setup_ms": setup_ms, "passes_ms": passes,
+           "allocated": allocated, "held": held, "pending": pending,
+           "eight_nodes": eight_nodes, "product": product,
+           "eights_pending": sum(n.startswith("eight") for n in pending),
+           "claims_per_s": allocated / (sum(passes[:-1]) / 1e3)
+           if len(passes) > 1 else 0.0}
+    if fleet_metrics is not None:
+        out.update(kube=kube, sched=sched)
+    return out
 
 
 def phase_scheduler(seed: int) -> int:
@@ -5503,6 +5555,596 @@ def phase_scheduler(seed: int) -> int:
             check(not left, "a thread outlived the phase")
 
 
+# Phase 21's kubelet plugin, in a process of its own that never
+# initialises CUDA (NVML's chip_telemetry refuses beside it): the node
+# service over the real NVML with its health monitor and telemetry on,
+# over the port's fake API server, its metrics and debug routes on a
+# loopback port. It writes one JSON line when it has published, then
+# answers one line on stdin with one JSON line on stdout: "prepare UID
+# NAMESPACE NAME" (the result and the claim's CDI spec), "prepared" (the
+# prepared uids and the last sweep), "fail DEVICE" (the quarantine
+# tracker's permanent escalation, the sweep's path), "refusals" (what
+# NVML refused the monitor's library), "stop".
+RECOVERY_PLUGIN = r"""
+import json, sys
+from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.device_state import Config
+from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.driver import Driver
+from k8s_dra_driver_gpu_tpu_torch.pkg.kubeclient import KubeClient
+from k8s_dra_driver_gpu_tpu_torch.pkg.metrics import (
+    DRARequestMetrics, MetricsServer, RecoveryMetrics, ResilienceMetrics)
+from k8s_dra_driver_gpu_tpu_torch.tpulib import binding as gpulib
+
+url, node, root, port = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+
+
+def emit(**doc):
+    print(json.dumps(doc), flush=True)
+
+
+metrics = DRARequestMetrics()
+driver = Driver(Config(root=f"{root}/state", cdi_root=f"{root}/cdi"),
+                KubeClient(host=url), node, metrics=metrics,
+                resilience=ResilienceMetrics(registry=metrics.registry),
+                recovery_metrics=RecoveryMetrics(registry=metrics.registry))
+server = MetricsServer(metrics.registry, port=port)
+server.start()
+driver.start()
+emit(ready=True, cuda=gpulib.cuda_initialised(),
+     devices=sorted(driver.state.allocatable))
+try:
+    for line in sys.stdin:
+        cmd, *args = line.split()
+        if cmd == "prepare":
+            uid, ns, name = args
+            out = driver.prepare_resource_claims(
+                [{"uid": uid, "namespace": ns, "name": name}])
+            emit(result=out[uid], spec=driver.state._cdi.read_spec(uid))
+        elif cmd == "prepared":
+            emit(prepared=sorted(driver.state.prepared_claims()),
+                 sweep=driver.reconciler.last_sweep)
+        elif cmd == "fail":
+            driver.health_monitor.quarantine.mark_failed(args[0])
+            emit(failed=sorted(driver.health_monitor.quarantine.failed))
+        elif cmd == "refusals":
+            emit(refusals=driver.health_monitor._tpulib.refusals,
+                 cuda=gpulib.cuda_initialised())
+        elif cmd == "stop":
+            break
+finally:
+    driver.stop()
+    server.stop()
+"""
+
+RECOVERY_LOAD_S = 4.0
+# Phase 12's claim child, then RECOVERY_LOAD_S seconds of the same
+# launches as load for the telemetry; its last line adds them as
+# ``load_launches`` (``launches`` stays the one checked launch).
+RECOVERY_LOAD_CHILD = CLAIM_CHILD + f"""
+import time
+flash_attention.launches = 0
+t_end = time.monotonic() + {RECOVERY_LOAD_S}
+while time.monotonic() < t_end:
+    for _ in range(20):
+        flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+print(json.dumps({{"device_count": count, "name": name,
+                  "launches": launches, "max_abs_err": diff.max().item(),
+                  "excess": excess, "mapped": mapped,
+                  "finite": bool(torch.isfinite(got).all()),
+                  "load_launches": flash_attention.launches}}))
+"""
+
+RECOVERY_NODES = ("h100-a", "h100-b")
+RECOVERY_NOTREADY_S = 0.5
+RECOVERY_DEADLINE_S = 3.0
+RECOVERY_POLL_S = 0.25
+RECOVERY_SWEEP_S = 0.5
+RECOVERY_CLAIM = "smoke-recovery"
+
+
+class RecoveryPlugin:
+    """``RECOVERY_PLUGIN`` for one node: ``ask(line)`` writes a command and
+    reads its JSON answer."""
+
+    def __init__(self, url: str, node: str, root: str, port: int,
+                 env: dict, cwd: str):
+        self.node, self.port = node, port
+        self.log = open(f"{root}.log", "w", encoding="utf-8")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", RECOVERY_PLUGIN, url, node, root,
+             str(port)], env=env, cwd=cwd, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=self.log, text=True)
+        self.ready = self._read()
+
+    def _read(self) -> dict:
+        line = self.proc.stdout.readline()
+        if not line:
+            raise AssertionError(f"recovery: the plugin of {self.node} "
+                                 f"exited {self.proc.wait(timeout=60)}")
+        return json.loads(line)
+
+    def ask(self, line: str) -> dict:
+        self.proc.stdin.write(line + "\n")
+        self.proc.stdin.flush()
+        return self._read()
+
+    def get(self, path: str):
+        return _http_get(f"http://127.0.0.1:{self.port}{path}")
+
+    def close(self) -> int | None:
+        """Stop the plugin (its driver and listener) and reap it; kill it
+        if it has not exited after 30 s. Its exit code."""
+        try:
+            if self.proc.poll() is None:
+                try:
+                    self.proc.stdin.write("stop\n")
+                    self.proc.stdin.flush()
+                    self.proc.wait(timeout=30)
+                except (OSError, subprocess.TimeoutExpired):
+                    self.proc.kill()
+                    self.proc.wait()
+            return self.proc.returncode
+        finally:
+            self.log.close()
+
+
+def phase_recovery(seed: int) -> int:
+    """21. The card's telemetry from NVML, a node failure and a device
+    failure through the port's recovery controller, from a live claim to
+    the flash kernel on the node that took it over. Returns the flash
+    launches of the claim children (checked and load)."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from k8s_dra_driver_gpu_tpu_torch.api import deviceclasses
+    from k8s_dra_driver_gpu_tpu_torch.pkg import fleetstate
+    from k8s_dra_driver_gpu_tpu_torch.pkg.exposition import generate_latest
+    from k8s_dra_driver_gpu_tpu_torch.pkg.fakeapiserver import FakeApiServer
+    from k8s_dra_driver_gpu_tpu_torch.pkg.metrics import FleetMetrics
+    from k8s_dra_driver_gpu_tpu_torch.pkg.recovery import (
+        FAILED_TAINT_KEY, PERMANENT_FAILURE_CONDITION, EvictionController)
+
+    res = ("resource.k8s.io", "v1")
+    root = os.path.dirname(os.path.abspath(__file__))
+    ms: dict = {}
+    t_phase = time.perf_counter()
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"recovery: {what}")
+
+    def wait(fn, timeout, what):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            value = fn()
+            if value:
+                return value
+            time.sleep(0.005)
+        raise AssertionError(f"recovery: timed out waiting for {what}")
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = (smi.stdout or smi.stderr).strip().splitlines()[0]
+    tmp = tempfile.mkdtemp(prefix="recov")
+    threads_before = set(threading.enumerate())
+    fleet_before = fleetstate.default_fleet()
+    plugins: dict = {}
+    proc = server = None
+    stop_watch = threading.Event()
+    watcher = None
+    children = 0
+    passed = False
+    try:
+        server = FakeApiServer().start()
+        kube = server.store
+        # The store's writes, stamped as they land (host clock).
+        stamps: dict = {}
+        slice_writes: list = []
+
+        def stamp(key, now):
+            stamps.setdefault(key, now)
+
+        def on_write(group, resource, namespace, ev_type, obj):
+            now = time.perf_counter()
+            md = obj.get("metadata", {})
+            if resource == "resourceslices":
+                slice_writes.append((now, obj.get("spec", {}).get(
+                    "nodeName")))
+            elif resource == "nodes":
+                if any(t.get("key") == FAILED_TAINT_KEY for t in
+                       obj.get("spec", {}).get("taints") or []):
+                    stamp(("declared", md.get("name")), now)
+            elif resource == "pods" and ev_type == "DELETED":
+                stamp(("drained", md.get("name")), now)
+            elif resource == "resourceclaims" and \
+                    md.get("name") == RECOVERY_CLAIM:
+                st = obj.get("status", {})
+                alloc = st.get("allocation")
+                node = None
+                if alloc:
+                    node = alloc["nodeSelector"]["nodeSelectorTerms"][0][
+                        "matchFields"][0]["values"][0]
+                    stamp(("allocated", node), now)
+                for c in st.get("conditions") or []:
+                    if c.get("type") == PERMANENT_FAILURE_CONDITION:
+                        stamp((c["status"], c["reason"]), now)
+                if not alloc and ("True", "NodeFailed") in stamps:
+                    stamp(("deallocated", "node"), now)
+                if not alloc and ("True", "DeviceFailed") in stamps:
+                    stamp(("deallocated", "device"), now)
+        kube.add_resource_watcher(on_write)
+        deviceclasses.create_all(kube)
+        for node in RECOVERY_NODES:
+            kube.create("", "v1", "nodes", {
+                "metadata": {"name": node},
+                "status": {"conditions": [{"type": "Ready",
+                                           "status": "True"}]}})
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("KUBE_API", "KUBERNETES_", "TPU_DRA_"))}
+        env["PYTHONPATH"] = root
+        plugin_env = dict(env, TPU_DRA_HEALTH_POLL_S=str(RECOVERY_POLL_S),
+                          TPU_DRA_RECOVERY_SWEEP_S=str(RECOVERY_SWEEP_S))
+
+        def start_plugin(node):
+            t0 = time.perf_counter()
+            plugins[node] = RecoveryPlugin(server.url, node,
+                                           f"{tmp}/{node}", free_port(),
+                                           plugin_env, root)
+            check(plugins[node].ready["cuda"] is False
+                  and plugins[node].ready["devices"],
+                  f"the plugin of {node}: {plugins[node].ready}")
+            ms[f"plugin_{node}_start"] = round(
+                (time.perf_counter() - t0) * 1e3, 3)
+
+        def device(node, name="gpu-0"):
+            for s in kube.list(*res, "resourceslices"):
+                if s["spec"].get("nodeName") == node:
+                    for d in s["spec"]["devices"]:
+                        if d["name"] == name:
+                            return d
+            return None
+
+        def telemetry_attrs(node):
+            d = device(node) or {}
+            return {k: v["int"] for k, v in (d.get("attributes") or
+                                              {}).items()
+                    if k in fleetstate.TELEMETRY_ATTRS}
+
+        # -- (a) h100-a's telemetry.
+        start_plugin("h100-a")
+        a = plugins["h100-a"]
+        attrs = wait(lambda: telemetry_attrs("h100-a"), 30,
+                     "h100-a's telemetry attributes")
+        check(set(attrs) == set(fleetstate.TELEMETRY_ATTRS),
+              f"h100-a's attributes {attrs}")
+
+        def ring(node):
+            return json.loads(plugins[node].get("/debug/telemetry"))
+
+        idle = ring("h100-a")["chips"]["0"][-1]
+        # Steady idle samples: the slice writes of two seconds of polls.
+        t0 = time.perf_counter()
+        time.sleep(2.0)
+        steady_polls = 2.0 / RECOVERY_POLL_S
+        steady_writes = sum(1 for t, n in slice_writes
+                            if n == "h100-a" and t >= t0)
+        # The scheduler binary with a recovery root.
+        port = free_port()
+        sched_env = dict(env, TPU_DRA_DEBUG_HTTP="1",
+                         TPU_DRA_RECOVERY_NOTREADY_S=str(RECOVERY_NOTREADY_S),
+                         TPU_DRA_RECOVERY_DEADLINE_S=str(
+                             RECOVERY_DEADLINE_S))
+        with open(f"{tmp}/scheduler.log", "w", encoding="utf-8") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", SCHEDULER_MAIN, "--kube-api",
+                 server.url, "--interval", "0.1", "--metrics-port",
+                 str(port), "--recovery-root", f"{tmp}/recovery"],
+                env=sched_env, cwd=root, stdin=subprocess.DEVNULL,
+                stdout=out, stderr=subprocess.STDOUT)
+        base = f"http://127.0.0.1:{port}"
+
+        def metrics():
+            try:
+                return metric_samples(_http_get(base + "/metrics"))
+            except OSError:
+                return None
+        wait(lambda: (metrics() or {}).get((
+            "tpu_dra_sched_sync_seconds_count", (("mode", "full"),))),
+            60, "the scheduler's first pass")
+
+        # -- (b) a claim on h100-a, its pod, the kernel under load.
+        kube.create(*res, "resourceclaims", {
+            "apiVersion": "resource.k8s.io/v1", "kind": "ResourceClaim",
+            "metadata": {"name": RECOVERY_CLAIM, "namespace": "default"},
+            "spec": {"devices": {"requests": [{"name": "gpu", "exactly": {
+                "deviceClassName": deviceclasses.GPU_CLASS}}]}}},
+            namespace="default")
+        kube.create("", "v1", "pods", {
+            "apiVersion": "v1", "kind": "Pod",
+            "metadata": {"name": "smoke-recovery-pod",
+                         "namespace": "default"},
+            "spec": {"containers": [{"name": "main"}], "resourceClaims": [
+                {"name": "gpu", "resourceClaimName": RECOVERY_CLAIM}]}},
+            namespace="default")
+        pod = wait(lambda: (lambda p: p if p["spec"].get("nodeName")
+                            else None)(kube.get("", "v1", "pods",
+                                                "smoke-recovery-pod",
+                                                namespace="default")),
+                   30, "the pod's binding")
+        claim = kube.get(*res, "resourceclaims", RECOVERY_CLAIM,
+                         namespace="default")
+        uid = claim["metadata"]["uid"]
+        check(pod["spec"]["nodeName"] == "h100-a"
+              and ("allocated", "h100-a") in stamps,
+              f"the claim {claim} on h100-a")
+        product = device("h100-a")["attributes"]["productName"]["string"]
+        got = a.ask(f"prepare {uid} default {RECOVERY_CLAIM}")
+        check(got["result"][1] == "", f"h100-a's prepare {got}")
+        t_load, t_load_pc = time.time(), time.perf_counter()
+        first = run_claim_child(got["spec"], seed, product,
+                                "recovery h100-a", script=RECOVERY_LOAD_CHILD)
+        t_load_end, t_load_end_pc = time.time(), time.perf_counter()
+        children += first["launches"] + first["load_launches"]
+        load_samples = [s for s in ring("h100-a")["chips"]["0"]
+                        if t_load <= s["ts"] <= t_load_end]
+        check(load_samples, "no telemetry sample under load")
+        loaded = max(load_samples, key=lambda s: s["power_watts"])
+        refusals = a.ask("refusals")
+        check(refusals["cuda"] is False, f"h100-a's plugin {refusals}")
+        # h100-b comes up while h100-a holds the claim.
+        start_plugin("h100-b")
+        b = plugins["h100-b"]
+        wait(lambda: telemetry_attrs("h100-b"), 30,
+             "h100-b's telemetry attributes")
+        fleet = wait(lambda: (lambda f: f if set(f.get("nodes", {})) ==
+                              set(RECOVERY_NODES) else None)(json.loads(
+                                  _http_get(base + "/debug/fleet"))),
+                     30, "both nodes in /debug/fleet")
+        anomalies = {k: v for k, v in metric_samples(a.get(
+            "/metrics")).items() if k[0] == "tpu_dra_anomaly_total"}
+        keys = ("power_watts", "temp_celsius", "duty_cycle",
+                "hbm_used_bytes", "ici_link_errors")
+        load_writes = sum(1 for t, n in slice_writes if n == "h100-a"
+                          and t_load_pc <= t <= t_load_end_pc)
+        telemetry_doc = ring("h100-a")
+        log(f"recovery: (a) telemetry on {card}, from NVML in h100-a's "
+            f"plugin (a process without CUDA): attributes {attrs}; idle "
+            f"sample {json.dumps({k: idle[k] for k in keys})}; under the "
+            f"flash kernel's load (the peak-power one of "
+            f"{len(load_samples)} samples of the child's "
+            f"{t_load_end - t_load:.1f} s) "
+            f"{json.dumps({k: loaded[k] for k in keys})}; slice writes in "
+            f"{steady_polls:.0f} steady idle polls: {steady_writes}; "
+            f"during the child (CUDA start and load): {load_writes}; NVML "
+            f"refusals of the monitor's library {refusals['refusals']}; "
+            f"/debug/telemetry of h100-a: "
+            f"{telemetry_doc['recorded_total']} samples recorded, chips "
+            f"{sorted(telemetry_doc['chips'])}; /debug/fleet of the "
+            f"binary: passes {fleet['passes_total']}, pools "
+            f"{sorted(fleet['pools'])}, nodes {json.dumps(fleet['nodes'])}; "
+            f"anomalies fired: {anomalies or 'none'}")
+
+        # -- (b) h100-a fails.
+        t_notready = time.perf_counter()
+        kube.patch("", "v1", "nodes", "h100-a", {"status": {"conditions": [
+            {"type": "Ready", "status": "False"}]}})
+        stages: list = []
+
+        def watch_records():
+            path = f"{tmp}/recovery/checkpoint.json"
+            last = None
+            while not stop_watch.is_set():
+                try:
+                    with open(path, encoding="utf-8") as f:
+                        claims = json.load(f)["data"]["claims"]
+                    state = (claims.get(uid) or {}).get("state")
+                except (OSError, ValueError, KeyError):
+                    state = last
+                if state != last:
+                    stages.append((state, round(
+                        (time.perf_counter() - t_notready) * 1e3, 3)))
+                    last = state
+                time.sleep(0.002)
+        watcher = threading.Thread(target=watch_records, name="records",
+                                   daemon=True)
+        watcher.start()
+        wait(lambda: ("allocated", "h100-b") in stamps, 30,
+             "the claim's re-placement on h100-b")
+        got = b.ask(f"prepare {uid} default {RECOVERY_CLAIM}")
+        t_prepared = time.perf_counter()
+        check(got["result"][1] == "", f"h100-b's prepare {got}")
+        second = run_claim_child(got["spec"], seed, product,
+                                 "recovery h100-b")
+        t_launched = time.perf_counter()
+        children += second["launches"]
+        wait(lambda: ("False", "Recovered") in stamps, 30,
+             "the Recovered condition")
+        wait(lambda: uid not in a.ask("prepared")["prepared"], 30,
+             "h100-a's sweep of the lost claim")
+        swept = {k: v for k, v in metric_samples(a.get("/metrics")).items()
+                 if k[0] == "tpu_dra_recovery_orphans_repaired_total"}
+        wait(lambda: stages and stages[-1][0] is None, 10,
+             "the eviction record's retirement")
+
+        def since(key, start):
+            return round((stamps[key] - start) * 1e3, 3)
+        steps = {
+            "notready_to_declared": since(("declared", "h100-a"),
+                                          t_notready),
+            "to_condition": since(("True", "NodeFailed"),
+                                  stamps[("declared", "h100-a")]),
+            "to_drained": since(("drained", "smoke-recovery-pod"),
+                                stamps[("True", "NodeFailed")]),
+            "to_deallocated": since(("deallocated", "node"),
+                                    stamps[("drained",
+                                            "smoke-recovery-pod")]),
+            "to_allocated_again": since(("allocated", "h100-b"),
+                                        stamps[("deallocated", "node")]),
+            "to_prepare_done": round((t_prepared - stamps[(
+                "allocated", "h100-b")]) * 1e3, 3),
+            "to_kernel_launched": round((t_launched - t_prepared) * 1e3, 3),
+        }
+        final = kube.get(*res, "resourceclaims", RECOVERY_CLAIM,
+                         namespace="default")
+        cond = [c for c in final["status"]["conditions"]
+                if c["type"] == PERMANENT_FAILURE_CONDITION]
+        check(cond and (cond[0]["status"], cond[0]["reason"]) ==
+              ("False", "Recovered"), f"the final condition {cond}")
+        # Every durable stage is an "eviction" flight event in the binary
+        # (the file poll above may miss one written within 2 ms).
+        flight = [e.get("state") for e in json.loads(_http_get(
+            f"{base}/debug/claims/{uid}"))["events"]
+            if e["event"] == "eviction"]
+        check(flight == ["EvictionPlanned", "EvictionDraining",
+                         "EvictionDeallocated", "Recovered"]
+              and stages[-1][0] is None,
+              f"the record's stages {stages}, flight {flight}")
+        rec = {k: v for k, v in metrics().items()
+               if k[0].startswith("tpu_dra_recovery_")}
+        check(rec.get(("tpu_dra_recovery_replaced_total", ())) == 1.0
+              and rec.get(("tpu_dra_recovery_permanent_failures_total",
+                           (("source", "node"),))) == 1.0,
+              f"the binary's recovery samples {rec}")
+        log(f"recovery: (b) h100-a NotReady -> declared failed "
+            f"{steps['notready_to_declared']} ms (grace "
+            f"{RECOVERY_NOTREADY_S} s) -> PermanentFailure condition "
+            f"{steps['to_condition']} ms -> pod drained "
+            f"{steps['to_drained']} ms -> deallocated "
+            f"{steps['to_deallocated']} ms -> allocated on h100-b "
+            f"{steps['to_allocated_again']} ms -> h100-b's prepare done "
+            f"{steps['to_prepare_done']} ms -> the kernel's child done "
+            f"{steps['to_kernel_launched']} ms (its CUDA start included); "
+            f"children: h100-a {first['launches']} checked launch + "
+            f"{first['load_launches']} load, max_abs_err "
+            f"{first['max_abs_err']}; h100-b {second['launches']} launch, "
+            f"max_abs_err {second['max_abs_err']} (bound "
+            f"{CLAIM_CHILD_MAX_ERR}); final condition {cond[0]['status']} "
+            f"{cond[0]['reason']}; record stages from the recovery root "
+            f"(ms after NotReady) {stages}, the binary's flight events "
+            f"{flight}; h100-a's sweep repaired {swept}; one card: both "
+            f"nodes publish the same H100 from their own state and CDI "
+            f"roots; the binary's samples "
+            f"{json.dumps({str(k): v for k, v in sorted(rec.items())})}")
+        ms.update(steps)
+
+        # -- (c) the device fails: nowhere to go. A host of more GPUs than
+        # the card's one has the others filled first.
+        fillers = [f"smoke-recovery-filler-{i}"
+                   for i in range(len(b.ready["devices"]) - 1)]
+        for name in fillers:
+            kube.create(*res, "resourceclaims", {
+                "apiVersion": "resource.k8s.io/v1", "kind": "ResourceClaim",
+                "metadata": {"name": name, "namespace": "default"},
+                "spec": {"devices": {"requests": [{"name": "gpu", "exactly": {
+                    "deviceClassName": deviceclasses.GPU_CLASS}}]}}},
+                namespace="default")
+        wait(lambda: all(kube.get(*res, "resourceclaims", n, namespace=
+                                  "default").get("status", {}).get(
+                                      "allocation") for n in fillers),
+             30, "the filler claims")
+        t_fail = time.perf_counter()
+        b.ask("fail gpu-0")
+        wait(lambda: ("True", "DeviceFailed") in stamps, 30,
+             "the device failure's declaration")
+        wait(lambda: ("True", "RecoveryDeadlineExceeded") in stamps,
+             RECOVERY_DEADLINE_S + 30, "the deadline retirement")
+        t_retired = stamps[("True", "RecoveryDeadlineExceeded")]
+
+        def records():
+            with open(f"{tmp}/recovery/checkpoint.json",
+                      encoding="utf-8") as f:
+                return json.load(f)["data"]["claims"]
+        # The condition lands before the record goes (the same step).
+        wait(lambda: records() == {}, 10, "the retired record's removal")
+        ms["retired_to_record_gone"] = round(
+            (time.perf_counter() - t_retired) * 1e3, 3)
+        final = kube.get(*res, "resourceclaims", RECOVERY_CLAIM,
+                         namespace="default")
+        taints = device("h100-b").get("taints") or []
+        check(not final["status"].get("allocation")
+              and any(t["key"] == FAILED_TAINT_KEY
+                      and t.get("effect") == "NoExecute" for t in taints),
+              f"the retirement: claim {final['status']}, taints {taints}")
+        ms["device_fail_to_declared"] = round(
+            (stamps[("True", "DeviceFailed")] - t_fail) * 1e3, 3)
+        ms["declared_to_retired"] = round(
+            (stamps[("True", "RecoveryDeadlineExceeded")]
+             - stamps[("True", "DeviceFailed")]) * 1e3, 3)
+        log(f"recovery: (c) gpu-0 of h100-b escalated to the sticky failed "
+            f"taint ({taints}); declared {ms['device_fail_to_declared']} "
+            f"ms after the escalation, retired "
+            f"{ms['declared_to_retired']} ms later (deadline "
+            f"{RECOVERY_DEADLINE_S} s): RecoveryDeadlineExceeded, no "
+            f"allocation, no record")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        check(rc == 0, f"the binary exited {rc}")
+        for node in list(plugins):
+            check(plugins.pop(node).close() == 0,
+                  f"the plugin of {node} exited non-zero")
+
+        # -- (d) the fleet, in process.
+        fm = FleetMetrics()
+        t0 = time.perf_counter()
+        fleet_run = _fleet_run(kube.list(*res, "resourceslices")[0],
+                               product, shuffle=seed, fleet_metrics=fm)
+        ms["fleet_phase"] = round((time.perf_counter() - t0) * 1e3, 3)
+        samples = metric_samples(generate_latest(fm.registry).decode())
+        folds = samples[("tpu_dra_fleet_fold_seconds_count", ())]
+        fold_ms = samples[("tpu_dra_fleet_fold_seconds_sum", ())] / folds * 1e3
+        fkube = fleet_run["kube"]
+        victim = "hgx-000"
+        fkube.patch("", "v1", "nodes", victim, {"status": {"conditions": [
+            {"type": "Ready", "status": "False"}]}})
+        ctrl = EvictionController(fkube, f"{tmp}/fleet-recovery",
+                                  notready_grace_s=0.0)
+        fleet_run["sched"].attach_recovery(ctrl)
+        t0 = time.perf_counter()
+        counts = ctrl.sync_once()
+        sync_ms = round((time.perf_counter() - t0) * 1e3, 3)
+        on_victim = sum(1 for c in fkube.list(*res, "resourceclaims")
+                        if victim in str((c.get("status", {}).get(
+                            "allocation") or {}).get("nodeSelector")))
+        check(counts["victims"] == on_victim > 0 and counts["planned"] ==
+              min(on_victim, ctrl.max_concurrent),
+              f"the fleet's recovery pass {counts}, {on_victim} on {victim}")
+        log(f"recovery: (d) fleet of {FLEET_NODES} x {FLEET_GPUS} GPUs with "
+            f"telemetry attributes on every device: passes "
+            f"{fleet_run['passes_ms']} ms, the fleet fold "
+            f"{fold_ms:.3f} ms a pass (mean of {int(folds)}); "
+            f"{victim} NotReady: one EvictionController.sync_once "
+            f"{sync_ms} ms, {counts} ({on_victim} claims on {victim}, "
+            f"{ctrl.max_concurrent} admitted at once)")
+        ms.update(fleet_fold_mean=round(fold_ms, 3), fleet_sync_once=sync_ms)
+        passed = True
+        return children
+    finally:
+        stop_watch.set()
+        if watcher is not None:
+            watcher.join(5)
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for plugin in plugins.values():
+            plugin.close()
+        if server is not None:
+            server.stop()
+        fleetstate.set_default_fleet(fleet_before)
+        left = [t.name for t in threading.enumerate()
+                if t not in threads_before and t.is_alive()]
+        ms["phase"] = round((time.perf_counter() - t_phase) * 1e3, 3)
+        log(f"recovery: host ms {json.dumps(ms)} on {card}; threads left "
+            f"{left}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        if passed:
+            check(not left, "a thread outlived the phase")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5560,6 +6202,9 @@ def main(argv=None) -> int:
     t_sched = time.perf_counter()
     sched_child = phase_scheduler(args.seed)
     log(f"scheduler: phase 20 in {time.perf_counter() - t_sched:.1f} s")
+    t_recovery = time.perf_counter()
+    recovery_children = phase_recovery(args.seed)
+    log(f"recovery: phase 21 in {time.perf_counter() - t_recovery:.1f} s")
     forward["launches_by_path"] = {
         "serving_generate": serving_launches,
         "training_step": training["forward_lse"],
@@ -5574,6 +6219,7 @@ def main(argv=None) -> int:
         "tenancy_child": tenancy_child,
         "cd_channel_child": cd_child,
         "scheduler_claim_child": sched_child,
+        "recovery_claim_children": recovery_children,
         "sharded_training_step": gang["train"]["forward_lse"],
         "moe_training_step": moe["forward_lse"],
         "sp_ulysses_training_step": sp["ulysses"]["forward_lse"],

@@ -21,8 +21,10 @@ Run as a child of the daemon:
 
 With ``--parent-pid`` the child arms its parent-death signal and exits at
 once when its parent is no longer that process (the supervisor starts it
-without ``preexec_fn``, ``process.py``). The JAX service's fault seam is
-not ported.
+without ``preexec_fn``, ``process.py``). The fault point
+``rendezvous.handle`` (``pkg/faults.py``) acts on each command: ``error``
+drops the connection (``ConnectionResetError``, as a dying daemon),
+``latency`` delays the answer.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ import socketserver
 import sys
 import threading
 import time
+
+from ...pkg import faults
 
 logger = logging.getLogger(__name__)
 
@@ -97,6 +101,8 @@ class _Handler(socketserver.StreamRequestHandler):
     def handle(self) -> None:
         state: MembershipState = self.server.state  # type: ignore
         line = self.rfile.readline().decode(errors="replace").strip().upper()
+        faults.fault_point("rendezvous.handle",
+                           error=lambda m: ConnectionResetError(m))
         if line == "STATUS":
             self.wfile.write(b"READY\n" if state.ready() else b"NOT_READY\n")
         elif line == "MEMBERS":

@@ -65,7 +65,7 @@ class CDDriver:
     def __init__(self, state: CDDeviceState, kube, node_name: str,
                  metrics: DRARequestMetrics | None = None,
                  retry_timeout: float = ERROR_RETRY_MAX_TIMEOUT_S,
-                 resilience=None):
+                 resilience=None, recovery_metrics=None):
         self.state = state
         self.kube = kube
         self.node_name = node_name
@@ -75,7 +75,8 @@ class CDDriver:
         self.gang_aborts = 0
         self._gc_stop: threading.Event | None = None
         self._gc_thread: threading.Thread | None = None
-        self.reconciler = CDStateReconciler(state, kube)
+        self.reconciler = CDStateReconciler(state, kube,
+                                            metrics=recovery_metrics)
 
     def start_background(self) -> None:
         """The stale domain-dir GC and the reconcile sweep, on a thread."""

@@ -19,7 +19,11 @@ and no fragment cache. Each mutation takes the file lock (with a time
 limit), re-reads the file if another process changed it, validates the
 claim-state transitions against its policy (the two-phase one unless
 another is given: the partition engine's records use
-``PARTITION_POLICY``), and writes the file durably (``pkg/fsutil.write_json_atomic``) before it returns.
+``PARTITION_POLICY``, the eviction controller's ``EVICTION_POLICY``), and
+writes the file durably (a temporary file, fdatasync, rename) before it
+returns. The fault points ``ckpt.write`` (before the bytes) and
+``ckpt.fsync`` (after them, before they are durable) raise ``OSError``
+in ``error`` mode (``pkg/faults.py``).
 """
 
 from __future__ import annotations
@@ -32,9 +36,9 @@ import zlib
 from dataclasses import dataclass, field
 from enum import Enum
 
-from ..pkg import bootid
+from ..pkg import bootid, faults
 from ..pkg.flock import Flock
-from ..pkg.fsutil import stat_signature, write_json_atomic
+from ..pkg.fsutil import stat_signature
 from ..pkg.statemachine import TWO_PHASE_POLICY, TransitionPolicy
 
 logger = logging.getLogger(__name__)
@@ -233,7 +237,14 @@ class CheckpointManager:
 
     def _write_locked(self, cp: Checkpoint) -> None:
         cp.node_boot_id = cp.node_boot_id or self._boot_id
-        write_json_atomic(self._path, cp.to_json())
+        faults.fault_point("ckpt.write", error=lambda m: OSError(m))
+        tmp = self._path + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            f.write(cp.to_json())
+            f.flush()
+            faults.fault_point("ckpt.fsync", error=lambda m: OSError(m))
+            os.fdatasync(f.fileno())
+        os.replace(tmp, self._path)
         self._cp, self._sig = cp, stat_signature(self._path)
 
     def get(self) -> Checkpoint:

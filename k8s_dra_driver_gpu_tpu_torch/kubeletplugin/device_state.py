@@ -129,8 +129,10 @@ What differs from the JAX plugin, on an H100 host:
 - **One plugin process a node.** Every prepare, unprepare and orphan
   sweep runs under the node lock (a ``Flock`` with a time limit), so a
   PrepareStarted record found by a prepare is a crashed prepare's and is
-  rolled back. The JAX plugin's per-chip shard locks, reservation leases
-  for an upgrade handover and fault-injection seams are not ported.
+  rolled back. The JAX plugin's per-chip shard locks and reservation
+  leases for an upgrade handover are not ported, nor its ``prep_reserved``
+  segment (a seam inside the reservation section); every other segment
+  is a fault point (``pkg/timing.py``).
 - **Tracing and the flight recorder**, as in the JAX plugin: a prepare
   is one ``prepare`` span, parented by the claim's traceparent
   annotation (``pkg/tracing.extract``), with a child span a segment;

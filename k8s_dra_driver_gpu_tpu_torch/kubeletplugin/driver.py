@@ -35,8 +35,28 @@ through any object with ``KubeClient``'s surface:
   slice deleted or changed behind the driver's back comes back. With the
   monitor off, every device carries an observe-only ``unmonitored``
   taint, as the upstream's ``device_health.go:36-40``.
+- **Telemetry** (the JAX driver's fleet station). The monitor's
+  telemetry samples land in the process ring
+  (``fleetstate.default_ring()``, ``/debug/telemetry``), set the
+  ``tpu_dra_chip_*`` gauges, and are published as quantized device
+  attributes (``telemetryPowerWatts`` in steps of
+  ``TELEMETRY_POWER_STEP_W``, ``telemetryTempCelsius``,
+  ``telemetryDutyPct``, ``telemetryHbmUsedPct``, ``telemetryIciErrors``):
+  steady samples quantize alike, so they cost no slice write. REPLACE
+  semantics: a GPU absent from a sample set loses its attributes, and
+  its gauges go. ``TPU_DRA_TELEMETRY_ATTRS=0`` keeps the attributes off
+  (the ring, gauges and anomalies stay); ``TPU_DRA_TELEMETRY=0`` turns
+  the whole station off. ``TPU_DRA_POWER_CAP_W`` publishes
+  ``powerCapWatts`` on every whole GPU. An anomaly's rising edge counts
+  in ``tpu_dra_anomaly_total``, records an ``anomaly`` flight event under
+  the device, and creates one Warning Event on the Node (its name is
+  fixed by node, device and kind, so a repeat is a 409 and dropped).
 - **Sweep.** ``NodeStateReconciler`` runs the stale-claim GC and the
-  orphan passes on its own thread.
+  orphan passes on its own thread; with ``recovery_metrics`` (a
+  ``pkg/metrics.RecoveryMetrics``) it exports what it repairs, and the
+  quarantine tracker's failure hook counts a failed GPU there
+  (``permanent_failures{source="device"}``); with ``resilience`` (a
+  ``ResilienceMetrics``) a quarantine counts in ``tpu_dra_quarantine_total``.
 - **Partitions.** With the partition engine on, a
   ``PartitionSetWatcher`` (``pkg/partition/watch.py``) follows the
   cluster's PartitionSet CRDs for this node's pool (``Config.pool_name``,
@@ -63,10 +83,9 @@ through any object with ``KubeClient``'s surface:
   With the partition engine on, ``PartitionMetrics`` share the registry.
   Serve the registry with ``MetricsServer(driver.metrics.registry)``.
 
-Not ported: the gRPC transport (ROADMAP.md §1b item 8), the resilience
-and recovery hooks of the health monitor (its quarantine counter,
-``RecoveryMetrics``), telemetry and power-cap attributes, and the
-tenant-telemetry feed of the JAX planner (ROADMAP.md §1c).
+Not ported: the gRPC transport (ROADMAP.md §1b item 8) and the
+tenant-usage feed of the JAX planner (its ``TenantProfileStore``,
+ROADMAP.md §1b item 5b).
 """
 
 from __future__ import annotations
@@ -74,19 +93,23 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import threading
 import time
 
-from ..pkg import flightrecorder, tracing
+from ..pkg import fleetstate, flightrecorder, tracing
+from ..pkg.events import emit_warning_event
 from ..pkg.kubeclient import NotFoundError
 from ..pkg.metrics import DRARequestMetrics, PartitionMetrics
 from ..pkg.partition.watch import PartitionSetWatcher
+from ..pkg.schedcache import ATTR_POWER_CAP, power_cap_env
 from ..pkg.sliceutil import publish_resource_slices, slice_content_hash
 from ..tpulib.binding import load
 from . import DRIVER_NAME
 from .claim import ResourceClaim
 from .device_state import Config, DeviceState
 from .deviceinfo import AllocatableDevice, DeviceKind, gpu_name
-from .health import TAINT_KEY_PREFIX, ChipHealthMonitor, DeviceTaint
+from .health import (TAINT_KEY_PREFIX, ChipHealthMonitor, DeviceTaint,
+                     QuarantineTracker)
 from .partitions import consumed_counters, shared_counter_sets
 from .reconcile import NodeStateReconciler
 
@@ -98,6 +121,17 @@ PUBLICATION_MODES = ("combined", "split")
 # The first API server version that serves the split layout (KEP-4815).
 SPLIT_SERVER_VERSION = (1, 35)
 
+# Telemetry attribute quantization: raw power and temperature wiggle
+# every poll; in these steps a steady GPU hashes alike and the publish
+# costs nothing, while a real shift (5 C, 10 W) lands within one poll.
+TELEMETRY_POWER_STEP_W = 10
+TELEMETRY_TEMP_STEP_C = 5
+TELEMETRY_DUTY_STEP_PCT = 10
+TELEMETRY_HBM_STEP_PCT = 10
+# The cumulative NVLink error count too: a trickle below the anomaly
+# burst threshold must not become one slice write a poll.
+TELEMETRY_ICI_STEP = 100
+
 
 class Driver:
     """The kubelet plugin's node service over this host's GPUs."""
@@ -106,7 +140,8 @@ class Driver:
                  enable_health_monitor: bool = True,
                  additional_ignored_health_kinds: tuple[str, ...] = (),
                  publication_mode: str | None = None,
-                 metrics: DRARequestMetrics | None = None):
+                 metrics: DRARequestMetrics | None = None,
+                 resilience=None, recovery_metrics=None):
         self.kube = kube_client
         self.node_name = node_name
         if publication_mode is None:
@@ -129,6 +164,20 @@ class Driver:
         # request metrics' histogram.
         self.state.segment_observer = self.metrics.observe_segments
         self._taints: dict[str, list[dict]] = {}
+        # Quantized telemetry attributes by device, merged into the
+        # published devices (the scheduler's fleet fold reads them).
+        self._telemetry_attrs: dict[str, dict] = {}
+        self._telemetry_attrs_enabled = (
+            fleetstate.telemetry_enabled()
+            and os.environ.get("TPU_DRA_TELEMETRY_ATTRS", "1")
+            not in ("0", "false", "False"))
+        # This node's power cap in watts (TPU_DRA_POWER_CAP_W, 0 = none).
+        self._power_cap_w = power_cap_env()
+        # One publish at a time, each generating its slices under the
+        # lock: a health poll's republish racing start()'s first publish
+        # would otherwise lose its create (409) while start()'s slices,
+        # generated before the taints, become the published hashes.
+        self._publish_lock = threading.Lock()
         # The hashes of the last slice set published, and when the live
         # pool was last read.
         self._published_hashes: tuple | None = None
@@ -138,8 +187,8 @@ class Driver:
                 "TPU_DRA_PUBLISH_RECHECK_S", "300"))
         except ValueError:
             self._publish_recheck_s = 300.0
-        self.reconciler = NodeStateReconciler(self.state, kube_client,
-                                              node_name)
+        self.reconciler = NodeStateReconciler(
+            self.state, kube_client, node_name, metrics=recovery_metrics)
         self.partition_watcher: PartitionSetWatcher | None = None
         if self.state.partition_engine is not None and os.environ.get(
                 "TPU_DRA_PARTITION_WATCH", "1") not in ("0", "false",
@@ -161,9 +210,21 @@ class Driver:
                 config.gpulib_opts,
                 expected_chips=",".join(str(c.minor) for c in gpus),
                 expected_bdfs=",".join(c.pci_bdf for c in gpus))
+            on_quarantine = on_failed = None
+            if resilience is not None:
+                on_quarantine = (lambda device: resilience.quarantines
+                                 .labels(device).inc())
+            if recovery_metrics is not None:
+                on_failed = (lambda device: recovery_metrics
+                             .permanent_failures.labels("device").inc())
             self.health_monitor = ChipHealthMonitor(
                 load(config.backend), opts, self._on_health_taints,
-                additional_ignored=additional_ignored_health_kinds)
+                additional_ignored=additional_ignored_health_kinds,
+                quarantine=QuarantineTracker(on_quarantine=on_quarantine,
+                                             on_failed=on_failed),
+                telemetry_ring=fleetstate.default_ring(),
+                on_chip_telemetry=self._on_chip_telemetry,
+                on_anomaly=self._on_anomaly)
         else:
             self._taints = {
                 name: [DeviceTaint(device=name,
@@ -295,6 +356,12 @@ class Driver:
                 self._taints.get(gpu_name(dev.gpu.index))
             if taints:
                 entry["taints"] = taints
+            tele = self._telemetry_attrs.get(dev.canonical_name)
+            if tele:
+                entry.setdefault("attributes", {}).update(tele)
+            if self._power_cap_w > 0 and dev.kind == DeviceKind.CHIP:
+                entry.setdefault("attributes", {})[ATTR_POWER_CAP] = {
+                    "int": self._power_cap_w}
             entry["consumesCounters"] = consumed_counters(dev, profiles)
             (gpus if dev.kind == DeviceKind.CHIP else parts
              if dev.kind == DeviceKind.PARTITION else migs).append(entry)
@@ -331,13 +398,15 @@ class Driver:
         """Publish through the content-hash diff: an unchanged pool
         costs one list and no write; the generation moves only with the
         inventory. Returns ``publish_resource_slices``'s stats."""
-        slices = self.generate_resource_slices()
-        hashes = self._slice_hashes(slices)
-        stats = publish_resource_slices(
-            self.kube, slices, on_skip=self.metrics.slice_publish_skipped.inc)
-        self._published_hashes = hashes
-        self._published_verified_at = time.monotonic()
-        return stats
+        with self._publish_lock:
+            slices = self.generate_resource_slices()
+            hashes = self._slice_hashes(slices)
+            stats = publish_resource_slices(
+                self.kube, slices,
+                on_skip=self.metrics.slice_publish_skipped.inc)
+            self._published_hashes = hashes
+            self._published_verified_at = time.monotonic()
+            return stats
 
     # -- partitions ------------------------------------------------------
 
@@ -372,18 +441,85 @@ class Driver:
         """No API call when the slices hash to what was last published
         and the live pool was read within the recheck period; else a
         publish through the diff (which writes only what differs)."""
-        slices = self.generate_resource_slices()
-        hashes = self._slice_hashes(slices)
-        fresh = (time.monotonic() - self._published_verified_at
-                 < self._publish_recheck_s)
-        if hashes == self._published_hashes and fresh:
-            self.metrics.slice_publish_skipped.inc(len(slices))
+        with self._publish_lock:
+            slices = self.generate_resource_slices()
+            hashes = self._slice_hashes(slices)
+            fresh = (time.monotonic() - self._published_verified_at
+                     < self._publish_recheck_s)
+            if hashes == self._published_hashes and fresh:
+                self.metrics.slice_publish_skipped.inc(len(slices))
+                return
+            try:
+                publish_resource_slices(
+                    self.kube, slices,
+                    on_skip=self.metrics.slice_publish_skipped.inc)
+                self._published_hashes = hashes
+                self._published_verified_at = time.monotonic()
+            except Exception:  # noqa: BLE001 - the next poll publishes again
+                logger.exception("republish after health event failed")
+
+    # -- fleet telemetry -------------------------------------------------
+
+    def _on_chip_telemetry(self, samples) -> None:
+        """The monitor's samples -> per-GPU gauges and quantized slice
+        attributes, republished only when a value moved a step."""
+        hbm_cap = max(self.state.host.memory_bytes_per_chip, 1)
+        attrs: dict[str, dict] = {}
+        self.metrics.telemetry.prune_absent(s.chip for s in samples)
+
+        def q(val: float, step: int) -> int:
+            return int(round(float(val) / step) * step)
+
+        for s in samples:
+            self.metrics.telemetry.observe_sample(s)
+            name = gpu_name(s.chip)
+            if name not in self.state.allocatable:
+                continue
+            attrs[name] = {
+                fleetstate.ATTR_POWER: {
+                    "int": q(s.power_watts, TELEMETRY_POWER_STEP_W)},
+                fleetstate.ATTR_TEMP: {
+                    "int": q(s.temp_celsius, TELEMETRY_TEMP_STEP_C)},
+                fleetstate.ATTR_DUTY: {
+                    "int": q(s.duty_cycle * 100, TELEMETRY_DUTY_STEP_PCT)},
+                fleetstate.ATTR_HBM: {
+                    "int": q(s.hbm_used_bytes * 100 / hbm_cap,
+                             TELEMETRY_HBM_STEP_PCT)},
+                fleetstate.ATTR_ICI_ERR: {
+                    "int": q(s.ici_link_errors, TELEMETRY_ICI_STEP)},
+            }
+        if not self._telemetry_attrs_enabled:
             return
-        try:
-            publish_resource_slices(
-                self.kube, slices,
-                on_skip=self.metrics.slice_publish_skipped.inc)
-            self._published_hashes = hashes
-            self._published_verified_at = time.monotonic()
-        except Exception:  # noqa: BLE001 - the next poll publishes again
-            logger.exception("republish after health event failed")
+        # REPLACE semantics: a GPU absent from this sample set drops its
+        # attributes rather than publish a frozen last reading.
+        if attrs == self._telemetry_attrs:
+            # Nothing moved a step: the slices cannot have changed
+            # (the taint path's periodic recheck still repairs slices
+            # changed behind the driver's back).
+            return
+        self._telemetry_attrs = attrs
+        self._republish_reconciled()
+
+    def _on_anomaly(self, detections) -> None:
+        """Anomaly rising edges -> counter, flight event, and one Warning
+        Event on the Node. The quarantine needs no wiring: the
+        detector's taints ride the poll's list into the tracker."""
+        for det in detections:
+            self.metrics.telemetry.inc_anomaly(det.kind)
+            flightrecorder.default().record(
+                det.device, "anomaly", kind=det.kind, node=self.node_name,
+                **det.detail)
+            logger.warning("telemetry anomaly on %s/%s: %s %s",
+                           self.node_name, det.device, det.kind, det.detail)
+            emit_warning_event(
+                self.kube,
+                # Fixed by (node, device, kind): a repeat episode of the
+                # same anomaly is a 409, dropped.
+                event_name=(f"{self.node_name}.{det.device}."
+                            f"{det.kind.replace('_', '-')}"),
+                namespace="default", reason="TelemetryAnomaly",
+                message=(f"{det.kind} detected on {det.device} (node "
+                         f"{self.node_name}): {det.detail}; time-series "
+                         "at /debug/telemetry on the node plugin"),
+                involved_kind="Node", involved_name=self.node_name,
+                component="tpu-dra-kubelet-plugin")

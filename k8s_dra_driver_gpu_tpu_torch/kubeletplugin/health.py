@@ -17,15 +17,29 @@ reconciles instead of accumulating.
 ``QuarantineTracker`` escalates a flapping GPU (non-fatal events that
 come and go) to a ``degraded`` NoSchedule taint, releases it after a
 clean hysteresis period, and after repeated quarantines declares it
-``failed`` (NoExecute, sticky).
+``failed`` (NoExecute, sticky; ``pkg/recovery.py`` evicts its claims).
+``on_quarantine`` and ``on_failed`` fire once an escalation (the kubelet
+driver's metrics hooks).
+
+Fleet telemetry rides the same poll (``sample_chip_telemetry``, the JAX
+monitor's): each GPU's power, temperature, memory and utilization
+sample (``tpulib.chip_telemetry``) lands in the telemetry ring
+(``pkg/fleetstate``, served at ``/debug/telemetry``), runs through the
+anomaly detector (``pkg/anomaly``), and reaches the driver through
+``on_chip_telemetry`` (gauges and quantized slice attributes) and
+``on_anomaly`` (rising edges: counter, flight event, Warning Event).
+The detector's observe-only taints merge into the poll's list BEFORE the
+quarantine pass, so a flapping anomaly escalates as a flapping event
+does. A sample that raises (NVML refuses ``chip_telemetry`` in a process
+that has initialised CUDA) is logged and loses only its samples, never
+the health poll. ``TPU_DRA_TELEMETRY=0`` turns the station off.
 
 The monitor owns the device library it is given: ``stop()`` closes it.
-A failing poll backs off exponentially and never kills the thread.
+A failing poll backs off exponentially and never kills the thread; the
+fault point ``health.poll`` (``pkg/faults.py``) acts at each poll.
 
-Not ported: per-chip telemetry sampling, tenant usage, anomaly
-detection and the fleet telemetry ring (``sample_chip_telemetry``,
-``pkg/anomaly``, ``pkg/fleetstate``), metrics and the fault-injection
-seam (ROADMAP.md §1b).
+Not ported: the per-tenant usage feed (``sample_telemetry``), which
+waits with the partition planner's profile store (ROADMAP.md §1b).
 """
 
 from __future__ import annotations
@@ -36,7 +50,8 @@ import time
 from dataclasses import dataclass
 from typing import Callable
 
-from ..pkg import positive_float_env
+from ..pkg import anomaly as anomaly_mod
+from ..pkg import faults, fleetstate, positive_float_env
 from ..tpulib.binding import EnumerateOptions, HealthEvent
 from .deviceinfo import gpu_name
 
@@ -111,22 +126,26 @@ class QuarantineTracker:
     to PermanentFailure + eviction off the published taint.
 
     ``observe(taints)`` is called once per poll with the RAW taint list
-    and returns the quarantine + failure taints to merge in. (The JAX
-    tracker's metrics hooks and counters come back with the metrics
-    registry.)"""
+    and returns the quarantine + failure taints to merge in.
+    ``on_quarantine`` / ``on_failed`` fire once per escalation
+    (metrics hooks)."""
 
     def __init__(
         self,
         threshold: int = QUARANTINE_EVENTS,
         window_s: float = QUARANTINE_WINDOW_S,
         hysteresis_s: float = QUARANTINE_HYSTERESIS_S,
+        on_quarantine: Callable[[str], None] | None = None,
         fatal_after: int = QUARANTINE_FATAL_ESCALATIONS,
+        on_failed: Callable[[str], None] | None = None,
         clock=time.monotonic,
     ):
         self.threshold = max(1, int(threshold))
         self.window_s = window_s
         self.hysteresis_s = hysteresis_s
+        self.on_quarantine = on_quarantine
         self.fatal_after = max(1, int(fatal_after))
+        self.on_failed = on_failed
         self._clock = clock
         # device -> recent healthy->sick TRANSITION timestamps
         # (window-pruned). Transitions, not per-poll presence: tpulib
@@ -145,6 +164,8 @@ class QuarantineTracker:
         # fatal_after it escalates to the sticky failed set.
         self._escalations: dict[str, int] = {}
         self._failed: set[str] = set()
+        self.total_quarantines = 0
+        self.total_failures = 0
 
     @property
     def quarantined(self) -> frozenset[str]:
@@ -164,11 +185,17 @@ class QuarantineTracker:
         self._failed.add(device)
         self._quarantined.pop(device, None)
         self._events.pop(device, None)
+        self.total_failures += 1
         logger.error(
             "chip %s declared PERMANENTLY FAILED (sticky %s/%s "
             "NoExecute taint; claims on it will be evicted)",
             device, TAINT_KEY_PREFIX, FAILED_KIND,
         )
+        if self.on_failed is not None:
+            try:
+                self.on_failed(device)
+            except Exception:  # noqa: BLE001 - metrics hook
+                logger.exception("failure hook failed")
 
     def observe(self, taints: list[DeviceTaint]) -> list[DeviceTaint]:
         now = self._clock()
@@ -202,12 +229,18 @@ class QuarantineTracker:
                     device not in self._quarantined:
                 self._quarantined[device] = now
                 del self._events[device]
+                self.total_quarantines += 1
                 logger.warning(
                     "quarantining %s: %d non-fatal health events within "
                     "%.0fs (NoSchedule until clean for %.0fs)",
                     device, self.threshold, self.window_s,
                     self.hysteresis_s,
                 )
+                if self.on_quarantine is not None:
+                    try:
+                        self.on_quarantine(device)
+                    except Exception:  # noqa: BLE001 - metrics hook
+                        logger.exception("quarantine hook failed")
                 # A chip earning quarantine for the Nth time has blown
                 # through the hysteresis release N-1 times: escalate
                 # from quarantine to declared permanent failure.
@@ -247,8 +280,9 @@ class QuarantineTracker:
 
 class ChipHealthMonitor:
     """Polls ``tpulib.health(opts)`` and hands the full current taint
-    list (event taints, then quarantine and failure taints) to
-    ``on_taints`` whenever it changed."""
+    list (event and anomaly taints, then quarantine and failure taints)
+    to ``on_taints`` whenever it changed; samples the GPUs' telemetry on
+    the same cadence."""
 
     def __init__(
         self,
@@ -258,10 +292,24 @@ class ChipHealthMonitor:
         ignored_kinds: frozenset[str] = DEFAULT_IGNORED_KINDS,
         additional_ignored: tuple[str, ...] = (),
         poll_interval: float = POLL_INTERVAL_S,
+        quarantine: QuarantineTracker | None = None,
+        on_quarantine: Callable[[str], None] | None = None,
+        telemetry_ring=None,  # pkg.fleetstate.TelemetryRing | None
+        anomaly_detector=None,  # pkg.anomaly.AnomalyDetector | None
+        on_chip_telemetry: Callable[[tuple], None] | None = None,
+        on_anomaly: Callable[[list], None] | None = None,
     ):
         self._tpulib = tpulib
         self._opts = opts
         self._on_taints = on_taints
+        self._telemetry_enabled = fleetstate.telemetry_enabled()
+        self.telemetry_ring = telemetry_ring
+        self.anomaly = anomaly_detector
+        if self._telemetry_enabled and self.anomaly is None and \
+                (on_anomaly is not None or telemetry_ring is not None):
+            self.anomaly = anomaly_mod.AnomalyDetector(chip_name=gpu_name)
+        self._on_chip_telemetry = on_chip_telemetry
+        self._on_anomaly = on_anomaly
         self._ignored = frozenset(ignored_kinds) | frozenset(
             additional_ignored)
         self._interval = poll_interval
@@ -269,7 +317,8 @@ class ChipHealthMonitor:
         self._thread = threading.Thread(target=self._run,
                                         name="gpu-health", daemon=True)
         self._last: list[DeviceTaint] | None = None
-        self.quarantine = QuarantineTracker()
+        self.quarantine = quarantine or QuarantineTracker(
+            on_quarantine=on_quarantine)
         self.consecutive_failures = 0
 
     def start(self) -> None:
@@ -290,16 +339,59 @@ class ChipHealthMonitor:
             close()
 
     def poll_once(self) -> list[DeviceTaint]:
+        # ``error`` here must not kill the poll thread (_run backs off).
+        faults.fault_point("health.poll")
         taints: list[DeviceTaint] = []
         for ev in self._tpulib.health(self._opts):
             taints.extend(health_event_to_taints(ev, self._ignored))
         return taints
 
     def poll_and_reconcile(self) -> list[DeviceTaint]:
-        """One poll and one quarantine pass: the list the callback sees
-        (also the entry for driving the monitor by hand)."""
+        """One poll, one telemetry sample and one quarantine pass: the
+        list the callback sees (also the entry for driving the monitor
+        by hand). Anomaly taints merge before the quarantine pass."""
         taints = self.poll_once()
+        try:
+            # Telemetry never poisons the health poll: a broken seam
+            # loses its samples (and their anomaly taints) only.
+            self.sample_chip_telemetry()
+        except Exception:  # noqa: BLE001 - telemetry best-effort
+            logger.exception("chip-telemetry sample failed")
+        if self.anomaly is not None:
+            taints = taints + self.anomaly.taints(
+                DeviceTaint, TAINT_KEY_PREFIX)
         return taints + self.quarantine.observe(taints)
+
+    def sample_chip_telemetry(self) -> tuple:
+        """One telemetry sample through the device library: ring
+        append, anomaly fold, the callbacks. Returns the samples (also
+        the entry for driving it by hand). A no-op with
+        ``TPU_DRA_TELEMETRY=0``, a library without the seam, or nothing
+        wired."""
+        if not self._telemetry_enabled:
+            return ()
+        fn = getattr(self._tpulib, "chip_telemetry", None)
+        if fn is None:
+            return ()
+        if self.telemetry_ring is None and self.anomaly is None and \
+                self._on_chip_telemetry is None:
+            return ()
+        samples = tuple(fn(self._opts) or ())
+        if self.telemetry_ring is not None:
+            for s in samples:
+                self.telemetry_ring.record_sample(s)
+        if self.anomaly is not None:
+            detections = self.anomaly.observe(samples)
+            if detections and self._on_anomaly is not None:
+                try:
+                    self._on_anomaly(detections)
+                except Exception:  # noqa: BLE001 - consumer hook
+                    logger.exception("anomaly hook failed")
+        if self._on_chip_telemetry is not None:
+            # Delivered even when EMPTY: the consumer drops the slice
+            # attributes of GPUs that stopped reporting.
+            self._on_chip_telemetry(samples)
+        return samples
 
     def _backoff(self) -> float:
         """The base interval, doubled for each consecutive failure up to

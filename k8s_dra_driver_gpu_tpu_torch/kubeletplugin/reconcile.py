@@ -35,7 +35,11 @@ The JAX sweep's reservation-lease pass (the upgrade handover's leases,
 not ported with ``DeviceState``) has nothing to repair here and reports
 0.
 ``CDStateReconciler`` is the sweep of the ComputeDomain plugin
-(``computedomain/plugin``). The recovery metrics are not ported.
+(``computedomain/plugin``). With ``metrics`` (a
+``pkg/metrics.RecoveryMetrics``) both export ``tpu_dra_recovery_*``:
+``orphans_repaired_total`` by kind, ``reconcile_drift`` (the last
+sweep's counts, 0 on a healthy node), and a devices-gone declaration as
+``permanent_failures{source="sweep"}``.
 """
 
 from __future__ import annotations
@@ -57,9 +61,10 @@ SWEEP_INTERVAL_S = positive_float_env("TPU_DRA_RECOVERY_SWEEP_S",
 class NodeStateReconciler:
     """Periodic audit of the node's claim state."""
 
-    def __init__(self, device_state, kube, node_name: str):
+    def __init__(self, device_state, kube, node_name: str, metrics=None):
         self._state = device_state
         self._kube = kube
+        self._metrics = metrics  # pkg.metrics.RecoveryMetrics | None
         self._interval = SWEEP_INTERVAL_S
         # This node's name (its ResourceSlice pool): device names repeat
         # on every node, so only a node identity tells a claim re-placed
@@ -108,6 +113,7 @@ class NodeStateReconciler:
                 self._state.prune_retired_partitions()
         counts["devices_gone"] = self._declare_gone_devices(
             self._state.prepared_claims(), lookups)
+        self._observe(counts)
         if any(counts.values()):
             logger.warning("recovery sweep repaired/declared: %s",
                            {k: v for k, v in counts.items() if v})
@@ -192,9 +198,22 @@ class NodeStateReconciler:
                     f"device(s) {sorted(gone)} no longer exist on this "
                     "host; claim needs migration"):
                 declared += 1
+                if self._metrics is not None:
+                    self._metrics.permanent_failures.labels("sweep").inc()
                 logger.error("claim %s references vanished device(s) %s: "
                              "declared PermanentFailure", uid, sorted(gone))
         return declared
+
+    def _observe(self, counts: dict) -> None:
+        if self._metrics is None:
+            return
+        for kind in ("stale_claim", "moved_claim", "cdi_spec", "carveout",
+                     "lease", "idle_partition"):
+            if counts.get(kind):
+                self._metrics.orphans_repaired.labels(kind).inc(
+                    counts[kind])
+        for kind, n in counts.items():
+            self._metrics.reconcile_drift.labels(kind).set(n)
 
 
 class CDStateReconciler:
@@ -206,9 +225,10 @@ class CDStateReconciler:
     once its domain is positively gone). Its driver runs it from its
     background thread."""
 
-    def __init__(self, cd_state, kube):
+    def __init__(self, cd_state, kube, metrics=None):
         self._state = cd_state
         self._kube = kube
+        self._metrics = metrics  # pkg.metrics.RecoveryMetrics | None
         self.last_sweep: dict = {}
 
     def reconcile_once(self) -> dict:
@@ -234,5 +254,10 @@ class CDStateReconciler:
             self._state.unwind_failed_prepare(uid)
             counts["cd_cdi_spec"] += 1
             logger.warning("unwound orphan CD CDI spec for %s", uid)
+        if self._metrics is not None:
+            for kind, n in counts.items():
+                if n:
+                    self._metrics.orphans_repaired.labels(kind).inc(n)
+                self._metrics.reconcile_drift.labels(kind).set(n)
         self.last_sweep = counts
         return counts

@@ -5,8 +5,11 @@ claim-state machine and the prepare timer; the feature gates
 (``featuregates``); the kube client with its streamed watch and its fake
 API server (``kubeclient``, ``fakeapiserver``), a list-and-watch cache
 (``informer``), ResourceSlice publication by content hash
-(``sliceutil``), the two claim helpers of the reconcile sweep
-(``recovery``), and tenant partitions (``partition``: the PartitionSet
+(``sliceutil``), the permanent-failure recovery controller and the
+claim helpers of the reconcile sweep (``recovery``, its records under
+``statemachine.EVICTION_POLICY``), fault injection (``faults``), the
+fleet telemetry ring and aggregator (``fleetstate``), telemetry anomaly
+detection (``anomaly``), and tenant partitions (``partition``: the PartitionSet
 spec, the engine, the CRD watcher); for the ComputeDomain stack a keyed
 retrying work queue (``workqueue``) and Warning Events (``events``).
 Observability: claim-lifecycle spans (``tracing``), the per-claim

@@ -4,7 +4,9 @@ package's ``pkg/flock.py``; the upstream driver's ``pkg/flock``).
 The lock is taken with ``LOCK_EX | LOCK_NB`` in a poll loop, so a wait
 ends at its ``timeout`` with ``FlockTimeoutError``; the kernel releases it
 when the descriptor closes, so a crashed holder never wedges the node.
-The reference's fault-injection seam is not ported.
+The fault point ``flock.acquire`` (``pkg/faults.py``): ``latency``
+simulates contention, ``error`` a wedged holder (the same
+``FlockTimeoutError`` a real stall gives).
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import fcntl
 import os
 import threading
 import time
+
+from . import faults
 
 
 class FlockTimeoutError(TimeoutError):
@@ -54,6 +58,9 @@ class Flock:
             raise FlockReentrantError(
                 f"thread {self._owner} already holds {self._path}; "
                 "Flock is not re-entrant")
+        faults.fault_point(
+            "flock.acquire",
+            error=lambda m: FlockTimeoutError(f"{m} ({self._path})"))
         deadline = time.monotonic() + timeout
         if not self._thread_lock.acquire(timeout=max(0.0, timeout)):
             raise FlockTimeoutError(

@@ -23,9 +23,9 @@ numbers every write in one sequence, its event log (the last
 resumes from. Its watchers are called after each write, outside the
 store's lock (``add_resource_watcher``), as the JAX fake's.
 
+The watch loop's fault point is ``kube.watch`` (``pkg/faults.py``).
 Not ported: ``from_kubeconfig`` (it needs PyYAML, which the card's
-machine lacks; queued in ROADMAP.md §1b), the reference's
-fault-injection seam in the watch loop, its legacy global watchers
+machine lacks; queued in ROADMAP.md §1b), its legacy global watchers
 (``add_watcher``), and ``read_raw`` (pod logs), which no module of the
 port reads.
 """
@@ -45,6 +45,8 @@ import urllib.error
 import urllib.parse
 import urllib.request
 from typing import Callable
+
+from . import faults
 
 logger = logging.getLogger(__name__)
 
@@ -332,6 +334,10 @@ class KubeClient:
                         pos["rv"])
                 conn = self._connection(WATCH_READ_TIMEOUT_S)
                 try:
+                    # A broken stream (``error``: OSError): the
+                    # reconnect below is what it exercises.
+                    faults.fault_point("kube.watch",
+                                       error=lambda m: OSError(m))
                     conn.request("GET", path + query, headers=headers)
                     if not handle._set_sock(conn.sock):
                         return

@@ -8,16 +8,14 @@ prometheus_httpserver.go).
 The families, their help strings, label names and buckets are the JAX
 package's, on the port's own registry (``pkg/exposition.py``; the port
 does not import ``prometheus_client``). Ported: ``register_build_info``,
-``ClaimSLOMetrics``, ``DRARequestMetrics`` (without its ``telemetry``
-member), ``ResilienceMetrics``, ``PartitionMetrics``,
-``ComputeDomainMetrics``, ``PlacementMetrics``, ``SchedulerMetrics``
-(the families of the scheduler's polled pass: sync time, snapshot
-builds and the control-plane SLO phases) and
+``ClaimSLOMetrics``, ``DRARequestMetrics`` (with its ``telemetry``
+member, ``TelemetryMetrics``), ``ResilienceMetrics``,
+``RecoveryMetrics``, ``PartitionMetrics``, ``TelemetryMetrics``,
+``FleetMetrics``, ``ComputeDomainMetrics``, ``PlacementMetrics``,
+``SchedulerMetrics`` (the families of the scheduler's polled pass: sync
+time, snapshot builds and the control-plane SLO phases) and
 ``MetricsServer``. The others wait for their producers (ROADMAP.md
-§1c): ``RecoveryMetrics`` for the health monitor's quarantine and
-failure hooks and the recovery controller, ``TelemetryMetrics`` and
-``FleetMetrics`` for the telemetry plane (``fleetstate``),
-``WorkQueueMetrics`` and the event-mode families of ``SchedulerMetrics``
+§1c): ``WorkQueueMetrics`` and the event-mode families of ``SchedulerMetrics``
 (dirty queue, informer relists, delta builds, domains) for the
 scheduler's event mode, ``DefragMetrics``, ``MigrationMetrics`` and
 ``AutoscaleMetrics`` for their controllers.
@@ -29,7 +27,7 @@ import os
 import time
 from contextlib import contextmanager
 
-from . import flightrecorder, tracing
+from . import fleetstate, flightrecorder, tracing
 from .debug import debug_stacks_endpoint
 from .exposition import (CONTENT_TYPE_LATEST, CollectorRegistry, Counter,
                          Gauge, Histogram, generate_latest)
@@ -77,9 +75,9 @@ class ClaimSLOMetrics:
     ``prepare`` (node-side NodePrepareResources, reported by both
     kubelet plugins), and ``evict`` (recovery-controller eviction to
     re-placement). In the port the scheduler observes ``fit``,
-    ``commit`` and ``patch``, the node plugins ``prepare``; ``queued``
-    waits for the scheduler's event mode and ``evict`` for the recovery
-    controller (ROADMAP.md §1c). Observations carry the
+    ``commit`` and ``patch``, the node plugins ``prepare``, the recovery
+    controller attached to a scheduler ``evict``; ``queued`` waits for
+    the scheduler's event mode (ROADMAP.md §1c). Observations carry the
     claim's trace id as an exemplar when one is active (kept on the
     bucket; the text format 0.0.4 does not print it)."""
 
@@ -179,8 +177,11 @@ class DRARequestMetrics:
         # (phase="prepare"); the scheduler exports the control-plane
         # phases from its own registry (SchedulerMetrics.slo).
         self.slo = ClaimSLOMetrics(registry=self.registry)
-        # The JAX class's ``telemetry`` member (TelemetryMetrics) waits
-        # for the telemetry plane (ROADMAP.md §1c, fleetstate).
+        # Per-chip power/thermal/utilization telemetry + anomaly
+        # episode counts (the fleet telemetry plane's node half; fed
+        # by the health-poll loop through kubeletplugin/driver.py).
+        # Labeled families export nothing until a chip reports.
+        self.telemetry = TelemetryMetrics(registry=self.registry)
 
     def observe_segments(self, operation: str, segments: dict) -> None:
         """DeviceState.segment_observer hook: one histogram sample per
@@ -218,9 +219,8 @@ class DRARequestMetrics:
 
 class ResilienceMetrics:
     """Retry / circuit-breaker / gang-abort / quarantine observability
-    (pkg/retry.py, computedomain/plugin/driver.py; the port's health
-    monitor has no quarantine hook yet, so ``quarantines`` stays empty:
-    ROADMAP.md §1c).
+    (pkg/retry.py, kubeletplugin/health.py through the kubelet driver's
+    ``resilience`` hook, computedomain/plugin/driver.py).
 
     Every self-healing decision the stack takes under failure shows up
     here: a rising ``retry_total`` is an apiserver (or network) getting
@@ -253,6 +253,74 @@ class ResilienceMetrics:
             "Chips escalated to NoSchedule quarantine after repeated "
             "non-fatal health events.",
             ["device"],
+            registry=self.registry,
+        )
+
+
+class RecoveryMetrics:
+    """Permanent-failure recovery observability (pkg/recovery.py +
+    kubeletplugin/reconcile.py).
+
+    Two producers share this family: the scheduler-side eviction &
+    migration controller (evictions, replacements, deadline failures,
+    declared permanent failures) and the per-node reconciliation sweep
+    (orphans repaired, cross-layer drift). A healthy fleet shows
+    ``permanent_failures_total`` rising only with real hardware events,
+    every eviction paired with a ``replaced``/``failed`` retirement,
+    ``active_evictions`` returning to zero, and a sweep that finds
+    nothing (``reconcile_drift`` at 0) -- persistent drift means some
+    layer is leaking state faster than the sweep repairs it."""
+
+    def __init__(self, registry: CollectorRegistry | None = None):
+        self.registry = registry or CollectorRegistry()
+        self.permanent_failures = Counter(
+            "tpu_dra_recovery_permanent_failures_total",
+            "Claims declared permanently failed, by failure source "
+            "(node = NotReady past deadline / deleted; device = fatal "
+            "chip taint; gang = healthy companion of a failed gang "
+            "member; sweep = node sweep found devices gone).",
+            ["source"],
+            registry=self.registry,
+        )
+        self.evictions = Counter(
+            "tpu_dra_recovery_evictions_total",
+            "Claim evictions started by the recovery controller "
+            "(drain + deallocate of a permanently failed claim).",
+            registry=self.registry,
+        )
+        self.replaced = Counter(
+            "tpu_dra_recovery_replaced_total",
+            "Evicted claims that converged to a fresh allocation on "
+            "surviving capacity.",
+            registry=self.registry,
+        )
+        self.failed = Counter(
+            "tpu_dra_recovery_failed_total",
+            "Evicted claims that blew the per-claim recovery deadline "
+            "and were retired as cleanly Failed (no allocation, no "
+            "in-flight eviction record).",
+            registry=self.registry,
+        )
+        self.active_evictions = Gauge(
+            "tpu_dra_recovery_active_evictions",
+            "Eviction records currently in flight (bounded by "
+            "TPU_DRA_RECOVERY_MAX_CONCURRENT).",
+            registry=self.registry,
+        )
+        self.orphans_repaired = Counter(
+            "tpu_dra_recovery_orphans_repaired_total",
+            "Orphaned node-local artifacts repaired by the reconcile "
+            "sweep, by kind (carveout, cdi_spec, lease, stale_claim, "
+            "cd_stale_claim, cd_cdi_spec, slice).",
+            ["kind"],
+            registry=self.registry,
+        )
+        self.reconcile_drift = Gauge(
+            "tpu_dra_recovery_reconcile_drift",
+            "Cross-layer divergences observed by the LAST reconcile "
+            "sweep, by kind (devices_gone counts claims whose "
+            "checkpointed devices no longer exist on the host).",
+            ["kind"],
             registry=self.registry,
         )
 
@@ -331,6 +399,202 @@ class PartitionMetrics:
 
     def inc_prewarm_reaped(self) -> None:
         self.prewarm_reaped.inc()
+
+
+class TelemetryMetrics:
+    """Per-chip telemetry exposition (the node collector's metric
+    half; kubeletplugin/health.py feeds it on the health-poll cadence
+    from the ``tpulib.chip_telemetry`` seam, kubeletplugin/driver.py
+    wires it onto the plugin registry).
+
+    The gauges are instantaneous per-chip signals; ``ici_link_errors``
+    re-exports tpulib's CUMULATIVE counter as deltas so Prometheus
+    ``rate()`` works across plugin restarts. ``anomaly_total`` counts
+    detection EPISODES (pkg/anomaly.py rising edges), not per-poll
+    presence -- a sustained thermal drift is one anomaly, not one per
+    5s."""
+
+    def __init__(self, registry: CollectorRegistry | None = None):
+        self.registry = registry or CollectorRegistry()
+        self.power = Gauge(
+            "tpu_dra_chip_power_watts",
+            "Instantaneous per-chip power draw (tpulib telemetry).",
+            ["chip"],
+            registry=self.registry,
+        )
+        self.temp = Gauge(
+            "tpu_dra_chip_temp_celsius",
+            "Per-chip die temperature (tpulib telemetry).",
+            ["chip"],
+            registry=self.registry,
+        )
+        self.hbm_used = Gauge(
+            "tpu_dra_chip_hbm_used_bytes",
+            "Per-chip HBM bytes in use (tpulib telemetry).",
+            ["chip"],
+            registry=self.registry,
+        )
+        self.duty = Gauge(
+            "tpu_dra_chip_duty_cycle",
+            "Per-chip TensorCore duty cycle, 0.0-1.0 (tpulib "
+            "telemetry).",
+            ["chip"],
+            registry=self.registry,
+        )
+        self.ici_errors = Counter(
+            "tpu_dra_chip_ici_link_errors_total",
+            "ICI link errors observed per chip (delta of tpulib's "
+            "cumulative counter).",
+            ["chip"],
+            registry=self.registry,
+        )
+        self.anomalies = Counter(
+            "tpu_dra_anomaly_total",
+            "Telemetry anomaly episodes detected, by kind "
+            "(thermal_drift, power_cap_throttle, duty_cycle_straggler, "
+            "ici_link_error_burst; pkg/anomaly.py).",
+            ["kind"],
+            registry=self.registry,
+        )
+        self._ici_last: dict[str, int] = {}
+
+    # -- the sinks kubeletplugin/{health,driver}.py call ----------------------
+
+    def observe_sample(self, sample) -> None:
+        """One ChipTelemetry sample -> gauge updates + the ICI error
+        delta."""
+        chip = str(sample.chip)
+        self.power.labels(chip).set(float(sample.power_watts))
+        self.temp.labels(chip).set(float(sample.temp_celsius))
+        self.hbm_used.labels(chip).set(int(sample.hbm_used_bytes))
+        self.duty.labels(chip).set(float(sample.duty_cycle))
+        cum = int(sample.ici_link_errors)
+        last = self._ici_last.get(chip)
+        self._ici_last[chip] = cum
+        if last is not None and cum > last:
+            self.ici_errors.labels(chip).inc(cum - last)
+
+    def prune_absent(self, present_chips) -> None:
+        """Remove gauge children for chips absent from the current
+        sample set: a dead sensor must read as NO data, not a
+        frozen-but-plausible last value summed into dashboards
+        (mirrors the slice-attribute replace semantics)."""
+        present = {str(c) for c in present_chips}
+        for chip in set(self._ici_last) - present:
+            for gauge in (self.power, self.temp, self.hbm_used,
+                          self.duty):
+                gauge.remove(chip)
+            # The error counter keeps its history (it is a counter),
+            # but the delta baseline resets so a returning chip
+            # re-baselines instead of double-counting.
+            self._ici_last.pop(chip, None)
+
+    def inc_anomaly(self, kind: str) -> None:
+        self.anomalies.labels(kind).inc()
+
+
+class FleetMetrics:
+    """Fleet-aggregator exposition (pkg/fleetstate.FleetAggregator's
+    duck-typed sink, on the scheduler registry).
+
+    ``pool_utilization`` near 1.0 with ``pending_claims`` above zero is
+    the capacity-starvation signal; ``node_power_watts`` /
+    ``node_temp_celsius`` are the scheduler-visible per-node power and
+    thermal envelope folded from the slice attributes the node plugins
+    publish (the 2501.17752 power-as-scheduler-signal input). Frag
+    history lives in PlacementMetrics + /debug/fleet."""
+
+    def __init__(self, registry: CollectorRegistry | None = None):
+        self.registry = registry or CollectorRegistry()
+        self.pool_utilization = Gauge(
+            "tpu_dra_fleet_pool_utilization",
+            "Allocated fraction of a pool's devices (0.0-1.0), from "
+            "the scheduler's AllocationState.",
+            ["pool"],
+            registry=self.registry,
+        )
+        self.pool_free = Gauge(
+            "tpu_dra_fleet_pool_free_devices",
+            "Devices currently unallocated in a pool.",
+            ["pool"],
+            registry=self.registry,
+        )
+        self.pending = Gauge(
+            "tpu_dra_fleet_pending_claims",
+            "Claims waiting for capacity (demand the free pools are "
+            "not absorbing).",
+            registry=self.registry,
+        )
+        self.node_power = Gauge(
+            "tpu_dra_fleet_node_power_watts",
+            "Per-node power draw summed from the telemetry slice "
+            "attributes the node plugins publish (quantized).",
+            ["node"],
+            registry=self.registry,
+        )
+        self.node_temp = Gauge(
+            "tpu_dra_fleet_node_temp_celsius",
+            "Per-node hottest-chip temperature from the telemetry "
+            "slice attributes (quantized).",
+            ["node"],
+            registry=self.registry,
+        )
+        self.power_headroom = Gauge(
+            "tpu_dra_fleet_power_headroom_watts",
+            "Per-pool power headroom: summed node power caps "
+            "(powerCapWatts attributes / TPU_DRA_POWER_CAP_W) minus "
+            "the summed telemetry draw, with dropped power samples "
+            "carried for TPU_DRA_POWER_SAMPLE_TTL_S. Absent when no "
+            "cap is configured (power model off).",
+            ["pool"],
+            registry=self.registry,
+        )
+        self.fold_seconds = Histogram(
+            "tpu_dra_fleet_fold_seconds",
+            "Wall time of one FleetAggregator fold (per-pool "
+            "utilization + fragmentation over the whole inventory). "
+            "Kept flat by the largest_free_shape memo in "
+            "pkg/topology/score.py -- a rising p99 here means the "
+            "memo stopped hitting (pool geometry churning every "
+            "pass).",
+            buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                     0.1, 0.25, 0.5, 1.0, 2.5),
+            registry=self.registry,
+        )
+
+    # -- the duck-typed sink pkg/fleetstate.py calls --------------------------
+
+    def set_pool(self, pool: str, utilization: float,
+                 free: int) -> None:
+        self.pool_utilization.labels(pool).set(utilization)
+        self.pool_free.labels(pool).set(free)
+
+    def set_pending(self, n: int) -> None:
+        self.pending.set(n)
+
+    def set_node(self, node: str, power_w: float, temp_c: float) -> None:
+        self.node_power.labels(node).set(power_w)
+        self.node_temp.labels(node).set(temp_c)
+
+    def set_pool_power(self, pool: str, headroom_w: float) -> None:
+        self.power_headroom.labels(pool).set(headroom_w)
+
+    def remove_pool_power(self, pool: str) -> None:
+        """A still-present pool stopped publishing power caps: its
+        headroom gauge disappears rather than freezing (the power
+        model is off, not at its last value)."""
+        self.power_headroom.remove(pool)
+
+    def remove_pool(self, pool: str) -> None:
+        """A pool left the snapshot: its gauges must disappear rather
+        than freeze at the last value."""
+        for gauge in (self.pool_utilization, self.pool_free,
+                      self.power_headroom):
+            gauge.remove(pool)
+
+    def remove_node(self, node: str) -> None:
+        for gauge in (self.node_power, self.node_temp):
+            gauge.remove(node)
 
 
 class PlacementMetrics:
@@ -425,9 +689,10 @@ class MetricsServer(SimpleHTTPEndpoint):
     (controller main.go:383-390): ``/debug/stacks`` (every thread's
     traceback), ``/debug/traces[/<trace-id>]`` (the span ring,
     pkg/tracing.py) and ``/debug/claims[/<uid-or-ns/name>]`` (the flight
-    recorder, pkg/flightrecorder.py). The JAX server's
-    ``/debug/telemetry`` and ``/debug/fleet`` wait for ``fleetstate``
-    (ROADMAP.md §1c).
+    recorder, pkg/flightrecorder.py), ``/debug/telemetry`` (the
+    per-chip telemetry ring) and ``/debug/fleet`` (the scheduler's fleet
+    snapshot, both pkg/fleetstate.py; an unused one answers an empty
+    document).
 
     Stacks and spans disclose internal state, so the debug routes are
     served only when the listener is loopback-bound or
@@ -452,6 +717,11 @@ class MetricsServer(SimpleHTTPEndpoint):
                 "/debug/claims/*":
                     lambda rest: flightrecorder.default()
                     .claims_endpoint(rest),
+                "/debug/telemetry":
+                    lambda: fleetstate.default_ring()
+                    .telemetry_endpoint(),
+                "/debug/fleet":
+                    lambda: fleetstate.default_fleet().fleet_endpoint(),
             }
         super().__init__(
             "/metrics",

@@ -43,8 +43,11 @@ Observability, at the JAX engine's hook points: ``attach`` and
 ``partition_attach`` / ``partition_detach`` flight event under the
 tenant's claim uid; once the kubelet ``Driver`` sets ``metrics`` (a
 ``pkg/metrics.PartitionMetrics``), creates, destroys, the Ready count
-and the pre-warm created, hit and reaped counts are exported. Not ported: the engine's fault seams (with
-``pkg/faults.py``, ROADMAP.md §1c).
+and the pre-warm created, hit and reaped counts are exported. The JAX
+engine's fault points ``partition.create`` (after the Creating record,
+before the instance) and ``partition.destroy`` (after the Destroying
+record, before the destroy) raise ``PartitionEngineError`` in ``error``
+mode (``pkg/faults.py``).
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ from ...kubeletplugin.deviceinfo import (AllocatableDevice, DeviceKind,
                                          PartitionInfo)
 from ...kubeletplugin.subslice import enumerate_subslice_devices
 from .. import flightrecorder, positive_float_env, tracing
+from ..faults import fault_point
 from ..statemachine import (PARTITION_CREATING, PARTITION_DESTROYING,
                             PARTITION_POLICY, PARTITION_READY)
 from .spec import (PartitionProfile, PartitionSet, PartitionSpecError,
@@ -344,6 +348,8 @@ class PartitionEngine:
                           "spec": spec.canonical_name()})])
             self._checkpoint.update_claim(name, rec)
         if rec.state == PARTITION_CREATING:
+            fault_point("partition.create",
+                        error=lambda m: PartitionEngineError(m))
             live = self._state.partition_instance(name, spec)
             if live is None:
                 try:
@@ -406,6 +412,8 @@ class PartitionEngine:
             rec = CheckpointedClaim(uid=name, state=PARTITION_DESTROYING,
                                     devices=rec.devices)
             self._checkpoint.update_claim(name, rec)
+        fault_point("partition.destroy",
+                    error=lambda m: PartitionEngineError(m))
         live = rec.devices[0].live if rec.devices else None
         try:
             self._state.destroy_partition_instance(name, live or {})

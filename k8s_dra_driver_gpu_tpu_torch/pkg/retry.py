@@ -21,10 +21,10 @@ Counters (``tpu_dra_retry_total`` by verb, ``tpu_dra_circuit_open_total``)
 export through ``pkg.metrics.ResilienceMetrics`` when one is wired; the
 integer counters on the wrapper are always kept.
 
-Not ported: the JAX module's fault seams (``classify``'s
-``InjectedCrash`` and ``InjectedFault`` and the ``kube.request`` fault
-point), which come with ``pkg/faults.py`` (ROADMAP.md §1c, item
-``faults``).
+The fault point ``kube.request`` (``pkg/faults.py``) fires once an
+attempt, before the call: ``error`` is a retriable 503. ``classify``
+never absorbs an ``InjectedCrash`` (simulated process death) and retries
+an ``InjectedFault``.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ import threading
 import time
 from dataclasses import dataclass
 
+from . import faults
 from .kubeclient import ConflictError, KubeError, NotFoundError
 
 logger = logging.getLogger(__name__)
@@ -81,6 +82,8 @@ class RetryPolicy:
 
 def classify(exc: BaseException, policy: RetryPolicy) -> str:
     """``retriable`` | ``conflict`` | ``permanent``."""
+    if isinstance(exc, faults.InjectedCrash):
+        return "permanent"  # simulated process death, never absorbed
     if isinstance(exc, NotFoundError):
         return "permanent"
     if isinstance(exc, ConflictError):
@@ -88,6 +91,8 @@ def classify(exc: BaseException, policy: RetryPolicy) -> str:
     if isinstance(exc, KubeError):
         return ("retriable" if exc.status in RETRIABLE_STATUSES
                 else "permanent")
+    if isinstance(exc, faults.InjectedFault):
+        return "retriable"
     # URLError / ConnectionResetError / socket timeouts are OSError
     # subclasses; TimeoutError covers socket.timeout on 3.10+.
     if isinstance(exc, (OSError, TimeoutError)):
@@ -230,6 +235,10 @@ class RetryingKubeClient:
                     f"{self.breaker.reset_s}s")
             attempt += 1
             try:
+                # One seam for every client type, once an attempt, so a
+                # retry schedule sees independent trials.
+                faults.fault_point("kube.request",
+                                   error=lambda m: KubeError(503, m))
                 result = fn(*args, **kwargs)
             except BaseException as e:
                 kind = classify(e, self.policy)

@@ -29,6 +29,19 @@ port's kubelet plugins cannot tell:
 4. The DaemonSet and Job controllers the ComputeDomain stack and the
    demo workloads need (one pod per matching node; one pod per Job).
 
+5. **Permanent-failure recovery** (``attach_recovery``,
+   ``pkg/recovery.EvictionController``): its pass runs first in every
+   pass, over this scheduler's view, so the claims it deallocates
+   re-place in the same pass; allocation never probes the nodes it has
+   declared failed; a re-placement observes the SLO's ``evict`` phase.
+6. **The fleet fold** (``pkg/fleetstate.FleetAggregator``): every pass
+   ends by folding the inventory, the allocation state, the published
+   telemetry attributes and the pending claims into the per-pool
+   time-series (``/debug/fleet``, and ``FleetMetrics`` when
+   ``fleet_metrics`` is given); the first fold makes this scheduler's
+   aggregator the process default. A fold that raises is logged and
+   never fails the pass.
+
 One pass is ``sync_once``; ``run(interval)`` repeats it (the JAX
 scheduler's polled mode). Every read lists through the API server
 (``schedcache.ClusterView`` in direct mode), so the JAX scheduler's
@@ -38,15 +51,16 @@ nothing to cover here and is left out.
 What waits, each refused with ``NotPortedError`` naming its ROADMAP.md
 item (§1c): event mode (``start_event_driven``,
 ``--sched-mode events``), workers > 1 and the claim batch, scheduling
-domains and spillover, the recovery, defrag, migration and autoscale
-controllers (``attach_*``), and the fleet fold (``fleet_metrics``). The
-annotations only those controllers write (the defrag target, the domain
-and spillover keys) are not read.
+domains and spillover, and the defrag, migration and autoscale
+controllers (``attach_*``). The annotations only those controllers
+write (the defrag target, the domain and spillover keys) are not read.
 
 Run it as ``python -m k8s_dra_driver_gpu_tpu_torch.pkg.scheduler
 --kube-api URL [--default-node N] [--interval S] [--metrics-port N]
-[--leader-elect [--leader-elect-namespace NS]]``; SIGTERM ends it with
-exit 0.
+[--recovery-root DIR] [--leader-elect [--leader-elect-namespace NS]]``
+(``--recovery-root``, else ``TPU_DRA_RECOVERY_ROOT``, attaches the
+recovery controller over that directory's records); SIGTERM ends it
+with exit 0.
 """
 
 from __future__ import annotations
@@ -61,7 +75,7 @@ import threading
 import time
 import uuid
 
-from . import flightrecorder, tracing
+from . import fleetstate, flightrecorder, tracing
 from .events import emit_warning_event
 from .featuregates import (TOPOLOGY_AWARE_PLACEMENT, FeatureGateError,
                            FeatureGates)
@@ -81,8 +95,6 @@ RESOURCE = ("resource.k8s.io", "v1")
 # What the JAX scheduler attaches to its loop and the port does not run
 # yet, by the ROADMAP.md §1c item that ports it.
 CONTROLLERS = {
-    "recovery": "the permanent-failure recovery controller (ROADMAP.md "
-                "§1c item 4, recovery)",
     "defrag": "the defragmentation controller (ROADMAP.md §1c item 5, "
               "defrag)",
     "migration": "the cooperative migration controller (ROADMAP.md §1c "
@@ -90,13 +102,11 @@ CONTROLLERS = {
     "autoscaler": "the serving autoscaler (ROADMAP.md §1c item 7, "
                   "autoscale)",
 }
-FLEET = "the fleet telemetry fold (ROADMAP.md §1c item 2, fleetstate)"
 # Binary flags of the JAX scheduler for what waits, refused when set.
 UNPORTED_FLAGS = {
     "sched_domain": DOMAINS, "sched_domain_pools": DOMAINS,
     "sched_domain_siblings": DOMAINS, "sched_domain_default": DOMAINS,
     "sched_batch": WORKERS,
-    "recovery_root": CONTROLLERS["recovery"],
     "defrag_root": CONTROLLERS["defrag"],
     "migration_root": CONTROLLERS["migration"],
     "autoscale_root": CONTROLLERS["autoscaler"],
@@ -108,7 +118,6 @@ UNPORTED_ENV = {
     "TPU_DRA_SCHED_DOMAIN": DOMAINS, "TPU_DRA_SCHED_DOMAIN_POOLS": DOMAINS,
     "TPU_DRA_SCHED_DOMAIN_SIBLINGS": DOMAINS,
     "TPU_DRA_SCHED_DOMAIN_DEFAULT": DOMAINS,
-    "TPU_DRA_RECOVERY_ROOT": CONTROLLERS["recovery"],
     "TPU_DRA_DEFRAG_ROOT": CONTROLLERS["defrag"],
     "TPU_DRA_MIGRATION_ROOT": CONTROLLERS["migration"],
     "TPU_DRA_AUTOSCALE_ROOT": CONTROLLERS["autoscaler"],
@@ -155,8 +164,6 @@ class DraScheduler:
                                  "not ported yet")
         if domain is not None:
             raise NotPortedError(f"{DOMAINS} is not ported yet")
-        if fleet_metrics is not None:
-            raise NotPortedError(f"{FLEET} is not ported yet")
         _refuse_env(os.environ)
         self.kube = kube
         self.default_node = default_node
@@ -186,6 +193,18 @@ class DraScheduler:
         # The fit phase's start, for the SLO breakdown (one worker, so
         # one claim is fitted at a time).
         self._fit_t0: float | None = None
+        # The permanent-failure recovery controller, if attached: its
+        # pass runs first in each pass, and allocation avoids the nodes
+        # it declared failed.
+        self.recovery = None
+        # The fleet telemetry fold, every pass. The process default
+        # (/debug/fleet) is claimed at the FIRST fold, so a scheduler
+        # only constructed never repoints it at an empty aggregator.
+        self.fleet = fleetstate.FleetAggregator(metrics=fleet_metrics)
+        self._fleet_installed = False
+        # The pass's snapshot and allocation state, as allocation left
+        # them (its commits included): the fold reads them.
+        self._pass_state: tuple | None = None
 
     @property
     def _slo(self):
@@ -197,7 +216,16 @@ class DraScheduler:
         raise NotPortedError(f"{CONTROLLERS[which]} is not ported yet")
 
     def attach_recovery(self, controller) -> "DraScheduler":
-        self._refuse_controller("recovery")
+        """Drive a ``pkg/recovery.EvictionController`` from this
+        scheduler's pass: its reads come from this scheduler's view, its
+        re-placements observe the SLO's ``evict`` phase on this
+        scheduler's registry, and allocation excludes the nodes it has
+        declared permanently failed."""
+        controller.view = self.view
+        if self.sched_metrics is not None:
+            controller.slo = self.sched_metrics.slo
+        self.recovery = controller
+        return self
 
     def attach_defrag(self, controller) -> "DraScheduler":
         self._refuse_controller("defrag")
@@ -462,11 +490,18 @@ class DraScheduler:
         then least-allocated (the spreading of a per-pod Filter/Score).
         A claim whose consumer pod is bound probes that node alone."""
         if pinned_node is not None:
-            return [pinned_node] if pinned_node in snap.by_node else []
-        nodes = alloc.ordered_nodes()
-        if window:
-            nodes = ([n for n in nodes if n in window]
-                     + [n for n in nodes if n not in window])
+            nodes = [pinned_node] if pinned_node in snap.by_node else []
+        else:
+            nodes = alloc.ordered_nodes()
+            if window:
+                nodes = ([n for n in nodes if n in window]
+                         + [n for n in nodes if n not in window])
+        if self.recovery is not None:
+            # A dead node's slices may still be published (its kubelet
+            # cannot retract them): never re-place a claim onto it.
+            excluded = self.recovery.excluded_nodes()
+            if excluded:
+                nodes = [n for n in nodes if n not in excluded]
         return nodes
 
     def _allocate_one(self, claim, snap: InventorySnapshot,
@@ -943,6 +978,7 @@ class DraScheduler:
 
     def _allocate_claims(self):
         snap, alloc = self._rebuild_alloc_state()
+        self._pass_state = (snap, alloc)
         classes = self._device_classes()
         pins = self._claim_pins()
         for claim in self.view.claims():
@@ -1190,15 +1226,48 @@ class DraScheduler:
     def sync_once(self):
         t0 = time.monotonic()
         self.view.begin_pass()
+        self._pass_state = None
+        self._sync_recovery()
         self._sync_daemonsets()
         self._sync_jobs()
         self._generate_claims()
         self._generate_extended_resource_claims()
         self._allocate_claims()
         self._bind_pods()
+        self._observe_fleet()
         if self.sched_metrics is not None:
             self.sched_metrics.sync_seconds.labels("full").observe(
                 time.monotonic() - t0)
+
+    def _observe_fleet(self) -> None:
+        """Fold the pass's inventory, allocation state and pending
+        claims into the fleet aggregator; a fold that fails is logged
+        and never fails the pass."""
+        try:
+            if not self._fleet_installed:
+                fleetstate.set_default_fleet(self.fleet)
+                self._fleet_installed = True
+            snap, alloc = self._pass_state or self._rebuild_alloc_state()
+            pending = sum(
+                1 for c in self.view.claims()
+                if not c.get("status", {}).get("allocation")
+                and not _meta(c).get("deletionTimestamp"))
+            self.fleet.observe_pass(snap, alloc, pending,
+                                    grid_fn=self._grid_for)
+        except Exception:  # noqa: BLE001 - observability must not
+            logger.exception("fleet telemetry fold failed")  # fail sync
+
+    def _sync_recovery(self) -> None:
+        """One recovery pass, ahead of allocation, so the failed-node
+        exclusion and the claims it deallocated are seen by the same
+        pass. An ``InjectedCrash`` (a BaseException) goes through, as a
+        process death would."""
+        if self.recovery is None:
+            return
+        try:
+            self.recovery.sync_once()
+        except Exception:  # noqa: BLE001 - control loop
+            logger.exception("recovery sync failed")
 
     def run(self, interval: float = 0.25):
         while not self._stop.is_set():
@@ -1275,6 +1344,11 @@ def build_parser() -> argparse.ArgumentParser:
                    default=int(env("METRICS_PORT", "0")),
                    help="serve /metrics on this port; 0 = off "
                         "[METRICS_PORT]")
+    p.add_argument("--recovery-root",
+                   default=env("TPU_DRA_RECOVERY_ROOT", ""),
+                   help="state root of the permanent-failure eviction "
+                        "controller's durable records; empty = recovery "
+                        "off [TPU_DRA_RECOVERY_ROOT]")
     # The JAX scheduler's flags for what waits: refused when set.
     for flag in UNPORTED_FLAGS:
         if flag == "sched_domain_default":
@@ -1290,9 +1364,11 @@ def main(argv: list[str] | None = None) -> int:
     from .kubeclient import KubeClient  # noqa: PLC0415
     from . import logsetup  # noqa: PLC0415
     from .. import __version__  # noqa: PLC0415
-    from .metrics import (MetricsServer, PlacementMetrics,  # noqa: PLC0415
+    from .metrics import (FleetMetrics, MetricsServer,  # noqa: PLC0415
+                          PlacementMetrics, RecoveryMetrics,
                           ResilienceMetrics, SchedulerMetrics,
                           register_build_info)
+    from .recovery import EvictionController  # noqa: PLC0415
     from .retry import RetryingKubeClient  # noqa: PLC0415
 
     args = build_parser().parse_args(argv)
@@ -1311,16 +1387,24 @@ def main(argv: list[str] | None = None) -> int:
     logsetup.setup(verbosity)
     logsetup.log_startup(__name__, "tpu-dra-scheduler", __version__, args)
     metrics = sched_metrics = resilience = server = None
+    fleet_metrics = recovery_metrics = None
     if args.metrics_port:
         metrics = PlacementMetrics()
         sched_metrics = SchedulerMetrics(registry=metrics.registry)
         resilience = ResilienceMetrics(registry=metrics.registry)
+        fleet_metrics = FleetMetrics(registry=metrics.registry)
         register_build_info(metrics.registry)
     sched = DraScheduler(RetryingKubeClient(KubeClient(host=args.kube_api),
                                             metrics=resilience),
                          default_node=args.default_node, metrics=metrics,
                          sched_metrics=sched_metrics,
-                         workers=args.sched_workers)
+                         workers=args.sched_workers,
+                         fleet_metrics=fleet_metrics)
+    if args.recovery_root:
+        if metrics is not None:
+            recovery_metrics = RecoveryMetrics(registry=metrics.registry)
+        sched.attach_recovery(EvictionController(
+            sched.kube, args.recovery_root, metrics=recovery_metrics))
     if metrics is not None:
         server = MetricsServer(metrics.registry, host="0.0.0.0",
                                port=args.metrics_port)

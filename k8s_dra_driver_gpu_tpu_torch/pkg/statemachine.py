@@ -1,6 +1,6 @@
 """The checkpoint's state machines (the JAX package's
-``pkg/analysis/statemachine.py``, its two-phase, single-phase and
-partition policies).
+``pkg/analysis/statemachine.py``, its two-phase, single-phase,
+partition and eviction policies).
 
 The kubelet plugin's lifecycle (``TWO_PHASE_POLICY``): absent ->
 PrepareStarted (the durable reservation) -> PrepareCompleted, torn down
@@ -20,6 +20,13 @@ record may go to Destroying (a crashed create rolled back) or straight
 to absent (a create that failed); a Ready record never vanishes without
 its destroy intent having been durable first, so a crashed teardown
 resumes instead of leaking the instance.
+
+A permanent-failure eviction (``EVICTION_POLICY``, ``pkg/recovery.py``'s
+records): absent -> EvictionPlanned (the failure declared) ->
+EvictionDraining (consumer pods evicted) -> EvictionDeallocated (the
+allocation cleared) -> absent (re-placed, or retired at the deadline).
+A Planned or Draining record may also go straight to absent (the claim
+was deleted); no stage is skipped.
 
 The checkpoint manager validates every mutation against its policy. The
 reference's model checker (``crash_closure``) and the policies of its
@@ -114,5 +121,22 @@ PARTITION_POLICY = TransitionPolicy(
         (PARTITION_CREATING, ABSENT),                # create failed
         (PARTITION_READY, PARTITION_DESTROYING),     # teardown intent
         (PARTITION_DESTROYING, ABSENT),              # destroy done
+    }),
+)
+
+
+EVICTION_PLANNED = "EvictionPlanned"
+EVICTION_DRAINING = "EvictionDraining"
+EVICTION_DEALLOCATED = "EvictionDeallocated"
+
+EVICTION_POLICY = TransitionPolicy(
+    "eviction",
+    frozenset({
+        (ABSENT, EVICTION_PLANNED),                 # failure declared
+        (EVICTION_PLANNED, EVICTION_DRAINING),      # pods evicted
+        (EVICTION_DRAINING, EVICTION_DEALLOCATED),  # allocation cleared
+        (EVICTION_PLANNED, ABSENT),                 # canceled (claim gone)
+        (EVICTION_DRAINING, ABSENT),                # canceled (claim gone)
+        (EVICTION_DEALLOCATED, ABSENT),             # re-placed / failed
     }),
 )

@@ -8,19 +8,28 @@ own (sampling decides); every ``segment()`` is a child span of it, so
 the instants of the debug log and the segment histogram also appear in
 the trace. The operation span is exported at :meth:`done`.
 
-The JAX timer's fault-injection seams are not ported: ``pkg/faults.py``
-is queued in ROADMAP.md §1c.
+Fault seams, at the start of each segment and before its span exists
+(so a crash at a segment never exports a half-open span), as the JAX
+timer's: ``TPU_DRA_CRASH_AT_SEGMENT=<name>`` exits with 86 (the SIGKILL
+analog), ``TPU_DRA_STALL_AT_SEGMENT=<name>`` sleeps
+``TPU_DRA_STALL_SECONDS`` (default 5), and every segment is the fault
+point ``segment:<name>`` of ``pkg/faults.py``.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from contextlib import contextmanager
 
-from . import tracing
+from . import faults, tracing
 
 logger = logging.getLogger(__name__)
+
+ENV_CRASH_AT = "TPU_DRA_CRASH_AT_SEGMENT"
+ENV_STALL_AT = "TPU_DRA_STALL_AT_SEGMENT"
+ENV_STALL_SECONDS = "TPU_DRA_STALL_SECONDS"
 
 
 class SegmentTimer:
@@ -43,6 +52,12 @@ class SegmentTimer:
 
     @contextmanager
     def segment(self, name: str):
+        if os.environ.get(ENV_CRASH_AT) == name:
+            logger.warning("fault injection: crashing at segment %s", name)
+            os._exit(86)
+        if os.environ.get(ENV_STALL_AT) == name:
+            time.sleep(float(os.environ.get(ENV_STALL_SECONDS, "5")))
+        faults.fault_point(f"segment:{name}")
         t0 = time.monotonic()
         try:
             with tracing.span(name, parent=self._span,

@@ -13,9 +13,16 @@
   observation falls in the first bucket on both sides.
 - ``MetricsServer``'s routes, and when the debug routes are on.
 
-The JAX families the port leaves out are ``LEFT_OUT``, each with the
-ROADMAP.md entry that brings it. The kubelet plugins' prepare segments
-that only one package has are ``SEGMENTS_ONLY``.
+The kubelet plugins export every JAX family. The kubelet plugins'
+prepare segments that only one package has are ``SEGMENTS_ONLY``.
+
+- The telemetry, fleet and recovery families (``TelemetryMetrics``
+  through each kubelet ``Driver``'s health monitor over the same mock
+  telemetry, ``FleetMetrics`` through each ``FleetAggregator`` over the
+  same slices, ``RecoveryMetrics`` through each eviction controller and
+  node sweep, ``ResilienceMetrics.quarantines`` through each quarantine
+  tracker) give equal parsed expositions, and ``/debug/telemetry`` and
+  ``/debug/fleet`` the same documents.
 """
 
 import json
@@ -32,6 +39,7 @@ from prometheus_client.parser import text_string_to_metric_families
 from k8s_dra_driver_gpu_tpu.kubeletplugin import DRIVER_NAME as JAX_DRV
 from k8s_dra_driver_gpu_tpu.kubeletplugin import device_state as jax_ds
 from k8s_dra_driver_gpu_tpu.kubeletplugin import driver as jax_driver
+from k8s_dra_driver_gpu_tpu.pkg import fleetstate as jax_fleet
 from k8s_dra_driver_gpu_tpu.pkg import flightrecorder as jax_fr
 from k8s_dra_driver_gpu_tpu.pkg import kubeclient as jax_kube
 from k8s_dra_driver_gpu_tpu.pkg import metrics as jax_metrics
@@ -41,6 +49,7 @@ from k8s_dra_driver_gpu_tpu_torch.kubeletplugin import DRIVER_NAME as PT_DRV
 from k8s_dra_driver_gpu_tpu_torch.kubeletplugin import device_state as pt_ds
 from k8s_dra_driver_gpu_tpu_torch.kubeletplugin import driver as pt_driver
 from k8s_dra_driver_gpu_tpu_torch.pkg import exposition
+from k8s_dra_driver_gpu_tpu_torch.pkg import fleetstate as pt_fleet
 from k8s_dra_driver_gpu_tpu_torch.pkg import flightrecorder as pt_fr
 from k8s_dra_driver_gpu_tpu_torch.pkg import kubeclient as pt_kube
 from k8s_dra_driver_gpu_tpu_torch.pkg import metrics as pt_metrics
@@ -57,16 +66,6 @@ SIDES = ("jax", "pt")
 RC = ("resource.k8s.io", "v1", "resourceclaims")
 METRICS = {"jax": jax_metrics, "pt": pt_metrics}
 GENERATE = {"jax": pc.generate_latest, "pt": exposition.generate_latest}
-# JAX families the port does not export, by the ROADMAP.md entry that
-# brings their producer.
-LEFT_OUT = {
-    "tpu_dra_chip_power_watts": "§1c fleetstate (TelemetryMetrics)",
-    "tpu_dra_chip_temp_celsius": "§1c fleetstate (TelemetryMetrics)",
-    "tpu_dra_chip_hbm_used_bytes": "§1c fleetstate (TelemetryMetrics)",
-    "tpu_dra_chip_duty_cycle": "§1c fleetstate (TelemetryMetrics)",
-    "tpu_dra_chip_ici_link_errors": "§1c fleetstate (TelemetryMetrics)",
-    "tpu_dra_anomaly": "§1c anomaly (TelemetryMetrics)",
-}
 # Prepare segments of one package only: the JAX plugin's
 # group-committed checkpoint writer and shard-lock reservation; the
 # port's sharing setup and unprepare rollback.
@@ -125,15 +124,23 @@ def slow_clock(monkeypatch):
 def fresh():
     saved = [(m, m.exporter()) for m in (jax_tracing, pt_tracing)]
     recs = [(m, m.default()) for m in (jax_fr, pt_fr)]
+    rings = [(m, m.default_ring(), m.default_fleet())
+             for m in (jax_fleet, pt_fleet)]
     for m, _ in saved:
         m.set_exporter(m.TraceExporter())
     for m, _ in recs:
         m.set_default(m.FlightRecorder())
+    for m, _, _ in rings:
+        m.set_default_ring(m.TelemetryRing())
+        m.set_default_fleet(m.FleetAggregator())
     yield
     for m, exp in saved:
         m.set_exporter(exp)
     for m, rec in recs:
         m.set_default(rec)
+    for m, ring, fleet in rings:
+        m.set_default_ring(ring)
+        m.set_default_fleet(fleet)
 
 
 # -- the registry ---------------------------------------------------------
@@ -293,8 +300,7 @@ def _drop_segments(fams: dict, side: str) -> dict:
 def test_kubelet_driver_expositions_match(tmp_path, slow_clock, fresh):
     got = {side: _kubelet_run(side, str(tmp_path / side)) for side in SIDES}
     jax_fams, pt_fams = (_drop_segments(got[s][0], s) for s in SIDES)
-    assert set(jax_fams) - set(pt_fams) == set(LEFT_OUT)
-    assert set(pt_fams) <= set(jax_fams)
+    assert set(pt_fams) == set(jax_fams)
     for name in pt_fams:
         assert neutral(json.dumps(pt_fams[name])) == \
             neutral(json.dumps(jax_fams[name])), name
@@ -389,6 +395,13 @@ def test_cd_controller_gauges_match(cd_sides, fresh):
                                                           metrics=metrics)
         side._stops.append(lambda c=ctl, n=name: c.queue.shutdown(wait=True)
                            if n == "jax" else c.stop())
+        # Only the direct reconciles below drive the controller: its
+        # watches, which would reconcile the same domains on the queue's
+        # thread at the same time, are stopped first on both sides.
+        if name == "jax":
+            side.kube._watchers.remove(ctl._on_event)
+        else:
+            side.kube.remove_resource_watcher(ctl._on_resource_event)
         cd = side.make_cd(numNodes=1)
         other = side.make_cd(name="cd2")
         for c in (cd, other):
@@ -427,8 +440,6 @@ def test_cd_driver_metrics_match(cd_sides, slow_clock, fresh):
                drv.prepare_resource_claims([_ref("nope")])["nope"][1] != "",
                drv.unprepare_resource_claims([{"uid": "c1"}])]
         fams = timeless(parse(GENERATE[name](metrics.registry)))
-        for left in LEFT_OUT:
-            fams.pop(left, None)
         got[name] = (fams, out)
     assert got["pt"] == got["jax"]
     assert got["pt"][1] == ["", True, {"c1": ""}]
@@ -601,17 +612,138 @@ def test_metrics_server_routes_match(host, fresh, monkeypatch):
                 else:
                     body = None
                 out[path.replace(trace, "<trace>")] = [status, body]
-            # The JAX server's telemetry routes wait for fleetstate.
-            out["telemetry"] = _get(server.port, "/debug/telemetry")[0]
+            for path in ("/debug/telemetry", "/debug/fleet"):
+                status, body = _get(server.port, path)
+                out[path] = [status, json.loads(body) if status == 200
+                             else None]
         finally:
             server.stop()
         got[side] = out
-    if host == "127.0.0.1":
-        assert got["jax"].pop("telemetry") == 200
-    else:
-        assert got["jax"].pop("telemetry") == 404
-    assert got["pt"].pop("telemetry") == 404
+    assert got["pt"]["/debug/fleet"][0] == (200 if host == "127.0.0.1"
+                                            else 404)
     assert json.loads(json.dumps(got["pt"])) == \
         json.loads(json.dumps(got["jax"]))
     debug = got["pt"]["/debug/traces/<trace>"][0]
     assert debug == (200 if host == "127.0.0.1" else 404)
+
+
+# -- telemetry, fleet, recovery and quarantine families --------------------
+
+@pytest.mark.parametrize("seed", range(3))
+def test_telemetry_metrics_expositions_match(seed):
+    """A seeded stream of samples (GPUs coming and going, NVLink error
+    counters rising and reset), and anomaly counts, through both
+    ``TelemetryMetrics``."""
+    import numpy as np
+
+    from k8s_dra_driver_gpu_tpu.tpulib import binding as jax_lib
+    from k8s_dra_driver_gpu_tpu_torch.tpulib import binding as pt_lib
+
+    rng = np.random.default_rng(seed)
+    mets = {s: METRICS[s].TelemetryMetrics() for s in SIDES}
+    errors = [0] * 4
+    for _ in range(20):
+        chips = sorted(rng.choice(4, size=int(rng.integers(0, 5)),
+                                  replace=False).tolist())
+        stream = []
+        for c in chips:
+            errors[c] += int(rng.integers(0, 4))
+            if rng.random() < 0.05:
+                errors[c] = 0  # a driver reload resets the counter
+            stream.append(dict(chip=c, power_watts=float(rng.uniform(0, 700)),
+                               temp_celsius=float(rng.integers(30, 90)),
+                               hbm_used_bytes=int(rng.integers(0, 1 << 36)),
+                               duty_cycle=float(rng.uniform(0, 1)),
+                               ici_link_errors=errors[c]))
+        kind = str(rng.choice(["thermal_drift", "power_cap_throttle",
+                               "duty_cycle_straggler",
+                               "ici_link_error_burst"]))
+        anomaly = rng.random() < 0.3
+        for s, lib in (("jax", jax_lib), ("pt", pt_lib)):
+            mets[s].prune_absent(chips)
+            for kw in stream:
+                mets[s].observe_sample(lib.ChipTelemetry(**kw))
+            if anomaly:
+                mets[s].inc_anomaly(kind)
+        fams = {s: parse(GENERATE[s](mets[s].registry)) for s in SIDES}
+        assert fams["pt"] == fams["jax"]
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_fleet_metrics_expositions_match(seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mets = {s: METRICS[s].FleetMetrics() for s in SIDES}
+    for _ in range(30):
+        op = str(rng.choice(["pool", "pending", "node", "power",
+                             "rm_power", "rm_pool", "rm_node", "fold"]))
+        pool, node = f"drv/p{rng.integers(0, 3)}", f"n{rng.integers(0, 3)}"
+        args = {"pool": (pool, float(rng.uniform()), int(rng.integers(9))),
+                "pending": (int(rng.integers(0, 9)),),
+                "node": (node, float(rng.integers(0, 2000)),
+                         float(rng.integers(20, 90))),
+                "power": (pool, float(rng.integers(0, 5000))),
+                "rm_power": (pool,), "rm_pool": (pool,), "rm_node": (node,),
+                "fold": (float(rng.uniform(0, 0.01)),)}[op]
+        for s in SIDES:
+            m = mets[s]
+            {"pool": m.set_pool, "pending": m.set_pending,
+             "node": m.set_node, "power": m.set_pool_power,
+             "rm_power": m.remove_pool_power, "rm_pool": m.remove_pool,
+             "rm_node": m.remove_node,
+             "fold": m.fold_seconds.observe}[op](*args)
+        fams = {s: parse(GENERATE[s](mets[s].registry)) for s in SIDES}
+        assert fams["pt"] == fams["jax"]
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_recovery_metrics_expositions_match(seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mets = {s: METRICS[s].RecoveryMetrics() for s in SIDES}
+    for _ in range(30):
+        op = int(rng.integers(0, 7))
+        label = str(rng.choice(["node", "device", "gang", "sweep",
+                                "slice", "cdi_spec", "stale_claim"]))
+        n = int(rng.integers(0, 5))
+        for s in SIDES:
+            m = mets[s]
+            (lambda: m.permanent_failures.labels(label).inc(),
+             m.evictions.inc, m.replaced.inc, m.failed.inc,
+             lambda: m.active_evictions.set(n),
+             lambda: m.orphans_repaired.labels(label).inc(n),
+             lambda: m.reconcile_drift.labels(label).set(n))[op]()
+        fams = {s: parse(GENERATE[s](mets[s].registry)) for s in SIDES}
+        assert fams["pt"] == fams["jax"]
+
+
+def test_quarantine_counter_matches():
+    """Three flapping episodes on each side's tracker, its
+    ``on_quarantine`` hook on ``ResilienceMetrics.quarantines`` as the
+    kubelet ``Driver`` wires it."""
+    from k8s_dra_driver_gpu_tpu.kubeletplugin import health as jax_health
+    from k8s_dra_driver_gpu_tpu_torch.kubeletplugin import health as pt_health
+
+    got = {}
+    for s, health, dev in (("jax", jax_health, "chip-2"),
+                           ("pt", pt_health, "gpu-2")):
+        res = METRICS[s].ResilienceMetrics()
+        clock = [0.0]
+        tracker = health.QuarantineTracker(
+            threshold=2, window_s=60.0, hysteresis_s=30.0,
+            on_quarantine=lambda d, r=res: r.quarantines.labels(d).inc(),
+            clock=lambda: clock[0])
+        taint = [health.DeviceTaint(device=dev, key="tpu.dra.dev/x",
+                                    value="true", effect="")]
+        for _ in range(3):
+            for step in range(4):
+                clock[0] += 1.0
+                tracker.observe(taint if step % 2 == 0 else [])
+            clock[0] += 100.0
+            tracker.observe([])
+        got[s] = neutral(json.dumps(parse(GENERATE[s](res.registry)),
+                                    sort_keys=True))
+    assert got["pt"] == got["jax"]
+    assert '"tpu_dra_quarantine_total", [["device", "#2"]], 3.0' in got["pt"]

@@ -26,7 +26,10 @@ against the JAX package's, on the CPU.
   ``DeviceState.prepare`` give one trace whose tree holds ``sched.commit``
   -> ``prepare`` -> ``prep_devices``.
 - **Refusals**: each way into what is not ported raises
-  ``NotPortedError`` naming its ROADMAP.md item.
+  ``NotPortedError`` naming its ROADMAP.md item; what the recovery and
+  fleet slice brought in (``attach_recovery``, ``fleet_metrics``,
+  ``--recovery-root``, ``TPU_DRA_RECOVERY_ROOT``) runs as the JAX
+  scheduler's does.
 - **The binary** against the port's ``FakeApiServer``: it allocates,
   reserves, binds, serves ``/metrics`` and exits 0 on SIGTERM.
 """
@@ -45,6 +48,8 @@ import uuid
 
 import numpy as np
 import pytest
+from prometheus_client import generate_latest
+from prometheus_client.parser import text_string_to_metric_families
 
 from k8s_dra_driver_gpu_tpu.kubeletplugin import device_state as jax_ds
 from k8s_dra_driver_gpu_tpu.kubeletplugin.driver import Driver as JaxDriver
@@ -973,8 +978,7 @@ def _refused(fn, match):
 
 
 @pytest.mark.parametrize("case", [
-    "workers", "batch", "domain", "fleet", "attach_recovery",
-    "attach_defrag", "attach_migration", "attach_autoscaler",
+    "workers", "batch", "domain", "attach_defrag", "attach_migration", "attach_autoscaler",
     "start_event_driven", "view_start"])
 def test_what_waits_is_refused(case):
     kube = pt_kube.FakeKubeClient()
@@ -983,9 +987,6 @@ def test_what_waits_is_refused(case):
         "workers": (lambda: make(kube, workers=2), "workers > 1"),
         "batch": (lambda: make(kube, batch_max=8), "claim batch"),
         "domain": (lambda: make(kube, domain=object()), "SchedulingDomain"),
-        "fleet": (lambda: make(kube, fleet_metrics=object()), "fleetstate"),
-        "attach_recovery": (lambda: make(kube).attach_recovery(None),
-                            "recovery"),
         "attach_defrag": (lambda: make(kube).attach_defrag(None), "defrag"),
         "attach_migration": (lambda: make(kube).attach_migration(None),
                              "migration"),
@@ -1006,7 +1007,6 @@ def test_what_waits_is_refused(case):
     ({"TPU_DRA_SCHED_DOMAIN_POOLS": "p*"}, "SchedulingDomain"),
     ({"TPU_DRA_SCHED_DOMAIN_SIBLINGS": "b=q"}, "SchedulingDomain"),
     ({"TPU_DRA_SCHED_DOMAIN_DEFAULT": "1"}, "SchedulingDomain"),
-    ({"TPU_DRA_RECOVERY_ROOT": "/r"}, "item 4, recovery"),
     ({"TPU_DRA_DEFRAG_ROOT": "/r"}, "item 5, defrag"),
     ({"TPU_DRA_MIGRATION_ROOT": "/r"}, "item 6, migration"),
     ({"TPU_DRA_AUTOSCALE_ROOT": "/r"}, "item 7, autoscale"),
@@ -1025,7 +1025,6 @@ def test_env_of_what_waits_is_refused(env, match, monkeypatch):
     (["--sched-domain-pools", "p*"], "SchedulingDomain"),
     (["--sched-domain-siblings", "b=q"], "SchedulingDomain"),
     (["--sched-domain-default"], "SchedulingDomain"),
-    (["--recovery-root", "/r"], "recovery"),
     (["--defrag-root", "/r"], "defrag"),
     (["--migration-root", "/r"], "migration"),
     (["--autoscale-root", "/r"], "autoscale"),
@@ -1033,6 +1032,78 @@ def test_env_of_what_waits_is_refused(env, match, monkeypatch):
 def test_binary_flags_of_what_waits_are_refused(argv, match):
     _refused(lambda: pt_sched.main(["--kube-api", "http://127.0.0.1:1"]
                                    + argv), match)
+
+
+def _recovery_world(tmp_path, monkeypatch):
+    """A claim allocated on one of two Ready nodes, in both stores."""
+    from tests.test_recovery import (add_node, apply_class,
+                                     make_pending_claim, node_slices)
+    from k8s_dra_driver_gpu_tpu.pkg import sliceutil as jax_su
+    from k8s_dra_driver_gpu_tpu_torch.pkg import sliceutil as pt_su
+
+    w = World([], monkeypatch)
+    for side, su in (("jax", jax_su), ("pt", pt_su)):
+        kube = w.kubes[side]
+        apply_class(kube)
+        for node in ("node-a", "node-b"):
+            add_node(kube, node)
+            su.publish_resource_slices(kube, node_slices(node))
+        make_pending_claim(kube, "c0")
+    return w
+
+
+@pytest.mark.parametrize("case", ["fleet", "attach_recovery", "env",
+                                  "flag"])
+def test_what_now_runs(case, tmp_path, monkeypatch):
+    """What the scheduler refused before the recovery and fleet slice,
+    against the JAX scheduler: a fleet sink, an attached eviction
+    controller, the recovery root from the env and from the flag."""
+    from k8s_dra_driver_gpu_tpu.pkg import metrics as jax_metrics
+    from k8s_dra_driver_gpu_tpu.pkg import recovery as jax_recovery
+    from k8s_dra_driver_gpu_tpu_torch.pkg import recovery as pt_recovery
+
+    if case == "env":
+        monkeypatch.setenv("TPU_DRA_RECOVERY_ROOT", str(tmp_path / "r"))
+        pt_sched.DraScheduler(pt_kube.FakeKubeClient())  # no refusal
+        args = pt_sched.build_parser().parse_args(["--kube-api", "x"])
+        assert args.recovery_root == str(tmp_path / "r")
+        return
+    if case == "flag":
+        args = pt_sched.build_parser().parse_args(
+            ["--kube-api", "x", "--recovery-root", "/r"])
+        assert args.recovery_root == "/r"
+        return
+    w = _recovery_world(tmp_path, monkeypatch)
+    if case == "fleet":
+        sinks = {"jax": jax_metrics.FleetMetrics(),
+                 "pt": pt_metrics.FleetMetrics()}
+        for side, mod in (("jax", jax_sched), ("pt", pt_sched)):
+            w.scheds[side] = mod.DraScheduler(w.kubes[side],
+                                              fleet_metrics=sinks[side])
+        w.sync()
+        texts = {s: sorted(
+            (x.name, tuple(sorted(x.labels.items())), x.value)
+            for f in text_string_to_metric_families(
+                (generate_latest if s == "jax" else
+                 exposition.generate_latest)(sinks[s].registry).decode())
+            for x in f.samples if not x.name.startswith(
+                "tpu_dra_fleet_fold_seconds")
+            and not x.name.endswith("_created")) for s in SIDES}
+        assert texts["pt"] == texts["jax"]
+        assert ("tpu_dra_fleet_pending_claims", (), 0.0) in texts["pt"]
+        return
+    for side, mod in (("jax", jax_recovery), ("pt", pt_recovery)):
+        ctrl = mod.EvictionController(w.kubes[side], str(tmp_path / side),
+                                      notready_grace_s=0.0)
+        assert w.scheds[side].attach_recovery(ctrl) is w.scheds[side]
+    state = w.sync()
+    node = node_of(allocation(state, "c0"))
+    w.each(lambda k: k.patch("", "v1", "nodes", node, {"status": {
+        "conditions": [{"type": "Ready", "status": "False"}]}}))
+    state = w.sync(passes=6)
+    assert node_of(allocation(state, "c0")) != node
+    assert state["claims"][("default", "c0")]["conditions"][0][
+        "reason"] == "Recovered"
 
 
 def test_domain_and_defrag_annotations_are_not_read(tmp_path):
