@@ -359,6 +359,41 @@ and prints no result line):
    attributes on every device and a ``FleetAggregator`` folding each
    pass, then one ``EvictionController.sync_once`` with one of the 128
    nodes NotReady. Host ms of each step beside the card.
+22. migration (``phase_migration``, host clock): cooperative live
+   migration and defragmentation through the port's ``DraScheduler``
+   run in this process every 0.05 s with a ``MigrationController`` and a
+   ``DefragController`` attached, over the port's ``FakeApiServer`` and
+   phase 21's two plugin processes (the one card as ``h100-a`` and
+   ``h100-b``). (a) A claim annotated ``resource.tpu.dra/migration-
+   capable`` with a consumer pod, allocated on ``h100-a`` and prepared
+   there; child A (``MIGRATION_CHILD``, under the claim's CDI env) holds
+   the three training kernels against their plain versions, then trains
+   the flagship at full width cut to 2 layers, B=1, S=4096, through
+   ``train.cooperative`` for 8 seeded steps, reading its claim (its name
+   and the API server's URL from argv) after each. After it logs step 3
+   (where it waits for the intent: a step is shorter than the
+   handshake) ``h100-a`` is annotated ``resource.tpu.dra/evacuate``: the
+   controller reserves ``h100-b``'s GPU and signals; child A saves its
+   state with ``TrainCheckpointer``, acks and exits; the switch drains
+   the pod and deallocates, the scheduler re-places the claim on
+   ``h100-b`` by the hint, ``h100-b``'s plugin prepares it, and child B
+   restores and trains steps 4-8, then holds the kernels. Every loss against an uninterrupted
+   8-step run in this process, bitwise (the kernels have no atomics;
+   the relative difference is logged), the record's stages from the flight recorder, no contract
+   annotation and no reservation left, the claim on ``h100-b`` and
+   ``h100-a``'s sweep unpreparing it, the children's launches; host ms
+   evacuate -> reserved -> intent -> ack -> switched -> allocated ->
+   prepared -> restored -> B's first step, the checkpoint's bytes and
+   save seconds, the downtime. (b) Two more capable claims pinned to
+   ``h100-a`` whose workload never acks, each under a controller of its
+   own: with a 0.5 s ack window the move falls back at the ack timeout
+   (reservation released, contract cleared, the claim left running);
+   with a 0.3 s whole-move deadline it falls back cold (drained,
+   deallocated, re-placed). (c) Defrag: one pass over the two GPU pools
+   (no ICI coordinates, so no grid and no window), then the checkerboard
+   of ``tests/test_defrag.py`` on a 4x4 and a 16x16 coordinated pool in
+   the in-process fakes, passes until converged: windows, moves, largest
+   free shape before and after, each plan's ms.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record (with the hd-64 instantiations'
@@ -1040,6 +1075,49 @@ def attention_inputs(gen, label, B, S, H, K, hd, dtype):
     return tuple(randn(B, S, n, hd) for n in (H, K, K))
 
 
+def bf16_ulp(ref: torch.Tensor) -> float:
+    """The bf16 ulp at the largest magnitude of ``ref`` (8 significant
+    bits: 2^(e-7) for values in [2^e, 2^(e+1)))."""
+    return 2.0 ** (math.floor(math.log2(ref.float().abs().max().item()))
+                   - 7)
+
+
+def hold_with_lse(q, k, v, do, causal: bool) -> dict:
+    """The with-lse forward, then the dQ and dK/dV kernels, on one input,
+    each against its plain version (phase 3's check of each shape, and
+    phase 22's children's). Returns, by output (``forward``, ``lse``,
+    ``dq``, ``dk``, ``dv``): ``finite``, ``max_abs_err`` and ``ulps`` (the
+    max abs error in bf16 ulps at the reference's largest magnitude);
+    ``row_rel``, the forward's worst-row relative L2; and ``rel_l2`` of
+    each gradient. The caller holds them to its bounds."""
+    from k8s_dra_driver_gpu_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_reference,
+        flash_attention_reference)
+
+    out, lse = flash_attention(q, k, v, causal=causal, with_lse=True)
+    want_out, want_lse = flash_attention_reference(q, k, v, causal, True)
+    torch.cuda.synchronize()
+    diff = (out.float() - want_out.float()).flatten(2)
+    r = {"row_rel": (diff.norm(dim=-1) / want_out.float().flatten(2).norm(
+             dim=-1).clamp_min(1e-30)).max().item(),
+         "finite": {"forward": bool(torch.isfinite(out).all()),
+                    "lse": bool(torch.isfinite(lse).all())},
+         "max_abs_err": {"forward": diff.abs().max().item(),
+                         "lse": (lse - want_lse).abs().max().item()},
+         "rel_l2": {}}
+    r["ulps"] = {"forward": r["max_abs_err"]["forward"] / bf16_ulp(want_out)}
+    del want_out, want_lse, diff
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        r["finite"][name] = bool(torch.isfinite(a).all())
+        r["rel_l2"][name] = rel_l2(a, b)
+        r["max_abs_err"][name] = (a.float() - b.float()).abs().max().item()
+        r["ulps"][name] = r["max_abs_err"][name] / bf16_ulp(b)
+    return r
+
+
 def phase_kernels(gen: torch.Generator) -> dict:
     from k8s_dra_driver_gpu_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference)
@@ -1188,44 +1266,35 @@ def phase_training_kernels(gen: torch.Generator) -> tuple[dict, dict, dict,
                for hd in (128, 64)}
     for label, B, S, H, K, hd, causal in cases:
         q, k, v, do = inputs(B, S, H, K, hd, label=label)
-        out, lse = flash_attention(q, k, v, causal=causal, with_lse=True)
-        want_out, want_lse = flash_attention_reference(q, k, v, causal, True)
-        torch.cuda.synchronize()
-        diff = (out.float() - want_out.float()).flatten(2)
-        row_rel = (diff.norm(dim=-1) / want_out.float().flatten(2).norm(
-            dim=-1).clamp_min(1e-30)).max().item()
-        out_err = diff.abs().max().item()
-        lse_err = (lse - want_lse).abs().max().item()
+        r = hold_with_lse(q, k, v, do, causal)
+        row_rel, errs = r["row_rel"], r["max_abs_err"]
         log(f"kernel with-lse forward {label}: B={B} S={S} H={H} K={K} "
             f"hd={hd} bf16 causal={causal}: out worst-row rel L2 "
-            f"{row_rel:.3g} max_abs_err={out_err:.3g} (tol row rel L2 "
-            f"{FWD_ROW_REL_TOL}); lse max_abs_err={lse_err:.3g} (tol "
+            f"{row_rel:.3g} max_abs_err={errs['forward']:.3g} (tol row rel "
+            f"L2 {FWD_ROW_REL_TOL}); lse max_abs_err={errs['lse']:.3g} (tol "
             f"{LSE_TOLERANCE})")
-        if not (torch.isfinite(out).all() and torch.isfinite(lse).all()
-                and row_rel <= FWD_ROW_REL_TOL and lse_err <= LSE_TOLERANCE):
+        if not (r["finite"]["forward"] and r["finite"]["lse"]
+                and row_rel <= FWD_ROW_REL_TOL
+                and errs["lse"] <= LSE_TOLERANCE):
             raise AssertionError(f"with-lse forward {label} disagrees with "
                                  "its plain version")
         training = label in ("training", "moe training")
         if training:
-            max_err[hd]["forward"] = out_err
-        del want_out, want_lse, diff
-        got = flash_attention_bwd(q, k, v, out, lse, do, causal)
-        torch.cuda.synchronize()
-        want = flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
-        errs = []
-        for name, a, b in zip(("dq", "dk", "dv"), got, want):
-            rel = rel_l2(a, b)
-            err = (a.float() - b.float()).abs().max().item()
-            errs.append(f"{name} rel_l2={rel:.3g} max_abs_err={err:.3g}")
-            if not (torch.isfinite(a).all() and rel <= BWD_REL_TOL):
+            max_err[hd]["forward"] = errs["forward"]
+        for name in ("dq", "dk", "dv"):
+            rel = r["rel_l2"][name]
+            if not (r["finite"][name] and rel <= BWD_REL_TOL):
                 raise AssertionError(f"backward {label}: {name} rel L2 "
                                      f"{rel} over {BWD_REL_TOL}")
             kernel = "dq" if name == "dq" else "dkv"
             if training:
-                max_err[hd][kernel] = max(max_err[hd][kernel], err)
+                max_err[hd][kernel] = max(max_err[hd][kernel], errs[name])
+        bwd = "; ".join(f"{name} rel_l2={r['rel_l2'][name]:.3g} "
+                        f"max_abs_err={errs[name]:.3g}"
+                        for name in ("dq", "dk", "dv"))
         log(f"kernel backward {label}: B={B} S={S} H={H} K={K} hd={hd} bf16 "
-            f"causal={causal}: {'; '.join(errs)} (tol rel L2 {BWD_REL_TOL})")
-        del q, k, v, do, out, lse, got, want
+            f"causal={causal}: {bwd} (tol rel L2 {BWD_REL_TOL})")
+        del q, k, v, do
 
     def timed(hd: int, suffix: str) -> tuple[dict, dict, dict]:
         """The three kernels timed at the training shape of head dim
@@ -6145,6 +6214,815 @@ def phase_recovery(seed: int) -> int:
             check(not left, "a thread outlived the phase")
 
 
+MIGRATION_NODES = ("h100-a", "h100-b")
+# The flagship at full width, cut to 2 layers so that phase 22 stays
+# within its time; B=1, S=4096, 8 steps of the launcher's seeded batches;
+# node h100-a is evacuated once child A has logged step 3.
+MIGRATION_LAYERS, MIGRATION_BATCH, MIGRATION_SEQ = 2, 1, 4096
+MIGRATION_STEPS, MIGRATION_EVACUATE_AFTER = 8, 3
+MIGRATION_CLAIM, MIGRATION_COLD_CLAIM = "smoke-migrate", "smoke-migrate-cold"
+MIGRATION_INTERVAL_S = 0.05
+# (b)'s controllers: a short ack window, then a whole-move deadline
+# shorter than it.
+MIGRATION_COLD_ACK_S, MIGRATION_COLD_DEADLINE_S = 0.5, 0.3
+# Each child's one launch of each training kernel against its plain
+# version at the step's shapes, held to phase 3's relative bounds and to
+# the kernel table's max abs err (PERF.md §6, rows 2-4 at B=1 S=4096) as
+# what it is there: one bf16 ulp at the output's largest magnitude (the
+# two versions round their fp32 sums apart). A draw whose largest dV
+# lies in [2, 4) has an ulp of 0.0156, not the table's 0.00781.
+MIGRATION_KERNEL_MAX_ULPS = 1
+# Defrag (c): the checkerboard of tests/test_defrag.py on coordinated
+# pools of these sides.
+DEFRAG_SIDES = (4, 16)
+
+
+def migration_config():
+    from k8s_dra_driver_gpu_tpu_torch.models import llama
+
+    return dataclasses.replace(llama.LlamaConfig.flagship(),
+                               n_layers=MIGRATION_LAYERS)
+
+
+def hold_training_kernels(seed: int) -> dict:
+    """One launch each of the with-lse forward, dQ and dK/dV at the
+    migration step's attention shape (B=1, S=4096, 16 heads over 8 kv
+    heads, hd 128, bf16, causal) on inputs from a generator of its own,
+    against their plain versions (``hold_with_lse``, phase 3's check with
+    the ulp bound added). Returns the launches (not of the main path: a
+    comparison) and the errors; raises when one is off."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 22)
+    B, S, H, K, hd = MIGRATION_BATCH, MIGRATION_SEQ, 16, 8, 128
+    q, k, v = attention_inputs(gen, "training", B, S, H, K, hd,
+                               torch.bfloat16)
+    do = torch.randn((B, S, H, hd), generator=gen, device="cuda",
+                     dtype=torch.float32).to(torch.bfloat16)
+    reset_launches()
+    r = hold_with_lse(q, k, v, do, True)
+    r["launches"] = read_launches()
+    ok = (r["launches"] == {"forward_lse": 1, "forward_only": 0, "dq": 1,
+                            "dkv": 1}
+          and all(r["finite"].values())
+          and r["row_rel"] <= FWD_ROW_REL_TOL
+          and r["max_abs_err"]["lse"] <= LSE_TOLERANCE
+          and max(r["rel_l2"].values()) <= BWD_REL_TOL
+          and max(r["ulps"].values()) <= MIGRATION_KERNEL_MAX_ULPS)
+    if not ok:
+        raise AssertionError(f"the training kernels against their plain "
+                             f"versions: {r}")
+    return r
+
+
+# Phase 22's workload: a child under the claim's CDI env that trains the
+# cut flagship through ``train.cooperative`` (reading its claim after
+# every step), with the training kernels held against their plain
+# versions first ("first": child A, which exits at the ack) or last
+# ("last": child B). After step ``hold`` (0: none) it waits for the
+# intent before it goes on, so that the scripted move lands mid-run
+# whatever a step's time (a step takes less than the handshake). One
+# JSON line when CUDA is up, one a step, then the run's result with the
+# main path's launches (counted from 0 around the run alone) and the
+# kernel checks.
+MIGRATION_CHILD = """
+import json, sys, time
+t_start = time.time()
+import torch
+import chip_smoke as c
+from k8s_dra_driver_gpu_tpu_torch.pkg.kubeclient import KubeClient
+from k8s_dra_driver_gpu_tpu_torch.train import cooperative
+
+seed, product, url, claim, ckpt = (int(sys.argv[1]), sys.argv[2],
+                                   sys.argv[3], sys.argv[4], sys.argv[5])
+hold, checks_first = int(sys.argv[6]), sys.argv[7] == "first"
+t_imported = time.time()
+count, name = torch.cuda.device_count(), torch.cuda.get_device_name(0)
+if count != 1 or name != product:
+    raise SystemExit(f"migration child sees {count} devices, {name!r}")
+torch.ones(1, device="cuda").sum().item()
+print(json.dumps({"started": t_start, "imported": t_imported,
+                  "cuda_up": time.time()}), flush=True)
+checks = c.hold_training_kernels(seed) if checks_first else None
+namespace, _, claim_name = claim.partition("/")
+watch = cooperative.ClaimWatch(KubeClient(host=url), namespace, claim_name)
+
+
+def on_step(step, loss):
+    print(json.dumps({"step": step, "loss": loss, "t": time.time()}),
+          flush=True)
+    deadline = time.monotonic() + 120
+    while step == hold and watch.intent() is None and \
+            time.monotonic() < deadline:
+        time.sleep(0.01)
+
+
+c.reset_launches()
+out = cooperative.run(c.migration_config(), c.MIGRATION_STEPS, ckpt,
+                      device="cuda", seed=seed,
+                      batch_size=c.MIGRATION_BATCH, seq_len=c.MIGRATION_SEQ,
+                      watch=watch, on_step=on_step)
+launches = c.read_launches()
+if checks is None:
+    checks = c.hold_training_kernels(seed)
+out.pop("losses")
+print(json.dumps({**out, "launches": launches, "checks": checks,
+                  "device_count": count, "name": name}), flush=True)
+"""
+
+
+class MigrationChild:
+    """``MIGRATION_CHILD`` under a claim's CDI spec env: its JSON lines as
+    they come, each with the host time it was read."""
+
+    def __init__(self, spec: dict, args: list, cwd: str, log_path: str):
+        import os
+        import queue
+        import threading
+
+        env = dict(os.environ, PYTHONPATH=cwd)
+        edits = [d["containerEdits"] for d in spec["devices"]] + [
+            spec.get("containerEdits", {})]
+        for entry in (e for edit in edits for e in edit.get("env", [])):
+            key, _, value = entry.partition("=")
+            env[key] = value
+        self.env, self.log_path = env, log_path
+        self.lines: queue.Queue = queue.Queue()
+        self.log = open(log_path, "w", encoding="utf-8")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", MIGRATION_CHILD, *map(str, args)],
+            env=env, cwd=cwd, stdin=subprocess.DEVNULL,
+            stdout=subprocess.PIPE, stderr=self.log, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True,
+                                       name="migration-child")
+        self.reader.start()
+        self.docs: list = []
+        self.eof_at = None
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            if line.startswith("{"):
+                self.lines.put((time.time(), json.loads(line)))
+        self.eof_at = time.time()  # the child's exit, near enough
+        self.lines.put((self.eof_at, None))
+
+    def next(self, timeout: float) -> dict | None:
+        """The next JSON line (with its read time as ``_read``), None at
+        the end of its output."""
+        read, doc = self.lines.get(timeout=timeout)
+        if doc is not None:
+            doc["_read"] = read
+            self.docs.append(doc)
+        return doc
+
+    def until(self, pred, timeout: float) -> dict:
+        deadline = time.monotonic() + timeout
+        while True:
+            doc = self.next(max(deadline - time.monotonic(), 0.01))
+            if doc is None:
+                rc = self.proc.wait(60)
+                self.log.flush()
+                with open(self.log_path, encoding="utf-8") as f:
+                    tail = f.read()[-4000:]
+                raise AssertionError(f"migration child exited {rc} before "
+                                     f"its line; its stderr:\n{tail}")
+            if pred(doc):
+                return doc
+
+    def result(self, timeout: float = 300) -> dict:
+        return self.until(lambda d: "launches" in d, timeout)
+
+    def finish(self, timeout: float = 300) -> dict:
+        """The result line; the child must exit 0."""
+        result = self.result(timeout)
+        self.reap()
+        return result
+
+    def reap(self) -> None:
+        rc = self.proc.wait(timeout=60)
+        self.reader.join(10)
+        if rc != 0:
+            with open(self.log_path, encoding="utf-8") as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"migration child exited {rc}; its "
+                                 f"stderr:\n{tail}")
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.reader.join(10)
+        self.log.close()
+
+
+def _checkerboard_run(side: int, ctrl_kw: dict) -> dict:
+    """tests/test_defrag.py's checkerboard on a ``side`` x ``side``
+    coordinated pool in the port's in-process fakes: every chip filled by
+    a one-chip claim, the (x+y)-odd half deleted, then the scheduler's
+    passes (first-fit placement, a ``DefragController`` attached) until
+    the pool's fragmentation falls to the release level with no move in
+    flight. Passes, windows, moves, largest free shape before and after,
+    each plan's host ms."""
+    from k8s_dra_driver_gpu_tpu_torch.pkg import sliceutil
+    from k8s_dra_driver_gpu_tpu_torch.pkg.defrag import DefragController
+    from k8s_dra_driver_gpu_tpu_torch.pkg.featuregates import FeatureGates
+    from k8s_dra_driver_gpu_tpu_torch.pkg.kubeclient import FakeKubeClient
+    from k8s_dra_driver_gpu_tpu_torch.pkg.metrics import DefragMetrics
+    from k8s_dra_driver_gpu_tpu_torch.pkg.scheduler import DraScheduler
+    import tempfile
+
+    res, driver, node = ("resource.k8s.io", "v1"), "tpu.dra.dev", "node-a"
+    kube = FakeKubeClient()
+    kube.create(*res, "deviceclasses", {
+        "apiVersion": "resource.k8s.io/v1", "kind": "DeviceClass",
+        "metadata": {"name": driver}, "spec": {"selectors": [{"cel": {
+            "expression": f'device.driver == "{driver}"'}}]}})
+    kube.create("", "v1", "nodes", {"metadata": {"name": node},
+                                    "status": {"conditions": [
+                                        {"type": "Ready", "status": "True"}]}})
+    sliceutil.publish_resource_slices(kube, [{
+        "apiVersion": "resource.k8s.io/v1", "kind": "ResourceSlice",
+        "metadata": {"name": f"{node}-{driver}"},
+        "spec": {"driver": driver, "nodeName": node,
+                 "pool": {"name": node, "generation": 1,
+                          "resourceSliceCount": 1},
+                 "devices": [{"name": f"chip-{y * side + x}", "attributes": {
+                     "type": {"string": "tpu-chip"},
+                     "platform": {"string": "v5e"},
+                     "topology": {"string": f"{side}x{side}"},
+                     "iciX": {"int": x}, "iciY": {"int": y}}}
+                     for y in range(side) for x in range(side)]}}])
+    sched = DraScheduler(kube, gates=FeatureGates.parse(
+        "TopologyAwarePlacement=false"))
+    metrics = DefragMetrics()
+    root = tempfile.mkdtemp(prefix="defrag")
+    ctrl = DefragController(kube, root, metrics=metrics, **ctrl_kw)
+    sched.attach_defrag(ctrl)
+    plans_ms: list = []
+    plan_pool = ctrl._plan_pool
+
+    def timed_plan(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return plan_pool(*args, **kwargs)
+        finally:
+            plans_ms.append(round((time.perf_counter() - t0) * 1e3, 3))
+    ctrl._plan_pool = timed_plan
+    try:
+        for i in range(side * side):
+            name = f"c{i}"
+            kube.create(*res, "resourceclaims", {
+                "apiVersion": "resource.k8s.io/v1", "kind": "ResourceClaim",
+                "metadata": {"name": name, "namespace": "default"},
+                "spec": {"devices": {"requests": [{"name": "tpu", "exactly": {
+                    "deviceClassName": driver}}]}}}, namespace="default")
+            kube.patch(*res, "resourceclaims", name, {"status": {
+                "allocation": {"devices": {"results": [{
+                    "request": "tpu", "driver": driver, "pool": node,
+                    "device": f"chip-{i}"}]},
+                    "nodeSelector": {"nodeSelectorTerms": [{"matchFields": [
+                        {"key": "metadata.name", "operator": "In",
+                         "values": [node]}]}]}}}}, namespace="default")
+        for i in range(side * side):
+            if (i % side + i // side) % 2:
+                kube.delete(*res, "resourceclaims", f"c{i}",
+                            namespace="default")
+
+        def point():
+            pools = sched.fleet.snapshot().get("pools") or {}
+            return (pools.get(f"{driver}/{node}") or {}).get("current") or {}
+        t0 = time.perf_counter()
+        sched.sync_once()
+        before, passes = dict(point()), 1
+        while passes < 100:
+            now = point()
+            if now.get("fragmentation_score", 1.0) <= ctrl.release and \
+                    not ctrl.active_moves():
+                break
+            sched.sync_once()
+            passes += 1
+        seconds = time.perf_counter() - t0
+        after = point()
+        held = {}
+        for claim in kube.list(*res, "resourceclaims"):
+            alloc = claim.get("status", {}).get("allocation")
+            if not alloc:
+                raise AssertionError(f"defrag {side}x{side}: "
+                                     f"{claim['metadata']['name']} pending")
+            for r in alloc["devices"]["results"]:
+                if r["device"] in held:
+                    raise AssertionError(f"defrag {side}x{side}: "
+                                         f"{r['device']} held twice")
+                held[r["device"]] = claim["metadata"]["name"]
+
+        def value(counter):
+            return counter._own().value
+        return {"passes": passes, "seconds": seconds,
+                "windows": value(metrics.plans),
+                "moves": value(metrics.moves),
+                "aborted": value(metrics.aborted),
+                "frag_recovered": value(metrics.frag_recovered),
+                "before": before, "after": after, "plans_ms": plans_ms,
+                "claims": len(held), "active": ctrl.active_moves(),
+                "release": ctrl.release, "budget_pct": ctrl.budget_pct}
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_migration(seed: int) -> dict:
+    """22. Cooperative live migration and defragmentation through the
+    port's scheduler, with a training claim that checkpoints, moves to
+    another node and resumes its loss. Returns the training kernels'
+    launches of the two claim children (the main path's)."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from k8s_dra_driver_gpu_tpu_torch.api import deviceclasses
+    from k8s_dra_driver_gpu_tpu_torch.pkg import fleetstate, flightrecorder
+    from k8s_dra_driver_gpu_tpu_torch.pkg.defrag import (
+        DEFRAG_TARGET_ANNOTATION, DefragController)
+    from k8s_dra_driver_gpu_tpu_torch.pkg.exposition import generate_latest
+    from k8s_dra_driver_gpu_tpu_torch.pkg.fakeapiserver import FakeApiServer
+    from k8s_dra_driver_gpu_tpu_torch.pkg.metrics import (DefragMetrics,
+                                                          MigrationMetrics)
+    from k8s_dra_driver_gpu_tpu_torch.pkg.migration import (
+        EVACUATE_ANNOTATION, MIGRATION_ACK_ANNOTATION,
+        MIGRATION_INTENT_ANNOTATION, MigrationController)
+    from k8s_dra_driver_gpu_tpu_torch.pkg.recovery import (
+        MIGRATION_CAPABLE_ANNOTATION)
+    from k8s_dra_driver_gpu_tpu_torch.pkg.scheduler import DraScheduler
+    from k8s_dra_driver_gpu_tpu_torch.pkg.topology import TorusGrid
+    from k8s_dra_driver_gpu_tpu_torch.train import cooperative
+
+    res = ("resource.k8s.io", "v1")
+    root = os.path.dirname(os.path.abspath(__file__))
+    contract = (MIGRATION_INTENT_ANNOTATION, MIGRATION_ACK_ANNOTATION,
+                DEFRAG_TARGET_ANNOTATION)
+    ms: dict = {}
+    t_phase = time.perf_counter()
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"migration: {what}")
+
+    def wait(fn, timeout, what):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            value = fn()
+            if value:
+                return value
+            time.sleep(0.005)
+        raise AssertionError(f"migration: timed out waiting for {what}")
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = (smi.stdout or smi.stderr).strip().splitlines()[0]
+    tmp = tempfile.mkdtemp(prefix="migr")
+    # The checkpoints (~2.8 GB a step) in a git-ignored directory of the
+    # checkout, as phase 10's, deleted after.
+    work = os.path.join(root, "k8s_dra_driver_gpu_tpu_torch", "build",
+                        "migration_phase")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    threads_before = set(threading.enumerate())
+    fleet_before = fleetstate.default_fleet()
+    flight_before = flightrecorder.default()
+    flight = flightrecorder.set_default(flightrecorder.FlightRecorder())
+    plugins: dict = {}
+    children: list = []
+    server = sched = None
+    launches = {"forward_lse": 0, "dq": 0, "dkv": 0}
+    passed = False
+    try:
+        server = FakeApiServer().start()
+        kube = server.store
+        # The store's writes to the phase's claims, stamped as they land
+        # (host wall clock, which the children's lines share).
+        stamps: dict = {}
+        # name -> [(host time, node)], a claim's allocations in order.
+        placed: dict = collections.defaultdict(list)
+
+        def on_write(group, resource, namespace, ev_type, obj):
+            if resource != "resourceclaims" or ev_type == "DELETED":
+                return
+            now = time.time()
+            md = obj.get("metadata", {})
+            name, ann = md.get("name"), md.get("annotations") or {}
+            alloc = obj.get("status", {}).get("allocation")
+            for key, label in ((MIGRATION_INTENT_ANNOTATION, "intent"),
+                               (MIGRATION_ACK_ANNOTATION, "ack")):
+                if key in ann:
+                    stamps.setdefault((name, label), now)
+            node = None
+            if alloc:
+                node = alloc["nodeSelector"]["nodeSelectorTerms"][0][
+                    "matchFields"][0]["values"][0]
+            elif (name, "intent") in stamps:
+                stamps.setdefault((name, "deallocated"), now)
+            if (placed[name][-1][1] if placed[name] else None) != node:
+                placed[name].append((now, node))
+        kube.add_resource_watcher(on_write)
+        deviceclasses.create_all(kube)
+        for node in MIGRATION_NODES:
+            kube.create("", "v1", "nodes", {
+                "metadata": {"name": node},
+                "status": {"conditions": [{"type": "Ready",
+                                           "status": "True"}]}})
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("KUBE_API", "KUBERNETES_", "TPU_DRA_"))}
+        env["PYTHONPATH"] = root
+        plugin_env = dict(env, TPU_DRA_RECOVERY_SWEEP_S=str(RECOVERY_SWEEP_S))
+
+        def start_plugin(node):
+            t0 = time.perf_counter()
+            plugins[node] = RecoveryPlugin(server.url, node,
+                                           f"{tmp}/{node}", free_port(),
+                                           plugin_env, root)
+            check(plugins[node].ready["cuda"] is False
+                  and plugins[node].ready["devices"],
+                  f"the plugin of {node}: {plugins[node].ready}")
+            ms[f"plugin_{node}_start"] = round(
+                (time.perf_counter() - t0) * 1e3, 3)
+
+        def claim_of(name):
+            return kube.get(*res, "resourceclaims", name,
+                            namespace="default")
+
+        def node_of(name):
+            return placed[name][-1][1] if placed[name] else None
+
+        def placed_on(name, node, after=0.0):
+            return next((t for t, n in placed[name]
+                         if n == node and t > after), None)
+
+        def make_claim(name, pod_node=None):
+            kube.create(*res, "resourceclaims", {
+                "apiVersion": "resource.k8s.io/v1", "kind": "ResourceClaim",
+                "metadata": {"name": name, "namespace": "default",
+                             "annotations": {
+                                 MIGRATION_CAPABLE_ANNOTATION: "true"}},
+                "spec": {"devices": {"requests": [{"name": "gpu", "exactly": {
+                    "deviceClassName": deviceclasses.GPU_CLASS}}]}}},
+                namespace="default")
+            spec = {"containers": [{"name": "main"}], "resourceClaims": [
+                {"name": "gpu", "resourceClaimName": name}]}
+            if pod_node:
+                spec["nodeName"] = pod_node
+            kube.create("", "v1", "pods", {
+                "apiVersion": "v1", "kind": "Pod",
+                "metadata": {"name": f"{name}-pod", "namespace": "default"},
+                "spec": spec}, namespace="default")
+
+        def evacuate(node, on=True):
+            kube.patch("", "v1", "nodes", node, {"metadata": {
+                "annotations": {EVACUATE_ANNOTATION: "true" if on
+                                else None}}})
+
+        def pods():
+            return {p["metadata"]["name"] for p in kube.list("", "v1",
+                                                            "pods")}
+
+        def stages(uid):
+            return [(e.get("state"), e["ts"]) for e in flight.events(uid)
+                    if e["event"] == "migration"]
+
+        # The in-process scheduler with both controllers (as the binary's
+        # --migration-root and --defrag-root attach them).
+        mig_metrics = MigrationMetrics()
+        defrag_metrics = DefragMetrics(registry=mig_metrics.registry)
+        sched = DraScheduler(kube)
+        mig = MigrationController(kube, f"{tmp}/migration",
+                                  metrics=mig_metrics)
+        defrag = DefragController(kube, f"{tmp}/defrag",
+                                  metrics=defrag_metrics)
+        sched.attach_migration(mig).attach_defrag(defrag)
+        start_plugin("h100-a")
+        a = plugins["h100-a"]
+        sched.start(MIGRATION_INTERVAL_S)
+
+        # -- (a) the warm move. The claim lands on h100-a (h100-b is not
+        # published yet) and is prepared there.
+        make_claim(MIGRATION_CLAIM)
+        wait(lambda: node_of(MIGRATION_CLAIM) == "h100-a", 30,
+             "the claim on h100-a")
+        claim = claim_of(MIGRATION_CLAIM)
+        uid = claim["metadata"]["uid"]
+        got = a.ask(f"prepare {uid} default {MIGRATION_CLAIM}")
+        check(got["result"][1] == "", f"h100-a's prepare {got}")
+        product = None
+        for s in kube.list(*res, "resourceslices"):
+            product = s["spec"]["devices"][0]["attributes"]["productName"][
+                "string"]
+        start_plugin("h100-b")
+        b = plugins["h100-b"]
+        wait(lambda: len(kube.list(*res, "resourceslices")) == 2, 30,
+             "h100-b's slice")
+        # The uninterrupted run, here.
+        cfg = migration_config()
+        t0 = time.perf_counter()
+        plain = cooperative.run(cfg, MIGRATION_STEPS, f"{work}/plain",
+                                device="cuda", seed=seed,
+                                batch_size=MIGRATION_BATCH,
+                                seq_len=MIGRATION_SEQ)
+        ms["uninterrupted_run"] = round((time.perf_counter() - t0) * 1e3, 3)
+        torch.cuda.empty_cache()
+        ckpt = f"{work}/ckpt"
+        claim_arg = f"default/{MIGRATION_CLAIM}"
+        child_a = MigrationChild(
+            got["spec"], [seed, product, server.url, claim_arg, ckpt,
+                          MIGRATION_EVACUATE_AFTER, "first"], root,
+            f"{tmp}/child-a.log")
+        children.append(child_a)
+        up_a = child_a.until(lambda d: "cuda_up" in d, 300)
+        step3 = child_a.until(
+            lambda d: d.get("step") == MIGRATION_EVACUATE_AFTER, 300)
+        t_evacuate = time.time()
+        evacuate("h100-a")
+        # Child A exits after its result line; the claim's new node does
+        # not wait for that (its pod would run on another host).
+        result_a = child_a.result()
+        check(result_a.get("acked") == MIGRATION_EVACUATE_AFTER
+              and "done" not in result_a,
+              f"child A's run: {result_a}")
+        t_b_alloc = wait(lambda: placed_on(MIGRATION_CLAIM, "h100-b"), 60,
+                         "the claim's re-placement on h100-b")
+        got_b = b.ask(f"prepare {uid} default {MIGRATION_CLAIM}")
+        t_b_prepared = time.time()
+        check(got_b["result"][1] == "", f"h100-b's prepare {got_b}")
+        # The record retires (the contract annotations cleared) one pass
+        # after the re-placement, well before child B's CUDA is up; wait
+        # for it so that child B never reads the old intent.
+        wait(lambda: mig.active_moves() == {} and not mig.reservations(),
+             30, "the move record's retirement")
+        child_b = MigrationChild(
+            got_b["spec"], [seed, product, server.url, claim_arg, ckpt, 0,
+                            "last"], root, f"{tmp}/child-b.log")
+        children.append(child_b)
+        child_a.reap()
+        up_b = child_b.until(lambda d: "cuda_up" in d, 300)
+        first_b = child_b.until(lambda d: "step" in d, 300)
+        result_b = child_b.finish()
+        check(result_b.get("restored_from") == MIGRATION_EVACUATE_AFTER
+              and result_b.get("done") == MIGRATION_STEPS,
+              f"child B's run: {result_b}")
+        wait(lambda: uid not in a.ask("prepared")["prepared"], 30,
+             "h100-a's sweep of the moved claim")
+        # The losses: both children against the uninterrupted run.
+        got_losses = {d["step"]: d["loss"] for d in
+                      child_a.docs + child_b.docs if "step" in d}
+        want_losses = plain["losses"]
+        check(sorted(got_losses) == list(range(1, MIGRATION_STEPS + 1)),
+              f"the children's steps {sorted(got_losses)}")
+        rels = {step: abs(got_losses[step] - want) / abs(want)
+                for step, want in want_losses.items()}
+        bitwise = all(got_losses[s] == w for s, w in want_losses.items())
+        # Bitwise: the training kernels have no atomics, so a restore
+        # that lost any state (the AdamW moments, the step) shows even
+        # where random weights move the loss by less than 1e-4 a step.
+        check(all(math.isfinite(v) for v in got_losses.values()) and bitwise,
+              f"the moved run's losses {got_losses} against the "
+              f"uninterrupted {want_losses}: not bitwise equal")
+        flight_stages = [s for s, _ in stages(uid)]
+        check(flight_stages == ["MigrationDestReserved",
+                                "MigrationIntentSignaled",
+                                "MigrationWorkloadAcked",
+                                "MigrationSwitching", "Migrated"],
+              f"the move's stages {flight_stages}")
+        final = claim_of(MIGRATION_CLAIM)
+        left = [k for k in contract
+                if k in (final["metadata"].get("annotations") or {})]
+        check(not left and node_of(MIGRATION_CLAIM) == "h100-b"
+              and f"{MIGRATION_CLAIM}-pod" not in pods(),
+              f"after the move: annotations left {left}, on "
+              f"{node_of(MIGRATION_CLAIM)}, pods {sorted(pods())}")
+        for result in (result_a, result_b):
+            for kernel in launches:
+                launches[kernel] += result["launches"][kernel]
+        want_launches = {"forward_lse": 2 * MIGRATION_LAYERS
+                         * MIGRATION_STEPS,
+                         "dq": MIGRATION_LAYERS * MIGRATION_STEPS,
+                         "dkv": MIGRATION_LAYERS * MIGRATION_STEPS}
+        check(launches == want_launches,
+              f"the children's launches {launches}, want {want_launches}")
+        at = {s: t for s, t in stages(uid)}
+
+        def span(t1, t0):
+            return round((t1 - t0) * 1e3, 3)
+        steps = {
+            "evacuate_to_reserved": span(at["MigrationDestReserved"],
+                                         t_evacuate),
+            "to_intent": span(stamps[(MIGRATION_CLAIM, "intent")],
+                              at["MigrationDestReserved"]),
+            "to_ack": span(stamps[(MIGRATION_CLAIM, "ack")],
+                           stamps[(MIGRATION_CLAIM, "intent")]),
+            "ack_to_switched": span(stamps[(MIGRATION_CLAIM,
+                                            "deallocated")],
+                                    stamps[(MIGRATION_CLAIM, "ack")]),
+            "to_allocated_on_b": span(t_b_alloc, stamps[(
+                MIGRATION_CLAIM, "deallocated")]),
+            "to_prepared": span(t_b_prepared, t_b_alloc),
+            "to_restored": span(result_b["restored_at"], t_b_prepared),
+            "to_first_step_b": span(first_b["t"], result_b["restored_at"]),
+            "downtime": span(first_b["t"], step3["t"]),
+        }
+        ms.update(steps)
+        log(f"migration: (a) on {card}: the flagship at full width "
+            f"(d_model {cfg.d_model}, {cfg.n_heads} heads over "
+            f"{cfg.n_kv_heads}, hd {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab_size}) cut to {cfg.n_layers} layers, B="
+            f"{MIGRATION_BATCH} S={MIGRATION_SEQ}, {result_a['params']} "
+            f"parameters, fp32 state and AdamW moments, bf16 compute; child "
+            f"A's imports {span(up_a['imported'], up_a['started'])} ms, its "
+            f"CUDA context {span(up_a['cuda_up'], up_a['imported'])} ms, "
+            f"steps 1-{MIGRATION_EVACUATE_AFTER} on h100-a; host ms "
+            f"evacuate -> reserved {steps['evacuate_to_reserved']} -> "
+            f"intent {steps['to_intent']} -> ack {steps['to_ack']} "
+            f"(checkpoint {result_a['checkpoint_bytes']} bytes saved in "
+            f"{result_a['save_s']:.3f} s, "
+            f"{result_a['checkpoint_bytes'] / result_a['save_s'] / 1e9:.3f} "
+            f"GB/s) -> switched {steps['ack_to_switched']} -> allocated on "
+            f"h100-b {steps['to_allocated_on_b']} -> prepared "
+            f"{steps['to_prepared']} -> restored {steps['to_restored']} "
+            f"(child B's imports {span(up_b['imported'], up_b['started'])} "
+            f"ms, its CUDA context {span(up_b['cuda_up'], up_b['imported'])}"
+            f" ms, the restore {result_b['restore_s']:.3f} s) -> "
+            f"B's first step {steps['to_first_step_b']}; downtime (A's last "
+            f"step to B's first) {steps['downtime']} ms; child A's output "
+            f"closed {span(child_a.eof_at, stamps[(MIGRATION_CLAIM, 'ack')])}"
+            f" ms after its ack")
+        log(f"migration: (a) losses by step {json.dumps(got_losses)}; "
+            f"uninterrupted {json.dumps(want_losses)}; bitwise equal "
+            f"{bitwise} (required), max rel {max(rels.values()):.3g}; "
+            f"stages {flight_stages}; kernels in A "
+            f"{json.dumps(result_a['checks'])}, in B "
+            f"{json.dumps(result_b['checks'])} (bounds: "
+            f"{MIGRATION_KERNEL_MAX_ULPS} bf16 ulp at the largest "
+            f"magnitude, row rel L2 {FWD_ROW_REL_TOL}, lse "
+            f"{LSE_TOLERANCE}, rel L2 {BWD_REL_TOL}); main-path launches "
+            f"{launches}; "
+            f"the uninterrupted run {ms['uninterrupted_run']} ms in this "
+            f"process")
+
+        # -- (b) the cold fallback: a second claim on h100-a whose
+        # workload never acks. The first claim goes, so h100-b's GPU is
+        # a destination again.
+        kube.delete(*res, "resourceclaims", MIGRATION_CLAIM,
+                    namespace="default")
+        wait(lambda: uid not in b.ask("prepared")["prepared"], 30,
+             "h100-b's sweep of the deleted claim")
+        evacuate("h100-a", on=False)
+        cold_runs = {}
+        for reason, ack_s, deadline_s in (
+                ("ack-timeout", MIGRATION_COLD_ACK_S, 300.0),
+                ("deadline", MIGRATION_COLD_ACK_S,
+                 MIGRATION_COLD_DEADLINE_S)):
+            cold = MigrationController(
+                kube, f"{tmp}/migration-{reason}", metrics=MigrationMetrics(),
+                ack_s=ack_s, deadline_s=deadline_s, cooldown_s=3600.0)
+            sched.attach_migration(cold)
+            name = f"{MIGRATION_COLD_CLAIM}-{reason}"
+            make_claim(name, pod_node="h100-a")
+            wait(lambda: node_of(name) == "h100-a", 30,
+                 f"{name} on h100-a")
+            cuid = claim_of(name)["metadata"]["uid"]
+            t0 = time.time()
+            evacuate("h100-a")
+            wait(lambda: ("FellBack" in [s for s, _ in stages(cuid)]), 30,
+                 f"{name}'s fallback")
+            evacuate("h100-a", on=False)
+            fell = [e for e in flight.events(cuid)
+                    if e["event"] == "migration"
+                    and e.get("state") == "FellBack"][-1]
+            final = claim_of(name)
+            left = [k for k in contract
+                    if k in (final["metadata"].get("annotations") or {})]
+            cold_stages = [s for s, _ in stages(cuid)]
+            check(fell["reason"] == reason and not left
+                  and not cold.reservations() and cold.active_moves() == {},
+                  f"{name}: {fell}, annotations left {left}, reservations "
+                  f"{cold.reservations()}")
+            if reason == "ack-timeout":
+                # Before the switch the workload never stopped: its
+                # allocation and its pod stay.
+                check(node_of(name) == "h100-a" and f"{name}-pod" in pods(),
+                      f"{name} after its ack timeout: on {node_of(name)}")
+            else:
+                # The deadline finishes the move cold: drained,
+                # deallocated, re-placed by the next pass (anywhere).
+                wait(lambda: (name, "deallocated") in stamps
+                     and placed[name][-1][1] is not None
+                     and placed[name][-1][0] > stamps[(name, "deallocated")],
+                     30, f"{name}'s re-placement")
+                check(f"{name}-pod" not in pods(),
+                      f"{name}'s pod after the cold drain")
+            at = {s: t for s, t in stages(cuid)}
+            cold_runs[reason] = {
+                "stages": cold_stages,
+                "evacuate_to_reserved": span(at["MigrationDestReserved"], t0),
+                "to_intent": span(stamps[(name, "intent")],
+                                  at["MigrationDestReserved"]),
+                "to_fallback": span(fell["ts"], stamps[(name, "intent")]),
+                "placed": [n for _, n in placed[name]],
+                "deallocated_to_replaced": (span(
+                    placed[name][-1][0], stamps[(name, "deallocated")])
+                    if (name, "deallocated") in stamps else None)}
+            if f"{name}-pod" in pods():
+                kube.delete("", "v1", "pods", f"{name}-pod",
+                            namespace="default")
+            kube.delete(*res, "resourceclaims", name, namespace="default")
+        sched.attach_migration(mig)
+        log(f"migration: (b) cold fallbacks on {card} (ack_s "
+            f"{MIGRATION_COLD_ACK_S} s; the second controller's deadline "
+            f"{MIGRATION_COLD_DEADLINE_S} s): {json.dumps(cold_runs)}")
+        ms.update({f"cold_{r}_{k}": v for r, run in cold_runs.items()
+                   for k, v in run.items() if isinstance(v, float)})
+
+        # -- (c) defrag: the port's GPU pools have no coordinates.
+        sched.stop()
+        slices = kube.list(*res, "resourceslices")
+        claims = kube.list(*res, "resourceclaims")
+        gpu_pools = []
+        for s in slices:
+            key = (s["spec"]["driver"], s["spec"]["pool"]["name"])
+            grid = TorusGrid.from_devices(s["spec"]["devices"])
+            gpu_pools.append({"pool": "/".join(key),
+                              "coords": len(grid.coords),
+                              "model": defrag._pool_model(key, slices,
+                                                          claims),
+                              "planned": defrag._plan_pool(
+                                  key, claims, slices, [],
+                                  {"planned": 0})})
+        check(all(p["model"] is None and p["planned"] is False
+                  and p["coords"] == 0 for p in gpu_pools),
+              f"defrag on the GPU pools: {gpu_pools}")
+        passes_defrag = defrag.last_sync
+        samples = {str(k): v for k, v in sorted(metric_samples(
+            generate_latest(mig_metrics.registry).decode()).items())
+            if not k[0].endswith("_bucket")}
+        log(f"migration: (c) defrag over the port's two GPU pools: "
+            f"{[(p['pool'], p['coords']) for p in gpu_pools]} (pool, "
+            f"devices with ICI coordinates): no grid, so no window "
+            f"(_pool_model None, _plan_pool False); the attached "
+            f"controller's last pass {passes_defrag}; the scheduler's "
+            f"defrag and migration samples "
+            f"{json.dumps(samples)}")
+        for node in list(plugins):
+            check(plugins.pop(node).close() == 0,
+                  f"the plugin of {node} exited non-zero")
+        for side in DEFRAG_SIDES:
+            ctrl_kw = dict(trigger=0.25, release=0.15, sustain_s=0.0,
+                           max_concurrent=side * side, deadline_s=600.0,
+                           cooldown_s=0.0)
+            if side <= 4:
+                # tests/test_defrag.py's; at 16x16 the default budget
+                # keeps each window's what-if sweep to seconds.
+                ctrl_kw["budget_pct"] = 100.0
+            run = _checkerboard_run(side, ctrl_kw)
+            check(run["after"].get("fragmentation_score", 1.0)
+                  <= run["release"] and not run["active"]
+                  and run["aborted"] == 0
+                  and run["after"]["largest_free_shape"]
+                  > run["before"]["largest_free_shape"],
+                  f"the {side}x{side} checkerboard: {run}")
+            log(f"migration: (c) defrag, {side}x{side} checkerboard "
+                f"({run['claims']} one-chip claims, budget "
+                f"{run['budget_pct']}% of them a window): "
+                f"{run['passes']} passes in {run['seconds']:.3f} s, "
+                f"{run['windows']:.0f} windows, {run['moves']:.0f} moves, "
+                f"largest free shape {run['before']['largest_free_shape']}"
+                f" -> {run['after']['largest_free_shape']} chips (frag "
+                f"{run['before']['fragmentation_score']} -> "
+                f"{run['after']['fragmentation_score']}), chips recovered "
+                f"{run['frag_recovered']:.0f}, plans ms {run['plans_ms']}")
+            ms[f"defrag_{side}_plan_ms"] = sum(run["plans_ms"])
+        passed = True
+        return launches
+    finally:
+        for child in children:
+            child.close()
+        if sched is not None:
+            sched.stop()
+        for plugin in plugins.values():
+            plugin.close()
+        if server is not None:
+            server.stop()
+        fleetstate.set_default_fleet(fleet_before)
+        flightrecorder.set_default(flight_before)
+        left = [t.name for t in threading.enumerate()
+                if t not in threads_before and t.is_alive()]
+        ms["phase"] = round((time.perf_counter() - t_phase) * 1e3, 3)
+        log(f"migration: host ms {json.dumps(ms)} on {card}; threads left "
+            f"{left}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
+        if passed:
+            check(not left, "a thread outlived the phase")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6205,6 +7083,9 @@ def main(argv=None) -> int:
     t_recovery = time.perf_counter()
     recovery_children = phase_recovery(args.seed)
     log(f"recovery: phase 21 in {time.perf_counter() - t_recovery:.1f} s")
+    t_migration = time.perf_counter()
+    migration = phase_migration(args.seed)
+    log(f"migration: phase 22 in {time.perf_counter() - t_migration:.1f} s")
     forward["launches_by_path"] = {
         "serving_generate": serving_launches,
         "training_step": training["forward_lse"],
@@ -6220,6 +7101,7 @@ def main(argv=None) -> int:
         "cd_channel_child": cd_child,
         "scheduler_claim_child": sched_child,
         "recovery_claim_children": recovery_children,
+        "migration_claim_children": migration["forward_lse"],
         "sharded_training_step": gang["train"]["forward_lse"],
         "moe_training_step": moe["forward_lse"],
         "sp_ulysses_training_step": sp["ulysses"]["forward_lse"],
@@ -6235,7 +7117,8 @@ def main(argv=None) -> int:
             "moe_training_step": moe[kernel],
             "sp_ulysses_training_step": sp["ulysses"][kernel],
             "sp_ring_training_step": sp["ring"][kernel],
-            "pp_training_step": pp[kernel]}
+            "pp_training_step": pp[kernel],
+            "migration_claim_children": migration[kernel]}
         record["launches"] = sum(record["launches_by_path"].values())
     # The hd-64 instantiations: the MoE step's launches.
     for record, kernel in zip(hd64_records, ("forward_lse", "dq", "dkv")):

@@ -13,12 +13,12 @@ member, ``TelemetryMetrics``), ``ResilienceMetrics``,
 ``RecoveryMetrics``, ``PartitionMetrics``, ``TelemetryMetrics``,
 ``FleetMetrics``, ``ComputeDomainMetrics``, ``PlacementMetrics``,
 ``SchedulerMetrics`` (the families of the scheduler's polled pass: sync
-time, snapshot builds and the control-plane SLO phases) and
-``MetricsServer``. The others wait for their producers (ROADMAP.md
-§1c): ``WorkQueueMetrics`` and the event-mode families of ``SchedulerMetrics``
-(dirty queue, informer relists, delta builds, domains) for the
-scheduler's event mode, ``DefragMetrics``, ``MigrationMetrics`` and
-``AutoscaleMetrics`` for their controllers.
+time, snapshot builds and the control-plane SLO phases),
+``DefragMetrics``, ``MigrationMetrics`` and ``MetricsServer``. The
+others wait for their producers (ROADMAP.md §1c): ``WorkQueueMetrics``
+and the event-mode families of ``SchedulerMetrics`` (dirty queue,
+informer relists, delta builds, domains) for the scheduler's event
+mode, ``AutoscaleMetrics`` for the autoscaler.
 """
 
 from __future__ import annotations
@@ -662,6 +662,137 @@ class SchedulerMetrics:
             registry=self.registry,
         )
         self.slo = ClaimSLOMetrics(registry=self.registry)
+
+
+class DefragMetrics:
+    """Active-defragmentation observability (pkg/defrag.py, on the
+    scheduler registry).
+
+    A healthy controller shows ``plans_total`` rising only when churn
+    has genuinely shredded a pool (the hysteresis proof: a quiet fleet
+    shows zero), every planned move retiring through ``moves_total``
+    (``aborted_total`` staying flat), ``frag_recovered_chips_total``
+    tracking the largest-free-shape growth each completed plan bought,
+    and move latency (plan -> re-placement) bounded by the scheduler's
+    re-placement path. ``active_moves`` returning to zero after every
+    window is the no-stuck-claims invariant."""
+
+    def __init__(self, registry: CollectorRegistry | None = None):
+        self.registry = registry or CollectorRegistry()
+        self.plans = Counter(
+            "tpu_dra_defrag_plans_total",
+            "Defrag plan windows started (a triggered pool with a "
+            "feasible re-pack admitted for execution).",
+            registry=self.registry,
+        )
+        self.moves = Counter(
+            "tpu_dra_defrag_moves_total",
+            "Claim migrations completed by the defrag controller "
+            "(drain -> deallocate -> re-placement retired).",
+            registry=self.registry,
+        )
+        self.frag_recovered = Counter(
+            "tpu_dra_defrag_frag_recovered_chips_total",
+            "Chips of largest-free-sub-torus growth recovered by "
+            "completed defrag plans (chips_after - chips_before, "
+            "summed per plan window).",
+            registry=self.registry,
+        )
+        self.aborted = Counter(
+            "tpu_dra_defrag_aborted_total",
+            "Defrag moves abandoned (move deadline exceeded, claim "
+            "deleted mid-move, or pool healed mid-plan).",
+            registry=self.registry,
+        )
+        self.active_moves = Gauge(
+            "tpu_dra_defrag_active_moves",
+            "Defrag move records currently in flight (bounded by "
+            "TPU_DRA_DEFRAG_MAX_CONCURRENT).",
+            registry=self.registry,
+        )
+        self.move_seconds = Histogram(
+            "tpu_dra_defrag_move_seconds",
+            "End-to-end latency of one completed defrag move: plan "
+            "record written -> claim re-placed on surviving capacity.",
+            buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+                     60.0, 120.0, 300.0),
+            registry=self.registry,
+        )
+
+
+class MigrationMetrics:
+    """Cooperative-migration observability (pkg/migration.py, on the
+    scheduler registry).
+
+    A healthy controller shows every ``plans_total`` retiring through
+    ``coop_moves_total`` with ``fallbacks_total`` flat -- a rising
+    fallback rate means workloads stopped honoring the ack contract
+    (read the ``reason`` label: ack-timeout means the ack window is
+    undersized for real checkpoint time, checkpoint-failed means the
+    workload's own save path is broken, destination-lost means the
+    fleet is losing capacity mid-handshake). ``ack_seconds`` is the
+    workload's checkpoint time (size TPU_DRA_MIGRATION_ACK_S from its
+    p99); ``switch_seconds`` is the actual downtime (drain ->
+    re-placed); ``move_seconds`` the whole handshake. ``active_moves``
+    returning to zero after every handshake is the no-stuck-claims
+    invariant the chaos suite pins."""
+
+    def __init__(self, registry: CollectorRegistry | None = None):
+        self.registry = registry or CollectorRegistry()
+        self.plans = Counter(
+            "tpu_dra_migration_plans_total",
+            "Cooperative move groups planned (destination reserved, "
+            "durable records written).",
+            registry=self.registry,
+        )
+        self.coop_moves = Counter(
+            "tpu_dra_migration_coop_moves_total",
+            "Cooperative migrations completed warm (workload acked "
+            "its checkpoint, claim re-placed on the reserved window).",
+            registry=self.registry,
+        )
+        self.fallbacks = Counter(
+            "tpu_dra_migration_fallbacks_total",
+            "Cooperative moves degraded to the cold eviction path, by "
+            "reason (ack-timeout, checkpoint-failed, "
+            "destination-lost, deadline). The claim is never stuck: "
+            "fallback releases the reservation and drains cold.",
+            ["reason"],
+            registry=self.registry,
+        )
+        self.active_moves = Gauge(
+            "tpu_dra_migration_active_moves",
+            "Migration handshake records currently in flight (bounded "
+            "by TPU_DRA_MIGRATION_MAX_CONCURRENT).",
+            registry=self.registry,
+        )
+        self.ack_seconds = Histogram(
+            "tpu_dra_migration_ack_seconds",
+            "Workload checkpoint time: intent signaled -> ack "
+            "annotation observed. Size TPU_DRA_MIGRATION_ACK_S from "
+            "this histogram's p99.",
+            buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+                     60.0, 120.0, 300.0),
+            registry=self.registry,
+        )
+        self.switch_seconds = Histogram(
+            "tpu_dra_migration_switch_seconds",
+            "The actual workload downtime of a cooperative move: "
+            "drain/deallocate -> claim re-placed on the reserved "
+            "window (the workload restores warm from its own "
+            "checkpoint from there).",
+            buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+                     60.0, 120.0, 300.0),
+            registry=self.registry,
+        )
+        self.move_seconds = Histogram(
+            "tpu_dra_migration_move_seconds",
+            "End-to-end latency of one completed cooperative move: "
+            "plan record written -> claim re-placed.",
+            buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+                     60.0, 120.0, 300.0),
+            registry=self.registry,
+        )
 
 
 class ComputeDomainMetrics:

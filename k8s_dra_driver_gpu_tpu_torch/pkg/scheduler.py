@@ -41,6 +41,17 @@ port's kubelet plugins cannot tell:
    ``fleet_metrics`` is given); the first fold makes this scheduler's
    aggregator the process default. A fold that raises is logged and
    never fails the pass.
+7. **Cooperative migration** (``attach_migration``,
+   ``pkg/migration.MigrationController``): its pass runs after
+   recovery's and before allocation, so a claim it switches re-places
+   onto its reserved window in the same pass.
+8. **Active defragmentation** (``attach_defrag``,
+   ``pkg/defrag.DefragController``): its pass runs after the fleet
+   fold, whose fragmentation rings trigger it. Allocation honours both
+   controllers: a claim's ``resource.tpu.dra/defrag-target`` hint puts
+   its target node first and its target devices first in each
+   request's order, and every device either controller has reserved is
+   vetoed for every claim but the one it is reserved for.
 
 One pass is ``sync_once``; ``run(interval)`` repeats it (the JAX
 scheduler's polled mode). Every read lists through the API server
@@ -51,16 +62,16 @@ nothing to cover here and is left out.
 What waits, each refused with ``NotPortedError`` naming its ROADMAP.md
 item (§1c): event mode (``start_event_driven``,
 ``--sched-mode events``), workers > 1 and the claim batch, scheduling
-domains and spillover, and the defrag, migration and autoscale
-controllers (``attach_*``). The annotations only those controllers
-write (the defrag target, the domain and spillover keys) are not read.
+domains and spillover, and the autoscale controller
+(``attach_autoscaler``). The annotations only domains write (the
+domain and spillover keys) are not read.
 
 Run it as ``python -m k8s_dra_driver_gpu_tpu_torch.pkg.scheduler
 --kube-api URL [--default-node N] [--interval S] [--metrics-port N]
-[--recovery-root DIR] [--leader-elect [--leader-elect-namespace NS]]``
-(``--recovery-root``, else ``TPU_DRA_RECOVERY_ROOT``, attaches the
-recovery controller over that directory's records); SIGTERM ends it
-with exit 0.
+[--recovery-root DIR] [--migration-root DIR] [--defrag-root DIR]
+[--leader-elect [--leader-elect-namespace NS]]`` (each root, else its
+``TPU_DRA_{RECOVERY,MIGRATION,DEFRAG}_ROOT``, attaches that controller
+over the directory's records); SIGTERM ends it with exit 0.
 """
 
 from __future__ import annotations
@@ -76,6 +87,7 @@ import time
 import uuid
 
 from . import fleetstate, flightrecorder, tracing
+from .defrag import DEFRAG_TARGET_ANNOTATION, parse_target_hint
 from .events import emit_warning_event
 from .featuregates import (TOPOLOGY_AWARE_PLACEMENT, FeatureGateError,
                            FeatureGates)
@@ -95,10 +107,6 @@ RESOURCE = ("resource.k8s.io", "v1")
 # What the JAX scheduler attaches to its loop and the port does not run
 # yet, by the ROADMAP.md §1c item that ports it.
 CONTROLLERS = {
-    "defrag": "the defragmentation controller (ROADMAP.md §1c item 5, "
-              "defrag)",
-    "migration": "the cooperative migration controller (ROADMAP.md §1c "
-                 "item 6, migration)",
     "autoscaler": "the serving autoscaler (ROADMAP.md §1c item 7, "
                   "autoscale)",
 }
@@ -107,8 +115,6 @@ UNPORTED_FLAGS = {
     "sched_domain": DOMAINS, "sched_domain_pools": DOMAINS,
     "sched_domain_siblings": DOMAINS, "sched_domain_default": DOMAINS,
     "sched_batch": WORKERS,
-    "defrag_root": CONTROLLERS["defrag"],
-    "migration_root": CONTROLLERS["migration"],
     "autoscale_root": CONTROLLERS["autoscaler"],
 }
 # The JAX scheduler's env knobs for what waits, refused when set (its
@@ -118,8 +124,6 @@ UNPORTED_ENV = {
     "TPU_DRA_SCHED_DOMAIN": DOMAINS, "TPU_DRA_SCHED_DOMAIN_POOLS": DOMAINS,
     "TPU_DRA_SCHED_DOMAIN_SIBLINGS": DOMAINS,
     "TPU_DRA_SCHED_DOMAIN_DEFAULT": DOMAINS,
-    "TPU_DRA_DEFRAG_ROOT": CONTROLLERS["defrag"],
-    "TPU_DRA_MIGRATION_ROOT": CONTROLLERS["migration"],
     "TPU_DRA_AUTOSCALE_ROOT": CONTROLLERS["autoscaler"],
 }
 
@@ -197,6 +201,11 @@ class DraScheduler:
         # pass runs first in each pass, and allocation avoids the nodes
         # it declared failed.
         self.recovery = None
+        # The defrag and cooperative-migration controllers, if attached:
+        # allocation honours their placement hints and vetoes their
+        # device reservations.
+        self.defrag = None
+        self.migration = None
         # The fleet telemetry fold, every pass. The process default
         # (/debug/fleet) is claimed at the FIRST fold, so a scheduler
         # only constructed never repoints it at an empty aggregator.
@@ -228,10 +237,27 @@ class DraScheduler:
         return self
 
     def attach_defrag(self, controller) -> "DraScheduler":
-        self._refuse_controller("defrag")
+        """Drive a ``pkg/defrag.DefragController`` from this scheduler's
+        pass: its sync runs in every pass after the fleet fold, so the
+        frag rings it triggers on are fresh; its reads come from this
+        scheduler's view, and its trigger reads this scheduler's fleet
+        unless it was given one; allocation honours its placement hints
+        and vetoes its device reservations."""
+        controller.view = self.view
+        if controller.fleet is None:
+            controller.fleet = self.fleet
+        self.defrag = controller
+        return self
 
     def attach_migration(self, controller) -> "DraScheduler":
-        self._refuse_controller("migration")
+        """Drive a ``pkg/migration.MigrationController`` from this
+        scheduler's pass: its sync runs in every pass right after
+        recovery's, so a claim switched in a pass re-places in the same
+        pass; its reads come from this scheduler's view; allocation
+        vetoes its destination reservations beside defrag's."""
+        controller.view = self.view
+        self.migration = controller
+        return self
 
     def attach_autoscaler(self, controller) -> "DraScheduler":
         self._refuse_controller("autoscaler")
@@ -483,12 +509,13 @@ class DraScheduler:
     def _device_classes(self) -> dict[str, dict]:
         return {_meta(c)["name"]: c for c in self.view.device_classes()}
 
-    def _candidate_nodes(self, snap: InventorySnapshot,
+    def _candidate_nodes(self, claim, snap: InventorySnapshot,
                          alloc: AllocationState, window: set,
                          pinned_node: str | None) -> list[str]:
         """The node order for one claim: a ComputeDomain window first,
-        then least-allocated (the spreading of a per-pod Filter/Score).
-        A claim whose consumer pod is bound probes that node alone."""
+        then least-allocated (the spreading of a per-pod Filter/Score),
+        and a moving claim's hinted target node before all. A claim
+        whose consumer pod is bound probes that node alone."""
         if pinned_node is not None:
             nodes = [pinned_node] if pinned_node in snap.by_node else []
         else:
@@ -496,6 +523,11 @@ class DraScheduler:
             if window:
                 nodes = ([n for n in nodes if n in window]
                          + [n for n in nodes if n not in window])
+            hint = self._defrag_hint(claim)
+            if hint is not None and hint[0] in snap.by_node:
+                # A preference only: every other node stays in the walk,
+                # so a stale hint costs placement quality, never a fit.
+                nodes = [hint[0]] + [n for n in nodes if n != hint[0]]
         if self.recovery is not None:
             # A dead node's slices may still be published (its kubelet
             # cannot retract them): never re-place a claim onto it.
@@ -523,7 +555,8 @@ class DraScheduler:
                 "claim_uid": uid}) as claim_span:
             # The fit phase runs from here to try_commit.
             self._fit_t0 = time.monotonic()
-            nodes = self._candidate_nodes(snap, alloc, window, pinned_node)
+            nodes = self._candidate_nodes(claim, snap, alloc, window,
+                                          pinned_node)
             # One ledger and power copy, shared by every probed node:
             # try_commit judges anew at reserve time.
             outcome = self._fit_and_commit(
@@ -665,6 +698,18 @@ class DraScheduler:
         # No pool ranked anything: the original interleaved order.
         return out if any_signal else cands
 
+    @staticmethod
+    def _defrag_hint(claim) -> tuple[str, list[str]] | None:
+        """A moving claim's placement hint, (target node, target device
+        names), from the ``resource.tpu.dra/defrag-target`` annotation
+        the defrag and migration controllers stamp before deallocating;
+        None without one or for a malformed one."""
+        raw = (_meta(claim).get("annotations") or {}).get(
+            DEFRAG_TARGET_ANNOTATION)
+        if not raw:
+            return None
+        return parse_target_hint(raw)
+
     def _preferred_gang_nodes(self, claim) -> list[str] | None:
         """A ComputeDomain channel claim prefers the host window its
         domain's preferred-nodes annotation names."""
@@ -752,6 +797,22 @@ class DraScheduler:
                                              tolerations)
                 ],
             })
+        if self.defrag is not None or self.migration is not None:
+            # The veto: a device a defrag window (carve cell or move
+            # target) or a migration's destination reserves goes only to
+            # the claim it is reserved for while the move is in flight.
+            reserved = {}
+            if self.defrag is not None:
+                reserved.update(self.defrag.reservations())
+            if self.migration is not None:
+                reserved.update(self.migration.reservations())
+            if reserved:
+                uid = _meta(claim).get("uid", "")
+                for r in reqs:
+                    r["cands"] = [
+                        c for c in r["cands"]
+                        if c.key not in reserved
+                        or (uid and reserved[c.key] == uid)]
         if self._topology:
             for r in reqs:
                 r["cands"] = self._topology_order(snap, r["cands"],
@@ -763,6 +824,17 @@ class DraScheduler:
             if any(c.headroom_penalty for c in r["cands"]):
                 r["cands"] = sorted(r["cands"],
                                     key=lambda c: c.headroom_penalty)
+        hint = self._defrag_hint(claim)
+        if hint is not None and hint[0] == node:
+            # The placement hint's devices lead each request's order,
+            # after the topology and headroom orders (the hint is the
+            # stronger, claim-specific signal) and whatever the topology
+            # gate says; the fit still decides.
+            hinted = set(hint[1])
+            for r in reqs:
+                r["cands"] = (
+                    [c for c in r["cands"] if c.name in hinted]
+                    + [c for c in r["cands"] if c.name not in hinted])
         constraints = []
         for c in spec.get("constraints") or []:
             attr = c.get("matchAttribute")
@@ -1228,6 +1300,10 @@ class DraScheduler:
         self.view.begin_pass()
         self._pass_state = None
         self._sync_recovery()
+        # After recovery, before allocation: a claim the migration
+        # controller switches in this pass re-places (onto its reserved
+        # window) in the same pass.
+        self._sync_migration()
         self._sync_daemonsets()
         self._sync_jobs()
         self._generate_claims()
@@ -1235,6 +1311,9 @@ class DraScheduler:
         self._allocate_claims()
         self._bind_pods()
         self._observe_fleet()
+        # After the fleet fold: the defrag trigger reads the rings this
+        # pass just refreshed.
+        self._sync_defrag()
         if self.sched_metrics is not None:
             self.sched_metrics.sync_seconds.labels("full").observe(
                 time.monotonic() - t0)
@@ -1268,6 +1347,26 @@ class DraScheduler:
             self.recovery.sync_once()
         except Exception:  # noqa: BLE001 - control loop
             logger.exception("recovery sync failed")
+
+    def _sync_migration(self) -> None:
+        """One migration pass; an ``InjectedCrash`` goes through, as a
+        process death would."""
+        if self.migration is None:
+            return
+        try:
+            self.migration.sync_once()
+        except Exception:  # noqa: BLE001 - control loop
+            logger.exception("migration sync failed")
+
+    def _sync_defrag(self) -> None:
+        """One defrag pass; an ``InjectedCrash`` goes through, as a
+        process death would."""
+        if self.defrag is None:
+            return
+        try:
+            self.defrag.sync_once()
+        except Exception:  # noqa: BLE001 - control loop
+            logger.exception("defrag sync failed")
 
     def run(self, interval: float = 0.25):
         while not self._stop.is_set():
@@ -1349,6 +1448,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="state root of the permanent-failure eviction "
                         "controller's durable records; empty = recovery "
                         "off [TPU_DRA_RECOVERY_ROOT]")
+    p.add_argument("--defrag-root",
+                   default=env("TPU_DRA_DEFRAG_ROOT", ""),
+                   help="state root of the active-defragmentation "
+                        "controller's durable move records; empty = "
+                        "defrag off [TPU_DRA_DEFRAG_ROOT]")
+    p.add_argument("--migration-root",
+                   default=env("TPU_DRA_MIGRATION_ROOT", ""),
+                   help="state root of the cooperative migration "
+                        "controller's durable move records "
+                        "(checkpoint-then-switch handshakes); empty = "
+                        "cooperative migration off "
+                        "[TPU_DRA_MIGRATION_ROOT]")
     # The JAX scheduler's flags for what waits: refused when set.
     for flag in UNPORTED_FLAGS:
         if flag == "sched_domain_default":
@@ -1364,10 +1475,13 @@ def main(argv: list[str] | None = None) -> int:
     from .kubeclient import KubeClient  # noqa: PLC0415
     from . import logsetup  # noqa: PLC0415
     from .. import __version__  # noqa: PLC0415
-    from .metrics import (FleetMetrics, MetricsServer,  # noqa: PLC0415
+    from .defrag import DefragController  # noqa: PLC0415
+    from .metrics import (DefragMetrics, FleetMetrics,  # noqa: PLC0415
+                          MetricsServer, MigrationMetrics,
                           PlacementMetrics, RecoveryMetrics,
                           ResilienceMetrics, SchedulerMetrics,
                           register_build_info)
+    from .migration import MigrationController  # noqa: PLC0415
     from .recovery import EvictionController  # noqa: PLC0415
     from .retry import RetryingKubeClient  # noqa: PLC0415
 
@@ -1405,6 +1519,16 @@ def main(argv: list[str] | None = None) -> int:
             recovery_metrics = RecoveryMetrics(registry=metrics.registry)
         sched.attach_recovery(EvictionController(
             sched.kube, args.recovery_root, metrics=recovery_metrics))
+    if args.defrag_root:
+        sched.attach_defrag(DefragController(
+            sched.kube, args.defrag_root, metrics=(
+                DefragMetrics(registry=metrics.registry)
+                if metrics is not None else None)))
+    if args.migration_root:
+        sched.attach_migration(MigrationController(
+            sched.kube, args.migration_root, metrics=(
+                MigrationMetrics(registry=metrics.registry)
+                if metrics is not None else None)))
     if metrics is not None:
         server = MetricsServer(metrics.registry, host="0.0.0.0",
                                port=args.metrics_port)

@@ -28,9 +28,25 @@ allocation cleared) -> absent (re-placed, or retired at the deadline).
 A Planned or Draining record may also go straight to absent (the claim
 was deleted); no stage is skipped.
 
+A defragmentation move (``DEFRAG_POLICY``, ``pkg/defrag.py``'s records):
+absent -> DefragPlanned (the carve and the claim's target reserved) ->
+DefragDraining (the placement hint stamped, consumer pods evicted) ->
+DefragDeallocated (the allocation cleared) -> absent (re-placed). A
+Planned or Draining record may go straight to absent (aborted, or the
+claim gone); a drain or deallocation without its durable plan is
+refused.
+
+A cooperative migration (``MIGRATION_POLICY``, ``pkg/migration.py``'s
+records): absent -> MigrationDestReserved (the destination reserved) ->
+MigrationIntentSignaled (the intent annotation stamped) ->
+MigrationWorkloadAcked (the workload checkpointed and acked) ->
+MigrationSwitching (drained, the allocation cleared) -> absent
+(re-placed). Every state may go to absent: each failure falls back to
+the cold path with the reservation released.
+
 The checkpoint manager validates every mutation against its policy. The
-reference's model checker (``crash_closure``) and the policies of its
-other controllers are not ported.
+reference's model checker (``crash_closure``), its registry of policies
+and the autoscaler's policy are not ported.
 """
 
 from __future__ import annotations
@@ -138,5 +154,45 @@ EVICTION_POLICY = TransitionPolicy(
         (EVICTION_PLANNED, ABSENT),                 # canceled (claim gone)
         (EVICTION_DRAINING, ABSENT),                # canceled (claim gone)
         (EVICTION_DEALLOCATED, ABSENT),             # re-placed / failed
+    }),
+)
+
+
+DEFRAG_PLANNED = "DefragPlanned"
+DEFRAG_DRAINING = "DefragDraining"
+DEFRAG_DEALLOCATED = "DefragDeallocated"
+
+DEFRAG_POLICY = TransitionPolicy(
+    "defrag",
+    frozenset({
+        (ABSENT, DEFRAG_PLANNED),                 # move planned
+        (DEFRAG_PLANNED, DEFRAG_DRAINING),        # pods evicted
+        (DEFRAG_DRAINING, DEFRAG_DEALLOCATED),    # allocation cleared
+        (DEFRAG_PLANNED, ABSENT),                 # canceled / aborted
+        (DEFRAG_DRAINING, ABSENT),                # canceled / aborted
+        (DEFRAG_DEALLOCATED, ABSENT),             # re-placed / aborted
+    }),
+)
+
+
+MIGRATION_DEST_RESERVED = "MigrationDestReserved"
+MIGRATION_INTENT_SIGNALED = "MigrationIntentSignaled"
+MIGRATION_WORKLOAD_ACKED = "MigrationWorkloadAcked"
+MIGRATION_SWITCHING = "MigrationSwitching"
+
+MIGRATION_POLICY = TransitionPolicy(
+    "migration",
+    frozenset({
+        (ABSENT, MIGRATION_DEST_RESERVED),        # window reserved
+        (MIGRATION_DEST_RESERVED,
+         MIGRATION_INTENT_SIGNALED),              # workload signaled
+        (MIGRATION_INTENT_SIGNALED,
+         MIGRATION_WORKLOAD_ACKED),               # checkpoint acked
+        (MIGRATION_WORKLOAD_ACKED,
+         MIGRATION_SWITCHING),                    # gang drained
+        (MIGRATION_DEST_RESERVED, ABSENT),        # fallback / canceled
+        (MIGRATION_INTENT_SIGNALED, ABSENT),      # ack timeout fallback
+        (MIGRATION_WORKLOAD_ACKED, ABSENT),       # dest lost fallback
+        (MIGRATION_SWITCHING, ABSENT),            # re-placed / fallback
     }),
 )

@@ -1,6 +1,5 @@
 """ICI topology-aware placement engine (the JAX package's
-``pkg/topology/``, the port's own copy without ``sim``, the placement
-bench's simulator, which waits: ROADMAP.md §1c). The port's GPU slices
+``pkg/topology/``, the port's own copy). The port's GPU slices
 publish no ICI coordinates, so on them every ordering below falls back
 to first-fit; on coordinated slices (the JAX mock's) it gives the JAX
 order, which ``tests/test_torch_topology.py`` holds it to.
@@ -23,6 +22,9 @@ multi-chip training claims need. This package is the placement layer:
                    (max ICI hop distance, exposed surface area).
 - ``hosts``     -- multi-host gang support: rank hosts so a gang of N
                    lands on ICI-adjacent workers.
+- ``sim``       -- the churn simulator (first-fit against the scorer on
+                   TPU slice grids) and ``plan_repack``, the simulated
+                   re-pack the defragmentation controller plans with.
 
 Design analog: the multi-objective MIG-fleet placement literature
 (arXiv:2502.01909, ParvaGPU arXiv:2409.14447) -- keep allocations

@@ -75,7 +75,6 @@ import argparse
 import datetime
 import logging
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -87,6 +86,9 @@ logger = logging.getLogger("k8s_dra_driver_gpu_tpu_torch.train")
 
 # Set by the launcher on the workers it starts: the worker's local rank.
 LOCAL_RANK_VAR = "TORCH_TRAIN_LOCAL_RANK"
+# torch's switch for a coordinator another process serves: with it every
+# rank, rank 0 too, joins the store at TPU_COORDINATOR_ADDRESS as a client.
+AGENT_STORE_VAR = "TORCHELASTIC_USE_AGENT_STORE"
 
 
 class GangEnvError(ValueError):
@@ -157,7 +159,9 @@ def initialize_distributed(env=os.environ, device: str = "cuda",
 
     Returns True when a gang was joined: the default process group over
     TCP at ``TPU_COORDINATOR_ADDRESS`` (an IPv6 literal keeps its
-    brackets; global rank 0 hosts the store there), in which this
+    brackets; global rank 0 hosts the store there, unless
+    ``TORCHELASTIC_USE_AGENT_STORE=True`` says another process serves it,
+    as ``host_store`` does), in which this
     process, local rank ``local_rank`` of the node's ``local_ranks``, is
     rank ``TPU_PROCESS_ID * local_ranks + local_rank`` of
     ``TPU_NUM_PROCESSES * local_ranks``: NCCL on card ``local_rank``, or
@@ -386,10 +390,20 @@ def join_gang(device: torch.device, local_rank: int,
     return False
 
 
-def _free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+def host_store(timeout_s: float = 300.0):
+    """A TCPStore served from this process on a port the kernel picks, and
+    the env under which a gang's ranks meet there as its clients
+    (``TPU_COORDINATOR_ADDRESS``, ``TORCHELASTIC_USE_AGENT_STORE``). The
+    port is bound before anyone is told of it, so no other process can
+    take it in between, as one could take a port found free and let go.
+    The store serves while the returned object lives."""
+    import torch.distributed as dist
+
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True,
+                          wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=timeout_s))
+    return store, {"TPU_COORDINATOR_ADDRESS": f"127.0.0.1:{store.port}",
+                   AGENT_STORE_VAR: "True"}
 
 
 def _run_local_ranks(argv: list[str], local_ranks: int,
@@ -398,13 +412,17 @@ def _run_local_ranks(argv: list[str], local_ranks: int,
     """Start ``python -m module`` (this launcher by default) once per
     local rank, each with ``LOCAL_RANK_VAR`` set, and wait for them.
     Their env is ``env`` (default this process's). Without a gang env
-    the node is a gang alone, meeting at a free local port. When a worker
-    fails the others are stopped (a collective would wait for it forever)
-    and its exit code is returned."""
+    the node is a gang alone, meeting at a store this process serves
+    (``host_store``). When a worker fails the others are stopped (a
+    collective would wait for it forever) and its exit code is
+    returned."""
     env = dict(os.environ if env is None else env)
     if validate_gang_env(env) is None:
-        env.update(TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}",
-                   TPU_PROCESS_ID="0", TPU_NUM_PROCESSES="1")
+        store, store_env = host_store(
+            float(env.get("TPU_INIT_TIMEOUT_S", "300")))
+        env.update(store_env, TPU_PROCESS_ID="0", TPU_NUM_PROCESSES="1")
+        logger.info("%d local ranks meet at this node's store on port %d",
+                    local_ranks, store.port)
     workers = [subprocess.Popen(
         [sys.executable, "-m", module, *argv],
         env={**env, LOCAL_RANK_VAR: str(rank)})

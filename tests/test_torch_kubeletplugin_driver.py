@@ -703,6 +703,10 @@ class TestCleanup:
 
 
 def test_start_and_stop_leave_no_thread(tmp_path):
+    """The threads this driver starts (its sweep and its health monitor,
+    by identity) are gone after ``stop()``, and so is the server's own.
+    Threads of other tests' servers may start or end meanwhile: the
+    process-wide set is not this test's to hold."""
     before = set(threading.enumerate())
     with pt_server.FakeApiServer() as server:
         cfg = pt_ds.Config.mock(str(tmp_path), topology="h100-2")
@@ -712,7 +716,9 @@ def test_start_and_stop_leave_no_thread(tmp_path):
                              node_name="node-a")
         d.health_monitor._interval = 0.01
         d.start()
-        assert len(threading.enumerate()) > len(before)
+        mine = [d.reconciler._thread, d.health_monitor._thread]
+        served = server._thread
+        assert all(t.is_alive() and t not in before for t in mine)
         deadline = threading.Event()
         for _ in range(200):
             devices = server.store.list(*RS)[0]["spec"]["devices"]
@@ -724,7 +730,10 @@ def test_start_and_stop_leave_no_thread(tmp_path):
                                          "value": "true",
                                          "effect": "NoExecute"}]
         assert "taints" not in devices[0]
-    assert set(threading.enumerate()) == before
+        assert not any(t.is_alive() for t in mine)
+    assert not served.is_alive()
+    assert not [t for t in threading.enumerate()
+                if t in mine or t is served]
 
 
 def test_nvml_host_publishes_taints_and_mounts_nvmls_driver(

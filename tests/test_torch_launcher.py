@@ -107,44 +107,61 @@ def _moe_args(*extra):
 
 def _launch(*extra, argv=None):
     """Starts one 2-node gang of the launcher (one process a node), with
-    ``argv`` or the dense ``_args(*extra)``; returns its processes, node
-    0's first."""
-    port = _free_port()
-    return [subprocess.Popen(
+    ``argv`` or the dense ``_args(*extra)``, meeting at a store served
+    from this process (``host_store``: its port is bound before the
+    nodes learn it, so no other process can take it first); returns the
+    store, to keep while the gang runs, and the processes, node 0's
+    first."""
+    store, store_env = pt_main.host_store()
+    return store, [subprocess.Popen(
         argv or _args(*extra),
-        env=_env(TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
-                 TPU_PROCESS_ID=str(rank), TPU_NUM_PROCESSES=str(WORLD),
-                 TPU_INIT_TIMEOUT_S="60"),
+        env=_env(**store_env, TPU_PROCESS_ID=str(rank),
+                 TPU_NUM_PROCESSES=str(WORLD), TPU_INIT_TIMEOUT_S="60"),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for rank in range(WORLD)]
 
 
+def _node(argv):
+    """One node without a gang env (it serves its local ranks' store)."""
+    return None, [subprocess.Popen(argv, env=_env(), stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True)]
+
+
 @pytest.fixture(scope="module")
 def gangs():
-    """Every gang at once; returns {gang: [node logs]}: 1 and 2 (steps
-    per call) are 2 nodes of one rank, "2x2" 2 nodes of 2 local ranks,
-    "1x2" one node (no gang env) of 2 local ranks, "1x4" one node of 4
-    local ranks on the default mesh, "moe" ``--model moe-tiny`` on 2
-    nodes of 2 local ranks."""
-    running = {k: _launch("--steps-per-call", str(k)) for k in (1, 2)}
-    running["2x2"] = _launch("--local-devices", "2")
-    running["moe"] = _launch(argv=_moe_args("--local-devices", "2"))
-    running["1x2"] = [subprocess.Popen(
-        _args("--local-devices", "2"), env=_env(), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)]
-    running["1x4"] = [subprocess.Popen(
-        _tiny_args(BATCH_1X4, "--local-devices", "4"), env=_env(),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
-    logs = {}
-    try:
-        for k, procs in running.items():
-            logs[k] = [proc.communicate(timeout=240)[0] for proc in procs]
-            for proc, log in zip(procs, logs[k]):
-                assert proc.returncode == 0, log[-3000:]
-    finally:
-        for procs in running.values():
-            for proc in procs:
-                proc.kill()
+    """Every gang, in two waves of 12 processes; returns {gang: [node
+    logs]}: 1 and 2 (steps per call) are 2 nodes of one rank, "1x2" one
+    node (no gang env) of 2 local ranks, "1x4" one node of 4 local ranks
+    on the default mesh, then "2x2" 2 nodes of 2 local ranks and "moe"
+    ``--model moe-tiny`` on 2 nodes of 2 local ranks. All 24 processes
+    at once compete for the CPU while they import, which spreads a
+    gang's arrival at its rendezvous: on a loaded host past the 60 s the
+    ranks wait for each other."""
+    waves = [
+        {1: lambda: _launch("--steps-per-call", "1"),
+         2: lambda: _launch("--steps-per-call", "2"),
+         "1x2": lambda: _node(_args("--local-devices", "2")),
+         "1x4": lambda: _node(_tiny_args(BATCH_1X4, "--local-devices",
+                                         "4"))},
+        {"2x2": lambda: _launch("--local-devices", "2"),
+         "moe": lambda: _launch(argv=_moe_args("--local-devices", "2"))},
+    ]
+    logs, stores = {}, []
+    for wave in waves:
+        running = {}
+        try:
+            for k, start in wave.items():
+                store, running[k] = start()
+                stores.append(store)
+            for k, procs in running.items():
+                logs[k] = [proc.communicate(timeout=240)[0]
+                           for proc in procs]
+                for proc, log in zip(procs, logs[k]):
+                    assert proc.returncode == 0, log[-3000:]
+        finally:
+            for procs in running.values():
+                for proc in procs:
+                    proc.kill()
     return logs
 
 

@@ -29,7 +29,12 @@ against the JAX package's, on the CPU.
   ``NotPortedError`` naming its ROADMAP.md item; what the recovery and
   fleet slice brought in (``attach_recovery``, ``fleet_metrics``,
   ``--recovery-root``, ``TPU_DRA_RECOVERY_ROOT``) runs as the JAX
-  scheduler's does.
+  scheduler's does, and so do the defrag and migration controllers'
+  attach points (their placement hint and reservation veto, against the
+  JAX scheduler with stand-in controllers) and roots (``--defrag-root``,
+  ``--migration-root`` and their env); ``tests/test_torch_defrag.py``
+  and ``tests/test_torch_migration.py`` hold the controllers
+  themselves.
 - **The binary** against the port's ``FakeApiServer``: it allocates,
   reserves, binds, serves ``/metrics`` and exits 0 on SIGTERM.
 """
@@ -978,8 +983,8 @@ def _refused(fn, match):
 
 
 @pytest.mark.parametrize("case", [
-    "workers", "batch", "domain", "attach_defrag", "attach_migration", "attach_autoscaler",
-    "start_event_driven", "view_start"])
+    "workers", "batch", "domain", "attach_autoscaler", "start_event_driven",
+    "view_start"])
 def test_what_waits_is_refused(case):
     kube = pt_kube.FakeKubeClient()
     make = pt_sched.DraScheduler
@@ -987,9 +992,6 @@ def test_what_waits_is_refused(case):
         "workers": (lambda: make(kube, workers=2), "workers > 1"),
         "batch": (lambda: make(kube, batch_max=8), "claim batch"),
         "domain": (lambda: make(kube, domain=object()), "SchedulingDomain"),
-        "attach_defrag": (lambda: make(kube).attach_defrag(None), "defrag"),
-        "attach_migration": (lambda: make(kube).attach_migration(None),
-                             "migration"),
         "attach_autoscaler": (lambda: make(kube).attach_autoscaler(None),
                               "autoscale"),
         "start_event_driven": (lambda: make(kube).start_event_driven(),
@@ -1007,8 +1009,6 @@ def test_what_waits_is_refused(case):
     ({"TPU_DRA_SCHED_DOMAIN_POOLS": "p*"}, "SchedulingDomain"),
     ({"TPU_DRA_SCHED_DOMAIN_SIBLINGS": "b=q"}, "SchedulingDomain"),
     ({"TPU_DRA_SCHED_DOMAIN_DEFAULT": "1"}, "SchedulingDomain"),
-    ({"TPU_DRA_DEFRAG_ROOT": "/r"}, "item 5, defrag"),
-    ({"TPU_DRA_MIGRATION_ROOT": "/r"}, "item 6, migration"),
     ({"TPU_DRA_AUTOSCALE_ROOT": "/r"}, "item 7, autoscale"),
 ])
 def test_env_of_what_waits_is_refused(env, match, monkeypatch):
@@ -1025,13 +1025,29 @@ def test_env_of_what_waits_is_refused(env, match, monkeypatch):
     (["--sched-domain-pools", "p*"], "SchedulingDomain"),
     (["--sched-domain-siblings", "b=q"], "SchedulingDomain"),
     (["--sched-domain-default"], "SchedulingDomain"),
-    (["--defrag-root", "/r"], "defrag"),
-    (["--migration-root", "/r"], "migration"),
     (["--autoscale-root", "/r"], "autoscale"),
 ])
 def test_binary_flags_of_what_waits_are_refused(argv, match):
     _refused(lambda: pt_sched.main(["--kube-api", "http://127.0.0.1:1"]
                                    + argv), match)
+
+
+@pytest.mark.parametrize("flag", ["defrag_root", "migration_root"])
+@pytest.mark.parametrize("source", ["flag", "env"])
+def test_controller_roots_are_read(flag, source, monkeypatch):
+    """The defrag and migration roots, from the binary's flag or its env
+    (``TPU_DRA_DEFRAG_ROOT``, ``TPU_DRA_MIGRATION_ROOT``), as the JAX
+    binary reads them; neither is refused any more."""
+    env = "TPU_DRA_" + flag.upper()
+    argv = ["--kube-api", "x"]
+    if source == "env":
+        monkeypatch.setenv(env, "/r")
+        pt_sched.DraScheduler(pt_kube.FakeKubeClient())  # no refusal
+    else:
+        argv += ["--" + flag.replace("_", "-"), "/r"]
+    assert getattr(pt_sched.build_parser().parse_args(argv), flag) == "/r"
+    assert flag not in pt_sched.UNPORTED_FLAGS
+    assert env not in pt_sched.UNPORTED_ENV
 
 
 def _recovery_world(tmp_path, monkeypatch):
@@ -1106,14 +1122,13 @@ def test_what_now_runs(case, tmp_path, monkeypatch):
         "reason"] == "Recovered"
 
 
-def test_domain_and_defrag_annotations_are_not_read(tmp_path):
-    """A claim carrying the annotations only the unported controllers
-    write allocates as any claim (the JAX scheduler reads them)."""
+def test_domain_annotations_are_not_read(tmp_path):
+    """A claim carrying the annotations only scheduling domains write
+    allocates as any claim (the JAX scheduler reads them)."""
     kube, driver = _gpu_cluster(tmp_path)
     obj = _gpu_claim("c", "uid-c")
     obj["metadata"]["annotations"] = {
         "resource.tpu.dra/domain": "elsewhere",
-        "resource.tpu.dra/defrag-target": "node-z:gpu-3",
         "resource.tpu.dra/spillover": "false"}
     kube.create(*RES, "resourceclaims", obj, namespace="default")
     pt_sched.DraScheduler(kube).sync_once()
@@ -1121,6 +1136,78 @@ def test_domain_and_defrag_annotations_are_not_read(tmp_path):
     assert [r["device"] for r in claim["status"]["allocation"]["devices"][
         "results"]] == ["gpu-0"]
     driver.stop()
+
+
+class _Reserving:
+    """A stand-in for the defrag or migration controller on either
+    scheduler: its passes do nothing, its reservations are given."""
+
+    def __init__(self, reserved):
+        self.reserved, self.view, self.fleet = reserved, None, None
+        self.passes = 0
+
+    def sync_once(self):
+        self.passes += 1
+        return {}
+
+    def reservations(self):
+        return self.reserved
+
+
+@pytest.mark.parametrize("attach", ["attach_defrag", "attach_migration"])
+def test_defrag_hint_steers_and_reservations_veto(attach, tmp_path,
+                                                  monkeypatch):
+    """Two nodes of 4 chips, the same on both sides: a claim whose
+    ``resource.tpu.dra/defrag-target`` names ``node-b|chip-2`` lands there
+    (least-loaded would say ``node-a``); with a controller's reservations
+    holding ``node-a`` and ``node-b``'s ``chip-0`` for one claim and
+    ``chip-1`` as a carve cell, that claim allocates on its reserved
+    devices, a claim with a stale hint falls back to the free ``chip-3``,
+    and a fourth claim pends though ``node-a`` has free chips."""
+    from k8s_dra_driver_gpu_tpu.pkg import sliceutil as jax_su
+    from k8s_dra_driver_gpu_tpu_torch.pkg import sliceutil as pt_su
+    from tests.test_migration import DRIVER, add_node, apply_class
+    from tests.test_migration import node_slices as chips_of
+
+    w = World([], monkeypatch)
+
+    def claim(name, count=1, hint=None):
+        obj = _claim_obj(name, [{"name": "tpu", "exactly": {
+            "deviceClassName": DRIVER, "count": count}}])
+        if hint:
+            obj["metadata"]["annotations"] = {
+                "resource.tpu.dra/defrag-target": hint}
+        return obj
+    for side, su in (("jax", jax_su), ("pt", pt_su)):
+        kube = w.kubes[side]
+        apply_class(kube)
+        for node in ("node-a", "node-b"):
+            add_node(kube, node)
+            su.publish_resource_slices(kube, chips_of(node))
+        for obj in (claim("moving", hint="node-b|chip-2"),
+                    claim("stale", hint="node-z|chip-9"),
+                    claim("owner", count=2), claim("other")):
+            kube.create(*RES, "resourceclaims", obj, namespace="default")
+    owner = w.kubes["pt"].get(*RES, "resourceclaims", "owner",
+                              "default")["metadata"]["uid"]
+    reserved = {(DRIVER, "node-a", f"chip-{i}"): owner for i in range(4)}
+    reserved[(DRIVER, "node-b", "chip-0")] = owner
+    reserved[(DRIVER, "node-b", "chip-1")] = None
+    stubs = {side: _Reserving(reserved) for side in SIDES}
+    for side in SIDES:
+        assert getattr(w.scheds[side], attach)(stubs[side]) is \
+            w.scheds[side]
+        assert stubs[side].view is w.scheds[side].view
+    state = w.sync()
+    assert (node_of(allocation(state, "moving")),
+            devices_of(state, "moving")) == ("node-b", ["chip-2"])
+    assert (node_of(allocation(state, "stale")),
+            devices_of(state, "stale")) == ("node-b", ["chip-3"])
+    assert node_of(allocation(state, "owner")) == "node-a"
+    assert allocation(state, "other") is None
+    assert stubs["pt"].passes == stubs["jax"].passes > 0
+    if attach == "attach_defrag":
+        assert stubs["pt"].fleet is w.scheds["pt"].fleet
 
 
 # -- the GPU classes over the port's own slices -------------------------------
@@ -1198,7 +1285,9 @@ def test_binary_allocates_binds_serves_metrics_and_stops(tmp_path):
         proc = subprocess.Popen(
             [sys.executable, "-m", "k8s_dra_driver_gpu_tpu_torch.pkg."
              "scheduler", "--kube-api", server.url, "--interval", "0.1",
-             "--metrics-port", str(port)],
+             "--metrics-port", str(port), "--defrag-root",
+             str(tmp_path / "defrag"), "--migration-root",
+             str(tmp_path / "migration")],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True)
         pod = _wait(lambda: (lambda p: p if p["spec"].get("nodeName")
@@ -1217,6 +1306,9 @@ def test_binary_allocates_binds_serves_metrics_and_stops(tmp_path):
                                   timeout=5).read().decode()))
         assert 'tpu_dra_sched_sync_seconds_count{mode="full"}' in text
         assert "tpu_dra_build_info" in text
+        # Both controllers attached, their families on the registry.
+        assert "tpu_dra_defrag_active_moves 0.0" in text
+        assert "tpu_dra_migration_active_moves 0.0" in text
         proc.send_signal(signal.SIGTERM)
         out, err = proc.communicate(timeout=30)
         assert proc.returncode == 0, err[-2000:]
