@@ -355,10 +355,11 @@ and prints no result line):
    ``gpu-0`` to the sticky ``failed`` taint (``QuarantineTracker.
    mark_failed``); with ``h100-a`` failed there is nowhere to go, and the
    claim retires cleanly at the deadline (``RecoveryDeadlineExceeded``,
-   no allocation, no record). (d) Phase 20's fleet with telemetry
-   attributes on every device and a ``FleetAggregator`` folding each
-   pass, then one ``EvictionController.sync_once`` with one of the 128
-   nodes NotReady. Host ms of each step beside the card.
+   no allocation, no record). (d) Phase 20's fleet (the 8-GPU claims
+   first) with telemetry attributes on every device and a
+   ``FleetAggregator`` folding each pass, then one
+   ``EvictionController.sync_once`` with one of the 128 nodes NotReady.
+   Host ms of each step beside the card.
 22. migration (``phase_migration``, host clock): cooperative live
    migration and defragmentation through the port's ``DraScheduler``
    run in this process every 0.05 s with a ``MigrationController`` and a
@@ -391,9 +392,43 @@ and prints no result line):
    with a 0.3 s whole-move deadline it falls back cold (drained,
    deallocated, re-placed). (c) Defrag: one pass over the two GPU pools
    (no ICI coordinates, so no grid and no window), then the checkerboard
-   of ``tests/test_defrag.py`` on a 4x4 and a 16x16 coordinated pool in
+   of ``tests/test_defrag.py`` on a 4x4 and a 12x12 coordinated pool in
    the in-process fakes, passes until converged: windows, moves, largest
    free shape before and after, each plan's ms.
+23. autoscale (``phase_autoscale``, host clock): the serving autoscaler
+   on the H100 node over the port's ``FakeApiServer`` on 127.0.0.1. (a) A
+   kubelet plugin in a process that never initialises CUDA
+   (``RECOVERY_PLUGIN``) publishes the card as ``h100-a`` with the
+   ``DynamicSubSlice`` and ``TenantPartitioning`` gates, no layout file
+   (the PartitionSet CRD watcher governs) and a 0.2 s health poll; the
+   scheduler binary runs with ``--autoscale-root``, ``--interval 0.1``
+   and ``TPU_DRA_AUTOSCALE_SUSTAIN_S=0``, ``TPU_DRA_AUTOSCALE_COOLDOWN_S=0``.
+   (b) A whole-GPU claim annotated ``resource.tpu.dra/tenant-profile:
+   web`` is allocated by the binary and prepared by the plugin; its child
+   (``LOAD_CHILD``, under the claim's CDI env) holds the flash forward
+   against its plain version, frees the plain version's tensors and runs
+   the kernel for a few seconds; the card's memory used (NVML, the
+   plugin's telemetry ring) before the child and at the peak of its
+   load gives the demand, beside the whole child's peak and the child's
+   ``max_memory_reserved`` through the check and through the load. (c)
+   The demand is written as the claim's
+   ``resource.tpu.dra/tenant-demand-hbm``: the controller plans
+   ``web-s<k>`` (the most slots k whose share of the ``memory`` counter
+   still covers it) in one pass, creates the ``tpu-dra-autoscale`` CRD and
+   confirms it the next; the watcher refuses it where MIG is off (the
+   ``7g.80gb`` backing is no carve-out there: outcome (a), no write) or
+   publishes ``pt-web-s<k>-*`` where MIG is on (outcome (b)). Host ms
+   from the demand's write to the record planned, the CRD created, the
+   rollout confirmed and the watcher's decision; the rollout histogram,
+   ``/debug/fleet``'s ``tenant_demand`` and the requests by method. (d)
+   Ten further passes write no CRD and no slice; a declared demand of
+   3/4 of the ``memory`` counter re-plans at once to ``web-s1``
+   (urgent, revision 2); with the CRD's managed flag flipped off the
+   passes plan nothing and write nothing. To keep the script within half
+   its time limit since this phase came, phase 20 (b) runs one seeded
+   order (three before), phase 21 (d) its fleet with the 8-GPU claims
+   first (the seeded order before) and phase 22 (c) a 12x12
+   checkerboard (16x16 before): host-only depth.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record (with the hd-64 instantiations'
@@ -3686,12 +3721,13 @@ from k8s_dra_driver_gpu_tpu_torch.pkg.featuregates import FeatureGates
 from k8s_dra_driver_gpu_tpu_torch.pkg.kubeclient import KubeClient
 from k8s_dra_driver_gpu_tpu_torch.pkg.partition import (PartitionSet,
                                                         PartitionSpecError)
-from k8s_dra_driver_gpu_tpu_torch.pkg.partition import watch as pwatch
+from k8s_dra_driver_gpu_tpu_torch.pkg.autoscale import crd as pcrd
 from k8s_dra_driver_gpu_tpu_torch.tpulib import binding as gpulib
 
 tmp, seed, mode = sys.argv[1], int(sys.argv[2]), sys.argv[3]
 RS = ("resource.k8s.io", "v1", "resourceslices")
-CRD = (pwatch.CRD_GROUP, pwatch.CRD_VERSION, pwatch.CRD_RESOURCE)
+CRD = (pcrd.AUTOSCALE_CRD_GROUP, pcrd.AUTOSCALE_CRD_VERSION,
+       pcrd.AUTOSCALE_CRD_RESOURCE)
 NODE, DEVICE = "smoke-partition-node", "pt-s2-0"
 GATES = ("DynamicSubSlice=true,TenantPartitioning=true,"
          "TimeSlicingSettings=true,MultiTenancySupport=true")
@@ -3832,7 +3868,7 @@ try:
     for step in ("create", "delete"):
         n, t0 = watcher.reconciles, time.perf_counter()
         if step == "create":
-            server.store.create(*CRD, pwatch.crd_object(
+            server.store.create(*CRD, pcrd.crd_object(
                 "smoke-partitions", PartitionSet.from_dict({
                     "profiles": PROFILES, "pools": [NODE]})))
         else:
@@ -5144,8 +5180,9 @@ FLEET_SINGLES = 768
 FLEET_EIGHTS = 16
 FLEET_BUDGET_S = 90.0
 # Seeded orders in which the 8-GPU claims arrive at random places among
-# the singles (after the ``--seed`` offset).
-FLEET_SHUFFLES = 3
+# the singles (after the ``--seed`` offset); one since phase 23 came, to
+# keep the script within half its time limit (three before).
+FLEET_SHUFFLES = 1
 
 
 def _fleet_slices(real: dict, node_names: list[str]) -> list[dict]:
@@ -5628,37 +5665,62 @@ def phase_scheduler(seed: int) -> int:
 # initialises CUDA (NVML's chip_telemetry refuses beside it): the node
 # service over the real NVML with its health monitor and telemetry on,
 # over the port's fake API server, its metrics and debug routes on a
-# loopback port. It writes one JSON line when it has published, then
-# answers one line on stdin with one JSON line on stdout: "prepare UID
-# NAMESPACE NAME" (the result and the claim's CDI spec), "prepared" (the
-# prepared uids and the last sweep), "fail DEVICE" (the quarantine
-# tracker's permanent escalation, the sweep's path), "refusals" (what
-# NVML refused the monitor's library), "stop".
+# loopback port. A fifth argument names feature gates to turn on (phase
+# 23's partition gates): the node then starts from an empty bootstrap
+# plan, and the PartitionSet CRD watcher governs. It writes one JSON line
+# when it has published, then answers one line on stdin with one JSON
+# line on stdout: "prepare UID NAMESPACE NAME" (the result and the
+# claim's CDI spec), "prepared" (the prepared uids and the last sweep),
+# "fail DEVICE" (the quarantine tracker's permanent escalation, the
+# sweep's path), "refusals" (what NVML refused the monitor's library),
+# "watch" (with a watcher: each of its decisions and its counts), "stop".
 RECOVERY_PLUGIN = r"""
-import json, sys
+import json, sys, time
 from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.device_state import Config
 from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.driver import Driver
+from k8s_dra_driver_gpu_tpu_torch.pkg.featuregates import FeatureGates
 from k8s_dra_driver_gpu_tpu_torch.pkg.kubeclient import KubeClient
 from k8s_dra_driver_gpu_tpu_torch.pkg.metrics import (
     DRARequestMetrics, MetricsServer, RecoveryMetrics, ResilienceMetrics)
+from k8s_dra_driver_gpu_tpu_torch.pkg.partition import PartitionSet
 from k8s_dra_driver_gpu_tpu_torch.tpulib import binding as gpulib
 
 url, node, root, port = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+gates = sys.argv[5] if len(sys.argv) > 5 else ""
 
 
 def emit(**doc):
     print(json.dumps(doc), flush=True)
 
 
+partitions = {} if not gates else dict(
+    feature_gates=FeatureGates.parse(gates), partition_set=PartitionSet(),
+    pool_name=node)
 metrics = DRARequestMetrics()
-driver = Driver(Config(root=f"{root}/state", cdi_root=f"{root}/cdi"),
-                KubeClient(host=url), node, metrics=metrics,
+driver = Driver(Config(root=f"{root}/state", cdi_root=f"{root}/cdi",
+                       **partitions), KubeClient(host=url), node,
+                metrics=metrics,
                 resilience=ResilienceMetrics(registry=metrics.registry),
                 recovery_metrics=RecoveryMetrics(registry=metrics.registry))
 server = MetricsServer(metrics.registry, port=port)
 server.start()
 driver.start()
+watcher = driver.partition_watcher
+decisions = []
+if watcher is not None:
+    _reconcile = watcher.reconcile
+
+    def reconcile():
+        applied = _reconcile()
+        decisions.append({"ts": time.time(), "applied": applied,
+                          "applied_total": watcher.applied_total,
+                          "failed_total": watcher.failed_total,
+                          "last_error": watcher.last_error})
+        return applied
+
+    watcher.reconcile = reconcile
 emit(ready=True, cuda=gpulib.cuda_initialised(),
+     mig_mode=driver.state.host.mig_mode,
      devices=sorted(driver.state.allocatable))
 try:
     for line in sys.stdin:
@@ -5677,6 +5739,15 @@ try:
         elif cmd == "refusals":
             emit(refusals=driver.health_monitor._tpulib.refusals,
                  cuda=gpulib.cuda_initialised())
+        elif cmd == "watch":
+            emit(decisions=decisions, reconciles=watcher.reconciles,
+                 applied_total=watcher.applied_total,
+                 failed_total=watcher.failed_total,
+                 last_error=watcher.last_error,
+                 partitions=sorted(n for n in driver.state.allocatable
+                                   if n.startswith("pt-")),
+                 tenant_profiles=driver.tenant_profiles.tenants(),
+                 cuda=gpulib.cuda_initialised())
         elif cmd == "stop":
             break
 finally:
@@ -5684,23 +5755,35 @@ finally:
     server.stop()
 """
 
-RECOVERY_LOAD_S = 4.0
-# Phase 12's claim child, then RECOVERY_LOAD_S seconds of the same
-# launches as load for the telemetry; its last line adds them as
-# ``load_launches`` (``launches`` stays the one checked launch).
-RECOVERY_LOAD_CHILD = CLAIM_CHILD + f"""
+LOAD_S = 4.0
+# Phase 12's claim child, then LOAD_S seconds of the same launches as
+# load (phase 21's telemetry, phase 23's serving tenant). The plain
+# version's tensors are freed and the allocator's peak reset before the
+# load, so the load's memory is its own; the last line adds
+# ``load_launches`` (``launches`` stays the one checked launch), the
+# load's start on the host clock (``load_start``, time.time()) and the
+# allocator's peak reservation through the check and through the load.
+LOAD_CHILD = CLAIM_CHILD + f"""
 import time
+max_abs_err, finite = diff.max().item(), bool(torch.isfinite(got).all())
+check_reserved = torch.cuda.max_memory_reserved()
+del want, diff
+torch.cuda.empty_cache()
+torch.cuda.reset_peak_memory_stats()
 flash_attention.launches = 0
-t_end = time.monotonic() + {RECOVERY_LOAD_S}
+load_start = time.time()
+t_end = time.monotonic() + {LOAD_S}
 while time.monotonic() < t_end:
     for _ in range(20):
         flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
 print(json.dumps({{"device_count": count, "name": name,
-                  "launches": launches, "max_abs_err": diff.max().item(),
-                  "excess": excess, "mapped": mapped,
-                  "finite": bool(torch.isfinite(got).all()),
-                  "load_launches": flash_attention.launches}}))
+                  "launches": launches, "max_abs_err": max_abs_err,
+                  "excess": excess, "mapped": mapped, "finite": finite,
+                  "load_launches": flash_attention.launches,
+                  "load_start": load_start,
+                  "check_memory_reserved": check_reserved,
+                  "load_memory_reserved": torch.cuda.max_memory_reserved()}}))
 """
 
 RECOVERY_NODES = ("h100-a", "h100-b")
@@ -5712,16 +5795,17 @@ RECOVERY_CLAIM = "smoke-recovery"
 
 
 class RecoveryPlugin:
-    """``RECOVERY_PLUGIN`` for one node: ``ask(line)`` writes a command and
-    reads its JSON answer."""
+    """``RECOVERY_PLUGIN`` for one node, with ``gates`` turned on:
+    ``ask(line)`` writes a command and reads its JSON answer."""
 
     def __init__(self, url: str, node: str, root: str, port: int,
-                 env: dict, cwd: str):
+                 env: dict, cwd: str, gates: str = ""):
         self.node, self.port = node, port
         self.log = open(f"{root}.log", "w", encoding="utf-8")
         self.proc = subprocess.Popen(
             [sys.executable, "-c", RECOVERY_PLUGIN, url, node, root,
-             str(port)], env=env, cwd=cwd, stdin=subprocess.PIPE,
+             str(port)] + ([gates] if gates else []), env=env, cwd=cwd,
+            stdin=subprocess.PIPE,
             stdout=subprocess.PIPE, stderr=self.log, text=True)
         self.ready = self._read()
 
@@ -5956,7 +6040,7 @@ def phase_recovery(seed: int) -> int:
         check(got["result"][1] == "", f"h100-a's prepare {got}")
         t_load, t_load_pc = time.time(), time.perf_counter()
         first = run_claim_child(got["spec"], seed, product,
-                                "recovery h100-a", script=RECOVERY_LOAD_CHILD)
+                                "recovery h100-a", script=LOAD_CHILD)
         t_load_end, t_load_end_pc = time.time(), time.perf_counter()
         children += first["launches"] + first["load_launches"]
         load_samples = [s for s in ring("h100-a")["chips"]["0"]
@@ -6160,8 +6244,10 @@ def phase_recovery(seed: int) -> int:
         # -- (d) the fleet, in process.
         fm = FleetMetrics()
         t0 = time.perf_counter()
+        # The 8-GPU claims first (phase 20 (b)'s seeded order strands
+        # some and takes ~4x as long; this fold needs only a full fleet).
         fleet_run = _fleet_run(kube.list(*res, "resourceslices")[0],
-                               product, shuffle=seed, fleet_metrics=fm)
+                               product, fleet_metrics=fm)
         ms["fleet_phase"] = round((time.perf_counter() - t0) * 1e3, 3)
         samples = metric_samples(generate_latest(fm.registry).decode())
         folds = samples[("tpu_dra_fleet_fold_seconds_count", ())]
@@ -6234,7 +6320,9 @@ MIGRATION_COLD_ACK_S, MIGRATION_COLD_DEADLINE_S = 0.5, 0.3
 MIGRATION_KERNEL_MAX_ULPS = 1
 # Defrag (c): the checkerboard of tests/test_defrag.py on coordinated
 # pools of these sides.
-DEFRAG_SIDES = (4, 16)
+# 12x12 converges as 16x16 did (13 passes, 4 windows) in a fifteenth of
+# its host time; 16x16 until phase 23 came.
+DEFRAG_SIDES = (4, 12)
 
 
 def migration_config():
@@ -6978,8 +7066,8 @@ def phase_migration(seed: int) -> dict:
                            max_concurrent=side * side, deadline_s=600.0,
                            cooldown_s=0.0)
             if side <= 4:
-                # tests/test_defrag.py's; at 16x16 the default budget
-                # keeps each window's what-if sweep to seconds.
+                # tests/test_defrag.py's; on the larger pool the default
+                # budget keeps each window's what-if sweep short.
                 ctrl_kw["budget_pct"] = 100.0
             run = _checkerboard_run(side, ctrl_kw)
             check(run["after"].get("fragmentation_score", 1.0)
@@ -7019,6 +7107,422 @@ def phase_migration(seed: int) -> dict:
             f"{left}")
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(work, ignore_errors=True)
+        if passed:
+            check(not left, "a thread outlived the phase")
+
+
+AUTOSCALE_NODE = "h100-a"
+AUTOSCALE_CLAIM = "smoke-autoscale"
+AUTOSCALE_TENANT = "web"
+AUTOSCALE_POLL_S = 0.2
+AUTOSCALE_INTERVAL_S = 0.1
+# The CRD must be written, confirmed and decided within this of the
+# demand's write, and the upsize planned within it of its own write.
+AUTOSCALE_DEADLINE_S = 15.0
+AUTOSCALE_STEADY_PASSES = 10
+
+
+def phase_autoscale(seed: int) -> int:
+    """23. The serving autoscaler on the H100 node: a tenant's claim runs
+    the flash forward kernel (row 1) under its CDI env, the card's memory
+    it took (NVML, the plugin's telemetry ring) is declared as its
+    demand, and the scheduler binary's autoscale controller re-plans the
+    PartitionSet CRD that the plugin's watcher decides; then steady
+    passes, an urgent upsize and a manual override. Returns the child's
+    flash launches (checked and load)."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from k8s_dra_driver_gpu_tpu_torch.api import deviceclasses
+    from k8s_dra_driver_gpu_tpu_torch.pkg import fleetstate
+    from k8s_dra_driver_gpu_tpu_torch.pkg.autoscale import crd as as_crd
+    from k8s_dra_driver_gpu_tpu_torch.pkg.autoscale.planner import \
+        TENANT_DEMAND_HBM_ANNOTATION
+    from k8s_dra_driver_gpu_tpu_torch.pkg.fakeapiserver import FakeApiServer
+    from k8s_dra_driver_gpu_tpu_torch.pkg.partition.profiles import \
+        TENANT_PROFILE_ANNOTATION
+
+    res = ("resource.k8s.io", "v1")
+    crd_res = (as_crd.AUTOSCALE_CRD_GROUP, as_crd.AUTOSCALE_CRD_VERSION,
+               as_crd.AUTOSCALE_CRD_RESOURCE)
+    root = os.path.dirname(os.path.abspath(__file__))
+    ms: dict = {}
+    t_phase = time.perf_counter()
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"autoscale: {what}")
+
+    def wait(fn, timeout, what):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            value = fn()
+            if value:
+                return value
+            time.sleep(0.005)
+        raise AssertionError(f"autoscale: timed out waiting for {what}")
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = (smi.stdout or smi.stderr).strip().splitlines()[0]
+    tmp = tempfile.mkdtemp(prefix="autoscale")
+    threads_before = set(threading.enumerate())
+    fleet_before = fleetstate.default_fleet()
+    plugin = proc = server = None
+    passed = False
+    try:
+        server = FakeApiServer().start()
+        kube = server.store
+        # Each write as it lands (host clocks: perf_counter for spans in
+        # this process, time.time against the other processes' stamps).
+        crd_writes: list = []
+        slice_writes: list = []
+
+        def on_write(group, resource, namespace, ev_type, obj):
+            now = (time.perf_counter(), time.time())
+            if resource == "resourceslices":
+                slice_writes.append(now)
+            elif resource == as_crd.AUTOSCALE_CRD_RESOURCE:
+                crd_writes.append((now, ev_type, json.loads(json.dumps(
+                    obj))))
+        kube.add_resource_watcher(on_write)
+        deviceclasses.create_all(kube)
+        kube.create("", "v1", "nodes", {
+            "metadata": {"name": AUTOSCALE_NODE},
+            "status": {"conditions": [{"type": "Ready",
+                                       "status": "True"}]}})
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("KUBE_API", "KUBERNETES_", "TPU_DRA_"))}
+        env["PYTHONPATH"] = root
+        # No telemetry attributes and no anomaly episodes: the slice
+        # writes counted below are the partition path's alone.
+        plugin_env = dict(env, TPU_DRA_HEALTH_POLL_S=str(AUTOSCALE_POLL_S),
+                          TPU_DRA_TELEMETRY_ATTRS="0",
+                          TPU_DRA_ANOMALY_MIN_SAMPLES="1000000")
+        t0 = time.perf_counter()
+        plugin = RecoveryPlugin(server.url, AUTOSCALE_NODE,
+                                f"{tmp}/{AUTOSCALE_NODE}", free_port(),
+                                plugin_env, root,
+                                gates="DynamicSubSlice=true,"
+                                "TenantPartitioning=true")
+        ms["plugin_start"] = round((time.perf_counter() - t0) * 1e3, 3)
+        ready = plugin.ready
+        check(ready["cuda"] is False and "gpu-0" in ready["devices"],
+              f"the plugin: {ready}")
+
+        def node_slice():
+            for s in kube.list(*res, "resourceslices"):
+                if s["spec"].get("nodeName") == AUTOSCALE_NODE:
+                    return s
+            return None
+        wait(node_slice, 30, "the node's slice")
+        counters = {c["name"]: c["counters"] for c in
+                    node_slice()["spec"].get("sharedCounters") or []}
+        memory = int(counters["gpu-0-counter-set"]["memory"]["value"])
+        sms = counters["gpu-0-counter-set"].get("multiprocessors")
+        product = [d for d in node_slice()["spec"]["devices"]
+                   if d["name"] == "gpu-0"][0]["attributes"][
+                       "productName"]["string"]
+        port = free_port()
+        sched_env = dict(env, TPU_DRA_DEBUG_HTTP="1",
+                         TPU_DRA_AUTOSCALE_SUSTAIN_S="0",
+                         TPU_DRA_AUTOSCALE_COOLDOWN_S="0")
+        log_path = f"{tmp}/scheduler.log"
+        with open(log_path, "w", encoding="utf-8") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", SCHEDULER_MAIN, "--kube-api",
+                 server.url, "--interval", str(AUTOSCALE_INTERVAL_S),
+                 "--metrics-port", str(port), "--autoscale-root",
+                 f"{tmp}/autoscale"],
+                env=sched_env, cwd=root, stdin=subprocess.DEVNULL,
+                stdout=out, stderr=subprocess.STDOUT)
+        base = f"http://127.0.0.1:{port}"
+
+        def metrics():
+            try:
+                return metric_samples(_http_get(base + "/metrics"))
+            except OSError:
+                return {}
+
+        def passes():
+            return metrics().get(("tpu_dra_sched_sync_seconds_count",
+                                  (("mode", "full"),)), 0)
+
+        def sample(name):
+            return metrics().get((f"tpu_dra_autoscale_{name}", ()), 0)
+        wait(passes, 60, "the scheduler's first pass")
+
+        # -- (b) the tenant's claim, its child on the card.
+        kube.create(*res, "resourceclaims", {
+            "apiVersion": "resource.k8s.io/v1", "kind": "ResourceClaim",
+            "metadata": {"name": AUTOSCALE_CLAIM, "namespace": "default",
+                         "annotations": {
+                             TENANT_PROFILE_ANNOTATION: AUTOSCALE_TENANT}},
+            "spec": {"devices": {"requests": [{"name": "gpu", "exactly": {
+                "deviceClassName": deviceclasses.GPU_CLASS}}]}}},
+            namespace="default")
+        claim = wait(lambda: (lambda c: c if c.get("status", {}).get(
+            "allocation") else None)(kube.get(
+                *res, "resourceclaims", AUTOSCALE_CLAIM,
+                namespace="default")), 30, "the claim's allocation")
+        uid = claim["metadata"]["uid"]
+        results = claim["status"]["allocation"]["devices"]["results"]
+        check([(r["pool"], r["device"]) for r in results]
+              == [(AUTOSCALE_NODE, "gpu-0")], f"the allocation {results}")
+        got = plugin.ask(f"prepare {uid} default {AUTOSCALE_CLAIM}")
+        check(got["result"][1] == "", f"the prepare {got}")
+
+        def ring():
+            return json.loads(plugin.get("/debug/telemetry"))["chips"]["0"]
+        before = wait(lambda: ring()[-1:], 30, "a telemetry sample")[-1]
+        t_child = time.time()
+        child = run_claim_child(got["spec"], seed, product,
+                                "autoscale tenant", script=LOAD_CHILD)
+        t_child_end = time.time()
+        # The demand is the serving load's alone: the samples from the
+        # load's start, after the child freed its plain version's
+        # tensors. The whole run's peak (the check's included) is logged.
+        samples = ring()
+        under = [s for s in samples if t_child <= s["ts"] <= t_child_end]
+        load = [s for s in under if s["ts"] >= child["load_start"]]
+        check(load, "no telemetry sample during the child's load")
+        peak = max(load, key=lambda s: s["hbm_used_bytes"])
+        demand = peak["hbm_used_bytes"] - before["hbm_used_bytes"]
+        whole = max(s["hbm_used_bytes"] for s in under) \
+            - before["hbm_used_bytes"]
+        check(demand > 0, f"the child's memory: before {before}, peak "
+              f"{peak}")
+        log(f"autoscale: (b) tenant {AUTOSCALE_TENANT!r} on {card}: the "
+            f"child's {child['launches']} checked launch (max_abs_err "
+            f"{child['max_abs_err']}, bound {CLAIM_CHILD_MAX_ERR}) and "
+            f"{child['load_launches']} load launches in {LOAD_S} s; "
+            f"NVML's memory used (the plugin's ring) "
+            f"{before['hbm_used_bytes']} B before, "
+            f"{peak['hbm_used_bytes']} B at the load's peak ({len(load)} "
+            f"samples from its start): demand {demand} B "
+            f"({demand / 2**30:.3f} GiB); the whole child's peak "
+            f"({len(under)} samples in {t_child_end - t_child:.2f} s, "
+            f"the plain check's included) {whole} B "
+            f"({whole / 2**30:.3f} GiB); the child's "
+            f"torch.cuda.max_memory_reserved() "
+            f"{child['load_memory_reserved']} B through the load, "
+            f"{child['check_memory_reserved']} B through the check; the "
+            f"card's memory counter {memory} B, multiprocessors "
+            f"{sms['value'] if sms else 'not published (MIG off)'}")
+
+        # -- (c) the demand declared; the rollout.
+        def crd_events(ev_type):
+            return [w for w in crd_writes if w[1] == ev_type]
+        n_crd = len(crd_writes)
+        t_write, t_write_wall = time.perf_counter(), time.time()
+        kube.patch(*res, "resourceclaims", AUTOSCALE_CLAIM, {"metadata": {
+            "annotations": {TENANT_DEMAND_HBM_ANNOTATION: str(demand)}}},
+            namespace="default")
+        created = wait(lambda: crd_events("ADDED"), AUTOSCALE_DEADLINE_S,
+                       "the CRD's creation")[0]
+        check(len(crd_writes) == n_crd + 1, f"CRD writes {crd_writes}")
+        obj = created[2]
+        profiles = obj["spec"]["profiles"]
+        slots = memory // max(demand, 1)
+        # The smallest budget that covers the demand: the most slots.
+        want_k = max([k for k in (1, 2, 4, 8) if memory // k >= demand])
+        check([(p["name"], p["maxTenants"]) for p in profiles]
+              == [(f"{AUTOSCALE_TENANT}-s{want_k}", want_k)]
+              and profiles[0]["subslice"] == "7g.80gb"
+              and as_crd.revision_of(obj) == 1 and as_crd.is_managed(obj),
+              f"the CRD {obj}")
+        fp = as_crd.fingerprint(obj["spec"])
+
+        def flight(fp):
+            return [e for e in json.loads(_http_get(
+                f"{base}/debug/claims/replan-{fp}"))["events"]
+                if e["event"] == "autoscale"]
+        events = wait(lambda: (lambda ev: ev if ev and ev[-1].get(
+            "state") == "Completed" else None)(flight(fp)),
+            AUTOSCALE_DEADLINE_S, "the rollout's confirmation")
+        states = [e["state"] for e in events]
+        check(states == ["AutoscalePlanned", "AutoscaleApplying",
+                         "Completed"], f"the rollout's records {states}")
+        w = wait(lambda: (lambda d: d if any(
+            x["ts"] >= created[0][1] for x in d["decisions"]) else None)(
+                plugin.ask("watch")), AUTOSCALE_DEADLINE_S,
+            "the watcher's decision")
+        decided = [x for x in w["decisions"] if x["ts"] >= created[0][1]][0]
+        if ready["mig_mode"] == "enabled":
+            # (b) MIG on: the plan's partitions published.
+            outcome = "b"
+            check(decided["applied"] and w["partitions"] == [
+                f"pt-{AUTOSCALE_TENANT}-s{want_k}-0"],
+                f"outcome (b): {w}")
+        else:
+            # (a) MIG off: the plan refused, nothing written.
+            outcome = "a"
+            check(not decided["applied"] and decided["failed_total"] == 1
+                  and "'7g.80gb' is no carve-out of this host"
+                  in (decided["last_error"] or "")
+                  and w["partitions"] == [] and w["applied_total"] == 0,
+                  f"outcome (a): {w}")
+        at = {e["state"]: e["ts"] for e in events}
+        steps = {
+            "demand_to_planned": round((at["AutoscalePlanned"]
+                                        - t_write_wall) * 1e3, 3),
+            "demand_to_crd_created": round((created[0][0] - t_write)
+                                           * 1e3, 3),
+            "demand_to_confirmed": round((at["Completed"] - t_write_wall)
+                                         * 1e3, 3),
+            "crd_to_watcher_decision": round((decided["ts"]
+                                              - created[0][1]) * 1e3, 3),
+        }
+        ms.update(steps)
+        fleet = json.loads(_http_get(base + "/debug/fleet"))
+        m = metrics()
+        rollout = {k[0]: v for k, v in m.items() if k[0] in (
+            "tpu_dra_autoscale_rollout_seconds_count",
+            "tpu_dra_autoscale_rollout_seconds_sum")}
+        check(rollout.get("tpu_dra_autoscale_rollout_seconds_count") == 1
+              and m.get(("tpu_dra_autoscale_plans_total", ())) == 1
+              and m.get(("tpu_dra_autoscale_applies_total", ())) == 1
+              and m.get(("tpu_dra_autoscale_active_rollouts", ())) == 0,
+              f"the binary's autoscale samples {m}")
+        tenant = fleet["tenant_demand"][AUTOSCALE_TENANT]
+        check(tenant["p95_hbm_bytes"] == demand,
+              f"/debug/fleet's tenant_demand {fleet['tenant_demand']}")
+        stages = [(e["state"], round((e["ts"] - t_write_wall) * 1e3, 3))
+                  for e in events]
+        log(f"autoscale: (c) demand {demand} B declared (measured) -> "
+            f"record planned {steps['demand_to_planned']} ms -> CRD "
+            f"created {steps['demand_to_crd_created']} ms "
+            f"({AUTOSCALE_TENANT}-s{want_k}, {memory // want_k} B a slot "
+            f"of {memory}; {slots} slots of the demand would fit) -> "
+            f"confirmed {steps['demand_to_confirmed']} ms; the watcher "
+            f"decided {steps['crd_to_watcher_decision']} ms after the "
+            f"write: outcome ({outcome}), MIG {ready['mig_mode']}, "
+            f"applied {w['applied_total']}, failed {w['failed_total']}, "
+            f"last_error {w['last_error']!r}, partitions "
+            f"{w['partitions']}; rollout_seconds {rollout}; /debug/fleet "
+            f"tenant_demand[{AUTOSCALE_TENANT!r}] {tenant}; the binary's "
+            f"flight events {stages}; "
+            f"requests by method {dict(server.requests)}")
+
+        # -- (d) steady state: no write in AUTOSCALE_STEADY_PASSES passes.
+        p0, conv0 = passes(), sample("converged_passes_total")
+        n_crd, n_slices = len(crd_writes), len(slice_writes)
+        t0 = time.perf_counter()
+        wait(lambda: passes() >= p0 + AUTOSCALE_STEADY_PASSES + 1, 30,
+             "the steady passes")
+        steady_ms = round((time.perf_counter() - t0) * 1e3, 3)
+        steady = {"passes": passes() - p0,
+                  "converged": sample("converged_passes_total") - conv0,
+                  "crd_writes": len(crd_writes) - n_crd,
+                  "slice_writes": len(slice_writes) - n_slices}
+        check(steady["crd_writes"] == 0 and steady["slice_writes"] == 0
+              and steady["converged"] >= AUTOSCALE_STEADY_PASSES,
+              f"the steady passes {steady}")
+        log(f"autoscale: (d) steady: {steady} in {steady_ms} ms")
+
+        # The upsize: a declared demand of 3/4 of the memory counter.
+        upsized = memory * 3 // 4
+        n_crd, plans0, p0 = len(crd_writes), sample("plans_total"), passes()
+        t_up, t_up_wall = time.perf_counter(), time.time()
+        kube.patch(*res, "resourceclaims", AUTOSCALE_CLAIM, {"metadata": {
+            "annotations": {TENANT_DEMAND_HBM_ANNOTATION: str(upsized)}}},
+            namespace="default")
+        patched = wait(lambda: [x for x in crd_writes[n_crd:]
+                                if x[1] == "MODIFIED"],
+                       AUTOSCALE_DEADLINE_S, "the upsize's CRD write")[0]
+        up = patched[2]
+        check([(p["name"], p["maxTenants"]) for p in up["spec"]["profiles"]]
+              == [(f"{AUTOSCALE_TENANT}-s1", 1)]
+              and as_crd.revision_of(up) == 2,
+              f"the upsized CRD {up}")
+        up_fp = as_crd.fingerprint(up["spec"])
+        up_events = wait(lambda: (lambda ev: ev if ev and ev[-1].get(
+            "state") == "Completed" else None)(flight(up_fp)),
+            AUTOSCALE_DEADLINE_S, "the upsize's confirmation")
+        with open(log_path, encoding="utf-8") as f:
+            plan_lines = [ln for ln in f if f"autoscale re-plan {up_fp}"
+                          in ln]
+        check(plan_lines and "web:upsize" in plan_lines[0]
+              and "(urgent)" in plan_lines[0],
+              f"the upsize's plan line {plan_lines}")
+        up_at = {e["state"]: e["ts"] for e in up_events}
+        passes_to_plan = passes() - p0
+        ms["upsize_to_planned"] = round((up_at["AutoscalePlanned"]
+                                         - t_up_wall) * 1e3, 3)
+        ms["upsize_to_crd"] = round((patched[0][0] - t_up) * 1e3, 3)
+        w2 = wait(lambda: (lambda d: d if any(
+            x["ts"] >= patched[0][1] for x in d["decisions"]) else None)(
+                plugin.ask("watch")), AUTOSCALE_DEADLINE_S,
+            "the watcher's decision on the upsize")
+        check(sample("plans_total") == plans0 + 1,
+              "more than one plan for the upsize")
+        log(f"autoscale: (d) upsize: demand {upsized} B declared (3/4 of "
+            f"the memory counter, not measured) -> planned "
+            f"{ms['upsize_to_planned']} ms (urgent: "
+            f"{plan_lines[0].split('autoscale re-plan ')[-1].strip()}) -> "
+            f"CRD {AUTOSCALE_TENANT}-s1 revision 2 "
+            f"{ms['upsize_to_crd']} ms, {passes_to_plan:.0f} passes seen "
+            f"by the time it was confirmed (the window's p95 moves once "
+            f"5% of its samples carry the new value); the watcher: "
+            f"applied {w2['applied_total']}, failed {w2['failed_total']}, "
+            f"last_error {w2['last_error']!r}")
+
+        # The manual override: the managed flag flipped off.
+        kube.patch(*crd_res, obj["metadata"]["name"], {"metadata": {
+            "annotations": {as_crd.MANAGED_ANNOTATION: "false"}}})
+        p0, conv0 = passes(), sample("converged_passes_total")
+        plans0 = sample("plans_total")
+        n_crd, n_slices = len(crd_writes), len(slice_writes)
+        wait(lambda: passes() >= p0 + 4, 30, "the passes after the flip")
+        override = {"passes": passes() - p0,
+                    "converged": sample("converged_passes_total") - conv0,
+                    "plans": sample("plans_total") - plans0,
+                    "crd_writes": len(crd_writes) - n_crd,
+                    "slice_writes": len(slice_writes) - n_slices}
+        # A deferred pass plans nothing and never reaches convergence.
+        check(override["converged"] <= 1 and override["plans"] == 0
+              and override["crd_writes"] == 0
+              and override["slice_writes"] == 0,
+              f"the override {override}")
+        log(f"autoscale: (d) override: managed flag off -> {override} "
+            f"(deferred: no plan, no convergence, no write)")
+        plugin_w = plugin.ask("watch")
+        check(plugin_w["cuda"] is False, f"the plugin {plugin_w}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        check(rc == 0, f"the binary exited {rc}")
+        check(plugin.close() == 0, "the plugin exited non-zero")
+        plugin = None
+        passed = True
+        return child["launches"] + child["load_launches"]
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        if plugin is not None:
+            plugin.close()
+        if server is not None:
+            log(f"autoscale: requests by method {dict(server.requests)}")
+            server.stop()
+        fleetstate.set_default_fleet(fleet_before)
+        left = [t.name for t in threading.enumerate()
+                if t not in threads_before and t.is_alive()]
+        ms["phase"] = round((time.perf_counter() - t_phase) * 1e3, 3)
+        log(f"autoscale: host ms {json.dumps(ms)} on {card}; threads left "
+            f"{left}")
+        if not passed:
+            try:
+                with open(f"{tmp}/scheduler.log", encoding="utf-8") as f:
+                    log("autoscale: scheduler log tail: "
+                        + f.read()[-3000:])
+            except OSError:
+                pass
+        shutil.rmtree(tmp, ignore_errors=True)
         if passed:
             check(not left, "a thread outlived the phase")
 
@@ -7086,6 +7590,9 @@ def main(argv=None) -> int:
     t_migration = time.perf_counter()
     migration = phase_migration(args.seed)
     log(f"migration: phase 22 in {time.perf_counter() - t_migration:.1f} s")
+    t_autoscale = time.perf_counter()
+    autoscale_child = phase_autoscale(args.seed)
+    log(f"autoscale: phase 23 in {time.perf_counter() - t_autoscale:.1f} s")
     forward["launches_by_path"] = {
         "serving_generate": serving_launches,
         "training_step": training["forward_lse"],
@@ -7102,6 +7609,7 @@ def main(argv=None) -> int:
         "scheduler_claim_child": sched_child,
         "recovery_claim_children": recovery_children,
         "migration_claim_children": migration["forward_lse"],
+        "autoscale_tenant_child": autoscale_child,
         "sharded_training_step": gang["train"]["forward_lse"],
         "moe_training_step": moe["forward_lse"],
         "sp_ulysses_training_step": sp["ulysses"]["forward_lse"],

@@ -197,6 +197,21 @@ class PartitionInfo:
         thousandths."""
         return 1000 // self.profile.max_tenants
 
+    # The surface the sizing policy reads (``pkg/partition/profiles.py``,
+    # the JAX PartitionInfo's names): a tenant's memory budget, its time
+    # share of each core in thousandths, and the instance's cores (SMs).
+    @property
+    def tenant_hbm_bytes(self) -> int:
+        return self.tenant_memory_bytes
+
+    @property
+    def tenant_core_milli(self) -> int:
+        return self.tenant_slice_milli
+
+    @property
+    def cores(self) -> int:
+        return self.mig.cores
+
     def attributes(self) -> dict:
         return {"profile": self.profile.name,
                 "subslice": self.profile.subslice,

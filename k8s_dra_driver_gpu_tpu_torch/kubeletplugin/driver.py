@@ -83,9 +83,12 @@ through any object with ``KubeClient``'s surface:
   With the partition engine on, ``PartitionMetrics`` share the registry.
   Serve the registry with ``MetricsServer(driver.metrics.registry)``.
 
-Not ported: the gRPC transport (ROADMAP.md §1b item 8) and the
-tenant-usage feed of the JAX planner (its ``TenantProfileStore``,
-ROADMAP.md §1b item 5b).
+- **Tenant usage.** ``tenant_profiles`` (a
+  ``pkg/partition/profiles.TenantProfileStore``) takes the health
+  monitor's per-tenant usage samples (``_on_tenant_usage``), the MISO
+  sizing input measured on the node.
+
+Not ported: the gRPC transport (ROADMAP.md §1b item 8).
 """
 
 from __future__ import annotations
@@ -100,6 +103,7 @@ from ..pkg import fleetstate, flightrecorder, tracing
 from ..pkg.events import emit_warning_event
 from ..pkg.kubeclient import NotFoundError
 from ..pkg.metrics import DRARequestMetrics, PartitionMetrics
+from ..pkg.partition.profiles import TenantProfileStore
 from ..pkg.partition.watch import PartitionSetWatcher
 from ..pkg.schedcache import ATTR_POWER_CAP, power_cap_env
 from ..pkg.sliceutil import publish_resource_slices, slice_content_hash
@@ -189,6 +193,9 @@ class Driver:
             self._publish_recheck_s = 300.0
         self.reconciler = NodeStateReconciler(
             self.state, kube_client, node_name, metrics=recovery_metrics)
+        # The live tenant-demand store, fed by the health poll's
+        # per-tenant usage samples.
+        self.tenant_profiles = TenantProfileStore()
         self.partition_watcher: PartitionSetWatcher | None = None
         if self.state.partition_engine is not None and os.environ.get(
                 "TPU_DRA_PARTITION_WATCH", "1") not in ("0", "false",
@@ -222,6 +229,7 @@ class Driver:
                 additional_ignored=additional_ignored_health_kinds,
                 quarantine=QuarantineTracker(on_quarantine=on_quarantine,
                                              on_failed=on_failed),
+                on_tenant_usage=self._on_tenant_usage,
                 telemetry_ring=fleetstate.default_ring(),
                 on_chip_telemetry=self._on_chip_telemetry,
                 on_anomaly=self._on_anomaly)
@@ -459,6 +467,13 @@ class Driver:
                 logger.exception("republish after health event failed")
 
     # -- fleet telemetry -------------------------------------------------
+
+    def _on_tenant_usage(self, usage) -> None:
+        """The health poll's per-tenant usage samples -> the live
+        tenant-demand store the sizing policy reads."""
+        for u in usage:
+            self.tenant_profiles.record(u.tenant, u.hbm_bytes,
+                                        cores=u.cores)
 
     def _on_chip_telemetry(self, samples) -> None:
         """The monitor's samples -> per-GPU gauges and quantized slice

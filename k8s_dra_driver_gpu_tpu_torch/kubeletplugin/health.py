@@ -38,8 +38,12 @@ The monitor owns the device library it is given: ``stop()`` closes it.
 A failing poll backs off exponentially and never kills the thread; the
 fault point ``health.poll`` (``pkg/faults.py``) acts at each poll.
 
-Not ported: the per-tenant usage feed (``sample_telemetry``), which
-waits with the partition planner's profile store (ROADMAP.md §1b).
+The per-tenant usage feed rides the same cadence too
+(``sample_telemetry``, the JAX monitor's): the device library's
+``tenant_usage`` samples (the ``GPULIB_MOCK_TENANT_USAGE`` grammar on
+both backends, since NVML has no notion of a tenant) go to
+``on_tenant_usage``, the kubelet driver's ``TenantProfileStore``. A
+sample that raises is logged and never breaks the poll.
 """
 
 from __future__ import annotations
@@ -294,6 +298,7 @@ class ChipHealthMonitor:
         poll_interval: float = POLL_INTERVAL_S,
         quarantine: QuarantineTracker | None = None,
         on_quarantine: Callable[[str], None] | None = None,
+        on_tenant_usage: Callable[[tuple], None] | None = None,
         telemetry_ring=None,  # pkg.fleetstate.TelemetryRing | None
         anomaly_detector=None,  # pkg.anomaly.AnomalyDetector | None
         on_chip_telemetry: Callable[[tuple], None] | None = None,
@@ -302,6 +307,9 @@ class ChipHealthMonitor:
         self._tpulib = tpulib
         self._opts = opts
         self._on_taints = on_taints
+        # Per-tenant usage (tpulib.tenant_usage) for the consumer's
+        # TenantProfileStore; None turns the feed off.
+        self._on_tenant_usage = on_tenant_usage
         self._telemetry_enabled = fleetstate.telemetry_enabled()
         self.telemetry_ring = telemetry_ring
         self.anomaly = anomaly_detector
@@ -393,6 +401,21 @@ class ChipHealthMonitor:
             self._on_chip_telemetry(samples)
         return samples
 
+    def sample_telemetry(self) -> tuple:
+        """One per-tenant usage sample through the device library,
+        handed to ``on_tenant_usage``; the samples (also the entry for
+        driving it by hand). A no-op without a consumer or a library
+        without the seam."""
+        if self._on_tenant_usage is None:
+            return ()
+        fn = getattr(self._tpulib, "tenant_usage", None)
+        if fn is None:
+            return ()
+        usage = tuple(fn(self._opts) or ())
+        if usage:
+            self._on_tenant_usage(usage)
+        return usage
+
     def _backoff(self) -> float:
         """The base interval, doubled for each consecutive failure up to
         the cap."""
@@ -415,6 +438,11 @@ class ChipHealthMonitor:
                     "in %.1fs)", self.consecutive_failures, self._backoff())
                 continue
             self.consecutive_failures = 0
+            try:
+                # A broken usage seam loses its samples, never the poll.
+                self.sample_telemetry()
+            except Exception:  # noqa: BLE001 - telemetry best-effort
+                logger.exception("tenant-usage sample failed")
             if taints != self._last:
                 self._last = taints
                 try:

@@ -9,8 +9,10 @@ API server (``kubeclient``, ``fakeapiserver``), a list-and-watch cache
 claim helpers of the reconcile sweep (``recovery``, its records under
 ``statemachine.EVICTION_POLICY``), fault injection (``faults``), the
 fleet telemetry ring and aggregator (``fleetstate``), telemetry anomaly
-detection (``anomaly``), and tenant partitions (``partition``: the PartitionSet
-spec, the engine, the CRD watcher); for the ComputeDomain stack a keyed
+detection (``anomaly``), tenant partitions (``partition``: the PartitionSet
+spec, the tenant-profile store and sizing, packing, the engine, the CRD
+watcher) and the serving autoscaler (``autoscale``: the CRD, the
+forecaster, the planner and the controller); for the ComputeDomain stack a keyed
 retrying work queue (``workqueue``) and Warning Events (``events``).
 Observability: claim-lifecycle spans (``tracing``), the per-claim
 flight recorder (``flightrecorder``), the Prometheus metrics

@@ -31,10 +31,10 @@ public fold entry (``observe_pass``), so the time-series can never be
 corrupted from a random call site. (The JAX package checks this with its
 lint rule TPUDRA013; the port has no linter.)
 
-The defrag trigger signal (``frag_signal``) and the tenant-demand
-surface (``attach_profile_store``) are here as in the JAX module; their
-readers, the defrag controller and the partition profile store, come
-with ROADMAP.md §1c items 5 and 7.
+The defrag trigger signal (``frag_signal``) is read by the defrag
+controller (``pkg/defrag.py``); the tenant-demand surface
+(``attach_profile_store``) shows the autoscale controller's store
+(``DraScheduler.attach_autoscaler``).
 """
 
 from __future__ import annotations

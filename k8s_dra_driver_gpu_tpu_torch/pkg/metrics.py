@@ -14,11 +14,11 @@ member, ``TelemetryMetrics``), ``ResilienceMetrics``,
 ``FleetMetrics``, ``ComputeDomainMetrics``, ``PlacementMetrics``,
 ``SchedulerMetrics`` (the families of the scheduler's polled pass: sync
 time, snapshot builds and the control-plane SLO phases),
-``DefragMetrics``, ``MigrationMetrics`` and ``MetricsServer``. The
-others wait for their producers (ROADMAP.md §1c): ``WorkQueueMetrics``
-and the event-mode families of ``SchedulerMetrics`` (dirty queue,
-informer relists, delta builds, domains) for the scheduler's event
-mode, ``AutoscaleMetrics`` for the autoscaler.
+``DefragMetrics``, ``MigrationMetrics``, ``AutoscaleMetrics`` and
+``MetricsServer``. The others wait for the scheduler's event mode
+(ROADMAP.md §1c item 8): ``WorkQueueMetrics`` and the event-mode
+families of ``SchedulerMetrics`` (dirty queue, informer relists, delta
+builds, domains).
 """
 
 from __future__ import annotations
@@ -789,6 +789,60 @@ class MigrationMetrics:
             "tpu_dra_migration_move_seconds",
             "End-to-end latency of one completed cooperative move: "
             "plan record written -> claim re-placed.",
+            buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+                     60.0, 120.0, 300.0),
+            registry=self.registry,
+        )
+
+
+class AutoscaleMetrics:
+    """Serving-autoscaler observability (pkg/autoscale, on the scheduler
+    registry).
+
+    A healthy controller shows ``plans_total`` rising only when demand
+    drifted past the hysteresis band (a steady fleet shows
+    ``converged_passes_total`` climbing with plans flat), every plan
+    retiring through ``applies_total`` (``superseded_total`` counts
+    operator edits winning a race), and ``active_rollouts`` back at zero
+    after every re-plan."""
+
+    def __init__(self, registry: CollectorRegistry | None = None):
+        self.registry = registry or CollectorRegistry()
+        self.plans = Counter(
+            "tpu_dra_autoscale_plans_total",
+            "PartitionSet re-plans started (observed demand drifted "
+            "past the hysteresis band; a durable rollout record was "
+            "written).",
+            registry=self.registry,
+        )
+        self.applies = Counter(
+            "tpu_dra_autoscale_applies_total",
+            "Re-plans confirmed on the apiserver (the PartitionSet "
+            "CRD now carries the planned content).",
+            registry=self.registry,
+        )
+        self.superseded = Counter(
+            "tpu_dra_autoscale_superseded_total",
+            "Rollouts retired because a concurrent PartitionSet edit "
+            "won (operator content always wins).",
+            registry=self.registry,
+        )
+        self.converged = Counter(
+            "tpu_dra_autoscale_converged_passes_total",
+            "Planning passes whose desired layout already matched the "
+            "active CRD (the steady state: ZERO apiserver writes).",
+            registry=self.registry,
+        )
+        self.active_rollouts = Gauge(
+            "tpu_dra_autoscale_active_rollouts",
+            "Re-plan records currently in flight (0 or 1: one rollout "
+            "at a time).",
+            registry=self.registry,
+        )
+        self.rollout_seconds = Histogram(
+            "tpu_dra_autoscale_rollout_seconds",
+            "End-to-end latency of one confirmed re-plan: durable "
+            "plan record written -> CRD content confirmed.",
             buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
                      60.0, 120.0, 300.0),
             registry=self.registry,

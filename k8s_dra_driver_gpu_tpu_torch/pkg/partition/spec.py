@@ -145,7 +145,7 @@ class PartitionSet:
 @dataclass
 class PartitionDemand:
     """Observed or declared demand of one tenant (the sizing input of
-    the JAX package's planner, which is not ported)."""
+    ``profiles.SizingPolicy`` and ``packing.pack_tenants``)."""
 
     hbm_bytes: int = 0
     cores: int = 1

@@ -1,165 +1,49 @@
 """The node's PartitionSet CRD watcher: CRD changes -> engine re-plan
-(the JAX package's ``pkg/autoscale/nodewatch.py``, with the functions of
-its ``pkg/autoscale/crd.py`` that it calls).
+(the JAX package's ``pkg/autoscale/nodewatch.py``).
 
 An informer follows the cluster-scoped ``partitionsets.resource.tpu.dra``
-(``v1beta1``, kind ``PartitionSet``; the JAX group, version, kind and
-annotation keys, since one control plane writes them for the cluster).
-On every change it selects the CRD that governs this node's pool (the
-lexicographically first by name among those whose ``spec.pools`` globs
-match it), fingerprints its spec, and converges the node onto it through
-``apply_fn`` (``Driver.apply_partition_set``, which republishes through
-the content-hash diff, so a converged re-apply costs no write). The
+(the CRD of ``pkg/autoscale/crd.py``, whose selection, fingerprint and
+pre-warm hint this module uses). On every change it selects the CRD that
+governs this node's pool (the lexicographically first by name among
+those whose ``spec.pools`` globs match it), fingerprints its spec, and
+converges the node onto it through ``apply_fn``
+(``Driver.apply_partition_set``, which republishes through the
+content-hash diff, so a converged re-apply costs no write). The
 bootstrap plan (``Config.partition_set``) is the plan while no CRD
 governs the pool, and the one the node reverts to when the governing CRD
 is deleted.
 
-It fails closed: a malformed winning CRD, or a plan the engine refuses
+It fails closed: a malformed winning CRD (a bad CEL selector in its
+``spec.priorityRules`` too), or a plan the engine refuses
 (``PartitionSpecError``: a MIG profile this host does not offer, a
 re-shape of a held device), keeps the last good plan; ``last_error``
 names why, and ``failed_total`` counts each distinct error once. Any
 other failure of an apply (the node lock's time limit, a republish the
 API server refused) is not memoized, where the JAX watcher counts the
 plan as applied: the next event or resync applies it again. The
-winning CRD's pre-warm annotation (``resource.tpu.dra/prewarm``, JSON
-``{"<pool glob>": {"<profile>": count}}``) goes to ``prewarm_fn``
-(``Driver.apply_prewarm``) after the plan.
+winning CRD's pre-warm annotation (``resource.tpu.dra/prewarm``) goes to
+``prewarm_fn`` (``Driver.apply_prewarm``) after the plan. The
+``autoscale`` package re-exports this class, as the JAX package does.
 
-Not ported: the JAX CRD's ``spec.priorityRules`` are checked for their
-shape (a list of ``{selector, priority}``) but their CEL selectors are
-neither compiled nor used: they feed the JAX planner (ROADMAP.md §1b).
-The autoscale controller that writes the CRDs, and the watcher's
-metrics, are not ported.
+Not ported: the watcher's metrics.
 """
 
 from __future__ import annotations
 
-import hashlib
-import json
 import logging
 import threading
-from fnmatch import fnmatch
 
+from ..autoscale.crd import (AUTOSCALE_CRD_GROUP, AUTOSCALE_CRD_RESOURCE,
+                             AUTOSCALE_CRD_VERSION, fingerprint,
+                             prewarm_hints_of, select_for_pool)
 from ..informer import Informer
 from .spec import PartitionSet, PartitionSpecError
 
 logger = logging.getLogger(__name__)
 
-CRD_GROUP = "resource.tpu.dra"
-CRD_VERSION = "v1beta1"
-CRD_RESOURCE = "partitionsets"
-CRD_KIND = "PartitionSet"
-MANAGED_ANNOTATION = "resource.tpu.dra/autoscale-managed"
-REVISION_ANNOTATION = "resource.tpu.dra/autoscale-revision"
-PREWARM_ANNOTATION = "resource.tpu.dra/prewarm"
 # The informer's full relist, which converges a node that missed an
 # event (the JAX watcher's period).
 RESYNC_PERIOD_S = 300.0
-
-
-def fingerprint(spec: dict) -> str:
-    """The content identity of a CRD spec (key order does not count)."""
-    return hashlib.sha256(
-        json.dumps(spec, sort_keys=True).encode()).hexdigest()[:16]
-
-
-def _check_priority_rules(raw) -> None:
-    if raw is None:
-        return
-    if not isinstance(raw, list):
-        raise PartitionSpecError("priorityRules: want a list")
-    for i, entry in enumerate(raw):
-        if not isinstance(entry, dict) or not entry.get("selector"):
-            raise PartitionSpecError(
-                f"priorityRules[{i}]: want {{selector, priority}}")
-        try:
-            int(entry.get("priority", 0))
-        except (TypeError, ValueError) as e:
-            raise PartitionSpecError(
-                f"priorityRules[{i}]: priority must be an int") from e
-
-
-def partition_set_from_crd(obj: dict) -> PartitionSet:
-    """Strict-parse one PartitionSet CRD; PartitionSpecError on anything
-    malformed (the caller fails closed)."""
-    spec = obj.get("spec")
-    if not isinstance(spec, dict):
-        raise PartitionSpecError(
-            f"PartitionSet {obj.get('metadata', {}).get('name')!r}: "
-            "missing spec")
-    ps = PartitionSet.from_dict(spec)
-    _check_priority_rules(spec.get("priorityRules"))
-    return ps
-
-
-def crd_object(name: str, partition_set: PartitionSet, revision: int = 1,
-               prewarm: dict | None = None) -> dict:
-    """A PartitionSet CRD object of ``partition_set``, managed by the
-    autoscaler as the JAX controller writes it, with ``prewarm`` (pool
-    glob -> profile -> count) as its pre-warm hint."""
-    annotations = {MANAGED_ANNOTATION: "true",
-                   REVISION_ANNOTATION: str(revision)}
-    if prewarm:
-        annotations[PREWARM_ANNOTATION] = json.dumps(prewarm,
-                                                     sort_keys=True)
-    return {"apiVersion": f"{CRD_GROUP}/{CRD_VERSION}", "kind": CRD_KIND,
-            "metadata": {"name": name, "annotations": annotations},
-            "spec": partition_set.to_dict()}
-
-
-def prewarm_hints_of(obj: dict | None, pool: str) -> dict[str, int]:
-    """``{profile: count}`` this pool should keep warm, from the CRD's
-    pre-warm annotation (pool keys are globs); a malformed annotation
-    reads as no hint."""
-    raw = ((obj or {}).get("metadata", {}).get("annotations")
-           or {}).get(PREWARM_ANNOTATION)
-    if not raw:
-        return {}
-    try:
-        parsed = json.loads(raw)
-    except (TypeError, ValueError):
-        return {}
-    if not isinstance(parsed, dict):
-        return {}
-    out: dict[str, int] = {}
-    for pat, profs in parsed.items():
-        if not isinstance(profs, dict) or not fnmatch(pool, str(pat)):
-            continue
-        for prof, count in profs.items():
-            try:
-                n = int(count)
-            except (TypeError, ValueError):
-                continue
-            if n > 0:
-                out[str(prof)] = max(out.get(str(prof), 0), n)
-    return out
-
-
-def applies_to_pool(obj: dict, pool: str) -> bool:
-    """Whether ``obj``'s ``spec.pools`` globs match ``pool``, read
-    leniently: a winning CRD whose spec is otherwise malformed is found
-    (and fails closed) instead of being passed over."""
-    pools = (obj.get("spec") or {}).get("pools") if isinstance(
-        obj.get("spec"), dict) else None
-    if not isinstance(pools, list) or not pools:
-        return True
-    return any(fnmatch(pool, str(pat)) for pat in pools)
-
-
-def select_for_pool(objs: list[dict], pool: str
-                    ) -> tuple[str, object, dict | None]:
-    """The CRD governing ``pool``: ``("ok", (plan, fingerprint), obj)``,
-    ``("malformed", error, obj)`` or ``("none", None, None)``."""
-    matching = sorted((o for o in objs if applies_to_pool(o, pool)),
-                      key=lambda o: o.get("metadata", {}).get("name", ""))
-    if not matching:
-        return "none", None, None
-    winner = matching[0]
-    try:
-        plan = partition_set_from_crd(winner)
-    except PartitionSpecError as e:
-        return "malformed", str(e), winner
-    return "ok", (plan, fingerprint(winner.get("spec", {}))), winner
 
 
 class PartitionSetWatcher:
@@ -189,7 +73,9 @@ class PartitionSetWatcher:
         self.applied_total = 0
         self.failed_total = 0
         self.reconciles = 0
-        self._informer = Informer(kube, CRD_GROUP, CRD_VERSION, CRD_RESOURCE,
+        self._informer = Informer(kube, AUTOSCALE_CRD_GROUP,
+                                  AUTOSCALE_CRD_VERSION,
+                                  AUTOSCALE_CRD_RESOURCE,
                                   resync_period=RESYNC_PERIOD_S)
         self._informer.add_event_hook(self._on_event)
         self._started = False
@@ -283,7 +169,7 @@ class PartitionSetWatcher:
                 plan, fp = self._bootstrap, self._bootstrap_fp
                 source = "the bootstrap plan"
             else:
-                plan, fp = payload
+                plan, _rules, fp = payload
                 if fp == self._applied_fp:
                     self.last_error = None
                     return False

@@ -676,6 +676,9 @@ class ClusterView:
     def device_classes(self) -> list[dict]:
         return self._list(*RESOURCE, "deviceclasses")
 
+    def partition_sets(self) -> list[dict]:
+        return self._list(CD_GROUP, CD_VERSION, "partitionsets")
+
     def get_pod(self, name: str, namespace: str = "default") -> dict:
         return self.kube.get("", "v1", "pods", name, namespace=namespace)
 

@@ -52,6 +52,11 @@ port's kubelet plugins cannot tell:
    its target node first and its target devices first in each
    request's order, and every device either controller has reserved is
    vetoed for every claim but the one it is reserved for.
+9. **The serving autoscaler** (``attach_autoscaler``,
+   ``pkg/autoscale.AutoscaleController``): its pass runs after the fleet
+   fold, beside defrag's, so the pending-demand ring it reads is fresh;
+   its reads come from this scheduler's view, and the fleet snapshot
+   (``/debug/fleet``'s ``tenant_demand``) shows its store's percentiles.
 
 One pass is ``sync_once``; ``run(interval)`` repeats it (the JAX
 scheduler's polled mode). Every read lists through the API server
@@ -60,18 +65,19 @@ commit log, which covers an informer's lag behind its own patch, has
 nothing to cover here and is left out.
 
 What waits, each refused with ``NotPortedError`` naming its ROADMAP.md
-item (§1c): event mode (``start_event_driven``,
-``--sched-mode events``), workers > 1 and the claim batch, scheduling
-domains and spillover, and the autoscale controller
-(``attach_autoscaler``). The annotations only domains write (the
-domain and spillover keys) are not read.
+item (§1c item 8): event mode (``start_event_driven``,
+``--sched-mode events``, and with it the ``partitionsets`` informer and
+the autoscaler's dirty key), workers > 1 and the claim batch, and
+scheduling domains and spillover. The annotations only domains write
+(the domain and spillover keys) are not read.
 
 Run it as ``python -m k8s_dra_driver_gpu_tpu_torch.pkg.scheduler
 --kube-api URL [--default-node N] [--interval S] [--metrics-port N]
 [--recovery-root DIR] [--migration-root DIR] [--defrag-root DIR]
-[--leader-elect [--leader-elect-namespace NS]]`` (each root, else its
-``TPU_DRA_{RECOVERY,MIGRATION,DEFRAG}_ROOT``, attaches that controller
-over the directory's records); SIGTERM ends it with exit 0.
+[--autoscale-root DIR] [--leader-elect [--leader-elect-namespace NS]]``
+(each root, else its
+``TPU_DRA_{RECOVERY,MIGRATION,DEFRAG,AUTOSCALE}_ROOT``, attaches that
+controller over the directory's records); SIGTERM ends it with exit 0.
 """
 
 from __future__ import annotations
@@ -104,18 +110,11 @@ logger = logging.getLogger(__name__)
 
 RESOURCE = ("resource.k8s.io", "v1")
 
-# What the JAX scheduler attaches to its loop and the port does not run
-# yet, by the ROADMAP.md §1c item that ports it.
-CONTROLLERS = {
-    "autoscaler": "the serving autoscaler (ROADMAP.md §1c item 7, "
-                  "autoscale)",
-}
 # Binary flags of the JAX scheduler for what waits, refused when set.
 UNPORTED_FLAGS = {
     "sched_domain": DOMAINS, "sched_domain_pools": DOMAINS,
     "sched_domain_siblings": DOMAINS, "sched_domain_default": DOMAINS,
     "sched_batch": WORKERS,
-    "autoscale_root": CONTROLLERS["autoscaler"],
 }
 # The JAX scheduler's env knobs for what waits, refused when set (its
 # binary reads each as the default of the flag above of the same name).
@@ -124,7 +123,6 @@ UNPORTED_ENV = {
     "TPU_DRA_SCHED_DOMAIN": DOMAINS, "TPU_DRA_SCHED_DOMAIN_POOLS": DOMAINS,
     "TPU_DRA_SCHED_DOMAIN_SIBLINGS": DOMAINS,
     "TPU_DRA_SCHED_DOMAIN_DEFAULT": DOMAINS,
-    "TPU_DRA_AUTOSCALE_ROOT": CONTROLLERS["autoscaler"],
 }
 
 
@@ -206,6 +204,8 @@ class DraScheduler:
         # device reservations.
         self.defrag = None
         self.migration = None
+        # The serving autoscaler, if attached.
+        self.autoscaler = None
         # The fleet telemetry fold, every pass. The process default
         # (/debug/fleet) is claimed at the FIRST fold, so a scheduler
         # only constructed never repoints it at an empty aggregator.
@@ -220,9 +220,6 @@ class DraScheduler:
         """The claim-lifecycle SLO histogram, or None without metrics."""
         return (self.sched_metrics.slo
                 if self.sched_metrics is not None else None)
-
-    def _refuse_controller(self, which: str):
-        raise NotPortedError(f"{CONTROLLERS[which]} is not ported yet")
 
     def attach_recovery(self, controller) -> "DraScheduler":
         """Drive a ``pkg/recovery.EvictionController`` from this
@@ -260,7 +257,18 @@ class DraScheduler:
         return self
 
     def attach_autoscaler(self, controller) -> "DraScheduler":
-        self._refuse_controller("autoscaler")
+        """Drive a ``pkg/autoscale.AutoscaleController`` from this
+        scheduler's pass: its sync runs in every pass after the fleet
+        fold, so the pending-demand ring it reads is fresh; its reads
+        come from this scheduler's view, it reads this scheduler's fleet
+        unless it was given one, and the fleet snapshot shows its
+        store's percentiles (``/debug/fleet``'s ``tenant_demand``)."""
+        controller.view = self.view
+        if controller.fleet is None:
+            controller.fleet = self.fleet
+        self.fleet.attach_profile_store(controller.store)
+        self.autoscaler = controller
+        return self
 
     def start_event_driven(self) -> "DraScheduler":
         raise NotPortedError(f"{EVENT_MODE} is not ported yet")
@@ -1311,9 +1319,10 @@ class DraScheduler:
         self._allocate_claims()
         self._bind_pods()
         self._observe_fleet()
-        # After the fleet fold: the defrag trigger reads the rings this
-        # pass just refreshed.
+        # After the fleet fold: the defrag trigger reads the frag rings
+        # this pass just refreshed, and the autoscaler the pending ring.
         self._sync_defrag()
+        self._sync_autoscale()
         if self.sched_metrics is not None:
             self.sched_metrics.sync_seconds.labels("full").observe(
                 time.monotonic() - t0)
@@ -1367,6 +1376,16 @@ class DraScheduler:
             self.defrag.sync_once()
         except Exception:  # noqa: BLE001 - control loop
             logger.exception("defrag sync failed")
+
+    def _sync_autoscale(self) -> None:
+        """One autoscale pass; an ``InjectedCrash`` goes through, as a
+        process death would."""
+        if self.autoscaler is None:
+            return
+        try:
+            self.autoscaler.sync_once()
+        except Exception:  # noqa: BLE001 - control loop
+            logger.exception("autoscale sync failed")
 
     def run(self, interval: float = 0.25):
         while not self._stop.is_set():
@@ -1460,6 +1479,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "(checkpoint-then-switch handshakes); empty = "
                         "cooperative migration off "
                         "[TPU_DRA_MIGRATION_ROOT]")
+    p.add_argument("--autoscale-root",
+                   default=env("TPU_DRA_AUTOSCALE_ROOT", ""),
+                   help="state root of the serving autoscaler's durable "
+                        "re-plan records (the demand-driven PartitionSet "
+                        "controller); empty = autoscaler off "
+                        "[TPU_DRA_AUTOSCALE_ROOT]")
     # The JAX scheduler's flags for what waits: refused when set.
     for flag in UNPORTED_FLAGS:
         if flag == "sched_domain_default":
@@ -1475,9 +1500,10 @@ def main(argv: list[str] | None = None) -> int:
     from .kubeclient import KubeClient  # noqa: PLC0415
     from . import logsetup  # noqa: PLC0415
     from .. import __version__  # noqa: PLC0415
+    from .autoscale import AutoscaleController  # noqa: PLC0415
     from .defrag import DefragController  # noqa: PLC0415
-    from .metrics import (DefragMetrics, FleetMetrics,  # noqa: PLC0415
-                          MetricsServer, MigrationMetrics,
+    from .metrics import (AutoscaleMetrics, DefragMetrics,  # noqa: PLC0415
+                          FleetMetrics, MetricsServer, MigrationMetrics,
                           PlacementMetrics, RecoveryMetrics,
                           ResilienceMetrics, SchedulerMetrics,
                           register_build_info)
@@ -1528,6 +1554,11 @@ def main(argv: list[str] | None = None) -> int:
         sched.attach_migration(MigrationController(
             sched.kube, args.migration_root, metrics=(
                 MigrationMetrics(registry=metrics.registry)
+                if metrics is not None else None)))
+    if args.autoscale_root:
+        sched.attach_autoscaler(AutoscaleController(
+            sched.kube, args.autoscale_root, metrics=(
+                AutoscaleMetrics(registry=metrics.registry)
                 if metrics is not None else None)))
     if metrics is not None:
         server = MetricsServer(metrics.registry, host="0.0.0.0",

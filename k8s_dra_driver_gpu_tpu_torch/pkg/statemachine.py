@@ -44,9 +44,16 @@ MigrationSwitching (drained, the allocation cleared) -> absent
 (re-placed). Every state may go to absent: each failure falls back to
 the cold path with the reservation released.
 
+A serving-autoscaler rollout (``AUTOSCALE_POLICY``,
+``pkg/autoscale/controller.py``'s records): absent -> AutoscalePlanned
+(the desired spec pinned) -> AutoscaleApplying (the CRD write issued) ->
+absent (confirmed, or superseded by an operator's edit). A Planned
+record may go straight to absent (superseded before the write); no
+write is issued without its durable plan.
+
 The checkpoint manager validates every mutation against its policy. The
-reference's model checker (``crash_closure``), its registry of policies
-and the autoscaler's policy are not ported.
+reference's model checker (``crash_closure``) and its registry of
+policies are not ported.
 """
 
 from __future__ import annotations
@@ -194,5 +201,19 @@ MIGRATION_POLICY = TransitionPolicy(
         (MIGRATION_INTENT_SIGNALED, ABSENT),      # ack timeout fallback
         (MIGRATION_WORKLOAD_ACKED, ABSENT),       # dest lost fallback
         (MIGRATION_SWITCHING, ABSENT),            # re-placed / fallback
+    }),
+)
+
+
+AUTOSCALE_PLANNED = "AutoscalePlanned"
+AUTOSCALE_APPLYING = "AutoscaleApplying"
+
+AUTOSCALE_POLICY = TransitionPolicy(
+    "autoscale",
+    frozenset({
+        (ABSENT, AUTOSCALE_PLANNED),              # durable re-plan intent
+        (AUTOSCALE_PLANNED, AUTOSCALE_APPLYING),  # CRD write issued
+        (AUTOSCALE_PLANNED, ABSENT),              # superseded pre-write
+        (AUTOSCALE_APPLYING, ABSENT),             # confirmed / superseded
     }),
 )

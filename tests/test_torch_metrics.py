@@ -747,3 +747,26 @@ def test_quarantine_counter_matches():
                                     sort_keys=True))
     assert got["pt"] == got["jax"]
     assert '"tpu_dra_quarantine_total", [["device", "#2"]], 3.0' in got["pt"]
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_autoscale_metrics_expositions_match(seed):
+    """``AutoscaleMetrics`` on each side's registry, driven by the same
+    seeded operations (the controller's counters, its gauge and the
+    rollout histogram over its buckets): the same exposition."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mets = {s: METRICS[s].AutoscaleMetrics() for s in SIDES}
+    for _ in range(40):
+        op = int(rng.integers(0, 6))
+        x = float(rng.choice([0.01, 0.07, 0.3, 1.7, 9.0, 45.0, 400.0]))
+        n = int(rng.integers(0, 3))
+        for s in SIDES:
+            m = mets[s]
+            (m.plans.inc, m.applies.inc, m.superseded.inc, m.converged.inc,
+             lambda: m.active_rollouts.set(n),
+             lambda: m.rollout_seconds.observe(x))[op]()
+    fams = {s: parse(GENERATE[s](mets[s].registry)) for s in SIDES}
+    assert fams["pt"] == fams["jax"]
+    assert "tpu_dra_autoscale_rollout_seconds" in fams["pt"]

@@ -1137,3 +1137,152 @@ def test_the_sweep_pass_reports_idle_partitions(port):
     counts = NodeStateReconciler(st, kube, "node-0").reconcile_once()
     assert counts["idle_partition"] == 1
     assert walk(st) == [] and not st._tenancy.partition_active("pt-s2-0")
+
+
+# -- MISO sizing (the JAX file's TestProfileGuidedSizing) ----------------------
+
+GIB = 1 << 30
+PROFILES_MOD = {"jax": jax_partition.profiles, "pt": pt_partition.profiles}
+
+
+def _both(fn):
+    got = {side: fn(side) for side in ("jax", "pt")}
+    assert got["pt"] == got["jax"]
+    return got["pt"]
+
+
+def test_store_percentiles_and_defaults():
+    def one(side):
+        store = PKG[side].TenantProfileStore()
+        default = store.demand("serving-small").hbm_bytes
+        for mb in (100, 200, 300, 400, 1000):
+            store.observe("t", mb << 20)
+        return (default, store.demand("t", percentile=0.5).hbm_bytes,
+                store.demand("t", percentile=1.0).hbm_bytes,
+                store.demand("unknown"), store.tenants())
+    assert _both(one)[:4] == (2 * GIB, 300 << 20, 1000 << 20, None)
+
+
+def test_window_evicts_by_arrival_so_demand_can_shrink(monkeypatch):
+    def one(side):
+        monkeypatch.setattr(PROFILES_MOD[side], "_MAX_SAMPLES", 8)
+        store = PKG[side].TenantProfileStore(defaults={})
+        for _ in range(8):
+            store.observe("t", 12 * GIB)
+        high = store.demand("t", percentile=0.95).hbm_bytes
+        for _ in range(8):
+            store.observe("t", 2 * GIB)
+        return high, store.demand("t", percentile=0.95).hbm_bytes
+    assert _both(one) == (12 * GIB, 2 * GIB)
+
+
+def test_demand_count_is_tenant_multiplicity_not_samples():
+    def one(side):
+        store = PKG[side].TenantProfileStore(defaults={})
+        for mb in (100, 200, 300):
+            store.observe("t", mb << 20)
+        return store.demand("t").count
+    assert _both(one) == 1
+
+
+def test_static_profile_file(tmp_path):
+    path = str(tmp_path / "tenants.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump({"tenants": {"svc-a": {"hbmBytes": 3 * GIB, "cores": 2},
+                               "svc-b": {"hbmBytes": GIB}}}, f)
+
+    def one(side):
+        store = PKG[side].TenantProfileStore(defaults={})
+        n = store.load_file(path)
+        with pytest.raises(PKG[side].PartitionSpecError):
+            store.load_file(str(tmp_path / "missing.json"))
+        d = store.demand("svc-a")
+        return n, d.hbm_bytes, d.cores, store.to_dict()
+    assert _both(one)[:3] == (2, 3 * GIB, 2)
+
+
+# The same sizing question on each node: the JAX v5e chip (16 GiB, one
+# core) and the port's 7g.80gb instance (80 GiB, 132 SMs), demands scaled
+# to each.
+SCALE = {"jax": 1, "pt": 5}
+CORES = {"jax": 1, "pt": 132}
+
+
+def test_sizing_picks_smallest_satisfying():
+    def one(side):
+        host, profiles = hosts()[side]
+        sub, pt_ = SUBSLICE[side], PKG[side]
+        cat = ENGINES[side].catalog_for(host, profiles, pt_.PartitionSet(
+            profiles=tuple(pt_.PartitionProfile(name=f"s{n}", subslice=sub,
+                                                max_tenants=n)
+                           for n in (1, 2, 4, 8))))
+        pick = pt_.SizingPolicy().pick
+        choice = pick(pt_.PartitionDemand(hbm_bytes=3 * GIB * SCALE[side]),
+                      cat)
+        return (choice.profile.name,
+                choice.per_tenant_hbm == 4 * GIB * SCALE[side],
+                choice.per_tenant_core_milli,
+                pick(pt_.PartitionDemand(hbm_bytes=64 * GIB * SCALE[side]),
+                     cat),
+                # Cores are a physical span: one more than the backing
+                # instance has never fits, whatever the memory headroom.
+                pick(pt_.PartitionDemand(hbm_bytes=GIB,
+                                         cores=CORES[side] + 1), cat),
+                pick(pt_.PartitionDemand(hbm_bytes=GIB, cores=CORES[side]),
+                     cat).profile.name)
+    assert _both(one) == ("s4", True, 250, None, None, "s8")
+
+
+# -- ParvaGPU packing (the JAX file's TestPacking) -----------------------------
+
+def _plan(side, demands, *args, **kw):
+    pt_ = PKG[side]
+    plan = pt_.pack_tenants([pt_.PartitionDemand(**d) for d in demands],
+                            *args, **kw)
+    return ([(c.index, c.capacity_hbm, c.used_hbm, c.free_hbm,
+              [(t.tenant, t.hbm_bytes, t.count) for t in c.tenants])
+             for c in plan.chips],
+            [(t.tenant, t.hbm_bytes) for t in plan.unplaced],
+            plan.chips_used, plan.tenants_placed, plan.tenants_per_chip,
+            plan.waste_fraction, plan.to_dict())
+
+
+def test_complementary_tenants_co_locate():
+    demands = [dict(hbm_bytes=12 * GIB, tenant="big"),
+               dict(hbm_bytes=4 * GIB, tenant="small"),
+               dict(hbm_bytes=8 * GIB, tenant="mid")]
+    chips, _, used, placed, *_ = _both(
+        lambda s: _plan(s, demands, chip_hbm=16 * GIB, chips=4))
+    assert (used, placed) == (2, 3)
+    assert ["big", "small"] in [sorted(t[0] for t in c[4]) for c in chips]
+
+
+def test_capacity_and_slot_caps_respected():
+    chips, unplaced, *_ = _both(lambda s: _plan(
+        s, [dict(hbm_bytes=2 * GIB, count=20, tenant="small")],
+        chip_hbm=16 * GIB, chips=2, max_tenants_per_chip=4))
+    assert all(c[2] <= c[1] and len(c[4]) <= 4 for c in chips)
+    assert sum(len(c[4]) for c in chips) == 8 and len(unplaced) == 12
+
+
+def test_packing_deterministic():
+    demands = [dict(hbm_bytes=(i % 5 + 1) * GIB, count=2, tenant=f"t{i}")
+               for i in range(6)]
+    a = _both(lambda s: _plan(s, demands, 16 * GIB, 4))
+    assert a == _plan("pt", demands, 16 * GIB, 4)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_packing_seeded_as_the_reference(seed):
+    """Seeded demands, caps and anomaly-avoided cards."""
+    import random
+
+    rng = random.Random(seed)
+    demands = [dict(hbm_bytes=rng.randrange(1, 40) * GIB // 4,
+                    count=rng.randrange(0, 4), cores=rng.randrange(1, 3),
+                    tenant=f"t{rng.randrange(0, 5)}")
+               for _ in range(rng.randrange(1, 12))]
+    cap = rng.choice((None, 1, 3))
+    avoid = set(rng.sample(range(6), rng.randrange(0, 3)))
+    _both(lambda s: _plan(s, demands, 16 * GIB, 6,
+                          max_tenants_per_chip=cap, avoid=avoid))

@@ -38,6 +38,7 @@ from k8s_dra_driver_gpu_tpu_torch.pkg.informer import Informer
 from k8s_dra_driver_gpu_tpu_torch.pkg.kubeclient import (FakeKubeClient,
                                                          KubeClient)
 from k8s_dra_driver_gpu_tpu_torch.pkg.partition import PartitionSet
+from k8s_dra_driver_gpu_tpu_torch.pkg.autoscale import crd as pt_crd
 from k8s_dra_driver_gpu_tpu_torch.pkg.partition import watch as pt_watch
 
 CRD = ("resource.tpu.dra", "v1beta1", "partitionsets")
@@ -325,8 +326,8 @@ def crd(side, slots=8, name="tpu-dra-autoscale", revision=1, prof=None):
     if side == "jax":
         return jax_crd.crd_object(name, JaxSet.from_dict(spec),
                                   revision=revision)
-    return pt_watch.crd_object(name, PartitionSet.from_dict(spec),
-                               revision=revision)
+    return pt_crd.crd_object(name, PartitionSet.from_dict(spec),
+                             revision=revision)
 
 
 MALFORMED = {"apiVersion": "resource.tpu.dra/v1beta1",
@@ -557,7 +558,7 @@ def test_a_converged_reapply_writes_nothing_over_http(tmp_path):
         n = watcher.reconciles
         assert watcher.wait_for(lambda: watcher.reconciles > n, WAIT)
         stats = node.driver.apply_partition_set(
-            pt_watch.partition_set_from_crd(crd("pt", 8)))
+            pt_crd.partition_set_from_crd(crd("pt", 8))[0])
         assert stats["writes"] == 0
         assert watcher.applied_total == applied
         assert _writes(node.server) == before
@@ -583,7 +584,7 @@ def test_mig_off_fails_closed_with_no_write(tmp_path):
         try:
             watcher = drv.partition_watcher
             before = _writes(srv)
-            srv.store.create(*CRD, pt_watch.crd_object(
+            srv.store.create(*CRD, pt_crd.crd_object(
                 "tpu-dra-autoscale", PartitionSet.from_dict({"profiles": [
                     {"name": "s2", "subslice": "1g.10gb", "maxTenants": 2,
                      "hbmFraction": 0.9}]})))
@@ -618,18 +619,18 @@ def test_mig_off_fails_closed_with_no_write(tmp_path):
 ], ids=["none", "glob", "malformed winner", "rules not a list",
         "priority not an int"])
 def test_select_for_pool_as_the_reference(objs, pool):
-    got = pt_watch.select_for_pool(objs, pool)
+    got = pt_crd.select_for_pool(objs, pool)
     want = jax_crd.select_for_pool(objs, pool)
     assert got[0] == want[0]
     assert got[2] == want[2]
     if got[0] == "ok":
-        assert got[1][1] == want[1][2]  # the fingerprint
+        assert got[1][2] == want[1][2]  # the fingerprint
 
 
 def test_a_spec_that_is_no_object_is_malformed():
     # (The JAX selection raises on it: it reads ``spec.pools`` first.)
     obj = {"metadata": {"name": "x"}, "spec": "not a dict"}
-    assert pt_watch.select_for_pool([obj], "node-0")[0] == "malformed"
+    assert pt_crd.select_for_pool([obj], "node-0")[0] == "malformed"
 
 
 @pytest.mark.parametrize("raw", [
@@ -638,19 +639,19 @@ def test_a_spec_that_is_no_object_is_malformed():
     '{"other": {"serv": 2}}', '{"node-*": "bad"}'])
 def test_prewarm_hints_as_the_reference(raw):
     obj = {"metadata": {"annotations": {} if raw is None else {
-        pt_watch.PREWARM_ANNOTATION: raw}}}
-    assert pt_watch.prewarm_hints_of(obj, "node-0") == \
+        pt_crd.PREWARM_ANNOTATION: raw}}}
+    assert pt_crd.prewarm_hints_of(obj, "node-0") == \
         jax_crd.prewarm_hints_of(obj, "node-0")
-    assert pt_watch.PREWARM_ANNOTATION == jax_crd.PREWARM_ANNOTATION
+    assert pt_crd.PREWARM_ANNOTATION == jax_crd.PREWARM_ANNOTATION
 
 
 def test_the_crd_keys_are_the_jax_ones():
-    assert (pt_watch.CRD_GROUP, pt_watch.CRD_VERSION, pt_watch.CRD_RESOURCE,
-            pt_watch.CRD_KIND) == (
+    assert (pt_crd.AUTOSCALE_CRD_GROUP, pt_crd.AUTOSCALE_CRD_VERSION,
+            pt_crd.AUTOSCALE_CRD_RESOURCE, pt_crd.AUTOSCALE_CRD_KIND) == (
         jax_crd.AUTOSCALE_CRD_GROUP, jax_crd.AUTOSCALE_CRD_VERSION,
         jax_crd.AUTOSCALE_CRD_RESOURCE, jax_crd.AUTOSCALE_CRD_KIND)
     spec = {"profiles": [{"name": "a", "subslice": "1x1"}], "pools": []}
-    assert pt_watch.fingerprint(spec) == jax_crd.fingerprint(spec)
+    assert pt_crd.fingerprint(spec) == jax_crd.fingerprint(spec)
 
 
 def test_a_transient_apply_failure_is_retried():
@@ -687,9 +688,8 @@ def test_the_prewarm_hint_reaches_the_engine_as_the_jax_one(nodes):
         node.start()
     for node in trio.values():
         obj = crd(node.side, 8)
-        obj["metadata"]["annotations"][pt_watch.PREWARM_ANNOTATION] = \
-            pt_watch.crd_object("x", PartitionSet(), prewarm=hint)[
-                "metadata"]["annotations"][pt_watch.PREWARM_ANNOTATION]
+        obj["metadata"]["annotations"][pt_crd.PREWARM_ANNOTATION] = \
+            pt_crd.prewarm_value(hint)
         node.write("create", obj)
     want = [f"pt-web-s8-{k}" for k in range(4)]
     for node in trio.values():

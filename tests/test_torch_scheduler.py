@@ -983,8 +983,7 @@ def _refused(fn, match):
 
 
 @pytest.mark.parametrize("case", [
-    "workers", "batch", "domain", "attach_autoscaler", "start_event_driven",
-    "view_start"])
+    "workers", "batch", "domain", "start_event_driven", "view_start"])
 def test_what_waits_is_refused(case):
     kube = pt_kube.FakeKubeClient()
     make = pt_sched.DraScheduler
@@ -992,8 +991,6 @@ def test_what_waits_is_refused(case):
         "workers": (lambda: make(kube, workers=2), "workers > 1"),
         "batch": (lambda: make(kube, batch_max=8), "claim batch"),
         "domain": (lambda: make(kube, domain=object()), "SchedulingDomain"),
-        "attach_autoscaler": (lambda: make(kube).attach_autoscaler(None),
-                              "autoscale"),
         "start_event_driven": (lambda: make(kube).start_event_driven(),
                                "event mode"),
         "view_start": (lambda: pt_cache.ClusterView(kube).start(),
@@ -1009,7 +1006,6 @@ def test_what_waits_is_refused(case):
     ({"TPU_DRA_SCHED_DOMAIN_POOLS": "p*"}, "SchedulingDomain"),
     ({"TPU_DRA_SCHED_DOMAIN_SIBLINGS": "b=q"}, "SchedulingDomain"),
     ({"TPU_DRA_SCHED_DOMAIN_DEFAULT": "1"}, "SchedulingDomain"),
-    ({"TPU_DRA_AUTOSCALE_ROOT": "/r"}, "item 7, autoscale"),
 ])
 def test_env_of_what_waits_is_refused(env, match, monkeypatch):
     for key, value in env.items():
@@ -1025,19 +1021,20 @@ def test_env_of_what_waits_is_refused(env, match, monkeypatch):
     (["--sched-domain-pools", "p*"], "SchedulingDomain"),
     (["--sched-domain-siblings", "b=q"], "SchedulingDomain"),
     (["--sched-domain-default"], "SchedulingDomain"),
-    (["--autoscale-root", "/r"], "autoscale"),
 ])
 def test_binary_flags_of_what_waits_are_refused(argv, match):
     _refused(lambda: pt_sched.main(["--kube-api", "http://127.0.0.1:1"]
                                    + argv), match)
 
 
-@pytest.mark.parametrize("flag", ["defrag_root", "migration_root"])
+@pytest.mark.parametrize("flag", ["defrag_root", "migration_root",
+                                  "autoscale_root"])
 @pytest.mark.parametrize("source", ["flag", "env"])
 def test_controller_roots_are_read(flag, source, monkeypatch):
-    """The defrag and migration roots, from the binary's flag or its env
-    (``TPU_DRA_DEFRAG_ROOT``, ``TPU_DRA_MIGRATION_ROOT``), as the JAX
-    binary reads them; neither is refused any more."""
+    """The defrag, migration and autoscale roots, from the binary's flag
+    or its env (``TPU_DRA_DEFRAG_ROOT``, ``TPU_DRA_MIGRATION_ROOT``,
+    ``TPU_DRA_AUTOSCALE_ROOT``), as the JAX binary reads them; none is
+    refused any more."""
     env = "TPU_DRA_" + flag.upper()
     argv = ["--kube-api", "x"]
     if source == "env":
@@ -1120,6 +1117,41 @@ def test_what_now_runs(case, tmp_path, monkeypatch):
     assert node_of(allocation(state, "c0")) != node
     assert state["claims"][("default", "c0")]["conditions"][0][
         "reason"] == "Recovered"
+
+
+def test_attach_autoscaler_is_accepted(tmp_path, monkeypatch):
+    """What the scheduler refused before the autoscaler slice, against
+    the JAX scheduler: an attached autoscale controller takes this
+    scheduler's view and fleet, the fleet shows its store, and its pass
+    (after the fleet fold) plans a declared tenant's partition set in the
+    scheduler's own pass."""
+    from k8s_dra_driver_gpu_tpu.pkg.autoscale import \
+        controller as jax_as
+    from k8s_dra_driver_gpu_tpu_torch.pkg.autoscale import \
+        controller as pt_as
+    from tests.test_autoscale import publish_chip_fleet, tenant_claim
+    from tests.test_torch_autoscale import publish_gpu_fleet
+
+    got = {}
+    for side, sched_mod, as_mod, publish, kube_mod in (
+            ("jax", jax_sched, jax_as, publish_chip_fleet, jax_kube),
+            ("pt", pt_sched, pt_as, publish_gpu_fleet, pt_kube)):
+        kube = kube_mod.FakeKubeClient()
+        publish(kube)
+        tenant_claim(kube, "c1", "web", 3 << 30, allocated=False)
+        sched = sched_mod.DraScheduler(kube)
+        ctrl = as_mod.AutoscaleController(
+            kube, str(tmp_path / side), sustain_s=0.0, cooldown_s=0.0,
+            subslice="1x1" if side == "jax" else "7g.80gb")
+        assert sched.attach_autoscaler(ctrl) is sched
+        assert ctrl.view is sched.view and ctrl.fleet is sched.fleet
+        sched.sync_once()
+        crds = kube.list("resource.tpu.dra", "v1beta1", "partitionsets")
+        got[side] = (ctrl.last_sync,
+                     [p["name"] for c in crds for p in c["spec"]["profiles"]],
+                     sorted(sched.fleet.snapshot()["tenant_demand"]))
+    assert got["pt"] == got["jax"]
+    assert got["pt"][1] == ["web-s4"] and got["pt"][2] == ["web"]
 
 
 def test_domain_annotations_are_not_read(tmp_path):
