@@ -100,21 +100,22 @@ and prints no result line):
    step (M times the plain step's) and its collectives (none), the median
    of 3 timed steps (tok/s, MFU, peak memory) and a trace by kind.
 10. launcher (after the gang is left): ``train.verify --require-gang`` as
-   a gang of one from a ComputeDomain env (its JSON line); then
+   a gang of one from a ComputeDomain env (its JSON line) and
    ``train.main --model flagship --batch-size 4 --seq-len 1024`` on a
    token file written from the seed: (a) 2 steps saving a checkpoint at
-   step 2 and tracing, (b) 3 steps resumed from it, (c) 3 steps
-   uninterrupted. (b)'s step-3 loss against (c)'s, the checkpoint's bytes
+   step 2 and tracing and (c) 3 steps uninterrupted, these three
+   processes at once on the card; then (b) 3 steps resumed from (a)'s
+   checkpoint. (b)'s step-3 loss against (c)'s, the checkpoint's bytes
    and save and restore seconds, and a trace that names the flash
    kernels. The checkpoint and the trace are deleted after.
 11. entry: ``entry.entry()``'s forward on the card (finite logits);
    ``entry.dryrun_multichip`` over every visible card, which starts its
    own NCCL ranks, and meanwhile over 4 gloo ranks on the host, where
    every family runs on this machine's torch (each family's seconds, or
-   its skip), each serving the reference's prompt of a row a rank; and
-   ``entry.dryrun_multichip_multiprocess`` as one node process from a
-   bootstrap.json and members.json written here in the ComputeDomain
-   daemon's format.
+   its skip), each serving the reference's prompt of a row a rank; and,
+   beside those, ``entry.dryrun_multichip_multiprocess`` as one node
+   process from a bootstrap.json and members.json written here in the
+   ComputeDomain daemon's format.
 12. kubelet plugin: "a prepared claim runs the workload". The port's
    ``kubeletplugin.DeviceState`` over the real NVML, its state and CDI
    roots in a temporary directory, deleted after: the
@@ -267,7 +268,11 @@ and prints no result line):
    second domain of ``numNodes: 2``, whose second node never comes, on a
    second node: its channel prepare aborts twice at a 1 s deadline and
    unwinds (no spec, no record, one ``GangPrepareAborted`` Event; the
-   label kept while the domain lives, and gone after its deletion).
+   label kept while the domain lives, and gone after its deletion); with
+   ``TPU_DRA_DOCTOR_DIR`` set around the two aborts, exactly one
+   ``*-gang-abort.tar.gz`` (the doctor's rate limit) holding the plugin's
+   own ``/debug/*`` dumps with the first abort's ``gang_abort`` event,
+   its bytes and ms after that event.
    Teardown in a cluster's order: the channel claim unprepared (the label
    goes), the daemon SIGTERMed (it deregisters, its rendezvous child
    exits), the daemon and GPU claims unprepared, the first domain deleted
@@ -355,7 +360,12 @@ and prints no result line):
    ``gpu-0`` to the sticky ``failed`` taint (``QuarantineTracker.
    mark_failed``); with ``h100-a`` failed there is nowhere to go, and the
    claim retires cleanly at the deadline (``RecoveryDeadlineExceeded``,
-   no allocation, no record). (d) Phase 20's fleet (the 8-GPU claims
+   no allocation, no record), and the binary (``TPU_DRA_DOCTOR_DIR``,
+   ``TPU_DRA_DOCTOR_ENDPOINTS`` naming both plugins) drops one
+   ``*-eviction-deadline.tar.gz`` with both plugins' ``/metrics`` and
+   ``/debug/*`` and no fetch error; then ``pkg.doctor.main`` in this
+   process against the three binaries with ``--claim`` (exit 0, the
+   claim's events from all three). (d) Phase 20's fleet (the 8-GPU claims
    first) with telemetry attributes on every device and a
    ``FleetAggregator`` folding each pass, then one
    ``EvictionController.sync_once`` with one of the 128 nodes NotReady.
@@ -443,6 +453,7 @@ import contextlib
 import dataclasses
 import functools
 import inspect
+import io
 import json
 import math
 import statistics
@@ -2441,10 +2452,11 @@ def _launch(args: list, env: dict, label: str, timeout: float = 900
 
 def phase_launcher(seed: int) -> None:
     """The port's entry points as a user starts them, each in its own
-    process: ``train.verify --require-gang`` as a gang of one, then
+    process: ``train.verify --require-gang`` as a gang of one, and
     ``train.main`` on the flagship at S=1024 over a token file from the
-    seed: (a) 2 steps, a checkpoint at step 2 and a trace, (b) 3 steps
-    resumed from it, (c) 3 steps uninterrupted."""
+    seed: (a) 2 steps, a checkpoint at step 2 and a trace, (c) 3 steps
+    uninterrupted, these three at once on the card; then (b) 3 steps
+    resumed from (a)'s checkpoint."""
     import os
     import re
     import shutil
@@ -2464,21 +2476,12 @@ def phase_launcher(seed: int) -> None:
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("TPU_", "CHECKPOINT_DIR", "PROFILE_DIR",
                                 "DATA_"))}
-    try:
-        out = _launch(["k8s_dra_driver_gpu_tpu_torch.train.verify",
-                       "--require-gang"],
-                      {**env, "TPU_COORDINATOR_ADDRESS":
-                       f"127.0.0.1:{free_port()}", "TPU_PROCESS_ID": "0",
-                       "TPU_NUM_PROCESSES": "1"}, "verify")
-        lines = [line for line in out.splitlines() if line.startswith("{")]
-        doc = json.loads(lines[0]) if len(lines) == 1 else {}
-        log(f"launcher: verify printed {len(lines)} JSON line(s): "
-            f"{json.dumps({k: v for k, v in doc.items() if k != 'env'})}")
-        if not (len(lines) == 1 and doc["devSum"] == 1.0
-                and doc["rankSum"] == 1.0 and doc["steps"] == 1
-                and math.isfinite(float(doc["loss"])) and doc["gang"] is True):
-            raise AssertionError(f"verify's proof failed: {lines}")
+    def launch(args, extra_env, label):
+        t0 = time.perf_counter()
+        return (_launch(args, {**env, **extra_env}, label),
+                time.perf_counter() - t0)
 
+    try:
         vocab = llama.LlamaConfig.flagship().vocab_size
         data = os.path.join(work, "tokens.bin")
         write_token_file(data, np.random.RandomState(seed).randint(
@@ -2487,17 +2490,43 @@ def phase_launcher(seed: int) -> None:
         common = ["k8s_dra_driver_gpu_tpu_torch.train.main", "--model",
                   "flagship", "--batch-size", str(LAUNCH_BATCH), "--seq-len",
                   str(LAUNCH_SEQ), "--data-file", data]
+        runs = {"a": ["--steps", "2", "--checkpoint-dir", ckpt,
+                      "--checkpoint-every", "2", "--profile-dir", trace],
+                "b": ["--steps", "3", "--checkpoint-dir", ckpt],
+                "c": ["--steps", "3"]}
+        # verify, (a) and (c) need nothing of one another: one card runs
+        # the three processes at once (their starts overlap); (b) resumes
+        # from (a)'s checkpoint.
+        t_together = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=3) as pool:
+            verify = pool.submit(
+                launch, ["k8s_dra_driver_gpu_tpu_torch.train.verify",
+                         "--require-gang"],
+                {"TPU_COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}",
+                 "TPU_PROCESS_ID": "0", "TPU_NUM_PROCESSES": "1"}, "verify")
+            started = {label: pool.submit(launch, common + runs[label], {},
+                                          f"train.main ({label})")
+                       for label in ("a", "c")}
+            done = {label: f.result() for label, f in started.items()}
+            out, verify_s = verify.result()
+        together = time.perf_counter() - t_together
+        done["b"] = launch(common + runs["b"], {}, "train.main (b)")
+        lines = [line for line in out.splitlines() if line.startswith("{")]
+        doc = json.loads(lines[0]) if len(lines) == 1 else {}
+        log(f"launcher: verify, (a) and (c) at once in {together:.1f} s; "
+            f"verify {verify_s:.1f} s of process, printed {len(lines)} JSON "
+            f"line(s): "
+            f"{json.dumps({k: v for k, v in doc.items() if k != 'env'})}")
+        if not (len(lines) == 1 and doc["devSum"] == 1.0
+                and doc["rankSum"] == 1.0 and doc["steps"] == 1
+                and math.isfinite(float(doc["loss"])) and doc["gang"] is True):
+            raise AssertionError(f"verify's proof failed: {lines}")
         logs = {}
-        for label, extra in (
-                ("a", ["--steps", "2", "--checkpoint-dir", ckpt,
-                       "--checkpoint-every", "2", "--profile-dir", trace]),
-                ("b", ["--steps", "3", "--checkpoint-dir", ckpt]),
-                ("c", ["--steps", "3"])):
-            t0 = time.perf_counter()
-            logs[label] = _launch(common + extra, env, f"train.main ({label})")
+        for label in ("a", "b", "c"):
+            logs[label], seconds = done[label]
             log(f"launcher: ({label}) "
-                f"{' '.join(extra).replace(work + os.sep, '')}: "
-                f"{time.perf_counter() - t0:.1f} s of process; "
+                f"{' '.join(runs[label]).replace(work + os.sep, '')}: "
+                f"{seconds:.1f} s of process; "
                 + "; ".join(line.split(" INFO ")[-1] for line in
                             logs[label].splitlines()
                             if re.search(r" INFO (step|checkpoint|resumed|"
@@ -2594,7 +2623,8 @@ def phase_entry() -> None:
     ranks) and, at the same time, over ``ENTRY_CPU_RANKS`` gloo ranks on
     the host, each family's seconds or skip; and
     ``dryrun_multichip_multiprocess`` as one node process from a
-    daemon-format bootstrap.json."""
+    daemon-format bootstrap.json, beside the NCCL ranks."""
+    import shutil
     import tempfile
 
     from k8s_dra_driver_gpu_tpu_torch import entry as pt_entry
@@ -2603,9 +2633,15 @@ def phase_entry() -> None:
         t0 = time.perf_counter()
         return fn(*args, **kwargs), time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=1) as pool:
+    tmp = tempfile.mkdtemp(prefix="entry")
+    with ThreadPoolExecutor(max_workers=2) as pool:
         on_host = pool.submit(timed, pt_entry.dryrun_multichip,
                               ENTRY_CPU_RANKS, device="cpu")
+        # A node process of its own, beside the NCCL ranks below.
+        from_bootstrap = pool.submit(
+            timed, pt_entry.dryrun_multichip_multiprocess, n_procs=1,
+            local_devices=torch.cuda.device_count(), timeout=300,
+            bootstrap_file=_daemon_domain_dir(tmp, free_port()))
         t0 = time.perf_counter()
         fn, args = pt_entry.entry()
         logits = fn(*args)
@@ -2623,11 +2659,10 @@ def phase_entry() -> None:
         _check_dryrun(report, "on the card")
         _check_serve_rows(report, cards, f"({cards}) over NCCL")
 
-        with tempfile.TemporaryDirectory() as tmp:
-            reports, seconds = timed(
-                pt_entry.dryrun_multichip_multiprocess, n_procs=1,
-                local_devices=cards, timeout=300,
-                bootstrap_file=_daemon_domain_dir(tmp, free_port()))
+        try:
+            reports, seconds = from_bootstrap.result()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
         log(f"entry: dryrun_multichip_multiprocess from a daemon-format "
             f"bootstrap.json in {seconds:.1f} s: "
             + json.dumps({k: v for k, v in reports[0].items() if k != "env"})
@@ -4348,6 +4383,66 @@ def span_tree(spans: list[dict], root: dict) -> list[str]:
     return lines
 
 
+@contextlib.contextmanager
+def scoped_env(**values):
+    """Set each of ``values`` in this process's env (unset it for None)
+    for the block, and restore what was there after."""
+    import os
+
+    before = {name: os.environ.get(name) for name in values}
+    try:
+        for name, value in values.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+        yield
+    finally:
+        for name, value in before.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
+def doctor_bundle(directory: str, trigger: str, timeout: float,
+                  what: str) -> tuple[str, dict, dict, dict, list]:
+    """Wait for the incident bundle ``*-<trigger>.tar.gz`` in
+    ``directory`` (renamed into place whole, so one that exists is
+    complete) and for this process's ``doctor-bundle`` threads; its path,
+    its members (name -> bytes), its report and manifest, and every
+    bundle of the directory."""
+    import glob
+    import os
+    import tarfile
+    import threading
+
+    pattern = os.path.join(directory, f"*-{trigger}.tar.gz")
+    deadline = time.monotonic() + timeout
+    while not glob.glob(pattern):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: no {trigger} bundle in "
+                                 f"{directory} after {timeout} s")
+        time.sleep(0.01)
+    for thread in threading.enumerate():
+        if thread.name == "doctor-bundle":
+            thread.join(timeout)
+    found = sorted(glob.glob(os.path.join(directory, "*.tar.gz")))
+    path = glob.glob(pattern)[0]
+    with tarfile.open(path) as tar:
+        members = {m.name: tar.extractfile(m).read() for m in tar
+                   if m.isfile()}
+    return (path, members, json.loads(members.get("report.json", b"{}")),
+            json.loads(members.get("manifest.json", b"{}")), found)
+
+
+# The members every automatic bundle holds: the calling binary's own
+# surfaces, dumped without HTTP, and the report and manifest.
+DOCTOR_LOCAL = ("local/debug/traces.json", "local/debug/claims.json",
+                "local/debug/stacks.txt", "local/debug/telemetry.json",
+                "local/debug/fleet.json", "report.json", "manifest.json")
+
+
 # Phase 18's child: ``train.verify`` as a gang of one from the channel
 # claim's ``TPU_*`` env alone (it prints its own JSON line), then phase
 # 12's flash forward check, whose JSON line comes last.
@@ -4392,7 +4487,8 @@ def phase_compute_domain(seed: int) -> int:
         ResourceClaim)
     from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.device_state import (
         Config, DeviceState)
-    from k8s_dra_driver_gpu_tpu_torch.pkg import flightrecorder, tracing
+    from k8s_dra_driver_gpu_tpu_torch.pkg import (doctor, flightrecorder,
+                                                  tracing)
     from k8s_dra_driver_gpu_tpu_torch.pkg.fakeapiserver import FakeApiServer
     from k8s_dra_driver_gpu_tpu_torch.pkg.kubeclient import KubeClient
 
@@ -4665,15 +4761,43 @@ def phase_compute_domain(seed: int) -> int:
               == channel_env["TPU_COORDINATOR_ADDRESS"]
               and reports[0]["gang"] is True, "the dry run's gang")
 
-        # A domain whose second node never comes, on the second node.
+        # A domain whose second node never comes, on the second node,
+        # with the incident bundles on: one for its two aborts (the
+        # doctor's rate limit at its default).
         cd2 = make_cd("smoke-cd2", 2)
         uid2 = cd2["metadata"]["uid"]
         driver_b = CDDriver(state_b, kube, CD_NODE_B,
                             retry_timeout=CD_ABORT_DEADLINE_S)
         ref2 = put_claim("smoke-cd2-channel", "default", "channel-0",
                          "ComputeDomainChannelConfig", uid2)
-        errors = [timed(f"abort_{i}", driver_b.prepare_resource_claims,
-                        [ref2])[ref2["uid"]][1] for i in range(2)]
+        doctor.reset_rate_limit()
+        with scoped_env(**{doctor.ENV_DOCTOR_DIR: f"{tmp}/doctor",
+                           doctor.ENV_DOCTOR_ENDPOINTS: None,
+                           doctor.ENV_DOCTOR_MIN_INTERVAL: None}):
+            errors = [timed(f"abort_{i}", driver_b.prepare_resource_claims,
+                            [ref2])[ref2["uid"]][1] for i in range(2)]
+        path, members, report, manifest, found = doctor_bundle(
+            f"{tmp}/doctor", "gang-abort", 30, "compute domain")
+        aborts = [e for e in recorder.events(ref2["uid"])
+                  if e["event"] == "gang_abort"]
+        bundled = [e for e in json.loads(
+            members.get("local/debug/claims.json", b"{}")).get("events", [])
+            if e["key"] == ref2["uid"] and e["event"] == "gang_abort"]
+        ms["abort_to_bundle"] = round(
+            (os.stat(path).st_mtime - aborts[0]["ts"]) * 1e3, 3)
+        log(f"compute domain: {len(found)} incident bundle(s) for "
+            f"{len(aborts)} aborts: {os.path.basename(path)}, "
+            f"{os.path.getsize(path)} bytes, "
+            f"{ms['abort_to_bundle']} ms after the first abort's event; "
+            f"members {sorted(members)}; its gang_abort events of "
+            f"{ref2['uid']}: {len(bundled)}; trigger {manifest.get('trigger')}"
+            f", focus {report.get('focus_claim')}, fetch errors "
+            f"{manifest.get('errors')}")
+        check(len(found) == 1 and len(aborts) == 2
+              and set(DOCTOR_LOCAL) <= set(members) and len(bundled) == 1
+              and manifest.get("trigger") == "gang-abort"
+              and report.get("focus_claim") == ref2["uid"],
+              "the gang abort's incident bundle")
         events = [e for e in kube.list("", "v1", "events", namespace="default")
                   if e["reason"] == "GangPrepareAborted"]
         left = {"spec": state_b._cdi.spec_exists(ref2["uid"]),
@@ -5853,7 +5977,7 @@ def phase_recovery(seed: int) -> int:
     import threading
 
     from k8s_dra_driver_gpu_tpu_torch.api import deviceclasses
-    from k8s_dra_driver_gpu_tpu_torch.pkg import fleetstate
+    from k8s_dra_driver_gpu_tpu_torch.pkg import doctor, fleetstate
     from k8s_dra_driver_gpu_tpu_torch.pkg.exposition import generate_latest
     from k8s_dra_driver_gpu_tpu_torch.pkg.fakeapiserver import FakeApiServer
     from k8s_dra_driver_gpu_tpu_torch.pkg.metrics import FleetMetrics
@@ -5895,12 +6019,15 @@ def phase_recovery(seed: int) -> int:
     try:
         server = FakeApiServer().start()
         kube = server.store
-        # The store's writes, stamped as they land (host clock).
+        # The store's writes, stamped as they land (host clock; and the
+        # wall clock, which a file's mtime is read on).
         stamps: dict = {}
+        walls: dict = {}
         slice_writes: list = []
 
         def stamp(key, now):
             stamps.setdefault(key, now)
+            walls.setdefault(key, time.time())
 
         def on_write(group, resource, namespace, ev_type, obj):
             now = time.perf_counter()
@@ -5942,12 +6069,18 @@ def phase_recovery(seed: int) -> int:
         env["PYTHONPATH"] = root
         plugin_env = dict(env, TPU_DRA_HEALTH_POLL_S=str(RECOVERY_POLL_S),
                           TPU_DRA_RECOVERY_SWEEP_S=str(RECOVERY_SWEEP_S))
+        # Each plugin's listener (metrics and debug routes), known before
+        # the binary starts: its incident bundles crawl both.
+        plugin_ports = {node: free_port() for node in RECOVERY_NODES}
+        peers = {node: f"http://127.0.0.1:{port}"
+                 for node, port in plugin_ports.items()}
 
         def start_plugin(node):
             t0 = time.perf_counter()
             plugins[node] = RecoveryPlugin(server.url, node,
-                                           f"{tmp}/{node}", free_port(),
-                                           plugin_env, root)
+                                           f"{tmp}/{node}",
+                                           plugin_ports[node], plugin_env,
+                                           root)
             check(plugins[node].ready["cuda"] is False
                   and plugins[node].ready["devices"],
                   f"the plugin of {node}: {plugins[node].ready}")
@@ -5991,7 +6124,10 @@ def phase_recovery(seed: int) -> int:
         sched_env = dict(env, TPU_DRA_DEBUG_HTTP="1",
                          TPU_DRA_RECOVERY_NOTREADY_S=str(RECOVERY_NOTREADY_S),
                          TPU_DRA_RECOVERY_DEADLINE_S=str(
-                             RECOVERY_DEADLINE_S))
+                             RECOVERY_DEADLINE_S),
+                         TPU_DRA_DOCTOR_DIR=f"{tmp}/doctor",
+                         TPU_DRA_DOCTOR_ENDPOINTS=",".join(
+                             f"{node}={url}" for node, url in peers.items()))
         with open(f"{tmp}/scheduler.log", "w", encoding="utf-8") as out:
             proc = subprocess.Popen(
                 [sys.executable, "-m", SCHEDULER_MAIN, "--kube-api",
@@ -6234,6 +6370,47 @@ def phase_recovery(seed: int) -> int:
             f"{ms['declared_to_retired']} ms later (deadline "
             f"{RECOVERY_DEADLINE_S} s): RecoveryDeadlineExceeded, no "
             f"allocation, no record")
+        # The binary's incident bundle of the blown deadline: its own
+        # surfaces and both plugins', crawled over HTTP.
+        path, members, report, manifest, found = doctor_bundle(
+            f"{tmp}/doctor", "eviction-deadline", 30, "recovery")
+        ms["condition_to_bundle"] = round((os.stat(path).st_mtime - walls[
+            ("True", "RecoveryDeadlineExceeded")]) * 1e3, 3)
+        peer_members = {f"{node}/{p}{'.txt' if p in ('metrics', 'debug/stacks') else '.json'}"
+                        for node in peers for p in doctor.SURFACE_PATHS}
+        peer_errors = {k: v for k, v in manifest.get("errors", {}).items()
+                       if k.split("/")[0] in peers}
+        log(f"recovery: (c) incident bundle {os.path.basename(path)}, "
+            f"{os.path.getsize(path)} bytes, {ms['condition_to_bundle']} ms "
+            f"after the condition; {len(members)} members, of them "
+            f"{len(peer_members & set(members))}/{len(peer_members)} of the "
+            f"peers' surfaces; focus {report.get('focus_claim')}; fetch "
+            f"errors {manifest.get('errors')}")
+        check(len(found) == 1 and set(DOCTOR_LOCAL) <= set(members)
+              and peer_members <= set(members) and not peer_errors
+              and manifest.get("trigger") == "eviction-deadline"
+              and report.get("focus_claim") == uid,
+              f"the eviction deadline's incident bundle {sorted(members)}")
+        # The doctor's CLI, in this process, against the three binaries.
+        cli = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(cli):
+            rc = doctor.main([f"scheduler={base}"] + [
+                f"{node}={url}" for node, url in peers.items()]
+                + ["--out-dir", f"{tmp}/doctor-cli", "--claim", uid])
+        ms["doctor_cli"] = round((time.perf_counter() - t0) * 1e3, 3)
+        path, members, report, manifest, _ = doctor_bundle(
+            f"{tmp}/doctor-cli", "manual", 5, "recovery")
+        focus = report.get("focus_events", {}).get(uid, [])
+        sources = sorted({e["source"] for e in focus})
+        log(f"recovery: doctor CLI exit {rc} in {ms['doctor_cli']} ms: "
+            f"{os.path.basename(cli.getvalue().strip())}, "
+            f"{os.path.getsize(path)} bytes, {len(members)} members; "
+            f"{len(focus)} events of {uid} from {sources}; fetch errors "
+            f"{manifest.get('errors')}")
+        check(rc == 0 and cli.getvalue().strip() == path
+              and sources == sorted(["scheduler", *peers])
+              and not manifest.get("errors"), "the doctor's CLI")
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=60)
         check(rc == 0, f"the binary exited {rc}")

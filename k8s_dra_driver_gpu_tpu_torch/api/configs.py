@@ -8,8 +8,10 @@ upstream's kind, ``migconfig.go:28``; the JAX package's
 ``SubSliceConfig``, its partition-only ``oversubscribe`` too). Their
 ``Sharing`` union decodes and validates as there; the kubelet plugin
 runs it through ``kubeletplugin/sharing.py`` (time-slicing at an
-interval, MPS with per-device memory limits). The vfio config is not
-ported (``device_state.NOT_PORTED_KINDS``). ``ComputeDomainChannelConfig``
+interval, MPS with per-device memory limits). ``VfioDeviceConfig`` is
+that of a passthrough claim (the upstream's kind,
+``vfiodeviceconfig.go:29``; the JAX package's ``PassthroughConfig``),
+run by ``kubeletplugin/vfio.py``. ``ComputeDomainChannelConfig``
 and ``ComputeDomainDaemonConfig`` are the ComputeDomain plugin's
 (``computedomain/plugin``; upstream ``computedomainconfig.go``).
 """
@@ -185,6 +187,24 @@ class MigDeviceConfig:
             raise ValidationError(
                 "oversubscribe provisions its own per-tenant MPS limit; a "
                 "MultiTenancy sharing config cannot be combined with it")
+
+
+@dataclass
+class VfioDeviceConfig:
+    """The config of a passthrough claim (vfiodeviceconfig.go:29)."""
+
+    KIND = "VfioDeviceConfig"
+
+    # "legacy" (/dev/vfio/<group>) or "iommufd" (/dev/vfio/devices/*).
+    iommu_mode: str = "legacy"
+
+    def normalize(self) -> None:
+        if not self.iommu_mode:
+            self.iommu_mode = "legacy"
+
+    def validate(self) -> None:
+        if self.iommu_mode not in ("legacy", "iommufd"):
+            raise ValidationError(f"unknown iommu mode {self.iommu_mode!r}")
 
 
 class AllocationMode(str, Enum):

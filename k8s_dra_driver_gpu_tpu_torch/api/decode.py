@@ -13,7 +13,7 @@ from typing import Any, Type
 
 from .configs import (ComputeDomainChannelConfig, ComputeDomainDaemonConfig,
                       GpuConfig, MigDeviceConfig, MultiTenancyConfig,
-                      Sharing, TimeSlicingConfig)
+                      Sharing, TimeSlicingConfig, VfioDeviceConfig)
 
 API_VERSION = "resource.nvidia.com/v1beta1"
 
@@ -23,13 +23,14 @@ class DecodeError(ValueError):
 
 
 _KINDS: dict[str, Type] = {c.KIND: c for c in (
-    GpuConfig, MigDeviceConfig, ComputeDomainChannelConfig,
+    GpuConfig, MigDeviceConfig, VfioDeviceConfig, ComputeDomainChannelConfig,
     ComputeDomainDaemonConfig)}
 
 # JSON field name -> dataclass attribute, per type.
 _FIELD_MAPS: dict[Type, dict[str, str]] = {
     GpuConfig: {"sharing": "sharing"},
     MigDeviceConfig: {"sharing": "sharing", "oversubscribe": "oversubscribe"},
+    VfioDeviceConfig: {"iommuMode": "iommu_mode"},
     Sharing: {
         "strategy": "strategy",
         "timeSlicing": "time_slicing",

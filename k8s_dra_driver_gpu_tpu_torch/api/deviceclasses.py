@@ -5,9 +5,8 @@ port's drivers; the upstream chart's five class names).
 - ``gpu.nvidia.com``: whole GPUs (no ``profile``, no ``passthrough``
   attribute);
 - ``mig.nvidia.com``: MIG devices and tenant partitions (a ``profile``);
-- ``vfio.gpu.nvidia.com``: GPUs published for passthrough, which the
-  port's plugin does not publish until vfio is ported (ROADMAP.md §1b
-  item 6), so it selects nothing yet;
+- ``vfio.gpu.nvidia.com``: GPUs published for passthrough
+  (``gpu-<i>-passthrough``, with the ``PassthroughSupport`` gate on);
 - ``compute-domain-default-channel.nvidia.com`` and
   ``compute-domain-daemon.nvidia.com``: the ComputeDomain plugin's
   channel and daemon devices.

@@ -1,5 +1,4 @@
 """The ComputeDomain controller (the JAX package's
-``computedomain/controller/``): the reconciler (``controller``) and the
-objects it makes for a domain (``objects``). Its entry point, with
-leader election and the metrics server, is not ported (ROADMAP.md §1b,
-left out of item 9)."""
+``computedomain/controller/``): the reconciler (``controller``), the
+objects it makes for a domain (``objects``) and the binary (``main``:
+leader election, the retrying kube client and the metrics server)."""

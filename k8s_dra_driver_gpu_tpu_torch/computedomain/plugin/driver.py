@@ -26,10 +26,10 @@ Observability, at the JAX driver's hook points: each callback runs under
 observes the SLO's ``prepare`` phase and records ``cd_prepare_done``
 in the flight recorder (``alias``, ``trace_id``, ``retries``: the
 failed tries before it, ``ms``); a gang abort records ``gang_abort``,
-puts the claim's timeline in the log and counts
-``ResilienceMetrics.gang_aborts``. The driver keeps nothing per claim.
-Not ported: the incident bundle of a gang abort (``pkg/doctor``,
-ROADMAP.md §1c).
+puts the claim's timeline in the log, counts
+``ResilienceMetrics.gang_aborts`` and drops an incident bundle
+(``pkg/doctor.auto_bundle``, trigger ``gang-abort``). The driver keeps
+nothing per claim.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ import time
 
 from ...kubeletplugin.claim import ResourceClaim
 from ...kubeletplugin.reconcile import CDStateReconciler
-from ...pkg import flightrecorder, tracing
+from ...pkg import doctor, flightrecorder, tracing
 from ...pkg.events import RETRIABLE_STATUSES, emit_warning_event
 from ...pkg.kubeclient import KubeError, NotFoundError
 from ...pkg.metrics import DRARequestMetrics
@@ -196,6 +196,10 @@ class CDDriver:
                          "/debug/claims/<uid> on the node plugin)"),
                 involved_kind="ResourceClaim", involved_name=name,
                 involved_uid=uid, component="compute-domain-kubelet-plugin")
+        # Incident bundle (TPU_DRA_DOCTOR_DIR-gated, rate-limited): the
+        # rings hold the evidence now, before the retries age it out.
+        # It never blocks or fails the unwind.
+        doctor.auto_bundle("gang-abort", claim=uid)
         try:
             self.state.unwind_failed_prepare(uid)
         except Exception:  # noqa: BLE001 - the unwind is best effort

@@ -5,7 +5,9 @@ the upstream driver's ``cleanup.go``).
 ``cleanup_once`` is one pass; the reconcile sweep runs it first, so the
 sweep's thread is the only periodic one (the JAX package's
 ``CheckpointCleanupManager`` keeps a thread of its own, which its driver
-does not start either).
+does not start either). ``DEFAULT_INTERVAL_S`` is the GC's interval,
+``TPU_DRA_CLEANUP_INTERVAL_S`` (the upstream's 10 minutes, floor 0.5 s):
+the sweep runs at least that often.
 
 Each checkpointed claim is looked up by namespace, name and uid (one
 GET, not a list; ``cleanup.go:149-190``); one that is gone, or that was
@@ -17,10 +19,14 @@ from __future__ import annotations
 
 import logging
 
+from ..pkg import positive_float_env
 from ..pkg.kubeclient import NotFoundError
 from .checkpoint import ClaimState
 
 logger = logging.getLogger(__name__)
+
+DEFAULT_INTERVAL_S = positive_float_env(
+    "TPU_DRA_CLEANUP_INTERVAL_S", default=600.0, floor=0.5)
 
 
 def lookup_claim(kube, uid: str, namespace: str, name: str

@@ -30,13 +30,13 @@ What differs from the JAX plugin, on an H100 host:
   JAX plugin. An MPS request must be its claim's only request (the
   ``NotPortedError`` below): CDI merges same-named env, so two daemons'
   pipe directories would reach a container as one, and the clients of
-  one daemon see only its GPUs. Passthrough (vfio) raises
-  ``NotPortedError`` at prepare, naming the ROADMAP.md item that ports
-  it; so does, at construction, every gate the plugin does not read when
-  set away from its default (``NOT_PORTED_GATES``). A completed claim
-  whose spec is lost while its MPS daemon runs is not prepared again
-  (that would kill the daemon's clients): its prepare raises, and
-  unprepare recovers it. Construction starts again the dead MPS daemons
+  one daemon see only its GPUs. Every gate the plugin does not read,
+  set away from its default, raises ``NotPortedError`` at construction,
+  naming the ROADMAP.md item that ports it (``NOT_PORTED_GATES``). A
+  completed claim whose spec is lost while its MPS daemon runs or its
+  GPU is bound to vfio-pci is not prepared again (that would kill the
+  daemon's clients, or unbind the GPU under its container): its prepare
+  raises, and unprepare recovers it. Construction starts again the dead MPS daemons
   of completed claims and quits the others'; a boot id change drops the
   sharing records with the claims.
 - **Tenancy admission** (``Config.tenancy_agents``: on in production,
@@ -87,8 +87,21 @@ What differs from the JAX plugin, on an H100 host:
   container toolkit's CDI does); a missing file fails prepare, naming
   it. A MIG device takes no timeslice (``compute-policy`` sets the
   whole GPU's, and the upstream refuses it on MIG): a non-default one is
-  refused with ``PrepareError``, and MPS on a MIG device raises
-  ``NotPortedError`` (ROADMAP.md §1b item 5c).
+  refused with ``PrepareError``. MPS on a MIG device runs one control
+  daemon over the device's MIG UUID (``sharing.start_mig``, the
+  partitions' daemon with the claim's ``hbmLimit``); its request must hold
+  that one device, and unprepare quits it.
+- **vfio passthrough** (``PassthroughSupport``; ``vfio.py``). Each GPU
+  with a PCI bus id and an IOMMU group is published a second time as
+  ``gpu-<i>-passthrough`` (a GPU without either, as in a container whose
+  NVML refuses the PCI info, is skipped with a warning). Its claim takes
+  a ``VfioDeviceConfig``; prepare binds the function to ``vfio-pci``
+  (recorded in ``<root>/vfio.json`` first) and the spec injects
+  ``/dev/vfio/vfio`` and the group's node; unprepare and a failed
+  prepare bind it back. It holds its GPU's memory slots, so it excludes
+  the whole GPU and its MIG devices on the node. The orphan sweep binds
+  back a rebind that no claim record holds (a crash before
+  PrepareCompleted); a completed claim's rebind survives a restart.
 - **Tenant partitions** (``TenantPartitioning``, which needs
   ``DynamicSubSlice``; ``pkg/partition``). ``Config.partition_set`` is
   projected onto the MIG placements as ``pt-<profile>-<k>`` devices
@@ -151,12 +164,13 @@ import threading
 import time
 from dataclasses import dataclass, field
 
-from ..api.configs import GpuConfig, MigDeviceConfig, Sharing
+from ..api.configs import (GpuConfig, MigDeviceConfig, Sharing,
+                           VfioDeviceConfig)
 from ..api.decode import strict_decode
 from ..pkg import flightrecorder, tracing
 from ..pkg.featuregates import (DYNAMIC_SUB_SLICE, MULTI_TENANCY_SUPPORT,
-                                TENANT_PARTITIONING, TIME_SLICING_SETTINGS,
-                                FeatureGates)
+                                PASSTHROUGH_SUPPORT, TENANT_PARTITIONING,
+                                TIME_SLICING_SETTINGS, FeatureGates)
 from ..pkg.flock import Flock
 from ..pkg.partition.engine import (ForeignInstanceError, PartitionEngine,
                                     PartitionEngineError)
@@ -171,26 +185,23 @@ from .checkpoint import (CheckpointedClaim, CheckpointedDevice,
                          CheckpointManager, ClaimState)
 from .claim import ResourceClaim
 from .deviceinfo import (MIG_MEMORY_SLICES, AllocatableDevice, ChipInfo,
-                         DeviceKind, SubSliceInfo, parse_gpu_name)
+                         DeviceKind, PassthroughInfo, SubSliceInfo,
+                         parse_gpu_name)
 from .sharing import (MPS_CONTROL, MultiTenancyManager, SharingError,
                       TimeSlicingManager)
 from .subslice import (SubSliceLiveTuple, SubSliceSpecTuple,
                        enumerate_subslice_devices)
+from .vfio import VfioPciManager, VfioRegistry
 
 logger = logging.getLogger(__name__)
 
 LOCK_TIMEOUT_S = 10.0
 
-# What the JAX plugin runs and this one does not yet, by the ROADMAP.md
-# §1b item that ports it.
-_VFIO = "vfio passthrough (ROADMAP.md §1b item 6, vfio.py)"
-NOT_PORTED_KINDS = {"VfioDeviceConfig": _VFIO}
 # Every gate the port does not read (featuregates.READ): refused when set
 # away from its default. The ComputeDomain daemon's two gates and the
 # scheduler's one are read (by those binaries), so the GPU plugin takes
 # them, as the JAX plugin does.
 NOT_PORTED_GATES = {
-    "PassthroughSupport": _VFIO,
     "ChipHealthCheck": "switching the health monitor by gate (the entry "
     "point's, ROADMAP.md §1b item 8; Driver(enable_health_monitor=) now)",
     "CrashOnICIFabricErrors": "crashing on fabric errors (no module of the "
@@ -202,6 +213,19 @@ NOT_PORTED_GATES = {
 
 _MIG_KINDS = (DeviceKind.SUBSLICE_STATIC, DeviceKind.SUBSLICE_DYNAMIC,
               DeviceKind.PARTITION)
+# The MIG devices that are a claim's own (not a partition's tenant slot).
+_SUBSLICE_KINDS = {DeviceKind.SUBSLICE_STATIC.value,
+                   DeviceKind.SUBSLICE_DYNAMIC.value}
+_PASSTHROUGH_SUFFIX = "-passthrough"
+
+
+def _config_of(dev: AllocatableDevice | None) -> tuple[type, str]:
+    """The config kind of a device, and what the device is."""
+    if dev is not None and dev.kind in _MIG_KINDS:
+        return MigDeviceConfig, "a MIG device"
+    if dev is not None and dev.kind == DeviceKind.PASSTHROUGH:
+        return VfioDeviceConfig, "a passthrough GPU"
+    return GpuConfig, "a whole GPU"
 
 
 class PrepareError(RuntimeError):
@@ -304,15 +328,17 @@ class Config:
              partition_set: PartitionSet | None = None,
              tenancy_agents: bool = False) -> "Config":
         """A mock host of ``topology`` GPUs with MIG ``mig_mode``; its CDI
-        specs under ``root/cdi``, its device root ``root/dev`` and its
-        proc root ``root/proc`` (empty unless a test makes nodes and
-        files there), its MIG instances in ``root/mock-mig.json``;
-        ``gates`` as ``FEATURE_GATES`` takes them."""
+        specs under ``root/cdi``, its device root ``root/dev``, its sysfs
+        root ``root/sys`` and its proc root ``root/proc`` (empty unless a
+        test makes nodes and files there), its MIG instances in
+        ``root/mock-mig.json``; ``gates`` as ``FEATURE_GATES`` takes
+        them."""
         return cls(root=root, partition_set=partition_set,
                    tenancy_agents=tenancy_agents,
                    gpulib_opts=EnumerateOptions(
                        mock_topology=topology,
                        dev_root=os.path.join(root, "dev"),
+                       sys_root=os.path.join(root, "sys"),
                        proc_root=os.path.join(root, "proc"),
                        mock_mig_mode=mig_mode,
                        mock_mig_state=os.path.join(root, "mock-mig.json")),
@@ -375,6 +401,10 @@ class DeviceState:
             self._registry.clear()
             logger.warning("boot id changed: cleared the sharing state and "
                            "the MIG registry")
+        self._vfio = VfioPciManager(
+            sys_root=config.gpulib_opts.sys_root or "/sys",
+            dev_root=config.gpulib_opts.dev_root or "/dev",
+            registry=VfioRegistry(config.root))
         self.allocatable = self._enumerate_allocatable()
         if config.partition_set is not None and \
                 config.feature_gates.is_enabled(TENANT_PARTITIONING):
@@ -404,11 +434,13 @@ class DeviceState:
         # Re-own the tenancy agents and MPS daemons of the claims and
         # partitions that survived a restart, stop the others'. A
         # partition's daemon lives while a completed claim holds it (with
-        # the engine gone too) or its record is Ready.
+        # the engine gone too) or its record is Ready; a MIG device's
+        # while a completed claim holds the device.
         completed = {uid: c for uid, c in self._checkpoint.get().claims.items()
                      if c.state == ClaimState.PREPARE_COMPLETED.value}
         held = {d.canonical_name for c in completed.values()
-                for d in c.devices if d.live and d.live.get("partition")}
+                for d in c.devices if d.live and d.live.get("partition")
+                or d.kind in _SUBSLICE_KINDS}
         if engine is not None:
             held |= {name for name, rec in engine.records().items()
                      if rec.state == PARTITION_READY}
@@ -550,6 +582,8 @@ class DeviceState:
             logger.warning("degraded host (%d/%d GPUs published): not "
                            "publishing MIG devices", len(out),
                            len(self.host.chips))
+        if self._config.feature_gates.is_enabled(PASSTHROUGH_SUPPORT):
+            out.update(self._passthrough_devices())
         profiles = self.subslice_profiles
         gpus = {chip.index: chip for chip in self.host.chips}
         by_name = {p.name: p for p in profiles}
@@ -587,6 +621,28 @@ class DeviceState:
                     kind=DeviceKind.SUBSLICE_STATIC, subslice=info)
         return out
 
+    def _passthrough_devices(self) -> dict[str, AllocatableDevice]:
+        """A passthrough device for each GPU that could be bound to
+        vfio-pci: one with a PCI bus id and an IOMMU group."""
+        out = {}
+        for chip in self.host.chips:
+            if not chip.pci_bdf:
+                logger.warning("GPU %d has no PCI bus id (NVML refused it): "
+                               "not publishing a passthrough device",
+                               chip.index)
+                continue
+            group = self._vfio.iommu_group(chip.pci_bdf)
+            if group < 0:
+                logger.warning("GPU %d (%s) has no IOMMU group: not "
+                               "publishing a passthrough device", chip.index,
+                               chip.pci_bdf)
+                continue
+            info = PassthroughInfo(chip=chip, host=self.host,
+                                   iommu_group=group)
+            out[info.canonical_name] = AllocatableDevice(
+                kind=DeviceKind.PASSTHROUGH, passthrough=info)
+        return out
+
     def _static_instances(self) -> dict[str, SubSliceLiveTuple]:
         """The MIG devices NVML's walk finds that this plugin did not
         create, by name."""
@@ -607,60 +663,77 @@ class DeviceState:
         return [dev.to_dra_device() for dev in sorted(
             self.allocatable.values(), key=AllocatableDevice.sort_key)]
 
-    # -- the MIG orphan sweep ----------------------------------------------
+    # -- the orphan sweep ---------------------------------------------------
 
     def destroy_unknown_subslices(self) -> int:
         """Destroy the registry's MIG instances that no checkpointed
-        claim references, and drop the entries whose GPU instance is gone
-        (the JAX plugin's ``destroy_unknown_subslices``; upstream
+        claim references, drop the entries whose GPU instance is gone, and
+        bind back the vfio rebinds that no claim's record holds (the JAX
+        plugin's ``destroy_unknown_subslices``; upstream
         ``device_state.go:388``). Runs under the node lock, so no prepare
-        is between its create and its PrepareCompleted record. Returns the
-        entries removed."""
-        if not self._registry.list():
+        is between its create or rebind and its PrepareCompleted record.
+        Returns the entries removed."""
+        if not self._registry.list() and not self._vfio.registry.list():
             return 0
         with self.pu_lock.acquire(timeout=LOCK_TIMEOUT_S):
-            entries = self._registry.list()
-            if self._lib is None:
-                # MIG is off: turning it off took every GPU instance.
-                for uuid in entries:
-                    self._registry.drop(uuid)
-                logger.warning("MIG is off: dropped %d MIG registry "
-                               "entries", len(entries))
-                return len(entries)
-            referenced = {dev.live["uuid"]
-                          for c in self._checkpoint.get().claims.values()
-                          for dev in c.devices
-                          if dev.live and "uuid" in dev.live}
-            if self.partition_engine is not None:
-                # A partition's instance mid-lifecycle is its records'.
-                referenced |= self.partition_engine.live_uuids()
-            existing = {(i.gpu, i.gi_id, i.profile, i.start)
-                        for gpu in {live.spec.gpu
-                                    for live in entries.values()}
-                        for i in self._lib.mig_instances(gpu)}
-            removed = 0
-            for uuid, live in entries.items():
-                key = (live.spec.gpu, live.gi_id, live.spec.profile,
-                       live.spec.start)
-                if key not in existing:
-                    logger.warning("MIG instance %s (%s) is gone: dropped "
-                                   "from the registry", uuid,
-                                   live.spec.canonical_name())
-                elif uuid not in referenced:
-                    try:
-                        self._lib.destroy_mig(live.instance())
-                    except GpuLibError:
-                        logger.exception("could not destroy orphan MIG "
-                                         "instance %s; the next sweep "
-                                         "tries again", uuid)
-                        continue
-                    logger.warning("destroyed orphan MIG instance %s (%s)",
-                                   uuid, live.spec.canonical_name())
-                else:
-                    continue
+            return self._destroy_unknown_mig() + self._unbind_unknown_vfio()
+
+    def _unbind_unknown_vfio(self) -> int:
+        claimed = {dev.live["pciBdf"]
+                   for c in self._checkpoint.get().claims.values()
+                   for dev in c.devices if dev.live and dev.live.get("vfio")}
+        orphans = [bdf for bdf in self._vfio.registry.list()
+                   if bdf not in claimed]
+        for bdf in orphans:
+            logger.warning("binding back orphaned vfio rebind of %s", bdf)
+            self._vfio.unconfigure(bdf)
+        return len(orphans)
+
+    def _destroy_unknown_mig(self) -> int:
+        entries = self._registry.list()
+        if not entries:
+            return 0
+        if self._lib is None:
+            # MIG is off: turning it off took every GPU instance.
+            for uuid in entries:
                 self._registry.drop(uuid)
-                removed += 1
-            return removed
+            logger.warning("MIG is off: dropped %d MIG registry "
+                           "entries", len(entries))
+            return len(entries)
+        referenced = {dev.live["uuid"]
+                      for c in self._checkpoint.get().claims.values()
+                      for dev in c.devices
+                      if dev.live and "uuid" in dev.live}
+        if self.partition_engine is not None:
+            # A partition's instance mid-lifecycle is its records'.
+            referenced |= self.partition_engine.live_uuids()
+        existing = {(i.gpu, i.gi_id, i.profile, i.start)
+                    for gpu in {live.spec.gpu
+                                for live in entries.values()}
+                    for i in self._lib.mig_instances(gpu)}
+        removed = 0
+        for uuid, live in entries.items():
+            key = (live.spec.gpu, live.gi_id, live.spec.profile,
+                   live.spec.start)
+            if key not in existing:
+                logger.warning("MIG instance %s (%s) is gone: dropped "
+                               "from the registry", uuid,
+                               live.spec.canonical_name())
+            elif uuid not in referenced:
+                try:
+                    self._lib.destroy_mig(live.instance())
+                except GpuLibError:
+                    logger.exception("could not destroy orphan MIG "
+                                     "instance %s; the next sweep "
+                                     "tries again", uuid)
+                    continue
+                logger.warning("destroyed orphan MIG instance %s (%s)",
+                               uuid, live.spec.canonical_name())
+            else:
+                continue
+            self._registry.drop(uuid)
+            removed += 1
+        return removed
 
     # -- prepare ---------------------------------------------------------
 
@@ -695,12 +768,15 @@ class DeviceState:
                 if spec_ok:
                     return [i for d in existing.devices
                             for i in d.cdi_device_ids]
-                if self._tenancy.active(claim.uid):
+                if self._sharing_live(existing) or any(
+                        d.live and d.live.get("vfio")
+                        for d in existing.devices):
                     raise PrepareError(
                         f"claim {claim.uid} completed but its CDI spec is "
                         "missing or corrupt, and its MPS daemon or tenancy "
-                        "agent runs: not prepared again under its clients; "
-                        "unprepare it to recover")
+                        "agent runs or its GPU is bound to vfio-pci: not "
+                        "prepared again under its containers; unprepare it "
+                        "to recover")
                 logger.warning("claim %s completed but its CDI spec is "
                                "missing or corrupt; preparing again",
                                claim.uid)
@@ -750,7 +826,7 @@ class DeviceState:
         if live and "size" in live:
             return {(live["gpu"], k) for k in range(
                 live["start"], live["start"] + live["size"])}
-        index = parse_gpu_name(name)
+        index = parse_gpu_name(name.removesuffix(_PASSTHROUGH_SUFFIX))
         if index is not None:
             return {(index, k) for k in range(MIG_MEMORY_SLICES)}
         return set()
@@ -798,10 +874,10 @@ class DeviceState:
     def _resolve_configs(self, claim: ResourceClaim) -> dict:
         """The config of each request: the last one that applies, class
         configs before claim configs; when none does, the default of its
-        first device's kind (``GpuConfig`` or ``MigDeviceConfig``).
-        Normalized and validated; a config of the other kind than a
-        device of its request is refused (the JAX plugin's
-        ``_check_config_kind``)."""
+        first device's kind (``GpuConfig``, ``MigDeviceConfig`` or
+        ``VfioDeviceConfig``). Normalized and validated; a config of
+        another kind than a device of its request is refused (the JAX
+        plugin's ``_check_config_kind``)."""
         ordered = [c for c in claim.configs if c.source == "FromClass"] + [
             c for c in claim.configs if c.source != "FromClass"]
         devices: dict[str, list[AllocatableDevice]] = {}
@@ -816,38 +892,34 @@ class DeviceState:
             for oc in ordered:
                 if oc.applies_to(request):
                     winner = oc
-            if winner is None:
-                cfg = MigDeviceConfig() if devs and devs[0].kind \
-                    in _MIG_KINDS else GpuConfig()
-            else:
-                kind = winner.parameters.get("kind") \
-                    if isinstance(winner.parameters, dict) else None
-                if kind in NOT_PORTED_KINDS:
-                    raise NotPortedError(
-                        f"request {request!r}: config kind {kind}: "
-                        f"{NOT_PORTED_KINDS[kind]} is not ported to the GPU "
-                        "plugin yet")
-                cfg = strict_decode(winner.parameters)
+            cfg = strict_decode(winner.parameters) if winner is not None \
+                else _config_of(devs[0] if devs else None)[0]()
             cfg.normalize()
             cfg.validate()
             for dev in devs:
-                want = MigDeviceConfig if dev.kind in _MIG_KINDS \
-                    else GpuConfig
+                want, what = _config_of(dev)
                 if not isinstance(cfg, want):
                     raise PrepareError(
                         f"request {request!r}: config kind "
                         f"{type(cfg).__name__} cannot apply to "
-                        f"{dev.canonical_name} (a "
-                        f"{'MIG device' if want is MigDeviceConfig else 'whole GPU'})")
+                        f"{dev.canonical_name} ({what})")
             per_request[request] = cfg
         mps = [r for r, cfg in per_request.items()
-               if not cfg.sharing.is_time_slicing]
+               if getattr(cfg, "sharing", None) is not None
+               and not cfg.sharing.is_time_slicing]
         if mps and len(per_request) > 1:
             raise NotPortedError(
                 f"requests {sorted(per_request)}: MPS ({mps}) for one "
                 "request of a claim that has others: an MPS request must "
                 "be its claim's only one (ROADMAP.md, \"MPS beside other "
                 "requests\")")
+        if mps and len(claim.results) > 1 and any(
+                self.allocatable[r.device].kind in _MIG_KINDS
+                for r in claim.results if r.device in self.allocatable):
+            raise PrepareError(
+                f"request {mps[0]!r}: MPS on a MIG device must be its "
+                "claim's only device: one MPS daemon serves one MIG "
+                "instance, and a container's clients reach one daemon")
         self._check_partitions(claim, per_request)
         return per_request
 
@@ -967,9 +1039,9 @@ class DeviceState:
 
     def _prepare_devices(self, claim: ResourceClaim, configs: dict,
                          timer: SegmentTimer) -> list[CheckpointedDevice]:
-        """Each MIG device created (a partition attached), each request's
-        sharing, then the CDI spec of the claim's devices; all of it
-        undone if any part fails."""
+        """Each MIG device created (a partition attached, a GPU bound to
+        vfio-pci), each request's sharing, then the CDI spec of the
+        claim's devices; all of it undone if any part fails."""
         prepared: list[CheckpointedDevice] = []
         device_edits: dict[str, ContainerEdits] = {}
         # A shared partition's CDI name is scoped to the claim: its
@@ -977,25 +1049,45 @@ class DeviceState:
         cdi_name_of: dict[str, str] = {}
         created: list[SubSliceLiveTuple] = []
         attached: list[str] = []
+        rebound: list[str] = []
         # request -> the indices of its devices' GPUs and the devices'
         # names: one sharing a request (a MIG device holds its GPU's
         # default timeslice, as the JAX plugin's sub-slice its chip's).
+        # A passthrough GPU takes no sharing.
         groups: dict[str, tuple[list[int], list[str]]] = {}
         claim_gpus: list[int] = []
+        # The MIG UUID of each MIG device that is the claim's alone (an
+        # exclusive partition's too), for MPS over it.
+        mig_uuid_of: dict[str, str] = {}
         try:
             for result in claim.results:
                 dev = self.allocatable[result.device]
                 live = None
-                indices, names = groups.setdefault(result.request, ([], []))
-                indices.append(dev.gpu.index)
-                names.append(result.device)
-                claim_gpus.append(dev.gpu.index)
+                if dev.kind != DeviceKind.PASSTHROUGH:
+                    indices, names = groups.setdefault(result.request,
+                                                       ([], []))
+                    indices.append(dev.gpu.index)
+                    names.append(result.device)
+                    claim_gpus.append(dev.gpu.index)
                 if dev.kind == DeviceKind.CHIP:
                     edits = ContainerEdits(device_nodes=[dev.gpu.devpath])
+                elif dev.kind == DeviceKind.PASSTHROUGH:
+                    bdf = dev.gpu.pci_bdf
+                    # Listed first: a rebind that fails halfway is bound
+                    # back too (unconfigure is idempotent).
+                    rebound.append(bdf)
+                    try:
+                        edits = self._vfio.configure(
+                            bdf, configs[result.request])
+                    except (OSError, RuntimeError) as e:
+                        raise PrepareError(f"{result.device}: {e}") from e
+                    live = {"pciBdf": bdf, "vfio": True}
                 elif dev.kind == DeviceKind.PARTITION:
                     edits, live = self._prepare_partition(
                         claim, result, configs[result.request], timer,
                         attached)
+                    if not dev.partition.oversubscribed:
+                        mig_uuid_of[result.device] = live["uuid"]
                 else:
                     self._check_mig_sharing(result.request,
                                             configs[result.request].sharing)
@@ -1008,6 +1100,7 @@ class DeviceState:
                     else:
                         made = SubSliceLiveTuple.from_instance(
                             self._static_instance(ss))
+                    mig_uuid_of[result.device] = made.uuid
                     edits = self._mig_edits(dev.gpu, made)
                 cdi_name = result.device
                 if self._slots_of(result.device) > 1:
@@ -1028,15 +1121,19 @@ class DeviceState:
                     # it: its GPUs' own edits.
                     edits = self._apply_sharing(
                         claim, request, configs[request].sharing, indices,
-                        names)
+                        names, mig_uuid_of.get(names[0]))
                     for name in map(cdi_name_of.get, names):
                         device_edits[name] = device_edits[name].merge(edits)
             with timer.segment("gen_write_cdi_spec"):
                 ids = self._cdi.create_claim_spec_file(
                     claim.uid, device_edits, common)
         except BaseException:
+            for name in mig_uuid_of:
+                self._tenancy.stop_partition(name)
             self._release_sharing(claim.uid, claim_gpus)
             self._cdi.delete_claim_spec_file(claim.uid)
+            for bdf in rebound:
+                self._vfio.unconfigure(bdf)
             for live in created:
                 self._destroy_mig(live, quiet=True)
             for name in attached:
@@ -1101,13 +1198,9 @@ class DeviceState:
                            f"({ss.uuid}) is gone")
 
     def _check_mig_sharing(self, request: str, sharing: Sharing) -> None:
-        """A MIG device takes the default timeslice only: the GPU's
-        timeslice is the whole GPU's, and MPS on MIG is not ported."""
-        if not sharing.is_time_slicing:
-            raise NotPortedError(
-                f"request {request!r}: MPS on a MIG device is not ported "
-                "to the GPU plugin yet (ROADMAP.md §1b item 5c)")
-        if not sharing.is_default:
+        """A MIG device takes MPS or the default timeslice: the GPU's
+        timeslice is the whole GPU's."""
+        if sharing.is_time_slicing and not sharing.is_default:
             raise PrepareError(
                 f"request {request!r}: a timeslice on a MIG device: "
                 "compute-policy sets the whole GPU's, so it is refused on "
@@ -1115,9 +1208,11 @@ class DeviceState:
 
     def _apply_sharing(self, claim: ResourceClaim, request: str,
                        sharing: Sharing, gpu_indices: list[int],
-                       device_names: list[str]) -> ContainerEdits:
+                       device_names: list[str], mig_uuid: str | None = None
+                       ) -> ContainerEdits:
         """The request's time-slicing or MPS, if its gate is on (the JAX
-        plugin's ``_apply_sharing``)."""
+        plugin's ``_apply_sharing``). MPS on a MIG device (``mig_uuid``,
+        the request's one device) runs over that MIG instance."""
         gates = self._config.feature_gates
         try:
             if sharing.is_time_slicing:
@@ -1130,6 +1225,14 @@ class DeviceState:
                     sharing.time_slicing)
             if not gates.is_enabled(MULTI_TENANCY_SUPPORT):
                 raise PrepareError("MultiTenancySupport feature gate disabled")
+            if mig_uuid is not None:
+                (name,) = device_names
+                dev = self.allocatable[name]
+                profile = dev.subslice.profile if dev.subslice is not None \
+                    else dev.partition.mig
+                return self._tenancy.start_mig(
+                    claim.uid, request, gpu_indices[0], name, mig_uuid,
+                    profile.hbm_bytes, sharing.multi_tenancy)
             return self._tenancy.start(
                 claim.uid, request, gpu_indices, sharing.multi_tenancy,
                 device_names)
@@ -1140,6 +1243,15 @@ class DeviceState:
                          ) -> None:
         self._timeslicing.release(claim_uid, sorted(set(gpu_indices)))
         self._tenancy.stop(claim_uid)
+
+    def _sharing_live(self, claim: CheckpointedClaim) -> bool:
+        """Whether an agent or an MPS daemon of the claim runs (that of
+        one of its MIG devices or exclusive partitions too)."""
+        return self._tenancy.active(claim.uid) or any(
+            self._tenancy.partition_active(d.canonical_name)
+            for d in claim.devices if d.kind in _SUBSLICE_KINDS or (
+                d.kind == DeviceKind.PARTITION.value
+                and self._slots_of(d.canonical_name) == 1))
 
     # -- unprepare -------------------------------------------------------
 
@@ -1182,14 +1294,20 @@ class DeviceState:
                 logger.exception("segment observer failed")
 
     def _rollback(self, checkpointed: CheckpointedClaim) -> None:
-        """Remove what a claim holds: its tenancy agents first, then its
-        MIG instances (a failure raises and keeps the record, so the
-        kubelet's retry finds it), its partitions' holds, its sharing,
-        its CDI spec, then its record. A reservation (no live state)
-        holds no instance."""
+        """Remove what a claim holds: its tenancy agents first, then the
+        MPS daemons of its MIG devices, its vfio rebinds, its MIG
+        instances (a failure raises and keeps the record, so the kubelet's
+        retry finds it), its partitions' holds, its sharing, its CDI spec,
+        then its record. A reservation (no live state) holds no instance
+        and no rebind."""
         self._tenancy.stop_agents(checkpointed.uid)
+        for d in checkpointed.devices:
+            if d.kind in _SUBSLICE_KINDS:
+                self._tenancy.stop_partition(d.canonical_name)
         for dev in checkpointed.devices:
-            if dev.live and dev.live.get("partition"):
+            if dev.live and dev.live.get("vfio"):
+                self._vfio.unconfigure(dev.live["pciBdf"])
+            elif dev.live and dev.live.get("partition"):
                 self._detach_partition(checkpointed.uid, dev)
             elif dev.live and "uuid" in dev.live:
                 self._destroy_mig(SubSliceLiveTuple.from_dict(dev.live))

@@ -33,6 +33,12 @@ host's GPUs). Its attributes are the JAX ones with GPU names:
 MIG profile's bytes x ``hbmFraction`` / ``maxTenants`` rounded down to
 whole MiB (MPS pins memory in MiB), and ``multiprocessors``, the
 profile's SMs / ``maxTenants``.
+
+A GPU published for vfio passthrough (``PassthroughInfo``, with the
+``PassthroughSupport`` gate on) is named ``gpu-<index>-passthrough``.
+Its attributes are the JAX ones: ``uuid``, ``platform``, ``pciBdf``,
+``iommuGroup`` and ``passthrough`` (true); its capacity is ``memory``.
+It holds all of its GPU's memory slots, as the whole GPU does.
 """
 
 from __future__ import annotations
@@ -58,11 +64,11 @@ def parse_gpu_name(name: str) -> int | None:
 
 
 class DeviceKind(str, Enum):
-    """Every kind the JAX plugin allocates, under its names; the port
-    builds CHIP (a whole GPU), the two MIG kinds: SUBSLICE_STATIC (a
-    MIG device that exists before the claim) and SUBSLICE_DYNAMIC (one
-    created at prepare), and PARTITION (a tenant partition over a MIG
-    instance)."""
+    """Every kind the JAX plugin allocates, under its names: CHIP (a
+    whole GPU), the two MIG kinds: SUBSLICE_STATIC (a MIG device that
+    exists before the claim) and SUBSLICE_DYNAMIC (one created at
+    prepare), PASSTHROUGH (a whole GPU bound to vfio-pci at prepare) and
+    PARTITION (a tenant partition over a MIG instance)."""
 
     CHIP = "chip"
     SUBSLICE_STATIC = "subslice-static"
@@ -229,20 +235,48 @@ class PartitionInfo:
                 "memory": self.tenant_memory_bytes}
 
 
+@dataclass(frozen=True)
+class PassthroughInfo:
+    """A GPU published for vfio passthrough (upstream ``VfioDeviceInfo``,
+    ``deviceinfo.go:152-199``)."""
+
+    chip: GpuChip
+    host: GpuHostInfo
+    iommu_group: int = -1
+
+    @property
+    def canonical_name(self) -> str:
+        return f"{gpu_name(self.chip.index)}-passthrough"
+
+    def attributes(self) -> dict:
+        attrs = {"uuid": self.chip.uuid,
+                 "platform": self.host.platform,
+                 "pciBdf": self.chip.pci_bdf,
+                 "iommuGroup": self.iommu_group,
+                 "passthrough": True}
+        return {k: v for k, v in attrs.items() if not _refused(k, v)}
+
+    def capacities(self) -> dict:
+        return {"memory": self.chip.memory_bytes}
+
+
 @dataclass
 class AllocatableDevice:
     """One device this node can allocate (upstream ``allocatable.go:48``,
     a union over the kinds): a whole GPU (``chip``), a MIG device
-    (``subslice``) or a tenant partition (``partition``)."""
+    (``subslice``), a passthrough GPU (``passthrough``) or a tenant
+    partition (``partition``)."""
 
     kind: DeviceKind
     chip: ChipInfo | None = None
     subslice: SubSliceInfo | None = None
     partition: PartitionInfo | None = None
+    passthrough: PassthroughInfo | None = None
 
     @property
     def _info(self):
-        return self.chip or self.subslice or self.partition
+        return self.chip or self.subslice or self.partition \
+            or self.passthrough
 
     @property
     def canonical_name(self) -> str:
@@ -253,7 +287,7 @@ class AllocatableDevice:
         """The GPU this device is or lies on."""
         if self.chip is not None:
             return self.chip.chip
-        return (self.subslice or self.partition).chip
+        return (self.subslice or self.partition or self.passthrough).chip
 
     def memory_slices(self) -> set[tuple[int, int]]:
         """(GPU index, memory slot) of each MIG memory slot this device
@@ -265,15 +299,17 @@ class AllocatableDevice:
         return {(self.gpu.index, k) for k in range(MIG_MEMORY_SLICES)}
 
     def sort_key(self) -> tuple:
-        """Publication order: by GPU, the whole GPU first, then its MIG
-        devices by profile and start, then its partitions by profile
-        and placement."""
+        """Publication order: by GPU, the whole GPU first, then its
+        passthrough device, its MIG devices by profile and start, then its
+        partitions by profile and placement."""
         if self.subslice is not None:
             return (self.gpu.index, 1, self.subslice.spec.profile,
                     self.subslice.spec.start)
         if self.partition is not None:
             return (self.gpu.index, 2, self.partition.profile.name,
                     self.partition.placement)
+        if self.passthrough is not None:
+            return (self.gpu.index, 0, "passthrough", 0)
         return (self.gpu.index, 0, "", 0)
 
     def to_dra_device(self) -> dict:

@@ -11,8 +11,8 @@ through any object with ``KubeClient``'s surface:
   which also deletes this driver's other slices of the node, in one of
   the reference's modes (``driver.py:102-113``, ``:380-440``):
   ``combined``, one slice of every device; or ``split`` (KEP-4815, an
-  API server from 1.35), whole GPUs in ``<node>-gpu.nvidia.com-gpus``,
-  MIG devices in ``<node>-gpu.nvidia.com-mig`` and tenant partitions in
+  API server from 1.35), whole GPUs in ``<node>-gpu.nvidia.com-gpus``
+  (with the passthrough GPUs, which consume no counters), MIG devices in ``<node>-gpu.nvidia.com-mig`` and tenant partitions in
   ``<node>-gpu.nvidia.com-partitions``, each slice with the counters, all
   counted in ``resourceSliceCount`` (a slice only where it has devices;
   one slice, as ``combined``, while there are only whole GPUs). Without a
@@ -370,8 +370,11 @@ class Driver:
             if self._power_cap_w > 0 and dev.kind == DeviceKind.CHIP:
                 entry.setdefault("attributes", {})[ATTR_POWER_CAP] = {
                     "int": self._power_cap_w}
-            entry["consumesCounters"] = consumed_counters(dev, profiles)
-            (gpus if dev.kind == DeviceKind.CHIP else parts
+            counters = consumed_counters(dev, profiles)
+            if counters:
+                entry["consumesCounters"] = counters
+            (gpus if dev.kind in (DeviceKind.CHIP, DeviceKind.PASSTHROUGH)
+             else parts
              if dev.kind == DeviceKind.PARTITION else migs).append(entry)
 
         def slice_obj(suffix: str, devices: list[dict]) -> dict:
@@ -535,6 +538,8 @@ class Driver:
                 namespace="default", reason="TelemetryAnomaly",
                 message=(f"{det.kind} detected on {det.device} (node "
                          f"{self.node_name}): {det.detail}; time-series "
-                         "at /debug/telemetry on the node plugin"),
+                         "at /debug/telemetry on the node plugin, bundle "
+                         "via python -m "
+                         "k8s_dra_driver_gpu_tpu_torch.pkg.doctor"),
                 involved_kind="Node", involved_name=self.node_name,
                 component="tpu-dra-kubelet-plugin")

@@ -74,9 +74,13 @@ def shared_counter_sets(host: GpuHostInfo,
 def consumed_counters(dev: AllocatableDevice,
                       profiles: tuple[SubSliceProfile, ...] = ()
                       ) -> list[dict]:
-    """The ``consumesCounters`` block of one device."""
+    """The ``consumesCounters`` block of one device; none for a
+    passthrough GPU, as in the JAX plugin (prepare refuses it beside its
+    whole GPU)."""
     chip = dev.gpu
     part = dev.partition
+    if dev.passthrough is not None:
+        return []
     if part is not None and part.oversubscribed:
         counters = {f"memory-slice-{k}": {
             "value": f"{part.tenant_slice_milli}m"}

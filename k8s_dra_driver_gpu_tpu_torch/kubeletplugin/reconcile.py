@@ -50,22 +50,28 @@ import threading
 from ..pkg import positive_float_env
 from ..pkg.recovery import allocation_nodes, set_permanent_failure_condition
 from .checkpoint import ClaimState
+from .cleanup import DEFAULT_INTERVAL_S as _CLEANUP_INTERVAL_S
 from .cleanup import cleanup_once, lookup_claim
 
 logger = logging.getLogger(__name__)
 
-SWEEP_INTERVAL_S = positive_float_env("TPU_DRA_RECOVERY_SWEEP_S",
-                                      default=120.0, floor=0.05)
+# The sweep runs the stale-claim GC, so a tightened
+# TPU_DRA_CLEANUP_INTERVAL_S tightens the whole sweep too.
+SWEEP_INTERVAL_S = min(
+    positive_float_env("TPU_DRA_RECOVERY_SWEEP_S", default=120.0,
+                       floor=0.05),
+    _CLEANUP_INTERVAL_S)
 
 
 class NodeStateReconciler:
     """Periodic audit of the node's claim state."""
 
-    def __init__(self, device_state, kube, node_name: str, metrics=None):
+    def __init__(self, device_state, kube, node_name: str, metrics=None,
+                 interval: float = SWEEP_INTERVAL_S):
         self._state = device_state
         self._kube = kube
         self._metrics = metrics  # pkg.metrics.RecoveryMetrics | None
-        self._interval = SWEEP_INTERVAL_S
+        self._interval = interval
         # This node's name (its ResourceSlice pool): device names repeat
         # on every node, so only a node identity tells a claim re-placed
         # elsewhere from one still here.

@@ -37,6 +37,11 @@ pipe directory through CDI edits (:214-379)).
   the partition's teardown; so its life follows the partition's derived
   holder count, and the JAX plugin's per-slot tenancy ceiling
   (``_apply_oversubscription``) is the instance's MPS limit.
+- An MPS request on one MIG device (``start_mig``) gets the same daemon,
+  keyed by the MIG device's name, its limit the claim's ``hbmLimit`` (the
+  instance's memory without one) and its ``maxClients`` recorded; the
+  claim's unprepare quits it (``stop_partition``). One daemon sees one
+  MIG instance, so such a request holds one device.
 - **Tenancy agents** (with ``spawn_agents``, the plugin's production
   default, ``device_state.Config.tenancy_agents``): each MPS request, and
   each oversubscribed partition tenant's request, gets one supervised
@@ -267,6 +272,22 @@ class TimeSlicingManager:
         return self._load(index)
 
 
+def _whole_mib_limits(cfg: MultiTenancyConfig, device_names: list[str]
+                      ) -> dict[str, int | None]:
+    """Each device's memory limit in bytes (None: none set); a limit
+    that is not a positive whole number of MiB is refused."""
+    limits = {name: cfg.hbm_limit_bytes_for(name) for name in device_names}
+    for name, limit in limits.items():
+        if limit is not None and (limit <= 0 or limit % MIB):
+            given = cfg.per_device_hbm_limits.get(
+                name, cfg.per_device_hbm_limits.get("*"))
+            raise SharingError(
+                f"hbmLimit {given!r} of {name} is {limit} bytes: MPS pins "
+                "device memory in whole MiB, so a limit must be a positive "
+                "whole number of MiB")
+    return limits
+
+
 def _proc_argv(pid: str) -> list[str]:
     with open(f"/proc/{pid}/cmdline", "rb") as f:
         return [a.decode(errors="replace") for a in f.read().split(b"\0")]
@@ -403,16 +424,7 @@ class MultiTenancyManager:
         if self._control is None:
             raise SharingError(f"{MPS_CONTROL} not found: MPS is not "
                                "available on this node")
-        limits = {name: cfg.hbm_limit_bytes_for(name)
-                  for name in device_names}
-        for name, limit in limits.items():
-            if limit is not None and (limit <= 0 or limit % MIB):
-                given = cfg.per_device_hbm_limits.get(
-                    name, cfg.per_device_hbm_limits.get("*"))
-                raise SharingError(
-                    f"hbmLimit {given!r} of {name} is {limit} bytes: MPS "
-                    "pins device memory in whole MiB, so a limit must be "
-                    "a positive whole number of MiB")
+        limits = _whole_mib_limits(cfg, device_names)
         d = self._dir(claim_uid, request)
         os.makedirs(self.pipe_dir(d), exist_ok=True)
         os.makedirs(os.path.join(d, "log"), exist_ok=True)
@@ -708,6 +720,22 @@ class MultiTenancyManager:
             env=[f"CUDA_MPS_PIPE_DIRECTORY={container}",
                  f"CUDA_MPS_PINNED_DEVICE_MEM_LIMIT=0={limit}"],
             mounts=[(self.pipe_dir(d), container, False)])
+
+    def start_mig(self, claim_uid: str, request: str, gpu: int,
+                  device: str, mig_uuid: str, capacity_bytes: int,
+                  cfg: MultiTenancyConfig) -> ContainerEdits:
+        """MPS on one MIG device (the JAX plugin's multi-tenancy on a
+        sub-slice): the daemon of ``start_partition`` over the device's
+        MIG UUID, each client capped at the claim's ``hbmLimit`` (the
+        instance's memory without one); with agents on, the request's
+        agent and hooks. ``stop_partition(device)`` quits it."""
+        limit = _whole_mib_limits(cfg, [device])[device]
+        edits = self.start_partition(
+            device, gpu, mig_uuid, capacity_bytes,
+            limit if limit is not None else capacity_bytes // MIB * MIB,
+            cfg.max_clients)
+        return edits.merge(self._admission(claim_uid, request, [gpu],
+                                           cfg.max_clients, {device: limit}))
 
     def stop_partition(self, device: str) -> None:
         """Quit the partition's daemon and remove its directory."""

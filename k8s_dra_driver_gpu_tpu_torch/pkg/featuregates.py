@@ -3,12 +3,13 @@ defaults (its ``pkg/featuregates.py``; the upstream driver's
 ``pkg/featuregates/featuregates.go``), so one ``FEATURE_GATES`` string
 means the same to every binary of both packages.
 
-The GPU plugin reads four: ``TimeSlicingSettings`` and
+The GPU plugin reads five: ``TimeSlicingSettings`` and
 ``MultiTenancySupport`` (the upstream's ``MPSSupport``), which needs the
 first, as in both; ``DynamicSubSlice`` (the upstream's ``DynamicMIG``):
-MIG devices created at prepare; and ``TenantPartitioning``: tenant
+MIG devices created at prepare; ``TenantPartitioning``: tenant
 partitions over MIG instances (``pkg/partition``), which needs
-``DynamicSubSlice``, as in the JAX package. The ComputeDomain daemon
+``DynamicSubSlice``, as in the JAX package; and ``PassthroughSupport``:
+GPUs published for vfio passthrough (``kubeletplugin/vfio.py``). The ComputeDomain daemon
 reads two: ``ComputeDomainCliques`` (registration in clique objects, or
 in the domain's status when off) and ``DomainDaemonsWithDNSNames`` (the
 upstream's ``IMEXDaemonsWithDNSNames``: a peer change rewrites the hosts
@@ -34,21 +35,25 @@ TENANT_PARTITIONING = "TenantPartitioning"
 COMPUTE_DOMAIN_CLIQUES = "ComputeDomainCliques"
 DOMAIN_DAEMONS_WITH_DNS_NAMES = "DomainDaemonsWithDNSNames"
 TOPOLOGY_AWARE_PLACEMENT = "TopologyAwarePlacement"
-# The gates the port reads: the GPU plugin's four, the ComputeDomain
+PASSTHROUGH_SUPPORT = "PassthroughSupport"
+# The gates the port reads: the GPU plugin's five, the ComputeDomain
 # daemon's two, the scheduler's one.
 READ = (TIME_SLICING_SETTINGS, MULTI_TENANCY_SUPPORT, DYNAMIC_SUB_SLICE,
-        TENANT_PARTITIONING, COMPUTE_DOMAIN_CLIQUES,
+        TENANT_PARTITIONING, PASSTHROUGH_SUPPORT, COMPUTE_DOMAIN_CLIQUES,
         DOMAIN_DAEMONS_WITH_DNS_NAMES, TOPOLOGY_AWARE_PLACEMENT)
 # gate -> the gate it needs on.
 REQUIRES = {MULTI_TENANCY_SUPPORT: TIME_SLICING_SETTINGS,
             TENANT_PARTITIONING: DYNAMIC_SUB_SLICE}
+# gate -> the gate it cannot be on with: a GPU bound to vfio-pci cannot
+# be carved into MIG devices by this driver at the same time.
+CONFLICTS = {PASSTHROUGH_SUPPORT: DYNAMIC_SUB_SLICE}
 
 # Every gate of the JAX plugin, by its default.
 DEFAULTS: dict[str, bool] = {
     TIME_SLICING_SETTINGS: False,
     MULTI_TENANCY_SUPPORT: False,
     DOMAIN_DAEMONS_WITH_DNS_NAMES: True,
-    "PassthroughSupport": False,
+    PASSTHROUGH_SUPPORT: False,
     "ChipHealthCheck": True,
     DYNAMIC_SUB_SLICE: False,
     TENANT_PARTITIONING: False,
@@ -105,4 +110,9 @@ class FeatureGates:
             if gates.is_enabled(gate) and not gates.is_enabled(needed):
                 raise FeatureGateError(
                     f"feature gate {gate} requires {needed} to be enabled")
+        for gate, other in CONFLICTS.items():
+            if gates.is_enabled(gate) and gates.is_enabled(other):
+                raise FeatureGateError(
+                    f"feature gates {gate} and {other} are mutually "
+                    "exclusive")
         return gates

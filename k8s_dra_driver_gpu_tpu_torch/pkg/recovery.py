@@ -46,11 +46,9 @@ sweep) lives in ``kubeletplugin/reconcile.py``; both export
 ``tpu_dra_recovery_*`` metrics (pkg/metrics.RecoveryMetrics). Every
 stage transition is an ``eviction`` flight event under the claim's uid
 (``/debug/claims``), and a re-placement observes the scheduler's SLO
-``evict`` phase under the claim's trace id.
-
-Not ported: the JAX controller's incident bundle at a blown deadline
-(``pkg/doctor``, ROADMAP.md §1c); the flight record is dumped to the log
-as there.
+``evict`` phase under the claim's trace id. A blown deadline dumps
+the claim's flight record to the log and drops an incident bundle
+(``pkg/doctor.auto_bundle``, trigger ``eviction-deadline``).
 """
 
 from __future__ import annotations
@@ -60,7 +58,7 @@ import logging
 import threading
 import time
 
-from . import faults, flightrecorder, positive_float_env, tracing
+from . import doctor, faults, flightrecorder, positive_float_env, tracing
 from .statemachine import (
     EVICTION_DEALLOCATED,
     EVICTION_DRAINING,
@@ -902,3 +900,7 @@ class EvictionController:
                 "claim %s failed recovery: deadline exceeded with no "
                 "re-placement; flight record:\n%s", uid,
                 self.flight.dump(uid))
+            # Incident bundle (TPU_DRA_DOCTOR_DIR-gated, rate-limited): a
+            # blown deadline means capacity or control-plane trouble, so
+            # snapshot the rings now.
+            doctor.auto_bundle("eviction-deadline", claim=uid)

@@ -11,9 +11,8 @@ strict-decodes each (``api.decode.strict_decode``) and runs
 ``normalize()`` and ``validate()``; a ComputeDomain must split its nodes
 evenly over its slices (``computedomain.per_slice_workers``). It is
 optional: the plugins decode strictly again at prepare. The config kinds
-are the port's (``GpuConfig``, ``MigDeviceConfig`` and the two CD
-configs); a ``VfioDeviceConfig`` is refused as an unknown kind until
-``vfio.py`` is ported (ROADMAP.md §1b item 6).
+are the port's (``GpuConfig``, ``MigDeviceConfig``, ``VfioDeviceConfig``
+and the two CD configs).
 
 Run it as ``python -m k8s_dra_driver_gpu_tpu_torch.webhook.main --port N
 [--tls-cert F --tls-key F]`` (plain HTTP without the pair); SIGTERM or

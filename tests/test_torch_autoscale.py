@@ -1265,7 +1265,9 @@ def test_the_port_watcher_converges_on_the_jax_controllers_crd(tmp_path):
             ctrl.store.observe("web", int(1.5 * GIB))
         assert ctrl.sync_once()["applied"] == 1
         assert ctrl.sync_once()["completed"] == 1 and not ctrl.busy()
-        assert watcher.wait_for(lambda: sorted(
+        # The count rises after the plan's devices and their republish:
+        # wait for both, or a wake between the two reads a half-done apply.
+        assert watcher.wait_for(lambda: watcher.applied_total >= 1 and sorted(
             n for n, d in drv.state.allocatable.items()
             if d.kind == DeviceKind.PARTITION) == webs(8), 10.0)
         assert watcher.last_error is None and watcher.applied_total == 1

@@ -61,6 +61,7 @@ def test_the_same_gates_with_the_same_defaults():
                                jax_fg.MULTI_TENANCY_SUPPORT,
                                jax_fg.DYNAMIC_SUB_SLICE,
                                jax_fg.TENANT_PARTITIONING,
+                               jax_fg.PASSTHROUGH_SUPPORT,
                                jax_fg.COMPUTE_DOMAIN_CLIQUES,
                                jax_fg.DOMAIN_DAEMONS_WITH_DNS_NAMES,
                                jax_fg.TOPOLOGY_AWARE_PLACEMENT}
@@ -69,6 +70,10 @@ def test_the_same_gates_with_the_same_defaults():
     # Each dependency the port enforces is the JAX package's.
     for gate, needed in pt_fg.REQUIRES.items():
         assert jax_fg.KNOWN_FEATURES[gate].requires == (needed,)
+    # So is each conflict.
+    assert {gate: spec.conflicts_with for gate, spec
+            in jax_fg.KNOWN_FEATURES.items() if spec.conflicts_with} == {
+        gate: (other,) for gate, other in pt_fg.CONFLICTS.items()}
 
 
 @pytest.mark.parametrize("spec", SPECS)

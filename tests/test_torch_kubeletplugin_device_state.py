@@ -732,18 +732,22 @@ def test_a_uuid_that_gpus_share_is_left_out(shared):
         assert ("uuid" in info.attributes()) == (chip.index not in shared)
 
 
-# -- what is not ported --------------------------------------------------------
+# -- what was not ported, and what of it is refused now -------------------------
 
-@pytest.mark.parametrize("parameters, item", [
-    ({"apiVersion": PT_API, "kind": "VfioDeviceConfig"}, 6),
-])
-def test_configs_of_unported_features_are_refused(state, parameters, item):
+@pytest.mark.parametrize("parameters, match", [
+    # vfio is ported (test_torch_vfio.py): its config decodes, and on a
+    # whole GPU it is refused as the JAX plugin refuses a
+    # PassthroughConfig on a chip.
+    ({"apiVersion": PT_API, "kind": "VfioDeviceConfig"},
+     r"VfioDeviceConfig cannot apply to gpu-0 \(a whole GPU\)"),
+], ids=["VfioDeviceConfig"])
+def test_configs_of_unported_features_are_refused(state, parameters, match):
     claim = ResourceClaim.from_dict(make_claim_dict(
         "c1", ["gpu-0"], driver=DRIVER_NAME,
         configs=[{"parameters": parameters}]))
-    with pytest.raises(pt_ds.NotPortedError,
-                       match=f"ROADMAP.md §1b item {item}"):
+    with pytest.raises(pt_ds.PrepareError, match=match) as err:
         state.prepare(claim)
+    assert not isinstance(err.value, pt_ds.NotPortedError)
     assert state.prepared_claims() == {}
     assert not state._cdi.spec_exists("c1")
 
@@ -817,16 +821,23 @@ def _claim(uid, indices, body=None):
 
 
 @pytest.mark.parametrize("gates, match", [
-    ("PassthroughSupport=true", "ROADMAP.md §1b item 6"),
+    # Read since vfio was ported: no refusal (match None).
+    ("PassthroughSupport=true", None),
     ("ChipHealthCheck=false", "ROADMAP.md §1b item 8"),
     ("CrashOnICIFabricErrors=false", "reads this gate"),
     ("DeviceMetadata=true", "reads this gate"),
 ])
 def test_gates_of_unported_features_are_refused(tmp_path, gates, match):
     # Every gate the port does not read, set away from its default.
+    cfg = pt_ds.Config.mock(str(tmp_path), "h100-4", gates)
+    if match is None:
+        # The mock's sysfs has no IOMMU group: nothing to pass through.
+        assert sorted(pt_ds.DeviceState(cfg).allocatable) == [
+            f"gpu-{i}" for i in range(4)]
+        return
     with pytest.raises(pt_ds.NotPortedError,
                        match=f"feature gate {gates.split(',')[0]}.*{match}"):
-        pt_ds.DeviceState(pt_ds.Config.mock(str(tmp_path), "h100-4", gates))
+        pt_ds.DeviceState(cfg)
 
 
 def test_every_gate_is_read_or_refused(tmp_path):

@@ -8,6 +8,7 @@ against the JAX plugin's sub-slices are ``SCENARIOS["MIG …"]`` of
 """
 
 import ctypes
+import json
 import os
 import re
 
@@ -25,10 +26,10 @@ from k8s_dra_driver_gpu_tpu_torch.kubeletplugin.subslice import (
 from k8s_dra_driver_gpu_tpu_torch.tpulib.binding import (MigInstance,
                                                          NvmlLib, PyGpuLib)
 from tests.fake_kube import make_claim_dict
-from tests.test_torch_kubeletplugin_device_state import (BOOT, MIG_GATES,
-                                                        container_gpus,
-                                                        driver_root,
-                                                        write_mig_caps)
+from tests.test_torch_kubeletplugin_device_state import (  # noqa: F401
+    BOOT, MIG_GATES, container_gpus, driver_root, fake_driver,
+    write_mig_caps)
+from tests.test_torch_kubeletplugin_sharing import fake_daemon_pids
 
 RFC1123_LABEL = re.compile(r"^[a-z0-9]([a-z0-9-]{0,61}[a-z0-9])?$")
 
@@ -204,25 +205,79 @@ MPS = {"sharing": {"strategy": "MultiTenancy",
                    "multiTenancy": {"hbmLimit": "4Gi"}}}
 
 
+SHARED_MIG_GATES = MIG_GATES + ",TimeSlicingSettings=true," \
+    "MultiTenancySupport=true"
+
+
+def daemon_env(pid: int) -> dict[str, str]:
+    with open(f"/proc/{pid}/environ", "rb") as f:
+        return dict(kv.decode().split("=", 1)
+                    for kv in f.read().split(b"\0") if kv)
+
+
 @pytest.mark.parametrize("kind, body, error, match", [
     ("MigDeviceConfig", TIMESLICE, pt_ds.PrepareError,
      "timeslice on a MIG device"),
-    ("MigDeviceConfig", MPS, pt_ds.NotPortedError,
-     "MPS on a MIG device .*§1b item 5c"),
+    # MPS is served (no error): one daemon over the MIG device alone.
+    ("MigDeviceConfig", MPS, None, None),
     ("GpuConfig", None, pt_ds.PrepareError,
      "GpuConfig cannot apply to gpu-1-mig-1g10gb-3 \\(a MIG device\\)"),
 ])
-def test_what_a_mig_device_refuses(tmp_path, kind, body, error, match):
-    state = mig_state(tmp_path, gates=MIG_GATES + ",TimeSlicingSettings="
-                      "true,MultiTenancySupport=true")
-    with pytest.raises(error, match=match):
+def test_what_a_mig_device_refuses(tmp_path, fake_driver, kind, body, error,
+                                   match):
+    state = mig_state(tmp_path, gates=SHARED_MIG_GATES,
+                      driver_root=fake_driver)
+    if error is None:
         state.prepare(claim("c1", ["gpu-1-mig-1g10gb-3"], kind, body))
+        (inst,) = walk(state)
+        (pid,) = fake_daemon_pids(fake_driver)
+        assert daemon_env(pid)["CUDA_VISIBLE_DEVICES"] == inst.uuid
+        env = state._cdi.read_spec("c1")["devices"][0]["containerEdits"][
+            "env"]
+        assert "CUDA_MPS_PINNED_DEVICE_MEM_LIMIT=0=4096M" in env
+        state.unprepare("c1")
+        assert fake_daemon_pids(fake_driver) == []
+    else:
+        with pytest.raises(error, match=match):
+            state.prepare(claim("c1", ["gpu-1-mig-1g10gb-3"], kind, body))
     assert left_nothing(state, "c1")
     # The default MigDeviceConfig prepares; a MigDeviceConfig is no
     # whole GPU's.
     state.prepare(claim("c2", ["gpu-1-mig-1g10gb-3"], "MigDeviceConfig"))
     with pytest.raises(pt_ds.PrepareError, match="cannot apply to gpu-0"):
         state.prepare(claim("c3", ["gpu-0"], "MigDeviceConfig"))
+
+
+def test_mps_on_a_mig_device_survives_a_restart(tmp_path, fake_driver):
+    state = mig_state(tmp_path, gates=SHARED_MIG_GATES,
+                      driver_root=fake_driver)
+    state.prepare(claim("c1", ["gpu-0-mig-2g20gb-2"], "MigDeviceConfig",
+                        {"sharing": {"strategy": "MultiTenancy",
+                                     "multiTenancy": {"maxClients": 3}}}))
+    (pid,) = fake_daemon_pids(fake_driver)
+    owner = json.load(open(os.path.join(
+        state._tenancy._partition_dir("gpu-0-mig-2g20gb-2"), "claim.json")))
+    # No hbmLimit: the instance's memory, in MiB; the claim's maxClients.
+    size = state.allocatable["gpu-0-mig-2g20gb-2"].subslice.profile.hbm_bytes
+    assert (owner["maxClients"], owner["pinnedMemLimits"]) == (
+        3, {"0": f"{size >> 20}M"})
+    # A restart re-owns the live daemon; a lost spec is not prepared
+    # again under its clients.
+    again = mig_state(tmp_path, gates=SHARED_MIG_GATES, caps=False,
+                      driver_root=fake_driver)
+    assert fake_daemon_pids(fake_driver) == [pid]
+    again._cdi.delete_claim_spec_file("c1")
+    with pytest.raises(pt_ds.PrepareError, match="MPS daemon"):
+        again.prepare(claim("c1", ["gpu-0-mig-2g20gb-2"], "MigDeviceConfig",
+                            {"sharing": {"strategy": "MultiTenancy"}}))
+    again.unprepare("c1")
+    assert fake_daemon_pids(fake_driver) == []
+    assert left_nothing(again, "c1")
+    # One daemon serves one MIG instance: an MPS request holds one device.
+    with pytest.raises(pt_ds.PrepareError, match="only device"):
+        again.prepare(claim("c2", ["gpu-0-mig-1g10gb-0", "gpu-1-mig-1g10gb-0"],
+                            "MigDeviceConfig", MPS))
+    assert left_nothing(again, "c2")
 
 
 def test_a_boot_id_change_drops_the_registry_without_destroying(tmp_path):

@@ -8,6 +8,10 @@ always reports it, as 0 without one. With the engine on both sides the
 pass reaps and prunes the same partitions.
 """
 
+import json
+import os
+import subprocess
+import sys
 import threading
 
 import pytest
@@ -21,6 +25,8 @@ from k8s_dra_driver_gpu_tpu_torch.kubeletplugin import cleanup as pt_cleanup
 from k8s_dra_driver_gpu_tpu_torch.kubeletplugin import \
     device_state as pt_ds
 from k8s_dra_driver_gpu_tpu_torch.kubeletplugin import driver as pt_driver
+from k8s_dra_driver_gpu_tpu_torch.kubeletplugin import \
+    reconcile as pt_reconcile
 from k8s_dra_driver_gpu_tpu_torch.pkg import fakeapiserver as pt_server
 from k8s_dra_driver_gpu_tpu_torch.pkg import kubeclient as pt_kube
 from k8s_dra_driver_gpu_tpu_torch.pkg import recovery as pt_recovery
@@ -265,7 +271,8 @@ def test_sweep_thread_reaps_and_stops(tmp_path):
                 namespace="default")
     assert d.prepare_resource_claims([ref("u1")])["u1"][1] == ""
     kube.delete(*RC, "u1", namespace="default")
-    d.reconciler._interval = 0.01
+    d.reconciler = pt_reconcile.NodeStateReconciler(
+        d.state, kube, "node-a", interval=0.01)
     d.start()
     for _ in range(500):
         if not d.state.prepared_claims():
@@ -349,3 +356,68 @@ def test_idle_partition_pass_reaps_and_prunes(sides, tmp_path):
     assert "'idle_partition': 0" in got
     assert "'stale_claim': 1" in got and "'idle_partition': 1" in got
     assert "pt-serv-0" not in got and got.endswith(", 0]")
+
+
+# The sweep's interval, read at import: (TPU_DRA_RECOVERY_SWEEP_S,
+# TPU_DRA_CLEANUP_INTERVAL_S) -> SWEEP_INTERVAL_S. None leaves a knob
+# unset; the cleanup floor (0.5 s) takes the place of a value that is not
+# positive, and a value that is not a number gives the default.
+SWEEP_ROWS = [
+    ((None, None), 120.0),
+    ((None, "1"), 1.0),
+    (("0.2", "1"), 0.2),
+    ((None, "0.1"), 0.1),
+    ((None, "0"), 0.5),
+    ((None, "soon"), 120.0),
+]
+
+_SWEEP_TABLE = """
+import importlib, json, os, sys
+rows = json.loads(sys.argv[2])
+out = []
+for sweep, cleanup in rows:
+    for var, val in (("TPU_DRA_RECOVERY_SWEEP_S", sweep),
+                     ("TPU_DRA_CLEANUP_INTERVAL_S", cleanup)):
+        os.environ.pop(var, None)
+        if val is not None:
+            os.environ[var] = val
+    for mod in ("cleanup", "reconcile"):
+        sys.modules.pop(sys.argv[1] + ".kubeletplugin." + mod, None)
+    out.append(importlib.import_module(
+        sys.argv[1] + ".kubeletplugin.reconcile").SWEEP_INTERVAL_S)
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def sweep_tables():
+    """One subprocess a package imports its reconcile module under each
+    row's env and prints the intervals."""
+    rows = json.dumps([list(r) for r, _ in SWEEP_ROWS])
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("TPU_DRA_RECOVERY_SWEEP_S",
+                        "TPU_DRA_CLEANUP_INTERVAL_S")}
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return {pkg: json.loads(subprocess.run(
+        [sys.executable, "-c", _SWEEP_TABLE, pkg, rows], env=env,
+        cwd=root, check=True, capture_output=True, text=True,
+        timeout=120).stdout.splitlines()[-1])
+        for pkg in ("k8s_dra_driver_gpu_tpu",
+                    "k8s_dra_driver_gpu_tpu_torch")}
+
+
+@pytest.mark.parametrize("i", range(len(SWEEP_ROWS)),
+                         ids=[f"sweep={s}-cleanup={c}"
+                              for (s, c), _ in SWEEP_ROWS])
+def test_sweep_interval_follows_the_cleanup_interval(sweep_tables, i):
+    want = SWEEP_ROWS[i][1]
+    assert sweep_tables["k8s_dra_driver_gpu_tpu_torch"][i] == want
+    assert sweep_tables["k8s_dra_driver_gpu_tpu"][i] == want
+
+
+def test_reconciler_takes_its_interval():
+    st = object()
+    assert pt_reconcile.NodeStateReconciler(
+        st, None, "n")._interval == pt_reconcile.SWEEP_INTERVAL_S
+    assert pt_reconcile.NodeStateReconciler(
+        st, None, "n", interval=0.25)._interval == 0.25

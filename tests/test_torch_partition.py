@@ -860,7 +860,8 @@ def test_an_exclusive_partition_has_no_daemon(port):
     assert "TPU_PARTITION=x1" in env
     assert not any(e.startswith("CUDA_MPS") for e in env)
     assert fake_daemon_pids(cfg.driver_root) == []
-    # MPS on it is item 5c's; a timeslice is refused, as on a MIG device.
+    # MPS on it runs a daemon over its instance, as on a MIG device
+    # (test_torch_kubeletplugin_mig.py); a timeslice is refused.
     st.unprepare("x")
 
 
