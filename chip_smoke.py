@@ -311,8 +311,9 @@ and prints no result line):
    plugin's ``Driver`` publishes the card from NVML to the port's
    ``FakeApiServer`` on 127.0.0.1, the port's five DeviceClasses are
    created, and the scheduler binary (``python -m
-   k8s_dra_driver_gpu_tpu_torch.pkg.scheduler --interval 0.1
-   --metrics-port N``) runs as a process. A ResourceClaimTemplate (class
+   k8s_dra_driver_gpu_tpu_torch.pkg.scheduler --metrics-port N``) runs as
+   a process in its default mode, events (informers, dirty keys, a full
+   resync every ``SCHED_RESYNC_S``). A ResourceClaimTemplate (class
    ``gpu.nvidia.com``, CEL on NVML's ``productName`` and on
    ``capacity.memory`` against ``quantity("40Gi")``) and a pod using it:
    the binary generates the claim, allocates ``gpu-0`` on the node,
@@ -322,22 +323,36 @@ and prints no result line):
    traceparent is the binary's ``sched.commit`` span (its
    ``/debug/traces``), the prepare's parent, with the segment spans
    below. A second ``gpu.nvidia.com`` claim (after one claim a further
-   GPU, none on one card) waits three passes while the GPU is held and a
-   ``mig.nvidia.com`` claim finds no MIG device; once the first claim is
-   unprepared and deleted, the second is allocated within two passes.
-   ``/metrics`` shows the passes and the fit, commit and patch phases;
-   SIGTERM gives exit 0. (b) The node's published slice cloned onto 128
-   nodes of 8 GPUs (fresh UUIDs) in the port's in-process
-   ``FakeKubeClient``: 16 eight-GPU claims (``matchAttribute`` on
-   ``acceleratorType``), 768 one-GPU claims and 2 that cannot fit (9 GPUs;
-   a product no device has), ``sync_once`` until a pass allocates
-   nothing: each pass's ms, claims a second, no device twice, every
-   claim that fits allocated, each 8-GPU claim on one node, the two
-   pending; under 90 s. Host ms beside the card's name and power limit.
+   GPU, none on one card) waits two full passes while the GPU is held and
+   a ``mig.nvidia.com`` claim finds no MIG device; once the first claim
+   is unprepared and deleted, the second is allocated within two passes.
+   ``/metrics`` shows ``tpu_dra_sched_sync_seconds`` for ``full`` and
+   ``incremental``, the dirty queue's depth, each informer's relists and
+   the queued, fit, commit and patch phases; SIGTERM gives exit 0. Then
+   the binary with ``--sched-mode poll --interval 0.1`` claims, binds and
+   prepares a second pod's claim from the template: the polled figures
+   of the same run. (b) The node's published slice cloned onto 128 nodes
+   of 8 GPUs (fresh UUIDs) in the port's in-process ``FakeKubeClient``:
+   16 eight-GPU claims (``matchAttribute`` on ``acceleratorType``), 768
+   one-GPU claims and 2 that cannot fit (9 GPUs; a product no device
+   has), ``sync_once`` until a pass allocates nothing: each pass's ms,
+   claims a second, no device twice, every claim that fits allocated,
+   each 8-GPU claim on one node, the two pending; then the same with the
+   8-GPU claims at seeded places. The same fleet through event mode, at
+   one worker and at four with a claim batch of 8
+   (``FLEET_EVENT_RUNS``): the 8-GPU claims written and drained, then
+   the rest; claims a second from the first write to the last
+   ``drain()``; no device twice, the 16 eight-GPU claims placed, the 2
+   pending, as many allocated as the polled run. (c) Two event-mode
+   schedulers in process as domains ``a`` and ``b`` of 64 of those nodes
+   each: 600 one-GPU claims pinned to ``a`` (512 fit, 88 spill to its
+   sibling ``b``), then 440 pinned to ``b`` (16 find no room and carry
+   ``DomainExhausted``); the spilled and exhausted counters. Host ms
+   beside the card's name and power limit.
 21. recovery (``phase_recovery``, host clock): the card's telemetry, a
    node failure and a device failure over the port's ``FakeApiServer`` on
    127.0.0.1, with the scheduler binary run with ``--recovery-root``,
-   ``--interval 0.1`` and short knobs (``TPU_DRA_RECOVERY_NOTREADY_S``,
+   ``--sched-mode poll --interval 0.1`` and short knobs (``TPU_DRA_RECOVERY_NOTREADY_S``,
    ``TPU_DRA_RECOVERY_DEADLINE_S``). One card, two nodes: two kubelet
    plugins, each in a process of its own that never initialises CUDA
    (``RECOVERY_PLUGIN``; NVML's ``chip_telemetry`` refuses beside CUDA),
@@ -411,8 +426,8 @@ and prints no result line):
    (``RECOVERY_PLUGIN``) publishes the card as ``h100-a`` with the
    ``DynamicSubSlice`` and ``TenantPartitioning`` gates, no layout file
    (the PartitionSet CRD watcher governs) and a 0.2 s health poll; the
-   scheduler binary runs with ``--autoscale-root``, ``--interval 0.1``
-   and ``TPU_DRA_AUTOSCALE_SUSTAIN_S=0``, ``TPU_DRA_AUTOSCALE_COOLDOWN_S=0``.
+   scheduler binary runs with ``--autoscale-root``, ``--sched-mode poll
+   --interval 0.1`` and ``TPU_DRA_AUTOSCALE_SUSTAIN_S=0``, ``TPU_DRA_AUTOSCALE_COOLDOWN_S=0``.
    (b) A whole-GPU claim annotated ``resource.tpu.dra/tenant-profile:
    web`` is allocated by the binary and prepared by the plugin; its child
    (``LOAD_CHILD``, under the claim's CDI env) holds the flash forward
@@ -5345,23 +5360,19 @@ def _fleet_slices(real: dict, node_names: list[str]) -> list[dict]:
     return out
 
 
-def _fleet_run(real: dict, product: str, shuffle: int | None = None,
-               fleet_metrics=None) -> dict:
-    """20 (b): the fleet in the port's in-process ``FakeKubeClient``,
-    passes of the port's ``DraScheduler`` until one allocates nothing.
-    The claims arrive 8-GPU first, or in the order ``shuffle`` seeds.
-    With ``fleet_metrics`` (phase 21 (d)) every device also carries
-    telemetry attributes drawn from the shuffle seed, each node is a Ready
-    Node object, and the scheduler folds its fleet into that sink; the
-    result then holds the store and the scheduler."""
+def _fleet_store(real: dict, shuffle: int | None = None,
+                 fleet_metrics=None):
+    """20 (b)'s fleet in the port's in-process ``FakeKubeClient``: the
+    DeviceClasses and ``real`` cloned onto ``FLEET_NODES`` nodes; with
+    ``fleet_metrics`` every device also carries telemetry attributes
+    drawn from the ``shuffle`` seed and each node is a Ready Node. The
+    store and its setup ms."""
     import random
 
     from k8s_dra_driver_gpu_tpu_torch.api import deviceclasses
     from k8s_dra_driver_gpu_tpu_torch.pkg import fleetstate
     from k8s_dra_driver_gpu_tpu_torch.pkg.kubeclient import FakeKubeClient
-    from k8s_dra_driver_gpu_tpu_torch.pkg.scheduler import DraScheduler
 
-    res = ("resource.k8s.io", "v1")
     kube = FakeKubeClient()
     deviceclasses.create_all(kube)
     nodes = [f"hgx-{n:03d}" for n in range(FLEET_NODES)]
@@ -5380,21 +5391,36 @@ def _fleet_run(real: dict, product: str, shuffle: int | None = None,
                 "metadata": {"name": s["spec"]["nodeName"]},
                 "status": {"conditions": [{"type": "Ready",
                                            "status": "True"}]}})
-        kube.create(*res, "resourceslices", s)
+        kube.create("resource.k8s.io", "v1", "resourceslices", s)
+    return kube, round((time.perf_counter() - t0) * 1e3, 3)
 
-    def claim(name, count=1, cel=None, constraint=None):
-        exactly = {"deviceClassName": deviceclasses.GPU_CLASS}
-        if count != 1:
-            exactly["count"] = count
-        if cel:
-            exactly["selectors"] = [{"cel": {"expression": cel}}]
-        devices = {"requests": [{"name": "gpu", "exactly": exactly}]}
-        if constraint:
-            devices["constraints"] = [{"matchAttribute": constraint}]
-        kube.create(*res, "resourceclaims", {
-            "apiVersion": "resource.k8s.io/v1", "kind": "ResourceClaim",
-            "metadata": {"name": name, "namespace": "fleet"},
-            "spec": {"devices": devices}}, namespace="fleet")
+
+def _fleet_claim(kube, name, count=1, cel=None, constraint=None,
+                 namespace="fleet", annotations=None):
+    from k8s_dra_driver_gpu_tpu_torch.api import deviceclasses
+
+    exactly = {"deviceClassName": deviceclasses.GPU_CLASS}
+    if count != 1:
+        exactly["count"] = count
+    if cel:
+        exactly["selectors"] = [{"cel": {"expression": cel}}]
+    devices = {"requests": [{"name": "gpu", "exactly": exactly}]}
+    if constraint:
+        devices["constraints"] = [{"matchAttribute": constraint}]
+    md = {"name": name, "namespace": namespace}
+    if annotations:
+        md["annotations"] = dict(annotations)
+    kube.create("resource.k8s.io", "v1", "resourceclaims", {
+        "apiVersion": "resource.k8s.io/v1", "kind": "ResourceClaim",
+        "metadata": md, "spec": {"devices": devices}}, namespace=namespace)
+
+
+def _fleet_claims(kube, shuffle: int | None = None,
+                  which=lambda count: True) -> None:
+    """The fleet's claims, those whose GPU count ``which`` admits: the
+    8-GPU ones first, or at the places the ``shuffle`` seed gives them
+    among the singles, then the two that cannot fit (with the singles)."""
+    import random
 
     # A pass takes the claims in creation order and puts each on the
     # least-loaded node it fits, so the singles land on empty nodes while
@@ -5405,30 +5431,24 @@ def _fleet_run(real: dict, product: str, shuffle: int | None = None,
         random.Random(shuffle).shuffle(kinds)
     made = collections.Counter()
     for count in kinds:
-        if count == 1:
-            claim(f"one-{made[count]:03d}")
-        else:
-            claim(f"eight-{made[count]:02d}", FLEET_GPUS,
-                  constraint="gpu.nvidia.com/acceleratorType")
+        if which(count):
+            if count == 1:
+                _fleet_claim(kube, f"one-{made[count]:03d}")
+            else:
+                _fleet_claim(kube, f"eight-{made[count]:02d}", FLEET_GPUS,
+                             constraint="gpu.nvidia.com/acceleratorType")
         made[count] += 1
-    claim("unfit-nine", FLEET_GPUS + 1)
-    claim("unfit-product", cel='device.attributes["gpu.nvidia.com"]'
-          '.productName == "NVIDIA B200"')
-    setup_ms = round((time.perf_counter() - t0) * 1e3, 3)
-    sched = DraScheduler(kube, fleet_metrics=fleet_metrics)
-    passes, allocated = [], 0
-    while True:
-        t0 = time.perf_counter()
-        sched.sync_once()
-        passes.append(round((time.perf_counter() - t0) * 1e3, 3))
-        now = sum(1 for c in kube.list(*res, "resourceclaims")
-                  if c.get("status", {}).get("allocation"))
-        if now == allocated:
-            break
-        allocated = now
-        if len(passes) > 10:
-            raise AssertionError(f"scheduler fleet: {passes} passes")
-    claims = kube.list(*res, "resourceclaims")
+    if which(1):
+        _fleet_claim(kube, "unfit-nine", FLEET_GPUS + 1)
+        _fleet_claim(kube, "unfit-product",
+                     cel='device.attributes["gpu.nvidia.com"]'
+                     '.productName == "NVIDIA B200"')
+
+
+def _fleet_outcome(kube) -> dict:
+    """What the fleet's checks read: the devices held, the pending
+    claims, the nodes of each placed 8-GPU claim."""
+    claims = kube.list("resource.k8s.io", "v1", "resourceclaims")
     held = [(r["pool"], r["device"]) for c in claims
             for r in (c.get("status", {}).get("allocation") or {}).get(
                 "devices", {}).get("results", [])]
@@ -5437,15 +5457,256 @@ def _fleet_run(real: dict, product: str, shuffle: int | None = None,
     eight_nodes = [{r["pool"] for r in c["status"]["allocation"]["devices"][
         "results"]} for c in claims if c["metadata"]["name"].startswith(
             "eight") and c.get("status", {}).get("allocation")]
-    out = {"setup_ms": setup_ms, "passes_ms": passes,
-           "allocated": allocated, "held": held, "pending": pending,
-           "eight_nodes": eight_nodes, "product": product,
-           "eights_pending": sum(n.startswith("eight") for n in pending),
-           "claims_per_s": allocated / (sum(passes[:-1]) / 1e3)
-           if len(passes) > 1 else 0.0}
+    return {"allocated": len(claims) - len(pending), "held": held,
+            "pending": pending, "eight_nodes": eight_nodes,
+            "eights_pending": sum(n.startswith("eight") for n in pending)}
+
+
+def _fleet_run(real: dict, product: str, shuffle: int | None = None,
+               fleet_metrics=None) -> dict:
+    """20 (b), polled: the fleet's store and claims, then passes of the
+    port's ``DraScheduler`` until one allocates nothing. The claims arrive
+    8-GPU first, or in the order ``shuffle`` seeds. With
+    ``fleet_metrics`` (phase 21 (d)) the store carries telemetry and
+    Ready Nodes and the scheduler folds its fleet into that sink; the
+    result then holds the store and the scheduler."""
+    from k8s_dra_driver_gpu_tpu_torch.pkg.scheduler import DraScheduler
+
+    kube, setup_ms = _fleet_store(real, shuffle, fleet_metrics)
+    _fleet_claims(kube, shuffle)
+    sched = DraScheduler(kube, fleet_metrics=fleet_metrics)
+    passes, allocated = [], 0
+    while True:
+        t0 = time.perf_counter()
+        sched.sync_once()
+        passes.append(round((time.perf_counter() - t0) * 1e3, 3))
+        now = _fleet_outcome(kube)["allocated"]
+        if now == allocated:
+            break
+        allocated = now
+        if len(passes) > 10:
+            raise AssertionError(f"scheduler fleet: {passes} passes")
+    out = dict(_fleet_outcome(kube), setup_ms=setup_ms, passes_ms=passes,
+               product=product,
+               claims_per_s=allocated / (sum(passes[:-1]) / 1e3)
+               if len(passes) > 1 else 0.0)
     if fleet_metrics is not None:
         out.update(kube=kube, sched=sched)
     return out
+
+
+# 20 (b)'s event runs: (workers, claim batch).
+FLEET_EVENT_RUNS = ((1, 8), (4, 8))
+
+
+def _fleet_run_events(real: dict, workers: int, batch: int) -> dict:
+    """20 (b) through event mode: the port's ``DraScheduler`` started
+    event-driven on the fleet's store, then its claims written, the
+    8-GPU ones first and drained (a pass takes them first too), then the
+    singles and the two that cannot fit, drained. Claims a second run
+    from the first claim's write to the last ``drain()``."""
+    from k8s_dra_driver_gpu_tpu_torch.pkg.exposition import generate_latest
+    from k8s_dra_driver_gpu_tpu_torch.pkg.metrics import SchedulerMetrics
+    from k8s_dra_driver_gpu_tpu_torch.pkg.scheduler import DraScheduler
+
+    kube, setup_ms = _fleet_store(real)
+    metrics = SchedulerMetrics()
+    sched = DraScheduler(kube, workers=workers, batch_max=batch,
+                         sched_metrics=metrics)
+    try:
+        t0 = time.perf_counter()
+        sched.start_event_driven()
+        if not sched.drain(FLEET_BUDGET_S):
+            raise AssertionError("scheduler fleet: the first pass did not "
+                                 "drain")
+        start_ms = round((time.perf_counter() - t0) * 1e3, 3)
+        t0 = time.perf_counter()
+        _fleet_claims(kube, which=lambda count: count > 1)
+        drained = sched.drain(FLEET_BUDGET_S)
+        eights_s = time.perf_counter() - t0
+        _fleet_claims(kube, which=lambda count: count == 1)
+        drained = drained and sched.drain(FLEET_BUDGET_S)
+        seconds = time.perf_counter() - t0
+    finally:
+        sched.stop()
+    if not drained:
+        raise AssertionError(f"scheduler fleet: workers {workers} did not "
+                             "drain")
+    out = _fleet_outcome(kube)
+    samples = metric_samples(generate_latest(metrics.registry).decode())
+    out.update(setup_ms=setup_ms, start_ms=start_ms,
+               eights_ms=round(eights_s * 1e3, 3),
+               seconds=round(seconds, 6),
+               claims_per_s=out["allocated"] / seconds,
+               incremental=samples.get((
+                   "tpu_dra_sched_sync_seconds_count",
+                   (("mode", "incremental"),)), 0.0),
+               steals=samples.get(("tpu_dra_workqueue_steals_total", ()),
+                                  0.0),
+               conflicts=samples.get((
+                   "tpu_dra_sched_commit_conflicts_total", ()), 0.0))
+    return out
+
+
+# 20 (c): two domains of DOMAIN_NODES nodes each; claims pinned to the
+# first beyond its GPUs spill to the second, claims pinned to the second
+# beyond what is left of it stay pending, exhausted.
+DOMAIN_NODES = FLEET_NODES // 2
+DOMAIN_A_CLAIMS = DOMAIN_NODES * FLEET_GPUS + 88
+DOMAIN_B_CLAIMS = DOMAIN_NODES * FLEET_GPUS - 88 + 16
+
+
+def _domain_run(real: dict) -> dict:
+    """20 (c), host only: the fleet's store split into domains ``a`` (the
+    first ``DOMAIN_NODES`` pools, sibling ``b``) and ``b`` (the rest, the
+    default domain), an event-mode ``DraScheduler`` for each in this
+    process; ``DOMAIN_A_CLAIMS`` one-GPU claims pinned to ``a``, drained,
+    then ``DOMAIN_B_CLAIMS`` pinned to ``b``, drained."""
+    from k8s_dra_driver_gpu_tpu_torch.pkg.exposition import generate_latest
+    from k8s_dra_driver_gpu_tpu_torch.pkg.metrics import SchedulerMetrics
+    from k8s_dra_driver_gpu_tpu_torch.pkg.schedcache import (
+        DOMAIN_ANNOTATION, SPILLED_FROM_ANNOTATION, SchedulingDomain)
+    from k8s_dra_driver_gpu_tpu_torch.pkg.scheduler import DraScheduler
+
+    kube, _ = _fleet_store(real)
+    pools = {"a": [f"hgx-{n:03d}" for n in range(DOMAIN_NODES)],
+             "b": [f"hgx-{n:03d}" for n in range(DOMAIN_NODES,
+                                                   FLEET_NODES)]}
+    doms = {"a": SchedulingDomain("a", pools=pools["a"], siblings=[
+        SchedulingDomain("b", pools=pools["b"])]),
+        "b": SchedulingDomain("b", pools=pools["b"], default=True)}
+    metrics = {d: SchedulerMetrics() for d in doms}
+    scheds = {d: DraScheduler(kube, domain=doms[d],
+                              sched_metrics=metrics[d]) for d in doms}
+    ms = {}
+    try:
+        for s in scheds.values():
+            s.start_event_driven()
+        for d, n in (("a", DOMAIN_A_CLAIMS), ("b", DOMAIN_B_CLAIMS)):
+            t0 = time.perf_counter()
+            for i in range(n):
+                _fleet_claim(kube, f"{d}-{i:03d}", namespace="domains",
+                             annotations={DOMAIN_ANNOTATION: d})
+            if not all(s.drain(FLEET_BUDGET_S) for s in scheds.values()):
+                raise AssertionError(f"domains: {d} did not drain")
+            # A spill's own event may reach the sibling after its drain.
+            if not all(s.drain(FLEET_BUDGET_S) for s in scheds.values()):
+                raise AssertionError(f"domains: {d} did not drain")
+            ms[d] = round((time.perf_counter() - t0) * 1e3, 3)
+    finally:
+        for s in scheds.values():
+            s.stop()
+    claims = kube.list("resource.k8s.io", "v1", "resourceclaims")
+    out = {"ms": ms, "held": [], "placed": collections.Counter(),
+           "pending": [], "exhausted_conditions": 0, "spilled_marked": 0}
+    for c in claims:
+        name = c["metadata"]["name"]
+        ann = c["metadata"].get("annotations") or {}
+        results = (c.get("status", {}).get("allocation") or {}).get(
+            "devices", {}).get("results", [])
+        out["held"] += [(r["pool"], r["device"]) for r in results]
+        for r in results:
+            side = "a" if r["pool"] in pools["a"] else "b"
+            out["placed"][(name[0], side)] += 1
+        if not results:
+            out["pending"].append(name)
+        out["spilled_marked"] += ann.get(SPILLED_FROM_ANNOTATION) == "a"
+        out["exhausted_conditions"] += any(
+            x.get("type") == "DomainExhausted" and x.get("status") == "True"
+            for x in c.get("status", {}).get("conditions") or [])
+    samples = {d: metric_samples(generate_latest(
+        metrics[d].registry).decode()) for d in doms}
+    out["spilled"] = samples["a"].get((
+        "tpu_dra_sched_domain_spilled_total",
+        (("from_domain", "a"), ("to_domain", "b"))), 0.0)
+    out["exhausted"] = {d: sum(v for (n, _), v in samples[d].items()
+                               if n == "tpu_dra_sched_domain_exhausted_total")
+                        for d in doms}
+    out["placed"] = {f"{k[0]}->{k[1]}": v for k, v in
+                     sorted(out["placed"].items())}
+    return out
+
+
+# Phase 20 (a): the event-mode binary's safety resync, seconds.
+SCHED_RESYNC_S = 0.5
+
+
+def _polled_binary_claim(kube, driver, url, env, root, tmp, stamps,
+                         leftovers) -> dict:
+    """20 (a)'s polled figures in the same run: the ``leftovers`` claims
+    deleted, the binary started with ``--sched-mode poll --interval
+    0.1``, a second pod from the template claimed, bound and its claim
+    prepared (no child), then unprepared and deleted; SIGTERM, exit 0.
+    Host ms created -> allocated -> bound, allocated -> prepare done."""
+    import signal
+
+    res = ("resource.k8s.io", "v1")
+    for name in leftovers:
+        with contextlib.suppress(Exception):
+            kube.delete(*res, "resourceclaims", name, namespace="default")
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    with open(f"{tmp}/scheduler-poll.log", "w", encoding="utf-8") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", SCHEDULER_MAIN, "--kube-api", url,
+             "--sched-mode", "poll", "--interval", "0.1",
+             "--metrics-port", str(port)], env=env, cwd=root,
+            stdin=subprocess.DEVNULL, stdout=out, stderr=subprocess.STDOUT)
+    try:
+        def wait(fn, what):
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline:
+                with contextlib.suppress(OSError):
+                    value = fn()
+                    if value:
+                        return value
+                time.sleep(0.005)
+            raise AssertionError(f"scheduler: timed out waiting for {what}")
+        wait(lambda: metric_samples(_http_get(base + "/metrics")).get((
+            "tpu_dra_sched_sync_seconds_count", (("mode", "full"),))),
+            "the polled binary's first pass")
+        kube.create("", "v1", "pods", {
+            "apiVersion": "v1", "kind": "Pod",
+            "metadata": {"name": "smoke-poll-pod", "namespace": "default"},
+            "spec": {"containers": [{"name": "main"}],
+                     "resourceClaims": [{
+                         "name": "gpu",
+                         "resourceClaimTemplateName": "smoke-gpu"}]}},
+            namespace="default")
+        pod = wait(lambda: (lambda p: p if p["spec"].get("nodeName")
+                            else None)(kube.get("", "v1", "pods",
+                                                "smoke-poll-pod",
+                                                namespace="default")),
+                   "the polled pod's binding")
+        (status,) = pod["status"]["resourceClaimStatuses"]
+        name = status["resourceClaimName"]
+        claim = kube.get(*res, "resourceclaims", name, namespace="default")
+        uid = claim["metadata"]["uid"]
+        out = driver.prepare_resource_claims(
+            [{"uid": uid, "namespace": "default", "name": name}])
+        prepared_at = time.perf_counter()
+        if out[uid][1] != "":
+            raise AssertionError(f"scheduler: the polled prepare {out}")
+        if driver.unprepare_resource_claims([{"uid": uid}]) != {uid: ""}:
+            raise AssertionError("scheduler: the polled unprepare")
+        kube.delete("", "v1", "pods", "smoke-poll-pod", namespace="default")
+        kube.delete(*res, "resourceclaims", name, namespace="default")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        if rc != 0:
+            raise AssertionError(f"scheduler: the polled binary exited {rc}")
+        return {"claim_created_to_allocated": round(
+                    (stamps[("allocated", name)] - stamps[("created", name)])
+                    * 1e3, 3),
+                "allocated_to_bound": round(
+                    (stamps[("bound", "smoke-poll-pod")]
+                     - stamps[("allocated", name)]) * 1e3, 3),
+                "allocated_to_prepare_done": round(
+                    (prepared_at - stamps[("allocated", name)]) * 1e3, 3)}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def phase_scheduler(seed: int) -> int:
@@ -5526,14 +5787,17 @@ def phase_scheduler(seed: int) -> int:
         port = free_port()
         env = {k: v for k, v in os.environ.items()
                if not k.startswith(("KUBE_API", "KUBERNETES_", "TPU_DRA_"))}
-        env.update({"PYTHONPATH": root, "TPU_DRA_DEBUG_HTTP": "1"})
+        # The binary's default mode, events; its safety resync every
+        # SCHED_RESYNC_S, so the waits below can count full passes.
+        env.update({"PYTHONPATH": root, "TPU_DRA_DEBUG_HTTP": "1",
+                    "TPU_DRA_SCHED_RESYNC": str(SCHED_RESYNC_S)})
         with open(f"{tmp}/scheduler.log", "w", encoding="utf-8") as out:
             t0 = time.perf_counter()
             proc = subprocess.Popen(
                 [sys.executable, "-m", SCHEDULER_MAIN, "--kube-api",
-                 server.url, "--interval", "0.1", "--metrics-port",
-                 str(port)], env=env, cwd=root, stdin=subprocess.DEVNULL,
-                stdout=out, stderr=subprocess.STDOUT)
+                 server.url, "--metrics-port", str(port)], env=env,
+                cwd=root, stdin=subprocess.DEVNULL, stdout=out,
+                stderr=subprocess.STDOUT)
         base = f"http://127.0.0.1:{port}"
 
         def metrics():
@@ -5642,8 +5906,9 @@ def phase_scheduler(seed: int) -> int:
             gpu_claim(name)
         gpu_claim("smoke-second")
         gpu_claim("smoke-mig", deviceclasses.MIG_CLASS)
+        # Two full passes after the writes: each claim has been tried.
         seen = full_passes()
-        wait(lambda: (full_passes() or 0) >= seen + 3, 30, "three passes")
+        wait(lambda: (full_passes() or 0) >= seen + 2, 30, "two passes")
         held = [kube.get(*res, "resourceclaims", n, namespace="default")[
             "status"].get("allocation") for n in fillers]
         second = kube.get(*res, "resourceclaims", "smoke-second",
@@ -5680,15 +5945,27 @@ def phase_scheduler(seed: int) -> int:
         samples = metrics()
         phases = {dict(lb)["phase"]: v for (n, lb), v in samples.items()
                   if n == "tpu_dra_claim_e2e_seconds_count"}
-        count = samples[("tpu_dra_sched_sync_seconds_count",
-                         (("mode", "full"),))]
-        ms["pass_mean"] = round(samples[(
-            "tpu_dra_sched_sync_seconds_sum", (("mode", "full"),))]
-            / count * 1e3, 3)
-        check(count > 0 and phases.get("fit", 0) >= 2
+        sync = {mode: (samples.get(("tpu_dra_sched_sync_seconds_count",
+                                    (("mode", mode),)), 0.0),
+                       samples.get(("tpu_dra_sched_sync_seconds_sum",
+                                    (("mode", mode),)), 0.0))
+                for mode in ("full", "incremental")}
+        count = sync["full"][0]
+        ms["pass_mean"] = round(sync["full"][1] / count * 1e3, 3)
+        ms["incremental_mean"] = round(
+            sync["incremental"][1] / max(sync["incremental"][0], 1) * 1e3,
+            3)
+        relists = {dict(lb)["resource"]: v for (n, lb), v in samples.items()
+                   if n == "tpu_dra_informer_relist_total"}
+        depth = samples.get(("tpu_dra_sched_dirty_queue_depth", ()))
+        check(count > 0 and sync["incremental"][0] > 0
+              and phases.get("queued", 0) >= 1
+              and phases.get("fit", 0) >= 2
               and phases.get("commit", 0) >= 2
-              and phases.get("patch", 0) >= 2,
-              f"/metrics: passes {count}, phases {phases}")
+              and phases.get("patch", 0) >= 2
+              and len(relists) == 10 and depth is not None and depth <= 1,
+              f"/metrics: sync {sync}, phases {phases}, relists {relists}, "
+              f"dirty depth {depth}")
         t0 = time.perf_counter()
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=60)
@@ -5697,15 +5974,29 @@ def phase_scheduler(seed: int) -> int:
             text = f.read()
         check(rc == 0 and "scheduler running" in text,
               f"the binary exited {rc}: {text[-2000:]}")
+        log(f"scheduler: event-mode binary on {card}: "
+            f"tpu_dra_sched_sync_seconds full {sync['full'][0]:.0f} passes "
+            f"(mean {ms['pass_mean']} ms), incremental "
+            f"{sync['incremental'][0]:.0f} dirty-key drains (mean "
+            f"{ms['incremental_mean']} ms); dirty queue depth {depth}; "
+            f"informer relists {relists}")
+        polled = _polled_binary_claim(kube, driver, server.url, env, root,
+                                      tmp, stamps, ["smoke-second",
+                                                    "smoke-mig", *fillers])
+        ms.update({f"polled_{k}": v for k, v in polled.items()})
         slice_obj = kube.list(*res, "resourceslices")[0]
         driver.stop()
         log(f"scheduler: binary on {card}: a template's claim generated, "
             f"allocated {[r['device'] for r in results]} with CEL "
             f"productName == {product!r} && memory >= 40Gi, reserved for "
-            f"and bound to its pod; claim created -> allocated "
-            f"{ms['claim_created_to_allocated']} ms, allocated -> bound "
-            f"{ms['allocated_to_bound']} ms, allocated -> prepare done "
-            f"{ms['allocated_to_prepare_done']} ms; one pass "
+            f"and bound to its pod; event mode (polled binary, "
+            f"--interval 0.1, in this run): claim created -> allocated "
+            f"{ms['claim_created_to_allocated']} "
+            f"({ms['polled_claim_created_to_allocated']}) ms, allocated -> "
+            f"bound {ms['allocated_to_bound']} "
+            f"({ms['polled_allocated_to_bound']}) ms, allocated -> prepare "
+            f"done {ms['allocated_to_prepare_done']} "
+            f"({ms['polled_allocated_to_prepare_done']}) ms; one pass "
             f"{ms['pass_mean']} ms (mean of {int(count)}); the flash "
             f"kernel in the claim's child: {result['launches']} launch, "
             f"max_abs_err {result['max_abs_err']}; trace {ctx.trace_id}: "
@@ -5766,6 +6057,61 @@ def phase_scheduler(seed: int) -> int:
                 f"pending {mixed['eights_pending']} of {FLEET_EIGHTS}, "
                 f"every single placed, no device twice; phase "
                 f"{ms[f'fleet_shuffle_{shuffle}']} ms")
+        # The same fleet fed through event mode.
+        for workers, batch in FLEET_EVENT_RUNS:
+            t0 = time.perf_counter()
+            ev = _fleet_run_events(slice_obj, workers, batch)
+            ms[f"fleet_events_w{workers}"] = round(
+                (time.perf_counter() - t0) * 1e3, 3)
+            held = ev["held"]
+            check(len(held) == len(set(held)) == FLEET_SINGLES
+                  + FLEET_EIGHTS * FLEET_GPUS
+                  and ev["allocated"] == fleet["allocated"]
+                  and ev["pending"] == ["unfit-nine", "unfit-product"]
+                  and all(len(n) == 1 for n in ev["eight_nodes"])
+                  and len(ev["eight_nodes"]) == FLEET_EIGHTS,
+                  f"the fleet in event mode, workers {workers}: "
+                  f"{ev['allocated']} allocated, pending {ev['pending']}, "
+                  f"8-GPU nodes {ev['eight_nodes']}")
+            log(f"scheduler: the fleet in event mode, workers {workers}, "
+                f"batch {batch}: {ev['allocated']} allocated in "
+                f"{ev['seconds']} s from the first claim's write to the "
+                f"last drain (the 8-GPU claims drained in "
+                f"{ev['eights_ms']} ms), {ev['claims_per_s']:.1f} claims/s "
+                f"(polled 8-GPU-first: {fleet['claims_per_s']:.1f}); "
+                f"{ev['incremental']:.0f} dirty-key drains, "
+                f"{ev['steals']:.0f} keys stolen, {ev['conflicts']:.0f} "
+                f"commit conflicts; every 8-GPU claim on one node, pending "
+                f"{ev['pending']}, no device twice; start {ev['start_ms']} "
+                f"ms, phase {ms[f'fleet_events_w{workers}']} ms on {card}")
+        # -- (c) two domains with spillover, in process.
+        t0 = time.perf_counter()
+        dom = _domain_run(slice_obj)
+        ms["domains_phase"] = round((time.perf_counter() - t0) * 1e3, 3)
+        spill = DOMAIN_A_CLAIMS - DOMAIN_NODES * FLEET_GPUS
+        short = DOMAIN_B_CLAIMS - (DOMAIN_NODES * FLEET_GPUS - spill)
+        check(len(dom["held"]) == len(set(dom["held"]))
+              and dom["placed"] == {"a->a": DOMAIN_NODES * FLEET_GPUS,
+                                    "a->b": spill,
+                                    "b->b": DOMAIN_B_CLAIMS - short}
+              and len(dom["pending"]) == short
+              and all(n.startswith("b-") for n in dom["pending"])
+              and dom["spilled"] == spill
+              and dom["spilled_marked"] == spill
+              and dom["exhausted_conditions"] == short
+              and dom["exhausted"]["b"] >= short
+              and dom["exhausted"]["a"] == 0,
+              f"the domains: {json.dumps({k: v for k, v in dom.items() if k != 'held'})}")
+        log(f"scheduler: two domains of {DOMAIN_NODES} nodes x {FLEET_GPUS} "
+            f"GPUs, an event-mode scheduler each in process: "
+            f"{DOMAIN_A_CLAIMS} claims pinned to a, {DOMAIN_B_CLAIMS} to b; "
+            f"placed {dom['placed']}; spilled a -> b {dom['spilled']:.0f} "
+            f"(tpu_dra_sched_domain_spilled_total), exhausted "
+            f"{ {d: int(v) for d, v in dom['exhausted'].items()} } "
+            f"(tpu_dra_sched_domain_exhausted_total), "
+            f"{len(dom['pending'])} pending with DomainExhausted, no device "
+            f"twice; ms {dom['ms']}, phase {ms['domains_phase']} ms on "
+            f"{card}")
         passed = True
         return result["launches"]
     finally:
@@ -6131,8 +6477,9 @@ def phase_recovery(seed: int) -> int:
         with open(f"{tmp}/scheduler.log", "w", encoding="utf-8") as out:
             proc = subprocess.Popen(
                 [sys.executable, "-m", SCHEDULER_MAIN, "--kube-api",
-                 server.url, "--interval", "0.1", "--metrics-port",
-                 str(port), "--recovery-root", f"{tmp}/recovery"],
+                 server.url, "--sched-mode", "poll", "--interval", "0.1",
+                 "--metrics-port", str(port), "--recovery-root",
+                 f"{tmp}/recovery"],
                 env=sched_env, cwd=root, stdin=subprocess.DEVNULL,
                 stdout=out, stderr=subprocess.STDOUT)
         base = f"http://127.0.0.1:{port}"
@@ -7413,7 +7760,8 @@ def phase_autoscale(seed: int) -> int:
         with open(log_path, "w", encoding="utf-8") as out:
             proc = subprocess.Popen(
                 [sys.executable, "-m", SCHEDULER_MAIN, "--kube-api",
-                 server.url, "--interval", str(AUTOSCALE_INTERVAL_S),
+                 server.url, "--sched-mode", "poll",
+                 "--interval", str(AUTOSCALE_INTERVAL_S),
                  "--metrics-port", str(port), "--autoscale-root",
                  f"{tmp}/autoscale"],
                 env=sched_env, cwd=root, stdin=subprocess.DEVNULL,

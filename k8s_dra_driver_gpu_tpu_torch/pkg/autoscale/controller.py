@@ -34,9 +34,9 @@ CRD's pre-warm annotation with its per-pool hysteresis.
 
 What differs from the JAX controller: its catalog's profiles are backed
 by ``subslice`` (default ``7g.80gb``, the H100 80GB's whole-GPU MIG
-profile; ``planner.py``), and the scheduler runs it in the polled pass
-only (the event mode's ``partitionsets`` informer and dirty key wait
-with ROADMAP.md §1c item 8).
+profile; ``planner.py``). The scheduler runs it in every full pass and,
+in event mode, on the ``("autoscale",)`` dirty key a PartitionSet event
+enqueues.
 """
 
 from __future__ import annotations

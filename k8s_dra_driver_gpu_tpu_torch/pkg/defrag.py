@@ -262,9 +262,9 @@ class DefragController:
     # -- scheduler surface ----------------------------------------------------
 
     def busy(self) -> bool:
-        """True while any move record is in flight (the JAX
-        scheduler's event mode gates per-claim-event defrag passes on
-        this; the polled pass runs one every pass)."""
+        """True while any move record is in flight (the scheduler's
+        event mode gates per-claim-event defrag passes on this; a full
+        pass runs one every time)."""
         with self._lock:
             return self._active_count > 0
 

@@ -12,13 +12,9 @@ does not import ``prometheus_client``). Ported: ``register_build_info``,
 member, ``TelemetryMetrics``), ``ResilienceMetrics``,
 ``RecoveryMetrics``, ``PartitionMetrics``, ``TelemetryMetrics``,
 ``FleetMetrics``, ``ComputeDomainMetrics``, ``PlacementMetrics``,
-``SchedulerMetrics`` (the families of the scheduler's polled pass: sync
-time, snapshot builds and the control-plane SLO phases),
-``DefragMetrics``, ``MigrationMetrics``, ``AutoscaleMetrics`` and
-``MetricsServer``. The others wait for the scheduler's event mode
-(ROADMAP.md §1c item 8): ``WorkQueueMetrics`` and the event-mode
-families of ``SchedulerMetrics`` (dirty queue, informer relists, delta
-builds, domains).
+``WorkQueueMetrics``, ``SchedulerMetrics``, ``DefragMetrics``,
+``MigrationMetrics``, ``AutoscaleMetrics`` and ``MetricsServer``: every
+family of the JAX module.
 """
 
 from __future__ import annotations
@@ -74,10 +70,10 @@ class ClaimSLOMetrics:
     ``commit`` (atomic reserve), ``patch`` (the allocation kube write),
     ``prepare`` (node-side NodePrepareResources, reported by both
     kubelet plugins), and ``evict`` (recovery-controller eviction to
-    re-placement). In the port the scheduler observes ``fit``,
-    ``commit`` and ``patch``, the node plugins ``prepare``, the recovery
-    controller attached to a scheduler ``evict``; ``queued`` waits for
-    the scheduler's event mode (ROADMAP.md §1c). Observations carry the
+    re-placement). In the port the scheduler observes ``queued`` (event
+    mode), ``fit``, ``commit`` and ``patch``, the node plugins
+    ``prepare``, the recovery controller attached to a scheduler
+    ``evict``. Observations carry the
     claim's trace id as an exemplar when one is active (kept on the
     bucket; the text format 0.0.4 does not print it)."""
 
@@ -632,16 +628,82 @@ class PlacementMetrics:
         )
 
 
+class WorkQueueMetrics:
+    """The keyed work queue's sink (``pkg/workqueue``'s ``metrics``):
+    ``shard`` is the worker that owns the shard, so one hot shard shows
+    as one deep gauge; the wait runs from enqueue to the callback's
+    start, retry and hot-key backoff included; ``hot_backoff_total``
+    counts the escalations of keys re-dirtied in a tight loop."""
+
+    def __init__(self, registry: CollectorRegistry | None = None):
+        self.registry = registry or CollectorRegistry()
+        self.depth = Gauge(
+            "tpu_dra_workqueue_depth",
+            "Keys queued per workqueue shard (worker index).",
+            ["shard"],
+            registry=self.registry,
+        )
+        self.wait = Histogram(
+            "tpu_dra_workqueue_wait_seconds",
+            "Queue latency from enqueue to callback start, including "
+            "retry/hot-key backoff.",
+            buckets=_BUCKETS,
+            registry=self.registry,
+        )
+        self.retries = Counter(
+            "tpu_dra_workqueue_retries_total",
+            "Callbacks re-enqueued with backoff after an error.",
+            registry=self.registry,
+        )
+        self.drops = Counter(
+            "tpu_dra_workqueue_drops_total",
+            "Keys dropped (PermanentError or retry budget exhausted).",
+            registry=self.registry,
+        )
+        self.hot_backoffs = Counter(
+            "tpu_dra_workqueue_hot_backoff_total",
+            "Fairness escalations applied to keys re-dirtied in a "
+            "tight loop (pkg/workqueue hot-key damping).",
+            registry=self.registry,
+        )
+        self.steals = Counter(
+            "tpu_dra_workqueue_steals_total",
+            "Ready keys stolen by idle workers from a backlogged "
+            "sibling's heap (pkg/workqueue work stealing); a rising "
+            "rate means one shard is hot enough to flood its owner.",
+            registry=self.registry,
+        )
+
+    def set_depth(self, shard: str, n: int) -> None:
+        self.depth.labels(shard).set(n)
+
+    def observe_wait(self, seconds: float) -> None:
+        self.wait.observe(max(seconds, 0.0))
+
+    def inc_retry(self) -> None:
+        self.retries.inc()
+
+    def inc_drop(self) -> None:
+        self.drops.inc()
+
+    def inc_hot_backoff(self) -> None:
+        self.hot_backoffs.inc()
+
+    def inc_steal(self, n: int = 1) -> None:
+        self.steals.inc(n)
+
+
 class SchedulerMetrics:
-    """The scheduler's polled pass (pkg/scheduler, pkg/schedcache):
-    ``sync_seconds{mode="full"}`` per pass, the inventory snapshot's
-    rebuilds, and the control plane's SLO phases (``slo``: fit, commit,
-    patch). The JAX class's event-mode families (the dirty queue's
-    depth, informer relists, per-pool delta builds, relist backoff, the
-    domains' counters, the workqueue) and its
-    ``tpu_dra_slice_publish_skipped_total`` wait for event mode, and its
-    ``tpu_dra_sched_commit_conflicts_total`` for workers > 1 (ROADMAP.md
-    §1c), since one worker fits and reserves against the same state."""
+    """The scheduler (pkg/scheduler, pkg/schedcache, pkg/informer):
+    ``sync_seconds`` by mode (``full`` passes, ``incremental`` dirty-key
+    drains) beside the dirty queue's depth; the informers' relists and
+    the coordinator's backoff before them; the inventory snapshot's full
+    builds and per-pool delta builds; commits refused at reserve time;
+    the domains' spills and exhaustions; the work queue
+    (``workqueue``); and the control plane's SLO phases (``slo``:
+    queued, fit, commit, patch). ``tpu_dra_slice_publish_skipped_total``
+    moves only for a publisher on this registry (none in the scheduler
+    binary)."""
 
     def __init__(self, registry: CollectorRegistry | None = None):
         self.registry = registry or CollectorRegistry()
@@ -653,6 +715,24 @@ class SchedulerMetrics:
             buckets=_BUCKETS,
             registry=self.registry,
         )
+        self.dirty_depth = Gauge(
+            "tpu_dra_sched_dirty_queue_depth",
+            "Dirty keys currently queued for incremental sync.",
+            registry=self.registry,
+        )
+        self.publish_skipped = Counter(
+            "tpu_dra_slice_publish_skipped_total",
+            "ResourceSlice writes skipped because the desired spec "
+            "matched the live spec by canonical content hash.",
+            registry=self.registry,
+        )
+        self.informer_relists = Counter(
+            "tpu_dra_informer_relist_total",
+            "Full informer relists by resource (the expensive fallback "
+            "path; incremental watch events do not count).",
+            ["resource"],
+            registry=self.registry,
+        )
         self.snapshot_build = Histogram(
             "tpu_dra_sched_snapshot_build_seconds",
             "Wall time to (re)build the indexed inventory snapshot "
@@ -661,6 +741,57 @@ class SchedulerMetrics:
             buckets=_BUCKETS,
             registry=self.registry,
         )
+        self.snapshot_delta = Histogram(
+            "tpu_dra_sched_snapshot_delta_seconds",
+            "Per-pool incremental sub-snapshot rebuild time on the "
+            "delta path (pkg/schedcache PoolSnapshot): one sample per "
+            "pool actually re-projected by a slice event; untouched "
+            "pools merge by identity and cost nothing. A healthy "
+            "10k-node fleet shows this replacing snapshot_build "
+            "entirely outside full resyncs.",
+            ["pool"],
+            buckets=_BUCKETS,
+            registry=self.registry,
+        )
+        self.relist_backoff = Histogram(
+            "tpu_dra_informer_relist_backoff_seconds",
+            "Jittered backoff the relist coordinator applied before "
+            "an informer's full relist (pkg/informer "
+            "RelistCoordinator): repeated relists of one resource "
+            "inside the quiet window back off exponentially so a "
+            "restart storm drains without thundering-herding the "
+            "apiserver. Quiet resources relist with zero delay and "
+            "record nothing here.",
+            ["resource"],
+            buckets=_BUCKETS,
+            registry=self.registry,
+        )
+        self.domain_spilled = Counter(
+            "tpu_dra_sched_domain_spilled_total",
+            "Claims re-homed by cross-domain spillover: a claim "
+            "pinned to an exhausted scheduling domain was annotated "
+            "over to a sibling domain (migration-cost ranked) instead "
+            "of pending forever.",
+            ["from_domain", "to_domain"],
+            registry=self.registry,
+        )
+        self.domain_exhausted = Counter(
+            "tpu_dra_sched_domain_exhausted_total",
+            "Allocation attempts for domain-pinned claims that found "
+            "no fit inside their scheduling domain's pools (the claim "
+            "gets a DomainExhausted condition + Warning Event instead "
+            "of waiting silently).",
+            ["domain"],
+            registry=self.registry,
+        )
+        self.commit_conflicts = Counter(
+            "tpu_dra_sched_commit_conflicts_total",
+            "Optimistic allocation commits rejected at reserve time "
+            "(another worker took a device/counter between fit and "
+            "commit); each conflict re-fits against fresh state.",
+            registry=self.registry,
+        )
+        self.workqueue = WorkQueueMetrics(registry=self.registry)
         self.slo = ClaimSLOMetrics(registry=self.registry)
 
 

@@ -1,5 +1,5 @@
 """A DRA-aware scheduler and resourceclaim controller (the JAX package's
-``pkg/scheduler.py``, its polled pass).
+``pkg/scheduler.py``).
 
 The upstream driver relies on kube-scheduler's DRA plugin and
 kube-controller-manager's resourceclaim controller; a cluster of fakes
@@ -57,27 +57,49 @@ port's kubelet plugins cannot tell:
    fold, beside defrag's, so the pending-demand ring it reads is fresh;
    its reads come from this scheduler's view, and the fleet snapshot
    (``/debug/fleet``'s ``tenant_demand``) shows its store's percentiles.
+10. **Scheduling domains** (``SchedulingDomain``, ``--sched-domain*``):
+   a scheduler of a domain sees only its pools' devices and owns only
+   the claims and pods annotated ``resource.tpu.dra/domain: <name>``
+   (the default domain also the unannotated ones and the cluster-wide
+   controllers); generated claims inherit their pod's domain. A pinned
+   claim that fits nowhere in its domain spills to the cheapest sibling
+   (``TPU_DRA_SPILLOVER``, ``..._MAX_HOPS``, ``..._ORDER_WEIGHT``,
+   ``..._UTIL_WEIGHT``: the siblings' order and their utilization) with
+   a ``DomainSpilled`` condition and Event, else carries
+   ``DomainExhausted``.
 
-One pass is ``sync_once``; ``run(interval)`` repeats it (the JAX
-scheduler's polled mode). Every read lists through the API server
-(``schedcache.ClusterView`` in direct mode), so the JAX scheduler's
-commit log, which covers an informer's lag behind its own patch, has
-nothing to cover here and is left out.
-
-What waits, each refused with ``NotPortedError`` naming its ROADMAP.md
-item (§1c item 8): event mode (``start_event_driven``,
-``--sched-mode events``, and with it the ``partitionsets`` informer and
-the autoscaler's dirty key), workers > 1 and the claim batch, and
-scheduling domains and spillover. The annotations only domains write
-(the domain and spillover keys) are not read.
+Two modes run the same sync code. Polled: ``sync_once`` is one full
+pass, ``run(interval)`` repeats it, every read lists through the API
+server. Event mode (``start_event_driven``): ``schedcache.ClusterView``
+puts an informer on every watched resource; each changed object becomes
+a dirty key (``("claim", ns, name)``, ``("pod", ns, name)`` or a control
+key such as ``("inventory",)``) on a ``pkg.workqueue.WorkQueue``, whose
+worker allocates or binds that one object against the snapshot (rebuilt
+per changed pool) and an allocation state retargeted, not rebuilt; a
+full pass every ``TPU_DRA_SCHED_RESYNC`` seconds (30) is the safety net.
+``workers`` > 1 (``TPU_DRA_SCHED_WORKERS``) shards claim and pod keys
+over N-1 workers by namespace/name, with work stealing, beside one
+worker for the control keys; a claim worker fits up to ``batch_max``
+(``TPU_DRA_SCHED_BATCH``, 8) due claims against one snapshot. Disjoint
+nodes commit in parallel under per-node locks; a commit refused at
+reserve time re-fits (``COMMIT_RETRIES``). A commit log replays this
+scheduler's own recent allocations into every rebuilt state, so an
+informer that lags its own patch cannot hand the devices out twice.
+Recovery, defrag and migration passes run on their dirty keys only
+while their controller is ``busy()``; a PartitionSet event is the
+autoscaler's key.
 
 Run it as ``python -m k8s_dra_driver_gpu_tpu_torch.pkg.scheduler
---kube-api URL [--default-node N] [--interval S] [--metrics-port N]
-[--recovery-root DIR] [--migration-root DIR] [--defrag-root DIR]
-[--autoscale-root DIR] [--leader-elect [--leader-elect-namespace NS]]``
-(each root, else its
-``TPU_DRA_{RECOVERY,MIGRATION,DEFRAG,AUTOSCALE}_ROOT``, attaches that
-controller over the directory's records); SIGTERM ends it with exit 0.
+--kube-api URL`` with the JAX binary's flags: ``--sched-mode
+{events,poll}`` (``TPU_DRA_SCHED_MODE``, default ``events``),
+``--interval S`` (poll mode), ``--sched-workers``, ``--sched-batch``,
+``--sched-domain[-pools|-default|-siblings]``, ``--default-node``,
+``--metrics-port``, ``--recovery-root``, ``--migration-root``,
+``--defrag-root``, ``--autoscale-root`` (each root, else its
+``TPU_DRA_*_ROOT``, attaches that controller over the directory's
+records) and ``--leader-elect [--leader-elect-namespace NS]``. In event
+mode the binary exits 1 if its informers have not listed within
+``SYNC_TIMEOUT_S``; SIGTERM ends it with exit 0.
 """
 
 from __future__ import annotations
@@ -94,36 +116,59 @@ import uuid
 
 from . import fleetstate, flightrecorder, tracing
 from .defrag import DEFRAG_TARGET_ANNOTATION, parse_target_hint
+from .defrag import claim_device_demand as _defrag_claim_demand
 from .events import emit_warning_event
-from .featuregates import (TOPOLOGY_AWARE_PLACEMENT, FeatureGateError,
-                           FeatureGates)
+from .featuregates import (
+    TOPOLOGY_AWARE_PLACEMENT,
+    FeatureGateError,
+    FeatureGates,
+)
 from .kubeclient import ConflictError, KubeError, NotFoundError
-from .schedcache import (DOMAINS, EVENT_MODE, ORDER_MISS, WORKERS,
-                         AllocationState, Candidate, ClusterView,
-                         CompiledSelectors, CounterLedger,
-                         InventorySnapshot, NotPortedError, tolerates)
-from .topology import TorusGrid, largest_free_shape, set_compactness
-from .topology import order_candidates as topo_order_candidates
+from .schedcache import (DOMAIN_ANNOTATION, ORDER_MISS,
+                         SPILLED_FROM_ANNOTATION, SPILLOVER_ANNOTATION,
+                         SPILLOVER_HOPS_ANNOTATION, AllocationState,
+                         Candidate, ClusterView, CompiledSelectors,
+                         CounterLedger, InventorySnapshot,
+                         NodeLockManager, SchedulingDomain, pool_key_of,
+                         tolerates)
+from .topology import TorusGrid, largest_free_shape
 from .topology.score import frag_from_largest
+from .topology import order_candidates as topo_order_candidates
+from .topology import set_compactness
 
 logger = logging.getLogger(__name__)
 
 RESOURCE = ("resource.k8s.io", "v1")
 
-# Binary flags of the JAX scheduler for what waits, refused when set.
-UNPORTED_FLAGS = {
-    "sched_domain": DOMAINS, "sched_domain_pools": DOMAINS,
-    "sched_domain_siblings": DOMAINS, "sched_domain_default": DOMAINS,
-    "sched_batch": WORKERS,
-}
-# The JAX scheduler's env knobs for what waits, refused when set (its
-# binary reads each as the default of the flag above of the same name).
-UNPORTED_ENV = {
-    "TPU_DRA_SCHED_BATCH": WORKERS,
-    "TPU_DRA_SCHED_DOMAIN": DOMAINS, "TPU_DRA_SCHED_DOMAIN_POOLS": DOMAINS,
-    "TPU_DRA_SCHED_DOMAIN_SIBLINGS": DOMAINS,
-    "TPU_DRA_SCHED_DOMAIN_DEFAULT": DOMAINS,
-}
+# Safety-net full-resync period for the event-driven mode: dirty keys
+# carry the steady state, this only catches watch gaps and software
+# bugs. Override with TPU_DRA_SCHED_RESYNC (seconds).
+DEFAULT_RESYNC_S = 30.0
+
+# Sync-queue worker count (event mode). 1 = the historical serialized
+# drain; N > 1 shards claim/pod keys over N-1 data workers plus one
+# dedicated control-key worker (full resync, inventory, recovery --
+# which therefore can never starve behind a claim flood). Override
+# with --sched-workers / TPU_DRA_SCHED_WORKERS.
+DEFAULT_SCHED_WORKERS = 1
+
+# Max dirty claim keys drained against ONE inventory snapshot /
+# device-class read (amortizes snapshot signature checks and static-CEL
+# memo warmup across a burst). Override with TPU_DRA_SCHED_BATCH.
+DEFAULT_SCHED_BATCH = 8
+
+# Dirty-key kinds handled by the dedicated control worker (shard 0).
+_CTL_KINDS = frozenset((
+    "full", "pending", "inventory", "daemonsets", "jobs", "recovery",
+    "defrag", "autoscale", "migration", "pods-rescan",
+))
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default
 
 
 def _meta(obj):
@@ -134,86 +179,179 @@ def _json_copy(obj):
     return json.loads(json.dumps(obj))
 
 
-def _refuse_env(env) -> None:
-    """The JAX scheduler's env knobs for what waits, set."""
-    workers = env.get("TPU_DRA_SCHED_WORKERS", "")
-    if workers.strip() not in ("", "1"):
-        raise NotPortedError(f"TPU_DRA_SCHED_WORKERS={workers}: {WORKERS} "
-                             "is not ported yet")
-    for name, what in UNPORTED_ENV.items():
-        if env.get(name, ""):
-            raise NotPortedError(f"{name}: {what} is not ported yet")
-
-
 class _FitBudgetExceeded(Exception):
-    """The bounded constraint search ran out of states (MAX_FIT_STEPS)."""
+    """The bounded constraint DFS ran out of states (see MAX_FIT_STEPS)."""
 
 
 class DraScheduler:
-    """The scheduler of one worker in polled mode: call ``sync_once()``,
-    ``run()`` or ``start()``."""
+    """The scheduler: call ``sync_once()``, ``run()``/``start()`` (the
+    polled loop) or ``start_event_driven()``."""
 
     def __init__(self, kube, default_node: str | None = None,
                  gates: FeatureGates | None = None, metrics=None,
-                 sched_metrics=None, workers: int | None = None,
-                 batch_max: int | None = None, domain=None,
+                 sched_metrics=None, resync_period: float | None = None,
+                 workers: int | None = None, batch_max: int | None = None,
+                 domain: SchedulingDomain | None = None,
                  fleet_metrics=None):
-        if workers is not None and workers != 1:
-            raise NotPortedError(f"workers={workers}: {WORKERS} is not "
-                                 "ported yet")
-        if batch_max is not None:
-            raise NotPortedError(f"batch_max={batch_max}: {WORKERS} is "
-                                 "not ported yet")
-        if domain is not None:
-            raise NotPortedError(f"{DOMAINS} is not ported yet")
-        _refuse_env(os.environ)
         self.kube = kube
         self.default_node = default_node
         self._selectors = CompiledSelectors()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
+        if workers is None:
+            workers = _env_int("TPU_DRA_SCHED_WORKERS",
+                               DEFAULT_SCHED_WORKERS)
+        self.sched_workers = max(1, workers)
+        if batch_max is None:
+            batch_max = _env_int("TPU_DRA_SCHED_BATCH",
+                                 DEFAULT_SCHED_BATCH)
+        self.batch_max = max(1, batch_max)
+        # Partitioned scheduling domain (scheduler-per-pool sharding):
+        # None = this instance owns everything (the historical shape).
+        self.domain = domain if domain is not None \
+            else SchedulingDomain.from_env()
+        # Cluster-wide controllers (DaemonSet/Job sync, recovery) run
+        # in exactly one domain; non-default domain instances only
+        # allocate/bind their own claims and pods.
+        self._cluster_controllers = (self.domain is None
+                                     or self.domain.default)
         if gates is None:
             try:
                 gates = FeatureGates.parse(os.environ.get("FEATURE_GATES",
                                                           ""))
             except FeatureGateError:
-                # A malformed FEATURE_GATES must not stop the control
-                # plane; the defaults are the safe fallback.
+                # A malformed FEATURE_GATES env must not kill the
+                # control plane; defaults are the safe fallback.
                 logger.exception("FEATURE_GATES unparseable; using defaults")
                 gates = FeatureGates()
         self.gates = gates
-        # ICI topology-aware ordering (pkg/topology); off, first-fit,
-        # which is also the fallback wherever devices publish no usable
-        # coordinates.
+        # ICI topology-aware device picking (pkg/topology). Off = the
+        # historical first-fit order, which also remains the automatic
+        # fallback whenever devices publish no usable coordinates.
         self._topology = gates.is_enabled(TOPOLOGY_AWARE_PLACEMENT)
         self.metrics = metrics  # PlacementMetrics or None
         self.sched_metrics = sched_metrics  # SchedulerMetrics or None
-        self.view = ClusterView(kube, default_node=default_node,
-                                on_snapshot_build=self._on_snapshot_build)
-        # The claim-lifecycle flight recorder (/debug/claims).
-        self.flight = flightrecorder.default()
-        # The fit phase's start, for the SLO breakdown (one worker, so
-        # one claim is fitted at a time).
-        self._fit_t0: float | None = None
-        # The permanent-failure recovery controller, if attached: its
-        # pass runs first in each pass, and allocation avoids the nodes
-        # it declared failed.
+        if resync_period is None:
+            try:
+                resync_period = float(os.environ.get(
+                    "TPU_DRA_SCHED_RESYNC", DEFAULT_RESYNC_S))
+            except ValueError:
+                resync_period = DEFAULT_RESYNC_S
+        self.resync_period = resync_period
+        # Cross-domain claim spillover (pkg/schedcache annotations):
+        # enabled for pool-restricted domains with configured siblings
+        # unless the master switch turns it off. Knobs:
+        # TPU_DRA_SPILLOVER (default on), TPU_DRA_SPILLOVER_MAX_HOPS,
+        # TPU_DRA_SPILLOVER_ORDER_WEIGHT / _UTIL_WEIGHT.
+        self._spillover_enabled = os.environ.get(
+            "TPU_DRA_SPILLOVER", "1") not in ("0", "false", "False")
+        self._spillover_max_hops = _env_int(
+            "TPU_DRA_SPILLOVER_MAX_HOPS", 1)
+        # Migration-cost weights: the operator's sibling ORDER is the stated
+        # preference, the sibling's current utilization is the
+        # congestion cost of moving there.
+        try:
+            self._spill_order_weight = float(os.environ.get(
+                "TPU_DRA_SPILLOVER_ORDER_WEIGHT", "1.0"))
+        except ValueError:
+            self._spill_order_weight = 1.0
+        try:
+            self._spill_util_weight = float(os.environ.get(
+                "TPU_DRA_SPILLOVER_UTIL_WEIGHT", "10.0"))
+        except ValueError:
+            self._spill_util_weight = 10.0
+        # Sibling-capacity memo: (expires, {sibling -> (free, total)}).
+        # Spill decisions are rare (exhaustion events), but an
+        # exhausted-domain claim FLOOD must not scan claims per claim.
+        # The lock makes rank+debit atomic across sharded workers --
+        # two workers spilling concurrently must not both judge the
+        # same pre-debit free count and overshoot the sibling.
+        self._spill_capacity_memo: tuple[float, dict] | None = None
+        self._spill_lock = threading.Lock()
+        # All reads in sync paths go through the view: informer caches
+        # in event mode, list-through in direct mode.
+        self.view = ClusterView(
+            kube, on_event=self._on_informer_event,
+            on_relist=self._on_informer_relist,
+            default_node=default_node,
+            pool_filter=(self.domain.owns_pool
+                         if self.domain is not None and self.domain.pools
+                         else None),
+            on_snapshot_build=self._on_snapshot_build,
+            on_snapshot_delta=self._on_snapshot_delta,
+            on_relist_backoff=self._on_relist_backoff)
+        # Inventory snapshot + incrementally-maintained allocation
+        # state; rebuilt whenever the snapshot changes and on every
+        # full pass (the safety property of the resync).
+        self._snap: InventorySnapshot | None = None
+        self._alloc: AllocationState | None = None
+        # Registry lock: guards the snapshot/alloc-state IDENTITY, the
+        # commit log, and the pod<->claim indexes. Held briefly only --
+        # never across kube I/O or a fit. Fine-grained
+        # allocation safety lives in the per-node locks + the
+        # AllocationState's atomic try_commit instead, so disjoint
+        # allocations commit in parallel. Documented hierarchy:
+        # node locks -> _state_lock -> AllocationState._alloc_lock.
+        self._state_lock = threading.RLock()
+        # Per-node allocation locks: same-node contenders serialize,
+        # gang/CD-window claims take their window as one sorted lock
+        # set, commit kube I/O is sanctioned under these only.
+        self._node_locks = NodeLockManager()
+        # Allocations THIS scheduler committed recently, replayed into
+        # every rebuilt AllocationState: with a real apiserver the
+        # informer cache can lag our own allocation patch, and a
+        # rebuild from that stale cache would otherwise see the devices
+        # as free and double-allocate them. Entries retire when the
+        # cache catches up (the claim's watch event carries the
+        # allocation) or after the TTL.
+        self._commit_log: dict[tuple[str, str], tuple[float, dict]] = {}
+        # Event mode plumbing.
+        self._queue = None  # WorkQueue, created by start_event_driven
+        self._resync_thread: threading.Thread | None = None
+        # pod <-> claim reverse index (event mode): which pods to
+        # re-check when a claim changes, without scanning all pods.
+        self._pods_of_claim: dict[tuple[str, str], set[str]] = {}
+        self._claims_of_pod: dict[tuple[str, str], set[str]] = {}
+        # Permanent-failure recovery (pkg/recovery.EvictionController):
+        # attached controllers ride this scheduler's sync loop (node /
+        # slice / claim events + the safety resync) and veto allocation
+        # onto permanently failed nodes.
         self.recovery = None
-        # The defrag and cooperative-migration controllers, if attached:
-        # allocation honours their placement hints and vetoes their
-        # device reservations.
+        # Active defragmentation (pkg/defrag.DefragController): rides
+        # the same loop (full passes + claim events while moves are in
+        # flight); its device reservations veto allocation off carve
+        # cells and move targets, and its placement hints steer the
+        # re-placement of moving claims.
         self.defrag = None
-        self.migration = None
-        # The serving autoscaler, if attached.
+        # Serving autoscaler (pkg/autoscale.AutoscaleController):
+        # rides the same loop (full passes + PartitionSet CRD events)
+        # and re-plans the fleet's partition layout from live tenant
+        # demand; its rollouts land as CRD writes the node plugins'
+        # watchers converge on.
         self.autoscaler = None
-        # The fleet telemetry fold, every pass. The process default
-        # (/debug/fleet) is claimed at the FIRST fold, so a scheduler
-        # only constructed never repoints it at an empty aggregator.
+        # Cooperative migration (pkg/migration.MigrationController):
+        # rides the same loop (full passes + claim events while
+        # handshakes are in flight); its destination reservations veto
+        # allocation exactly like defrag's, and its switch stage
+        # stamps the defrag placement hint to steer the re-placement.
+        self.migration = None
+        # Claim-lifecycle flight recorder (pkg/flightrecorder): every
+        # dirty-key enqueue / fit outcome / commit conflict / patch
+        # lands in the bounded ring served at /debug/claims.
+        self.flight = flightrecorder.default()
+        # Fleet telemetry aggregator (pkg/fleetstate): every full pass
+        # folds the inventory snapshot + allocation state + published
+        # node-telemetry attributes into per-pool utilization /
+        # fragmentation time-series (served at /debug/fleet, exported
+        # through FleetMetrics when the registry is wired). The
+        # process default (/debug/fleet, doctor bundles) is claimed
+        # lazily on the FIRST fold -- a merely-constructed scheduler
+        # (tests build several per process) never repoints the live
+        # one's endpoint at an empty aggregator.
         self.fleet = fleetstate.FleetAggregator(metrics=fleet_metrics)
         self._fleet_installed = False
-        # The pass's snapshot and allocation state, as allocation left
-        # them (its commits included): the fold reads them.
-        self._pass_state: tuple | None = None
+        # Per-worker fit-phase start time (SLO phase accounting).
+        self._fit_tls = threading.local()
 
     @property
     def _slo(self):
@@ -257,27 +395,70 @@ class DraScheduler:
         return self
 
     def attach_autoscaler(self, controller) -> "DraScheduler":
-        """Drive a ``pkg/autoscale.AutoscaleController`` from this
-        scheduler's pass: its sync runs in every pass after the fleet
-        fold, so the pending-demand ring it reads is fresh; its reads
-        come from this scheduler's view, it reads this scheduler's fleet
-        unless it was given one, and the fleet snapshot shows its
-        store's percentiles (``/debug/fleet``'s ``tenant_demand``)."""
+        """Drive a pkg/autoscale.AutoscaleController from this
+        scheduler's loop: its sync runs inside every full pass (after
+        the fleet fold, so the pending-demand ring it consults is
+        fresh) and on PartitionSet CRD dirty keys; its reads come from
+        this scheduler's informer-backed view; its TenantProfileStore
+        percentiles surface at /debug/fleet next to the rings."""
         controller.view = self.view
         if controller.fleet is None:
             controller.fleet = self.fleet
-        self.fleet.attach_profile_store(controller.store)
+        if self.fleet is not None:
+            self.fleet.attach_profile_store(controller.store)
         self.autoscaler = controller
         return self
 
-    def start_event_driven(self) -> "DraScheduler":
-        raise NotPortedError(f"{EVENT_MODE} is not ported yet")
+    # -- sharding plumbing ----------------------------------------------------
+
+    @property
+    def _sharded(self) -> bool:
+        """Multi-worker event mode: per-object work (claim allocation,
+        pod generation/binding) must run on its key's shard, so full
+        passes fan out dirty keys instead of doing that work inline."""
+        return self._queue is not None and self.sched_workers > 1
+
+    def _shard_of(self, key: tuple):
+        """Control keys pin to worker 0 (the recovery/resync lane,
+        immune to claim floods); claim/pod keys hash namespace/name
+        over the remaining workers."""
+        kind = key[0]
+        if kind in _CTL_KINDS or self.sched_workers == 1:
+            return 0
+        from .workqueue import stable_shard_hash  # noqa: PLC0415
+
+        h = stable_shard_hash(f"{key[1]}/{key[2]}" if len(key) >= 3
+                              else kind)
+        return 1 + h % (self.sched_workers - 1)
+
+    @staticmethod
+    def _stealable(key: tuple) -> bool:
+        """Only per-object data keys (claim/pod) may migrate to an idle
+        worker; control keys keep their dedicated worker-0 lane."""
+        return isinstance(key, tuple) and bool(key) and \
+            key[0] not in _CTL_KINDS
 
     def _on_snapshot_build(self, seconds: float) -> None:
         if self.sched_metrics is not None:
             self.sched_metrics.snapshot_build.observe(seconds)
 
-    # -- claim generation (the resourceclaim controller) ------------------------
+    def _on_snapshot_delta(self, pool_label: str,
+                           seconds: float) -> None:
+        if self.sched_metrics is not None:
+            self.sched_metrics.snapshot_delta.labels(
+                pool_label).observe(seconds)
+
+    def _on_relist_backoff(self, resource: str, seconds: float) -> None:
+        if self.sched_metrics is not None:
+            self.sched_metrics.relist_backoff.labels(
+                resource).observe(seconds)
+
+    def _owns(self, obj: dict) -> bool:
+        """Domain routing for claims and pods; domainless schedulers
+        own everything."""
+        return self.domain is None or self.domain.owns_object(obj)
+
+    # -- claim generation (kcm resourceclaim controller) ----------------------
 
     def _pods(self) -> list[dict]:
         try:
@@ -287,16 +468,39 @@ class DraScheduler:
 
     def _generate_claims(self):
         for pod in self._pods():
+            if not self._owns(pod):
+                continue
             refs = pod.get("spec", {}).get("resourceClaims") or []
             have = {s["name"] for s in pod.get("status", {}).get(
                 "resourceClaimStatuses") or []}
-            if any(r.get("resourceClaimTemplateName")
-                   and r["name"] not in have for r in refs):
-                self._generate_claims_for(pod)
+            if not any(r.get("resourceClaimTemplateName")
+                       and r["name"] not in have for r in refs):
+                continue
+            if self._sharded:
+                # Per-pod work belongs to the pod's shard: two workers
+                # generating for one pod would double-create the
+                # uuid-suffixed claims.
+                self._enqueue(("pod", _meta(pod).get("namespace",
+                                                     "default"),
+                               _meta(pod)["name"]))
+                continue
+            if self.view.event_driven:
+                # Generated claim names carry a uuid suffix, so a
+                # ConflictError can never dedupe them: in event mode
+                # the cached pod may lag our OWN status patch, and
+                # generating off it would orphan the first claim.
+                # Re-read the pod before deciding.
+                try:
+                    pod = self.kube.get(
+                        "", "v1", "pods", _meta(pod)["name"],
+                        namespace=_meta(pod).get("namespace", "default"))
+                except NotFoundError:
+                    continue
+            self._generate_claims_for(pod)
 
     def _generate_claims_for(self, pod) -> bool:
-        """Template-driven claim generation for one pod; True when the
-        pod's claim statuses were extended."""
+        """Template-driven claim generation for one pod. Returns True
+        when the pod's claim statuses were extended."""
         refs = pod.get("spec", {}).get("resourceClaims") or []
         statuses = pod.get("status", {}).get(
             "resourceClaimStatuses") or []
@@ -310,9 +514,18 @@ class DraScheduler:
             try:
                 template = self.view.get_template(tmpl, namespace=ns)
             except NotFoundError:
-                continue  # the template is not there yet: next pass
+                continue  # template not applied yet; retry next pass
             claim_name = (f"{_meta(pod)['name']}-{ref['name']}-"
                           f"{uuid.uuid4().hex[:5]}")
+            annotations = {
+                "resource.kubernetes.io/pod-claim-name": ref["name"],
+            }
+            # Generated claims inherit the pod's scheduling domain so
+            # the owning domain scheduler allocates them.
+            pod_domain = (_meta(pod).get("annotations") or {}).get(
+                DOMAIN_ANNOTATION)
+            if pod_domain:
+                annotations[DOMAIN_ANNOTATION] = pod_domain
             claim = {
                 "apiVersion": "resource.k8s.io/v1",
                 "kind": "ResourceClaim",
@@ -320,9 +533,7 @@ class DraScheduler:
                     "name": claim_name,
                     "namespace": ns,
                     "uid": f"claim-{uuid.uuid4().hex[:12]}",
-                    "annotations": {
-                        "resource.kubernetes.io/pod-claim-name": ref["name"],
-                    },
+                    "annotations": annotations,
                     "ownerReferences": [{
                         "apiVersion": "v1", "kind": "Pod",
                         "name": _meta(pod)["name"],
@@ -360,14 +571,42 @@ class DraScheduler:
         if not by_resource:
             return
         for pod in self._pods():
+            if not self._owns(pod):
+                continue
+            if self._sharded:
+                if self._pod_wants_extended_claim(pod, by_resource):
+                    self._enqueue(("pod",
+                                   _meta(pod).get("namespace", "default"),
+                                   _meta(pod)["name"]))
+                continue
             self._generate_extended_resource_claims_for(pod, by_resource)
+
+    @staticmethod
+    def _pod_wants_extended_claim(pod, by_resource) -> bool:
+        """Cheap pre-filter for the sharded fan-out: would
+        _generate_extended_resource_claims_for even consider this pod?"""
+        if pod.get("status", {}).get("extendedResourceClaimStatus"):
+            return False
+        if pod.get("spec", {}).get("nodeName"):
+            return False
+        if pod.get("status", {}).get("phase") not in (None, "", "Pending"):
+            return False
+        return any(
+            rname in by_resource
+            for c in pod.get("spec", {}).get("containers", [])
+            for rname in ((c.get("resources") or {}).get("limits") or {})
+        )
 
     def _generate_extended_resource_claims_for(self, pod,
                                                by_resource) -> bool:
         if pod.get("status", {}).get("extendedResourceClaimStatus"):
             return False
-        # Only while the pod is being scheduled: one already bound or
-        # past Pending must not acquire devices after the fact.
+        # KEP-5004 generates claims only while a pod is still being
+        # SCHEDULED: one already bound (spec.nodeName set -- e.g.
+        # scheduled before the class advertised
+        # extendedResourceName, or born bound like a DaemonSet pod)
+        # or past Pending must not retroactively acquire devices
+        # and double-count them under a running workload.
         if pod.get("spec", {}).get("nodeName"):
             return False
         if pod.get("status", {}).get("phase") not in (None, "",
@@ -383,8 +622,9 @@ class DraScheduler:
                 cls_name = by_resource.get(rname)
                 if not cls_name:
                     continue
-                # Whole numbers only; a malformed one must not wedge
-                # the pass.
+                # Extended-resource quantities must be whole
+                # numbers; a malformed one must not wedge the
+                # whole scheduling pass.
                 try:
                     count = int(str(qty))
                 except ValueError:
@@ -408,8 +648,12 @@ class DraScheduler:
             if bad_qty:
                 break
         if bad_qty:
-            # The pod can never schedule: say so on the pod (no
-            # admission here rejects the quantity).
+            # The pod can never schedule (the generation skip keeps
+            # _pending_extended_resource blocking its bind forever):
+            # surface that ON THE POD -- real k8s rejects
+            # non-integer extended resources at admission, but this
+            # control plane has no pod admission, so a condition +
+            # event is the observable analog.
             self._flag_unschedulable_pod(
                 pod, "InvalidExtendedResourceQuantity",
                 f"extended-resource quantity {bad_qty} is not a "
@@ -418,11 +662,19 @@ class DraScheduler:
         if not requests:
             return False
         ns = _meta(pod).get("namespace", "default")
-        # A name from the pod's uid: create and status patch are not
-        # atomic, and a retried pass must find the same claim.
+        # DETERMINISTIC name (pod uid, not uuid4): create + status
+        # patch are not atomic, and a retried pass must converge on
+        # the same claim instead of leaking allocated orphans.
         pod_uid = _meta(pod).get("uid", "") or _meta(pod)["name"]
         claim_name = (f"{_meta(pod)['name']}-extended-resources-"
                       f"{pod_uid[-5:]}")
+        annotations = {}
+        # Like template-generated claims: inherit the pod's scheduling
+        # domain so the owning domain scheduler allocates it.
+        pod_domain = (_meta(pod).get("annotations") or {}).get(
+            DOMAIN_ANNOTATION)
+        if pod_domain:
+            annotations[DOMAIN_ANNOTATION] = pod_domain
         claim = {
             "apiVersion": "resource.k8s.io/v1",
             "kind": "ResourceClaim",
@@ -430,7 +682,7 @@ class DraScheduler:
                 "name": claim_name,
                 "namespace": ns,
                 "uid": f"claim-{uuid.uuid4().hex[:12]}",
-                "annotations": {},
+                "annotations": annotations,
                 "ownerReferences": [{
                     "apiVersion": "v1", "kind": "Pod",
                     "name": _meta(pod)["name"],
@@ -444,7 +696,7 @@ class DraScheduler:
             self.kube.create(*RESOURCE, "resourceclaims", claim,
                              namespace=ns)
         except ConflictError:
-            pass  # an earlier pass created it
+            pass  # an earlier pass created it; converge on it
         self.kube.patch(
             "", "v1", "pods", _meta(pod)["name"],
             {"status": {"extendedResourceClaimStatus": {
@@ -490,16 +742,84 @@ class DraScheduler:
             involved_uid=_meta(pod).get("uid", ""),
             component="tpu-dra-scheduler")
 
-    # -- allocation (the DRA plugin of kube-scheduler) --------------------------
+    # -- allocation (kube-scheduler DRA plugin) -------------------------------
+
+    # Commit-log retention: long enough to outlive any realistic watch
+    # lag between our allocation patch and its event, short enough to
+    # bound memory. Replay is idempotent, so erring long is safe.
+    COMMIT_LOG_TTL_S = 120.0
+
+    def _replay_commits_locked(self, claims: list[dict]) -> None:
+        """Fold recently committed allocations into the (freshly
+        rebuilt) allocation state. Caller holds _state_lock; ``claims``
+        is the list the rebuild used.
+
+        In direct mode that list is a FRESH kube list, so an entry for
+        an absent claim means the claim was deleted -- and an entry
+        for a PRESENT claim with no allocation means it was
+        deallocated (e.g. the recovery controller's drain): drop both
+        (their devices are free again). In event mode the cache may
+        lag our own claim's create, so entries survive until the
+        claim's allocation-bearing event retires them or the TTL."""
+        now = time.monotonic()
+        present = {(c.get("metadata", {}).get("namespace", "default"),
+                    c.get("metadata", {}).get("name", "")): c
+                   for c in claims}
+        authoritative = not self.view.event_driven
+        for key in list(self._commit_log):
+            t, claim_like = self._commit_log[key]
+            live = present.get(key)
+            stale = authoritative and (
+                live is None
+                or not live.get("status", {}).get("allocation"))
+            if now - t > self.COMMIT_LOG_TTL_S or stale:
+                del self._commit_log[key]
+            else:
+                self._alloc.observe(claim_like)
+
+    def _ensure_alloc_state(self) -> tuple[InventorySnapshot,
+                                           AllocationState]:
+        """Current snapshot + allocation state. The snapshot read
+        happens OUTSIDE _state_lock (it has its own lock + event-mode
+        fast path), so the hot path costs one brief identity check.
+
+        When the view can answer WHICH pools changed between the state
+        we hold and the new snapshot (the per-pool delta log), the
+        allocation state RETARGETS in O(changed pools) -- a slice
+        event no longer costs an O(claims) rebuild. A full rebuild
+        survives as the fallback for unstamped snapshots, full
+        resyncs, and log gaps."""
+        snap = self.view.snapshot()
+        with self._state_lock:
+            if snap is self._snap and self._alloc is not None:
+                return self._snap, self._alloc
+            changed = None
+            if self._alloc is not None and self._snap is not None:
+                changed = self.view.changed_pools_between(
+                    self._snap, snap)
+            if changed is not None:
+                self._alloc.retarget(snap, changed)
+                self._snap = snap
+            else:
+                self._snap = snap
+                self._alloc = AllocationState(snap)
+                claims = self.view.claims()
+                self._alloc.rebuild(claims)
+                self._replay_commits_locked(claims)
+            return self._snap, self._alloc
 
     def _rebuild_alloc_state(self) -> tuple[InventorySnapshot,
                                             AllocationState]:
-        """The snapshot and an allocation state folded from a fresh list
-        of the claims (every pass)."""
+        """Full defensive rebuild (every full pass does this, which is
+        what makes the safety resync actually safe)."""
         snap = self.view.snapshot()
-        alloc = AllocationState(snap)
-        alloc.rebuild(self.view.claims())
-        return snap, alloc
+        with self._state_lock:
+            self._snap = snap
+            self._alloc = AllocationState(snap)
+            claims = self.view.claims()
+            self._alloc.rebuild(claims)
+            self._replay_commits_locked(claims)
+            return self._snap, self._alloc
 
     def _device_matches(self, snap: InventorySnapshot, cand: Candidate,
                         selectors: list[dict],
@@ -516,6 +836,13 @@ class DraScheduler:
 
     def _device_classes(self) -> dict[str, dict]:
         return {_meta(c)["name"]: c for c in self.view.device_classes()}
+
+    # Optimistic-commit retry budget: a conflict means another worker
+    # reserved a device/counter between our fit and our try_commit;
+    # each retry re-fits against fresh state. Same-node contenders are
+    # already serialized by the node lock, so conflicts only come from
+    # cross-node counter races and are rare.
+    COMMIT_RETRIES = 4
 
     def _candidate_nodes(self, claim, snap: InventorySnapshot,
                          alloc: AllocationState, window: set,
@@ -547,29 +874,78 @@ class DraScheduler:
     def _allocate_one(self, claim, snap: InventorySnapshot,
                       alloc: AllocationState, classes,
                       pinned_node: str | None = None) -> str:
-        """One claim: fit on each candidate node in turn (a ComputeDomain
-        window's first), reserve (``try_commit``), then patch; a failed
-        patch releases the reservation. Returns "committed", "unfit",
-        "failed", "conflict" or "norequests"."""
+        """One claim through the sharded allocation protocol:
+
+        1. **Fit** per candidate node under that node's lock (gang /
+           CD-window claims take the whole window as one sorted
+           multi-node lock set), reading allocation state optimistically.
+        2. **Reserve** atomically (``AllocationState.try_commit``): the
+           planned devices must still be free and the counter budgets
+           must still fit; a conflict re-fits against fresh state.
+        3. **Commit** the kube patch while still holding the node lock
+           (same-node contenders serialize; disjoint nodes proceed in
+           parallel); a failed patch releases the reservation so a
+           write that never landed never leaks a debit
+           (commit-then-observe).
+
+        Returns the final outcome ("committed" | "unfit" | "failed" |
+        "conflict" | "norequests"). ``pinned_node`` restricts placement
+        to the node a consumer pod is already bound to (real DRA
+        allocates during that pod's scheduling, so the choice is
+        inherently per-node)."""
         requests = claim.get("spec", {}).get("devices", {}).get(
             "requests", [])
         if not requests:
             return "norequests"
+        # ComputeDomain gangs first try the ICI-adjacent host window
+        # the CD controller picked; load still spreads the gang's
+        # members WITHIN the window, and non-window nodes remain as
+        # overflow so a full window degrades instead of wedging.
         window = set(self._preferred_gang_nodes(claim) or ())
         ns = _meta(claim).get("namespace", "default")
         uid = _meta(claim).get("uid", "")
         with tracing.span("sched.claim", attrs={
                 "claim": f"{ns}/{_meta(claim).get('name', '?')}",
                 "claim_uid": uid}) as claim_span:
-            # The fit phase runs from here to try_commit.
-            self._fit_t0 = time.monotonic()
-            nodes = self._candidate_nodes(claim, snap, alloc, window,
-                                          pinned_node)
-            # One ledger and power copy, shared by every probed node:
-            # try_commit judges anew at reserve time.
-            outcome = self._fit_and_commit(
-                claim, nodes, snap, alloc, alloc.ledger_snapshot(), classes,
-                alloc.power_snapshot())
+            # Fit-phase clock for the SLO breakdown: everything from
+            # here until the winning try_commit is "fit" (candidate
+            # walk, constraint DFS, conflict re-fits). Thread-local:
+            # N workers allocate concurrently.
+            self._fit_tls.t0 = time.monotonic()
+            outcome = "unfit"
+            for _attempt in range(self.COMMIT_RETRIES):
+                if _attempt:
+                    # A conflict means our captured state is stale --
+                    # typically a safety-resync rebuild swapped in a
+                    # fresh AllocationState mid-batch and the old
+                    # object stopped receiving observes. Re-fit
+                    # against the LIVE state or every retry keeps
+                    # picking the same stolen devices.
+                    with self._state_lock:
+                        if self._alloc is not None:
+                            alloc = self._alloc
+                        if self._snap is not None:
+                            snap = self._snap
+                nodes = self._candidate_nodes(claim, snap, alloc,
+                                              window, pinned_node)
+                # One ledger copy per attempt, shared across every
+                # probed node: the fit is optimistic anyway (try_commit
+                # re-judges budgets at reserve time), so a pending
+                # claim walking all 1000 nodes doesn't pay 1000 locked
+                # copies. The power-debit view rides along the same
+                # way (one copy per attempt, re-judged at reserve).
+                ledger = alloc.ledger_snapshot()
+                power = alloc.power_snapshot()
+                outcome = self._try_nodes(claim, nodes, window, snap,
+                                          alloc, ledger, classes,
+                                          power)
+                if outcome == "committed":
+                    self._clear_domain_exhausted(claim)
+                    break
+                if outcome != "conflict":
+                    break
+                if self.sched_metrics is not None:
+                    self.sched_metrics.commit_conflicts.inc()
             claim_span.set_attr("outcome", outcome)
         self.flight.record(
             uid or f"{ns}/{_meta(claim).get('name', '?')}", "fit",
@@ -577,13 +953,50 @@ class DraScheduler:
             trace_id=(claim_span.context.trace_id
                       if claim_span.recording else ""),
             outcome=outcome)
+        if outcome == "committed":
+            return outcome
         if outcome == "conflict":
-            # One worker fits and reserves against the same state, so
-            # only a fit that disagrees with try_commit gets here.
             logger.warning(
-                "claim %s/%s: refused at reserve time; leaving pending "
-                "for the next sync", ns, _meta(claim).get("name", "?"))
+                "claim %s/%s: %d consecutive commit conflicts; leaving "
+                "pending for the next sync",
+                _meta(claim).get("namespace", "default"),
+                _meta(claim).get("name", "?"), self.COMMIT_RETRIES)
+        elif outcome == "unfit" and pinned_node is None:
+            # A domain-pinned claim that found no fit spills to a
+            # sibling domain (annotating intent) instead of pending
+            # forever; only when it cannot spill does it surface the
+            # exhaustion condition.
+            if not self._maybe_spill(claim):
+                self._flag_domain_exhausted(claim)
         return outcome
+
+    def _try_nodes(self, claim, nodes: list[str], window: set,
+                   snap: InventorySnapshot, alloc: AllocationState,
+                   ledger: CounterLedger, classes,
+                   power: dict | None = None) -> str:
+        """Walk the candidate nodes under per-node locks; window gangs
+        take their whole (sorted) window lock set in ONE acquisition so
+        two gangs overlapping on any node cannot deadlock. Returns
+        "committed" | "conflict" | "failed" | "unfit"."""
+        if window:
+            win_nodes = [n for n in nodes if n in window]
+            if win_nodes:
+                with self._node_locks.hold(win_nodes):
+                    out = self._fit_and_commit(claim, win_nodes, snap,
+                                               alloc, ledger, classes,
+                                               power)
+                if out != "unfit":
+                    return out
+            rest = [n for n in nodes if n not in window]
+        else:
+            rest = nodes
+        for node in rest:
+            with self._node_locks.hold((node,)):
+                out = self._fit_and_commit(claim, (node,), snap, alloc,
+                                           ledger, classes, power)
+            if out != "unfit":
+                return out
+        return "unfit"
 
     def _fit_and_commit(self, claim, nodes, snap: InventorySnapshot,
                         alloc: AllocationState, ledger: CounterLedger,
@@ -639,9 +1052,11 @@ class DraScheduler:
             }]}
         return alloc_obj
 
-    # States the constraint search may visit for one claim on one node
-    # before the node counts as unable to take it (a guard against
-    # pathological specs).
+    # DFS budget for the constraint-aware fit: a claim that cannot be
+    # decided within this many visited states is treated as unsatisfiable
+    # on the node (and logged). Topology claims are tiny (a handful of
+    # requests over tens of devices); the bound only guards pathological
+    # specs.
     MAX_FIT_STEPS = 20_000
 
     @staticmethod
@@ -662,7 +1077,7 @@ class DraScheduler:
                 return (kind, entry[kind])
         return None
 
-    # -- ICI topology-aware ordering (pkg/topology) ------------------------------
+    # -- ICI topology-aware ordering (pkg/topology) ---------------------------
 
     @staticmethod
     def _grid_for(cands: list[Candidate]) -> TorusGrid:
@@ -959,6 +1374,269 @@ class DraScheduler:
                 _meta(claim).get("name", "?"), self.MAX_FIT_STEPS, node)
             return None
 
+    # -- domain-exhaustion surfacing (scheduler-per-pool sharding) ------------
+
+    DOMAIN_EXHAUSTED_CONDITION = "DomainExhausted"
+    DOMAIN_SPILLED_CONDITION = "DomainSpilled"
+
+    def _flag_domain_exhausted(self, claim) -> None:
+        """A claim PINNED into this scheduling domain found no fit in
+        the domain's (pool-restricted) inventory. Without this it sits
+        silently Pending forever -- the domain annotation stops it from
+        spilling to other pools by design. Surface the wedge: a
+        ``DomainExhausted`` condition on the claim plus a deduped
+        Warning Event, and count it
+        (tpu_dra_sched_domain_exhausted_total) so operators can alert
+        on a full domain."""
+        if self.domain is None or not self.domain.pools:
+            return  # unrestricted inventory: not a domain wedge
+        ann = (_meta(claim).get("annotations") or {}).get(
+            DOMAIN_ANNOTATION, "")
+        if not ann:
+            return  # default-domain traffic is not pinned
+        if self.sched_metrics is not None:
+            self.sched_metrics.domain_exhausted.labels(ann).inc()
+        ns = _meta(claim).get("namespace", "default")
+        name = _meta(claim)["name"]
+        message = (
+            f"no device fit in scheduling domain {ann!r} (pools "
+            f"{sorted(self.domain.pools)}); the claim stays pending "
+            "until domain capacity frees or the annotation moves it"
+        )
+        conditions = claim.get("status", {}).get("conditions") or []
+        for c in conditions:
+            if c.get("type") == self.DOMAIN_EXHAUSTED_CONDITION and \
+                    c.get("status") == "True" and \
+                    c.get("message") == message:
+                return  # already surfaced: deduped, no churn
+        kept = [c for c in conditions
+                if c.get("type") != self.DOMAIN_EXHAUSTED_CONDITION]
+        kept.append({
+            "type": self.DOMAIN_EXHAUSTED_CONDITION,
+            "status": "True",
+            "reason": "DomainExhausted",
+            "message": message,
+        })
+        try:
+            self.kube.patch(*RESOURCE, "resourceclaims", name,
+                            {"status": {"conditions": kept}},
+                            namespace=ns)
+        except KubeError:
+            # Cosmetic surfacing write: a flaky apiserver here must
+            # never abort the sync pass that real allocations ride on.
+            return
+        # Deterministic name = create-once dedupe: repeat passes hit
+        # ConflictError instead of spamming.
+        emit_warning_event(
+            self.kube, event_name=f"{name}.domain-exhausted",
+            namespace=ns, reason="DomainExhausted", message=message,
+            involved_kind="ResourceClaim", involved_name=name,
+            involved_uid=_meta(claim).get("uid", ""),
+            component="tpu-dra-scheduler")
+
+    def _clear_domain_exhausted(self, claim) -> None:
+        """An allocation landed for a claim that carried the
+        exhaustion (or in-flight spill) condition: retire it (status
+        False) so observers see the recovery."""
+        conditions = claim.get("status", {}).get("conditions") or []
+        retire = {self.DOMAIN_EXHAUSTED_CONDITION:
+                  "domain capacity freed; claim allocated",
+                  self.DOMAIN_SPILLED_CONDITION:
+                  "claim allocated in the spill target domain"}
+        live = {c.get("type") for c in conditions
+                if c.get("type") in retire and c.get("status") == "True"}
+        if not live:
+            return
+        kept = [c for c in conditions if c.get("type") not in live]
+        for cond_type in sorted(live):
+            kept.append({
+                "type": cond_type,
+                "status": "False",
+                "reason": "Allocated",
+                "message": retire[cond_type],
+            })
+        try:
+            self.kube.patch(
+                *RESOURCE, "resourceclaims", _meta(claim)["name"],
+                {"status": {"conditions": kept}},
+                namespace=_meta(claim).get("namespace", "default"))
+        except (NotFoundError, ConflictError, KubeError):
+            pass  # cosmetic: the allocation itself already landed
+
+    # -- cross-domain claim spillover -----------------------------------------
+
+    # Sibling-capacity memo TTL: bounds the claims+slices scan rate
+    # under an exhausted-domain claim flood.
+    SPILL_MEMO_TTL_S = 2.0
+
+    @staticmethod
+    def _claim_device_demand(claim) -> int:
+        """Rough device count one claim needs (All-mode counts 1):
+        a sibling with less free capacity than this can be skipped
+        without a fit. ONE rule, shared with the defrag demand
+        signal (pkg/defrag.claim_device_demand) so the two readers
+        of 'how many chips does this claim want' can never drift."""
+        return _defrag_claim_demand(claim)
+
+    def _sibling_capacity(self) -> dict[str, tuple[int, int]]:
+        """sibling name -> (free devices, total devices) across the
+        sibling's pools, computed from the UNfiltered informer caches
+        (this domain's snapshot is pool-restricted by design, so the
+        spill decision is the one read that must see past the fence).
+        Memoized briefly: spills are rare but arrive in floods when a
+        domain fills."""
+        memo = self._spill_capacity_memo
+        now = time.monotonic()
+        if memo is not None and memo[0] > now:
+            return memo[1]
+        try:
+            slices = self.view.slices()
+            claims = self.view.claims()
+        except KubeError:
+            return {}
+        siblings = self.domain.siblings if self.domain else []
+        # Newest-generation device keys per sibling.
+        newest: dict[tuple, int] = {}
+        for s in slices:
+            pk = pool_key_of(s)
+            gen = s.get("spec", {}).get("pool", {}).get("generation", 0)
+            newest[pk] = max(newest.get(pk, 0), gen)
+        totals: dict[str, set] = {sib.name: set() for sib in siblings}
+        for s in slices:
+            spec = s.get("spec", {})
+            pk = pool_key_of(s)
+            if spec.get("pool", {}).get("generation", 0) != newest[pk]:
+                continue
+            node = spec.get("nodeName", "")
+            for sib in siblings:
+                if sib.owns_pool(pk[1], node):
+                    for dev in spec.get("devices", []):
+                        totals[sib.name].add(
+                            (pk[0], pk[1], dev.get("name", "")))
+        allocated: set = set()
+        for claim in claims:
+            alloc = claim.get("status", {}).get("allocation") or {}
+            for r in alloc.get("devices", {}).get("results", []):
+                allocated.add((r.get("driver", ""), r.get("pool", ""),
+                               r.get("device", "")))
+        out = {
+            name: (len(keys - allocated), len(keys))
+            for name, keys in totals.items()
+        }
+        self._spill_capacity_memo = (now + self.SPILL_MEMO_TTL_S, out)
+        return out
+
+    def _rank_spill_target(self, claim) -> "SchedulingDomain | None":
+        """Cheapest sibling by migration-cost score: configured order
+        (weighted) + current utilization (weighted), siblings without
+        enough free devices for the claim's rough demand skipped."""
+        demand = self._claim_device_demand(claim)
+        capacity = self._sibling_capacity()
+        best, best_cost = None, None
+        for idx, sib in enumerate(self.domain.siblings):
+            free, total = capacity.get(sib.name, (0, 0))
+            if total <= 0 or free < demand:
+                continue
+            util = 1.0 - free / total
+            cost = (self._spill_order_weight * idx
+                    + self._spill_util_weight * util)
+            if best_cost is None or cost < best_cost:
+                best, best_cost = sib, cost
+        return best
+
+    def _maybe_spill(self, claim) -> bool:
+        """Re-home a domain-pinned, domain-exhausted claim to the
+        cheapest sibling domain: ONE annotation patch moves the
+        domain pin, records the original domain
+        (``spilled-from``) and the hop count, and the sibling's
+        scheduler picks the claim up off the resulting watch event.
+        Deduped ``DomainSpilled`` Warning Event; claims annotated
+        ``resource.tpu.dra/spillover: "false"`` never move. Returns
+        True when the claim was spilled."""
+        domain = self.domain
+        if (not self._spillover_enabled or domain is None
+                or not domain.pools or not domain.siblings):
+            return False
+        ann = _meta(claim).get("annotations") or {}
+        if ann.get(DOMAIN_ANNOTATION, "") != domain.name:
+            return False  # not pinned here: not ours to move
+        if ann.get(SPILLOVER_ANNOTATION, "").lower() in (
+                "false", "0", "off", "disabled"):
+            return False  # operator opt-out
+        try:
+            hops = int(ann.get(SPILLOVER_HOPS_ANNOTATION, "0") or 0)
+        except ValueError:
+            hops = self._spillover_max_hops  # malformed: stop moving
+        if hops >= self._spillover_max_hops:
+            return False
+        with self._spill_lock:
+            # Rank + capacity debit are ATOMIC: concurrent workers
+            # spilling a flood each consume their demand from the
+            # memoized free count before the next one judges it. The
+            # debit is conservative (a failed patch below leaves it
+            # spent until the memo's 2s TTL) -- under-spilling briefly
+            # beats overshooting the sibling.
+            target = self._rank_spill_target(claim)
+            if target is None:
+                return False  # every sibling full too: stay + surface
+            memo = self._spill_capacity_memo
+            if memo is not None and target.name in memo[1]:
+                free, total = memo[1][target.name]
+                memo[1][target.name] = (
+                    free - self._claim_device_demand(claim), total)
+        ns = _meta(claim).get("namespace", "default")
+        name = _meta(claim)["name"]
+        origin = ann.get(SPILLED_FROM_ANNOTATION) or domain.name
+        # The condition rides the SAME patch as the re-home: if the
+        # target domain name is misconfigured (no scheduler owns it),
+        # the claim still SHOWS what happened to it -- pre-spillover
+        # it at least pended with a visible DomainExhausted.
+        conditions = [c for c in claim.get("status", {}).get(
+            "conditions") or []
+            if c.get("type") != self.DOMAIN_SPILLED_CONDITION]
+        conditions.append({
+            "type": self.DOMAIN_SPILLED_CONDITION,
+            "status": "True",
+            "reason": "DomainSpilled",
+            "message": (f"spilled from domain {origin!r} to sibling "
+                        f"{target.name!r} (hop {hops + 1}); pending "
+                        "here means no scheduler owns that domain"),
+        })
+        patch = {
+            "metadata": {"annotations": {
+                DOMAIN_ANNOTATION: target.name,
+                SPILLED_FROM_ANNOTATION: origin,
+                SPILLOVER_HOPS_ANNOTATION: str(hops + 1),
+            }},
+            "status": {"conditions": conditions},
+        }
+        try:
+            self.kube.patch(*RESOURCE, "resourceclaims", name, patch,
+                            namespace=ns)
+        except KubeError:
+            return False  # claim gone / conflicted: retry next pass
+        if self.sched_metrics is not None:
+            self.sched_metrics.domain_spilled.labels(
+                domain.name, target.name).inc()
+        self.flight.record(
+            _meta(claim).get("uid", "") or f"{ns}/{name}", "spilled",
+            alias=f"{ns}/{name}", src=domain.name, dst=target.name)
+        message = (
+            f"domain {domain.name!r} exhausted; claim spilled to "
+            f"sibling domain {target.name!r} (hop {hops + 1}, origin "
+            f"{origin!r}); annotate "
+            f"{SPILLOVER_ANNOTATION}=false to opt out")
+        # Deterministic name = create-once dedupe, like DomainExhausted.
+        emit_warning_event(
+            self.kube, event_name=f"{name}.domain-spilled",
+            namespace=ns, reason="DomainSpilled", message=message,
+            involved_kind="ResourceClaim", involved_name=name,
+            involved_uid=_meta(claim).get("uid", ""),
+            component="tpu-dra-scheduler")
+        logger.info("claim %s/%s spilled: domain %s -> %s", ns, name,
+                    domain.name, target.name)
+        return True
+
     def _claim_pins(self) -> dict[tuple[str, str], str]:
         """(namespace, claim name) -> node, for claims whose consumer pod
         is bound (a DaemonSet's pods are born bound)."""
@@ -994,31 +1672,59 @@ class DraScheduler:
     def _commit_allocation(self, claim, alloc_obj,
                            snap: InventorySnapshot,
                            alloc: AllocationState) -> str:
-        """Reserve atomically, then patch: the reservation is visible
-        before the write, and a failed write releases it. The patch
-        carries the resourceVersion the fit read (the API server 409s a
-        claim touched since) and the commit span's traceparent, so the
-        node's prepare spans are its children. Returns "committed",
-        "conflict" or "failed"."""
+        """Reserve atomically, then patch. The reservation makes the
+        devices visible to every other worker BEFORE the kube write, so
+        nobody can plan against them in the patch window; a failed
+        patch releases it (commit-then-observe: the incremental state
+        only ever keeps allocations that landed). Returns
+        "committed" | "conflict" | "failed"."""
         ns = _meta(claim).get("namespace", "default")
-        name = _meta(claim)["name"]
-        claim_like = {"metadata": _meta(claim),
-                      "status": {"allocation": alloc_obj}}
+        claim_like = {
+            "metadata": _meta(claim),
+            "status": {"allocation": alloc_obj},
+        }
+        # Reserve against the LIVE state, atomically with the
+        # commit-log insert, under _state_lock: state installs
+        # (_ensure/_rebuild) take the same lock, so a rebuild that ran
+        # after the caller captured ``alloc`` is the state we reserve
+        # on, and any LATER rebuild replays the log entry -- either
+        # way the reservation is visible before the patch is in
+        # flight, so no worker can fit against a state that never saw
+        # it (the double-allocation window). The fit itself stays
+        # optimistic (it may have read a superseded state); try_commit
+        # re-judges everything here.
+        log_key = (ns, _meta(claim)["name"])
         uid = _meta(claim).get("uid", "")
-        fit_t0 = self._fit_t0
+        fit_t0 = getattr(self._fit_tls, "t0", None)
         t_commit0 = time.monotonic()
         with tracing.span("sched.commit", attrs={
                 "claim_uid": uid}) as commit_sp:
-            if not alloc.try_commit(claim_like):
-                commit_sp.set_attr("conflict", True)
-                self.flight.record(
-                    uid or name, "commit_conflict", alias=f"{ns}/{name}",
-                    trace_id=(commit_sp.context.trace_id
-                              if commit_sp.recording else ""))
-                return "conflict"
+            with self._state_lock:
+                live = self._alloc if self._alloc is not None else alloc
+                if not live.try_commit(claim_like):
+                    commit_sp.set_attr("conflict", True)
+                    self.flight.record(
+                        uid or log_key[1], "commit_conflict",
+                        alias=f"{ns}/{log_key[1]}",
+                        trace_id=(commit_sp.context.trace_id
+                                  if commit_sp.recording else ""))
+                    return "conflict"
+                self._commit_log[log_key] = (time.monotonic(), claim_like)
             trace_id = (commit_sp.context.trace_id
                         if commit_sp.recording else "")
+            self._fit_tls.trace_id = trace_id
+            # Cross-binary propagation: the traceparent annotation
+            # rides the SAME patch as the allocation, so the kubelet
+            # plugins' prepare spans become children of THIS commit
+            # span -- one trace id, pod admission to carve-out.
             patch = {"status": {"allocation": alloc_obj}}
+            # The patch rides the resourceVersion the fit READ: the
+            # apiserver 409s if anything touched the claim since, which
+            # is the only arbiter that stops a second active-active
+            # scheduler (own informer, own ledger) from stamping a
+            # conflicting allocation over this one. The ConflictError
+            # path below releases the reservation and the claim comes
+            # back through resync against the post-write state.
             rv = _meta(claim).get("resourceVersion")
             if rv is not None:
                 patch["metadata"] = {"resourceVersion": rv}
@@ -1027,20 +1733,36 @@ class DraScheduler:
                     tracing.inject(commit_sp, {}))
             elif tracing.TRACEPARENT_ANNOTATION in (
                     _meta(claim).get("annotations") or {}):
-                # An unsampled re-allocation clears an earlier
-                # allocation's traceparent, or the prepare would join
-                # the dead trace.
+                # Unsampled re-allocation of a claim that still carries
+                # a PREVIOUS allocation's traceparent (eviction ->
+                # migration): clear it (merge-patch null), or the node
+                # plugin would parent this prepare under the dead
+                # first trace.
                 patch.setdefault("metadata", {})["annotations"] = {
                     tracing.TRACEPARENT_ANNOTATION: None}
             t_patch0 = time.monotonic()
             try:
-                self.kube.patch(*RESOURCE, "resourceclaims", name, patch,
-                                namespace=ns)
+                # No dedicated patch span: the commit span carries
+                # patch_ms instead (one fewer span on the hot path;
+                # the SLO histogram still splits the phases).
+                self.kube.patch(
+                    *RESOURCE, "resourceclaims",
+                    _meta(claim)["name"], patch, namespace=ns)
             except (NotFoundError, ConflictError):
-                alloc.forget(claim_like)
+                with self._state_lock:
+                    self._commit_log.pop(log_key, None)
+                    current = self._alloc
+                live.forget(claim_like)
+                if current is not None and current is not live:
+                    # A rebuild swapped states mid-patch and replayed
+                    # the now-dead reservation; release it there too.
+                    current.forget(claim_like)
                 return "failed"
             t_end = time.monotonic()
             if commit_sp.recording:
+                # Set while the span is still open so the JSONL sink
+                # (which dict-ifies at export) sees it too, not just
+                # the read-time /debug/traces ring.
                 commit_sp.set_attr("patch_ms",
                                    round((t_end - t_patch0) * 1e3, 3))
         if self._slo is not None:
@@ -1048,17 +1770,34 @@ class DraScheduler:
                 self._slo.observe("fit", t_commit0 - fit_t0, trace_id)
             self._slo.observe("commit", t_patch0 - t_commit0, trace_id)
             self._slo.observe("patch", t_end - t_patch0, trace_id)
-        devices = [r["device"] for r in alloc_obj["devices"]["results"]]
-        self.flight.record(uid or name, "alloc_patched",
-                           alias=f"{ns}/{name}", trace_id=trace_id,
-                           devices=devices)
+        self.flight.record(
+            uid or log_key[1], "alloc_patched",
+            alias=f"{ns}/{log_key[1]}", trace_id=trace_id,
+            devices=[r["device"]
+                     for r in alloc_obj["devices"]["results"]])
         self._observe_placement(alloc_obj, snap, alloc)
-        logger.info("allocated claim %s/%s -> %s", ns, name, devices)
+        logger.info(
+            "allocated claim %s/%s -> %s", ns, _meta(claim)["name"],
+            [r["device"] for r in alloc_obj["devices"]["results"]])
         return "committed"
 
     def _allocate_claims(self):
         snap, alloc = self._rebuild_alloc_state()
-        self._pass_state = (snap, alloc)
+        if self._sharded:
+            # Claim work belongs to its shard: fan the pending claims
+            # out as dirty keys so allocation for one claim always runs
+            # serialized on one worker (the full pass stays O(pending)).
+            for claim in self.view.claims():
+                if claim.get("status", {}).get("allocation"):
+                    continue
+                if _meta(claim).get("deletionTimestamp"):
+                    continue
+                if not self._owns(claim):
+                    continue
+                self._enqueue(("claim",
+                               _meta(claim).get("namespace", "default"),
+                               _meta(claim)["name"]))
+            return
         classes = self._device_classes()
         pins = self._claim_pins()
         for claim in self.view.claims():
@@ -1066,12 +1805,14 @@ class DraScheduler:
                 continue
             if _meta(claim).get("deletionTimestamp"):
                 continue
+            if not self._owns(claim):
+                continue
             pin = pins.get((_meta(claim).get("namespace", "default"),
                             _meta(claim)["name"]))
             self._allocate_one(claim, snap, alloc, classes,
                                pinned_node=pin)
 
-    # -- binding ---------------------------------------------------------------
+    # -- binding --------------------------------------------------------------
 
     def _claims_for_pod(self, pod) -> list[tuple[str, dict | None]]:
         ns = _meta(pod).get("namespace", "default")
@@ -1131,8 +1872,21 @@ class DraScheduler:
             ext_names: set[str] | None = set(
                 self._extended_resource_classes())
         except KubeError:
-            ext_names = None
+            ext_names = None  # fail closed per-pod, retry next pass
         for pod in self._pods():
+            if not self._owns(pod):
+                continue
+            if self._sharded:
+                # Reservation + bind for one pod must run serialized on
+                # the pod's shard (a racing duplicate would double-add
+                # reservedFor entries).
+                if not pod.get("spec", {}).get("nodeName") and \
+                        pod.get("status", {}).get("phase") in (
+                            None, "", "Pending"):
+                    self._enqueue(("pod",
+                                   _meta(pod).get("namespace", "default"),
+                                   _meta(pod)["name"]))
+                continue
             self._bind_pod(pod, ext_names)
 
     def _bind_pod(self, pod, ext_names: set[str] | None) -> bool:
@@ -1171,7 +1925,7 @@ class DraScheduler:
         logger.info("bound pod %s/%s -> %s", ns, _meta(pod)["name"], node)
         return True
 
-    # -- the DaemonSet controller ------------------------------------------------
+    # -- DaemonSet controller (kcm daemonset controller) ----------------------
 
     def _sync_daemonsets(self):
         """One pod per matching node per DaemonSet, named from (ds, node)
@@ -1248,7 +2002,7 @@ class DraScheduler:
                 except NotFoundError:
                     pass
 
-    # -- the Job controller (completions=1) --------------------------------------
+    # -- Job controller (kcm job controller, completions=1 subset) ------------
 
     def _sync_jobs(self):
         """One pod per Job; the pod's phase feeds the Job's status."""
@@ -1301,44 +2055,54 @@ class DraScheduler:
                         {"type": "Failed", "status": "True"}]},
                 }, namespace=ns)
 
-    # -- the pass and its loop ---------------------------------------------------
+    # -- full pass ------------------------------------------------------------
 
     def sync_once(self):
         t0 = time.monotonic()
         self.view.begin_pass()
-        self._pass_state = None
-        self._sync_recovery()
-        # After recovery, before allocation: a claim the migration
-        # controller switches in this pass re-places (onto its reserved
-        # window) in the same pass.
-        self._sync_migration()
-        self._sync_daemonsets()
-        self._sync_jobs()
+        if self._cluster_controllers:
+            # Non-default domain instances only allocate/bind their
+            # own objects; exactly one instance runs the cluster-wide
+            # controllers.
+            self._sync_recovery()
+            # After recovery, before allocation: a claim the migration
+            # controller switches this pass re-places (onto its
+            # reserved window) in the SAME pass.
+            self._sync_migration()
+            self._sync_daemonsets()
+            self._sync_jobs()
         self._generate_claims()
         self._generate_extended_resource_claims()
         self._allocate_claims()
         self._bind_pods()
         self._observe_fleet()
-        # After the fleet fold: the defrag trigger reads the frag rings
-        # this pass just refreshed, and the autoscaler the pending ring.
-        self._sync_defrag()
-        self._sync_autoscale()
+        if self._cluster_controllers:
+            # After the fleet fold: the defrag trigger reads the frag
+            # rings THIS pass just refreshed, and the autoscaler the
+            # pending-demand ring.
+            self._sync_defrag()
+            self._sync_autoscale()
         if self.sched_metrics is not None:
             self.sched_metrics.sync_seconds.labels("full").observe(
                 time.monotonic() - t0)
 
     def _observe_fleet(self) -> None:
-        """Fold the pass's inventory, allocation state and pending
-        claims into the fleet aggregator; a fold that fails is logged
-        and never fails the pass."""
+        """Fold one pass's inventory + allocation state + pending
+        demand into the fleet aggregator (pkg/fleetstate). Full-pass
+        cadence only (the safety resync in event mode): fleet
+        time-series want seconds-to-minutes resolution, not per-claim.
+        Never lets a telemetry failure fail a sync."""
+        if self.fleet is None:
+            return
         try:
             if not self._fleet_installed:
                 fleetstate.set_default_fleet(self.fleet)
                 self._fleet_installed = True
-            snap, alloc = self._pass_state or self._rebuild_alloc_state()
+            snap, alloc = self._ensure_alloc_state()
             pending = sum(
                 1 for c in self.view.claims()
-                if not c.get("status", {}).get("allocation")
+                if self._owns(c)
+                and not c.get("status", {}).get("allocation")
                 and not _meta(c).get("deletionTimestamp"))
             self.fleet.observe_pass(snap, alloc, pending,
                                     grid_fn=self._grid_for)
@@ -1356,16 +2120,6 @@ class DraScheduler:
             self.recovery.sync_once()
         except Exception:  # noqa: BLE001 - control loop
             logger.exception("recovery sync failed")
-
-    def _sync_migration(self) -> None:
-        """One migration pass; an ``InjectedCrash`` goes through, as a
-        process death would."""
-        if self.migration is None:
-            return
-        try:
-            self.migration.sync_once()
-        except Exception:  # noqa: BLE001 - control loop
-            logger.exception("migration sync failed")
 
     def _sync_defrag(self) -> None:
         """One defrag pass; an ``InjectedCrash`` goes through, as a
@@ -1387,6 +2141,414 @@ class DraScheduler:
         except Exception:  # noqa: BLE001 - control loop
             logger.exception("autoscale sync failed")
 
+    def _sync_migration(self) -> None:
+        """One migration pass; an ``InjectedCrash`` goes through, as a
+        process death would."""
+        if self.migration is None:
+            return
+        try:
+            self.migration.sync_once()
+        except Exception:  # noqa: BLE001 - control loop
+            logger.exception("migration sync failed")
+
+    # -- event-driven incremental sync ----------------------------------------
+
+    def start_event_driven(self) -> "DraScheduler":
+        """Informer-fed dirty-set mode: per-object events enqueue keyed
+        work; the periodic FULL resync survives only as the safety net
+        (``resync_period``, default 30s / TPU_DRA_SCHED_RESYNC).
+        ``sched_workers`` > 1 shards claim/pod keys over N-1 data
+        workers (disjoint-node allocations commit in parallel) with
+        control keys pinned to a dedicated worker."""
+        from .workqueue import RateLimiter, WorkQueue  # noqa: PLC0415
+
+        if self._queue is not None:
+            return self
+        self._queue = WorkQueue(
+            limiter=RateLimiter(base_delay=0.05, max_delay=2.0),
+            workers=self.sched_workers, name="sched-sync",
+            shard_of=self._shard_of,
+            metrics=(self.sched_metrics.workqueue
+                     if self.sched_metrics is not None else None),
+            # Work stealing between idle data workers: a pathological
+            # single-namespace claim flood (every key hashing to one
+            # shard) drains across the pool. Control keys stay pinned
+            # to worker 0 -- the recovery/resync lane must never
+            # migrate behind a claim flood.
+            steal=(self._stealable if self.sched_workers > 1 else None),
+            may_steal=lambda idx: idx != 0,
+        )
+        self.view.start()
+        self._enqueue(("full",))
+        self._resync_thread = threading.Thread(
+            target=self._resync_loop, name="sched-resync", daemon=True)
+        self._resync_thread.start()
+        return self
+
+    def _resync_loop(self) -> None:
+        while not self._stop.wait(self.resync_period):
+            self._enqueue(("full",))
+
+    def drain(self, timeout: float = 10.0) -> bool:
+        """Block until the dirty set is fully processed (at most
+        ``timeout`` seconds); whether it was."""
+        if self._queue is None:
+            return True
+        return self._queue.wait_idle(timeout)
+
+    def _enqueue(self, key: tuple) -> None:
+        if self._queue is None or self._stop.is_set():
+            return
+        self._queue.enqueue(key, self._sync_key)
+        if len(key) >= 3 and key[0] == "claim":
+            # Flight-record the dirty-key enqueue under ns/name (the
+            # UID is not known here; later events alias the two).
+            self.flight.record(f"{key[1]}/{key[2]}", "enqueue")
+        if self.sched_metrics is not None:
+            self.sched_metrics.dirty_depth.set(self._queue.len())
+
+    def _on_informer_relist(self, resource: str) -> None:
+        if self.sched_metrics is not None:
+            self.sched_metrics.informer_relists.labels(resource).inc()
+
+    def _on_informer_event(self, resource: str, ev_type: str,
+                           obj: dict) -> None:
+        """Informer event -> dirty keys. Runs on watch/notify threads;
+        does index + allocation-state bookkeeping inline (cheap, lock
+        guarded) and defers all kube I/O to the queue worker."""
+        md = _meta(obj)
+        ns = md.get("namespace", "default")
+        name = md.get("name", "")
+        if resource == "pods":
+            self._index_pod(ev_type, ns, name, obj)
+            if self._owns(obj):
+                self._enqueue(("pod", ns, name))
+            owners = md.get("ownerReferences") or []
+            if self._cluster_controllers:
+                if any(o.get("kind") == "Job" for o in owners):
+                    self._enqueue(("jobs",))
+                if ev_type == "DELETED" and any(
+                        o.get("kind") == "DaemonSet" for o in owners):
+                    self._enqueue(("daemonsets",))
+        elif resource == "resourceclaims":
+            with self._state_lock:
+                if self._alloc is not None:
+                    if ev_type == "DELETED":
+                        self._alloc.forget(obj)
+                    else:
+                        self._alloc.observe(obj)
+                if ev_type == "DELETED" or obj.get("status", {}).get(
+                        "allocation"):
+                    # The cache caught up with (or outlived) our own
+                    # committed allocation: the replay record retires.
+                    self._commit_log.pop((ns, name), None)
+            if ev_type == "DELETED":
+                # Freed devices may unblock any pending claim.
+                self._pods_of_claim.pop((ns, name), None)
+                self._enqueue(("pending",))
+            elif self._owns(obj):
+                self._enqueue(("claim", ns, name))
+            if self.recovery is not None and self.recovery.busy():
+                # Allocation changes advance IN-FLIGHT evictions
+                # (replaced claims retire; deleted claims cancel);
+                # ordinary claim churn with nothing in flight never
+                # pays a recovery pass. New victims only appear via
+                # node/slice failures, which enqueue unconditionally.
+                self._enqueue(("recovery",))
+            if self.defrag is not None and self.defrag.busy():
+                # Same gating for in-flight defrag moves: a moving
+                # claim's re-allocation (or deletion) advances its
+                # record without waiting for the safety resync; quiet
+                # fleets never pay a defrag pass per claim event.
+                self._enqueue(("defrag",))
+            if self.migration is not None and self.migration.busy():
+                # And for in-flight cooperative handshakes: the
+                # workload's ack lands as a claim annotation patch, so
+                # the claim event IS the handshake's forward edge.
+                self._enqueue(("migration",))
+            for pod_name in self._dependent_pods(ns, name, obj):
+                self._enqueue(("pod", ns, pod_name))
+        elif resource == "resourceslices":
+            self._enqueue(("inventory",))
+            if self.recovery is not None:
+                # Fatal device taints arrive as slice writes.
+                self._enqueue(("recovery",))
+            if self.migration is not None and self.migration.busy():
+                # A retired slice may take an in-flight handshake's
+                # reserved destination with it (destination lost).
+                self._enqueue(("migration",))
+        elif resource == "deviceclasses":
+            self._enqueue(("pending",))
+        elif resource == "computedomains":
+            self._enqueue(("pending",))
+        elif resource == "partitionsets":
+            # A layout CRD moved: the autoscaler may have a rollout to
+            # confirm (or an operator edit to defer to), and pending
+            # tenants get their retry once the nodes republish.
+            if self.autoscaler is not None:
+                self._enqueue(("autoscale",))
+            self._enqueue(("pending",))
+        elif resource in ("daemonsets", "nodes"):
+            self._enqueue(("daemonsets",))
+            if resource == "nodes" and self.recovery is not None:
+                # NotReady transitions / node deletion feed escalation.
+                self._enqueue(("recovery",))
+            if resource == "nodes" and self.migration is not None:
+                # The cooperative-evacuation annotation arrives as a
+                # node write.
+                self._enqueue(("migration",))
+        elif resource == "jobs":
+            self._enqueue(("jobs",))
+        elif resource == "resourceclaimtemplates":
+            self._enqueue(("pods-rescan",))
+
+    def _index_pod(self, ev_type: str, ns: str, name: str,
+                   pod: dict) -> None:
+        pod_key = (ns, name)
+        with self._state_lock:
+            for claim_name in self._claims_of_pod.pop(pod_key, ()):
+                peers = self._pods_of_claim.get((ns, claim_name))
+                if peers is not None:
+                    peers.discard(name)
+            if ev_type == "DELETED":
+                return
+            claims = {n for n in self._claim_names(pod) if n}
+            if claims:
+                self._claims_of_pod[pod_key] = claims
+                for claim_name in claims:
+                    self._pods_of_claim.setdefault(
+                        (ns, claim_name), set()).add(name)
+
+    def _dependent_pods(self, ns: str, claim_name: str,
+                        claim: dict) -> set[str]:
+        with self._state_lock:
+            pods = set(self._pods_of_claim.get((ns, claim_name), ()))
+        for o in _meta(claim).get("ownerReferences") or []:
+            if o.get("kind") == "Pod" and o.get("name"):
+                pods.add(o["name"])
+        return pods
+
+    def _sync_key(self, key: tuple) -> None:
+        t0 = time.monotonic()
+        kind = key[0]
+        try:
+            if kind in ("daemonsets", "jobs", "recovery", "defrag",
+                        "autoscale", "migration") and \
+                    not self._cluster_controllers:
+                return  # another domain owns the cluster controllers
+            if kind == "full":
+                self.sync_once()
+                return  # sync_once observed itself as a full pass
+            if kind == "pod":
+                self._sync_pod_key(key[1], key[2])
+            elif kind == "claim":
+                self._sync_claim_keys_batched(key)
+            elif kind == "pending":
+                self._retry_pending_claims()
+            elif kind == "inventory":
+                # Slice events already marked their pools dirty in the
+                # view (per-pool delta tracking): the next snapshot()
+                # read rebuilds exactly those pools and the allocation
+                # state retargets in O(changed pools). The old global
+                # invalidate here forced an O(slices) full rebuild +
+                # O(claims) state rebuild per slice event -- the
+                # 10k-node hotspot this PR removes.
+                self._retry_pending_claims()
+            elif kind == "daemonsets":
+                self._sync_daemonsets()
+            elif kind == "jobs":
+                self._sync_jobs()
+            elif kind == "recovery":
+                self._sync_recovery()
+                # A recovery pass may have deallocated claims; give
+                # them their re-placement attempt without waiting for
+                # the safety resync.
+                self._retry_pending_claims()
+            elif kind == "defrag":
+                self._sync_defrag()
+                # A defrag pass deallocates moving claims; re-place
+                # them (onto their hinted targets) immediately.
+                self._retry_pending_claims()
+            elif kind == "migration":
+                self._sync_migration()
+                # A switch deallocates the moving claim; re-place it
+                # (onto its reserved window) immediately.
+                self._retry_pending_claims()
+            elif kind == "autoscale":
+                self._sync_autoscale()
+            elif kind == "pods-rescan":
+                for pod in self._pods():
+                    refs = pod.get("spec", {}).get("resourceClaims") or []
+                    have = {s["name"] for s in pod.get("status", {}).get(
+                        "resourceClaimStatuses") or []}
+                    if any(r.get("resourceClaimTemplateName")
+                           and r["name"] not in have for r in refs):
+                        self._enqueue(("pod",
+                                       _meta(pod).get("namespace",
+                                                      "default"),
+                                       _meta(pod)["name"]))
+        finally:
+            if self.sched_metrics is not None:
+                if kind != "full":
+                    self.sched_metrics.sync_seconds.labels(
+                        "incremental").observe(time.monotonic() - t0)
+                if self._queue is not None:
+                    self.sched_metrics.dirty_depth.set(self._queue.len())
+
+    def _sync_pod_key(self, ns: str, name: str) -> None:
+        """Claim generation + binding for ONE pod. The pod is re-read
+        from the apiserver (a GET, not a list): claim generation must
+        never double-create off a stale cache."""
+        try:
+            pod = self.kube.get("", "v1", "pods", name, namespace=ns)
+        except NotFoundError:
+            return
+        if not self._owns(pod):
+            return
+        try:
+            by_resource = self._extended_resource_classes()
+            ext_names: set[str] | None = set(by_resource)
+        except KubeError:
+            by_resource, ext_names = {}, None
+        changed = self._generate_claims_for(pod)
+        if by_resource:
+            changed |= self._generate_extended_resource_claims_for(
+                pod, by_resource)
+        if changed:
+            try:
+                pod = self.kube.get("", "v1", "pods", name, namespace=ns)
+            except NotFoundError:
+                return
+        self._bind_pod(pod, ext_names)
+
+    def _sync_claim_keys_batched(self, key: tuple) -> None:
+        """Batched multi-claim allocation: drain up to ``batch_max``
+        due claim keys from this worker's heap (its home shard plus
+        any work-stolen keys; per-key exclusion is the queue's
+        running-set, not shard residency) against ONE
+        inventory snapshot + device-class read, amortizing the
+        signature check and the static-CEL memo warmup over the whole
+        burst. Extra keys report their outcomes back to the queue via
+        ``finish`` (per-key retry discipline preserved)."""
+        extras: list[tuple] = []
+        if self._queue is not None and self.batch_max > 1:
+            extras = self._queue.take_ready(
+                lambda k: isinstance(k, tuple) and k and k[0] == "claim",
+                self.batch_max - 1)
+        if not extras:
+            self._sync_claim_key(key[1], key[2])
+            return
+        try:
+            snap, alloc = self._ensure_alloc_state()
+            classes = self._device_classes()
+        except BaseException as e:
+            # The taken extras are marked running in the queue; if the
+            # shared setup dies they MUST still be reported or they
+            # stay wedged (enqueues for a running key only set the
+            # dirty flag). Hand each its own retry.
+            for extra in extras:
+                self._queue.finish(extra, e)
+            raise
+        primary_err: BaseException | None = None
+        try:
+            self._sync_claim_one(key[1], key[2], snap, alloc, classes)
+        except Exception as e:  # noqa: BLE001 - re-raised after finishes
+            primary_err = e
+        for extra in extras:
+            err: BaseException | None = None
+            try:
+                self._sync_claim_one(extra[1], extra[2], snap, alloc,
+                                     classes)
+            except Exception as e:  # noqa: BLE001 - per-key retry
+                err = e
+            self._queue.finish(extra, err)
+        if primary_err is not None:
+            raise primary_err
+
+    def _sync_claim_key(self, ns: str, name: str) -> None:
+        """Allocation attempt for ONE claim, re-read fresh so a stale
+        cache can never double-allocate."""
+        snap, alloc = self._ensure_alloc_state()
+        self._sync_claim_one(ns, name, snap, alloc,
+                             self._device_classes())
+
+    def _sync_claim_one(self, ns: str, name: str,
+                        snap: InventorySnapshot, alloc: AllocationState,
+                        classes) -> None:
+        try:
+            claim = self.kube.get(*RESOURCE, "resourceclaims", name,
+                                  namespace=ns)
+        except NotFoundError:
+            return
+        if _meta(claim).get("deletionTimestamp"):
+            return
+        if claim.get("status", {}).get("allocation"):
+            alloc.observe(claim)
+            return
+        if not self._owns(claim):
+            return
+        pin = self._pin_for_claim(ns, name)
+        qwait = (self._queue.current_wait()
+                 if self._queue is not None else None)
+        outcome = self._allocate_one(claim, snap, alloc, classes,
+                                     pinned_node=pin)
+        if outcome == "conflict":
+            # Retries exhausted against contended/stale state: hand
+            # the claim back to the queue (dirty-flag requeue with the
+            # normal backoff) so it re-fits against a FRESH
+            # _ensure_alloc_state instead of pending until the next
+            # full resync -- at a 10k-node resync cadence that wait
+            # would be minutes.
+            self._enqueue(("claim", ns, name))
+        if outcome == "committed" and qwait is not None and \
+                self._slo is not None:
+            # The queued phase of THIS claim's winning attempt: dirty-
+            # key enqueue -> sync start, including retry/hot backoff.
+            # The trace id is the commit span's (stashed by
+            # _commit_allocation on this worker thread).
+            self._slo.observe("queued", qwait,
+                              getattr(self._fit_tls, "trace_id", ""))
+
+    def _pin_for_claim(self, ns: str, claim_name: str) -> str | None:
+        """Bound-consumer pin for one claim via the reverse index (no
+        full pod scan). Cache read: a lagging bind event only means an
+        unpinned placement preference for one attempt, never a
+        double-allocation, so the fresh-GET discipline of the claim
+        itself does not apply here."""
+        with self._state_lock:
+            pod_names = set(self._pods_of_claim.get((ns, claim_name), ()))
+        for pod_name in pod_names:
+            try:
+                pod = self.view.get_pod(pod_name, namespace=ns)
+            except NotFoundError:
+                continue
+            node = pod.get("spec", {}).get("nodeName")
+            if node:
+                return node
+        return None
+
+    def _retry_pending_claims(self) -> None:
+        """Re-try every still-pending claim (cache scan, then a fresh
+        GET per pending claim inside _sync_claim_key). O(pending), and
+        pending claims are exactly the ones worth O(1 GET) each. In
+        sharded mode the retries fan out to their shards so claim work
+        stays serialized per key."""
+        for claim in self.view.claims():
+            if claim.get("status", {}).get("allocation"):
+                continue
+            if _meta(claim).get("deletionTimestamp"):
+                continue
+            if not self._owns(claim):
+                continue
+            ns = _meta(claim).get("namespace", "default")
+            name = _meta(claim)["name"]
+            if self._sharded:
+                self._enqueue(("claim", ns, name))
+            else:
+                self._sync_claim_key(ns, name)
+
+    # -- loop -----------------------------------------------------------------
+
     def run(self, interval: float = 0.25):
         while not self._stop.is_set():
             try:
@@ -1403,30 +2565,48 @@ class DraScheduler:
         return self
 
     def stop(self):
+        """End the polled loop or event mode: the resync thread, the
+        queue's workers and the informers, each joined."""
         self._stop.set()
         if self._thread:
             self._thread.join(timeout=5)
             self._thread = None
+        if self._resync_thread is not None:
+            self._resync_thread.join(timeout=5)
+            self._resync_thread = None
+        if self._queue is not None:
+            self._queue.shutdown(wait=True)
+            self._queue = None
+        self.view.stop()
 
 
 def run_leader_elected(sched: DraScheduler, namespace: str = "kube-system",
                        identity: str | None = None,
                        stop: threading.Event | None = None,
-                       interval: float = 0.25) -> None:
-    """Run the polled loop while holding the Lease ``tpu-dra-scheduler``
-    (the JAX scheduler's per-domain lease names wait with domains): a
-    standby waits for it, and leading ends when the Lease is lost or
-    ``stop`` is set (the Lease is then released)."""
+                       lease_name: str | None = None,
+                       interval: float | None = None,
+                       **lease_kwargs) -> None:
+    """Run ``sched`` while holding its Lease: ``tpu-dra-scheduler``, or
+    ``tpu-dra-scheduler-<domain>`` for a scheduler of a domain. A
+    standby waits for it; leading runs event mode (the polled loop every
+    ``interval`` seconds where one is given) and ends when the Lease is
+    lost or ``stop`` is set (the Lease is then released)."""
     from .leaderelection import LeaderElector  # noqa: PLC0415
 
     stop = stop if stop is not None else threading.Event()
+    if lease_name is None:
+        lease_name = (sched.domain.lease_name if sched.domain is not None
+                      else "tpu-dra-scheduler")
     if identity is None:
         identity = f"sched-{uuid.uuid4().hex[:8]}"
-    elector = LeaderElector(sched.kube, "tpu-dra-scheduler", namespace,
-                            identity)
+    elector = LeaderElector(sched.kube, lease_name, namespace, identity,
+                            **lease_kwargs)
 
     def lead():
-        sched.start(interval)
+        if interval is None:
+            sched.start_event_driven()
+        else:
+            sched.start(interval)
         stop.wait()
 
     elector.run(lead, stop, on_stopped_leading=sched.stop)
@@ -1434,25 +2614,56 @@ def run_leader_elected(sched: DraScheduler, namespace: str = "kube-system",
 
 
 def build_parser() -> argparse.ArgumentParser:
+    """The JAX scheduler binary's flags, with its defaults and env."""
     env = os.environ.get
     p = argparse.ArgumentParser(prog="tpu-dra-scheduler")
     p.add_argument("--kube-api", required=True)
     p.add_argument("--default-node", default=None)
     p.add_argument("--interval", type=float, default=0.25,
-                   help="seconds between two passes")
+                   help="seconds between two passes in poll mode")
     p.add_argument("--sched-mode", choices=("events", "poll"),
-                   default=env("TPU_DRA_SCHED_MODE", "poll"),
-                   help="'poll' (the port's only mode): a full pass every "
-                        "--interval; 'events' is refused "
+                   default=env("TPU_DRA_SCHED_MODE", "events"),
+                   help="'events' (default): informer-fed dirty keys with "
+                        "a full resync every TPU_DRA_SCHED_RESYNC seconds; "
+                        "'poll': a full pass every --interval "
                         "[TPU_DRA_SCHED_MODE]")
-    p.add_argument("--sched-workers", type=int, default=1,
-                   help="1; more is refused [TPU_DRA_SCHED_WORKERS]")
+    p.add_argument("--sched-workers", type=int,
+                   default=_env_int("TPU_DRA_SCHED_WORKERS",
+                                    DEFAULT_SCHED_WORKERS),
+                   help="event-mode workers: 1 drains in order; N > 1 "
+                        "shards claim and pod keys over N-1 workers beside "
+                        "one for the control keys [TPU_DRA_SCHED_WORKERS]")
+    p.add_argument("--sched-batch", type=int,
+                   default=_env_int("TPU_DRA_SCHED_BATCH",
+                                    DEFAULT_SCHED_BATCH),
+                   help="most dirty claim keys fitted against one "
+                        "inventory snapshot [TPU_DRA_SCHED_BATCH]")
+    p.add_argument("--sched-domain",
+                   default=env("TPU_DRA_SCHED_DOMAIN", ""),
+                   help="this scheduler's domain; empty: it owns "
+                        "everything [TPU_DRA_SCHED_DOMAIN]")
+    p.add_argument("--sched-domain-pools",
+                   default=env("TPU_DRA_SCHED_DOMAIN_POOLS", ""),
+                   help="comma-separated pool names or fnmatch globs the "
+                        "domain's inventory is held to "
+                        "[TPU_DRA_SCHED_DOMAIN_POOLS]")
+    p.add_argument("--sched-domain-default", action="store_true",
+                   default=env("TPU_DRA_SCHED_DOMAIN_DEFAULT", "") in (
+                       "1", "true", "True"),
+                   help="the domain owns unannotated objects and runs the "
+                        "cluster-wide controllers "
+                        "[TPU_DRA_SCHED_DOMAIN_DEFAULT]")
+    p.add_argument("--sched-domain-siblings",
+                   default=env("TPU_DRA_SCHED_DOMAIN_SIBLINGS", ""),
+                   help="spillover siblings, 'name=glob|glob;name2=glob' "
+                        "in order of preference: a claim pinned here that "
+                        "does not fit moves to the cheapest of them "
+                        "[TPU_DRA_SCHED_DOMAIN_SIBLINGS]")
     p.add_argument("--leader-elect", action="store_true",
                    default=env("TPU_DRA_SCHED_LEADER_ELECT", "") in (
                        "1", "true", "True"),
-                   help="run only while holding the Lease "
-                        "tpu-dra-scheduler (hot standby) "
-                        "[TPU_DRA_SCHED_LEADER_ELECT]")
+                   help="run only while holding the (per-domain) Lease "
+                        "(hot standby) [TPU_DRA_SCHED_LEADER_ELECT]")
     p.add_argument("--leader-elect-namespace",
                    default=env("TPU_DRA_SCHED_LEASE_NAMESPACE",
                                "kube-system"),
@@ -1485,15 +2696,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "re-plan records (the demand-driven PartitionSet "
                         "controller); empty = autoscaler off "
                         "[TPU_DRA_AUTOSCALE_ROOT]")
-    # The JAX scheduler's flags for what waits: refused when set.
-    for flag in UNPORTED_FLAGS:
-        if flag == "sched_domain_default":
-            p.add_argument("--sched-domain-default", action="store_true",
-                           help="refused: not ported")
-        else:
-            p.add_argument("--" + flag.replace("_", "-"), default="",
-                           help="refused: not ported")
     return p
+
+
+def domain_from_args(args) -> SchedulingDomain | None:
+    """The binary's ``--sched-domain*`` flags as a domain (None without
+    a name)."""
+    if not args.sched_domain:
+        return None
+    return SchedulingDomain(
+        args.sched_domain,
+        pools=[p.strip() for p in args.sched_domain_pools.split(",")
+               if p.strip()],
+        default=args.sched_domain_default,
+        siblings=SchedulingDomain.parse_siblings(args.sched_domain_siblings))
+
+
+# Seconds the binary in event mode waits for its informers' first lists.
+SYNC_TIMEOUT_S = 60.0
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1512,19 +2732,8 @@ def main(argv: list[str] | None = None) -> int:
     from .retry import RetryingKubeClient  # noqa: PLC0415
 
     args = build_parser().parse_args(argv)
-    for flag, what in UNPORTED_FLAGS.items():
-        if getattr(args, flag):
-            raise NotPortedError(f"--{flag.replace('_', '-')}: {what} is "
-                                 "not ported yet")
-    if args.sched_mode == "events":
-        raise NotPortedError(f"--sched-mode events: {EVENT_MODE} is not "
-                             "ported yet")
-    try:
-        verbosity = int(os.environ.get("V", "4"))
-    except ValueError:
-        verbosity = 4
     # The trace-id log filter: one grep follows a claim across binaries.
-    logsetup.setup(verbosity)
+    logsetup.setup(_env_int("V", 4))
     logsetup.log_startup(__name__, "tpu-dra-scheduler", __version__, args)
     metrics = sched_metrics = resilience = server = None
     fleet_metrics = recovery_metrics = None
@@ -1539,6 +2748,8 @@ def main(argv: list[str] | None = None) -> int:
                          default_node=args.default_node, metrics=metrics,
                          sched_metrics=sched_metrics,
                          workers=args.sched_workers,
+                         batch_max=args.sched_batch,
+                         domain=domain_from_args(args),
                          fleet_metrics=fleet_metrics)
     if args.recovery_root:
         if metrics is not None:
@@ -1568,10 +2779,21 @@ def main(argv: list[str] | None = None) -> int:
     signal.signal(signal.SIGTERM, lambda *a: stop.set())
     signal.signal(signal.SIGINT, lambda *a: stop.set())
     print("scheduler running", flush=True)
+    events = args.sched_mode == "events"
     try:
         if args.leader_elect:
             run_leader_elected(sched, namespace=args.leader_elect_namespace,
-                               stop=stop, interval=args.interval)
+                               stop=stop,
+                               interval=None if events else args.interval)
+        elif events:
+            sched.start_event_driven()
+            if not sched.view.wait_for_sync(SYNC_TIMEOUT_S):
+                # No fallback to polling: a scheduler that cannot read
+                # the cluster ends, for its supervisor to restart.
+                logger.error("informers did not sync within %g s",
+                             SYNC_TIMEOUT_S)
+                return 1
+            stop.wait()
         else:
             sched.start(args.interval)
             stop.wait()

@@ -24,9 +24,9 @@ it); the JAX controller writes, over HTTP, into the port's API server,
 and the port's node watcher converges on its CRD; the forecaster and the
 pre-warm hint on seeded rings.
 
-Not here: ``TestController::test_event_mode_rollout_needs_no_resync``
-waits for the scheduler's event mode and its ``partitionsets`` informer
-(ROADMAP.md §1c item 8).
+``TestController::test_event_mode_rollout_needs_no_resync`` runs the
+scheduler in event mode on both sides: the ``partitionsets`` informer's
+event confirms the rollout without a resync.
 """
 
 import dataclasses
@@ -1280,3 +1280,28 @@ def test_the_port_watcher_converges_on_the_jax_controllers_crd(tmp_path):
         if drv is not None:
             drv.stop()
         server.stop()
+
+
+def test_event_mode_rollout_needs_no_resync(tmp_path):
+    """Event mode at one worker with an hour's resync: the first full
+    pass plans and applies, and the CRD write's own ``partitionsets``
+    event (the ``("autoscale",)`` dirty key) confirms, with no resync;
+    the rollout's records and CRD equal on both sides."""
+    def sc(s):
+        sched = s.m["sched"].DraScheduler(s.fake, workers=1,
+                                          resync_period=3600.0)
+        s.ctrl = s.controller()
+        sched.attach_autoscaler(s.ctrl)
+        s.observe("web", int(1.5 * GIB), 40)
+        sched.start_event_driven()
+        try:
+            for _ in range(20):
+                assert sched.drain(10)
+                if s.fake.list(*CRD) and not s.ctrl.busy():
+                    break
+            assert not s.ctrl.busy(), "rollout stalled waiting on resync"
+            assert s.spec_names() == ["web-s8"]
+            s.trace.append(("rollout", s.state(s.ctrl.last_sync)))
+        finally:
+            sched.stop()
+    run_both(sc, tmp_path, counted=False)

@@ -19,10 +19,12 @@ and veto) against the JAX package's, on the CPU.
   sides; ``make_trace`` and ``simulate_churn`` agree on seeds;
   ``grid_for_type`` agrees on the TPU types the simulator takes.
 
-Not here: ``TestDefragConverges::test_event_driven_convergence`` waits
-for the scheduler's event mode (ROADMAP.md §1c item 8), and
-``TestDefragInterleaveDFS`` for ``pkg/analysis``'s interleaving
-explorer (§1c item 11).
+``TestDefragConverges::test_event_driven_convergence`` runs the
+scheduler in event mode on both sides, whose interleavings differ, so
+only its outcome is compared: the fragmentation score, the largest free
+shape and the moves in flight once converged. Not here:
+``TestDefragInterleaveDFS`` waits for ``pkg/analysis``'s interleaving
+explorer (ROADMAP.md §1c item 11).
 """
 
 import random
@@ -844,3 +846,53 @@ def test_uncoordinated_pool_plans_nothing(tmp_path):
         assert ctrl._plan_pool((DRIVER, "node-a"), claims,
                                kube.list(*RES, "resourceslices"), [],
                                {"planned": 0}) is False
+
+
+def test_event_driven_convergence(tmp_path):
+    """The production wiring on both sides: an event-mode scheduler with
+    a 0.1 s resync, defrag riding its dirty keys; a 16-claim 4x4 layout
+    shredded to a checkerboard converges to a score <= 0.15 with a free
+    shape of 8 or more and no move in flight (exact on both sides)."""
+    from tests.test_defrag import frag_point
+
+    def run(side):
+        m = M[side]
+        fake = m["kube"].FakeKubeClient()
+        apply_class(fake)
+        add_node(fake, "node-a")
+        m["slices"].publish_resource_slices(fake, node_slices("node-a"))
+        sched = m["sched"].DraScheduler(
+            fake, resync_period=0.1,
+            gates=m["fg"].FeatureGates.parse("TopologyAwarePlacement=false"))
+        ctrl = m["defrag"].DefragController(fake, str(tmp_path / side),
+                                            **CTRL)
+        sched.attach_defrag(ctrl)
+        sched.start_event_driven()
+        try:
+            assert sched.drain(10)
+            names = [f"c{i}" for i in range(16)]
+            for name in names:
+                make_claim(fake, name)
+            assert sched.drain(10)
+            assert all(alloc_devs(fake, n) for n in names)
+            for name in names:
+                idx = int(alloc_devs(fake, name)[0].split("-")[1])
+                if (idx % 4 + idx // 4) % 2 == 1:
+                    fake.delete(*RES, "resourceclaims", name,
+                                namespace="default")
+            deadline = time.monotonic() + 20
+            while time.monotonic() < deadline:
+                assert sched.drain(10)
+                point = frag_point(sched)
+                if point.get("fragmentation_score") is not None and \
+                        point["fragmentation_score"] <= 0.15 and \
+                        not ctrl.active_moves():
+                    break
+                time.sleep(0.05)  # the next resync folds the fleet
+            point = frag_point(sched)
+            return (point["fragmentation_score"] <= 0.15,
+                    point["largest_free_shape"] >= 8, ctrl.active_moves())
+        finally:
+            sched.stop()
+    got = {side: run(side) for side in SIDES}
+    assert got["pt"] == got["jax"] == (True, True, {})

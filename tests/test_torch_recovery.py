@@ -31,11 +31,15 @@ the CPU.
 - **The binary**: ``python -m k8s_dra_driver_gpu_tpu_torch.pkg.scheduler
   --recovery-root`` (and ``TPU_DRA_RECOVERY_ROOT``) over the port's fake
   API server moves a claim off a NotReady node and serves the recovery
-  and fleet families.
+  and fleet families; it runs in its default mode, events, with a
+  0.3 s resync to pass the NotReady grace.
 
-``TestEventDrivenRecovery``'s event-mode case waits for the scheduler's
-event mode and ``TestEvictionInterleaveDFS`` for ``pkg/analysis``
-(ROADMAP.md §1c).
+``TestEventDrivenRecovery``'s event-mode case runs the scheduler in
+event mode on both sides: the claims on a node that goes NotReady move
+through the dirty keys alone (their placements depend on the
+interleaving, so the outcome is compared: every victim on the survivor,
+no eviction in flight). ``TestEvictionInterleaveDFS`` waits for
+``pkg/analysis`` (ROADMAP.md §1c item 11).
 """
 
 import json
@@ -807,8 +811,11 @@ def test_binary_with_a_recovery_root_moves_a_claim(tmp_path, how):
                 "deviceClassName": pt_classes.GPU_CLASS}}]}}},
             namespace="default")
         port = _free_port()
+        # The binary's default mode, events: a node's NotReady grace
+        # runs out between events, so the resync's full pass evicts.
         env = dict(os.environ, PYTHONPATH=ROOT, V="2",
                    TPU_DRA_RECOVERY_NOTREADY_S="0.2",
+                   TPU_DRA_SCHED_RESYNC="0.3",
                    TPU_DRA_DEBUG_HTTP="1")
         argv = [sys.executable, "-m", "k8s_dra_driver_gpu_tpu_torch.pkg."
                 "scheduler", "--kube-api", server.url, "--interval", "0.1",
@@ -870,3 +877,47 @@ def test_scheduler_pass_order_matches(cluster):
     c.sync(1)   # planned + drained
     c.sync(1)   # deallocated, then re-placed in the same pass
     assert c.alloc("c0") not in (None, node)
+
+
+def test_node_kill_converges_through_dirty_keys(tmp_path):
+    """``TestEventDrivenRecovery::test_node_kill_converges_through_dirty_
+    keys`` on both sides: two claims with pods in event mode, the node of
+    at least one goes NotReady, and every claim on it re-places on the
+    other node with nothing left in flight."""
+    def run(side):
+        m = M[side]
+        fake = m["kube"].FakeKubeClient()
+        apply_class(fake)
+        for node in ("node-a", "node-b"):
+            add_node(fake, node)
+            m["slices"].publish_resource_slices(fake, node_slices(node))
+        sched = m["sched"].DraScheduler(fake)
+        ctrl = m["rec"].EvictionController(fake, str(tmp_path / side),
+                                           notready_grace_s=0.0,
+                                           deadline_s=60.0)
+        sched.attach_recovery(ctrl)
+        sched.start_event_driven()
+        try:
+            assert sched.drain(15.0)
+            for i in range(2):
+                make_pending_claim(fake, f"c{i}")
+                make_pod(fake, f"c{i}-pod", f"c{i}")
+            assert sched.drain(15.0)
+            placed = {f"c{i}": alloc_node(fake, f"c{i}") for i in range(2)}
+            victims = sorted(n for n, nd in placed.items()
+                             if nd == "node-b")
+            set_ready(fake, "node-b", False)
+            for _ in range(20):
+                assert sched.drain(15.0)
+                if all(alloc_node(fake, v) == "node-a" for v in victims) \
+                        and not ctrl.active_evictions():
+                    break
+            return (sorted(placed.values()), bool(victims),
+                    [alloc_node(fake, v) for v in victims],
+                    ctrl.active_evictions())
+        finally:
+            sched.stop()
+    got = {side: run(side) for side in SIDES}
+    assert got["pt"] == got["jax"]
+    assert got["pt"][1] and set(got["pt"][2]) == {"node-a"}
+    assert got["pt"][3] == {}

@@ -974,57 +974,164 @@ def test_placement_metrics_on_a_coordinated_pool(tmp_path, monkeypatch):
     assert any(n == "tpu_dra_placement_frag_score" for n, _, _ in got)
 
 
-# -- refusals ------------------------------------------------------------------
+# -- what the JAX scheduler reads ------------------------------------------------
 
-def _refused(fn, match):
-    with pytest.raises(pt_cache.NotPortedError, match=match) as err:
-        fn()
-    assert "ROADMAP.md" in str(err.value)
+def _domain_view(dom):
+    if dom is None:
+        return None
+    return (dom.name, list(dom.pools), dom.default,
+            [(sib.name, list(sib.pools)) for sib in dom.siblings])
+
+
+def _sched_view(sched) -> dict:
+    """What a scheduler took from its arguments and its env."""
+    return {
+        "workers": sched.sched_workers, "batch": sched.batch_max,
+        "resync": sched.resync_period, "domain": _domain_view(sched.domain),
+        "cluster": sched._cluster_controllers,
+        "filtered": sched.view._pool_filter is not None,
+        "spill": (sched._spillover_enabled, sched._spillover_max_hops,
+                  sched._spill_order_weight, sched._spill_util_weight),
+    }
 
 
 @pytest.mark.parametrize("case", [
-    "workers", "batch", "domain", "start_event_driven", "view_start"])
-def test_what_waits_is_refused(case):
-    kube = pt_kube.FakeKubeClient()
-    make = pt_sched.DraScheduler
-    calls = {
-        "workers": (lambda: make(kube, workers=2), "workers > 1"),
-        "batch": (lambda: make(kube, batch_max=8), "claim batch"),
-        "domain": (lambda: make(kube, domain=object()), "SchedulingDomain"),
-        "start_event_driven": (lambda: make(kube).start_event_driven(),
-                               "event mode"),
-        "view_start": (lambda: pt_cache.ClusterView(kube).start(),
-                       "event mode"),
-    }
-    _refused(*calls[case])
-
-
-@pytest.mark.parametrize("env, match", [
-    ({"TPU_DRA_SCHED_WORKERS": "4"}, "workers > 1"),
-    ({"TPU_DRA_SCHED_BATCH": "8"}, "claim batch"),
-    ({"TPU_DRA_SCHED_DOMAIN": "a"}, "SchedulingDomain"),
-    ({"TPU_DRA_SCHED_DOMAIN_POOLS": "p*"}, "SchedulingDomain"),
-    ({"TPU_DRA_SCHED_DOMAIN_SIBLINGS": "b=q"}, "SchedulingDomain"),
-    ({"TPU_DRA_SCHED_DOMAIN_DEFAULT": "1"}, "SchedulingDomain"),
-])
-def test_env_of_what_waits_is_refused(env, match, monkeypatch):
+    "workers", "batch", "domain", "start_event_driven", "view_start",
+    "env_workers", "env_batch", "env_domain", "env_domain_pools",
+    "env_domain_siblings", "env_domain_default", "env_resync",
+    "env_spillover"])
+def test_scheduler_reads_what_the_jax_scheduler_reads(case, monkeypatch):
+    """Each constructor argument and env knob of the JAX ``DraScheduler``
+    that the port refused before its event mode, read to the same value
+    on both sides (exact); event mode and the view's informers start and
+    stop on both."""
+    env = {
+        "env_workers": {"TPU_DRA_SCHED_WORKERS": "4"},
+        "env_batch": {"TPU_DRA_SCHED_BATCH": "3"},
+        "env_domain": {"TPU_DRA_SCHED_DOMAIN": "a"},
+        "env_domain_pools": {"TPU_DRA_SCHED_DOMAIN": "a",
+                             "TPU_DRA_SCHED_DOMAIN_POOLS": "p*, q"},
+        "env_domain_siblings": {"TPU_DRA_SCHED_DOMAIN": "a",
+                                "TPU_DRA_SCHED_DOMAIN_POOLS": "p*",
+                                "TPU_DRA_SCHED_DOMAIN_SIBLINGS":
+                                    "b=q*|r;bad;c=s"},
+        "env_domain_default": {"TPU_DRA_SCHED_DOMAIN": "a",
+                               "TPU_DRA_SCHED_DOMAIN_DEFAULT": "1"},
+        "env_resync": {"TPU_DRA_SCHED_RESYNC": "2.5"},
+        "env_spillover": {"TPU_DRA_SPILLOVER": "0",
+                          "TPU_DRA_SPILLOVER_MAX_HOPS": "3",
+                          "TPU_DRA_SPILLOVER_ORDER_WEIGHT": "2",
+                          "TPU_DRA_SPILLOVER_UTIL_WEIGHT": "x"},
+    }.get(case, {})
     for key, value in env.items():
         monkeypatch.setenv(key, value)
-    _refused(lambda: pt_sched.DraScheduler(pt_kube.FakeKubeClient()), match)
+    got = {}
+    for side, sched_mod, cache_mod, kube_mod in (
+            ("jax", jax_sched, jax_cache, jax_kube),
+            ("pt", pt_sched, pt_cache, pt_kube)):
+        kube = kube_mod.FakeKubeClient()
+        kw = {"workers": {"workers": 2}, "batch": {"batch_max": 8},
+              "domain": {"domain": cache_mod.SchedulingDomain(
+                  "a", pools=["p*"], siblings=[
+                      cache_mod.SchedulingDomain("b", pools=["q"])])},
+              }.get(case, {})
+        if case == "view_start":
+            view = cache_mod.ClusterView(kube).start()
+            got[side] = (view.event_driven, view.wait_for_sync(5),
+                         sorted(view._informers))
+            view.stop()
+            continue
+        sched = sched_mod.DraScheduler(kube, **kw)
+        got[side] = _sched_view(sched)
+        if case == "start_event_driven":
+            assert sched.start_event_driven() is sched
+            got[side]["drained"] = sched.drain(10)
+            got[side]["event_driven"] = sched.view.event_driven
+            sched.stop()
+    assert got["pt"] == got["jax"]
 
 
-@pytest.mark.parametrize("argv, match", [
-    (["--sched-mode", "events"], "event mode"),
-    (["--sched-workers", "2"], "workers > 1"),
-    (["--sched-batch", "8"], "claim batch"),
-    (["--sched-domain", "a"], "SchedulingDomain"),
-    (["--sched-domain-pools", "p*"], "SchedulingDomain"),
-    (["--sched-domain-siblings", "b=q"], "SchedulingDomain"),
-    (["--sched-domain-default"], "SchedulingDomain"),
+class _Ran(Exception):
+    """The stand-in scheduler of ``_binary_reads`` was started."""
+
+
+def _binary_reads(mod, argv, monkeypatch) -> dict:
+    """What the binary ``mod.main(argv)`` builds its scheduler with and
+    how it runs it, the scheduler replaced by a recorder."""
+    seen = {}
+
+    class Recorder:
+        def __init__(self, kube, **kw):
+            seen.update(default_node=kw.get("default_node"),
+                        workers=kw.get("workers"),
+                        batch=kw.get("batch_max"),
+                        domain=_domain_view(kw.get("domain")))
+            self.kube = kube
+
+        def start_event_driven(self):
+            seen["mode"] = "events"
+            raise _Ran
+
+        def run(self, interval=0.25):
+            seen["mode"], seen["interval"] = "poll", interval
+            raise _Ran
+
+        start = run
+
+        def stop(self):
+            pass
+
+    monkeypatch.setattr(mod, "DraScheduler", Recorder)
+    with pytest.raises(_Ran):
+        mod.main(["--kube-api", "http://127.0.0.1:1"] + argv)
+    return seen
+
+
+@pytest.mark.parametrize("argv, env", [
+    ([], {}),
+    (["--sched-mode", "poll", "--interval", "0.5"], {}),
+    ([], {"TPU_DRA_SCHED_MODE": "poll"}),
+    (["--sched-workers", "4"], {}),
+    ([], {"TPU_DRA_SCHED_WORKERS": "3"}),
+    (["--sched-batch", "2"], {}),
+    ([], {"TPU_DRA_SCHED_BATCH": "5"}),
+    (["--sched-domain", "a", "--sched-domain-pools", "p*, q"], {}),
+    ([], {"TPU_DRA_SCHED_DOMAIN": "a",
+          "TPU_DRA_SCHED_DOMAIN_POOLS": "p*"}),
+    (["--sched-domain", "a", "--sched-domain-default"], {}),
+    (["--sched-domain", "a"], {"TPU_DRA_SCHED_DOMAIN_DEFAULT": "true"}),
+    (["--sched-domain", "a", "--sched-domain-siblings", "b=q*|r;c=s"],
+     {}),
+    (["--sched-domain", "a"], {"TPU_DRA_SCHED_DOMAIN_SIBLINGS": "b=q"}),
+    (["--default-node", "n1", "--sched-workers", "2", "--sched-batch",
+      "1"], {}),
 ])
-def test_binary_flags_of_what_waits_are_refused(argv, match):
-    _refused(lambda: pt_sched.main(["--kube-api", "http://127.0.0.1:1"]
-                                   + argv), match)
+def test_binary_reads_flags_as_the_jax_binary(argv, env, monkeypatch):
+    """The JAX scheduler binary's flags and their env, read by the port's
+    ``main`` to the same scheduler arguments and the same mode (exact);
+    the default mode is ``events`` on both."""
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    got = {side: _binary_reads(mod, argv, monkeypatch)
+           for side, mod in (("jax", jax_sched), ("pt", pt_sched))}
+    assert got["pt"] == got["jax"]
+    if not argv and not env:
+        assert got["pt"]["mode"] == "events"
+
+
+def test_event_mode_binary_exits_1_without_a_cluster(monkeypatch):
+    """No fallback to polling: the binary in event mode whose informers
+    cannot list (no API server) ends with 1 and leaves no thread."""
+    monkeypatch.setattr(pt_sched, "SYNC_TIMEOUT_S", 0.5)
+    handlers = {sig: signal.getsignal(sig)
+                for sig in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        assert pt_sched.main(["--kube-api", "http://127.0.0.1:1"]) == 1
+    finally:
+        for sig, handler in handlers.items():
+            signal.signal(sig, handler)
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith(("informer-", "sched-", "watch"))]
 
 
 @pytest.mark.parametrize("flag", ["defrag_root", "migration_root",
@@ -1043,8 +1150,6 @@ def test_controller_roots_are_read(flag, source, monkeypatch):
     else:
         argv += ["--" + flag.replace("_", "-"), "/r"]
     assert getattr(pt_sched.build_parser().parse_args(argv), flag) == "/r"
-    assert flag not in pt_sched.UNPORTED_FLAGS
-    assert env not in pt_sched.UNPORTED_ENV
 
 
 def _recovery_world(tmp_path, monkeypatch):
